@@ -1,0 +1,220 @@
+"""Weight-resident LSTM stack forward: the CUDA kernel, its plain version, its count.
+
+The kernel (``csrc/lstm_stack.cu``) replaces the Pallas TPU kernel
+``empose_tpu/ops/lstm_kernel.py::_pallas_forward``: the inference forward of a
+whole unidirectional L-layer LSTM stack over F steps in one launch, with every
+layer's gate weights resident on chip for the whole sweep. The source file
+says what bounds it on an H100 and how the weights are spread over the SMs.
+
+Contract shared by :func:`lstm_stack_plain` and :func:`lstm_stack_fused`
+(time-major, the JAX kernel's layouts):
+
+* ``x0_proj`` (F, N, 4H): layer 0's input projection with both biases;
+* ``mask`` (F, N): 1.0 at valid steps, 0.0 at padded ones;
+* ``w_hh`` (L, H, 4H), ``w_ih_up`` (L-1, H, 4H), ``b_up`` (L-1, 4H), the
+  weights transposed to ``x @ w`` form, gate order (i, f, g, o);
+* ``h0``/``c0`` (L, N, H).
+
+Both return ``(outs (F, N, H), hF (L, N, H), cF (L, N, H))``: the last
+layer's outputs, zero at masked steps, and the final states, frozen bit for
+bit at masked steps.
+
+``lstm_stack_fused`` launches the kernel for CUDA tensors and runs the plain
+version for CPU tensors; ``LAUNCHES`` counts kernel launches. The library is
+compiled with ``nvcc`` at first use into ``empose_tpu_torch/_build/``.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import os
+import shutil
+import subprocess
+import threading
+from typing import List, Optional, Tuple
+
+import torch
+
+LAUNCHES = 0
+
+_PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+SOURCE = os.path.join(_PKG_DIR, "csrc", "lstm_stack.cu")
+BUILD_DIR = os.path.join(_PKG_DIR, "_build")
+LIBRARY = os.path.join(BUILD_DIR, "liblstm_stack.so")
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC")
+
+# Codes the C side returns beside cudaError_t values.
+_ERRORS = {
+    -1: "the grid cannot be co-resident on this card (hidden size too large "
+        "for one block per SM at 8 units per block)",
+    -2: "the resident weights exceed a block's shared memory",
+    -3: "the card does not support cooperative launches",
+    -4: "bad shape (F, N, H, L must be positive and H a multiple of 4)",
+}
+
+_lib = None
+_lib_lock = threading.Lock()
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    for root in (os.environ.get("CUDA_HOME"), "/usr/local/cuda"):
+        if root and os.path.exists(os.path.join(root, "bin", "nvcc")):
+            return os.path.join(root, "bin", "nvcc")
+    raise RuntimeError("nvcc not found: the LSTM stack kernel is compiled from "
+                       f"{SOURCE} at first use and needs the CUDA toolkit")
+
+
+def build(force: bool = False, verbose: bool = False) -> str:
+    """Compile ``csrc/lstm_stack.cu`` into ``_build/liblstm_stack.so``.
+
+    Skipped when the library is newer than the source, unless ``force``.
+    Returns the compiler's output (``-Xptxas -v`` register report when
+    ``verbose``)."""
+    if (not force and os.path.exists(LIBRARY)
+            and os.path.getmtime(LIBRARY) >= os.path.getmtime(SOURCE)):
+        return ""
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    tmp = f"{LIBRARY}.{os.getpid()}.tmp"
+    cmd = [_nvcc(), *NVCC_FLAGS, *(("-Xptxas", "-v") if verbose else ()),
+           "-o", tmp, SOURCE]
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stdout}{proc.stderr}")
+    os.replace(tmp, LIBRARY)
+    return proc.stdout + proc.stderr
+
+
+def _library():
+    global _lib
+    with _lib_lock:
+        if _lib is None:
+            build()
+            lib = ctypes.CDLL(LIBRARY)
+            p, i = ctypes.c_void_p, ctypes.c_int
+            lib.lstm_stack_forward.argtypes = [p, p, p, p, p, p, p, p, p, i, i, i, i, p]
+            lib.lstm_stack_forward.restype = i
+            lib.lstm_stack_units.argtypes = [i]
+            lib.lstm_stack_units.restype = i
+            _lib = lib
+    return _lib
+
+
+def _sigmoid_tanh_cell(gates: torch.Tensor, c: torch.Tensor):
+    i, f, g, o = gates.chunk(4, dim=-1)
+    c_new = torch.sigmoid(f) * c + torch.sigmoid(i) * torch.tanh(g)
+    h_new = torch.sigmoid(o) * torch.tanh(c_new)
+    return h_new, c_new
+
+
+def lstm_cell_plain(x_proj: torch.Tensor, mask: torch.Tensor, w_hh: torch.Tensor,
+                    h0: torch.Tensor, c0: torch.Tensor):
+    """One LSTM direction over time (``nn/layers.py::_lstm_cell_scan``).
+
+    :param x_proj: (F, N, 4H) input projection with biases; :param mask: (F, N).
+    :return: (outputs (F, N, H) zeroed at masked steps, hF, cF).
+    """
+    h, c = h0, c0
+    outs = []
+    for t in range(x_proj.shape[0]):
+        h_new, c_new = _sigmoid_tanh_cell(x_proj[t] + h @ w_hh, c)
+        m = mask[t][:, None]
+        h = torch.where(m > 0, h_new, h)
+        c = torch.where(m > 0, c_new, c)
+        outs.append(h_new * m)
+    return torch.stack(outs), h, c
+
+
+def lstm_stack_plain(x0_proj, mask, w_hh, w_ih_up, b_up, h0, c0):
+    """The kernel's function in plain torch, layer by layer (see module doc)."""
+    xp = x0_proj
+    hs, cs = [], []
+    for l in range(w_hh.shape[0]):
+        if l > 0:
+            xp = outs @ w_ih_up[l - 1] + b_up[l - 1]
+        outs, hF, cF = lstm_cell_plain(xp, mask, w_hh[l], h0[l], c0[l])
+        hs.append(hF)
+        cs.append(cF)
+    return outs, torch.stack(hs), torch.stack(cs)
+
+
+def _check(name: str, t: Optional[torch.Tensor], shape: Tuple[int, ...], device) -> None:
+    if t is None:
+        raise ValueError(f"{name} is required")
+    if t.device != device or t.dtype != torch.float32:
+        raise ValueError(f"{name} must be float32 on {device}, got {t.dtype} on {t.device}")
+    if tuple(t.shape) != shape:
+        raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {shape}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+
+
+def lstm_stack_fused(x0_proj, mask, w_hh, w_ih_up, b_up, h0, c0):
+    """The stack forward: the CUDA kernel for CUDA tensors, the plain version
+    for CPU tensors (see module doc for the contract)."""
+    global LAUNCHES
+    if x0_proj.device.type == "cpu":
+        return lstm_stack_plain(x0_proj, mask, w_hh, w_ih_up, b_up, h0, c0)
+    if x0_proj.device.type != "cuda":
+        raise ValueError(f"no LSTM stack kernel for device {x0_proj.device}")
+    f, n, h4 = x0_proj.shape
+    num_layers, hidden = w_hh.shape[0], w_hh.shape[1]
+    dev = x0_proj.device
+    _check("x0_proj", x0_proj, (f, n, 4 * hidden), dev)
+    _check("mask", mask, (f, n), dev)
+    _check("w_hh", w_hh, (num_layers, hidden, 4 * hidden), dev)
+    if num_layers > 1:
+        _check("w_ih_up", w_ih_up, (num_layers - 1, hidden, 4 * hidden), dev)
+        _check("b_up", b_up, (num_layers - 1, 4 * hidden), dev)
+    _check("h0", h0, (num_layers, n, hidden), dev)
+    _check("c0", c0, (num_layers, n, hidden), dev)
+    lib = _library()
+    outs = torch.empty(f, n, hidden, device=dev)
+    hbuf = torch.empty(2, num_layers, n, hidden, device=dev)
+    hbuf[0].copy_(h0)
+    c_state = c0.clone()
+    h_final = torch.empty(num_layers, n, hidden, device=dev)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        code = lib.lstm_stack_forward(
+            x0_proj.data_ptr(), mask.data_ptr(), w_hh.data_ptr(),
+            w_ih_up.data_ptr() if num_layers > 1 else None,
+            b_up.data_ptr() if num_layers > 1 else None,
+            outs.data_ptr(), hbuf.data_ptr(), c_state.data_ptr(), h_final.data_ptr(),
+            f, n, hidden, num_layers, stream)
+    if code != 0:
+        raise RuntimeError(f"LSTM stack kernel launch failed: "
+                           f"{_ERRORS.get(code, f'cudaError_t {code}')}")
+    LAUNCHES += 1
+    return outs, h_final, c_state
+
+
+def stack_operands(cells: List[dict], x: torch.Tensor):
+    """Hoisted layer-0 projection and stacked weights of a unidirectional
+    stack, as ``empose_tpu/ops/lstm_kernel.py::lstm_stack_pallas`` builds them.
+
+    :param cells: L dicts of w_ih (I|H, 4H), w_hh (H, 4H), b_ih, b_hh (4H,).
+    :param x: (F, N, I).
+    :return: (x0_proj (F, N, 4H), w_hh (L, H, 4H), w_ih_up, b_up) with
+      ``w_ih_up``/``b_up`` None for a single layer.
+    """
+    x0_proj = x @ cells[0]["w_ih"] + cells[0]["b_ih"] + cells[0]["b_hh"]
+    w_hh = torch.stack([c["w_hh"] for c in cells]).contiguous()
+    if len(cells) == 1:
+        return x0_proj.contiguous(), w_hh, None, None
+    w_ih_up = torch.stack([c["w_ih"] for c in cells[1:]]).contiguous()
+    b_up = torch.stack([c["b_ih"] + c["b_hh"] for c in cells[1:]]).contiguous()
+    return x0_proj.contiguous(), w_hh, w_ih_up, b_up
+
+
+def lstm_stack(cells: List[dict], x, mask, h0, c0, stack_fn=lstm_stack_fused):
+    """Same contract as ``empose_tpu/ops/lstm_kernel.py::lstm_stack_pallas``:
+    ``x`` (F, N, I), ``mask`` (F, N), ``h0``/``c0`` (L, N, H) ->
+    (outputs (F, N, H), (hF, cF))."""
+    x0_proj, w_hh, w_ih_up, b_up = stack_operands(cells, x)
+    outs, hF, cF = stack_fn(x0_proj, mask.contiguous(), w_hh, w_ih_up, b_up,
+                            h0.contiguous(), c0.contiguous())
+    return outs, (hF, cF)

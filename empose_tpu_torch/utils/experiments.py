@@ -1,0 +1,62 @@
+"""Experiment directories and model loading for the port.
+
+``get_model_dir`` is the port's own copy of ``empose_tpu/utils/experiments.py``
+(``<experiment_dir>/<model_id>-*``). ``load_model`` follows
+``empose_tpu/eval/harness.py::load_model``: ``config.json`` plus a
+reference-layout ``model.pth`` (``{"model_state_dict": ...}``).
+"""
+
+from __future__ import annotations
+
+import glob
+import os
+import sys
+from typing import Optional
+
+import torch
+from torch import nn
+
+from empose_tpu_torch import constants as C
+from empose_tpu_torch.config import Configuration
+from empose_tpu_torch.device import resolve_device, set_precision
+
+
+def get_model_dir(experiment_dir: str, model_id) -> Optional[str]:
+    matches = glob.glob(os.path.join(experiment_dir, str(model_id) + "-*"))
+    return None if not matches else matches[0]
+
+
+def count_parameters(model: nn.Module) -> int:
+    """Number of trainable scalars."""
+    return sum(p.numel() for p in model.parameters() if p.requires_grad)
+
+
+def load_model(model_id, experiment_dir: Optional[str] = None, device=None):
+    """Rebuild a model from its experiment dir, in eval mode on ``device``
+    (None = CUDA), in the fp32 parity mode. The SMPL-H model comes from
+    ``$SMPL_MODELS``.
+
+    :return: (model, config, model_dir)
+    """
+    from empose_tpu_torch.bodymodel.smplh import load_smplh
+    from empose_tpu_torch.nn.models import SensorSMPL, create_model
+
+    dev = resolve_device(device)
+    set_precision("highest")
+    experiment_dir = experiment_dir or C.experiment_dir()
+    model_dir = get_model_dir(experiment_dir, model_id)
+    if model_dir is None:
+        raise FileNotFoundError(f"No experiment dir for model id {model_id} in {experiment_dir}")
+    ckpt_file = os.path.join(model_dir, "model.pth")
+    if not os.path.exists(ckpt_file):
+        if os.path.isdir(os.path.join(model_dir, "checkpoint_model")):
+            raise FileNotFoundError(
+                f"{model_dir} holds only a native JAX checkpoint (checkpoint_model/); "
+                f"export it first with `python tools/export_torch.py --model_id {model_id}`")
+        raise FileNotFoundError(f"No model.pth in {model_dir}")
+    config = Configuration.from_json(os.path.join(model_dir, "config.json"))
+    model = create_model(config, SensorSMPL(load_smplh()))
+    checkpoint = torch.load(ckpt_file, map_location="cpu", weights_only=True)
+    model.load_state_dict(checkpoint["model_state_dict"], strict=True)
+    print(f"Model created with {count_parameters(model)} trainable parameters", file=sys.stderr)
+    return model.to(dev).eval(), config, model_dir

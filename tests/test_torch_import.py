@@ -1,0 +1,66 @@
+"""The PyTorch port stands alone: no jax, no empose_tpu, CUDA unless asked otherwise."""
+
+import os
+import re
+import subprocess
+import sys
+
+import pytest
+import torch
+
+torch.set_num_threads(1)
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+PKG = os.path.join(REPO, "empose_tpu_torch")
+
+
+def _port_modules():
+    mods = []
+    for dirpath, _, files in os.walk(PKG):
+        for name in files:
+            if name.endswith(".py"):
+                rel = os.path.relpath(os.path.join(dirpath, name), REPO)[:-3]
+                mod = rel.replace(os.sep, ".")
+                mods.append(mod[: -len(".__init__")] if mod.endswith(".__init__") else mod)
+    return sorted(mods)
+
+
+def test_port_imports_no_jax_and_no_reference_package():
+    code = (
+        "import importlib, sys\n"
+        f"for m in {_port_modules() + ['chip_smoke']!r}:\n"
+        "    importlib.import_module(m)\n"
+        "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
+        "             or m == 'empose_tpu' or m.startswith('empose_tpu.'))\n"
+        "print('BAD', bad)\n"
+    )
+    env = dict(os.environ, PYTHONPATH=REPO)
+    res = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stderr
+    assert "BAD []" in res.stdout, res.stdout
+
+
+def test_port_sources_never_import_jax_or_reference():
+    pattern = re.compile(r"^\s*(import\s+jax|from\s+jax|import\s+empose_tpu\b(?!_torch)"
+                         r"|from\s+empose_tpu\b(?!_torch))", re.M)
+    files = [os.path.join(REPO, "chip_smoke.py")]
+    for dirpath, _, names in os.walk(PKG):
+        files += [os.path.join(dirpath, n) for n in names if n.endswith(".py")]
+    offenders = [f for f in files if pattern.search(open(f).read())]
+    assert offenders == []
+
+
+def test_resolve_device():
+    from empose_tpu_torch.device import resolve_device, set_precision
+    assert resolve_device("cpu") == torch.device("cpu")
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="CUDA"):
+            resolve_device()
+        with pytest.raises(RuntimeError, match="CUDA"):
+            resolve_device("cuda")
+    with pytest.raises(ValueError, match="ROADMAP"):
+        set_precision("default")
+    set_precision("highest")
+    assert torch.backends.cuda.matmul.allow_tf32 is False
+    assert torch.backends.cudnn.allow_tf32 is False

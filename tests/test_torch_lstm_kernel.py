@@ -1,0 +1,164 @@
+"""The port's LSTM stack (plain version of the CUDA kernel) against the JAX package.
+
+Reference: ``empose_tpu.ops.lstm_kernel.lstm_stack_pallas`` in Pallas interpret
+mode and ``empose_tpu.nn.layers._lstm_cell_scan`` layer by layer. Tolerance
+atol 1e-5: both sides are fp32 with the same op order up to the matmul
+summation order.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+import jax
+import jax.numpy as jnp
+
+from empose_tpu.nn import layers as JL
+from empose_tpu.ops.lstm_kernel import lstm_stack_pallas
+
+from empose_tpu_torch.nn import layers as TL
+from empose_tpu_torch.ops import lstm_kernel as K
+
+torch.set_num_threads(1)
+ATOL = 1e-5
+F, N, I, H = 9, 5, 7, 32
+LENGTHS = np.array([9, 0, 4, 9, 1])  # full, empty, partial, full, one frame
+
+
+def _case(num_layers, seed):
+    rng = np.random.RandomState(seed)
+    b = 1.0 / np.sqrt(H)
+    cells = [{
+        "w_ih": rng.uniform(-b, b, (I if l == 0 else H, 4 * H)).astype(np.float32),
+        "w_hh": rng.uniform(-b, b, (H, 4 * H)).astype(np.float32),
+        "b_ih": rng.uniform(-b, b, (4 * H,)).astype(np.float32),
+        "b_hh": rng.uniform(-b, b, (4 * H,)).astype(np.float32),
+    } for l in range(num_layers)]
+    x = rng.randn(F, N, I).astype(np.float32)
+    mask = (np.arange(F)[:, None] < LENGTHS[None, :]).astype(np.float32)
+    h0 = (rng.randn(num_layers, N, H) * 0.5).astype(np.float32)
+    c0 = (rng.randn(num_layers, N, H) * 0.5).astype(np.float32)
+    return cells, x, mask, h0, c0
+
+
+def _torch(cells, *arrays):
+    return ([{k: torch.from_numpy(v) for k, v in c.items()} for c in cells],
+            *(torch.from_numpy(a) for a in arrays))
+
+
+@pytest.mark.parametrize("num_layers", [1, 2])
+def test_plain_matches_pallas_interpret_and_scan(num_layers):
+    cells, x, mask, h0, c0 = _case(num_layers, seed=num_layers)
+    j_cells = [{k: jnp.asarray(v) for k, v in c.items()} for c in cells]
+    j_out, (j_h, j_c) = lstm_stack_pallas(j_cells, jnp.asarray(x), jnp.asarray(mask),
+                                          jnp.asarray(h0), jnp.asarray(c0), interpret=True)
+    xt, hs, cs = jnp.asarray(x), [], []
+    for l, cell in enumerate(j_cells):
+        xt, (hF, cF) = JL._lstm_cell_scan(cell, xt, jnp.asarray(mask), jnp.asarray(h0[l]),
+                                          jnp.asarray(c0[l]))
+        hs.append(hF)
+        cs.append(cF)
+
+    t_cells, tx, tm, th0, tc0 = _torch(cells, x, mask, h0, c0)
+    launches = K.LAUNCHES
+    out, (hF, cF) = K.lstm_stack(t_cells, tx, tm, th0, tc0)
+    assert K.LAUNCHES == launches  # CPU tensors: the plain version, no launch
+    for got, pallas, scan in ((out, j_out, xt), (hF, j_h, jnp.stack(hs)), (cF, j_c, jnp.stack(cs))):
+        np.testing.assert_allclose(got.numpy(), np.asarray(pallas), atol=ATOL)
+        np.testing.assert_allclose(got.numpy(), np.asarray(scan), atol=ATOL)
+    # 0-length row: state frozen bit for bit, outputs zero.
+    assert np.array_equal(hF[:, 1].numpy(), h0[:, 1]) and np.array_equal(cF[:, 1].numpy(), c0[:, 1])
+    assert not out[:, 1].any() and not out[4:, 2].any()
+
+
+@pytest.mark.parametrize("bidirectional", [False, True])
+def test_lstm_apply_matches_jax(bidirectional):
+    """The port's lstm_apply (batch-first, torch-layout carry) == JAX lstm_apply."""
+    num_layers, n, f = 2, 5, 9
+    rng = np.random.RandomState(7 + bidirectional)
+    j_params = JL.lstm_init(jax.random.PRNGKey(3), I, H, num_layers, bidirectional)
+    lstm = TL.LSTM(I, H, num_layers, bidirectional)
+    with torch.no_grad():
+        for l, layer in enumerate(j_params["layers"]):
+            for d, suffix in (("fwd", ""), ("bwd", "_reverse")):
+                if d in layer:
+                    for k in ("w_ih", "w_hh"):
+                        name = f"weight_{k[2:]}_l{l}{suffix}"
+                        getattr(lstm, name).copy_(torch.from_numpy(np.array(layer[d][k]).T.copy()))
+                    for k in ("b_ih", "b_hh"):
+                        getattr(lstm, f"bias_{k[2:]}_l{l}{suffix}").copy_(
+                            torch.from_numpy(np.array(layer[d][k])))
+    dirs = 2 if bidirectional else 1
+    x = rng.randn(n, f, I).astype(np.float32)
+    h0 = (rng.randn(num_layers * dirs, n, H) * 0.3).astype(np.float32)
+    c0 = (rng.randn(num_layers * dirs, n, H) * 0.3).astype(np.float32)
+    j_out, (j_h, j_c) = JL.lstm_apply(j_params, jnp.asarray(x), jnp.asarray(LENGTHS),
+                                      (jnp.asarray(h0), jnp.asarray(c0)))
+    with torch.no_grad():
+        out, (hF, cF) = TL.lstm_apply(lstm, torch.from_numpy(x), torch.from_numpy(LENGTHS),
+                                      (torch.from_numpy(h0), torch.from_numpy(c0)))
+    np.testing.assert_allclose(out.numpy(), np.asarray(j_out), atol=ATOL)
+    np.testing.assert_allclose(hF.numpy(), np.asarray(j_h), atol=ATOL)
+    np.testing.assert_allclose(cF.numpy(), np.asarray(j_c), atol=ATOL)
+
+
+def test_rnn_layer_learned_init_state_slot_swap():
+    """RNNLayer with a learned initial state == JAX rnn_layer_apply, including
+    the reference quirk that feeds to_init_state_c into the h slot."""
+    num_layers, n, f = 2, 5, 9
+    rng = np.random.RandomState(9)
+    j_params = JL.rnn_layer_init(jax.random.PRNGKey(4), I, H, num_layers, learn_init_state=True)
+    layer = TL.RNNLayer(I, H, num_layers, learn_init_state=True).eval()
+    with torch.no_grad():
+        for name in ("to_init_state_h", "to_init_state_c"):
+            getattr(layer, name).weight.copy_(torch.from_numpy(np.array(j_params[name]["w"]).T.copy()))
+            getattr(layer, name).bias.copy_(torch.from_numpy(np.array(j_params[name]["b"])))
+        for l, cell in enumerate(j_params["lstm"]["layers"]):
+            for k in ("ih", "hh"):
+                getattr(layer.lstm, f"weight_{k}_l{l}").copy_(
+                    torch.from_numpy(np.array(cell["fwd"][f"w_{k}"]).T.copy()))
+                getattr(layer.lstm, f"bias_{k}_l{l}").copy_(torch.from_numpy(np.array(cell["fwd"][f"b_{k}"])))
+    x = rng.randn(n, f, I).astype(np.float32)
+    j_out, (j_h, j_c) = JL.rnn_layer_apply(j_params, jnp.asarray(x), jnp.asarray(LENGTHS),
+                                           num_layers=num_layers, hidden_size=H)
+    with torch.no_grad():
+        out, (hF, cF) = layer(torch.from_numpy(x), torch.from_numpy(LENGTHS))
+    np.testing.assert_allclose(out.numpy(), np.asarray(j_out), atol=ATOL)
+    np.testing.assert_allclose(hF.numpy(), np.asarray(j_h), atol=ATOL)
+    np.testing.assert_allclose(cF.numpy(), np.asarray(j_c), atol=ATOL)
+    # Zero-length row 1: its final state is the learned initial state, with
+    # to_init_state_c's output in the h slot.
+    c_lin = x[1, 0] @ np.array(j_params["to_init_state_c"]["w"]) + np.array(j_params["to_init_state_c"]["b"])
+    np.testing.assert_allclose(hF[:, 1].numpy(), c_lin.reshape(num_layers, H), atol=ATOL)
+
+
+def test_wrapper_rejects_bad_input_before_launch():
+    """CUDA-only checks sit in front of the kernel; a non-CPU, non-CUDA
+    tensor is refused rather than run through the plain version."""
+    cells, x, mask, h0, c0 = _case(2, seed=5)
+    t_cells, tx, tm, th0, tc0 = _torch(cells, x, mask, h0, c0)
+    ops = K.stack_operands(t_cells, tx)
+    meta = [a.to("meta") for a in (ops[0], tm, ops[1], ops[2], ops[3], th0, tc0)]
+    with pytest.raises(ValueError, match="no LSTM stack kernel"):
+        K.lstm_stack_fused(*meta)
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the LSTM stack kernel runs only on the card")
+    return torch.device("cuda")
+
+
+@pytest.mark.parametrize("num_layers", [1, 2])
+def test_kernel_matches_plain_on_card(cuda, num_layers):
+    cells, x, mask, h0, c0 = _case(num_layers, seed=11 + num_layers)
+    t_cells, tx, tm, th0, tc0 = _torch(cells, x, mask, h0, c0)
+    t_cells = [{k: v.to(cuda) for k, v in c.items()} for c in t_cells]
+    args = (tx.to(cuda), tm.to(cuda), th0.to(cuda), tc0.to(cuda))
+    launches = K.LAUNCHES
+    got = K.lstm_stack(t_cells, *args)
+    want = K.lstm_stack(t_cells, *args, stack_fn=K.lstm_stack_plain)
+    assert K.LAUNCHES == launches + 1
+    for a, b in ((got[0], want[0]), (got[1][0], want[1][0]), (got[1][1], want[1][1])):
+        np.testing.assert_allclose(a.cpu().numpy(), b.cpu().numpy(), atol=ATOL)

@@ -5,20 +5,34 @@
 
 Phases, each printed on its own line:
   1. the card's name and power limit (nvidia-smi);
-  2. build of the CUDA kernel from empose_tpu_torch/csrc with nvcc;
+  2. build of the CUDA kernels from empose_tpu_torch/csrc, one nvcc per
+     source, all at once, with their register reports;
   3. the LSTM stack kernel against its plain torch version on the card at
      the released init-RNN shape (L=2, H=512) for the batched serving chunk
      (F=16, N=64), the eval window (F=256, N=64) and one stream's chunk
      (F=16, N=1), with 0-length, partial and full rows and non-zero state;
-  4. median times of the kernel, the plain version and torch.nn.LSTM
-     (cuDNN, full lengths, same weights) at those shapes;
-  5. the main path: full-width LGD-RNN-6 with seeded random weights written
-     as a model.pth, served to 64 streams x 4 chunks of 16 frames through
-     MultiStreamPredictor.from_experiment (with one reset, one flush and one
-     idle stream) plus one StreamingPredictor session; the kernel launch
-     count must grow by one per served forward and the served poses must
+     its median times beside the plain version and torch.nn.LSTM (cuDNN);
+  4. the LSTM training pair (forward and reverse sweep) against its plain
+     versions at H=512 for the flagship training step (F=64, N=16) and a
+     large one (F=256, N=64): the sweeps' outputs, the gradients through
+     the autograd function against torch.autograd over the plain cell, and
+     0-length rows bit for bit; median times beside the plain versions and
+     cuDNN's training forward and backward;
+  5. the serving main path: full-width LGD-RNN-6 with seeded random weights
+     written as a model.pth, served to 64 streams x 4 chunks of 16 frames
+     through MultiStreamPredictor.from_experiment (with one reset, one flush
+     and one idle stream) plus one StreamingPredictor session; the stack
+     kernel must launch once per served forward and the served poses must
      equal the same model run with the plain LSTM version, within 1e-4;
-  6. a "kernels" JSON line; 7. a last JSON line with the device.
+     then step times and one profiled window;
+  6. the training main path: full-width LGD-RNN-6 trained through
+     ``python -m empose_tpu_torch.train``'s main on a synthetic asset tree
+     (synthetic SMPL-H, per-subject offsets, a seeded EMR corpus) for 8
+     steps, then resumed for 4; each training kernel must launch twice per
+     step (once per LSTM layer), the loss must be finite, and one step must
+     give the loss and every parameter gradient of the same step with the
+     plain training pair; then step times and one profiled window;
+  7. a "kernels" JSON line; 8. a last JSON line with the device.
 
 Exits non-zero on any failure, and when no CUDA device is present.
 Imports torch, numpy and the port only.
@@ -27,6 +41,7 @@ Imports torch, numpy and the port only.
 from __future__ import annotations
 
 import copy
+import functools
 import json
 import os
 import subprocess
@@ -40,15 +55,23 @@ import torch
 from empose_tpu_torch.bodymodel.smplh import load_smplh
 from empose_tpu_torch.bodymodel.synthetic import make_offset_data, make_synthetic_smplh
 from empose_tpu_torch.config import Configuration
+from empose_tpu_torch.data.datasets import EMRBatchLoader
+from empose_tpu_torch.data.emr import EMRWriter
 from empose_tpu_torch.device import set_precision
 from empose_tpu_torch.nn.layers import init_parameters
 from empose_tpu_torch.nn.models import SensorSMPL, create_model
+from empose_tpu_torch.ops import cuda_build
 from empose_tpu_torch.ops import lstm_kernel as K
+from empose_tpu_torch.ops import lstm_train_kernel as TK
 from empose_tpu_torch.serve import MultiStreamPredictor, StreamingPredictor
+from empose_tpu_torch.train import cli as train_cli
 from empose_tpu_torch.utils.experiments import count_parameters
 
 SEED = 0
 TOL = 1e-4
+TOL_REL = 1e-4       # training pair vs plain: max abs error over max abs value
+TOL_GRAD_REL = 1e-4  # a whole train step, kernel vs plain pair: max abs error / largest gradient
+TRAIN_WINDOW, TRAIN_BATCH, TRAIN_STEPS, RESUME_STEPS = 64, 16, 8, 4
 STREAMS, CHUNK, CHUNKS = 64, 16, 4
 HIDDEN, LAYERS, N_IN = 512, 2, 6 * 12  # init RNN of LGD-RNN-6: 6 markers x (3 pos + 9 ori)
 FP32_PEAK = 67e12    # H100 SXM fp32 FLOP/s outside the tensor cores
@@ -101,7 +124,13 @@ def stack_case(f: int, n: int, seed: int):
     return cells, x, mask, h0, c0
 
 
-def bound_ms(f: int, n: int) -> tuple:
+def bound_ms(flops: float, n_bytes: float) -> tuple:
+    """The larger of the fp32 FMA time and the memory time, and which it is."""
+    t_ops, t_bytes = flops / FP32_PEAK * 1e3, n_bytes / HBM_BYTES_S * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def stack_bound_ms(f: int, n: int) -> tuple:
     """Least time for the stack on this card: the larger of its fp32 FMA
     work over the fp32 peak and its bytes (each input read once, each
     output written once) over the memory rate."""
@@ -111,11 +140,10 @@ def bound_ms(f: int, n: int) -> tuple:
                      + (2 * LAYERS - 1) * HIDDEN * h4 + (LAYERS - 1) * h4  # weights, b_up
                      + 2 * LAYERS * n * HIDDEN                  # h0, c0
                      + f * n * HIDDEN + 2 * LAYERS * n * HIDDEN)  # outs, hF, cF
-    t_ops, t_bytes = flops / FP32_PEAK * 1e3, n_bytes / HBM_BYTES_S * 1e3
-    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+    return bound_ms(flops, n_bytes)
 
 
-def kernel_phase(f: int, n: int, seed: int) -> dict:
+def stack_phase(f: int, n: int, seed: int) -> dict:
     cells, x, mask, h0, c0 = stack_case(f, n, seed)
     args = K.stack_operands(cells, x)
     args = (args[0], mask, args[1], args[2], args[3], h0, c0)
@@ -144,7 +172,7 @@ def kernel_phase(f: int, n: int, seed: int) -> dict:
         stack_ms = cuda_ms(lambda: K.lstm_stack(cells, x, mask, h0, c0))
         plain_ms = cuda_ms(lambda: K.lstm_stack_plain(*args), reps=7 if f > 64 else 15)
         library_ms = cuda_ms(lambda: lstm(x, (h0, c0)))
-    b_ms, b_by = bound_ms(f, n)
+    b_ms, b_by = stack_bound_ms(f, n)
     print(f"times F={f} N={n}: kernel {ms:.4f} ms, kernel with input projection "
           f"{stack_ms:.4f} ms, plain {plain_ms:.4f} ms, torch.nn.LSTM (cuDNN, from x) "
           f"{library_ms:.4f} ms (max diff to plain at full lengths {lib_err:.2e}), "
@@ -153,14 +181,145 @@ def kernel_phase(f: int, n: int, seed: int) -> dict:
                 library_ms=library_ms)
 
 
-def write_experiment(root: str, model_id: str) -> int:
-    """Synthetic SMPL-H npz and an experiment dir with a seeded full-width
-    LGD-RNN-6 model.pth; returns the parameter count."""
+def rel_err(a: torch.Tensor, b: torch.Tensor) -> float:
+    """max |a - b| over max |b|."""
+    return float((a - b).abs().max() / b.abs().max().clamp(min=1e-30))
+
+
+def pair_bounds(f: int, n: int) -> dict:
+    """Least times of the two sweeps: fp32 FMA work 2*F*N*H*4H each; bytes
+    of each input read once and each output written once."""
+    h, h4 = HIDDEN, 4 * HIDDEN
+    flops = 2.0 * f * n * h * h4
+    fwd_bytes = 4.0 * (f * n * h4 + f * n + h * h4 + 2 * n * h      # x_proj, mask, W_hh, h0/c0
+                       + f * n * h4 + 2 * f * n * h)                # gates, h_all, c_all
+    bwd_bytes = 4.0 * (3 * f * n * h + f * n * h4 + f * n + h * h4  # dh, dc, c_prev, gates, mask, W
+                       + f * n * h4 + 2 * n * h)                    # dgates, dh0, dc0
+    return {"fwd": bound_ms(flops, fwd_bytes), "bwd": bound_ms(flops, bwd_bytes)}
+
+
+def train_pair_phase(f: int, n: int, seed: int) -> dict:
+    """The training pair against its plain versions and against autograd
+    over the plain cell, 0-length rows bit for bit, then median times."""
+    g = torch.Generator().manual_seed(seed)
+    r = lambda *s, sc=1.0: (torch.randn(*s, generator=g) * sc).cuda()
+    w_hh = ((torch.rand(HIDDEN, 4 * HIDDEN, generator=g) * 2 - 1) * HIDDEN ** -0.5).cuda()
+    x_proj = r(f, n, 4 * HIDDEN, sc=0.5)
+    h0, c0 = r(n, HIDDEN, sc=0.5), r(n, HIDDEN, sc=0.5)
+    lengths = torch.randint(1, f, (n,), generator=g)
+    lengths[: max(n // 16, 1)] = 0
+    lengths[max(n // 16, 1): n // 16 + n // 3] = f
+    mask = (torch.arange(f)[:, None] < lengths[None]).float().cuda()
+    idle = lengths.cuda() == 0
+    dh_all, dc_all = r(f, n, HIDDEN), r(f, n, HIDDEN)
+
+    got = TK.lstm_train_fwd(x_proj, mask, w_hh, h0, c0)
+    want = TK.lstm_train_fwd_plain(x_proj, mask, w_hh, h0, c0)
+    gates, _, c_all = want
+    c_prev = torch.cat([c0[None], c_all[:-1]])
+    got_b = TK.lstm_train_bwd(dh_all, dc_all, gates, c_prev, mask, w_hh)
+    want_b = TK.lstm_train_bwd_plain(dh_all, dc_all, gates, c_prev, mask, w_hh)
+    torch.cuda.synchronize()
+    fwd_err = {k: rel_err(a, b) for k, a, b in zip(("gates", "h_all", "c_all"), got, want)}
+    bwd_err = {k: rel_err(a, b) for k, a, b in zip(("dgates", "dh0", "dc0"), got_b, want_b)}
+    fwd_abs = max(float((a - b).abs().max()) for a, b in zip(got, want))
+    bwd_abs = max(float((a - b).abs().max()) for a, b in zip(got_b, want_b))
+
+    # Gradients through the autograd function against autograd over the plain cell.
+    w_out, w_h, w_c = r(f, n, HIDDEN), r(n, HIDDEN), r(n, HIDDEN)
+
+    def grads(cell):
+        leaves = [t.clone().requires_grad_() for t in (x_proj, w_hh, h0, c0)]
+        outs, hF, cF = cell(*leaves)
+        loss = (outs * w_out).sum() + (hF * w_h).sum() + (cF * w_c).sum()
+        return torch.autograd.grad(loss, leaves)
+
+    def kernel_cell(xp, w, h, c):
+        h_all, c_all = TK.LSTMCore.apply(xp, mask, w, h, c, TK.lstm_train_fwd, TK.lstm_train_bwd)
+        return h_all * mask[:, :, None], h_all[-1], c_all[-1]
+
+    kernel_grads = grads(kernel_cell)
+    plain_grads = grads(lambda xp, w, h, c: K.lstm_cell_plain(xp, mask, w, h, c))
+    grad_err = {k: rel_err(a, b) for k, a, b in
+                zip(("dx_proj", "dW_hh", "dh0", "dc0"), kernel_grads, plain_grads)}
+    frozen = bool((got[1][:, idle] == h0[idle]).all() and (got[2][:, idle] == c0[idle]).all()
+                  and (got_b[0][:, idle] == 0).all() and torch.equal(got_b[1][idle], want_b[1][idle])
+                  and torch.equal(got_b[2][idle], want_b[2][idle]))
+    print(f"training pair F={f} N={n}: max abs error / max abs value vs plain: forward "
+          f"{fwd_err}, reverse {bwd_err}; autograd vs plain cell {grad_err}; "
+          f"0-length rows bit for bit (state, dgates, dh0, dc0): {frozen}", flush=True)
+    worst = max(*fwd_err.values(), *bwd_err.values(), *grad_err.values())
+    check(worst <= TOL_REL, f"training pair disagrees with its plain version at F={f}: "
+                            f"{worst} > {TOL_REL}")
+    check(frozen, f"training pair changed 0-length rows at F={f}")
+
+    lstm = torch.nn.LSTM(HIDDEN, HIDDEN, 1).cuda()
+    with torch.no_grad():
+        lstm.weight_hh_l0.copy_(w_hh.t())
+    x = r(f, n, HIDDEN).requires_grad_()
+    out_lib, _ = lstm(x, (h0[None], c0[None]))
+    grad_lib = torch.ones_like(out_lib)
+    lib_params = [x, *lstm.parameters()]
+    times = {
+        "fwd": cuda_ms(lambda: TK.lstm_train_fwd(x_proj, mask, w_hh, h0, c0)),
+        "bwd": cuda_ms(lambda: TK.lstm_train_bwd(dh_all, dc_all, gates, c_prev, mask, w_hh)),
+        "fwd_plain": cuda_ms(lambda: TK.lstm_train_fwd_plain(x_proj, mask, w_hh, h0, c0),
+                             reps=7 if f > 64 else 15),
+        "bwd_plain": cuda_ms(lambda: TK.lstm_train_bwd_plain(dh_all, dc_all, gates, c_prev, mask,
+                                                             w_hh), reps=7 if f > 64 else 15),
+        "fwd_lib": cuda_ms(lambda: lstm(x, (h0[None], c0[None]))),
+        "bwd_lib": cuda_ms(lambda: torch.autograd.grad(out_lib, lib_params, grad_lib,
+                                                       retain_graph=True)),
+    }
+    bounds = pair_bounds(f, n)
+    print(f"training pair times F={f} N={n}: forward kernel {times['fwd']:.4f} ms (plain "
+          f"{times['fwd_plain']:.4f}, cuDNN training forward {times['fwd_lib']:.4f}, bound "
+          f"{bounds['fwd'][0]:.4f} by {bounds['fwd'][1]}); reverse kernel {times['bwd']:.4f} ms "
+          f"(plain {times['bwd_plain']:.4f}, cuDNN backward incl. dW and dx "
+          f"{times['bwd_lib']:.4f}, bound {bounds['bwd'][0]:.4f} by {bounds['bwd'][1]})",
+          flush=True)
+    return {
+        "fwd": dict(max_abs_err=fwd_abs, ms=times["fwd"], plain_ms=times["fwd_plain"],
+                    bound_ms=bounds["fwd"][0], bound_by=bounds["fwd"][1],
+                    library_ms=times["fwd_lib"]),
+        "bwd": dict(max_abs_err=bwd_abs, ms=times["bwd"], plain_ms=times["bwd_plain"],
+                    bound_ms=bounds["bwd"][0], bound_by=bounds["bwd"][1],
+                    library_ms=times["bwd_lib"]),
+    }
+
+
+def write_assets(root: str, rng) -> None:
+    """The asset tree the entry points read: the synthetic SMPL-H, offsets
+    of 4 subjects, and an EMR corpus of 64 smooth seeded pose sequences of
+    150-300 frames; points $SMPL_MODELS, $EM_DATA_REAL, $EM_DATA_SYNTH and
+    $EM_EXPERIMENTS at it."""
     smpl_dir = os.path.join(root, "smpl_models", "smplh_amass", "neutral")
-    os.makedirs(smpl_dir)
+    real_dir = os.path.join(root, "data_real")
+    emr_dir = os.path.join(root, "data_synth", "amass_emr")
+    for d in (smpl_dir, real_dir, emr_dir):
+        os.makedirs(d)
     np.savez(os.path.join(smpl_dir, "model.npz"), **make_synthetic_smplh(seed=SEED))
-    os.environ["SMPL_MODELS"] = os.path.join(root, "smpl_models")
-    os.environ["EM_EXPERIMENTS"] = os.path.join(root, "experiments")
+    for subj in range(402, 406):
+        np.savez(os.path.join(real_dir, f"{subj:04d}_offsets.npz"), **make_offset_data(rng))
+    with EMRWriter(os.path.join(emr_dir, "corpus.emr")) as w:
+        for i in range(64):
+            n_frames = int(rng.randint(150, 301))
+            t = np.linspace(0.0, 1.0, n_frames)
+            ctrl_t = np.linspace(0.0, 1.0, 8)
+            ctrl = rng.randn(8, 69) * 0.3
+            curves = np.stack([np.interp(t, ctrl_t, ctrl[:, d]) for d in range(69)], -1)
+            w.add_record({"id": f"seq{i:03d}", "gender": "neutral", "n_frames": n_frames},
+                         {"poses": curves[:, :66].astype(np.float32),
+                          "trans": curves[:, 66:].astype(np.float32),
+                          "betas": (rng.randn(10) * 0.5).astype(np.float32)})
+    os.environ.update(SMPL_MODELS=os.path.join(root, "smpl_models"), EM_DATA_REAL=real_dir,
+                      EM_DATA_SYNTH=os.path.join(root, "data_synth"),
+                      EM_EXPERIMENTS=os.path.join(root, "experiments"))
+
+
+def write_experiment(root: str, model_id: str) -> int:
+    """An experiment dir with a seeded full-width LGD-RNN-6 model.pth;
+    returns the parameter count."""
     config = Configuration.from_dict(LGD_RNN_6)
     model = create_model(config, SensorSMPL(load_smplh()))
     init_parameters(model, torch.Generator().manual_seed(SEED))
@@ -227,8 +386,6 @@ def serving_times(multi, single, feeds) -> None:
     of a single-stream chunk; then one profiled window of 5 batched steps:
     device busy time (sum of kernel times), kernels launched per step and the
     largest device-time entries."""
-    from torch.profiler import ProfilerActivity, profile
-
     pos, ori = feeds
 
     def batched_step() -> float:
@@ -250,11 +407,20 @@ def serving_times(multi, single, feeds) -> None:
           f"{STREAMS * CHUNK / p50 * 1e3:.1f} frames/s; single stream p50 "
           f"{float(np.median(single_ms)):.3f} ms per chunk", flush=True)
 
-    n_steps = 5
+    profile_window("serving", batched_step, 5)
+
+
+def profile_window(name: str, step, n_steps: int) -> None:
+    """One profiled window of ``n_steps`` calls of ``step``: wall time per
+    step, device busy time (sum of device op times) and its share, device
+    ops per step, and the largest device-time entries."""
+    from torch.profiler import ProfilerActivity, profile
+
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for _ in range(n_steps):
-            batched_step()
+            step()
+        torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3 / n_steps
     dev = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
     busy = {e.key: getattr(e, "self_device_time_total", getattr(e, "self_cuda_time_total", 0.0))
@@ -262,9 +428,150 @@ def serving_times(multi, single, feeds) -> None:
     launches = sum(e.count for e in dev) / n_steps
     total = sum(busy.values())
     top = sorted(busy.items(), key=lambda kv: -kv[1])[:5]
-    print(f"serving profile (5 steps, profiler on): wall {wall_ms:.3f} ms per step, device busy "
-          f"{total:.3f} ms ({100 * total / wall_ms:.1f}%), {launches:.0f} device ops per step; "
-          "largest: " + "; ".join(f"{k[:48]} {v:.3f} ms" for k, v in top), flush=True)
+    print(f"{name} profile ({n_steps} steps, profiler on): wall {wall_ms:.3f} ms per step, device "
+          f"busy {total:.3f} ms ({100 * total / wall_ms:.1f}%), {launches:.0f} device ops per "
+          "step; largest: " + "; ".join(f"{k[:48]} {v:.3f} ms" for k, v in top), flush=True)
+
+
+def train_flags(experiment_id: str, max_steps: int, resume: bool = False) -> list:
+    """The CLI flags of full-width LGD-RNN-6 training at the flagship step
+    (window 64, batch 16), evaluation beyond the run."""
+    cfg = dict(LGD_RNN_6, window_size=TRAIN_WINDOW, bs_train=TRAIN_BATCH, n_epochs=10,
+               print_every=4, eval_every=10 ** 6, seed=SEED, experiment_id=experiment_id)
+    flags = []
+    for k, v in cfg.items():
+        if v is True:
+            flags.append(f"--{k}")
+        elif v is not False:
+            flags += [f"--{k}", str(v)]
+    return flags + ["--max_steps", str(max_steps)] + (["--resume"] if resume else [])
+
+
+def train_losses(model_dir: str) -> dict:
+    with open(os.path.join(model_dir, "logs", "scalars.jsonl")) as f:
+        rows = [json.loads(line) for line in f]
+    return {r["step"]: r["value"] for r in rows if r["tag"] == "train/total_loss"}
+
+
+def reset_counts() -> None:
+    K.LAUNCHES = TK.FWD_LAUNCHES = TK.BWD_LAUNCHES = 0
+
+
+def counts() -> tuple:
+    return K.LAUNCHES, TK.FWD_LAUNCHES, TK.BWD_LAUNCHES
+
+
+def training_path() -> dict:
+    """Train 8 steps through the CLI's main, resume for 4; returns the
+    training kernels' launch counts of that run."""
+    torch.cuda.synchronize()
+    reset_counts()
+    model_dir, trainer = train_cli.main(train_flags("900002", TRAIN_STEPS))
+    torch.cuda.synchronize()
+    first = counts()
+    check(trainer.global_step == TRAIN_STEPS, f"trained {trainer.global_step} steps")
+    check(os.path.exists(os.path.join(model_dir, "checkpoint", "train_state.pt"))
+          and os.path.exists(os.path.join(model_dir, "model.pth")), "no checkpoint written")
+    reset_counts()
+    _, trainer = train_cli.main(train_flags("900002", TRAIN_STEPS + RESUME_STEPS, resume=True))
+    torch.cuda.synchronize()
+    second = counts()
+    losses = train_losses(model_dir)
+    n_layers = LGD_RNN_6["m_rnn_num_layers"]
+    print(f"training main path: {TRAIN_STEPS} steps then {RESUME_STEPS} resumed, launches "
+          f"(stack, forward, reverse) {first} then {second}; losses by step "
+          f"{ {k: round(v, 6) for k, v in sorted(losses.items())} }", flush=True)
+    check(trainer.global_step == TRAIN_STEPS + RESUME_STEPS, "the resumed run did not reach step 12")
+    check(sorted(losses) == list(range(1, TRAIN_STEPS + RESUME_STEPS + 1)),
+          "the resumed run did not continue from step 8")
+    check(all(np.isfinite(v) for v in losses.values()), "a training loss is not finite")
+    check(first == (0, n_layers * TRAIN_STEPS, n_layers * TRAIN_STEPS)
+          and second == (0, n_layers * RESUME_STEPS, n_layers * RESUME_STEPS),
+          "each training kernel must launch once per LSTM layer per step and the stack "
+          "kernel never")
+    return {"trainer": trainer, "model_dir": model_dir,
+            "fwd": first[1] + second[1], "bwd": first[2] + second[2]}
+
+
+def training_step_vs_plain(trainer) -> None:
+    """One step from the same state and batch with the kernel pair and with
+    the plain pair on the card: the loss and every parameter gradient."""
+    loader = EMRBatchLoader(os.path.join(os.environ["EM_DATA_SYNTH"], "amass_emr"), TRAIN_BATCH,
+                            TRAIN_WINDOW, seed=SEED + 1)
+    host_batch = next(iter(loader))
+    model = trainer.model
+    state = copy.deepcopy(model.state_dict())
+    gen_state = trainer.generator.get_state()
+    params = [p for p in model.parameters()]
+    plain_cell = functools.partial(TK.lstm_cell_train, fwd=TK.lstm_train_fwd_plain,
+                                   bwd=TK.lstm_train_bwd_plain)
+
+    def step(cell):
+        model.load_state_dict(state)
+        trainer.generator.set_state(gen_state)
+        model.rnn.lstm_train_cell = cell
+        batch = trainer.pre_train(trainer.upload(host_batch), trainer.generator, mode="all")
+        loss, _ = trainer.loss(batch)
+        return loss.detach(), torch.autograd.grad(loss, params)
+
+    launches = counts()
+    loss_k, grads_k = step(TK.lstm_cell_train)
+    loss_p, grads_p = step(plain_cell)
+    _, grads_p2 = step(plain_cell)
+    torch.cuda.synchronize()
+    check(counts()[1:] == (launches[1] + 2, launches[2] + 2), "the kernel step did not launch "
+                                                                "the pair once per layer")
+    model.rnn.lstm_train_cell = TK.lstm_cell_train
+    model.load_state_dict(state)
+    loss_err = rel_err(loss_k, loss_p)
+    names = [k for k, _ in model.named_parameters()]
+    # The init RNN's weights, which the pair's gradients reach first, per
+    # tensor relative to its largest entry; every tensor relative to the
+    # model's largest gradient. Gradients near zero (biases before a
+    # train-mode BatchNorm) hold rounding noise, and the FK backward sums with
+    # atomics, so two runs of the same step differ too: printed beside.
+    scale = max(float(g.abs().max()) for g in grads_p)
+    errs = {k: float((a - b).abs().max()) / scale for k, a, b in zip(names, grads_k, grads_p)}
+    noise = max(float((a - b).abs().max()) / scale for a, b in zip(grads_p2, grads_p))
+    rnn_errs = {k: rel_err(a, b) for k, a, b in zip(names, grads_k, grads_p) if k.startswith("rnn.")}
+    worst, worst_rnn = max(errs, key=errs.get), max(rnn_errs, key=rnn_errs.get)
+    print(f"training step, kernel pair vs plain pair: loss {float(loss_k):.6f} vs "
+          f"{float(loss_p):.6f} (rel {loss_err:.2e}); init-RNN gradients, max abs error / max "
+          f"abs value, largest {rnn_errs[worst_rnn]:.2e} ({worst_rnn}); all {len(errs)} "
+          f"gradients, max abs error / the largest gradient ({scale:.3e}), largest "
+          f"{errs[worst]:.2e} ({worst}); plain pair against itself, run to run, {noise:.2e}",
+          flush=True)
+    check(loss_err <= 1e-5, f"train loss differs from the plain pair: {loss_err}")
+    check(rnn_errs[worst_rnn] <= TOL_REL, f"gradient {worst_rnn} differs from the plain pair: "
+                                          f"{rnn_errs[worst_rnn]} > {TOL_REL}")
+    check(errs[worst] <= TOL_GRAD_REL, f"gradient {worst} differs from the plain pair: "
+                                       f"{errs[worst]} > {TOL_GRAD_REL}")
+
+
+def training_times(trainer) -> None:
+    """p50 of a train step (upload, synthesis, forward, backward, Adam; host
+    clock, synchronized) and frames/s, then one profiled window."""
+    loader = EMRBatchLoader(os.path.join(os.environ["EM_DATA_SYNTH"], "amass_emr"), TRAIN_BATCH,
+                            TRAIN_WINDOW, seed=SEED + 2)
+    batches = [b for _ in range(3) for b in loader]  # 12 steps
+
+    def step():
+        trainer.train_step(batches[0])
+
+    trainer.train_step(batches[0])
+    times = []
+    for b in batches:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        trainer.train_step(b)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    p50 = float(np.median(times))
+    frames = TRAIN_BATCH * TRAIN_WINDOW
+    print(f"training: batch {TRAIN_BATCH} x window {TRAIN_WINDOW}: p50 {p50:.3f} ms per step "
+          f"(min {min(times):.3f}, max {max(times):.3f}, {len(times)} steps), "
+          f"{frames / p50 * 1e3:.1f} frames/s", flush=True)
+    profile_window("training", step, 3)
 
 
 def main() -> int:
@@ -278,35 +585,44 @@ def main() -> int:
     print(card, flush=True)
 
     t0 = time.perf_counter()
-    log = K.build(force=True, verbose=True)
-    regs = sorted({line.split("info    : ")[-1] for line in log.splitlines() if "registers" in line})
-    print(f"build: nvcc {time.perf_counter() - t0:.2f} s; {'; '.join(regs)}", flush=True)
+    logs = cuda_build.build([K.NAME, TK.NAME], force=True, verbose=True)
+    for name, log in logs.items():
+        regs = sorted({line.split("info    : ")[-1] for line in log.splitlines()
+                       if "registers" in line or "spill" in line})
+        print(f"build {name}: {'; '.join(regs)}", flush=True)
+    print(f"build: nvcc {time.perf_counter() - t0:.2f} s for {len(logs)} sources in parallel",
+          flush=True)
 
     # The batched serving chunk, the eval window, and one stream's chunk.
-    stack = {(f, n): kernel_phase(f, n, seed=SEED + f + n)
+    stack = {(f, n): stack_phase(f, n, seed=SEED + f + n)
              for f, n in ((CHUNK, STREAMS), (256, STREAMS), (CHUNK, 1))}
+    # The flagship training step and a large one.
+    pair = {(f, n): train_pair_phase(f, n, seed=SEED + f + n)
+            for f, n in ((TRAIN_WINDOW, TRAIN_BATCH), (256, 64))}
 
-    with tempfile.TemporaryDirectory(dir=K.BUILD_DIR) as root:
+    with tempfile.TemporaryDirectory(dir=cuda_build.BUILD_DIR) as root:
+        rng = np.random.RandomState(SEED)
+        write_assets(root, rng)
         n_params = write_experiment(root, "900001")
         print(f"model: LGD-RNN-6, {n_params} parameters (seeded random weights)", flush=True)
         multi = MultiStreamPredictor.from_experiment("900001", n_streams=STREAMS, chunk_size=CHUNK)
         model = multi.model
         check(next(model.parameters()).is_cuda, "the model is not on the card")
-        rng = np.random.RandomState(SEED)
         feeds = sensor_feeds(model.smpl, STREAMS, CHUNK * CHUNKS, rng)
         offsets = [(o["means"], o["r"]) for o in (make_offset_data(rng) for _ in range(STREAMS))]
         single = StreamingPredictor(model, CHUNK)
 
         torch.cuda.synchronize()
-        K.LAUNCHES = 0
+        reset_counts()
         served = serve_rounds(multi, feeds, offsets)
         single_out = single_session(single, feeds, offsets)
         torch.cuda.synchronize()
-        launches = K.LAUNCHES
+        launches, train_launched = K.LAUNCHES, counts()[1:]
         forwards = len(served) + 4  # single session: 3 full chunks + 1 flush
         print(f"main path: {forwards} served forwards, {launches} kernel launches", flush=True)
         check(launches == forwards, f"expected one launch per served forward, "
                                     f"got {launches} for {forwards}")
+        check(train_launched == (0, 0), "serving launched a training kernel")
 
         ref_model = copy.deepcopy(model)
         ref_model.rnn.lstm_stack = K.lstm_stack_plain
@@ -325,13 +641,24 @@ def main() -> int:
         check(err <= TOL, f"served poses differ from the plain-LSTM forward: {err} > {TOL}")
 
         serving_times(multi, single, feeds)
+        del multi, single, model, ref_model
+
+        trained = training_path()
+        training_step_vs_plain(trained["trainer"])
+        training_times(trained["trainer"])
 
     f16 = stack[(CHUNK, STREAMS)]
-    kernels = [dict(name="lstm_stack", route="cuda", source="empose_tpu_torch/csrc/lstm_stack.cu",
-                    replaces="empose_tpu/ops/lstm_kernel.py:150", launches=launches,
-                    max_abs_err=f16["max_abs_err"], ms=f16["ms"], plain_ms=f16["plain_ms"],
-                    bound_ms=f16["bound_ms"], bound_by=f16["bound_by"],
-                    library_ms=f16["library_ms"])]
+    flagship = pair[(TRAIN_WINDOW, TRAIN_BATCH)]
+    kernels = [
+        dict(name="lstm_stack", route="cuda", source="empose_tpu_torch/csrc/lstm_stack.cu",
+             replaces="empose_tpu/ops/lstm_kernel.py:150", launches=launches, **f16),
+        dict(name="lstm_train_fwd", route="cuda", source="empose_tpu_torch/csrc/lstm_train.cu",
+             replaces="empose_tpu/ops/lstm_train_kernel.py:136", launches=trained["fwd"],
+             **flagship["fwd"]),
+        dict(name="lstm_train_bwd", route="cuda", source="empose_tpu_torch/csrc/lstm_train.cu",
+             replaces="empose_tpu/ops/lstm_train_kernel.py:244", launches=trained["bwd"],
+             **flagship["bwd"]),
+    ]
     print(f"total {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

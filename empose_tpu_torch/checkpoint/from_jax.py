@@ -2,9 +2,11 @@
 
 ``state_dict_from_jax(params, state, config)`` takes the JAX package's
 parameter and state pytrees (as numpy, or anything ``np.asarray`` reads) and
-returns the reference torch key space that the port's modules use. It is the
-port's own copy of the key map of ``empose_tpu/checkpoint/torch_writer.py::
-export_model``:
+returns the reference torch key space that the port's modules use;
+``grads_from_jax(grads, config)`` maps a gradient pytree (the params'
+structure) through the same key map, so gradients compare by torch key. It
+is the port's own copy of the key map of ``empose_tpu/checkpoint/
+torch_writer.py::export_model``:
 
 * Linear: w (in, out) -> weight (out, in); bias unchanged.
 * BatchNorm: scale/bias -> weight/bias; state mean/var -> running stats;
@@ -15,7 +17,7 @@ export_model``:
 
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Optional
 
 import numpy as np
 import torch
@@ -32,9 +34,11 @@ def _linear(params: Dict, prefix: str, out: StateDict) -> None:
     _put(out, f"{prefix}.bias", params["b"])
 
 
-def _batch_norm(params: Dict, state: Dict, prefix: str, out: StateDict) -> None:
+def _batch_norm(params: Dict, state: Optional[Dict], prefix: str, out: StateDict) -> None:
     _put(out, f"{prefix}.weight", params["scale"])
     _put(out, f"{prefix}.bias", params["bias"])
+    if state is None:
+        return
     _put(out, f"{prefix}.running_mean", state["mean"])
     _put(out, f"{prefix}.running_var", state["var"])
     out[f"{prefix}.num_batches_tracked".lstrip(".")] = torch.tensor(0, dtype=torch.int64)
@@ -44,25 +48,35 @@ def _prelu(params: Dict, prefix: str, out: StateDict) -> None:
     _put(out, f"{prefix}.weight", params["alpha"])
 
 
-def _linear_layers(params: Dict, state: Dict, prefix: str, out: StateDict, use_bn: bool) -> None:
+def _sub(state: Optional[Dict], key, n: int = 0):
+    """``state[key]`` (or ``n`` Nones for a list), None without a state."""
+    if state is None:
+        return [None] * n if n else None
+    return state[key]
+
+
+def _linear_layers(params: Dict, state: Optional[Dict], prefix: str, out: StateDict,
+                   use_bn: bool) -> None:
     step = 4 if use_bn else 3
-    for i, (bp, bs) in enumerate(zip(params["blocks"], state["blocks"])):
+    blocks = params["blocks"]
+    for i, (bp, bs) in enumerate(zip(blocks, _sub(state, "blocks", len(blocks)))):
         base = i * step
         _linear(bp["linear"], f"{prefix}.layers.{base}", out)
         if use_bn:
-            _batch_norm(bp["bn"], bs["bn"], f"{prefix}.layers.{base + 1}", out)
+            _batch_norm(bp["bn"], _sub(bs, "bn"), f"{prefix}.layers.{base + 1}", out)
             _prelu(bp["prelu"], f"{prefix}.layers.{base + 2}", out)
         else:
             _prelu(bp["prelu"], f"{prefix}.layers.{base + 1}", out)
 
 
-def _mlp(params: Dict, state: Dict, prefix: str, out: StateDict, use_bn: bool) -> None:
+def _mlp(params: Dict, state: Optional[Dict], prefix: str, out: StateDict, use_bn: bool) -> None:
     _linear(params["input_to_hidden"], f"{prefix}.input_to_hidden", out)
     _prelu(params["prelu"], f"{prefix}.activation_fn", out)
     _linear(params["hidden_to_output"], f"{prefix}.hidden_to_output", out)
     if use_bn:
-        _batch_norm(params["bn"], state["bn"], f"{prefix}.batch_norm", out)
-    for i, (hp, hs) in enumerate(zip(params["hidden_layers"], state["hidden_layers"])):
+        _batch_norm(params["bn"], _sub(state, "bn"), f"{prefix}.batch_norm", out)
+    hidden = params["hidden_layers"]
+    for i, (hp, hs) in enumerate(zip(hidden, _sub(state, "hidden_layers", len(hidden)))):
         _linear_layers(hp, hs, f"{prefix}.hidden_layers.{i}", out, use_bn)
 
 
@@ -81,8 +95,9 @@ def _rnn_layer(params: Dict, prefix: str, out: StateDict) -> None:
             _linear(params[name], f"{prefix}.{name}", out)
 
 
-def state_dict_from_jax(params: Dict, state: Dict, config) -> StateDict:
-    """The port's ``state_dict`` for an ``ief``/``lgd`` model's JAX pytrees."""
+def state_dict_from_jax(params: Dict, state: Optional[Dict], config) -> StateDict:
+    """The port's ``state_dict`` for an ``ief``/``lgd`` model's JAX pytrees;
+    with ``state=None`` the parameters only (no BatchNorm buffers)."""
     if config.m_type not in ("ief", "lgd"):
         raise NotImplementedError(
             f"m_type={config.m_type!r} is not ported yet: ROADMAP.md, queue 1, "
@@ -94,8 +109,14 @@ def state_dict_from_jax(params: Dict, state: Dict, config) -> StateDict:
         _linear(params["pose_net_init"], "pose_net_init", out)
         _linear(params["shape_net_init"], "shape_net_init", out)
     else:
-        _mlp(params["pose_net_init"], state["pose_net_init"], "pose_net_init", out, use_bn)
-        _mlp(params["shape_net_init"], state["shape_net_init"], "shape_net_init", out, use_bn)
-    _mlp(params["pose_net_iter"], state["pose_net_iter"], "pose_net_iter", out, use_bn)
-    _mlp(params["shape_net_iter"], state["shape_net_iter"], "shape_net_iter", out, use_bn)
+        for name in ("pose_net_init", "shape_net_init"):
+            _mlp(params[name], _sub(state, name), name, out, use_bn)
+    for name in ("pose_net_iter", "shape_net_iter"):
+        _mlp(params[name], _sub(state, name), name, out, use_bn)
     return out
+
+
+def grads_from_jax(grads: Dict, config) -> StateDict:
+    """A JAX gradient pytree (the params' structure) in the port's keys,
+    transposed as the parameters are."""
+    return state_dict_from_jax(grads, None, config)

@@ -9,8 +9,13 @@ reference ``model.pth`` therefore loads with ``load_state_dict(strict=True)``.
 
 Parameters are created empty; ``init_parameters(module, generator)`` fills
 them as the JAX package's ``*_init`` functions do, from an explicit
-``torch.Generator``. Only the inference forward is ported: a module in
-training mode raises.
+``torch.Generator``.
+
+Training mode follows the JAX package: BatchNorm takes its statistics over
+the valid frames only (``mask``), dropout draws from an explicit
+``torch.Generator`` (none given: no dropout, as a missing JAX key), and the
+LSTM runs layer by layer through the differentiable training pair
+(``ops/lstm_train_kernel.py``).
 """
 
 from __future__ import annotations
@@ -22,11 +27,10 @@ import torch
 from torch import nn
 
 from empose_tpu_torch.ops.lstm_kernel import lstm_cell_plain, lstm_stack, lstm_stack_fused
+from empose_tpu_torch.ops.lstm_train_kernel import lstm_cell_train
 
 BN_EPS = 1e-5
-
-TRAINING_NOT_PORTED = ("training is not ported yet: ROADMAP.md, queue 1, "
-                       "'Losses and trainer' (with the LSTM training kernel pair)")
+BN_MOMENTUM = 0.1
 
 
 def _uniform_(t: torch.Tensor, bound: float, generator: torch.Generator, low: Optional[float] = None):
@@ -63,8 +67,14 @@ class Linear(nn.Module):
 
 
 class BatchNorm1d(nn.Module):
-    """Inference BatchNorm reading the running statistics:
-    ``(x - mean) * rsqrt(var + eps) * weight + bias``."""
+    """BatchNorm over the last axis (``nn/layers.py::batch_norm_apply``).
+
+    Eval: ``(x - mean) * rsqrt(var + eps) * weight + bias`` from the running
+    statistics. Train: the batch statistics of the rows where ``mask`` is 1
+    (all rows without a mask), in the JAX package's one-pass form shifted by
+    the running mean; the biased variance normalizes, the unbiased one goes
+    into the running statistic with momentum 0.1, and
+    ``num_batches_tracked`` counts the updates."""
 
     def __init__(self, num_features: int):
         super().__init__()
@@ -84,10 +94,38 @@ class BatchNorm1d(nn.Module):
             self.running_var.fill_(1.0)
             self.num_batches_tracked.zero_()
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        if self.training:
-            raise NotImplementedError(TRAINING_NOT_PORTED)
-        return (x - self.running_mean) * torch.rsqrt(self.running_var + BN_EPS) * self.weight + self.bias
+    def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+        if not self.training:
+            return (x - self.running_mean) * torch.rsqrt(self.running_var + BN_EPS) * self.weight + self.bias
+        rows = x.reshape(-1, x.shape[-1])
+        m = (torch.ones_like(rows[:, :1]) if mask is None
+             else mask.reshape(-1, 1).to(x.dtype))
+        count = m.sum().clamp(min=1.0)
+        m0 = self.running_mean.detach()
+        xc = rows - m0
+        d = (xc * m).sum(0) / count
+        d_sq = (xc * xc * m).sum(0) / count
+        var = (d_sq - d * d).clamp(min=0.0)
+        mean = m0 + d
+        y = (x - mean) * torch.rsqrt(var + BN_EPS) * self.weight + self.bias
+        with torch.no_grad():
+            unbiased = var * (count / (count - 1.0).clamp(min=1.0))
+            self.running_mean.mul_(1 - BN_MOMENTUM).add_(BN_MOMENTUM * mean)
+            self.running_var.mul_(1 - BN_MOMENTUM).add_(BN_MOMENTUM * unbiased)
+            self.num_batches_tracked.add_(1)
+        return y
+
+
+def dropout(x: torch.Tensor, p: float, training: bool,
+            generator: Optional[torch.Generator]) -> torch.Tensor:
+    """Inverted dropout with the keep mask drawn from ``generator``
+    (``nn/layers.py::dropout_apply``); the identity at eval, at ``p <= 0`` and
+    without a generator."""
+    if not training or p <= 0.0 or generator is None:
+        return x
+    keep = 1.0 - p
+    kept = torch.rand(x.shape, generator=generator, device=x.device) < keep
+    return torch.where(kept, x / keep, torch.zeros_like(x))
 
 
 class PReLU(nn.Module):
@@ -107,10 +145,11 @@ class LinearLayers(nn.Module):
     """[Linear -> BN? -> PReLU -> Dropout] x n with an optional skip over the
     whole block. Sequential indices per block: 0 Linear, 1 BN, 2 PReLU,
     3 Dropout (without BN: 0 Linear, 1 PReLU, 2 Dropout); the reference key
-    space depends on them. Dropout is the identity at inference."""
+    space depends on them. Dropout has no parameters: its slot holds an
+    ``nn.Identity`` and :func:`dropout` runs in ``forward``."""
 
     def __init__(self, hidden_size: int, num_layers: int = 2, use_batch_norm: bool = True,
-                 skip_connection: bool = False):
+                 skip_connection: bool = False, dropout_p: float = 0.0):
         super().__init__()
         mods = []
         for _ in range(num_layers):
@@ -120,34 +159,47 @@ class LinearLayers(nn.Module):
             mods += [PReLU(), nn.Identity()]
         self.layers = nn.Sequential(*mods)
         self.skip_connection = skip_connection
+        self.dropout_p = dropout_p
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        y = self.layers(x)
+    def forward(self, x: torch.Tensor, bn_mask: Optional[torch.Tensor] = None,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        y = x
+        for mod in self.layers:
+            if isinstance(mod, BatchNorm1d):
+                y = mod(y, bn_mask)
+            elif isinstance(mod, nn.Identity):
+                y = dropout(y, self.dropout_p, self.training, generator)
+            else:
+                y = mod(y)
         return x + y if self.skip_connection else y
 
 
 class MLP(nn.Module):
-    """input_to_hidden -> BN? -> PReLU -> LinearLayers x n -> hidden_to_output
-    (``nn/layers.py::mlp_apply`` at inference)."""
+    """input_to_hidden -> BN? -> PReLU -> Dropout -> LinearLayers x n ->
+    hidden_to_output (``nn/layers.py::mlp_apply``); ``bn_mask`` marks the
+    rows that count in train-mode BatchNorm statistics."""
 
     def __init__(self, input_size: int, output_size: int, hidden_size: int, num_layers: int = 2,
-                 use_batch_norm: bool = True, skip_connection: bool = False):
+                 use_batch_norm: bool = True, skip_connection: bool = False,
+                 dropout_p: float = 0.0):
         super().__init__()
         self.input_to_hidden = Linear(input_size, hidden_size)
         self.batch_norm = BatchNorm1d(hidden_size) if use_batch_norm else None
         self.activation_fn = PReLU()
         self.hidden_layers = nn.ModuleList([
-            LinearLayers(hidden_size, 2, use_batch_norm, skip_connection)
+            LinearLayers(hidden_size, 2, use_batch_norm, skip_connection, dropout_p)
             for _ in range(num_layers)])
         self.hidden_to_output = Linear(hidden_size, output_size)
+        self.dropout_p = dropout_p
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, bn_mask: Optional[torch.Tensor] = None,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
         y = self.input_to_hidden(x)
         if self.batch_norm is not None:
-            y = self.batch_norm(y)
-        y = self.activation_fn(y)
+            y = self.batch_norm(y, bn_mask)
+        y = dropout(self.activation_fn(y), self.dropout_p, self.training, generator)
         for block in self.hidden_layers:
-            y = block(y)
+            y = block(y, bn_mask, generator)
         return self.hidden_to_output(y)
 
 
@@ -198,14 +250,16 @@ class LSTM(nn.Module):
 
 def lstm_apply(lstm: LSTM, x: torch.Tensor, lengths: torch.Tensor,
                init_state: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
-               inference: bool = True, stack_fn=lstm_stack_fused):
+               inference: bool = True, stack_fn=lstm_stack_fused, train_cell=lstm_cell_train):
     """Multi-layer (bi)LSTM over a padded batch (``nn/layers.py::lstm_apply``).
 
     Padded frames never update the state and give zero outputs; the reverse
     direction runs over each sample's true length.
 
-    On CUDA a unidirectional inference stack runs through the weight-resident
-    kernel (``stack_fn``); on the CPU through its plain version.
+    Inference: a unidirectional stack runs through the weight-resident
+    kernel (``stack_fn``), a bidirectional one through the plain cell (CPU
+    only until its kernel is ported). Training: every direction-layer runs
+    through ``train_cell``, the differentiable kernel pair on CUDA.
 
     :param x: (N, F, I) batch-first; :param lengths: (N,) int.
     :param init_state: (h0, c0), each (num_layers * dirs, N, H), torch layout.
@@ -214,14 +268,10 @@ def lstm_apply(lstm: LSTM, x: torch.Tensor, lengths: torch.Tensor,
     n, f = x.shape[0], x.shape[1]
     hidden = lstm.hidden_size
     dirs = 2 if lstm.bidirectional else 1
-    if x.is_cuda and lstm.bidirectional:
+    if x.is_cuda and lstm.bidirectional and inference:
         raise NotImplementedError(
-            "bidirectional LSTM on CUDA needs the bidirectional layer kernel, "
+            "bidirectional LSTM inference on CUDA needs the bidirectional layer kernel, "
             "not ported yet: ROADMAP.md, queue 2, 'ops/lstm_kernel.py::_pallas_bidi'")
-    if x.is_cuda and not inference:
-        raise NotImplementedError(
-            "LSTM training on CUDA needs the training kernel pair, not ported "
-            "yet: ROADMAP.md, queue 2, 'ops/lstm_train_kernel.py::_pallas_fwd + _pallas_bwd'")
     mask = (torch.arange(f, device=x.device)[:, None] < lengths[None, :]).to(x.dtype)  # (F, N)
     xt = x.transpose(0, 1)  # (F, N, I)
     if init_state is None:
@@ -230,36 +280,47 @@ def lstm_apply(lstm: LSTM, x: torch.Tensor, lengths: torch.Tensor,
     else:
         h0, c0 = init_state
 
-    if not lstm.bidirectional:
+    if inference and not lstm.bidirectional:
         cells = [lstm.cell(l) for l in range(lstm.num_layers)]
         outs, (hF, cF) = lstm_stack(cells, xt, mask, h0, c0, stack_fn=stack_fn)
         return outs.transpose(0, 1), (hF, cF)
 
+    def run_cell(cell, xs, k):
+        if not inference:
+            return train_cell(cell, xs, mask, h0[k], c0[k])
+        xp = xs @ cell["w_ih"] + cell["b_ih"] + cell["b_hh"]
+        outs, hF, cF = lstm_cell_plain(xp, mask, cell["w_hh"], h0[k], c0[k])
+        return outs, (hF, cF)
+
     h_finals, c_finals = [], []
     for l in range(lstm.num_layers):
-        fwd, bwd = lstm.cell(l), lstm.cell(l, "_reverse")
-        xp = xt @ fwd["w_ih"] + fwd["b_ih"] + fwd["b_hh"]
-        outs_f, hF_f, cF_f = lstm_cell_plain(xp, mask, fwd["w_hh"], h0[2 * l], c0[2 * l])
-        xt_rev = _reverse_by_length(xt, lengths)
-        xp = xt_rev @ bwd["w_ih"] + bwd["b_ih"] + bwd["b_hh"]
-        outs_b, hF_b, cF_b = lstm_cell_plain(xp, mask, bwd["w_hh"], h0[2 * l + 1], c0[2 * l + 1])
-        xt = torch.cat([outs_f, _reverse_by_length(outs_b, lengths)], dim=-1)
-        h_finals += [hF_f, hF_b]
-        c_finals += [cF_f, cF_b]
+        outs_f, (hF, cF) = run_cell(lstm.cell(l), xt, l * dirs)
+        h_finals.append(hF)
+        c_finals.append(cF)
+        if lstm.bidirectional:
+            outs_b, (hF, cF) = run_cell(lstm.cell(l, "_reverse"), _reverse_by_length(xt, lengths),
+                                        l * dirs + 1)
+            outs_f = torch.cat([outs_f, _reverse_by_length(outs_b, lengths)], dim=-1)
+            h_finals.append(hF)
+            c_finals.append(cF)
+        xt = outs_f
     return xt.transpose(0, 1), (torch.stack(h_finals), torch.stack(c_finals))
 
 
 class RNNLayer(nn.Module):
-    """(Learned) initial state + LSTM (``nn/layers.py::rnn_layer_apply``).
-    Streaming state is an explicit carry.
+    """Input dropout + (learned) initial state + LSTM
+    (``nn/layers.py::rnn_layer_apply``). Streaming state is an explicit carry.
 
-    ``lstm_stack`` is the stack function the unidirectional LSTM runs
-    through; the default launches the kernel on CUDA. A reference run on the
-    card may set it to ``lstm_stack_plain``.
+    ``lstm_stack`` is the stack function a unidirectional LSTM runs through
+    at inference and ``lstm_train_cell`` the direction-layer function of
+    training; the defaults launch the kernels on CUDA. A reference run on
+    the card may set them to ``lstm_stack_plain`` and ``lstm_cell_train``
+    with the plain sweeps.
     """
 
     def __init__(self, input_size: int, hidden_size: int, num_layers: int,
-                 bidirectional: bool = False, learn_init_state: bool = False):
+                 bidirectional: bool = False, learn_init_state: bool = False,
+                 dropout_p: float = 0.0):
         super().__init__()
         if bidirectional and learn_init_state:
             raise NotImplementedError(
@@ -272,14 +333,18 @@ class RNNLayer(nn.Module):
             self.to_init_state_h = Linear(input_size, hidden_size * num_layers * dirs)
             self.to_init_state_c = Linear(input_size, hidden_size * num_layers * dirs)
         self.lstm_stack = lstm_stack_fused
+        self.lstm_train_cell = lstm_cell_train
+        self.dropout_p = dropout_p
 
-    def forward(self, x: torch.Tensor, lengths: torch.Tensor, carry=None):
+    def forward(self, x: torch.Tensor, lengths: torch.Tensor, carry=None,
+                generator: Optional[torch.Generator] = None):
         """:param carry: previous final (h, c) (streaming windows) or None.
 
         Keeps a reference quirk for checkpoint parity: its cell_init returns
         ``(c0, h0)``, so torch's h-slot receives ``to_init_state_c``'s output
         and vice versa.
         """
+        x = dropout(x, self.dropout_p, self.training, generator)
         init_state = carry
         if init_state is None and hasattr(self, "to_init_state_h"):
             n = x.shape[0]
@@ -288,4 +353,4 @@ class RNNLayer(nn.Module):
             h0 = self.to_init_state_h(first).reshape(n, self.num_layers, self.hidden_size)
             init_state = (c0.transpose(0, 1).contiguous(), h0.transpose(0, 1).contiguous())
         return lstm_apply(self.lstm, x, lengths, init_state, inference=not self.training,
-                          stack_fn=self.lstm_stack)
+                          stack_fn=self.lstm_stack, train_cell=self.lstm_train_cell)

@@ -1,19 +1,20 @@
-"""The LGD model (IterativeErrorFeedback) and its SMPL-H sensor bundle, forward only.
+"""The LGD model (IterativeErrorFeedback) and its SMPL-H sensor bundle.
 
 Port of ``empose_tpu/nn/models.py``: ``SensorSMPL`` with the row-major FK
 semantics of ``markers_and_joints_row_major``/``estimated_markers``,
-``BaseModel.prepare_inputs``, ``IterativeErrorFeedback.forward`` and
+``BaseModel.prepare_inputs``, ``IterativeErrorFeedback.forward`` (eval and
+train), ``compute_loss``, ``reference_grad_extra_loss`` and
 ``create_model`` for ``ief``/``lgd``.
 
 The learned-gradient input is the gradient of the sensor reconstruction
 error with respect to the current pose and shape, scaled by n*f. It is taken
-with ``torch.autograd.grad`` under ``torch.enable_grad()``, so the forward
-works inside ``torch.no_grad()`` (but not ``torch.inference_mode()``).
+with ``torch.autograd.grad`` under ``torch.enable_grad()``, so the eval
+forward works inside ``torch.no_grad()`` (but not ``torch.inference_mode()``).
 """
 
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Optional
 
 import torch
 from torch import nn
@@ -108,6 +109,11 @@ class IterativeErrorFeedback(nn.Module):
             raise ValueError("Normals currently not supported.")
         self.N = config.m_num_iterations
         self.step_size = config.m_step_size
+        self.r_weight = config.m_reprojection_loss_weight
+        self.fk_loss_weight = config.m_fk_loss
+        self.do_fk = self.fk_loss_weight > 0.0
+        self.pose_weight = getattr(config, "m_pose_loss_weight", 1.0)
+        self.shape_weight = getattr(config, "m_shape_loss_weight", 1.0)
         self.use_gradient = config.m_use_gradient
         self.rnn_init = config.m_rnn_init
         self.shape_avg = config.m_average_shape
@@ -131,10 +137,12 @@ class IterativeErrorFeedback(nn.Module):
             self.input_iter_size += self.pose_size + self.shape_size
 
         use_bn = not config.m_no_batch_norm
-        mlp_kw = dict(use_batch_norm=use_bn, skip_connection=config.m_skip_connections)
+        mlp_kw = dict(use_batch_norm=use_bn, skip_connection=config.m_skip_connections,
+                      dropout_p=config.m_dropout_hidden)
         if self.rnn_init:
             self.rnn = L.RNNLayer(input_size, config.m_rnn_hidden_size, config.m_rnn_num_layers,
-                                  bidirectional=config.m_rnn_bidirectional)
+                                  bidirectional=config.m_rnn_bidirectional,
+                                  dropout_p=config.m_dropout)
             self.pose_net_init = L.Linear(config.m_rnn_hidden_size, self.pose_size)
             self.shape_net_init = L.Linear(config.m_rnn_hidden_size, self.shape_size)
         else:
@@ -150,6 +158,18 @@ class IterativeErrorFeedback(nn.Module):
     def initial_carry(self):
         """Streaming carry at sequence start."""
         return None
+
+    def model_name(self) -> str:
+        """The architecture summary of experiment directory names."""
+        c = self.config
+        name = f"IEF-{c.m_num_layers}x{c.m_hidden_size}-N{self.N}"
+        if self.rnn_init:
+            name += "-{}RNN-{}x{}".format("Bi" if c.m_rnn_bidirectional else "",
+                                          c.m_rnn_num_layers, c.m_rnn_hidden_size)
+        name += f"-r{self.r_weight}-ws{c.window_size}-lr{c.lr}"
+        name += "-grad" if self.use_gradient else ""
+        name += "-skip" if c.m_skip_connections else ""
+        return name + f"-n{self.n_markers}"
 
     def prepare_inputs(self, window: Dict) -> torch.Tensor:
         """Concatenate pos/ori features with the optional 6-marker subselect.
@@ -185,26 +205,33 @@ class IterativeErrorFeedback(nn.Module):
             err = err + LS.reconstruction_loss(ori_in, ori_hat, seq_lengths, marker_masks)
         return err
 
-    def forward(self, window: Dict, carry=None):
+    def _offsets_flat(self, window: Dict, n: int, f: int):
+        offset_r = window["offset_r"][:, None].expand(n, f, -1, 3, 3).reshape(n * f, -1, 3, 3)
+        offset_t = window["offset_t"][:, None].expand(n, f, -1, 3).reshape(n * f, -1, 3)
+        return offset_r, offset_t
+
+    def forward(self, window: Dict, carry=None, generator: Optional[torch.Generator] = None):
         """One window of the LGD loop.
 
         :param window: marker_pos (N, F, 36), marker_ori (N, F, 108),
           seq_lengths (N,), offset_r (N, 12, 3, 3), offset_t (N, 12, 3),
           optional marker_masks (N, F, M).
         :param carry: the init RNN's (h, c) from the previous window, or None.
+        :param generator: dropout draws in training mode (None: no dropout).
         :return: (out, new_carry); ``out`` holds pose_hat (N, F, 63),
           root_ori_hat (N, F, 3), shape_hat (N, F, 10), joints_hat (N, F, 66)
           and ``history``: every step's pose, shape, joints, marker_pos and
-          marker_ori stacked on a leading (N+1) axis.
+          marker_ori stacked on a leading (N+1) axis. In training mode the
+          history keeps its graph and ``_recon_for_grad`` holds each
+          refinement step's reconstruction error.
         """
         if self.training:
-            raise NotImplementedError(L.TRAINING_NOT_PORTED)
+            return self._forward_train(window, carry, generator)
         x = self.prepare_inputs(window)
         n, f, dof = x.shape
         seq_lengths = window["seq_lengths"]
         marker_masks = window.get("marker_masks")
-        offset_r = window["offset_r"][:, None].expand(n, f, -1, 3, 3).reshape(n * f, -1, 3, 3)
-        offset_t = window["offset_t"][:, None].expand(n, f, -1, 3).reshape(n * f, -1, 3)
+        offset_r, offset_t = self._offsets_flat(window, n, f)
         inputs_flat = x.reshape(n * f, dof)
 
         new_carry = None
@@ -273,3 +300,134 @@ class IterativeErrorFeedback(nn.Module):
             "history": history,
         }
         return out, new_carry
+
+    def _forward_train(self, window: Dict, carry, generator: Optional[torch.Generator]):
+        """Train-mode forward (``IterativeErrorFeedback.forward(train=True)``):
+        the history keeps its graph; only the nets' inputs of each refinement
+        step and the learned-gradient input are detached. BatchNorm takes its
+        statistics over the valid frames; the iter nets, applied N times,
+        update their running statistics N times."""
+        x = self.prepare_inputs(window)
+        n, f, dof = x.shape
+        seq_lengths = window["seq_lengths"]
+        marker_masks = window.get("marker_masks")
+        offset_r, offset_t = self._offsets_flat(window, n, f)
+        inputs_flat = x.reshape(n * f, dof)
+        bn_mask = LS.mask_from_seq_lengths(seq_lengths, f).reshape(n * f)
+
+        new_carry = None
+        if self.rnn_init:
+            lstm_out, new_carry = self.rnn(x, seq_lengths, carry, generator)
+            pose_hat = self.pose_net_init(lstm_out).reshape(n * f, -1)
+            shape_hat = self.shape_net_init(lstm_out).reshape(n * f, -1)
+        else:
+            pose_hat = self.pose_net_init(inputs_flat, bn_mask, generator)
+            shape_hat = self.shape_net_init(inputs_flat, bn_mask, generator)
+
+        def to_single_shape(s):
+            return _average_over_frames(s.reshape(n, f, -1)).reshape(n * f, -1)
+
+        if self.shape_avg:
+            shape_hat = to_single_shape(shape_hat)
+
+        hist = {"pose": [], "shape": [], "joints": [], "marker_pos": [], "marker_ori": []}
+
+        def fk_and_record(pose, shape):
+            mp, mo, joints = self.smpl.estimated_markers(pose, shape, offset_r, offset_t)
+            hist["pose"].append(pose)
+            hist["shape"].append(shape)
+            hist["joints"].append(joints.reshape(n * f, -1))
+            hist["marker_pos"].append(mp.reshape(n * f, -1))
+            hist["marker_ori"].append(mo.reshape(n * f, -1))
+            return mp, mo
+
+        mp, mo = fk_and_record(pose_hat, shape_hat)
+        recon_for_grad = []
+        scale = float(n * f)
+        for i in range(self.N):
+            inputs_step = [inputs_flat, hist["pose"][-1].detach(), hist["shape"][-1].detach()]
+            if self.use_gradient:
+                recon = self._recon_error(inputs_flat, mp, mo, n, f, seq_lengths, marker_masks)
+                g_pose, g_shape = torch.autograd.grad(recon, (pose_hat, shape_hat),
+                                                      retain_graph=True)
+                recon_for_grad.append(recon)
+                inputs_step += [g_pose * scale, g_shape * scale]
+            iter_in = torch.cat(inputs_step, dim=-1)
+            pose_delta = self.pose_net_iter(iter_in, bn_mask, generator)
+            shape_delta = self.shape_net_iter(iter_in, bn_mask, generator)
+            if self.shape_avg:
+                shape_delta = to_single_shape(shape_delta)
+            pose_hat = hist["pose"][-1] + pose_delta * self.step_size
+            shape_hat = hist["shape"][-1] + shape_delta * self.step_size
+            mp, mo = fk_and_record(pose_hat, shape_hat)
+
+        history = {k: torch.stack([h.reshape(n, f, -1) for h in v]) for k, v in hist.items()}
+        pose_final = history["pose"][-1]
+        out = {
+            "pose_hat": pose_final[:, :, 3:],
+            "root_ori_hat": pose_final[:, :, :3],
+            "shape_hat": history["shape"][-1],
+            "joints_hat": history["joints"][-1],
+            "history": history,
+            "_recon_for_grad": recon_for_grad,
+        }
+        return out, new_carry
+
+    def compute_loss(self, batch: Dict, out: Dict):
+        """L1 pose/shape + FK + reconstruction losses summed over all N+1
+        history steps, normalized by the history length
+        (``IterativeErrorFeedback.compute_loss``). Kept quirk: the FK term
+        reads the FINAL joints for every history step.
+
+        :return: (total, {pose, shape, reconstruction, fk, total_loss}).
+        """
+        poses = batch["poses"]
+        n, f = poses.shape[0], poses.shape[1]
+        seq_lengths = batch["seq_lengths"]
+        marker_masks = batch.get("marker_masks")
+        hist = out["history"]
+        n_hist = hist["pose"].shape[0]
+        inputs_ = self.prepare_inputs(batch)
+        markers_in = inputs_[:, :, self.pos_d_start:self.pos_d_end].reshape(n, f, -1, 3)
+        markers_ori_in = inputs_[:, :, self.ori_d_start:self.ori_d_end].reshape(n, f, -1, 9)
+        sel = self.marker_sel
+        shapes_rep = batch["shapes"][:, None].expand(n, f, batch["shapes"].shape[-1])
+
+        zero = poses.new_zeros(())
+        pose_loss, shape_loss, recon_loss, fk_loss = zero, zero, zero, zero
+        for i in range(n_hist):
+            pose_loss = pose_loss + LS.padded_loss(poses, hist["pose"][i], LS.l1, seq_lengths)
+            shape_loss = shape_loss + LS.padded_loss(shapes_rep, hist["shape"][i], LS.l1, seq_lengths)
+            if self.do_fk:
+                joints_gt = batch["joints_gt"].reshape(n, f, -1, 3)
+                joints_hat = out["joints_hat"].reshape(n, f, -1, 3)
+                fk_loss = fk_loss + LS.reconstruction_loss(joints_gt, joints_hat, seq_lengths,
+                                                           marker_masks)
+            if self.config.use_marker_pos:
+                mh = hist["marker_pos"][i].reshape(n, f, -1, 3).index_select(2, sel)
+                recon_loss = recon_loss + LS.reconstruction_loss(markers_in, mh, seq_lengths,
+                                                                 marker_masks)
+            if self.config.use_marker_ori:
+                moh = hist["marker_ori"][i].reshape(n, f, -1, 9).index_select(2, sel)
+                recon_loss = recon_loss + LS.reconstruction_loss(markers_ori_in, moh, seq_lengths,
+                                                                 marker_masks)
+
+        total = (self.pose_weight * pose_loss + self.fk_loss_weight * fk_loss
+                 + self.shape_weight * shape_loss + self.r_weight * recon_loss) / n_hist
+        vals = {"pose": pose_loss / n_hist, "shape": shape_loss / n_hist,
+                "reconstruction": recon_loss / n_hist, "fk": fk_loss / n_hist,
+                "total_loss": total}
+        return total, vals
+
+    def reference_grad_extra_loss(self, out: Dict) -> torch.Tensor:
+        """Value-zero term reproducing the reference's parameter-gradient
+        quirk: its forward calls ``reconstruction_error.backward()`` once per
+        refinement step, depositing extra gradients on top of the main loss.
+        ``sum_i(recon_i - recon_i.detach())`` adds those gradients without
+        changing the loss value."""
+        extra = out["history"]["pose"].new_zeros(())
+        if not self.use_gradient:
+            return extra
+        for term in out.get("_recon_for_grad", []):
+            extra = extra + (term - term.detach())
+        return extra

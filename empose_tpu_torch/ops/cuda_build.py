@@ -1,0 +1,105 @@
+"""Build the port's CUDA sources with nvcc at first use and load them with ctypes.
+
+Each ``csrc/<name>.cu`` has a plain C interface and compiles on its own into
+``_build/lib<name>.so`` (git-ignored) for ``sm_90a``. :func:`build` starts one
+``nvcc`` per stale source, all at once, and waits for all of them;
+:func:`load` builds a source if needed and returns its ``ctypes.CDLL``.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import os
+import shutil
+import subprocess
+import threading
+from typing import Dict, Iterable
+
+_PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+CSRC = os.path.join(_PKG_DIR, "csrc")
+BUILD_DIR = os.path.join(_PKG_DIR, "_build")
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC")
+
+# Codes the kernels' C functions return beside cudaError_t values.
+ERRORS = {
+    -1: "the grid cannot be co-resident on this card (hidden size too large "
+        "for one block per SM at 8 units per block)",
+    -2: "the resident weights exceed a block's shared memory",
+    -3: "the card does not support cooperative launches",
+    -4: "bad shape (F, N, H, L must be positive and H a multiple of 4)",
+}
+
+_libs: Dict[str, ctypes.CDLL] = {}
+_lock = threading.Lock()
+
+
+def source_path(name: str) -> str:
+    return os.path.join(CSRC, f"{name}.cu")
+
+
+def library_path(name: str) -> str:
+    return os.path.join(BUILD_DIR, f"lib{name}.so")
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    for root in (os.environ.get("CUDA_HOME"), "/usr/local/cuda"):
+        if root and os.path.exists(os.path.join(root, "bin", "nvcc")):
+            return os.path.join(root, "bin", "nvcc")
+    raise RuntimeError("nvcc not found: the port's CUDA kernels are compiled from "
+                       f"{CSRC} at first use and need the CUDA toolkit")
+
+
+def build(names: Iterable[str], force: bool = False, verbose: bool = False) -> Dict[str, str]:
+    """Compile ``csrc/<name>.cu`` for each name, in parallel.
+
+    A library newer than its source is kept unless ``force``. Returns each
+    compiled name's compiler output (the ``-Xptxas -v`` register report when
+    ``verbose``); raises if any compile fails."""
+    procs = {}
+    for name in names:
+        src, lib = source_path(name), library_path(name)
+        if not force and os.path.exists(lib) and os.path.getmtime(lib) >= os.path.getmtime(src):
+            continue
+        os.makedirs(BUILD_DIR, exist_ok=True)
+        tmp = f"{lib}.{os.getpid()}.tmp"
+        cmd = [_nvcc(), *NVCC_FLAGS, *(("-Xptxas", "-v") if verbose else ()), "-o", tmp, src]
+        procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                                        text=True), tmp, lib)
+    logs, failed = {}, []
+    for name, (proc, tmp, lib) in procs.items():
+        out, _ = proc.communicate()
+        logs[name] = out
+        if proc.returncode != 0:
+            failed.append(f"{name}: nvcc failed ({proc.returncode}):\n{out}")
+        else:
+            os.replace(tmp, lib)
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    return logs
+
+
+def load(name: str, signatures: Dict[str, tuple]) -> ctypes.CDLL:
+    """The library of ``csrc/<name>.cu``, built at first use.
+
+    :param signatures: C function name -> (argtypes, restype).
+    """
+    with _lock:
+        lib = _libs.get(name)
+        if lib is None:
+            build([name])
+            lib = ctypes.CDLL(library_path(name))
+            for fn, (argtypes, restype) in signatures.items():
+                getattr(lib, fn).argtypes = list(argtypes)
+                getattr(lib, fn).restype = restype
+            _libs[name] = lib
+    return lib
+
+
+def check(code: int, what: str) -> None:
+    """Raise if a kernel's C function returned anything but 0."""
+    if code != 0:
+        raise RuntimeError(f"{what} launch failed: {ERRORS.get(code, f'cudaError_t {code}')}")

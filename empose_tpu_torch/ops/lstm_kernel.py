@@ -27,80 +27,23 @@ compiled with ``nvcc`` at first use into ``empose_tpu_torch/_build/``.
 from __future__ import annotations
 
 import ctypes
-import os
-import shutil
-import subprocess
-import threading
 from typing import List, Optional, Tuple
 
 import torch
 
+from empose_tpu_torch.ops import cuda_build
+
 LAUNCHES = 0
 
-_PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-SOURCE = os.path.join(_PKG_DIR, "csrc", "lstm_stack.cu")
-BUILD_DIR = os.path.join(_PKG_DIR, "_build")
-LIBRARY = os.path.join(BUILD_DIR, "liblstm_stack.so")
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC")
-
-# Codes the C side returns beside cudaError_t values.
-_ERRORS = {
-    -1: "the grid cannot be co-resident on this card (hidden size too large "
-        "for one block per SM at 8 units per block)",
-    -2: "the resident weights exceed a block's shared memory",
-    -3: "the card does not support cooperative launches",
-    -4: "bad shape (F, N, H, L must be positive and H a multiple of 4)",
-}
-
-_lib = None
-_lib_lock = threading.Lock()
-
-
-def _nvcc() -> str:
-    found = shutil.which("nvcc")
-    if found:
-        return found
-    for root in (os.environ.get("CUDA_HOME"), "/usr/local/cuda"):
-        if root and os.path.exists(os.path.join(root, "bin", "nvcc")):
-            return os.path.join(root, "bin", "nvcc")
-    raise RuntimeError("nvcc not found: the LSTM stack kernel is compiled from "
-                       f"{SOURCE} at first use and needs the CUDA toolkit")
-
-
-def build(force: bool = False, verbose: bool = False) -> str:
-    """Compile ``csrc/lstm_stack.cu`` into ``_build/liblstm_stack.so``.
-
-    Skipped when the library is newer than the source, unless ``force``.
-    Returns the compiler's output (``-Xptxas -v`` register report when
-    ``verbose``)."""
-    if (not force and os.path.exists(LIBRARY)
-            and os.path.getmtime(LIBRARY) >= os.path.getmtime(SOURCE)):
-        return ""
-    os.makedirs(BUILD_DIR, exist_ok=True)
-    tmp = f"{LIBRARY}.{os.getpid()}.tmp"
-    cmd = [_nvcc(), *NVCC_FLAGS, *(("-Xptxas", "-v") if verbose else ()),
-           "-o", tmp, SOURCE]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stdout}{proc.stderr}")
-    os.replace(tmp, LIBRARY)
-    return proc.stdout + proc.stderr
+NAME = "lstm_stack"  # csrc/lstm_stack.cu
 
 
 def _library():
-    global _lib
-    with _lib_lock:
-        if _lib is None:
-            build()
-            lib = ctypes.CDLL(LIBRARY)
-            p, i = ctypes.c_void_p, ctypes.c_int
-            lib.lstm_stack_forward.argtypes = [p, p, p, p, p, p, p, p, p, i, i, i, i, p]
-            lib.lstm_stack_forward.restype = i
-            lib.lstm_stack_units.argtypes = [i]
-            lib.lstm_stack_units.restype = i
-            _lib = lib
-    return _lib
+    p, i = ctypes.c_void_p, ctypes.c_int
+    return cuda_build.load(NAME, {
+        "lstm_stack_forward": ([p, p, p, p, p, p, p, p, p, i, i, i, i, p], i),
+        "lstm_stack_units": ([i], i),
+    })
 
 
 def _sigmoid_tanh_cell(gates: torch.Tensor, c: torch.Tensor):
@@ -185,9 +128,7 @@ def lstm_stack_fused(x0_proj, mask, w_hh, w_ih_up, b_up, h0, c0):
             b_up.data_ptr() if num_layers > 1 else None,
             outs.data_ptr(), hbuf.data_ptr(), c_state.data_ptr(), h_final.data_ptr(),
             f, n, hidden, num_layers, stream)
-    if code != 0:
-        raise RuntimeError(f"LSTM stack kernel launch failed: "
-                           f"{_ERRORS.get(code, f'cudaError_t {code}')}")
+    cuda_build.check(code, "LSTM stack kernel")
     LAUNCHES += 1
     return outs, h_final, c_state
 

@@ -1,9 +1,11 @@
-"""The SO(3) map the SMPL-H forward kinematics needs, in torch.
+"""SO(3) maps in torch.
 
 The smplx Rodrigues of ``empose_tpu/bodymodel/smplh.py::rodrigues`` (the
-angle-axis -> rotation map FK uses); the rest of ``empose_tpu/ops/so3.py``
-comes with the evaluation slice. Arbitrary leading batch dimensions,
-differentiable.
+angle-axis -> rotation map FK uses), and the clamped exponential and log
+maps of ``empose_tpu/ops/so3.py`` (``aa2rot``/``rot2aa``) that root
+normalization uses. The two exponential maps are not interchangeable: the
+smplx one adds 1e-8 to the components, the other clamps the squared angle at
+``eps``. Arbitrary leading batch dimensions, differentiable.
 """
 
 from __future__ import annotations
@@ -25,3 +27,49 @@ def rodrigues(rot_vecs: torch.Tensor) -> torch.Tensor:
     K = K.reshape(rot_vecs.shape[:-1] + (3, 3))
     ident = torch.eye(3, dtype=rot_vecs.dtype, device=rot_vecs.device)
     return ident + sin * K + (1.0 - cos) * (K @ K)
+
+
+def hat(v: torch.Tensor) -> torch.Tensor:
+    """Vectors (..., 3) -> skew-symmetric matrices (..., 3, 3)."""
+    x, y, z = v.unbind(-1)
+    zero = torch.zeros_like(x)
+    return torch.stack([zero, -z, y, z, zero, -x, -y, x, zero], dim=-1).reshape(v.shape + (3,))
+
+
+def hat_inv(h: torch.Tensor) -> torch.Tensor:
+    """Skew-symmetric (..., 3, 3) -> (..., 3); no symmetry check."""
+    return torch.stack([h[..., 2, 1], h[..., 0, 2], h[..., 1, 0]], dim=-1)
+
+
+def so3_rotation_angle(R: torch.Tensor, cos_angle: bool = False) -> torch.Tensor:
+    """Rotation angle of (..., 3, 3) rotation matrices (trace clamped to [-1, 3])."""
+    trace = (R[..., 0, 0] + R[..., 1, 1] + R[..., 2, 2]).clamp(-1.0, 3.0)
+    phi = 0.5 * (trace - 1.0)
+    return phi if cos_angle else torch.arccos(phi)
+
+
+def so3_exponential_map(log_rot: torch.Tensor, eps: float = 1e-4) -> torch.Tensor:
+    """Angle-axis (..., 3) -> rotation matrices (..., 3, 3); the squared angle
+    is clamped at ``eps`` before the square root."""
+    nrms = (log_rot * log_rot).sum(-1)
+    angles = nrms.clamp(min=eps).sqrt()
+    inv = 1.0 / angles
+    fac1 = inv * torch.sin(angles)
+    fac2 = inv * inv * (1.0 - torch.cos(angles))
+    skews = hat(log_rot)
+    eye = torch.eye(3, dtype=log_rot.dtype, device=log_rot.device)
+    return fac1[..., None, None] * skews + fac2[..., None, None] * (skews @ skews) + eye
+
+
+def so3_log_map(R: torch.Tensor, eps: float = 1e-4) -> torch.Tensor:
+    """Rotation matrices (..., 3, 3) -> angle-axis (..., 3)."""
+    phi = so3_rotation_angle(R)
+    phi_sin = torch.sin(phi)
+    phi_denom = (phi_sin.abs().clamp(min=eps) * torch.sign(phi_sin)
+                 + (phi_sin == 0).to(phi.dtype) * eps)
+    log_rot_hat = (phi / (2.0 * phi_denom))[..., None, None] * (R - R.transpose(-1, -2))
+    return hat_inv(log_rot_hat)
+
+
+aa2rot = so3_exponential_map
+rot2aa = so3_log_map

@@ -1,7 +1,8 @@
 """Experiment directories and model loading for the port.
 
-``get_model_dir`` is the port's own copy of ``empose_tpu/utils/experiments.py``
-(``<experiment_dir>/<model_id>-*``). ``load_model`` follows
+``get_model_dir``, ``create_model_dir``, ``zip_files`` and ``save_cmd`` are
+the port's own copies of ``empose_tpu/utils/experiments.py``
+(``<experiment_dir>/<model_id>-<summary>``). ``load_model`` follows
 ``empose_tpu/eval/harness.py::load_model``: ``config.json`` plus a
 reference-layout ``model.pth`` (``{"model_state_dict": ...}``).
 """
@@ -11,6 +12,7 @@ from __future__ import annotations
 import glob
 import os
 import sys
+import zipfile
 from typing import Optional
 
 import torch
@@ -24,6 +26,39 @@ from empose_tpu_torch.device import resolve_device, set_precision
 def get_model_dir(experiment_dir: str, model_id) -> Optional[str]:
     matches = glob.glob(os.path.join(experiment_dir, str(model_id) + "-*"))
     return None if not matches else matches[0]
+
+
+def create_model_dir(experiment_dir: str, experiment_id, model_summary: str,
+                     other_summary: Optional[str] = None) -> str:
+    model_name = f"{experiment_id}-{model_summary}"
+    if other_summary:
+        model_name = f"{model_name}-{other_summary}"
+    model_dir = os.path.join(experiment_dir, model_name)
+    if os.path.exists(model_dir):
+        raise ValueError(f"Model directory already exists {model_dir}")
+    os.makedirs(model_dir)
+    return model_dir
+
+
+def zip_files(file_list, output_file: str) -> str:
+    """Zip ``file_list`` into ``output_file`` (``_1``, ``_2``, ... if taken)."""
+    if not output_file.endswith(".zip"):
+        output_file += ".zip"
+    ofile = output_file
+    counter = 0
+    while os.path.exists(ofile):
+        counter += 1
+        ofile = output_file.replace(".zip", f"_{counter}.zip")
+    with zipfile.ZipFile(ofile, mode="w", compression=zipfile.ZIP_DEFLATED) as zf:
+        for f in file_list:
+            zf.write(f)
+    return ofile
+
+
+def save_cmd(model_dir: str) -> None:
+    """The command line of this process, into ``cmd.txt``."""
+    with open(os.path.join(model_dir, "cmd.txt"), "w") as f:
+        f.write(sys.argv[0] + " " + " ".join(sys.argv[1:]))
 
 
 def count_parameters(model: nn.Module) -> int:

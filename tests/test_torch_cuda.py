@@ -1,6 +1,7 @@
-"""Checks that need the card: the LSTM stack kernel against its plain version
-at the released init-RNN shape, and a served step against the same model run
-with the plain LSTM. Skipped without a CUDA device; on the card run
+"""Checks that need the card: the LSTM stack kernel and the LSTM training pair
+against their plain versions at the released init-RNN shape, and a served
+step against the same model run with the plain LSTM. Skipped without a CUDA
+device; on the card run
 
     python -m pytest tests/test_torch_cuda.py -q
 
@@ -21,6 +22,7 @@ from empose_tpu_torch.device import set_precision
 from empose_tpu_torch.nn.layers import init_parameters
 from empose_tpu_torch.nn.models import SensorSMPL, create_model
 from empose_tpu_torch.ops import lstm_kernel as K
+from empose_tpu_torch.ops import lstm_train_kernel as TK
 from empose_tpu_torch.serve import MultiStreamPredictor
 
 torch.set_num_threads(1)
@@ -54,6 +56,33 @@ def test_kernel_matches_plain_released_shape(cuda, f):
     for a, b in zip(got[1], want[1]):
         torch.testing.assert_close(a, b, atol=ATOL, rtol=0)
     assert torch.equal(got[1][0][:, :3], h0[:, :3]) and torch.equal(got[1][1][:, :3], c0[:, :3])
+
+
+@pytest.mark.parametrize("f, n", [(64, 16), (256, 64)])
+def test_training_pair_matches_plain_released_shape(cuda, f, n):
+    """Both sweeps at H=512 against their plain versions (atol 1e-4 relative
+    to each output's largest entry), and 0-length rows bit for bit."""
+    g = torch.Generator().manual_seed(f + n)
+    h = 512
+    r = lambda *s: torch.randn(*s, generator=g).to(cuda)
+    x_proj, w_hh = r(f, n, 4 * h) * 0.5, r(h, 4 * h) * h ** -0.5
+    h0, c0 = r(n, h) * 0.5, r(n, h) * 0.5
+    lengths = torch.randint(1, f, (n,), generator=g)
+    lengths[:2], lengths[2:6] = 0, f
+    mask = (torch.arange(f)[:, None] < lengths[None]).float().to(cuda)
+    got = TK.lstm_train_fwd(x_proj, mask, w_hh, h0, c0)
+    want = TK.lstm_train_fwd_plain(x_proj, mask, w_hh, h0, c0)
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a, b, atol=ATOL * float(b.abs().max()), rtol=0)
+    assert torch.equal(got[1][:, :2], h0[None, :2].expand(f, 2, h))
+    c_prev = torch.cat([c0[None], want[2][:-1]])
+    dh, dc = r(f, n, h), r(f, n, h)
+    got_b = TK.lstm_train_bwd(dh, dc, want[0], c_prev, mask, w_hh)
+    want_b = TK.lstm_train_bwd_plain(dh, dc, want[0], c_prev, mask, w_hh)
+    for a, b in zip(got_b, want_b):
+        torch.testing.assert_close(a, b, atol=ATOL * float(b.abs().max()), rtol=0)
+    assert torch.equal(got_b[0][:, :2], torch.zeros_like(got_b[0][:, :2]))
+    assert torch.equal(got_b[1][:2], want_b[1][:2]) and torch.equal(got_b[2][:2], want_b[2][:2])
 
 
 def test_served_step_matches_plain_lstm_forward(cuda):

@@ -1,0 +1,181 @@
+"""The port's LSTM training pair (plain versions of the CUDA kernels) against
+the JAX package.
+
+References: ``empose_tpu.ops.lstm_train_kernel`` (``_pallas_fwd``,
+``_pallas_bwd`` and ``lstm_cell_train_pallas``) in Pallas interpret mode, and
+``empose_tpu.nn.layers._lstm_cell_scan`` differentiated by JAX. Lengths mix
+full, empty, partial and one-frame rows; h0/c0 are non-zero. Tolerance atol
+1e-5, rtol 1e-5: fp32 on both sides, the same formulas, another matmul
+summation order.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+import jax
+import jax.numpy as jnp
+from jax import lax
+
+from empose_tpu.nn import layers as JL
+from empose_tpu.ops import lstm_train_kernel as JK
+
+from empose_tpu_torch.nn import layers as TL
+from empose_tpu_torch.ops import lstm_train_kernel as K
+
+torch.set_num_threads(1)
+TOL = dict(atol=1e-5, rtol=1e-5)
+F, N, I, H = 9, 5, 7, 32
+LENGTHS = np.array([9, 0, 4, 9, 1])
+CELL_KEYS = ("w_ih", "w_hh", "b_ih", "b_hh")
+
+
+def _case(seed):
+    rng = np.random.RandomState(seed)
+    b = 1.0 / np.sqrt(H)
+    cell = {k: rng.uniform(-b, b, s).astype(np.float32) for k, s in
+            (("w_ih", (I, 4 * H)), ("w_hh", (H, 4 * H)), ("b_ih", (4 * H,)), ("b_hh", (4 * H,)))}
+    x = rng.randn(F, N, I).astype(np.float32)
+    mask = (np.arange(F)[:, None] < LENGTHS[None, :]).astype(np.float32)
+    h0 = (rng.randn(N, H) * 0.5).astype(np.float32)
+    c0 = (rng.randn(N, H) * 0.5).astype(np.float32)
+    w_out = rng.randn(F, N, H).astype(np.float32)
+    w_h, w_c = rng.randn(N, H).astype(np.float32), rng.randn(N, H).astype(np.float32)
+    return cell, x, mask, h0, c0, (w_out, w_h, w_c)
+
+
+def _t(a, grad=False):
+    return torch.from_numpy(np.array(a)).requires_grad_(grad)
+
+
+def test_forward_sweep_matches_pallas_fwd():
+    cell, x, mask, h0, c0, _ = _case(0)
+    x_proj = x @ cell["w_ih"] + cell["b_ih"] + cell["b_hh"]
+    want = JK._pallas_fwd(jnp.asarray(x_proj), jnp.asarray(mask)[:, :, None],
+                          jnp.asarray(cell["w_hh"]), jnp.asarray(h0), jnp.asarray(c0),
+                          hidden=H, interpret=True, precision=lax.Precision.HIGHEST)
+    got = K.lstm_train_fwd(_t(x_proj), _t(mask), _t(cell["w_hh"]), _t(h0), _t(c0))
+    for name, g, w in zip(("gates", "h_all", "c_all"), got, want):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), err_msg=name, **TOL)
+    _, h_all, c_all = got
+    assert torch.equal(h_all[:, 1], _t(h0)[1].expand(F, H))  # the empty row stays frozen
+    assert torch.equal(c_all[:, 1], _t(c0)[1].expand(F, H))
+    no_gates = K.lstm_train_fwd(_t(x_proj), _t(mask), _t(cell["w_hh"]), _t(h0), _t(c0),
+                                save_gates=False)
+    assert no_gates[0] is None and torch.equal(no_gates[1], h_all)
+
+
+def test_reverse_sweep_matches_pallas_bwd():
+    cell, x, mask, h0, c0, _ = _case(1)
+    rng = np.random.RandomState(11)
+    x_proj = x @ cell["w_ih"] + cell["b_ih"] + cell["b_hh"]
+    gates, _, c_all = K.lstm_train_fwd(_t(x_proj), _t(mask), _t(cell["w_hh"]), _t(h0), _t(c0))
+    c_prev = torch.cat([_t(c0)[None], c_all[:-1]]).numpy()
+    dh_all = rng.randn(F, N, H).astype(np.float32)
+    dc_all = rng.randn(F, N, H).astype(np.float32)
+    want = JK._pallas_bwd(jnp.asarray(dh_all), jnp.asarray(dc_all), jnp.asarray(gates.numpy()),
+                          jnp.asarray(c_prev), jnp.asarray(mask)[:, :, None],
+                          jnp.asarray(cell["w_hh"]), hidden=H, interpret=True,
+                          precision=lax.Precision.HIGHEST)
+    got = K.lstm_train_bwd(_t(dh_all), _t(dc_all), gates, _t(c_prev), _t(mask), _t(cell["w_hh"]))
+    for name, g, w in zip(("dgates", "dh0", "dc0"), got, want):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), err_msg=name, **TOL)
+    # The empty row: zero dgates, cotangents passed straight through.
+    assert torch.equal(got[0][:, 1], torch.zeros(F, 4 * H))
+    np.testing.assert_allclose(got[1][1].numpy(), dh_all[:, 1].sum(0), rtol=1e-6, atol=1e-6)
+
+
+def _jax_cell_fn(ref):
+    if ref == "pallas_interpret":
+        return lambda c, x, m, h0, c0: JK.lstm_cell_train_pallas(
+            c, x, m, h0, c0, precision=lax.Precision.HIGHEST, interpret=True)
+    return JL._lstm_cell_scan
+
+
+@pytest.mark.parametrize("ref", ["pallas_interpret", "scan"])
+def test_cell_train_forward_and_gradients_match_jax(ref):
+    """Outputs and both finals, and the gradients of a loss touching all
+    three with respect to x, every cell parameter, h0 and c0."""
+    cell, x, mask, h0, c0, (w_out, w_h, w_c) = _case(2)
+    jax_cell = _jax_cell_fn(ref)
+
+    def j_loss(cell, x, h0, c0):
+        outs, (hF, cF) = jax_cell(cell, x, jnp.asarray(mask), h0, c0)
+        return jnp.sum(outs * w_out) + jnp.sum(hF * w_h) + jnp.sum(cF * w_c), (outs, hF, cF)
+
+    (_, j_fwd), j_grads = jax.value_and_grad(j_loss, argnums=(0, 1, 2, 3), has_aux=True)(
+        {k: jnp.asarray(v) for k, v in cell.items()}, jnp.asarray(x), jnp.asarray(h0),
+        jnp.asarray(c0))
+
+    t_cell = {k: _t(v, True) for k, v in cell.items()}
+    t_x, t_h0, t_c0 = _t(x, True), _t(h0, True), _t(c0, True)
+    outs, (hF, cF) = K.lstm_cell_train(t_cell, t_x, _t(mask), t_h0, t_c0)
+    loss = (outs * _t(w_out)).sum() + (hF * _t(w_h)).sum() + (cF * _t(w_c)).sum()
+    loss.backward()
+
+    for name, g, w in zip(("outs", "hF", "cF"), (outs, hF, cF), j_fwd):
+        np.testing.assert_allclose(g.detach().numpy(), np.asarray(w), err_msg=name, **TOL)
+    for k in CELL_KEYS:
+        np.testing.assert_allclose(t_cell[k].grad.numpy(), np.asarray(j_grads[0][k]),
+                                   err_msg=f"d{k}", **TOL)
+    for name, t, w in (("dx", t_x, j_grads[1]), ("dh0", t_h0, j_grads[2]), ("dc0", t_c0, j_grads[3])):
+        np.testing.assert_allclose(t.grad.numpy(), np.asarray(w), err_msg=name, **TOL)
+
+
+def test_plain_pair_gradcheck_float64():
+    """The plain reverse sweep is the exact gradient of the plain forward
+    sweep: ``torch.autograd.gradcheck`` in float64 over the autograd function."""
+    g = torch.Generator().manual_seed(3)
+    f, n, h = 6, 4, 5
+    lengths = torch.tensor([6, 0, 3, 1])
+    mask = (torch.arange(f)[:, None] < lengths[None]).double()
+    args = (torch.randn(f, n, 4 * h, dtype=torch.float64, generator=g),
+            torch.randn(h, 4 * h, dtype=torch.float64, generator=g) * 0.4,
+            torch.randn(n, h, dtype=torch.float64, generator=g) * 0.5,
+            torch.randn(n, h, dtype=torch.float64, generator=g) * 0.5)
+    args = tuple(a.requires_grad_() for a in args)
+
+    def core(x_proj, w_hh, h0, c0):
+        return K.LSTMCore.apply(x_proj, mask, w_hh, h0, c0, K.lstm_train_fwd, K.lstm_train_bwd)
+
+    assert torch.autograd.gradcheck(core, args)
+
+
+@pytest.mark.parametrize("bidirectional", [False, True], ids=["uni", "bidi"])
+def test_lstm_apply_training_matches_jax(bidirectional):
+    """A 2-layer stack in training mode (every direction-layer through the
+    training pair), its outputs, finals and input gradient against JAX
+    ``lstm_apply(inference=False)`` at batch 9 with the pair in interpret mode."""
+    rng = np.random.RandomState(4)
+    n = 9
+    params = JL.lstm_init(jax.random.PRNGKey(5), I, H, 2, bidirectional)
+    lstm = TL.LSTM(I, H, 2, bidirectional)
+    sd = {}
+    for l, layer in enumerate(params["layers"]):
+        for d, suffix in (("fwd", ""), ("bwd", "_reverse")):
+            if d in layer:
+                for k, name in (("w_ih", "weight_ih"), ("w_hh", "weight_hh")):
+                    sd[f"{name}_l{l}{suffix}"] = torch.from_numpy(np.asarray(layer[d][k]).T.copy())
+                for k, name in (("b_ih", "bias_ih"), ("b_hh", "bias_hh")):
+                    sd[f"{name}_l{l}{suffix}"] = torch.from_numpy(np.array(layer[d][k]))
+    lstm.load_state_dict(sd)
+    x = rng.randn(n, F, I).astype(np.float32)
+    lengths = np.array([9, 0, 4, 9, 1, 7, 9, 2, 5])
+    dirs = 2 if bidirectional else 1
+    w_out = rng.randn(n, F, H * dirs).astype(np.float32)
+
+    old = JL.LSTM_TRAIN_KERNEL
+    JL.LSTM_TRAIN_KERNEL = "interpret"
+    try:
+        def j_loss(x):
+            outs, (hF, cF) = JL.lstm_apply(params, x, jnp.asarray(lengths), inference=False)
+            return jnp.sum(outs * w_out) + jnp.sum(hF) + jnp.sum(cF * 0.5), outs
+        (_, j_outs), j_dx = jax.value_and_grad(j_loss, has_aux=True)(jnp.asarray(x))
+    finally:
+        JL.LSTM_TRAIN_KERNEL = old
+
+    t_x = _t(x, True)
+    outs, (hF, cF) = TL.lstm_apply(lstm, t_x, torch.from_numpy(lengths), inference=False)
+    ((outs * _t(w_out)).sum() + hF.sum() + (cF * 0.5).sum()).backward()
+    np.testing.assert_allclose(outs.detach().numpy(), np.asarray(j_outs), **TOL)
+    np.testing.assert_allclose(t_x.grad.numpy(), np.asarray(j_dx), **TOL)

@@ -23,6 +23,7 @@ from empose_tpu.nn.models import create_model as j_create_model
 
 from empose_tpu_torch.checkpoint.from_jax import state_dict_from_jax
 from empose_tpu_torch.config import Configuration
+from empose_tpu_torch.nn.layers import init_parameters
 from empose_tpu_torch.nn.models import create_model
 from tests.test_torch_checkpoint import BASE, _jax_params, sensors  # noqa: F401 (fixture)
 
@@ -85,11 +86,15 @@ def test_lgd_rnn_forward_two_windows(sensors, monkeypatch, n_markers, batch):
 
 
 def test_forward_refuses_training_and_unported_types(sensors):
+    """Train mode runs (the history keeps its graph, one reconstruction error
+    per refinement step); the rnn and resnet model types still raise."""
     _, t_sensor = sensors
     model = create_model(Configuration.from_dict(dict(BASE, m_rnn_init=True)), t_sensor)
-    model.train()
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        model({}, None)
+    init_parameters(model, torch.Generator().manual_seed(0)).train()
+    win = _to_torch(_windows(3, seed=0)[0])
+    out, _ = model(win, None)
+    assert out["history"]["pose"].requires_grad and len(out["_recon_for_grad"]) == 2
+    assert torch.isfinite(out["pose_hat"]).all()
     for m_type in ("rnn", "resnet"):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             create_model(Configuration.from_dict(dict(BASE, m_type=m_type)), t_sensor)

@@ -18,6 +18,11 @@ Phases, each printed on its own line:
      the autograd function against torch.autograd over the plain cell, and
      0-length rows bit for bit; median times beside the plain versions and
      cuDNN's training forward and backward;
+  4b. the bidirectional layer kernel against its plain torch version at the
+     released BiRNN width (H=512) for the batched serving chunk (F=16,
+     N=64), the eval window (F=256, N=64) and one stream (F=16, N=1), with
+     0-length, partial and full rows and non-zero state; its median times
+     beside the plain version and torch.nn.LSTM(bidirectional=True) (cuDNN);
   5. the serving main path: full-width LGD-RNN-6 with seeded random weights
      written as a model.pth, served to 64 streams x 4 chunks of 16 frames
      through MultiStreamPredictor.from_experiment (with one reset, one flush
@@ -25,6 +30,8 @@ Phases, each printed on its own line:
      kernel must launch once per served forward and the served poses must
      equal the same model run with the plain LSTM version, within 1e-4;
      then step times and one profiled window;
+  5b. the same for full-width BiRNN-6: the bidirectional layer kernel must
+     launch twice per served forward (once per layer) and no other kernel;
   6. the training main path: full-width LGD-RNN-6 trained through
      ``python -m empose_tpu_torch.train``'s main on a synthetic asset tree
      (synthetic SMPL-H, per-subject offsets, a seeded EMR corpus) for 8
@@ -32,6 +39,8 @@ Phases, each printed on its own line:
      step (once per LSTM layer), the loss must be finite, and one step must
      give the loss and every parameter gradient of the same step with the
      plain training pair; then step times and one profiled window;
+  6b. the same for full-width BiRNN-6, 4 steps then 2 resumed: each
+     training kernel launches four times per step (2 layers x 2 directions);
   7. a "kernels" JSON line; 8. a last JSON line with the device.
 
 Exits non-zero on any failure, and when no CUDA device is present.
@@ -58,7 +67,7 @@ from empose_tpu_torch.config import Configuration
 from empose_tpu_torch.data.datasets import EMRBatchLoader
 from empose_tpu_torch.data.emr import EMRWriter
 from empose_tpu_torch.device import set_precision
-from empose_tpu_torch.nn.layers import init_parameters
+from empose_tpu_torch.nn.layers import _reverse_by_length, init_parameters
 from empose_tpu_torch.nn.models import SensorSMPL, create_model
 from empose_tpu_torch.ops import cuda_build
 from empose_tpu_torch.ops import lstm_kernel as K
@@ -72,6 +81,7 @@ TOL = 1e-4
 TOL_REL = 1e-4       # training pair vs plain: max abs error over max abs value
 TOL_GRAD_REL = 1e-4  # a whole train step, kernel vs plain pair: max abs error / largest gradient
 TRAIN_WINDOW, TRAIN_BATCH, TRAIN_STEPS, RESUME_STEPS = 64, 16, 8, 4
+BIRNN_TRAIN_STEPS, BIRNN_RESUME_STEPS = 4, 2
 STREAMS, CHUNK, CHUNKS = 64, 16, 4
 HIDDEN, LAYERS, N_IN = 512, 2, 6 * 12  # init RNN of LGD-RNN-6: 6 markers x (3 pos + 9 ori)
 FP32_PEAK = 67e12    # H100 SXM fp32 FLOP/s outside the tensor cores
@@ -85,6 +95,15 @@ LGD_RNN_6 = dict(
     m_step_size=0.1, m_reprojection_loss_weight=0.01, m_fk_loss=0.1,
     m_pose_loss_weight=10.0, use_marker_pos=True, use_marker_ori=True,
     use_real_offsets=True, offset_noise_level=0, n_markers=6, window_size=256, lr=5e-4)
+
+# The released BiRNN-6 architecture (README.md:63-74, tests/test_released_configs.py:51-53):
+# a 2x512 bidirectional LSTM, shape MLP 256 with frame averaging, 6 markers;
+# 9,295,697 parameters.
+BIRNN_6 = dict(
+    m_type="rnn", m_bidirectional=True, m_hidden_size=512, m_num_layers=2,
+    m_estimate_shape=True, m_shape_hidden_size=256, m_average_shape=True,
+    use_marker_pos=True, use_marker_ori=True, use_real_offsets=True, offset_noise_level=0,
+    n_markers=6, window_size=256, lr=5e-4)
 
 
 def check(cond: bool, msg: str) -> None:
@@ -177,6 +196,75 @@ def stack_phase(f: int, n: int, seed: int) -> dict:
           f"{stack_ms:.4f} ms, plain {plain_ms:.4f} ms, torch.nn.LSTM (cuDNN, from x) "
           f"{library_ms:.4f} ms (max diff to plain at full lengths {lib_err:.2e}), "
           f"bound {b_ms:.4f} ms by {b_by}", flush=True)
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                library_ms=library_ms)
+
+
+def bidi_bound_ms(f: int, n: int) -> tuple:
+    """Least time for one bidirectional layer: both directions' fp32 FMA work
+    over the fp32 peak, or its bytes (each input read once, each output
+    written once) over the memory rate."""
+    h, h4 = HIDDEN, 4 * HIDDEN
+    flops = 2.0 * 2 * f * n * h * h4
+    n_bytes = 4.0 * (2 * f * n * h4 + f * n + 2 * h * h4 + 4 * n * h  # x_proj, mask, W_hh, h0/c0
+                     + 2 * f * n * h + 4 * n * h)                      # outs, hF, cF
+    return bound_ms(flops, n_bytes)
+
+
+def bidi_phase(f: int, n: int, seed: int) -> dict:
+    """The bidirectional layer kernel against its plain version on layer 0
+    of BiRNN-6 (input 72), 0-length rows bit for bit, then median times
+    beside the plain version and cuDNN's bidirectional layer."""
+    g = torch.Generator().manual_seed(seed)
+    bound = HIDDEN ** -0.5
+    u = lambda *s: ((torch.rand(*s, generator=g) * 2 - 1) * bound).cuda()
+    cells = [dict(w_ih=u(N_IN, 4 * HIDDEN), w_hh=u(HIDDEN, 4 * HIDDEN), b_ih=u(4 * HIDDEN),
+                  b_hh=u(4 * HIDDEN)) for _ in range(2)]
+    x = torch.randn(f, n, N_IN, generator=g).cuda()
+    lengths = torch.randint(1, f, (n,), generator=g)
+    lengths[: n // 16] = 0
+    lengths[n // 16: n // 16 + n // 3] = f
+    lengths = lengths.cuda()
+    mask = (torch.arange(f, device="cuda")[:, None] < lengths[None]).float()
+    h0 = (torch.randn(2, n, HIDDEN, generator=g) * 0.5).cuda()
+    c0 = (torch.randn(2, n, HIDDEN, generator=g) * 0.5).cuda()
+    x_rev = _reverse_by_length(x, lengths)
+    x_proj = torch.stack([xs @ c["w_ih"] + c["b_ih"] + c["b_hh"]
+                          for c, xs in zip(cells, (x, x_rev))], dim=1).contiguous()
+    w_hh2 = torch.stack([c["w_hh"] for c in cells])
+    args = (x_proj, mask, w_hh2, h0, c0)
+    got = K.lstm_bidi_fused(*args)
+    want = K.lstm_bidi_plain(*args)
+    torch.cuda.synchronize()
+    err = max((a - b).abs().max().item() for a, b in zip(got, want))
+    idle = lengths == 0
+    frozen = bool((got[1][:, idle] == h0[:, idle]).all() and (got[2][:, idle] == c0[:, idle]).all())
+    print(f"bidi kernel F={f} N={n}: max_abs_err vs plain {err:.3e} (outs, hF, cF); "
+          f"0-length rows frozen bit for bit: {frozen}", flush=True)
+    check(err <= TOL, f"bidi kernel disagrees with its plain version at F={f} N={n}: {err} > {TOL}")
+    check(frozen, f"bidi kernel changed the state of 0-length rows at F={f} N={n}")
+
+    lstm = torch.nn.LSTM(N_IN, HIDDEN, 1, bidirectional=True).cuda()
+    with torch.no_grad():
+        for c, suffix in zip(cells, ("", "_reverse")):
+            getattr(lstm, f"weight_ih_l0{suffix}").copy_(c["w_ih"].t())
+            getattr(lstm, f"weight_hh_l0{suffix}").copy_(c["w_hh"].t())
+            getattr(lstm, f"bias_ih_l0{suffix}").copy_(c["b_ih"])
+            getattr(lstm, f"bias_hh_l0{suffix}").copy_(c["b_hh"])
+        full = torch.ones_like(mask)
+        outs2, _ = K.lstm_bidi_layer(cells[0], cells[1], x, x.flip(0), full, h0, c0,
+                                     K.lstm_bidi_plain)
+        plain_full = torch.cat([outs2[:, 0], outs2[:, 1].flip(0)], dim=-1)
+        lib_err = (lstm(x, (h0, c0))[0] - plain_full).abs().max().item()
+        ms = cuda_ms(lambda: K.lstm_bidi_fused(*args))
+        layer_ms = cuda_ms(lambda: K.lstm_bidi_layer(cells[0], cells[1], x, x_rev, mask, h0, c0))
+        plain_ms = cuda_ms(lambda: K.lstm_bidi_plain(*args), reps=5 if f > 64 else 15)
+        library_ms = cuda_ms(lambda: lstm(x, (h0, c0)))
+    b_ms, b_by = bidi_bound_ms(f, n)
+    print(f"bidi times F={f} N={n}: kernel {ms:.4f} ms, kernel with input projections "
+          f"{layer_ms:.4f} ms, plain {plain_ms:.4f} ms, torch.nn.LSTM bidirectional (cuDNN, from "
+          f"x) {library_ms:.4f} ms (max diff to plain at full lengths {lib_err:.2e}), bound "
+          f"{b_ms:.4f} ms by {b_by}", flush=True)
     return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
                 library_ms=library_ms)
 
@@ -317,13 +405,13 @@ def write_assets(root: str, rng) -> None:
                       EM_EXPERIMENTS=os.path.join(root, "experiments"))
 
 
-def write_experiment(root: str, model_id: str) -> int:
-    """An experiment dir with a seeded full-width LGD-RNN-6 model.pth;
+def write_experiment(root: str, model_id: str, cfg: dict, name: str) -> int:
+    """An experiment dir with a seeded full-width model.pth of ``cfg``;
     returns the parameter count."""
-    config = Configuration.from_dict(LGD_RNN_6)
+    config = Configuration.from_dict(cfg)
     model = create_model(config, SensorSMPL(load_smplh()))
     init_parameters(model, torch.Generator().manual_seed(SEED))
-    model_dir = os.path.join(root, "experiments", f"{model_id}-LGD-RNN-6")
+    model_dir = os.path.join(root, "experiments", f"{model_id}-{name}")
     os.makedirs(model_dir)
     config.to_json(os.path.join(model_dir, "config.json"))
     torch.save({"model_state_dict": model.state_dict(), "iteration": 0, "epoch": 0},
@@ -381,7 +469,7 @@ def single_session(single, feeds, offsets):
     return {0: out}, {0: single.flush()}
 
 
-def serving_times(multi, single, feeds) -> None:
+def serving_times(label: str, multi, single, feeds) -> None:
     """p50 of the batched step (host packing, forward, the one download) and
     of a single-stream chunk; then one profiled window of 5 batched steps:
     device busy time (sum of kernel times), kernels launched per step and the
@@ -402,12 +490,12 @@ def serving_times(multi, single, feeds) -> None:
         single.push(pos[0, :CHUNK], ori[0, :CHUNK])
         single_ms.append((time.perf_counter() - t0) * 1e3)
     p50 = float(np.median(step_ms))
-    print(f"serving: {STREAMS} streams x chunk {CHUNK}: p50 {p50:.3f} ms per batched step "
+    print(f"{label} serving: {STREAMS} streams x chunk {CHUNK}: p50 {p50:.3f} ms per batched step "
           f"(min {min(step_ms):.3f}, max {max(step_ms):.3f}), "
           f"{STREAMS * CHUNK / p50 * 1e3:.1f} frames/s; single stream p50 "
           f"{float(np.median(single_ms)):.3f} ms per chunk", flush=True)
 
-    profile_window("serving", batched_step, 5)
+    profile_window(f"{label} serving", batched_step, 5)
 
 
 def profile_window(name: str, step, n_steps: int) -> None:
@@ -433,10 +521,11 @@ def profile_window(name: str, step, n_steps: int) -> None:
           "step; largest: " + "; ".join(f"{k[:48]} {v:.3f} ms" for k, v in top), flush=True)
 
 
-def train_flags(experiment_id: str, max_steps: int, resume: bool = False) -> list:
-    """The CLI flags of full-width LGD-RNN-6 training at the flagship step
-    (window 64, batch 16), evaluation beyond the run."""
-    cfg = dict(LGD_RNN_6, window_size=TRAIN_WINDOW, bs_train=TRAIN_BATCH, n_epochs=10,
+def train_flags(model_cfg: dict, experiment_id: str, max_steps: int,
+                resume: bool = False) -> list:
+    """The CLI flags of full-width training of ``model_cfg`` at the flagship
+    step (window 64, batch 16), evaluation beyond the run."""
+    cfg = dict(model_cfg, window_size=TRAIN_WINDOW, bs_train=TRAIN_BATCH, n_epochs=10,
                print_every=4, eval_every=10 ** 6, seed=SEED, experiment_id=experiment_id)
     flags = []
     for k, v in cfg.items():
@@ -454,46 +543,101 @@ def train_losses(model_dir: str) -> dict:
 
 
 def reset_counts() -> None:
-    K.LAUNCHES = TK.FWD_LAUNCHES = TK.BWD_LAUNCHES = 0
+    K.LAUNCHES = K.BIDI_LAUNCHES = TK.FWD_LAUNCHES = TK.BWD_LAUNCHES = 0
 
 
-def counts() -> tuple:
-    return K.LAUNCHES, TK.FWD_LAUNCHES, TK.BWD_LAUNCHES
+def counts() -> dict:
+    return {"lstm_stack": K.LAUNCHES, "lstm_bidi": K.BIDI_LAUNCHES,
+            "lstm_train_fwd": TK.FWD_LAUNCHES, "lstm_train_bwd": TK.BWD_LAUNCHES}
 
 
-def training_path() -> dict:
-    """Train 8 steps through the CLI's main, resume for 4; returns the
-    training kernels' launch counts of that run."""
+def expected(**launches) -> dict:
+    """The launch counts of a path: the given ones, every other kernel 0."""
+    return {k: launches.get(k, 0) for k in counts()}
+
+
+def serving_path(label: str, model_id: str, feeds, offsets, kernel: str, per_forward: int,
+                 use_plain) -> int:
+    """Serve ``model_id`` through MultiStreamPredictor.from_experiment
+    (``serve_rounds``) and one StreamingPredictor session with the counts at
+    0: ``kernel`` must launch ``per_forward`` times per served forward and
+    no other kernel at all; the served outputs must equal the same model
+    with its LSTM's plain version (``use_plain(model)``) within 1e-4. Then
+    step times and one profiled window. Returns the kernel's launches."""
+    multi = MultiStreamPredictor.from_experiment(model_id, n_streams=STREAMS, chunk_size=CHUNK)
+    model = multi.model
+    check(next(model.parameters()).is_cuda, "the model is not on the card")
+    single = StreamingPredictor(model, CHUNK)
+
     torch.cuda.synchronize()
     reset_counts()
-    model_dir, trainer = train_cli.main(train_flags("900002", TRAIN_STEPS))
+    served = serve_rounds(multi, feeds, offsets)
+    single_out = single_session(single, feeds, offsets)
+    torch.cuda.synchronize()
+    launched = counts()
+    forwards = len(served) + 4  # single session: 3 full chunks + 1 flush
+    print(f"{label} main path: {forwards} served forwards, launches {launched}", flush=True)
+    check(launched == expected(**{kernel: per_forward * forwards}),
+          f"{label}: expected {per_forward} {kernel} launches per served forward and no other "
+          f"kernel, got {launched} for {forwards} forwards")
+
+    ref_model = copy.deepcopy(model)
+    use_plain(ref_model)
+    ref_served = serve_rounds(MultiStreamPredictor(ref_model, STREAMS, CHUNK), feeds, offsets)
+    ref_single = single_session(StreamingPredictor(ref_model, CHUNK), feeds, offsets)
+    check(counts() == launched, f"{label}: the plain reference launched a kernel")
+    finite = all(np.isfinite(v).all() for o in served for s in o.values() for v in s.values())
+    shapes_ok = served[0][0]["pose_body"].shape == (CHUNK, 63) and \
+        served[3][3]["pose_body"].shape == (9, 63) and 1 in served[2] and 2 not in served[2]
+    err = max(max(max_diff(a, b) for a, b in zip(served, ref_served)),
+              max(max_diff(a, b) for a, b in zip(single_out, ref_single)))
+    print(f"{label} main path: outputs finite {finite}, shapes {shapes_ok}, outputs "
+          f"{sorted(served[0][0])}, max |kernel path - plain LSTM path| {err:.3e} over "
+          f"{len(served)} steps x {STREAMS} streams and the single session", flush=True)
+    check(finite and shapes_ok, f"{label}: served outputs are not finite or have wrong shapes")
+    check(err <= TOL, f"{label}: served outputs differ from the plain-LSTM forward: {err} > {TOL}")
+    serving_times(label, multi, single, feeds)
+    return launched[kernel]
+
+
+def training_path(label: str, model_cfg: dict, experiment_id: str, steps: int,
+                  resume_steps: int, per_step: int) -> dict:
+    """Train ``steps`` steps through the CLI's main, resume for
+    ``resume_steps``; each training kernel must launch ``per_step`` times per
+    step (once per direction-layer) and no other kernel. Returns the trainer
+    and the training kernels' launch counts of that run."""
+    torch.cuda.synchronize()
+    reset_counts()
+    model_dir, trainer = train_cli.main(train_flags(model_cfg, experiment_id, steps))
     torch.cuda.synchronize()
     first = counts()
-    check(trainer.global_step == TRAIN_STEPS, f"trained {trainer.global_step} steps")
+    check(trainer.global_step == steps, f"trained {trainer.global_step} steps")
     check(os.path.exists(os.path.join(model_dir, "checkpoint", "train_state.pt"))
           and os.path.exists(os.path.join(model_dir, "model.pth")), "no checkpoint written")
     reset_counts()
-    _, trainer = train_cli.main(train_flags("900002", TRAIN_STEPS + RESUME_STEPS, resume=True))
+    _, trainer = train_cli.main(train_flags(model_cfg, experiment_id, steps + resume_steps,
+                                            resume=True))
     torch.cuda.synchronize()
     second = counts()
     losses = train_losses(model_dir)
-    n_layers = LGD_RNN_6["m_rnn_num_layers"]
-    print(f"training main path: {TRAIN_STEPS} steps then {RESUME_STEPS} resumed, launches "
-          f"(stack, forward, reverse) {first} then {second}; losses by step "
+    print(f"{label} training main path: {steps} steps then {resume_steps} resumed, launches "
+          f"{first} then {second}; losses by step "
           f"{ {k: round(v, 6) for k, v in sorted(losses.items())} }", flush=True)
-    check(trainer.global_step == TRAIN_STEPS + RESUME_STEPS, "the resumed run did not reach step 12")
-    check(sorted(losses) == list(range(1, TRAIN_STEPS + RESUME_STEPS + 1)),
-          "the resumed run did not continue from step 8")
+    check(trainer.global_step == steps + resume_steps,
+          f"the resumed run did not reach step {steps + resume_steps}")
+    check(sorted(losses) == list(range(1, steps + resume_steps + 1)),
+          f"the resumed run did not continue from step {steps}")
     check(all(np.isfinite(v) for v in losses.values()), "a training loss is not finite")
-    check(first == (0, n_layers * TRAIN_STEPS, n_layers * TRAIN_STEPS)
-          and second == (0, n_layers * RESUME_STEPS, n_layers * RESUME_STEPS),
-          "each training kernel must launch once per LSTM layer per step and the stack "
-          "kernel never")
+    for n, got in ((steps, first), (resume_steps, second)):
+        check(got == expected(lstm_train_fwd=per_step * n, lstm_train_bwd=per_step * n),
+              f"{label}: each training kernel must launch {per_step} times per step and no "
+              f"other kernel, got {got} over {n} steps")
     return {"trainer": trainer, "model_dir": model_dir,
-            "fwd": first[1] + second[1], "bwd": first[2] + second[2]}
+            "fwd": first["lstm_train_fwd"] + second["lstm_train_fwd"],
+            "bwd": first["lstm_train_bwd"] + second["lstm_train_bwd"]}
 
 
-def training_step_vs_plain(trainer) -> None:
+def training_step_vs_plain(label: str, trainer, per_step: int) -> None:
     """One step from the same state and batch with the kernel pair and with
     the plain pair on the card: the loss and every parameter gradient."""
     loader = EMRBatchLoader(os.path.join(os.environ["EM_DATA_SYNTH"], "amass_emr"), TRAIN_BATCH,
@@ -519,8 +663,9 @@ def training_step_vs_plain(trainer) -> None:
     loss_p, grads_p = step(plain_cell)
     _, grads_p2 = step(plain_cell)
     torch.cuda.synchronize()
-    check(counts()[1:] == (launches[1] + 2, launches[2] + 2), "the kernel step did not launch "
-                                                                "the pair once per layer")
+    check(counts() == dict(launches, lstm_train_fwd=launches["lstm_train_fwd"] + per_step,
+                           lstm_train_bwd=launches["lstm_train_bwd"] + per_step),
+          f"{label}: the kernel step did not launch the pair once per direction-layer")
     model.rnn.lstm_train_cell = TK.lstm_cell_train
     model.load_state_dict(state)
     loss_err = rel_err(loss_k, loss_p)
@@ -535,7 +680,7 @@ def training_step_vs_plain(trainer) -> None:
     noise = max(float((a - b).abs().max()) / scale for a, b in zip(grads_p2, grads_p))
     rnn_errs = {k: rel_err(a, b) for k, a, b in zip(names, grads_k, grads_p) if k.startswith("rnn.")}
     worst, worst_rnn = max(errs, key=errs.get), max(rnn_errs, key=rnn_errs.get)
-    print(f"training step, kernel pair vs plain pair: loss {float(loss_k):.6f} vs "
+    print(f"{label} training step, kernel pair vs plain pair: loss {float(loss_k):.6f} vs "
           f"{float(loss_p):.6f} (rel {loss_err:.2e}); init-RNN gradients, max abs error / max "
           f"abs value, largest {rnn_errs[worst_rnn]:.2e} ({worst_rnn}); all {len(errs)} "
           f"gradients, max abs error / the largest gradient ({scale:.3e}), largest "
@@ -548,7 +693,7 @@ def training_step_vs_plain(trainer) -> None:
                                        f"{errs[worst]} > {TOL_GRAD_REL}")
 
 
-def training_times(trainer) -> None:
+def training_times(label: str, trainer) -> None:
     """p50 of a train step (upload, synthesis, forward, backward, Adam; host
     clock, synchronized) and frames/s, then one profiled window."""
     loader = EMRBatchLoader(os.path.join(os.environ["EM_DATA_SYNTH"], "amass_emr"), TRAIN_BATCH,
@@ -568,10 +713,10 @@ def training_times(trainer) -> None:
         times.append((time.perf_counter() - t0) * 1e3)
     p50 = float(np.median(times))
     frames = TRAIN_BATCH * TRAIN_WINDOW
-    print(f"training: batch {TRAIN_BATCH} x window {TRAIN_WINDOW}: p50 {p50:.3f} ms per step "
+    print(f"{label} training: batch {TRAIN_BATCH} x window {TRAIN_WINDOW}: p50 {p50:.3f} ms per step "
           f"(min {min(times):.3f}, max {max(times):.3f}, {len(times)} steps), "
           f"{frames / p50 * 1e3:.1f} frames/s", flush=True)
-    profile_window("training", step, 3)
+    profile_window(f"{label} training", step, 3)
 
 
 def main() -> int:
@@ -585,7 +730,7 @@ def main() -> int:
     print(card, flush=True)
 
     t0 = time.perf_counter()
-    logs = cuda_build.build([K.NAME, TK.NAME], force=True, verbose=True)
+    logs = cuda_build.build([K.NAME, K.BIDI_NAME, TK.NAME], force=True, verbose=True)
     for name, log in logs.items():
         regs = sorted({line.split("info    : ")[-1] for line in log.splitlines()
                        if "registers" in line or "spill" in line})
@@ -599,64 +744,60 @@ def main() -> int:
     # The flagship training step and a large one.
     pair = {(f, n): train_pair_phase(f, n, seed=SEED + f + n)
             for f, n in ((TRAIN_WINDOW, TRAIN_BATCH), (256, 64))}
+    print(f"bidi kernel: {K._bidi_library().lstm_bidi_units(HIDDEN)} units per block at "
+          f"H={HIDDEN}", flush=True)
+    bidi = {(f, n): bidi_phase(f, n, seed=SEED + f + n + 1)
+            for f, n in ((CHUNK, STREAMS), (256, STREAMS), (CHUNK, 1))}
 
     with tempfile.TemporaryDirectory(dir=cuda_build.BUILD_DIR) as root:
         rng = np.random.RandomState(SEED)
         write_assets(root, rng)
-        n_params = write_experiment(root, "900001")
+        n_params = write_experiment(root, "900001", LGD_RNN_6, "LGD-RNN-6")
         print(f"model: LGD-RNN-6, {n_params} parameters (seeded random weights)", flush=True)
-        multi = MultiStreamPredictor.from_experiment("900001", n_streams=STREAMS, chunk_size=CHUNK)
-        model = multi.model
-        check(next(model.parameters()).is_cuda, "the model is not on the card")
-        feeds = sensor_feeds(model.smpl, STREAMS, CHUNK * CHUNKS, rng)
+        n_params = write_experiment(root, "900003", BIRNN_6, "BiRNN-6")
+        print(f"model: BiRNN-6, {n_params} parameters (seeded random weights)", flush=True)
+        check(n_params == 9_295_697, "BiRNN-6 does not have the released parameter count")
+        feeds = sensor_feeds(SensorSMPL(load_smplh()).cuda(), STREAMS, CHUNK * CHUNKS, rng)
         offsets = [(o["means"], o["r"]) for o in (make_offset_data(rng) for _ in range(STREAMS))]
-        single = StreamingPredictor(model, CHUNK)
 
-        torch.cuda.synchronize()
-        reset_counts()
-        served = serve_rounds(multi, feeds, offsets)
-        single_out = single_session(single, feeds, offsets)
-        torch.cuda.synchronize()
-        launches, train_launched = K.LAUNCHES, counts()[1:]
-        forwards = len(served) + 4  # single session: 3 full chunks + 1 flush
-        print(f"main path: {forwards} served forwards, {launches} kernel launches", flush=True)
-        check(launches == forwards, f"expected one launch per served forward, "
-                                    f"got {launches} for {forwards}")
-        check(train_launched == (0, 0), "serving launched a training kernel")
+        def plain_stack(model):
+            model.rnn.lstm_stack = K.lstm_stack_plain
 
-        ref_model = copy.deepcopy(model)
-        ref_model.rnn.lstm_stack = K.lstm_stack_plain
-        ref_served = serve_rounds(MultiStreamPredictor(ref_model, STREAMS, CHUNK), feeds, offsets)
-        ref_single = single_session(StreamingPredictor(ref_model, CHUNK), feeds, offsets)
-        check(K.LAUNCHES == launches, "the plain reference launched the kernel")
-        finite = all(np.isfinite(v).all() for o in served for s in o.values() for v in s.values())
-        shapes_ok = served[0][0]["pose_body"].shape == (CHUNK, 63) and \
-            served[3][3]["pose_body"].shape == (9, 63) and 1 in served[2] and 2 not in served[2]
-        err = max(max(max_diff(a, b) for a, b in zip(served, ref_served)),
-                  max(max_diff(a, b) for a, b in zip(single_out, ref_single)))
-        print(f"main path: outputs finite {finite}, shapes {shapes_ok}, max |kernel path - "
-              f"plain LSTM path| {err:.3e} over {len(served)} steps x {STREAMS} streams "
-              f"and the single session", flush=True)
-        check(finite and shapes_ok, "served outputs are not finite or have wrong shapes")
-        check(err <= TOL, f"served poses differ from the plain-LSTM forward: {err} > {TOL}")
+        def plain_bidi(model):
+            model.rnn.lstm_bidi = K.lstm_bidi_plain
 
-        serving_times(multi, single, feeds)
-        del multi, single, model, ref_model
+        launches = serving_path("LGD-RNN-6", "900001", feeds, offsets, "lstm_stack", 1,
+                                plain_stack)
+        bidi_launches = serving_path("BiRNN-6", "900003", feeds, offsets, "lstm_bidi",
+                                     BIRNN_6["m_num_layers"], plain_bidi)
 
-        trained = training_path()
-        training_step_vs_plain(trained["trainer"])
-        training_times(trained["trainer"])
+        n_layers = LGD_RNN_6["m_rnn_num_layers"]
+        trained = training_path("LGD-RNN-6", LGD_RNN_6, "900002", TRAIN_STEPS, RESUME_STEPS,
+                                n_layers)
+        training_step_vs_plain("LGD-RNN-6", trained["trainer"], n_layers)
+        training_times("LGD-RNN-6", trained["trainer"])
+        trained_fwd, trained_bwd = trained["fwd"], trained["bwd"]
+        del trained
+
+        per_step = 2 * BIRNN_6["m_num_layers"]
+        birnn = training_path("BiRNN-6", BIRNN_6, "900004", BIRNN_TRAIN_STEPS,
+                              BIRNN_RESUME_STEPS, per_step)
+        training_step_vs_plain("BiRNN-6", birnn["trainer"], per_step)
+        training_times("BiRNN-6", birnn["trainer"])
 
     f16 = stack[(CHUNK, STREAMS)]
     flagship = pair[(TRAIN_WINDOW, TRAIN_BATCH)]
     kernels = [
         dict(name="lstm_stack", route="cuda", source="empose_tpu_torch/csrc/lstm_stack.cu",
              replaces="empose_tpu/ops/lstm_kernel.py:150", launches=launches, **f16),
+        dict(name="lstm_bidi", route="cuda", source="empose_tpu_torch/csrc/lstm_bidi.cu",
+             replaces="empose_tpu/ops/lstm_kernel.py:589", launches=bidi_launches,
+             **bidi[(CHUNK, STREAMS)]),
         dict(name="lstm_train_fwd", route="cuda", source="empose_tpu_torch/csrc/lstm_train.cu",
-             replaces="empose_tpu/ops/lstm_train_kernel.py:136", launches=trained["fwd"],
+             replaces="empose_tpu/ops/lstm_train_kernel.py:136", launches=trained_fwd,
              **flagship["fwd"]),
         dict(name="lstm_train_bwd", route="cuda", source="empose_tpu_torch/csrc/lstm_train.cu",
-             replaces="empose_tpu/ops/lstm_train_kernel.py:244", launches=trained["bwd"],
+             replaces="empose_tpu/ops/lstm_train_kernel.py:244", launches=trained_bwd,
              **flagship["bwd"]),
     ]
     print(f"total {time.perf_counter() - t_start:.1f} s", flush=True)

@@ -13,6 +13,12 @@ torch_writer.py::export_model``:
   ``num_batches_tracked`` is 0.
 * PReLU: alpha -> weight.
 * LSTM: w_ih (in, 4H) -> weight_ih_l{k}[_reverse] (4H, in); gate order kept.
+
+Model key maps (``empose_tpu/checkpoint/mapping.py:132-173``): ResNet
+``from_input``, ``blocks.{i}.dense``, ``to_pose``, ``to_shape`` (an MLP
+without BatchNorm); SimpleRNN ``rnn.lstm.*[_reverse]``,
+``rnn.to_init_state_{h,c}``, ``to_pose``, ``to_shape``; IEF/LGD the init RNN
+or MLPs and the iter MLPs.
 """
 
 from __future__ import annotations
@@ -96,14 +102,23 @@ def _rnn_layer(params: Dict, prefix: str, out: StateDict) -> None:
 
 
 def state_dict_from_jax(params: Dict, state: Optional[Dict], config) -> StateDict:
-    """The port's ``state_dict`` for an ``ief``/``lgd`` model's JAX pytrees;
-    with ``state=None`` the parameters only (no BatchNorm buffers)."""
-    if config.m_type not in ("ief", "lgd"):
-        raise NotImplementedError(
-            f"m_type={config.m_type!r} is not ported yet: ROADMAP.md, queue 1, "
-            "'SimpleRNN and FeedForwardResNet'")
-    use_bn = not config.m_no_batch_norm
+    """The port's ``state_dict`` for a model's JAX pytrees; with
+    ``state=None`` the parameters only (no BatchNorm buffers)."""
     out: StateDict = {}
+    if config.m_type in ("resnet", "rnn"):
+        if config.m_type == "resnet":
+            _linear(params["from_input"], "from_input", out)
+            for i, block in enumerate(params["blocks"]):
+                _linear(block["dense"], f"blocks.{i}.dense", out)
+        else:
+            _rnn_layer(params["rnn"], "rnn", out)
+        _linear(params["to_pose"], "to_pose", out)
+        if config.m_estimate_shape:
+            _mlp(params["to_shape"], _sub(state, "to_shape"), "to_shape", out, use_bn=False)
+        return out
+    if config.m_type not in ("ief", "lgd"):
+        raise ValueError(f"Model type '{config.m_type}' unknown.")
+    use_bn = not config.m_no_batch_norm
     if config.m_rnn_init:
         _rnn_layer(params["rnn"], "rnn", out)
         _linear(params["pose_net_init"], "pose_net_init", out)

@@ -26,7 +26,8 @@ from typing import Optional, Tuple
 import torch
 from torch import nn
 
-from empose_tpu_torch.ops.lstm_kernel import lstm_cell_plain, lstm_stack, lstm_stack_fused
+from empose_tpu_torch.ops.lstm_kernel import (lstm_bidi_fused, lstm_bidi_layer, lstm_stack,
+                                              lstm_stack_fused)
 from empose_tpu_torch.ops.lstm_train_kernel import lstm_cell_train
 
 BN_EPS = 1e-5
@@ -203,6 +204,17 @@ class MLP(nn.Module):
         return self.hidden_to_output(y)
 
 
+class ResidualBlock(nn.Module):
+    """``relu(dense(x) + x)`` (``nn/layers.py::residual_block_apply``)."""
+
+    def __init__(self, size: int):
+        super().__init__()
+        self.dense = Linear(size, size)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return torch.relu(self.dense(x) + x)
+
+
 def _reverse_by_length(x: torch.Tensor, lengths: torch.Tensor) -> torch.Tensor:
     """Per-sample reversal of the valid prefix of a (F, N, ...) tensor."""
     t = torch.arange(x.shape[0], device=x.device)[:, None]
@@ -250,16 +262,18 @@ class LSTM(nn.Module):
 
 def lstm_apply(lstm: LSTM, x: torch.Tensor, lengths: torch.Tensor,
                init_state: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
-               inference: bool = True, stack_fn=lstm_stack_fused, train_cell=lstm_cell_train):
+               inference: bool = True, stack_fn=lstm_stack_fused, train_cell=lstm_cell_train,
+               bidi_fn=lstm_bidi_fused):
     """Multi-layer (bi)LSTM over a padded batch (``nn/layers.py::lstm_apply``).
 
     Padded frames never update the state and give zero outputs; the reverse
     direction runs over each sample's true length.
 
-    Inference: a unidirectional stack runs through the weight-resident
-    kernel (``stack_fn``), a bidirectional one through the plain cell (CPU
-    only until its kernel is ported). Training: every direction-layer runs
-    through ``train_cell``, the differentiable kernel pair on CUDA.
+    Inference: a unidirectional stack runs through the weight-resident stack
+    kernel (``stack_fn``), a bidirectional one layer by layer through the
+    bidirectional layer kernel (``bidi_fn``), both directions in one call.
+    Training: every direction-layer runs through ``train_cell``, the
+    differentiable kernel pair on CUDA.
 
     :param x: (N, F, I) batch-first; :param lengths: (N,) int.
     :param init_state: (h0, c0), each (num_layers * dirs, N, H), torch layout.
@@ -268,10 +282,6 @@ def lstm_apply(lstm: LSTM, x: torch.Tensor, lengths: torch.Tensor,
     n, f = x.shape[0], x.shape[1]
     hidden = lstm.hidden_size
     dirs = 2 if lstm.bidirectional else 1
-    if x.is_cuda and lstm.bidirectional and inference:
-        raise NotImplementedError(
-            "bidirectional LSTM inference on CUDA needs the bidirectional layer kernel, "
-            "not ported yet: ROADMAP.md, queue 2, 'ops/lstm_kernel.py::_pallas_bidi'")
     mask = (torch.arange(f, device=x.device)[:, None] < lengths[None, :]).to(x.dtype)  # (F, N)
     xt = x.transpose(0, 1)  # (F, N, I)
     if init_state is None:
@@ -285,25 +295,27 @@ def lstm_apply(lstm: LSTM, x: torch.Tensor, lengths: torch.Tensor,
         outs, (hF, cF) = lstm_stack(cells, xt, mask, h0, c0, stack_fn=stack_fn)
         return outs.transpose(0, 1), (hF, cF)
 
-    def run_cell(cell, xs, k):
-        if not inference:
-            return train_cell(cell, xs, mask, h0[k], c0[k])
-        xp = xs @ cell["w_ih"] + cell["b_ih"] + cell["b_hh"]
-        outs, hF, cF = lstm_cell_plain(xp, mask, cell["w_hh"], h0[k], c0[k])
-        return outs, (hF, cF)
-
     h_finals, c_finals = [], []
     for l in range(lstm.num_layers):
-        outs_f, (hF, cF) = run_cell(lstm.cell(l), xt, l * dirs)
-        h_finals.append(hF)
-        c_finals.append(cF)
-        if lstm.bidirectional:
-            outs_b, (hF, cF) = run_cell(lstm.cell(l, "_reverse"), _reverse_by_length(xt, lengths),
-                                        l * dirs + 1)
-            outs_f = torch.cat([outs_f, _reverse_by_length(outs_b, lengths)], dim=-1)
+        if inference:  # bidirectional: both directions of the layer in one call
+            outs2, (hF, cF) = lstm_bidi_layer(
+                lstm.cell(l), lstm.cell(l, "_reverse"), xt, _reverse_by_length(xt, lengths),
+                mask, h0[2 * l:2 * l + 2], c0[2 * l:2 * l + 2], bidi_fn=bidi_fn)
+            xt = torch.cat([outs2[:, 0], _reverse_by_length(outs2[:, 1], lengths)], dim=-1)
+            h_finals += [hF[0], hF[1]]
+            c_finals += [cF[0], cF[1]]
+        else:
+            outs_f, (hF, cF) = train_cell(lstm.cell(l), xt, mask, h0[l * dirs], c0[l * dirs])
             h_finals.append(hF)
             c_finals.append(cF)
-        xt = outs_f
+            if lstm.bidirectional:
+                outs_b, (hF, cF) = train_cell(lstm.cell(l, "_reverse"),
+                                              _reverse_by_length(xt, lengths), mask,
+                                              h0[l * dirs + 1], c0[l * dirs + 1])
+                outs_f = torch.cat([outs_f, _reverse_by_length(outs_b, lengths)], dim=-1)
+                h_finals.append(hF)
+                c_finals.append(cF)
+            xt = outs_f
     return xt.transpose(0, 1), (torch.stack(h_finals), torch.stack(c_finals))
 
 
@@ -312,9 +324,10 @@ class RNNLayer(nn.Module):
     (``nn/layers.py::rnn_layer_apply``). Streaming state is an explicit carry.
 
     ``lstm_stack`` is the stack function a unidirectional LSTM runs through
-    at inference and ``lstm_train_cell`` the direction-layer function of
-    training; the defaults launch the kernels on CUDA. A reference run on
-    the card may set them to ``lstm_stack_plain`` and ``lstm_cell_train``
+    at inference, ``lstm_bidi`` the layer function of a bidirectional one,
+    and ``lstm_train_cell`` the direction-layer function of training; the
+    defaults launch the kernels on CUDA. A reference run on the card may set
+    them to ``lstm_stack_plain``, ``lstm_bidi_plain`` and ``lstm_cell_train``
     with the plain sweeps.
     """
 
@@ -333,6 +346,7 @@ class RNNLayer(nn.Module):
             self.to_init_state_h = Linear(input_size, hidden_size * num_layers * dirs)
             self.to_init_state_c = Linear(input_size, hidden_size * num_layers * dirs)
         self.lstm_stack = lstm_stack_fused
+        self.lstm_bidi = lstm_bidi_fused
         self.lstm_train_cell = lstm_cell_train
         self.dropout_p = dropout_p
 
@@ -353,4 +367,5 @@ class RNNLayer(nn.Module):
             h0 = self.to_init_state_h(first).reshape(n, self.num_layers, self.hidden_size)
             init_state = (c0.transpose(0, 1).contiguous(), h0.transpose(0, 1).contiguous())
         return lstm_apply(self.lstm, x, lengths, init_state, inference=not self.training,
-                          stack_fn=self.lstm_stack, train_cell=self.lstm_train_cell)
+                          stack_fn=self.lstm_stack, train_cell=self.lstm_train_cell,
+                          bidi_fn=self.lstm_bidi)

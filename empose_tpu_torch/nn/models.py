@@ -1,10 +1,14 @@
-"""The LGD model (IterativeErrorFeedback) and its SMPL-H sensor bundle.
+"""The model zoo (FeedForwardResNet, SimpleRNN/BiRNN, the LGD model) and its
+SMPL-H sensor bundle.
 
 Port of ``empose_tpu/nn/models.py``: ``SensorSMPL`` with the row-major FK
-semantics of ``markers_and_joints_row_major``/``estimated_markers``,
-``BaseModel.prepare_inputs``, ``IterativeErrorFeedback.forward`` (eval and
-train), ``compute_loss``, ``reference_grad_extra_loss`` and
-``create_model`` for ``ief``/``lgd``.
+semantics of ``markers_and_joints_row_major``/``estimated_markers`` and
+``joints``; ``BaseModel`` (input preparation, the FK of the FK loss, the
+shared pose/shape/FK losses); ``FeedForwardResNet`` and ``SimpleRNN``
+(forward, ``compute_loss``); ``IterativeErrorFeedback.forward`` (eval and
+train), ``compute_loss``, ``reference_grad_extra_loss``; and
+``create_model`` for every ``m_type``. A model's ``forward(window, carry,
+generator)`` returns ``(out, new_carry)``; train mode is ``module.train()``.
 
 The learned-gradient input is the gradient of the sensor reconstruction
 error with respect to the current pose and shape, scaled by n*f. It is taken
@@ -28,12 +32,12 @@ from empose_tpu_torch.nn import losses as LS
 
 def create_model(config, sensor_smpl: "SensorSMPL") -> nn.Module:
     """Factory keyed on ``config.m_type`` (module on the CPU, eval mode)."""
+    if config.m_type == "rnn":
+        return SimpleRNN(config, sensor_smpl).eval()
+    if config.m_type == "resnet":
+        return FeedForwardResNet(config, sensor_smpl).eval()
     if config.m_type in ("ief", "lgd"):
         return IterativeErrorFeedback(config, sensor_smpl).eval()
-    if config.m_type in ("rnn", "resnet"):
-        raise NotImplementedError(
-            f"m_type={config.m_type!r} is not ported yet: ROADMAP.md, queue 1, "
-            "'SimpleRNN and FeedForwardResNet'")
     raise ValueError(f"Model type '{config.m_type}' unknown.")
 
 
@@ -77,6 +81,12 @@ class SensorSMPL(nn.Module):
         pos, ori, nor = vsens.virtual_pos_and_rot(verts, self._tables())
         return pos, ori, nor, joints[:, : C.N_JOINTS + 1]
 
+    def joints(self, poses: torch.Tensor, shapes: torch.Tensor) -> torch.Tensor:
+        """FK joints only (root and body, no hands): (B, 66)."""
+        _, joints = smplh_fk(self._sub_model(), poses[:, 3:], shapes, poses_root=poses[:, :3],
+                             want_vertices=False)
+        return joints[:, : C.N_JOINTS + 1].reshape(poses.shape[0], -1)
+
     def estimated_markers(self, poses, shapes, offset_r, offset_t):
         """Apply mounting offsets to the virtual frames.
 
@@ -93,10 +103,9 @@ def _average_over_frames(x: torch.Tensor) -> torch.Tensor:
     return x.mean(dim=1, keepdim=True).expand(x.shape)
 
 
-class IterativeErrorFeedback(nn.Module):
-    """The LGD model: an initial estimate (init RNN or MLPs), then N
-    refinement steps fed with the sensors, the current estimate and
-    (``m_use_gradient``) the scaled gradient of the reconstruction error."""
+class BaseModel(nn.Module):
+    """Input sizing, input preparation, the FK of the FK loss and the shared
+    pose/shape/FK losses (``empose_tpu/nn/models.py::BaseModel``)."""
 
     def __init__(self, config, sensor_smpl: SensorSMPL):
         super().__init__()
@@ -107,30 +116,198 @@ class IterativeErrorFeedback(nn.Module):
             raise ValueError(f"n_markers must be 6 or 12, got {self.n_markers}")
         if config.use_marker_nor:
             raise ValueError("Normals currently not supported.")
-        self.N = config.m_num_iterations
-        self.step_size = config.m_step_size
-        self.r_weight = config.m_reprojection_loss_weight
+        self.estimate_shape = config.m_estimate_shape
+        self.shape_avg = config.m_average_shape
         self.fk_loss_weight = config.m_fk_loss
         self.do_fk = self.fk_loss_weight > 0.0
         self.pose_weight = getattr(config, "m_pose_loss_weight", 1.0)
         self.shape_weight = getattr(config, "m_shape_loss_weight", 1.0)
+        self.input_size = self.n_markers * (3 * bool(config.use_marker_pos)
+                                            + 9 * bool(config.use_marker_ori))
+        self.output_size = (C.N_JOINTS + 1) * 3
+
+    def initial_carry(self):
+        """Streaming carry at sequence start."""
+        return None
+
+    def prepare_inputs(self, window: Dict) -> torch.Tensor:
+        """Concatenate pos/ori features with the optional 6-marker subselect.
+
+        ``window['marker_pos']`` (N, F, 12*3), ``window['marker_ori']`` (N, F, 12*9).
+        """
+        m_pos = window["marker_pos"]
+        n, f = m_pos.shape[0], m_pos.shape[1]
+        m_pos = m_pos.reshape(n, f, -1, 3)
+        m_ori = window["marker_ori"].reshape(n, f, -1, 3, 3)
+        if self.n_markers == 6:
+            sel = list(C.S_CONFIG_6)
+            m_pos, m_ori = m_pos[:, :, sel], m_ori[:, :, sel]
+        feats = []
+        if self.config.use_marker_pos:
+            feats.append(m_pos.reshape(n, f, -1))
+        if self.config.use_marker_ori:
+            feats.append(m_ori.reshape(n, f, -1))
+        return torch.cat(feats, dim=-1)
+
+    def maybe_do_fk(self, pose_hat: torch.Tensor, shape_hat) -> Optional[torch.Tensor]:
+        """FK joints (N, F, 66) for the FK loss, None without it."""
+        if not self.do_fk:
+            return None
+        n, f = pose_hat.shape[0], pose_hat.shape[1]
+        joints = self.smpl.joints(pose_hat.reshape(n * f, -1), shape_hat.reshape(n * f, -1))
+        return joints.reshape(n, f, -1)
+
+    def _pose_shape_out(self, pose_hat: torch.Tensor, shape_hat) -> Dict:
+        """The output dict of the single-estimate models, with the FK joints."""
+        return {"pose_hat": pose_hat[:, :, 3:], "root_ori_hat": pose_hat[:, :, :3],
+                "shape_hat": shape_hat, "joints_hat": self.maybe_do_fk(pose_hat, shape_hat)}
+
+    def compute_loss(self, batch: Dict, out: Dict):
+        """Pose/root MSE + shape L1 + FK reconstruction loss
+        (``BaseModel._common_losses``; the LGD model has its own).
+
+        :return: (total, {pose, root_pose, shape, fk, total_loss}).
+        """
+        poses = batch["poses"]
+        n, f = poses.shape[0], poses.shape[1]
+        seq_lengths = batch["seq_lengths"]
+        marker_masks = batch.get("marker_masks")
+        pose_loss = LS.normal_mse(poses[:, :, 3:].reshape(n, f, -1, 3),
+                                  out["pose_hat"].reshape(n, f, -1, 3), seq_lengths, marker_masks)
+        root_pose_loss = LS.normal_mse(poses[:, :, :3].reshape(n, f, -1, 3),
+                                       out["root_ori_hat"].reshape(n, f, -1, 3), seq_lengths,
+                                       marker_masks)
+        zero = poses.new_zeros(())
+        shape_loss = fk_loss = zero
+        if self.estimate_shape:
+            shapes_rep = batch["shapes"][:, None].expand(n, f, batch["shapes"].shape[-1])
+            shape_loss = LS.padded_loss(shapes_rep, out["shape_hat"], LS.l1, seq_lengths)
+        if self.do_fk:
+            joints_gt = batch["joints_gt"].reshape(n, f, -1, 3)
+            joints_hat = out["joints_hat"].reshape(n, f, -1, 3)
+            fk_loss = LS.reconstruction_loss(joints_gt, joints_hat, seq_lengths, marker_masks)
+        total = pose_loss + root_pose_loss + shape_loss + self.fk_loss_weight * fk_loss
+        vals = {"pose": pose_loss, "root_pose": root_pose_loss, "shape": shape_loss,
+                "fk": fk_loss, "total_loss": total}
+        return total, vals
+
+
+def _shape_mlp(config, input_size: int) -> L.MLP:
+    """The shape head of ResNet and SimpleRNN: an MLP of 2 hidden blocks
+    without BatchNorm."""
+    return L.MLP(input_size, C.N_SHAPE_PARAMS, config.m_shape_hidden_size, num_layers=2,
+                 use_batch_norm=False, skip_connection=config.m_skip_connections,
+                 dropout_p=config.m_dropout_hidden)
+
+
+def _model_name_tail(model: BaseModel) -> str:
+    c = model.config
+    name = f"-shape{c.m_shape_hidden_size}{'-avg' if model.shape_avg else ''}"
+    if model.do_fk:
+        name += f"-fk{model.fk_loss_weight}"
+    return name + f"-n{model.n_markers}-lr{c.lr}"
+
+
+class FeedForwardResNet(BaseModel):
+    """Per-frame ResNet: ``from_input``, ``m_num_layers`` residual blocks,
+    ``to_pose`` and the optional shape MLP. It has no carry."""
+
+    def __init__(self, config, sensor_smpl: SensorSMPL):
+        super().__init__(config, sensor_smpl)
+        self.hidden_size = config.m_hidden_size
+        self.num_layers = config.m_num_layers
+        self.from_input = L.Linear(self.input_size, self.hidden_size)
+        self.blocks = nn.ModuleList([L.ResidualBlock(self.hidden_size)
+                                     for _ in range(self.num_layers)])
+        self.to_pose = L.Linear(self.hidden_size, self.output_size)
+        if self.estimate_shape:
+            self.to_shape = _shape_mlp(config, self.hidden_size)
+
+    def model_name(self) -> str:
+        """The architecture summary of experiment directory names."""
+        return f"ResNet-{self.num_layers}x{self.hidden_size}" + _model_name_tail(self)
+
+    def forward(self, window: Dict, carry=None, generator: Optional[torch.Generator] = None):
+        """:param generator: dropout draws in training mode (None: no dropout).
+        :return: (out, None)."""
+        x = self.from_input(self.prepare_inputs(window))
+        for block in self.blocks:
+            x = block(x)
+        shape_hat = None
+        if self.estimate_shape:
+            shape_hat = self.to_shape(x, None, generator)
+            if self.shape_avg:
+                shape_hat = _average_over_frames(shape_hat)
+        return self._pose_shape_out(self.to_pose(x), shape_hat), None
+
+
+class SimpleRNN(BaseModel):
+    """(Bi)LSTM over the window, ``to_pose`` and the optional shape MLP.
+
+    The streaming carry is the LSTM's final (h, c), (layers * dirs, N, H)
+    each: for a BiRNN both directions' final states, the backward one taken
+    at each window's first frame, as in the JAX package. With
+    ``m_learn_init_state`` the learned frame-0 state wins over any carry on
+    every window (the reference quirk)."""
+
+    def __init__(self, config, sensor_smpl: SensorSMPL):
+        super().__init__(config, sensor_smpl)
+        self.hidden_size = config.m_hidden_size
+        self.num_layers = config.m_num_layers
+        self.bidirectional = config.m_bidirectional
+        self.learn_init_state = config.m_learn_init_state
+        dirs = 2 if self.bidirectional else 1
+        self.rnn = L.RNNLayer(self.input_size, self.hidden_size, self.num_layers,
+                              bidirectional=self.bidirectional,
+                              learn_init_state=self.learn_init_state, dropout_p=config.m_dropout)
+        self.to_pose = L.Linear(self.hidden_size * dirs, self.output_size)
+        if self.estimate_shape:
+            self.to_shape = _shape_mlp(config, self.hidden_size * dirs)
+
+    def model_name(self) -> str:
+        """The architecture summary of experiment directory names."""
+        name = "RNN-" + "-".join([str(self.hidden_size)] * self.num_layers)
+        return ("Bi" if self.bidirectional else "") + name + _model_name_tail(self)
+
+    def forward(self, window: Dict, carry=None, generator: Optional[torch.Generator] = None):
+        """:param carry: the LSTM's final (h, c) of the previous window, or None.
+        :param generator: dropout draws in training mode (None: no dropout).
+        :return: (out, new_carry)."""
+        x = self.prepare_inputs(window)
+        if self.learn_init_state:
+            carry = None
+        lstm_out, new_carry = self.rnn(x, window["seq_lengths"], carry, generator)
+        shape_hat = None
+        if self.estimate_shape:
+            shape_hat = self.to_shape(lstm_out, None, generator)
+            if self.shape_avg:
+                shape_hat = _average_over_frames(shape_hat)
+        return self._pose_shape_out(self.to_pose(lstm_out), shape_hat), new_carry
+
+
+class IterativeErrorFeedback(BaseModel):
+    """The LGD model: an initial estimate (init RNN or MLPs), then N
+    refinement steps fed with the sensors, the current estimate and
+    (``m_use_gradient``) the scaled gradient of the reconstruction error."""
+
+    def __init__(self, config, sensor_smpl: SensorSMPL):
+        super().__init__(config, sensor_smpl)
+        self.N = config.m_num_iterations
+        self.step_size = config.m_step_size
+        self.r_weight = config.m_reprojection_loss_weight
         self.use_gradient = config.m_use_gradient
         self.rnn_init = config.m_rnn_init
-        self.shape_avg = config.m_average_shape
         self.marker_idxs = tuple(range(12)) if self.n_markers == 12 else C.S_CONFIG_6
         self.register_buffer("marker_sel", torch.tensor(self.marker_idxs), persistent=False)
 
         self.pos_d_start = self.pos_d_end = self.ori_d_start = self.ori_d_end = 0
-        input_size = 0
         if config.use_marker_pos:
-            input_size += self.n_markers * 3
             self.pos_d_end = self.n_markers * 3
             self.ori_d_start = self.pos_d_end
         if config.use_marker_ori:
-            input_size += self.n_markers * 9
             self.ori_d_end = self.ori_d_start + self.n_markers * 9
-        self.input_size = input_size
-        self.pose_size = (C.N_JOINTS + 1) * 3
+        input_size = self.input_size
+        self.pose_size = self.output_size
         self.shape_size = C.N_SHAPE_PARAMS
         self.input_iter_size = input_size + self.pose_size + self.shape_size
         if self.use_gradient:
@@ -155,10 +332,6 @@ class IterativeErrorFeedback(nn.Module):
         self.shape_net_iter = L.MLP(self.input_iter_size, self.shape_size, config.m_hidden_size,
                                     config.m_num_layers, **mlp_kw)
 
-    def initial_carry(self):
-        """Streaming carry at sequence start."""
-        return None
-
     def model_name(self) -> str:
         """The architecture summary of experiment directory names."""
         c = self.config
@@ -170,25 +343,6 @@ class IterativeErrorFeedback(nn.Module):
         name += "-grad" if self.use_gradient else ""
         name += "-skip" if c.m_skip_connections else ""
         return name + f"-n{self.n_markers}"
-
-    def prepare_inputs(self, window: Dict) -> torch.Tensor:
-        """Concatenate pos/ori features with the optional 6-marker subselect.
-
-        ``window['marker_pos']`` (N, F, 12*3), ``window['marker_ori']`` (N, F, 12*9).
-        """
-        m_pos = window["marker_pos"]
-        n, f = m_pos.shape[0], m_pos.shape[1]
-        m_pos = m_pos.reshape(n, f, -1, 3)
-        m_ori = window["marker_ori"].reshape(n, f, -1, 3, 3)
-        if self.n_markers == 6:
-            sel = list(C.S_CONFIG_6)
-            m_pos, m_ori = m_pos[:, :, sel], m_ori[:, :, sel]
-        feats = []
-        if self.config.use_marker_pos:
-            feats.append(m_pos.reshape(n, f, -1))
-        if self.config.use_marker_ori:
-            feats.append(m_ori.reshape(n, f, -1))
-        return torch.cat(feats, dim=-1)
 
     def _recon_error(self, inputs_flat, marker_pos_hat, marker_ori_hat, n, f, seq_lengths,
                      marker_masks):

@@ -24,7 +24,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 # Codes the kernels' C functions return beside cudaError_t values.
 ERRORS = {
     -1: "the grid cannot be co-resident on this card (hidden size too large "
-        "for one block per SM at 8 units per block)",
+        "for the blocks per SM at 8 units per block)",
     -2: "the resident weights exceed a block's shared memory",
     -3: "the card does not support cooperative launches",
     -4: "bad shape (F, N, H, L must be positive and H a multiple of 4)",

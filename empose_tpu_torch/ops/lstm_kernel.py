@@ -1,10 +1,14 @@
-"""Weight-resident LSTM stack forward: the CUDA kernel, its plain version, its count.
+"""Weight-resident LSTM inference: the CUDA kernels, their plain versions, their counts.
 
-The kernel (``csrc/lstm_stack.cu``) replaces the Pallas TPU kernel
-``empose_tpu/ops/lstm_kernel.py::_pallas_forward``: the inference forward of a
-whole unidirectional L-layer LSTM stack over F steps in one launch, with every
-layer's gate weights resident on chip for the whole sweep. The source file
-says what bounds it on an H100 and how the weights are spread over the SMs.
+Two kernels, each replacing a Pallas TPU kernel of
+``empose_tpu/ops/lstm_kernel.py``; each source file says what bounds it on an
+H100 and how the weights are spread over the SMs:
+
+* ``csrc/lstm_stack.cu`` replaces ``_pallas_forward``: the inference forward
+  of a whole unidirectional L-layer LSTM stack over F steps in one launch,
+  with every layer's gate weights resident on chip for the whole sweep;
+* ``csrc/lstm_bidi.cu`` replaces ``_pallas_bidi``: one bidirectional layer,
+  both directions in one launch with both recurrent weights resident.
 
 Contract shared by :func:`lstm_stack_plain` and :func:`lstm_stack_fused`
 (time-major, the JAX kernel's layouts):
@@ -20,8 +24,22 @@ layer's outputs, zero at masked steps, and the final states, frozen bit for
 bit at masked steps.
 
 ``lstm_stack_fused`` launches the kernel for CUDA tensors and runs the plain
-version for CPU tensors; ``LAUNCHES`` counts kernel launches. The library is
-compiled with ``nvcc`` at first use into ``empose_tpu_torch/_build/``.
+version for CPU tensors; ``LAUNCHES`` counts kernel launches. The libraries
+are compiled with ``nvcc`` at first use into ``empose_tpu_torch/_build/``.
+
+Contract shared by :func:`lstm_bidi_plain` and :func:`lstm_bidi_fused` (the
+JAX kernel's, time-major):
+
+* ``x_proj`` (F, 2, N, 4H): each direction's input projection with both
+  biases, the backward one projected from the input reversed per sample by
+  length, so that ``mask`` (F, N) serves both directions;
+* ``w_hh2`` (2, H, 4H), [fwd, bwd] in ``x @ w`` form; ``h0``/``c0`` (2, N, H).
+
+Both return ``(outs (F, 2, N, H), hF (2, N, H), cF (2, N, H))``, the backward
+outputs still in reversed time, zero at masked steps; the final states frozen
+bit for bit at masked steps. ``lstm_bidi_fused`` launches the kernel for CUDA
+tensors and runs the plain version for CPU tensors; ``BIDI_LAUNCHES`` counts
+its launches.
 """
 
 from __future__ import annotations
@@ -34,8 +52,10 @@ import torch
 from empose_tpu_torch.ops import cuda_build
 
 LAUNCHES = 0
+BIDI_LAUNCHES = 0
 
 NAME = "lstm_stack"  # csrc/lstm_stack.cu
+BIDI_NAME = "lstm_bidi"  # csrc/lstm_bidi.cu
 
 
 def _library():
@@ -43,6 +63,14 @@ def _library():
     return cuda_build.load(NAME, {
         "lstm_stack_forward": ([p, p, p, p, p, p, p, p, p, i, i, i, i, p], i),
         "lstm_stack_units": ([i], i),
+    })
+
+
+def _bidi_library():
+    p, i = ctypes.c_void_p, ctypes.c_int
+    return cuda_build.load(BIDI_NAME, {
+        "lstm_bidi_forward": ([p, p, p, p, p, p, p, i, i, i, p], i),
+        "lstm_bidi_units": ([i], i),
     })
 
 
@@ -158,4 +186,61 @@ def lstm_stack(cells: List[dict], x, mask, h0, c0, stack_fn=lstm_stack_fused):
     x0_proj, w_hh, w_ih_up, b_up = stack_operands(cells, x)
     outs, hF, cF = stack_fn(x0_proj, mask.contiguous(), w_hh, w_ih_up, b_up,
                             h0.contiguous(), c0.contiguous())
+    return outs, (hF, cF)
+
+
+def lstm_bidi_plain(x_proj, mask, w_hh2, h0, c0):
+    """The bidirectional kernel's function in plain torch, one direction after
+    the other (see module doc)."""
+    outs, hs, cs = [], [], []
+    for d in range(2):
+        o, hF, cF = lstm_cell_plain(x_proj[:, d], mask, w_hh2[d], h0[d], c0[d])
+        outs.append(o)
+        hs.append(hF)
+        cs.append(cF)
+    return torch.stack(outs, dim=1), torch.stack(hs), torch.stack(cs)
+
+
+def lstm_bidi_fused(x_proj, mask, w_hh2, h0, c0):
+    """One bidirectional layer: the CUDA kernel for CUDA tensors, the plain
+    version for CPU tensors (see module doc for the contract)."""
+    global BIDI_LAUNCHES
+    if x_proj.device.type == "cpu":
+        return lstm_bidi_plain(x_proj, mask, w_hh2, h0, c0)
+    if x_proj.device.type != "cuda":
+        raise ValueError(f"no bidirectional LSTM kernel for device {x_proj.device}")
+    f, n, hidden = x_proj.shape[0], x_proj.shape[2], w_hh2.shape[1]
+    dev = x_proj.device
+    _check("x_proj", x_proj, (f, 2, n, 4 * hidden), dev)
+    _check("mask", mask, (f, n), dev)
+    _check("w_hh2", w_hh2, (2, hidden, 4 * hidden), dev)
+    _check("h0", h0, (2, n, hidden), dev)
+    _check("c0", c0, (2, n, hidden), dev)
+    lib = _bidi_library()
+    outs = torch.empty(f, 2, n, hidden, device=dev)
+    hbuf = torch.empty(2, 2, n, hidden, device=dev)
+    hbuf[0].copy_(h0)
+    c_state = c0.clone()
+    h_final = torch.empty(2, n, hidden, device=dev)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        code = lib.lstm_bidi_forward(
+            x_proj.data_ptr(), mask.data_ptr(), w_hh2.data_ptr(), outs.data_ptr(),
+            hbuf.data_ptr(), c_state.data_ptr(), h_final.data_ptr(), f, n, hidden, stream)
+    cuda_build.check(code, "bidirectional LSTM kernel")
+    BIDI_LAUNCHES += 1
+    return outs, h_final, c_state
+
+
+def lstm_bidi_layer(cell_fwd: dict, cell_bwd: dict, x_fwd, x_bwd, mask, h0, c0,
+                    bidi_fn=lstm_bidi_fused):
+    """Same contract as ``empose_tpu/ops/lstm_kernel.py::lstm_bidi_layer_pallas``:
+    ``x_fwd`` (F, N, I) and ``x_bwd``, the same input reversed per sample by
+    length; ``mask`` (F, N); ``h0``/``c0`` (2, N, H) [fwd, bwd] ->
+    (outs (F, 2, N, H), the backward outputs in reversed time, (hF, cF))."""
+    xp_f = x_fwd @ cell_fwd["w_ih"] + cell_fwd["b_ih"] + cell_fwd["b_hh"]
+    xp_b = x_bwd @ cell_bwd["w_ih"] + cell_bwd["b_ih"] + cell_bwd["b_hh"]
+    x_proj = torch.stack([xp_f, xp_b], dim=1)
+    w_hh2 = torch.stack([cell_fwd["w_hh"], cell_bwd["w_hh"]])
+    outs, hF, cF = bidi_fn(x_proj, mask.contiguous(), w_hh2, h0.contiguous(), c0.contiguous())
     return outs, (hF, cF)

@@ -3,11 +3,12 @@
 
 One step: root normalization -> FK + sensor synthesis with mounting offsets
 -> the model's train forward -> ``compute_loss`` -> rescaled to the real
-samples of the batch -> ``+ reference_grad_extra_loss`` -> backward -> Adam.
-The init RNN's direction-layers run through the CUDA training pair on the
-card. Every random draw (offsets, dropout) comes from one
-``torch.Generator`` on the device, seeded from the run's seed and saved with
-the train state, so a resumed run continues bit for bit.
+samples of the batch -> ``+ reference_grad_extra_loss`` (LGD models) ->
+backward -> Adam. Every LSTM direction-layer (the LGD init RNN, a (Bi)RNN's
+LSTM) runs through the CUDA training pair on the card. Every random draw
+(offsets, dropout) comes from one ``torch.Generator`` on the device, seeded
+from the run's seed and saved with the train state, so a resumed run
+continues bit for bit.
 
 Torch's Adam is optax's: the same bias correction, eps outside the square
 root. ``steps_per_call`` (the JAX package's K steps per XLA program) is

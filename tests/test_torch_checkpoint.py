@@ -27,6 +27,11 @@ VARIANTS = {
     "lgd_rnn": dict(BASE, m_rnn_init=True),
     "ief_mlp_bn": dict(BASE, m_rnn_init=False, n_markers=12),
     "ief_no_bn_skip": dict(BASE, m_rnn_init=False, m_no_batch_norm=True, m_skip_connections=True),
+    "birnn": dict(BASE, m_type="rnn", m_bidirectional=True, m_estimate_shape=True,
+                  m_shape_hidden_size=16),
+    "rnn_learn_init": dict(BASE, m_type="rnn", m_learn_init_state=True, n_markers=12),
+    "resnet_skip": dict(BASE, m_type="resnet", m_estimate_shape=True, m_shape_hidden_size=16,
+                        m_skip_connections=True),
 }
 
 

@@ -1,7 +1,7 @@
-"""Checks that need the card: the LSTM stack kernel and the LSTM training pair
-against their plain versions at the released init-RNN shape, and a served
-step against the same model run with the plain LSTM. Skipped without a CUDA
-device; on the card run
+"""Checks that need the card: the LSTM stack kernel, the bidirectional layer
+kernel and the LSTM training pair against their plain versions at the
+released widths (H=512), and served steps (LGD-RNN, BiRNN) against the same
+model run with the plain LSTM. Skipped without a CUDA device; on the card run
 
     python -m pytest tests/test_torch_cuda.py -q
 
@@ -32,7 +32,7 @@ ATOL = 1e-4
 @pytest.fixture
 def cuda():
     if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device: the LSTM stack kernel runs only on the card")
+        pytest.skip("needs a CUDA device: the LSTM kernels run only on the card")
     set_precision("highest")
     return torch.device("cuda")
 
@@ -56,6 +56,30 @@ def test_kernel_matches_plain_released_shape(cuda, f):
     for a, b in zip(got[1], want[1]):
         torch.testing.assert_close(a, b, atol=ATOL, rtol=0)
     assert torch.equal(got[1][0][:, :3], h0[:, :3]) and torch.equal(got[1][1][:, :3], c0[:, :3])
+
+
+@pytest.mark.parametrize("f, n", [(16, 64), (256, 64), (16, 1)])
+def test_bidi_kernel_matches_plain_released_shape(cuda, f, n):
+    """The bidirectional layer kernel at the released BiRNN width, 0-length,
+    partial and full rows, non-zero state: atol 1e-4, 0-length rows frozen
+    bit for bit, one launch."""
+    g = torch.Generator().manual_seed(f + n)
+    h = 512
+    x_proj = (torch.randn(f, 2, n, 4 * h, generator=g) * 0.5).to(cuda)
+    w_hh2 = ((torch.rand(2, h, 4 * h, generator=g) * 2 - 1) * h ** -0.5).to(cuda)
+    h0, c0 = (torch.randn(2, 2, n, h, generator=g) * 0.5).to(cuda)
+    lengths = torch.randint(1, f, (n,), generator=g)
+    lengths[: n // 16] = 0
+    lengths[n // 16: n // 16 + n // 3] = f
+    mask = (torch.arange(f)[:, None] < lengths[None]).float().to(cuda)
+    launches = K.BIDI_LAUNCHES
+    got = K.lstm_bidi_fused(x_proj, mask, w_hh2, h0, c0)
+    assert K.BIDI_LAUNCHES == launches + 1
+    want = K.lstm_bidi_plain(x_proj, mask, w_hh2, h0, c0)
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a, b, atol=ATOL, rtol=0)
+    idle = (lengths == 0).to(cuda)
+    assert torch.equal(got[1][:, idle], h0[:, idle]) and torch.equal(got[2][:, idle], c0[:, idle])
 
 
 @pytest.mark.parametrize("f, n", [(64, 16), (256, 64)])
@@ -85,7 +109,7 @@ def test_training_pair_matches_plain_released_shape(cuda, f, n):
     assert torch.equal(got_b[1][:2], want_b[1][:2]) and torch.equal(got_b[2][:2], want_b[2][:2])
 
 
-def test_served_step_matches_plain_lstm_forward(cuda):
+def _synthetic_sensor():
     npz = make_synthetic_smplh(seed=0)
     pd = npz["posedirs"]
     smplh = SMPLHModel(
@@ -96,14 +120,29 @@ def test_served_step_matches_plain_lstm_forward(cuda):
         weights=npz["weights"].astype(np.float32),
         parents=tuple(int(p) if p < 2 ** 31 else -1 for p in npz["kintree_table"][0]),
         faces=npz["f"].astype(np.int64))
-    config = Configuration.from_dict(dict(
-        m_type="ief", m_rnn_init=True, m_use_gradient=True, m_average_shape=True,
-        m_num_iterations=2, m_hidden_size=512, m_num_layers=2, m_rnn_hidden_size=512,
-        m_rnn_num_layers=2, use_marker_pos=True, use_marker_ori=True, n_markers=6))
-    model = create_model(config, SensorSMPL(smplh))
+    return SensorSMPL(smplh)
+
+
+@pytest.mark.parametrize("m_type", ["ief", "rnn"], ids=["lgd_rnn", "birnn"])
+def test_served_step_matches_plain_lstm_forward(cuda, m_type):
+    """Two batched serving steps at full width: one launch of the stack
+    kernel per step for LGD-RNN, one of the bidirectional kernel per layer
+    for the BiRNN; poses equal the same model with the plain LSTM."""
+    if m_type == "ief":
+        config = dict(m_type="ief", m_rnn_init=True, m_use_gradient=True, m_num_iterations=2,
+                      m_rnn_hidden_size=512, m_rnn_num_layers=2)
+    else:
+        config = dict(m_type="rnn", m_bidirectional=True, m_estimate_shape=True,
+                      m_shape_hidden_size=256)
+    config = Configuration.from_dict(dict(config, m_average_shape=True, m_hidden_size=512,
+                                          m_num_layers=2, use_marker_pos=True,
+                                          use_marker_ori=True, n_markers=6))
+    model = create_model(config, _synthetic_sensor())
     init_parameters(model, torch.Generator().manual_seed(0)).to(cuda)
     ref_model = copy.deepcopy(model)
     ref_model.rnn.lstm_stack = K.lstm_stack_plain
+    ref_model.rnn.lstm_bidi = K.lstm_bidi_plain
+    per_step = 1 if m_type == "ief" else 2
     rng = np.random.RandomState(0)
     streams, chunk = 32, 16
     pos = (rng.randn(streams, 2 * chunk, 36) * 0.3).astype(np.float32)
@@ -114,11 +153,11 @@ def test_served_step_matches_plain_lstm_forward(cuda):
             for s in range(streams):
                 if not (r == 0 and s == 1):  # stream 1 idle in the first step
                     p.push(s, pos[s, r * chunk:(r + 1) * chunk], ori[s, r * chunk:(r + 1) * chunk])
-        launches = K.LAUNCHES
+        launches = K.LAUNCHES + K.BIDI_LAUNCHES
         got = served.step()
-        assert K.LAUNCHES == launches + 1
+        assert K.LAUNCHES + K.BIDI_LAUNCHES == launches + per_step
         want = ref.step()
-        assert K.LAUNCHES == launches + 1
+        assert K.LAUNCHES + K.BIDI_LAUNCHES == launches + per_step
         assert sorted(got) == sorted(want)
         for s in want:
             for k in want[s]:

@@ -87,7 +87,7 @@ def test_lgd_rnn_forward_two_windows(sensors, monkeypatch, n_markers, batch):
 
 def test_forward_refuses_training_and_unported_types(sensors):
     """Train mode runs (the history keeps its graph, one reconstruction error
-    per refinement step); the rnn and resnet model types still raise."""
+    per refinement step); an unknown model type raises."""
     _, t_sensor = sensors
     model = create_model(Configuration.from_dict(dict(BASE, m_rnn_init=True)), t_sensor)
     init_parameters(model, torch.Generator().manual_seed(0)).train()
@@ -95,6 +95,5 @@ def test_forward_refuses_training_and_unported_types(sensors):
     out, _ = model(win, None)
     assert out["history"]["pose"].requires_grad and len(out["_recon_for_grad"]) == 2
     assert torch.isfinite(out["pose_hat"]).all()
-    for m_type in ("rnn", "resnet"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            create_model(Configuration.from_dict(dict(BASE, m_type=m_type)), t_sensor)
+    with pytest.raises(ValueError, match="unknown"):
+        create_model(Configuration.from_dict(dict(BASE, m_type="transformer")), t_sensor)

@@ -112,6 +112,33 @@ def test_resume_matches_uninterrupted_run(assets_env, tmp_path, monkeypatch):
         assert torch.equal(resumed.model.state_dict()[k], v), k
 
 
+TINY_BIRNN = ["--m_type", "rnn", "--m_bidirectional", "--m_hidden_size", "16",
+              "--m_num_layers", "2", "--m_estimate_shape", "--m_shape_hidden_size", "8",
+              "--m_average_shape", "--m_fk_loss", "0.1", "--m_dropout", "0.1",
+              "--m_dropout_hidden", "0.1", "--use_marker_pos", "--use_marker_ori",
+              "--use_real_offsets", "--n_markers", "6", "--window_size", "16", "--bs_train", "2",
+              "--n_epochs", "5", "--print_every", "2", "--eval_every", "1000000", "--seed", "4",
+              "--lr", "1e-3", "--device", "cpu"]
+
+
+def test_birnn_resume_matches_uninterrupted_run(assets_env, tmp_path, monkeypatch):
+    """A tiny BiRNN with dropout through the CLI: 2 steps, then --resume to
+    3, equal an uninterrupted 3-step run bit for bit (losses and weights);
+    the experiment dir carries the SimpleRNN summary."""
+    monkeypatch.setenv("EM_EXPERIMENTS", str(tmp_path))
+    full_dir, full = main(TINY_BIRNN + ["--experiment_id", "700006", "--max_steps", "3"])
+    assert os.path.basename(full_dir).startswith("700006-BiRNN-16-16-shape8-avg-fk0.1-n6-")
+    main(TINY_BIRNN + ["--experiment_id", "700007", "--max_steps", "2"])
+    part_dir, resumed = main(TINY_BIRNN + ["--experiment_id", "700007", "--max_steps", "3",
+                                           "--resume"])
+    assert resumed.global_step == 3
+    want, got = _losses(full_dir), _losses(part_dir)
+    assert sorted(got) == sorted(want) == [1, 2, 3]
+    assert got == want and all(np.isfinite(v) for v in got.values())
+    for k, v in full.model.state_dict().items():
+        assert torch.equal(resumed.model.state_dict()[k], v), k
+
+
 def test_seed_zero_is_a_seed(assets_env):
     """Seed 0 seeds the run (the JAX trainer reads it as unset and takes the
     clock): two trainers built with it start from the same weights and draws."""

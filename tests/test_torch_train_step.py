@@ -113,6 +113,62 @@ def test_lgd_rnn_train_step_matches_jax(sensors, monkeypatch, n_markers, batch):
             assert int(buffers[k]) == (2 if "_iter" in k else 1), k
 
 
+RNN_COMMON = dict(use_marker_pos=True, use_marker_ori=True, m_estimate_shape=True,
+                  m_shape_hidden_size=8, m_average_shape=True, m_hidden_size=16, m_num_layers=2,
+                  m_fk_loss=0.1, window_size=F, lr=1e-3)
+
+
+@pytest.mark.parametrize("kind, n_markers, batch", [
+    ("birnn", 6, 3), ("birnn", 12, 9), ("rnn_learn_init", 6, 9), ("resnet", 12, 3),
+], ids=["birnn-scan", "birnn-pallas_interpret", "rnn_learn_init-pallas_interpret", "resnet"])
+def test_rnn_and_resnet_train_step_matches_jax(sensors, monkeypatch, kind, n_markers, batch):
+    """One train step of a SimpleRNN (bidirectional, or unidirectional with a
+    learned initial state) and of FeedForwardResNet, dropout 0, FK loss 0.1:
+    the loss and its parts and every parameter gradient against ``jax.grad``
+    of the JAX train forward + ``compute_loss``. At batch 9 each JAX
+    direction-layer runs its Pallas training pair in interpret mode."""
+    if batch >= JL.LSTM_TRAIN_KERNEL_MIN_BATCH:
+        monkeypatch.setattr(JL, "LSTM_TRAIN_KERNEL", "interpret")
+    j_sensor, t_sensor = sensors
+    extra = {"birnn": dict(m_type="rnn", m_bidirectional=True),
+             "rnn_learn_init": dict(m_type="rnn", m_learn_init_state=True),
+             "resnet": dict(m_type="resnet")}[kind]
+    cfg_dict = dict(RNN_COMMON, n_markers=n_markers, **extra)
+    cfg, params, state = _jax_params(cfg_dict, j_sensor, seed=n_markers + batch)
+    t_cfg = Configuration.from_dict(cfg_dict)
+    j_model = j_create_model(cfg, j_sensor)
+    win = _batch(batch, seed=batch + n_markers)
+    scale = _pad_scale(win["seq_lengths"])
+
+    def loss_fn(p, w):
+        out, _, _ = j_model.forward(p, state, w, train=True)
+        total, vals = j_model.compute_loss(w, out)
+        return total * scale, {k: v * scale for k, v in vals.items()}
+
+    j_grads, j_vals = jax.jit(jax.grad(loss_fn, has_aux=True))(
+        params, {k: jnp.asarray(v) for k, v in win.items()})
+
+    t_model = create_model(t_cfg, t_sensor).train()
+    t_model.load_state_dict(state_dict_from_jax(params, state, t_cfg), strict=True)
+    t_win = {k: torch.from_numpy(v.astype(np.int64) if k == "seq_lengths" else v)
+             for k, v in win.items()}
+    out, _ = t_model(t_win, None)
+    total, vals = t_model.compute_loss(t_win, out)
+    (total * scale).backward()
+
+    assert sorted(vals) == sorted(j_vals)
+    for k, v in vals.items():
+        np.testing.assert_allclose(float(v) * scale, float(j_vals[k]), rtol=1e-5, atol=1e-7,
+                                   err_msg=k)
+    want = grads_from_jax(jax.device_get(j_grads), t_cfg)
+    got = {k: p.grad for k, p in t_model.named_parameters()}
+    assert sorted(got) == sorted(want)
+    for k, w in want.items():
+        w = w.numpy()
+        np.testing.assert_allclose(got[k].numpy(), w, rtol=0,
+                                   atol=1e-4 * (1.0 + np.abs(w).max()), err_msg=k)
+
+
 def test_adam_matches_optax_flatten():
     """Three torch Adam steps (lr 1e-3, eps 1e-8) against
     ``optax.flatten(optax.adam)`` on the same gradients; atol 1e-7."""

@@ -12,6 +12,8 @@ Phases, each printed on its own line:
      (F=16, N=64), the eval window (F=256, N=64) and one stream's chunk
      (F=16, N=1), with 0-length, partial and full rows and non-zero state;
      its median times beside the plain version and torch.nn.LSTM (cuDNN);
+     on the same inputs the wavefront schedule of the stack kernel against
+     its plain version and against the stack kernel, and its median times;
   4. the LSTM training pair (forward and reverse sweep) against its plain
      versions at H=512 for the flagship training step (F=64, N=16) and a
      large one (F=256, N=64): the sweeps' outputs, the gradients through
@@ -23,6 +25,15 @@ Phases, each printed on its own line:
      N=64), the eval window (F=256, N=64) and one stream (F=16, N=1), with
      0-length, partial and full rows and non-zero state; its median times
      beside the plain version and torch.nn.LSTM(bidirectional=True) (cuDNN);
+  4c. the LBS kernel against its plain version at the full synthetic mesh
+     (V=6890, J=52) for N = 512 (an export chunk), 64 and 1 frames, with
+     normalized random weights and random rotations; its device time beside
+     the plain version's and torch.matmul(A, W^T)'s (cuBLAS, the blend
+     product alone);
+  4d. the port's bench tool (``python -m
+     empose_tpu_torch.tools.bench_lstm_kernels``'s main) at --batch 1 64
+     --window 16 --iters 5: the stack and the wavefront kernel launch once
+     per timed call;
   5. the serving main path: full-width LGD-RNN-6 with seeded random weights
      written as a model.pth, served to 64 streams x 4 chunks of 16 frames
      through MultiStreamPredictor.from_experiment (with one reset, one flush
@@ -41,6 +52,16 @@ Phases, each printed on its own line:
      plain training pair; then step times and one profiled window;
   6b. the same for full-width BiRNN-6, 4 steps then 2 resumed: each
      training kernel launches four times per step (2 layers x 2 directions);
+  6c. SMPLLayer.fk at the full mesh for a 600-frame sequence in one call:
+     one LBS launch, vertices equal the CPU layer's within 1e-4, joints
+     equal fk_joints; then vertex normals at the full mesh;
+  6d. offline datagen (``python -m empose_tpu_torch.preprocess``'s main) on
+     a seeded AMASS-style tree (4 sequences at 120 fps, one of 5200 frames,
+     2600 after resampling to 60 fps: three FK chunks) and a 3DPW-style pkl:
+     no kernel launch; the corpora equal the CPU run's (joints within 1e-4,
+     poses, betas and trans exactly); the FK stage's frames/s;
+  6e. export_visualization of one 1100-frame sequence: 6 LBS launches (3
+     chunks each for GT and prediction), the npz and two OBJ files written;
   7. a "kernels" JSON line; 8. a last JSON line with the device.
 
 Exits non-zero on any failure, and when no CUDA device is present.
@@ -53,6 +74,7 @@ import copy
 import functools
 import json
 import os
+import pickle
 import subprocess
 import sys
 import tempfile
@@ -61,18 +83,23 @@ import time
 import numpy as np
 import torch
 
-from empose_tpu_torch.bodymodel.smplh import load_smplh
-from empose_tpu_torch.bodymodel.synthetic import make_offset_data, make_synthetic_smplh
+from empose_tpu_torch import preprocess
+from empose_tpu_torch.bodymodel.smplh import SMPLLayer, create_default_smpl_model, load_smplh
+from empose_tpu_torch.bodymodel.synthetic import (make_offset_data, make_synthetic_smplh,
+                                                  smooth_random_poses)
 from empose_tpu_torch.config import Configuration
 from empose_tpu_torch.data.datasets import EMRBatchLoader
-from empose_tpu_torch.data.emr import EMRWriter
+from empose_tpu_torch.data.emr import EMRReader, EMRWriter
 from empose_tpu_torch.device import set_precision
+from empose_tpu_torch.eval.harness import export_visualization
 from empose_tpu_torch.nn.layers import _reverse_by_length, init_parameters
 from empose_tpu_torch.nn.models import SensorSMPL, create_model
 from empose_tpu_torch.ops import cuda_build
 from empose_tpu_torch.ops import lstm_kernel as K
 from empose_tpu_torch.ops import lstm_train_kernel as TK
+from empose_tpu_torch.ops import skinning as SK
 from empose_tpu_torch.serve import MultiStreamPredictor, StreamingPredictor
+from empose_tpu_torch.tools import bench_lstm_kernels
 from empose_tpu_torch.train import cli as train_cli
 from empose_tpu_torch.utils.experiments import count_parameters
 
@@ -84,6 +111,9 @@ TRAIN_WINDOW, TRAIN_BATCH, TRAIN_STEPS, RESUME_STEPS = 64, 16, 8, 4
 BIRNN_TRAIN_STEPS, BIRNN_RESUME_STEPS = 4, 2
 STREAMS, CHUNK, CHUNKS = 64, 16, 4
 HIDDEN, LAYERS, N_IN = 512, 2, 6 * 12  # init RNN of LGD-RNN-6: 6 markers x (3 pos + 9 ori)
+TOL_LBS = 2e-5      # LBS kernel vs plain at metre-scale coordinates (the JAX test's)
+V_FULL, J_FULL = 6890, 52  # full SMPL-H mesh
+SMPL_FRAMES, EXPORT_FRAMES = 600, 1100
 FP32_PEAK = 67e12    # H100 SXM fp32 FLOP/s outside the tensor cores
 HBM_BYTES_S = 3.35e12  # H100 SXM HBM3 bytes/s
 
@@ -162,20 +192,41 @@ def stack_bound_ms(f: int, n: int) -> tuple:
     return bound_ms(flops, n_bytes)
 
 
+def max_err(got, want) -> float:
+    return max((a - b).abs().max().item() for a, b in zip(got, want))
+
+
+def frozen_rows(got, mask, h0, c0) -> bool:
+    """The final states of 0-length rows equal h0/c0 bit for bit."""
+    idle = mask.sum(0) == 0
+    return bool((got[1][:, idle] == h0[:, idle]).all() and (got[2][:, idle] == c0[:, idle]).all())
+
+
 def stack_phase(f: int, n: int, seed: int) -> dict:
+    """The stack kernel and its wavefront schedule against their plain
+    versions, then median times beside cuDNN's stack; returns both rows."""
     cells, x, mask, h0, c0 = stack_case(f, n, seed)
     args = K.stack_operands(cells, x)
     args = (args[0], mask, args[1], args[2], args[3], h0, c0)
     got = K.lstm_stack_fused(*args)
     want = K.lstm_stack_plain(*args)
     torch.cuda.synchronize()
-    err = max((a - b).abs().max().item() for a, b in zip(got, want))
-    idle = mask.sum(0) == 0
-    frozen = bool((got[1][:, idle] == h0[:, idle]).all() and (got[2][:, idle] == c0[:, idle]).all())
+    err = max_err(got, want)
+    frozen = frozen_rows(got, mask, h0, c0)
     print(f"kernel F={f} N={n}: max_abs_err vs plain {err:.3e} (outs, hF, cF); "
           f"0-length rows frozen bit for bit: {frozen}", flush=True)
     check(err <= TOL, f"kernel disagrees with its plain version at F={f}: {err} > {TOL}")
     check(frozen, f"kernel changed the state of 0-length rows at F={f}")
+    wave = K.lstm_stack_wavefront_fused(*args)
+    wave_err = max_err(wave, K.lstm_stack_wavefront_plain(*args))
+    wave_stack_err = max_err(wave, got)
+    wave_frozen = frozen_rows(wave, mask, h0, c0)
+    print(f"wavefront kernel F={f} N={n}: max_abs_err vs its plain version {wave_err:.3e}, vs "
+          f"the stack kernel {wave_stack_err:.3e} (outs, hF, cF); 0-length rows frozen bit for "
+          f"bit: {wave_frozen}", flush=True)
+    check(max(wave_err, wave_stack_err) <= TOL,
+          f"wavefront kernel disagrees at F={f} N={n}: {wave_err}, {wave_stack_err} > {TOL}")
+    check(wave_frozen, f"wavefront kernel changed the state of 0-length rows at F={f} N={n}")
 
     lstm = torch.nn.LSTM(N_IN, HIDDEN, LAYERS).cuda()
     with torch.no_grad():
@@ -191,13 +242,23 @@ def stack_phase(f: int, n: int, seed: int) -> dict:
         stack_ms = cuda_ms(lambda: K.lstm_stack(cells, x, mask, h0, c0))
         plain_ms = cuda_ms(lambda: K.lstm_stack_plain(*args), reps=7 if f > 64 else 15)
         library_ms = cuda_ms(lambda: lstm(x, (h0, c0)))
+        wave_ms = cuda_ms(lambda: K.lstm_stack_wavefront_fused(*args))
+        wave_plain_ms = cuda_ms(lambda: K.lstm_stack_wavefront_plain(*args),
+                                reps=7 if f > 64 else 15)
     b_ms, b_by = stack_bound_ms(f, n)
     print(f"times F={f} N={n}: kernel {ms:.4f} ms, kernel with input projection "
           f"{stack_ms:.4f} ms, plain {plain_ms:.4f} ms, torch.nn.LSTM (cuDNN, from x) "
           f"{library_ms:.4f} ms (max diff to plain at full lengths {lib_err:.2e}), "
           f"bound {b_ms:.4f} ms by {b_by}", flush=True)
-    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
-                library_ms=library_ms)
+    print(f"wavefront times F={f} N={n}: wavefront kernel {wave_ms:.4f} ms ({f + LAYERS - 1} "
+          f"grid barriers) against the stack kernel {ms:.4f} ms ({f * LAYERS}), wavefront plain "
+          f"{wave_plain_ms:.4f} ms, torch.nn.LSTM (cuDNN) {library_ms:.4f} ms, bound "
+          f"{b_ms:.4f} ms by {b_by}", flush=True)
+    return {"stack": dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                          library_ms=library_ms),
+            "wavefront": dict(max_abs_err=max(wave_err, wave_stack_err), ms=wave_ms,
+                              plain_ms=wave_plain_ms, bound_ms=b_ms, bound_by=b_by,
+                              library_ms=library_ms)}
 
 
 def bidi_bound_ms(f: int, n: int) -> tuple:
@@ -265,6 +326,75 @@ def bidi_phase(f: int, n: int, seed: int) -> dict:
           f"{layer_ms:.4f} ms, plain {plain_ms:.4f} ms, torch.nn.LSTM bidirectional (cuDNN, from "
           f"x) {library_ms:.4f} ms (max diff to plain at full lengths {lib_err:.2e}), bound "
           f"{b_ms:.4f} ms by {b_by}", flush=True)
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                library_ms=library_ms)
+
+
+def device_ms(fn, reps: int = 20) -> dict:
+    """Device time per call of ``fn()`` in ms, by device op name: the self
+    times of its device ops under torch.profiler over ``reps`` calls, after
+    a warm-up (host time between launches is not counted)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    return {e.key: getattr(e, "self_device_time_total", getattr(e, "self_cuda_time_total", 0.0))
+            / 1e3 / reps for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA}
+
+
+def random_rotations(g: torch.Generator, *shape) -> torch.Tensor:
+    """Rotation matrices (*shape, 3, 3) from normalized Gaussian quaternions."""
+    w, x, y, z = torch.nn.functional.normalize(torch.randn(*shape, 4, generator=g), dim=-1).unbind(-1)
+    return torch.stack([1 - 2 * (y * y + z * z), 2 * (x * y - w * z), 2 * (x * z + w * y),
+                        2 * (x * y + w * z), 1 - 2 * (x * x + z * z), 2 * (y * z - w * x),
+                        2 * (x * z - w * y), 2 * (y * z + w * x), 1 - 2 * (x * x + y * y)],
+                       -1).reshape(*shape, 3, 3)
+
+
+def lbs_bound_ms(n: int) -> tuple:
+    """Least time for skinning n frames of the full mesh: 2*12*J + 18 fp32
+    operations per (frame, vertex); bytes of A, W^T and v_posed read once
+    and the vertices written once."""
+    flops = float(n) * V_FULL * (2 * 12 * J_FULL + 18)
+    n_bytes = 4.0 * (n * 12 * J_FULL + J_FULL * V_FULL + 2 * n * V_FULL * 3)
+    return bound_ms(flops, n_bytes)
+
+
+def lbs_phase(n: int, seed: int) -> dict:
+    """The LBS kernel against its plain version at the full mesh, then the
+    device times of the kernel, the plain version and cuBLAS's A @ W^T."""
+    g = torch.Generator().manual_seed(seed)
+    weights = torch.rand(V_FULL, J_FULL, generator=g)
+    weights /= weights.sum(1, keepdim=True)
+    R = random_rotations(g, n, J_FULL).cuda()
+    t = torch.randn(n, J_FULL, 3, generator=g).cuda()
+    v_posed = torch.randn(n, V_FULL, 3, generator=g).cuda()
+    lbs, w_dev = SK.FusedLBS(weights.numpy(), "cuda"), weights.cuda()
+    got = lbs(R, t, v_posed)
+    want = SK.lbs_apply_plain(w_dev, R, t, v_posed)
+    torch.cuda.synchronize()
+    err = (got - want).abs().max().item()
+    print(f"LBS kernel N={n} V={V_FULL} J={J_FULL}: max_abs_err vs plain {err:.3e} "
+          f"(max |v| {want.abs().max().item():.2f})", flush=True)
+    check(err <= TOL_LBS, f"LBS kernel disagrees with its plain version at N={n}: {err} > {TOL_LBS}")
+    a = SK.pack_transforms(R, t).contiguous()
+    with torch.no_grad():
+        fused = device_ms(lambda: lbs(R, t, v_posed))
+        ms = sum(v for k, v in fused.items() if "lbs_kernel" in k)
+        plain_ms = sum(device_ms(lambda: SK.lbs_apply_plain(w_dev, R, t, v_posed), reps=5).values())
+        library_ms = sum(device_ms(lambda: torch.matmul(a, lbs.weights_t)).values())
+        event_ms = cuda_ms(lambda: lbs(R, t, v_posed))
+    b_ms, b_by = lbs_bound_ms(n)
+    print(f"LBS times N={n} (device time per call): kernel {ms:.4f} ms (its wrapper's packing of "
+          f"A {sum(fused.values()) - ms:.4f} ms; the wrapper's median event time, host launch "
+          f"included, {event_ms:.4f} ms), plain {plain_ms:.4f} ms, torch.matmul(A, W^T) (cuBLAS, "
+          f"blend product only) {library_ms:.4f} ms, bound {b_ms:.4f} ms by {b_by}", flush=True)
     return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
                 library_ms=library_ms)
 
@@ -543,12 +673,14 @@ def train_losses(model_dir: str) -> dict:
 
 
 def reset_counts() -> None:
-    K.LAUNCHES = K.BIDI_LAUNCHES = TK.FWD_LAUNCHES = TK.BWD_LAUNCHES = 0
+    K.LAUNCHES = K.BIDI_LAUNCHES = K.WAVEFRONT_LAUNCHES = TK.FWD_LAUNCHES = TK.BWD_LAUNCHES = 0
+    SK.LBS_LAUNCHES = 0
 
 
 def counts() -> dict:
     return {"lstm_stack": K.LAUNCHES, "lstm_bidi": K.BIDI_LAUNCHES,
-            "lstm_train_fwd": TK.FWD_LAUNCHES, "lstm_train_bwd": TK.BWD_LAUNCHES}
+            "lstm_train_fwd": TK.FWD_LAUNCHES, "lstm_train_bwd": TK.BWD_LAUNCHES,
+            "lbs": SK.LBS_LAUNCHES, "lstm_wavefront": K.WAVEFRONT_LAUNCHES}
 
 
 def expected(**launches) -> dict:
@@ -637,9 +769,28 @@ def training_path(label: str, model_cfg: dict, experiment_id: str, steps: int,
             "bwd": first["lstm_train_bwd"] + second["lstm_train_bwd"]}
 
 
+def fwd_in_fp64(x_proj, mask, w_hh, h0, c0, save_gates: bool = True):
+    """The plain forward sweep computed in fp64 and rounded to fp32: an
+    equally valid fp32 result, rounded elsewhere than either sweep."""
+    out = TK.lstm_train_fwd_plain(x_proj.double(), mask.double(), w_hh.double(), h0.double(),
+                                  c0.double(), save_gates)
+    return tuple(t.float() for t in out)
+
+
 def training_step_vs_plain(label: str, trainer, per_step: int) -> None:
     """One step from the same state and batch with the kernel pair and with
-    the plain pair on the card: the loss and every parameter gradient."""
+    the plain pair on the card: the loss and the init RNN's gradients against
+    the plain pair; every parameter gradient against the step with the
+    kernel forward sweep and the plain reverse sweep.
+
+    The LGD loop amplifies a rounding-level change of the LSTM's forward
+    outputs into gradient changes near 1e-4 of the largest gradient (its
+    recurrent gradient input passes through FK near zero pose and train-mode
+    BatchNorm). So every gradient is held where the forward values are the
+    same bits, against the mixed step, which isolates the reverse sweep;
+    the kernel pair against the plain pair is printed beside the same
+    comparison for the fp64-rounded plain forward, which shows how far two
+    valid fp32 forwards move the step."""
     loader = EMRBatchLoader(os.path.join(os.environ["EM_DATA_SYNTH"], "amass_emr"), TRAIN_BATCH,
                             TRAIN_WINDOW, seed=SEED + 1)
     host_batch = next(iter(loader))
@@ -647,25 +798,28 @@ def training_step_vs_plain(label: str, trainer, per_step: int) -> None:
     state = copy.deepcopy(model.state_dict())
     gen_state = trainer.generator.get_state()
     params = [p for p in model.parameters()]
-    plain_cell = functools.partial(TK.lstm_cell_train, fwd=TK.lstm_train_fwd_plain,
-                                   bwd=TK.lstm_train_bwd_plain)
 
-    def step(cell):
+    def cell(fwd, bwd):
+        return functools.partial(TK.lstm_cell_train, fwd=fwd, bwd=bwd)
+
+    def step(lstm_cell):
         model.load_state_dict(state)
         trainer.generator.set_state(gen_state)
-        model.rnn.lstm_train_cell = cell
+        model.rnn.lstm_train_cell = lstm_cell
         batch = trainer.pre_train(trainer.upload(host_batch), trainer.generator, mode="all")
         loss, _ = trainer.loss(batch)
         return loss.detach(), torch.autograd.grad(loss, params)
 
     launches = counts()
     loss_k, grads_k = step(TK.lstm_cell_train)
-    loss_p, grads_p = step(plain_cell)
-    _, grads_p2 = step(plain_cell)
+    _, grads_m = step(cell(TK.lstm_train_fwd, TK.lstm_train_bwd_plain))
+    loss_p, grads_p = step(cell(TK.lstm_train_fwd_plain, TK.lstm_train_bwd_plain))
+    _, grads_p2 = step(cell(TK.lstm_train_fwd_plain, TK.lstm_train_bwd_plain))
+    _, grads_d = step(cell(fwd_in_fp64, TK.lstm_train_bwd_plain))
     torch.cuda.synchronize()
-    check(counts() == dict(launches, lstm_train_fwd=launches["lstm_train_fwd"] + per_step,
+    check(counts() == dict(launches, lstm_train_fwd=launches["lstm_train_fwd"] + 2 * per_step,
                            lstm_train_bwd=launches["lstm_train_bwd"] + per_step),
-          f"{label}: the kernel step did not launch the pair once per direction-layer")
+          f"{label}: the kernel steps did not launch the sweeps once per direction-layer")
     model.rnn.lstm_train_cell = TK.lstm_cell_train
     model.load_state_dict(state)
     loss_err = rel_err(loss_k, loss_p)
@@ -676,21 +830,30 @@ def training_step_vs_plain(label: str, trainer, per_step: int) -> None:
     # train-mode BatchNorm) hold rounding noise, and the FK backward sums with
     # atomics, so two runs of the same step differ too: printed beside.
     scale = max(float(g.abs().max()) for g in grads_p)
-    errs = {k: float((a - b).abs().max()) / scale for k, a, b in zip(names, grads_k, grads_p)}
-    noise = max(float((a - b).abs().max()) / scale for a, b in zip(grads_p2, grads_p))
+
+    def worst(ga, gb):
+        errs = {k: float((a - b).abs().max()) / scale for k, a, b in zip(names, ga, gb)}
+        k = max(errs, key=errs.get)
+        return errs[k], k
+
     rnn_errs = {k: rel_err(a, b) for k, a, b in zip(names, grads_k, grads_p) if k.startswith("rnn.")}
-    worst, worst_rnn = max(errs, key=errs.get), max(rnn_errs, key=rnn_errs.get)
+    worst_rnn = max(rnn_errs, key=rnn_errs.get)
+    (mixed_err, mixed_at), (pair_err, pair_at) = worst(grads_k, grads_m), worst(grads_k, grads_p)
+    fp64_err, fp64_at = worst(grads_d, grads_p)
+    noise, _ = worst(grads_p2, grads_p)
     print(f"{label} training step, kernel pair vs plain pair: loss {float(loss_k):.6f} vs "
           f"{float(loss_p):.6f} (rel {loss_err:.2e}); init-RNN gradients, max abs error / max "
-          f"abs value, largest {rnn_errs[worst_rnn]:.2e} ({worst_rnn}); all {len(errs)} "
-          f"gradients, max abs error / the largest gradient ({scale:.3e}), largest "
-          f"{errs[worst]:.2e} ({worst}); plain pair against itself, run to run, {noise:.2e}",
+          f"abs value, largest {rnn_errs[worst_rnn]:.2e} ({worst_rnn}); all {len(names)} "
+          f"gradients, max abs error / the largest gradient ({scale:.3e}): kernel pair vs kernel "
+          f"forward + plain reverse sweep {mixed_err:.2e} ({mixed_at}); kernel pair vs plain pair "
+          f"{pair_err:.2e} ({pair_at}) beside the fp64-rounded plain forward vs plain pair "
+          f"{fp64_err:.2e} ({fp64_at}); plain pair against itself, run to run, {noise:.2e}",
           flush=True)
     check(loss_err <= 1e-5, f"train loss differs from the plain pair: {loss_err}")
     check(rnn_errs[worst_rnn] <= TOL_REL, f"gradient {worst_rnn} differs from the plain pair: "
                                           f"{rnn_errs[worst_rnn]} > {TOL_REL}")
-    check(errs[worst] <= TOL_GRAD_REL, f"gradient {worst} differs from the plain pair: "
-                                       f"{errs[worst]} > {TOL_GRAD_REL}")
+    check(mixed_err <= TOL_GRAD_REL, f"gradient {mixed_at} differs from the step with the plain "
+                                     f"reverse sweep: {mixed_err} > {TOL_GRAD_REL}")
 
 
 def training_times(label: str, trainer) -> None:
@@ -719,6 +882,175 @@ def training_times(label: str, trainer) -> None:
     profile_window(f"{label} training", step, 3)
 
 
+def smpl_layer_path(rng) -> tuple:
+    """SMPLLayer.fk of one 600-frame sequence at the full mesh on the card,
+    with the counts at 0: one LBS launch and no other kernel; the vertices
+    equal the CPU layer's within 1e-4, the joints fk_joints'; then vertex
+    normals at the full mesh. Returns (the card's layer, the LBS launches)."""
+    layer = create_default_smpl_model()
+    check(layer.device.type == "cuda", "the SMPL layer is not on the card")
+    poses = smooth_random_poses(rng, SMPL_FRAMES, 66, 0.4).astype(np.float32)
+    args = (poses[:, 3:], (rng.randn(1, 10) * 0.5).astype(np.float32), poses[:, :3],
+            smooth_random_poses(rng, SMPL_FRAMES, 3, 0.5).astype(np.float32))
+    torch.cuda.synchronize()
+    reset_counts()
+    with torch.no_grad():
+        verts, joints = layer.fk(*args)
+    torch.cuda.synchronize()
+    launched = counts()
+    print(f"SMPLLayer.fk main path: {SMPL_FRAMES} frames at the full mesh in one call, launches "
+          f"{launched}", flush=True)
+    check(launched == expected(lbs=1), f"SMPLLayer.fk: expected 1 LBS launch, got {launched}")
+    cpu_layer = SMPLLayer(layer.model, "cpu")
+    with torch.no_grad():
+        cpu_verts, cpu_joints = cpu_layer.fk(*args)
+        joints_only = layer.fk_joints(*args)
+        normals = layer.vertex_normals(verts)
+        cpu_normals = cpu_layer.vertex_normals(cpu_verts)
+        fk_ms = cuda_ms(lambda: layer.fk(*args), warmup=1, reps=5)
+        normals_ms = cuda_ms(lambda: layer.vertex_normals(verts), warmup=1, reps=5)
+    errs = {"vertices": (verts.cpu() - cpu_verts).abs().max().item(),
+            "joints": (joints.cpu() - cpu_joints).abs().max().item(),
+            "joints vs fk_joints": (joints - joints_only).abs().max().item(),
+            "normals": (normals.cpu() - cpu_normals).abs().max().item()}
+    finite = bool(torch.isfinite(verts).all() and torch.isfinite(normals).all())
+    print(f"SMPLLayer on the card vs the CPU layer: max abs differences {errs}; shapes "
+          f"{tuple(verts.shape)}, {tuple(joints.shape)}, normals {tuple(normals.shape)}; finite "
+          f"{finite}; fk {fk_ms:.3f} ms per {SMPL_FRAMES}-frame call "
+          f"({SMPL_FRAMES / fk_ms * 1e3:.1f} frames/s), vertex normals {normals_ms:.3f} ms",
+          flush=True)
+    check(finite and verts.shape == (SMPL_FRAMES, V_FULL, 3) and normals.shape == verts.shape,
+          "SMPLLayer outputs are not finite or have wrong shapes")
+    check(max(errs["vertices"], errs["joints"], errs["normals"]) <= TOL,
+          f"SMPLLayer on the card differs from the CPU layer: {errs}")
+    check(errs["joints vs fk_joints"] <= 1e-6, f"fk joints differ from fk_joints: {errs}")
+    return layer, launched["lbs"]
+
+
+def write_raw_corpora(root: str, rng) -> tuple:
+    """A seeded AMASS-style npz tree (2 subjects x 2 motions at 120 fps, one
+    of 5200 frames; a subject shape file and a denylisted file, both
+    skipped) and a 3DPW-style pkl of 2 subjects at 60 Hz."""
+    amass = os.path.join(root, "raw", "amass")
+    for subj, lengths in (("SubjectA", (5200, 300)), ("SubjectB", (420, 240))):
+        d = os.path.join(amass, subj)
+        os.makedirs(d)
+        for i, nf in enumerate(lengths):
+            np.savez(os.path.join(d, f"motion{i}_poses.npz"),
+                     poses=smooth_random_poses(rng, nf, 156, 0.3), betas=rng.randn(16),
+                     trans=smooth_random_poses(rng, nf, 3, 0.5),
+                     mocap_framerate=np.asarray(120.0), gender="neutral")
+        np.savez(os.path.join(d, "subject_shape.npz"), betas=rng.randn(16))
+    np.savez(os.path.join(amass, "SubjectA", "MTR03_poses.npz"), poses=np.zeros((5, 156)),
+             betas=np.zeros(16), trans=np.zeros((5, 3)), mocap_framerate=np.asarray(120.0),
+             gender="neutral")
+    threedpw = os.path.join(root, "raw", "3dpw")
+    os.makedirs(threedpw)
+    seq = {"poses_60Hz": [smooth_random_poses(rng, 900, 72, 0.3),
+                          smooth_random_poses(rng, 700, 72, 0.3)],
+           "betas": [rng.randn(10), rng.randn(10)],
+           "trans_60Hz": [smooth_random_poses(rng, 900, 3, 0.5),
+                          smooth_random_poses(rng, 700, 3, 0.5)],
+           "genders": ["f", "m"]}
+    with open(os.path.join(threedpw, "seq1.pkl"), "wb") as f:
+        pickle.dump(seq, f)
+    return amass, threedpw
+
+
+def datagen_path(root: str, rng) -> None:
+    """Offline datagen through preprocess's main on the card with the counts
+    at 0 (joints only: no kernel launch), then on the CPU; the corpora must
+    agree record by record."""
+    amass, threedpw = write_raw_corpora(root, rng)
+
+    def run(device: str):
+        out = os.path.join(root, "datagen", device)
+        fk = preprocess.main(["--amass_in", amass, "--amass_out", os.path.join(out, "amass.emr"),
+                              "--threedpw_in", threedpw, "--threedpw_out",
+                              os.path.join(out, "3dpw.emr"), "--device", device])
+        return fk, out
+
+    torch.cuda.synchronize()
+    reset_counts()
+    fk, out = run("cuda")
+    torch.cuda.synchronize()
+    launched = counts()
+    check(launched == expected(), f"datagen launched a kernel: {launched}")
+    cpu_fk, cpu_out = run("cpu")
+    worst, n_records, frames = 0.0, 0, []
+    for name in ("amass.emr", "3dpw.emr"):
+        got, want = EMRReader(os.path.join(out, name)), EMRReader(os.path.join(cpu_out, name))
+        check(len(got) == len(want), f"{name}: {len(got)} records against {len(want)} on the CPU")
+        for i in range(len(want)):
+            check(got.meta(i) == want.meta(i), f"{name} record {i}: metas differ")
+            for field in ("poses", "betas", "trans"):
+                check(np.array_equal(got.read(i, field), want.read(i, field)),
+                      f"{name} record {i}: {field} differ from the CPU run")
+            joints = got.read(i, "joints")
+            check(np.isfinite(joints).all(), f"{name} record {i}: joints not finite")
+            worst = max(worst, float(np.abs(joints - want.read(i, "joints")).max()))
+            frames.append(got.meta(i)["n_frames"])
+        n_records += len(want)
+    print(f"datagen main path: {n_records} records of {frames} frames, launches {launched}; "
+          f"joints vs the CPU run max abs {worst:.3e}, poses/betas/trans equal; FK stage "
+          f"{fk.frames} frames in {fk.seconds:.3f} s = {fk.frames / fk.seconds:.1f} frames/s on "
+          f"the card, {cpu_fk.frames / cpu_fk.seconds:.1f} frames/s on the CPU", flush=True)
+    check(n_records == 6 and max(frames) == 2600, f"unexpected corpora: {frames}")
+    check(worst <= TOL, f"datagen joints differ from the CPU run: {worst} > {TOL}")
+
+
+def export_path(root: str, layer: SMPLLayer, rng) -> int:
+    """export_visualization of one 1100-frame sequence with the counts at
+    0: 3 FK chunks each for GT and prediction, so 6 LBS launches and no
+    other kernel; the npz and both OBJ files written. Returns the launches."""
+    poses = smooth_random_poses(rng, EXPORT_FRAMES, 66, 0.4).astype(np.float32)
+    host_batch = {"seq_lengths": np.array([EXPORT_FRAMES]), "poses": poses[None],
+                  "shapes": (rng.randn(1, 10) * 0.5).astype(np.float32)}
+    pose_hat = (poses + rng.randn(*poses.shape) * 0.05).astype(np.float32)
+    out_dir = os.path.join(root, "visualization")
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    npz_path = export_visualization(layer, "seq0000", host_batch, pose_hat,
+                                    (rng.randn(10) * 0.5).astype(np.float32), out_dir)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launched = counts()
+    npz = np.load(npz_path)
+    objs = [os.path.join(out_dir, f"seq0000_frame0_{k}.obj") for k in ("gt", "pred")]
+    ok = (npz["verts_gt"].shape == (EXPORT_FRAMES, V_FULL, 3)
+          and npz["verts_hat"].shape == (EXPORT_FRAMES, V_FULL, 3)
+          and npz["joints_hat"].shape == (EXPORT_FRAMES, 22, 3)
+          and all(np.isfinite(npz[k]).all() for k in ("verts_gt", "verts_hat", "joints_gt"))
+          and all(os.path.getsize(p) > 0 for p in objs))
+    print(f"export_visualization main path: {EXPORT_FRAMES} frames, launches {launched}, "
+          f"{seconds:.2f} s (compressed npz {os.path.getsize(npz_path) / 2 ** 20:.1f} MiB and "
+          f"two OBJ files written: {ok})", flush=True)
+    check(launched == expected(lbs=6), f"export: expected 6 LBS launches, got {launched}")
+    check(ok, "export_visualization wrote wrong or missing artifacts")
+    return launched["lbs"]
+
+
+def bench_path() -> int:
+    """The port's bench tool at --batch 1 64 --window 16 --iters 5 with the
+    counts at 0: each timed call of the stack and of the wavefront launches
+    its kernel once. Returns the wavefront's launches."""
+    flags = ["--batch", "1", "64", "--window", "16", "--iters", "5"]
+    torch.cuda.synchronize()
+    reset_counts()
+    rows = bench_lstm_kernels.main(flags)
+    torch.cuda.synchronize()
+    launched = counts()
+    args = bench_lstm_kernels.parser().parse_args(flags)
+    per_kernel = len(args.batch) * (1 + args.repeats * args.iters)
+    print(f"bench tool main path ({' '.join(flags)}): {len(rows)} rows, launches {launched}",
+          flush=True)
+    check(len(rows) == 6 and all(np.isfinite(r[2]) for r in rows), "bench tool rows missing")
+    check(launched == expected(lstm_stack=per_kernel, lstm_wavefront=per_kernel),
+          f"bench tool: expected {per_kernel} stack and wavefront launches, got {launched}")
+    return launched["lstm_wavefront"]
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)", file=sys.stderr)
@@ -730,7 +1062,7 @@ def main() -> int:
     print(card, flush=True)
 
     t0 = time.perf_counter()
-    logs = cuda_build.build([K.NAME, K.BIDI_NAME, TK.NAME], force=True, verbose=True)
+    logs = cuda_build.build([K.NAME, K.BIDI_NAME, TK.NAME, SK.NAME], force=True, verbose=True)
     for name, log in logs.items():
         regs = sorted({line.split("info    : ")[-1] for line in log.splitlines()
                        if "registers" in line or "spill" in line})
@@ -748,6 +1080,9 @@ def main() -> int:
           f"H={HIDDEN}", flush=True)
     bidi = {(f, n): bidi_phase(f, n, seed=SEED + f + n + 1)
             for f, n in ((CHUNK, STREAMS), (256, STREAMS), (CHUNK, 1))}
+    # An export chunk, a batch, one frame.
+    lbs = {n: lbs_phase(n, seed=SEED + n + 3) for n in (512, 64, 1)}
+    wavefront_launches = bench_path()
 
     with tempfile.TemporaryDirectory(dir=cuda_build.BUILD_DIR) as root:
         rng = np.random.RandomState(SEED)
@@ -784,8 +1119,13 @@ def main() -> int:
                               BIRNN_RESUME_STEPS, per_step)
         training_step_vs_plain("BiRNN-6", birnn["trainer"], per_step)
         training_times("BiRNN-6", birnn["trainer"])
+        del birnn
 
-    f16 = stack[(CHUNK, STREAMS)]
+        layer, lbs_launches = smpl_layer_path(rng)
+        datagen_path(root, rng)
+        lbs_launches += export_path(root, layer, rng)
+
+    f16 = stack[(CHUNK, STREAMS)]["stack"]
     flagship = pair[(TRAIN_WINDOW, TRAIN_BATCH)]
     kernels = [
         dict(name="lstm_stack", route="cuda", source="empose_tpu_torch/csrc/lstm_stack.cu",
@@ -799,6 +1139,11 @@ def main() -> int:
         dict(name="lstm_train_bwd", route="cuda", source="empose_tpu_torch/csrc/lstm_train.cu",
              replaces="empose_tpu/ops/lstm_train_kernel.py:244", launches=trained_bwd,
              **flagship["bwd"]),
+        dict(name="lbs", route="cuda", source="empose_tpu_torch/csrc/lbs.cu",
+             replaces="empose_tpu/ops/skinning.py:69", launches=lbs_launches, **lbs[512]),
+        dict(name="lstm_wavefront", route="cuda", source="empose_tpu_torch/csrc/lstm_stack.cu",
+             replaces="empose_tpu/ops/lstm_kernel.py:377", launches=wavefront_launches,
+             **stack[(CHUNK, STREAMS)]["wavefront"]),
     ]
     print(f"total {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -2,10 +2,16 @@
 
 Port of ``empose_tpu/bodymodel/smplh.py`` (``SMPLHModel``, ``load_smplh``,
 ``subset``, ``fold_zero_pose_joints``, ``_tree_levels``,
-``_rigid_transform_chain``, ``smplh_fk``). A model keeps host numpy arrays;
-``SMPLHModel.to`` gives the same model with torch tensors on a device, which
-is what ``smplh_fk`` evaluates. FK is differentiable (the LGD loop takes its
-gradient).
+``_rigid_transform_chain``, ``smplh_fk``, ``smplh_fk_normalized_root``,
+``SMPLLayer``, ``create_default_smpl_model``). A model keeps host numpy
+arrays; ``SMPLHModel.to`` gives the same model with torch tensors on a
+device, which is what ``smplh_fk`` evaluates. FK is differentiable (the LGD
+loop takes its gradient).
+
+``SMPLLayer`` is the full-mesh API: it puts the model's tables on its device
+once and skins the full mesh through the LBS kernel (``ops/skinning.py``).
+The sensor, serving and training paths use subset models and never hold the
+full mesh.
 """
 
 from __future__ import annotations
@@ -19,7 +25,10 @@ import numpy as np
 import torch
 
 from empose_tpu_torch import constants as C
-from empose_tpu_torch.ops.so3 import rodrigues
+from empose_tpu_torch.device import resolve_device
+from empose_tpu_torch.ops import mesh as mesh_ops
+from empose_tpu_torch.ops.skinning import FusedLBS
+from empose_tpu_torch.ops.so3 import aa2rot, rodrigues, rot2aa
 
 ARRAY_FIELDS = ("v_template", "shapedirs", "posedirs", "j_regressor", "weights",
                  "j_template", "j_shapedirs")
@@ -63,6 +72,10 @@ class SMPLHModel:
                 jr @ np.asarray(self.v_template, np.float64), dtype=dtype))
             object.__setattr__(self, "j_shapedirs", np.asarray(
                 np.einsum("jv,vdb->jdb", jr, np.asarray(self.shapedirs, np.float64)), dtype=dtype))
+
+    @property
+    def n_vertices(self) -> int:
+        return self.v_template.shape[0]
 
     @property
     def n_joints(self) -> int:
@@ -213,11 +226,14 @@ def _rigid_transform_chain(rot_mats: torch.Tensor, joints: torch.Tensor, parents
 
 def smplh_fk(model: SMPLHModel, poses_body: torch.Tensor, betas: torch.Tensor,
              poses_root: Optional[torch.Tensor] = None, trans: Optional[torch.Tensor] = None,
-             poses_hands: Optional[torch.Tensor] = None, want_vertices: bool = True):
+             poses_hands: Optional[torch.Tensor] = None, want_vertices: bool = True,
+             lbs_fn=None):
     """Evaluate SMPL-H on a tensor model (``SMPLHModel.to``).
 
     Hand poses default to zero, root/trans to zero; betas broadcast over the
-    batch and are truncated to the model's beta count.
+    batch and are truncated to the model's beta count. ``lbs_fn(R_glob,
+    t_skin, v_posed)``, when given, does the skinning (the full-mesh kernel,
+    ``ops/skinning.FusedLBS``); otherwise plain einsums do.
 
     :param poses_body: (N, 63+) body pose angle-axis (extra dofs ignored).
     :param betas: (N, B) or (B,) or (1, B).
@@ -250,7 +266,99 @@ def smplh_fk(model: SMPLHModel, poses_body: torch.Tensor, betas: torch.Tensor,
     ident = torch.eye(3, dtype=dtype, device=device)
     pose_feature = (rot_mats[:, 1:] - ident).reshape(n, -1)
     v_posed = v_rest + (pose_feature @ model.posedirs).reshape(n, -1, 3)
+    if lbs_fn is not None:
+        return lbs_fn(R_glob, t_skin, v_posed) + trans[:, None], joints_out
     Rw = torch.einsum("vj,njab->nvab", model.weights, R_glob)
     tw = torch.einsum("vj,nja->nva", model.weights, t_skin)
     verts = (Rw @ v_posed[..., None])[..., 0] + tw + trans[:, None]
     return verts, joints_out
+
+
+def smplh_fk_normalized_root(model: SMPLHModel, poses_body, betas, poses_root, trans, **kw):
+    """FK with the root normalized to frame 0: frame 0's root orientation
+    becomes the identity and its translation the origin. Time runs along the
+    leading axis (one sequence)."""
+    root_ori = aa2rot(poses_root)
+    first_inv = root_ori[0:1].transpose(-1, -2)
+    poses_root = rot2aa(first_inv @ root_ori)
+    trans = trans @ first_inv[0].T
+    return smplh_fk(model, poses_body, betas, poses_root, trans - trans[0:1], **kw)
+
+
+class SMPLLayer:
+    """The full-mesh body-model API (``empose_tpu/bodymodel/smplh.py::SMPLLayer``).
+
+    The model's tables (~40 MB at the full mesh) go to ``device`` once, here;
+    a full-mesh model skins through the LBS kernel (``FusedLBS``; on the CPU
+    its plain version), a subset model through plain einsums. Inputs are
+    tensors or arrays, moved to the layer's device; results stay there.
+    ``window_size`` is accepted for the reference's API and ignored.
+    """
+
+    vposer = None  # an (encode, decode) pair enables the VPoser hooks
+
+    def __init__(self, model: SMPLHModel, device=None):
+        self.device = resolve_device(device)
+        self.model = model
+        self.num_betas = model.n_betas
+        self._model_dev = model.to(self.device)
+        self._lbs = FusedLBS(model.weights, self.device) if model.vertex_ids is None else None
+        self._faces_dev = None
+
+    def _as_tensor(self, x):
+        return None if x is None else torch.as_tensor(x, dtype=torch.float32, device=self.device)
+
+    @property
+    def faces(self) -> np.ndarray:
+        return self.model.faces
+
+    def vertex_faces(self) -> np.ndarray:
+        """Vertex -> incident faces table of the full mesh (-1 padded)."""
+        if self.model.vertex_ids is not None:
+            raise ValueError("vertex_faces needs the full mesh, not a subset model")
+        return mesh_ops.vertex_face_indices(self.model.n_vertices, self.model.faces)
+
+    def fk(self, poses_body, betas, poses_root=None, trans=None, normalize_root=False,
+           window_size=None):
+        """:return: (vertices (N, V, 3), joints (N, J, 3)) on the layer's device."""
+        poses_body, betas = self._as_tensor(poses_body), self._as_tensor(betas)
+        poses_root, trans = self._as_tensor(poses_root), self._as_tensor(trans)
+        if normalize_root:
+            return smplh_fk_normalized_root(self._model_dev, poses_body, betas, poses_root,
+                                            trans, lbs_fn=self._lbs)
+        return smplh_fk(self._model_dev, poses_body, betas, poses_root, trans, lbs_fn=self._lbs)
+
+    def fk_joints(self, poses_body, betas, poses_root=None, trans=None) -> torch.Tensor:
+        """Joints only (N, J, 3): no blendshapes, no skinning."""
+        return smplh_fk(self._model_dev, self._as_tensor(poses_body), self._as_tensor(betas),
+                        self._as_tensor(poses_root), self._as_tensor(trans),
+                        want_vertices=False)[1]
+
+    def vertex_normals(self, vertices, output_vertex_ids=None) -> torch.Tensor:
+        """Unnormalized vertex normals over the full mesh (N, V or len(ids), 3)."""
+        if self._faces_dev is None:
+            self._faces_dev = (torch.as_tensor(np.asarray(self.faces), device=self.device),
+                               torch.as_tensor(self.vertex_faces(), device=self.device))
+        normals, _ = mesh_ops.compute_vertex_and_face_normals(self._as_tensor(vertices),
+                                                              *self._faces_dev)
+        if output_vertex_ids is not None:
+            normals = normals[:, torch.as_tensor(output_vertex_ids, device=self.device)]
+        return normals
+
+    def vposer_decode(self, poZ_body):
+        if self.vposer is None:
+            raise RuntimeError("No VPoser model attached.")
+        return self.vposer[1](poZ_body)
+
+    def vposer_encode(self, pose_body):
+        if self.vposer is None:
+            raise RuntimeError("No VPoser model attached.")
+        return self.vposer[0](pose_body)
+
+    def __call__(self, *args, **kwargs):
+        return self.fk(*args, **kwargs)
+
+
+def create_default_smpl_model(npz_path: Optional[str] = None, device=None) -> SMPLLayer:
+    """The SMPL-H of ``$SMPL_MODELS`` (or ``npz_path``) as an ``SMPLLayer``."""
+    return SMPLLayer(load_smplh(npz_path), device)

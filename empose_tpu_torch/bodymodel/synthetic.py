@@ -12,6 +12,7 @@ from __future__ import annotations
 import numpy as np
 
 from empose_tpu_torch import constants as C
+from empose_tpu_torch.ops.quaternions import np_quat_from_aa
 
 N_VERTICES = 6890
 GRID_ROWS = 130
@@ -83,13 +84,15 @@ def make_synthetic_smplh(seed: int = 0, num_betas: int = 16) -> dict:
     }
 
 
-def np_quat_from_aa(aa: np.ndarray) -> np.ndarray:
-    """Angle-axis (..., 3) -> quaternions (..., 4), (w, x, y, z) order."""
-    angle = np.linalg.norm(aa, axis=-1, keepdims=True)
-    half = 0.5 * angle
-    with np.errstate(invalid="ignore", divide="ignore"):
-        sinc = np.where(angle < 1e-12, 0.5, np.sin(half) / np.where(angle < 1e-12, 1.0, angle))
-    return np.concatenate([np.cos(half), aa * sinc], axis=-1)
+def smooth_random_poses(rng: np.random.RandomState, n_frames: int, n_dofs: int = 66,
+                        scale: float = 0.4) -> np.ndarray:
+    """Temporally smooth random tracks (n_frames, n_dofs): linear
+    interpolation between max(4, n_frames // 20) random control frames."""
+    n_ctrl = max(4, n_frames // 20)
+    ctrl = rng.randn(n_ctrl, n_dofs) * scale
+    t_ctrl = np.linspace(0, 1, n_ctrl)
+    t = np.linspace(0, 1, n_frames)
+    return np.stack([np.interp(t, t_ctrl, ctrl[:, d]) for d in range(n_dofs)], axis=1)
 
 
 def make_offset_data(rng: np.random.RandomState, n_markers: int = 12) -> dict:

@@ -31,6 +31,15 @@
 //     partial sums meet in shared memory.
 // The grid must be co-resident for the barrier, so the host side launches it
 // with cudaLaunchCooperativeKernel and refuses a grid that does not fit.
+//
+// The same kernel runs the wavefront schedule (lstm_wavefront_forward), which
+// replaces the Pallas TPU kernel empose_tpu/ops/lstm_kernel.py::
+// _pallas_wavefront: in phase p every layer l with 0 <= p - l < F steps at
+// its own time t = p - l, so the stack needs F + L - 1 grid barriers instead
+// of F * L.  Each phase then does up to L gate products per block, one after
+// the other; the weights, tiles and exchange buffer are the stack's.  Layer
+// l >= 1's input is layer l-1's state at the same time t, written one phase
+// earlier, times mask[t]: the output h_new * m of the TPU kernel's pipe.
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
@@ -70,7 +79,7 @@ constexpr int kSplit = 4;   // KSPLIT: ways the k range of a tile is split
 //                            consecutive rows on distinct banks)
 //   x_s   [RG][KT + 4]       staged tile of the layer input (layers >= 1)
 //   red   [KSPLIT][RG][U][4] partial gate sums; aliases h_s/x_s after a tile sweep
-template <int U>
+template <int U, bool kWave>
 __global__ void __launch_bounds__(kThreads)
 lstm_stack_kernel(const float* __restrict__ x0_proj,   // (F, N, 4H)
                   const float* __restrict__ mask,      // (F, N)
@@ -151,11 +160,20 @@ lstm_stack_kernel(const float* __restrict__ x0_proj,   // (F, N, 4H)
   float4 h_reg[V4], x_reg[V4];
   const float4 zero4 = make_float4(0.f, 0.f, 0.f, 0.f);
 
-  for (int t = 0; t < F; ++t) {
-    const int rd = t & 1;
-    const int wr = rd ^ 1;
-    const float* mask_t = mask + (size_t)t * N;
-    for (int l = 0; l < L; ++l) {
+  // Phases: the stack runs one (step, layer) per phase, F * L of them; the
+  // wavefront runs layers l_first..l_last of phase p at times p - l.  Either
+  // way layer l at time t reads its h from slot t & 1 and writes slot
+  // (t & 1) ^ 1, and layer l-1's state at time t lies in slot (t & 1) ^ 1,
+  // written one phase earlier; no slot is read and written in one phase.
+  const int n_phases = kWave ? F + L - 1 : F * L;
+  for (int p = 0; p < n_phases; ++p) {
+    const int l_first = kWave ? max(0, p - F + 1) : p % L;
+    const int l_last = kWave ? min(L - 1, p) : p % L;
+    for (int l = l_first; l <= l_last; ++l) {
+      const int t = kWave ? p - l : p / L;
+      const int rd = t & 1;
+      const int wr = rd ^ 1;
+      const float* mask_t = mask + (size_t)t * N;
       const float* h_prev = hbuf + ((size_t)rd * L + l) * NH;
       float* h_next = hbuf + ((size_t)wr * L + l) * NH;
       // Layer l-1's state at time t; times the mask it is that layer's output.
@@ -292,8 +310,8 @@ lstm_stack_kernel(const float* __restrict__ x0_proj,   // (F, N, 4H)
           if (l == L - 1) outs[((size_t)t * N) * H + off] = h_new * m;
         }
       }
-      grid.sync();
     }
+    grid.sync();
   }
 
   // Final h of the units this block owns (written by these same threads).
@@ -315,7 +333,7 @@ size_t shared_bytes(int U, int H, int L) {
                           2 * (size_t)rg * (tile_k(U) + 4));
 }
 
-template <int U>
+template <int U, bool kWave>
 int launch(const float* x0_proj, const float* mask, const float* w_hh, const float* w_ih_up,
            const float* b_up, float* outs, float* hbuf, float* c_state, float* h_final, int F,
            int N, int H, int L, int n_sms, cudaStream_t stream) {
@@ -323,7 +341,7 @@ int launch(const float* x0_proj, const float* mask, const float* w_hh, const flo
   int max_smem = 0;
   cudaDeviceGetAttribute(&max_smem, cudaDevAttrMaxSharedMemoryPerBlockOptin, 0);
   if (smem > (size_t)max_smem) return kErrSharedTooLarge;
-  auto kernel = lstm_stack_kernel<U>;
+  auto kernel = lstm_stack_kernel<U, kWave>;
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
@@ -358,14 +376,14 @@ int lstm_stack_units(int H) {
   return 0;
 }
 
-// Runs the whole stack over all F steps in one cooperative launch on `stream`.
-// hbuf (2, L, N, H) must hold h0 in its first half and c_state (L, N, H) must
-// hold c0; on return outs, h_final and c_state (= cF) are written (stream
-// ordered).  Returns 0, a cudaError_t value, or a negative code above.
-int lstm_stack_forward(const float* x0_proj, const float* mask, const float* w_hh,
-                       const float* w_ih_up, const float* b_up, float* outs, float* hbuf,
-                       float* c_state, float* h_final, int F, int N, int H, int L,
-                       void* stream) {
+}  // extern "C"
+
+namespace {
+
+template <bool kWave>
+int forward(const float* x0_proj, const float* mask, const float* w_hh, const float* w_ih_up,
+            const float* b_up, float* outs, float* hbuf, float* c_state, float* h_final, int F,
+            int N, int H, int L, void* stream) {
   if (F <= 0 || N <= 0 || H <= 0 || L <= 0 || H % 4 != 0) return kErrBadShape;
   if (L > 1 && (w_ih_up == nullptr || b_up == nullptr)) return kErrBadShape;
   int dev = 0, n_sms = 0, coop = 0;
@@ -375,12 +393,39 @@ int lstm_stack_forward(const float* x0_proj, const float* mask, const float* w_h
   if (!coop) return kErrNoCooperative;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (lstm_stack_units(H)) {
-    case 1: return launch<1>(x0_proj, mask, w_hh, w_ih_up, b_up, outs, hbuf, c_state, h_final, F, N, H, L, n_sms, s);
-    case 2: return launch<2>(x0_proj, mask, w_hh, w_ih_up, b_up, outs, hbuf, c_state, h_final, F, N, H, L, n_sms, s);
-    case 4: return launch<4>(x0_proj, mask, w_hh, w_ih_up, b_up, outs, hbuf, c_state, h_final, F, N, H, L, n_sms, s);
-    case 8: return launch<8>(x0_proj, mask, w_hh, w_ih_up, b_up, outs, hbuf, c_state, h_final, F, N, H, L, n_sms, s);
+    case 1: return launch<1, kWave>(x0_proj, mask, w_hh, w_ih_up, b_up, outs, hbuf, c_state, h_final, F, N, H, L, n_sms, s);
+    case 2: return launch<2, kWave>(x0_proj, mask, w_hh, w_ih_up, b_up, outs, hbuf, c_state, h_final, F, N, H, L, n_sms, s);
+    case 4: return launch<4, kWave>(x0_proj, mask, w_hh, w_ih_up, b_up, outs, hbuf, c_state, h_final, F, N, H, L, n_sms, s);
+    case 8: return launch<8, kWave>(x0_proj, mask, w_hh, w_ih_up, b_up, outs, hbuf, c_state, h_final, F, N, H, L, n_sms, s);
     default: return kErrGridTooLarge;
   }
+}
+
+}  // namespace
+
+extern "C" {
+
+// Runs the whole stack over all F steps in one cooperative launch on `stream`.
+// hbuf (2, L, N, H) must hold h0 in its first half and c_state (L, N, H) must
+// hold c0; on return outs, h_final and c_state (= cF) are written (stream
+// ordered).  Returns 0, a cudaError_t value, or a negative code above.
+int lstm_stack_forward(const float* x0_proj, const float* mask, const float* w_hh,
+                       const float* w_ih_up, const float* b_up, float* outs, float* hbuf,
+                       float* c_state, float* h_final, int F, int N, int H, int L,
+                       void* stream) {
+  return forward<false>(x0_proj, mask, w_hh, w_ih_up, b_up, outs, hbuf, c_state, h_final, F, N,
+                        H, L, stream);
+}
+
+// The same stack, the same operands and results, in the wavefront schedule:
+// F + L - 1 grid barriers.  Needs L >= 2 (at one layer the schedules are one).
+int lstm_wavefront_forward(const float* x0_proj, const float* mask, const float* w_hh,
+                           const float* w_ih_up, const float* b_up, float* outs, float* hbuf,
+                           float* c_state, float* h_final, int F, int N, int H, int L,
+                           void* stream) {
+  if (L < 2) return kErrBadShape;
+  return forward<true>(x0_proj, mask, w_hh, w_ih_up, b_up, outs, hbuf, c_state, h_final, F, N,
+                       H, L, stream);
 }
 
 }  // extern "C"

@@ -23,11 +23,12 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 # Codes the kernels' C functions return beside cudaError_t values.
 ERRORS = {
-    -1: "the grid cannot be co-resident on this card (hidden size too large "
-        "for the blocks per SM at 8 units per block)",
-    -2: "the resident weights exceed a block's shared memory",
+    -1: "the cooperative grid cannot be co-resident on this card (no units-per-block "
+        "choice fits the hidden size, or the occupancy API allows too few blocks per SM)",
+    -2: "the kernel's shared-memory layout exceeds what a block can use on this card",
     -3: "the card does not support cooperative launches",
-    -4: "bad shape (F, N, H, L must be positive and H a multiple of 4)",
+    -4: "bad shape (a size is not positive, the hidden size is not a multiple of 4, "
+        "the wavefront stack has fewer than 2 layers, or the grid exceeds the launch limits)",
 }
 
 _libs: Dict[str, ctypes.CDLL] = {}

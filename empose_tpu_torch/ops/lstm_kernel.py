@@ -27,6 +27,16 @@ bit at masked steps.
 version for CPU tensors; ``LAUNCHES`` counts kernel launches. The libraries
 are compiled with ``nvcc`` at first use into ``empose_tpu_torch/_build/``.
 
+The wavefront schedule (``_pallas_wavefront``, entry
+``lstm_stack_pallas_wavefront``) has the same contract and results: layer l
+steps at time t - l in phase t, so a launch runs F + L - 1 phases (grid
+barriers) instead of F * L. :func:`lstm_stack_wavefront_plain` computes it in
+that order, deeper layers' gates as one product ``[out_{l-1}, h_l] @ [W_ih;
+W_hh] + b``; :func:`lstm_stack_wavefront_fused` launches the stack kernel's
+wavefront entry (``csrc/lstm_stack.cu``) for CUDA tensors and runs the plain
+version for CPU tensors; ``WAVEFRONT_LAUNCHES`` counts its launches. Both
+need at least 2 layers.
+
 Contract shared by :func:`lstm_bidi_plain` and :func:`lstm_bidi_fused` (the
 JAX kernel's, time-major):
 
@@ -53,6 +63,7 @@ from empose_tpu_torch.ops import cuda_build
 
 LAUNCHES = 0
 BIDI_LAUNCHES = 0
+WAVEFRONT_LAUNCHES = 0
 
 NAME = "lstm_stack"  # csrc/lstm_stack.cu
 BIDI_NAME = "lstm_bidi"  # csrc/lstm_bidi.cu
@@ -60,8 +71,10 @@ BIDI_NAME = "lstm_bidi"  # csrc/lstm_bidi.cu
 
 def _library():
     p, i = ctypes.c_void_p, ctypes.c_int
+    stack_args = [p, p, p, p, p, p, p, p, p, i, i, i, i, p]
     return cuda_build.load(NAME, {
-        "lstm_stack_forward": ([p, p, p, p, p, p, p, p, p, i, i, i, i, p], i),
+        "lstm_stack_forward": (stack_args, i),
+        "lstm_wavefront_forward": (stack_args, i),
         "lstm_stack_units": ([i], i),
     })
 
@@ -123,14 +136,10 @@ def _check(name: str, t: Optional[torch.Tensor], shape: Tuple[int, ...], device)
         raise ValueError(f"{name} must be contiguous")
 
 
-def lstm_stack_fused(x0_proj, mask, w_hh, w_ih_up, b_up, h0, c0):
-    """The stack forward: the CUDA kernel for CUDA tensors, the plain version
-    for CPU tensors (see module doc for the contract)."""
-    global LAUNCHES
-    if x0_proj.device.type == "cpu":
-        return lstm_stack_plain(x0_proj, mask, w_hh, w_ih_up, b_up, h0, c0)
+def _launch_stack(entry: str, what: str, x0_proj, mask, w_hh, w_ih_up, b_up, h0, c0):
+    """Check the stack's operands and launch ``entry`` of ``csrc/lstm_stack.cu``."""
     if x0_proj.device.type != "cuda":
-        raise ValueError(f"no LSTM stack kernel for device {x0_proj.device}")
+        raise ValueError(f"no {what} for device {x0_proj.device}")
     f, n, h4 = x0_proj.shape
     num_layers, hidden = w_hh.shape[0], w_hh.shape[1]
     dev = x0_proj.device
@@ -150,15 +159,76 @@ def lstm_stack_fused(x0_proj, mask, w_hh, w_ih_up, b_up, h0, c0):
     h_final = torch.empty(num_layers, n, hidden, device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        code = lib.lstm_stack_forward(
+        code = getattr(lib, entry)(
             x0_proj.data_ptr(), mask.data_ptr(), w_hh.data_ptr(),
             w_ih_up.data_ptr() if num_layers > 1 else None,
             b_up.data_ptr() if num_layers > 1 else None,
             outs.data_ptr(), hbuf.data_ptr(), c_state.data_ptr(), h_final.data_ptr(),
             f, n, hidden, num_layers, stream)
-    cuda_build.check(code, "LSTM stack kernel")
-    LAUNCHES += 1
+    cuda_build.check(code, what)
     return outs, h_final, c_state
+
+
+def lstm_stack_fused(x0_proj, mask, w_hh, w_ih_up, b_up, h0, c0):
+    """The stack forward: the CUDA kernel for CUDA tensors, the plain version
+    for CPU tensors (see module doc for the contract)."""
+    global LAUNCHES
+    if x0_proj.device.type == "cpu":
+        return lstm_stack_plain(x0_proj, mask, w_hh, w_ih_up, b_up, h0, c0)
+    out = _launch_stack("lstm_stack_forward", "LSTM stack kernel", x0_proj, mask, w_hh, w_ih_up,
+                        b_up, h0, c0)
+    LAUNCHES += 1
+    return out
+
+
+def _need_two_layers(num_layers: int) -> None:
+    if num_layers < 2:
+        raise ValueError("wavefront schedule needs >= 2 layers "
+                         "(use lstm_stack for a single layer)")
+
+
+def lstm_stack_wavefront_plain(x0_proj, mask, w_hh, w_ih_up, b_up, h0, c0):
+    """The wavefront kernel's function in plain torch, in its order: in
+    phase t every layer l with 0 <= t - l < F steps at time t - l; a deeper
+    layer's input is the output its predecessor made in the previous phase
+    (see module doc)."""
+    num_layers, f = w_hh.shape[0], x0_proj.shape[0]
+    _need_two_layers(num_layers)
+    w_cat = [torch.cat([w_ih_up[l - 1], w_hh[l]]) for l in range(1, num_layers)]
+    h, c = list(h0.unbind(0)), list(c0.unbind(0))
+    pipe = [None] * (num_layers - 1)  # layer l's output of the previous phase
+    outs = []
+    for t in range(f + num_layers - 1):
+        new_pipe = list(pipe)
+        for l in range(max(0, t - f + 1), min(num_layers - 1, t) + 1):
+            s = t - l
+            if l == 0:
+                gates = x0_proj[s] + h[0] @ w_hh[0]
+            else:
+                gates = torch.cat([pipe[l - 1], h[l]], dim=-1) @ w_cat[l - 1] + b_up[l - 1]
+            h_new, c_new = _sigmoid_tanh_cell(gates, c[l])
+            m = mask[s][:, None]
+            h[l] = torch.where(m > 0, h_new, h[l])
+            c[l] = torch.where(m > 0, c_new, c[l])
+            if l < num_layers - 1:
+                new_pipe[l] = h_new * m
+            else:
+                outs.append(h_new * m)
+        pipe = new_pipe
+    return torch.stack(outs), torch.stack(h), torch.stack(c)
+
+
+def lstm_stack_wavefront_fused(x0_proj, mask, w_hh, w_ih_up, b_up, h0, c0):
+    """The stack forward in the wavefront schedule: the CUDA kernel for CUDA
+    tensors, the plain version for CPU tensors (see module doc)."""
+    global WAVEFRONT_LAUNCHES
+    _need_two_layers(w_hh.shape[0])
+    if x0_proj.device.type == "cpu":
+        return lstm_stack_wavefront_plain(x0_proj, mask, w_hh, w_ih_up, b_up, h0, c0)
+    out = _launch_stack("lstm_wavefront_forward", "LSTM wavefront kernel", x0_proj, mask, w_hh,
+                        w_ih_up, b_up, h0, c0)
+    WAVEFRONT_LAUNCHES += 1
+    return out
 
 
 def stack_operands(cells: List[dict], x: torch.Tensor):
@@ -187,6 +257,15 @@ def lstm_stack(cells: List[dict], x, mask, h0, c0, stack_fn=lstm_stack_fused):
     outs, hF, cF = stack_fn(x0_proj, mask.contiguous(), w_hh, w_ih_up, b_up,
                             h0.contiguous(), c0.contiguous())
     return outs, (hF, cF)
+
+
+def lstm_stack_wavefront(cells: List[dict], x, mask, h0, c0,
+                         stack_fn=lstm_stack_wavefront_fused):
+    """Same contract and errors as
+    ``empose_tpu/ops/lstm_kernel.py::lstm_stack_pallas_wavefront``: the
+    results of :func:`lstm_stack`; ``ValueError`` below 2 layers (raised by
+    ``stack_fn``)."""
+    return lstm_stack(cells, x, mask, h0, c0, stack_fn)
 
 
 def lstm_bidi_plain(x_proj, mask, w_hh2, h0, c0):

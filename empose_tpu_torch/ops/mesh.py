@@ -1,4 +1,4 @@
-"""Mesh topology tables (host numpy) and vertex normals (torch).
+"""Mesh topology tables (host numpy) and vertex and face normals (torch).
 
 Port of ``empose_tpu/ops/mesh.py``. The tables are computed once on the host
 from the face array; only the normals run per frame.
@@ -62,13 +62,15 @@ def helper_vertices(faces: np.ndarray, vertex_ids: Sequence[int]) -> list:
     return helpers
 
 
-def compute_vertex_normals(vertices: torch.Tensor, faces: torch.Tensor,
-                           vertex_faces: torch.Tensor) -> torch.Tensor:
-    """Unnormalized vertex normals: the mean of the incident face normals.
+def compute_vertex_and_face_normals(vertices: torch.Tensor, faces: torch.Tensor,
+                                    vertex_faces: torch.Tensor, normalize: bool = False
+                                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Vertex normals (the mean of the incident face normals) and face normals.
 
     :param vertices: (N, V, 3); :param faces: (F, 3) int64;
     :param vertex_faces: (Q, MAX_DEG) face ids per queried vertex, -1 padded.
-    :return: (N, Q, 3).
+    :param normalize: scale both to unit length.
+    :return: vertex normals (N, Q, 3) and face normals (N, F, 3).
     """
     n = vertices.shape[0]
     vs = vertices.index_select(1, faces.reshape(-1)).reshape(n, -1, 3, 3)  # (N, F, 3, 3)
@@ -77,4 +79,15 @@ def compute_vertex_normals(vertices: torch.Tensor, faces: torch.Tensor,
     gathered = face_normals.index_select(1, vertex_faces.clamp(min=0).reshape(-1))
     gathered = gathered.reshape(n, *vertex_faces.shape, 3) * valid[None, :, :, None]
     degrees = valid.sum(-1).to(vertices.dtype)
-    return gathered.sum(-2) / degrees[None, :, None]
+    vertex_normals = gathered.sum(-2) / degrees[None, :, None]
+    if normalize:
+        face_normals = face_normals / torch.linalg.norm(face_normals, dim=-1, keepdim=True)
+        vertex_normals = vertex_normals / torch.linalg.norm(vertex_normals, dim=-1, keepdim=True)
+    return vertex_normals, face_normals
+
+
+def compute_vertex_normals(vertices: torch.Tensor, faces: torch.Tensor,
+                           vertex_faces: torch.Tensor) -> torch.Tensor:
+    """Unnormalized vertex normals (N, Q, 3); see
+    :func:`compute_vertex_and_face_normals`."""
+    return compute_vertex_and_face_normals(vertices, faces, vertex_faces)[0]

@@ -1,12 +1,15 @@
-"""Checks that need the card: the LSTM stack kernel, the bidirectional layer
-kernel and the LSTM training pair against their plain versions at the
-released widths (H=512), and served steps (LGD-RNN, BiRNN) against the same
-model run with the plain LSTM. Skipped without a CUDA device; on the card run
+"""Checks that need the card: the LSTM stack kernel, its wavefront schedule,
+the bidirectional layer kernel and the LSTM training pair against their
+plain versions at the released widths (H=512), the LBS kernel against its
+plain version at the full mesh, SMPLLayer's launches, and served steps
+(LGD-RNN, BiRNN) against the same model run with the plain LSTM. Skipped
+without a CUDA device; on the card run
 
     python -m pytest tests/test_torch_cuda.py -q
 
 Tolerance atol 1e-4 (fp32 on both sides, different summation order; the LGD
-gradient input is scaled by n*f).
+gradient input is scaled by n*f); the LBS kernel atol 2e-5 (coordinates of a
+metre, 52 joints).
 """
 
 import copy
@@ -15,7 +18,7 @@ import numpy as np
 import pytest
 import torch
 
-from empose_tpu_torch.bodymodel.smplh import SMPLHModel
+from empose_tpu_torch.bodymodel.smplh import SMPLHModel, SMPLLayer
 from empose_tpu_torch.bodymodel.synthetic import make_synthetic_smplh
 from empose_tpu_torch.config import Configuration
 from empose_tpu_torch.device import set_precision
@@ -23,6 +26,7 @@ from empose_tpu_torch.nn.layers import init_parameters
 from empose_tpu_torch.nn.models import SensorSMPL, create_model
 from empose_tpu_torch.ops import lstm_kernel as K
 from empose_tpu_torch.ops import lstm_train_kernel as TK
+from empose_tpu_torch.ops import skinning as SK
 from empose_tpu_torch.serve import MultiStreamPredictor
 
 torch.set_num_threads(1)
@@ -56,6 +60,73 @@ def test_kernel_matches_plain_released_shape(cuda, f):
     for a, b in zip(got[1], want[1]):
         torch.testing.assert_close(a, b, atol=ATOL, rtol=0)
     assert torch.equal(got[1][0][:, :3], h0[:, :3]) and torch.equal(got[1][1][:, :3], c0[:, :3])
+
+
+@pytest.mark.parametrize("f, n", [(16, 64), (256, 64), (16, 1)])
+def test_wavefront_kernel_matches_plain_and_stack(cuda, f, n):
+    """The wavefront schedule at the released init-RNN shape: atol 1e-4
+    against its plain version and against the stack kernel, 0-length rows
+    frozen bit for bit, one launch."""
+    g = torch.Generator().manual_seed(f + n + 2)
+    h, layers, n_in = 512, 2, 72
+    u = lambda *s: ((torch.rand(*s, generator=g) * 2 - 1) * h ** -0.5).to(cuda)
+    cells = [dict(w_ih=u(n_in if l == 0 else h, 4 * h), w_hh=u(h, 4 * h), b_ih=u(4 * h),
+                  b_hh=u(4 * h)) for l in range(layers)]
+    x = torch.randn(f, n, n_in, generator=g).to(cuda)
+    lengths = torch.randint(1, f, (n,), generator=g)
+    lengths[: n // 16] = 0
+    lengths[n // 16: n // 16 + n // 3] = f
+    mask = (torch.arange(f)[:, None] < lengths[None]).float().to(cuda)
+    h0, c0 = (torch.randn(2, layers, n, h, generator=g) * 0.5).to(cuda)
+    launches = K.WAVEFRONT_LAUNCHES
+    got = K.lstm_stack_wavefront(cells, x, mask, h0, c0)
+    assert K.WAVEFRONT_LAUNCHES == launches + 1
+    for want in (K.lstm_stack_wavefront(cells, x, mask, h0, c0, K.lstm_stack_wavefront_plain),
+                 K.lstm_stack(cells, x, mask, h0, c0)):
+        torch.testing.assert_close(got[0], want[0], atol=ATOL, rtol=0)
+        for a, b in zip(got[1], want[1]):
+            torch.testing.assert_close(a, b, atol=ATOL, rtol=0)
+    idle = (lengths == 0).to(cuda)
+    assert torch.equal(got[1][0][:, idle], h0[:, idle]) and torch.equal(got[1][1][:, idle], c0[:, idle])
+
+
+@pytest.mark.parametrize("n", [512, 64, 1])
+def test_lbs_kernel_matches_plain_full_mesh(cuda, n):
+    """The LBS kernel at the full mesh (V=6890, J=52), normalized random
+    weights, random rotations: atol 2e-5, one launch."""
+    g = torch.Generator().manual_seed(n)
+    v, j = 6890, 52
+    weights = torch.rand(v, j, generator=g)
+    weights /= weights.sum(1, keepdim=True)
+    q = torch.nn.functional.normalize(torch.randn(n, j, 4, generator=g), dim=-1)
+    w_, x_, y_, z_ = q.unbind(-1)
+    R = torch.stack([1 - 2 * (y_ * y_ + z_ * z_), 2 * (x_ * y_ - w_ * z_), 2 * (x_ * z_ + w_ * y_),
+                     2 * (x_ * y_ + w_ * z_), 1 - 2 * (x_ * x_ + z_ * z_), 2 * (y_ * z_ - w_ * x_),
+                     2 * (x_ * z_ - w_ * y_), 2 * (y_ * z_ + w_ * x_), 1 - 2 * (x_ * x_ + y_ * y_)],
+                    -1).reshape(n, j, 3, 3).to(cuda)
+    t = torch.randn(n, j, 3, generator=g).to(cuda)
+    v_posed = torch.randn(n, v, 3, generator=g).to(cuda)
+    launches = SK.LBS_LAUNCHES
+    got = SK.FusedLBS(weights.numpy(), cuda)(R, t, v_posed)
+    assert SK.LBS_LAUNCHES == launches + 1
+    want = SK.lbs_apply_plain(weights.to(cuda), R, t, v_posed)
+    torch.testing.assert_close(got, want, atol=2e-5, rtol=0)
+
+
+def test_smpl_layer_fk_one_launch(cuda):
+    """SMPLLayer.fk at the full mesh: one LBS launch per call; vertices equal
+    the same layer on the CPU within 1e-4 and joints equal fk_joints."""
+    model = _synthetic_smplh()
+    rng = np.random.RandomState(0)
+    args = [(rng.randn(40, d) * s).astype(np.float32) for d, s in ((63, 0.3), (10, 0.5), (3, 0.5), (3, 1.0))]
+    layer = SMPLLayer(model, cuda)
+    launches = SK.LBS_LAUNCHES
+    verts, joints = layer.fk(*args)
+    assert SK.LBS_LAUNCHES == launches + 1
+    cpu_verts, _ = SMPLLayer(model, "cpu").fk(*args)
+    np.testing.assert_allclose(verts.cpu().numpy(), cpu_verts.numpy(), atol=ATOL)
+    torch.testing.assert_close(joints, layer.fk_joints(*args), atol=1e-6, rtol=0)
+    assert torch.isfinite(layer.vertex_normals(verts)).all()
 
 
 @pytest.mark.parametrize("f, n", [(16, 64), (256, 64), (16, 1)])
@@ -109,10 +180,10 @@ def test_training_pair_matches_plain_released_shape(cuda, f, n):
     assert torch.equal(got_b[1][:2], want_b[1][:2]) and torch.equal(got_b[2][:2], want_b[2][:2])
 
 
-def _synthetic_sensor():
+def _synthetic_smplh():
     npz = make_synthetic_smplh(seed=0)
     pd = npz["posedirs"]
-    smplh = SMPLHModel(
+    return SMPLHModel(
         v_template=npz["v_template"].astype(np.float32),
         shapedirs=npz["shapedirs"][..., :10].astype(np.float32),
         posedirs=pd.reshape(-1, pd.shape[-1]).T.astype(np.float32),
@@ -120,7 +191,10 @@ def _synthetic_sensor():
         weights=npz["weights"].astype(np.float32),
         parents=tuple(int(p) if p < 2 ** 31 else -1 for p in npz["kintree_table"][0]),
         faces=npz["f"].astype(np.int64))
-    return SensorSMPL(smplh)
+
+
+def _synthetic_sensor():
+    return SensorSMPL(_synthetic_smplh())
 
 
 @pytest.mark.parametrize("m_type", ["ief", "rnn"], ids=["lgd_rnn", "birnn"])

@@ -41,6 +41,14 @@ def test_port_imports_no_jax_and_no_reference_package():
     assert "BAD []" in res.stdout, res.stdout
 
 
+def test_full_mesh_datagen_and_bench_modules_are_covered():
+    """The full-mesh, datagen and bench modules are among those the
+    no-jax check above imports."""
+    assert {"empose_tpu_torch.preprocess", "empose_tpu_torch.eval.harness",
+            "empose_tpu_torch.tools.bench_lstm_kernels", "empose_tpu_torch.ops.skinning",
+            "empose_tpu_torch.ops.quaternions"} <= set(_port_modules())
+
+
 def test_port_sources_never_import_jax_or_reference():
     pattern = re.compile(r"^\s*(import\s+jax|from\s+jax|import\s+empose_tpu\b(?!_torch)"
                          r"|from\s+empose_tpu\b(?!_torch))", re.M)

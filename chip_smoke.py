@@ -27,9 +27,9 @@ Phases, each printed on its own line:
      beside the plain version and torch.nn.LSTM(bidirectional=True) (cuDNN);
   4c. the LBS kernel against its plain version at the full synthetic mesh
      (V=6890, J=52) for N = 512 (an export chunk), 64 and 1 frames, with
-     normalized random weights and random rotations; its device time beside
-     the plain version's and torch.matmul(A, W^T)'s (cuBLAS, the blend
-     product alone);
+     normalized random weights and random rotations; its median times
+     beside the plain version's and torch.matmul(A, W^T)'s (cuBLAS, the
+     blend product alone), and its device time alone (torch.profiler);
   4d. the port's bench tool (``python -m
      empose_tpu_torch.tools.bench_lstm_kernels``'s main) at --batch 1 64
      --window 16 --iters 5: the stack and the wavefront kernel launch once
@@ -49,7 +49,10 @@ Phases, each printed on its own line:
      steps, then resumed for 4; each training kernel must launch twice per
      step (once per LSTM layer), the loss must be finite, and one step must
      give the loss and every parameter gradient of the same step with the
-     plain training pair; then step times and one profiled window;
+     plain training pair (every gradient within TOL_GRAD_LGD of the largest,
+     a limit set by ``--step-rounding``) and of the step with the kernel
+     forward and the plain reverse sweep; then step times and one profiled
+     window;
   6b. the same for full-width BiRNN-6, 4 steps then 2 resumed: each
      training kernel launches four times per step (2 layers x 2 directions);
   6c. SMPLLayer.fk at the full mesh for a 600-frame sequence in one call:
@@ -64,6 +67,11 @@ Phases, each printed on its own line:
      chunks each for GT and prediction), the npz and two OBJ files written;
   7. a "kernels" JSON line; 8. a last JSON line with the device.
 
+    python3 chip_smoke.py --step-rounding [N_SEEDS, default 4]
+
+reads how far fp32 rounding alone moves a full-width LGD-RNN-6 train step
+(``step_rounding_study``), at many trained states, beside the kernel pair.
+
 Exits non-zero on any failure, and when no CUDA device is present.
 Imports torch, numpy and the port only.
 """
@@ -72,6 +80,7 @@ from __future__ import annotations
 
 import copy
 import functools
+import itertools
 import json
 import os
 import pickle
@@ -107,6 +116,10 @@ SEED = 0
 TOL = 1e-4
 TOL_REL = 1e-4       # training pair vs plain: max abs error over max abs value
 TOL_GRAD_REL = 1e-4  # a whole train step, kernel vs plain pair: max abs error / largest gradient
+# The same for LGD-RNN-6, whose loop amplifies rounding: about twice the
+# largest reading of an fp64-rounded plain forward against the plain pair,
+# 2.28e-3, over 38 states on an H100 (``--step-rounding``, 4 and 8 seeds).
+TOL_GRAD_LGD = 5e-3
 TRAIN_WINDOW, TRAIN_BATCH, TRAIN_STEPS, RESUME_STEPS = 64, 16, 8, 4
 BIRNN_TRAIN_STEPS, BIRNN_RESUME_STEPS = 4, 2
 STREAMS, CHUNK, CHUNKS = 64, 16, 4
@@ -368,7 +381,8 @@ def lbs_bound_ms(n: int) -> tuple:
 
 def lbs_phase(n: int, seed: int) -> dict:
     """The LBS kernel against its plain version at the full mesh, then the
-    device times of the kernel, the plain version and cuBLAS's A @ W^T."""
+    median event times of the wrapper, the plain version and cuBLAS's
+    A @ W^T, and the device time of the kernel alone (``device_ms``)."""
     g = torch.Generator().manual_seed(seed)
     weights = torch.rand(V_FULL, J_FULL, generator=g)
     weights /= weights.sum(1, keepdim=True)
@@ -385,18 +399,19 @@ def lbs_phase(n: int, seed: int) -> dict:
     check(err <= TOL_LBS, f"LBS kernel disagrees with its plain version at N={n}: {err} > {TOL_LBS}")
     a = SK.pack_transforms(R, t).contiguous()
     with torch.no_grad():
+        ms = cuda_ms(lambda: lbs(R, t, v_posed))
+        plain_ms = cuda_ms(lambda: SK.lbs_apply_plain(w_dev, R, t, v_posed), reps=7)
+        library_ms = cuda_ms(lambda: torch.matmul(a, lbs.weights_t))
         fused = device_ms(lambda: lbs(R, t, v_posed))
-        ms = sum(v for k, v in fused.items() if "lbs_kernel" in k)
-        plain_ms = sum(device_ms(lambda: SK.lbs_apply_plain(w_dev, R, t, v_posed), reps=5).values())
-        library_ms = sum(device_ms(lambda: torch.matmul(a, lbs.weights_t)).values())
-        event_ms = cuda_ms(lambda: lbs(R, t, v_posed))
+    kernel_ms = sum(v for k, v in fused.items() if "lbs_kernel" in k)
     b_ms, b_by = lbs_bound_ms(n)
-    print(f"LBS times N={n} (device time per call): kernel {ms:.4f} ms (its wrapper's packing of "
-          f"A {sum(fused.values()) - ms:.4f} ms; the wrapper's median event time, host launch "
-          f"included, {event_ms:.4f} ms), plain {plain_ms:.4f} ms, torch.matmul(A, W^T) (cuBLAS, "
-          f"blend product only) {library_ms:.4f} ms, bound {b_ms:.4f} ms by {b_by}", flush=True)
+    print(f"LBS times N={n}: kernel wrapper {ms:.4f} ms (median event time, as for the other "
+          f"kernels; device time of lbs_kernel alone {kernel_ms:.4f} ms and of the wrapper's "
+          f"packing of A {sum(fused.values()) - kernel_ms:.4f} ms), plain {plain_ms:.4f} ms, "
+          f"torch.matmul(A, W^T) (cuBLAS, blend product only) {library_ms:.4f} ms, bound "
+          f"{b_ms:.4f} ms by {b_by}", flush=True)
     return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
-                library_ms=library_ms)
+                library_ms=library_ms, device_ms=kernel_ms)
 
 
 def rel_err(a: torch.Tensor, b: torch.Tensor) -> float:
@@ -777,23 +792,17 @@ def fwd_in_fp64(x_proj, mask, w_hh, h0, c0, save_gates: bool = True):
     return tuple(t.float() for t in out)
 
 
-def training_step_vs_plain(label: str, trainer, per_step: int) -> None:
-    """One step from the same state and batch with the kernel pair and with
-    the plain pair on the card: the loss and the init RNN's gradients against
-    the plain pair; every parameter gradient against the step with the
-    kernel forward sweep and the plain reverse sweep.
-
-    The LGD loop amplifies a rounding-level change of the LSTM's forward
-    outputs into gradient changes near 1e-4 of the largest gradient (its
-    recurrent gradient input passes through FK near zero pose and train-mode
-    BatchNorm). So every gradient is held where the forward values are the
-    same bits, against the mixed step, which isolates the reverse sweep;
-    the kernel pair against the plain pair is printed beside the same
-    comparison for the fp64-rounded plain forward, which shows how far two
-    valid fp32 forwards move the step."""
-    loader = EMRBatchLoader(os.path.join(os.environ["EM_DATA_SYNTH"], "amass_emr"), TRAIN_BATCH,
-                            TRAIN_WINDOW, seed=SEED + 1)
-    host_batch = next(iter(loader))
+def step_errors(trainer, host_batch) -> dict:
+    """One train step from the trainer's state on ``host_batch``, taken five
+    ways: with the kernel pair; with the kernel forward and the plain
+    reverse sweep (the mixed step: the same forward bits); twice with the
+    plain pair (run-to-run noise: the FK backward sums with atomics); with
+    the plain forward computed in fp64 and rounded to fp32 (an equally
+    valid fp32 forward, rounded elsewhere: how far rounding alone moves the
+    step). Gradient errors are max abs error over the model's largest
+    gradient, each with the tensor where it is largest; the loss's and the
+    init RNN's (per tensor, over its largest entry) are against the plain
+    pair. The trainer's state is left as it was."""
     model = trainer.model
     state = copy.deepcopy(model.state_dict())
     gen_state = trainer.generator.get_state()
@@ -810,25 +819,16 @@ def training_step_vs_plain(label: str, trainer, per_step: int) -> None:
         loss, _ = trainer.loss(batch)
         return loss.detach(), torch.autograd.grad(loss, params)
 
-    launches = counts()
     loss_k, grads_k = step(TK.lstm_cell_train)
     _, grads_m = step(cell(TK.lstm_train_fwd, TK.lstm_train_bwd_plain))
     loss_p, grads_p = step(cell(TK.lstm_train_fwd_plain, TK.lstm_train_bwd_plain))
     _, grads_p2 = step(cell(TK.lstm_train_fwd_plain, TK.lstm_train_bwd_plain))
     _, grads_d = step(cell(fwd_in_fp64, TK.lstm_train_bwd_plain))
     torch.cuda.synchronize()
-    check(counts() == dict(launches, lstm_train_fwd=launches["lstm_train_fwd"] + 2 * per_step,
-                           lstm_train_bwd=launches["lstm_train_bwd"] + per_step),
-          f"{label}: the kernel steps did not launch the sweeps once per direction-layer")
     model.rnn.lstm_train_cell = TK.lstm_cell_train
     model.load_state_dict(state)
-    loss_err = rel_err(loss_k, loss_p)
+    trainer.generator.set_state(gen_state)
     names = [k for k, _ in model.named_parameters()]
-    # The init RNN's weights, which the pair's gradients reach first, per
-    # tensor relative to its largest entry; every tensor relative to the
-    # model's largest gradient. Gradients near zero (biases before a
-    # train-mode BatchNorm) hold rounding noise, and the FK backward sums with
-    # atomics, so two runs of the same step differ too: printed beside.
     scale = max(float(g.abs().max()) for g in grads_p)
 
     def worst(ga, gb):
@@ -838,22 +838,91 @@ def training_step_vs_plain(label: str, trainer, per_step: int) -> None:
 
     rnn_errs = {k: rel_err(a, b) for k, a, b in zip(names, grads_k, grads_p) if k.startswith("rnn.")}
     worst_rnn = max(rnn_errs, key=rnn_errs.get)
-    (mixed_err, mixed_at), (pair_err, pair_at) = worst(grads_k, grads_m), worst(grads_k, grads_p)
-    fp64_err, fp64_at = worst(grads_d, grads_p)
-    noise, _ = worst(grads_p2, grads_p)
-    print(f"{label} training step, kernel pair vs plain pair: loss {float(loss_k):.6f} vs "
-          f"{float(loss_p):.6f} (rel {loss_err:.2e}); init-RNN gradients, max abs error / max "
-          f"abs value, largest {rnn_errs[worst_rnn]:.2e} ({worst_rnn}); all {len(names)} "
-          f"gradients, max abs error / the largest gradient ({scale:.3e}): kernel pair vs kernel "
-          f"forward + plain reverse sweep {mixed_err:.2e} ({mixed_at}); kernel pair vs plain pair "
-          f"{pair_err:.2e} ({pair_at}) beside the fp64-rounded plain forward vs plain pair "
-          f"{fp64_err:.2e} ({fp64_at}); plain pair against itself, run to run, {noise:.2e}",
-          flush=True)
-    check(loss_err <= 1e-5, f"train loss differs from the plain pair: {loss_err}")
-    check(rnn_errs[worst_rnn] <= TOL_REL, f"gradient {worst_rnn} differs from the plain pair: "
-                                          f"{rnn_errs[worst_rnn]} > {TOL_REL}")
-    check(mixed_err <= TOL_GRAD_REL, f"gradient {mixed_at} differs from the step with the plain "
-                                     f"reverse sweep: {mixed_err} > {TOL_GRAD_REL}")
+    return dict(loss_k=float(loss_k), loss_p=float(loss_p), loss=rel_err(loss_k, loss_p),
+                rnn=(rnn_errs[worst_rnn], worst_rnn), n_grads=len(names), scale=scale,
+                pair=worst(grads_k, grads_p), mixed=worst(grads_k, grads_m),
+                fp64=worst(grads_d, grads_p), noise=worst(grads_p2, grads_p))
+
+
+def training_step_vs_plain(label: str, trainer, per_step: int, grad_tol: float) -> None:
+    """One step from the same state and batch with the kernel pair and with
+    the plain pair on the card (``step_errors``): the loss and the init RNN's
+    gradients against the plain pair; every parameter gradient within
+    ``grad_tol`` of the largest gradient against the plain pair, and against
+    the mixed step, which holds the reverse sweep where the forward values
+    are the same bits."""
+    loader = EMRBatchLoader(os.path.join(os.environ["EM_DATA_SYNTH"], "amass_emr"), TRAIN_BATCH,
+                            TRAIN_WINDOW, seed=SEED + 1)
+    launches = counts()
+    e = step_errors(trainer, next(iter(loader)))
+    check(counts() == dict(launches, lstm_train_fwd=launches["lstm_train_fwd"] + 2 * per_step,
+                           lstm_train_bwd=launches["lstm_train_bwd"] + per_step),
+          f"{label}: the kernel steps did not launch the sweeps once per direction-layer")
+    (rnn_err, rnn_at), (pair_err, pair_at), (mixed_err, mixed_at) = e["rnn"], e["pair"], e["mixed"]
+    print(f"{label} training step, kernel pair vs plain pair: loss {e['loss_k']:.6f} vs "
+          f"{e['loss_p']:.6f} (rel {e['loss']:.2e}); init-RNN gradients, max abs error / max "
+          f"abs value, largest {rnn_err:.2e} ({rnn_at}); all {e['n_grads']} gradients, max abs "
+          f"error / the largest gradient ({e['scale']:.3e}): kernel pair vs plain pair "
+          f"{pair_err:.2e} ({pair_at}, limit {grad_tol:.0e}) beside the fp64-rounded plain "
+          f"forward vs plain pair {e['fp64'][0]:.2e} ({e['fp64'][1]}); kernel pair vs kernel "
+          f"forward + plain reverse sweep {mixed_err:.2e} ({mixed_at}); plain pair against "
+          f"itself, run to run, {e['noise'][0]:.2e}", flush=True)
+    check(e["loss"] <= 1e-5, f"train loss differs from the plain pair: {e['loss']}")
+    check(rnn_err <= TOL_REL, f"gradient {rnn_at} differs from the plain pair: "
+                              f"{rnn_err} > {TOL_REL}")
+    check(pair_err <= grad_tol, f"gradient {pair_at} differs from the plain pair: "
+                                f"{pair_err} > {grad_tol}")
+    check(mixed_err <= grad_tol, f"gradient {mixed_at} differs from the step with the plain "
+                                 f"reverse sweep: {mixed_err} > {grad_tol}")
+
+
+def step_rounding_study(seeds=range(4), reads: int = 3, steps_between: int = 6) -> int:
+    """``python3 chip_smoke.py --step-rounding [N_SEEDS]``: the readings that set
+    TOL_GRAD_LGD. ``step_errors`` of full-width LGD-RNN-6 at many states:
+    12 steps trained through the CLI (the smoke run checks 8 + 4), then for
+    each seed the seeded initial weights and the states ``steps_between``,
+    2 * ``steps_between``, ... train steps on. One line per state, then a
+    JSON summary of the largest readings."""
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)", file=sys.stderr)
+        return 2
+    set_precision("highest")
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                          capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
+    print(card, flush=True)
+    cuda_build.build([TK.NAME], force=True)
+    rows = []
+    with tempfile.TemporaryDirectory(dir=cuda_build.BUILD_DIR) as root:
+        write_assets(root, np.random.RandomState(SEED))
+        emr_dir = os.path.join(os.environ["EM_DATA_SYNTH"], "amass_emr")
+        _, trainer = train_cli.main(train_flags(LGD_RNN_6, "900002", TRAIN_STEPS + RESUME_STEPS))
+        host_batch = next(iter(EMRBatchLoader(emr_dir, TRAIN_BATCH, TRAIN_WINDOW, seed=SEED + 1)))
+
+        def train_batches():
+            for epoch in itertools.count():
+                yield from EMRBatchLoader(emr_dir, TRAIN_BATCH, TRAIN_WINDOW, seed=SEED + 3 + epoch)
+
+        def read(state: str) -> None:
+            e = step_errors(trainer, host_batch)
+            rows.append(dict(state=state, **{k: e[k][0] for k in ("pair", "fp64", "mixed", "noise")}))
+            print(f"step rounding, {state}: kernel pair vs plain pair {e['pair'][0]:.3e} "
+                  f"({e['pair'][1]}); fp64-rounded plain forward vs plain pair {e['fp64'][0]:.3e} "
+                  f"({e['fp64'][1]}); kernel pair vs mixed step {e['mixed'][0]:.3e}; plain pair "
+                  f"run to run {e['noise'][0]:.3e}; loss rel {e['loss']:.2e}", flush=True)
+
+        read(f"CLI-trained, {TRAIN_STEPS + RESUME_STEPS} steps")
+        batches = train_batches()
+        for seed in seeds:
+            init_parameters(trainer.model, torch.Generator().manual_seed(seed))
+            trainer.opt.state.clear()
+            for r in range(reads):
+                for _ in range(steps_between if r else 0):
+                    trainer.train_step(next(batches))
+                read(f"seed {seed}, {r * steps_between} steps from init")
+    print(json.dumps({"step_rounding": {k: max(r[k] for r in rows)
+                                        for k in ("pair", "fp64", "mixed", "noise")},
+                      "states": len(rows)}), flush=True)
+    return 0
 
 
 def training_times(label: str, trainer) -> None:
@@ -1109,7 +1178,7 @@ def main() -> int:
         n_layers = LGD_RNN_6["m_rnn_num_layers"]
         trained = training_path("LGD-RNN-6", LGD_RNN_6, "900002", TRAIN_STEPS, RESUME_STEPS,
                                 n_layers)
-        training_step_vs_plain("LGD-RNN-6", trained["trainer"], n_layers)
+        training_step_vs_plain("LGD-RNN-6", trained["trainer"], n_layers, TOL_GRAD_LGD)
         training_times("LGD-RNN-6", trained["trainer"])
         trained_fwd, trained_bwd = trained["fwd"], trained["bwd"]
         del trained
@@ -1117,7 +1186,7 @@ def main() -> int:
         per_step = 2 * BIRNN_6["m_num_layers"]
         birnn = training_path("BiRNN-6", BIRNN_6, "900004", BIRNN_TRAIN_STEPS,
                               BIRNN_RESUME_STEPS, per_step)
-        training_step_vs_plain("BiRNN-6", birnn["trainer"], per_step)
+        training_step_vs_plain("BiRNN-6", birnn["trainer"], per_step, TOL_GRAD_REL)
         training_times("BiRNN-6", birnn["trainer"])
         del birnn
 
@@ -1154,4 +1223,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--step-rounding"]:
+        sys.exit(step_rounding_study(seeds=range(int(sys.argv[2]) if sys.argv[2:] else 4)))
     sys.exit(main())

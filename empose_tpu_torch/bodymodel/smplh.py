@@ -27,7 +27,7 @@ import torch
 from empose_tpu_torch import constants as C
 from empose_tpu_torch.device import resolve_device
 from empose_tpu_torch.ops import mesh as mesh_ops
-from empose_tpu_torch.ops.skinning import FusedLBS
+from empose_tpu_torch.ops.skinning import FusedLBS, lbs_apply_plain
 from empose_tpu_torch.ops.so3 import aa2rot, rodrigues, rot2aa
 
 ARRAY_FIELDS = ("v_template", "shapedirs", "posedirs", "j_regressor", "weights",
@@ -233,7 +233,8 @@ def smplh_fk(model: SMPLHModel, poses_body: torch.Tensor, betas: torch.Tensor,
     Hand poses default to zero, root/trans to zero; betas broadcast over the
     batch and are truncated to the model's beta count. ``lbs_fn(R_glob,
     t_skin, v_posed)``, when given, does the skinning (the full-mesh kernel,
-    ``ops/skinning.FusedLBS``); otherwise plain einsums do.
+    ``ops/skinning.FusedLBS``); otherwise its plain version
+    (``ops/skinning.lbs_apply_plain``) does.
 
     :param poses_body: (N, 63+) body pose angle-axis (extra dofs ignored).
     :param betas: (N, B) or (B,) or (1, B).
@@ -266,12 +267,9 @@ def smplh_fk(model: SMPLHModel, poses_body: torch.Tensor, betas: torch.Tensor,
     ident = torch.eye(3, dtype=dtype, device=device)
     pose_feature = (rot_mats[:, 1:] - ident).reshape(n, -1)
     v_posed = v_rest + (pose_feature @ model.posedirs).reshape(n, -1, 3)
-    if lbs_fn is not None:
-        return lbs_fn(R_glob, t_skin, v_posed) + trans[:, None], joints_out
-    Rw = torch.einsum("vj,njab->nvab", model.weights, R_glob)
-    tw = torch.einsum("vj,nja->nva", model.weights, t_skin)
-    verts = (Rw @ v_posed[..., None])[..., 0] + tw + trans[:, None]
-    return verts, joints_out
+    if lbs_fn is None:
+        return lbs_apply_plain(model.weights, R_glob, t_skin, v_posed) + trans[:, None], joints_out
+    return lbs_fn(R_glob, t_skin, v_posed) + trans[:, None], joints_out
 
 
 def smplh_fk_normalized_root(model: SMPLHModel, poses_body, betas, poses_root, trans, **kw):

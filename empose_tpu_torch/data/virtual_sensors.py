@@ -87,8 +87,8 @@ def virtual_pos_and_rot(vertices: torch.Tensor, tables: VirtualSensorTables):
     :param vertices: (N, V_rows, 3); ``tables`` with tensor indices (``.to``).
     :return: (markers (N, M, 3), frames (N, M, 3, 3), normals (N, M, 3))
     """
-    normals_raw = mesh_ops.compute_vertex_normals(vertices, tables.sub_faces_rows,
-                                                  tables.vertex_faces)
+    normals_raw, _ = mesh_ops.compute_vertex_and_face_normals(vertices, tables.sub_faces_rows,
+                                                              tables.vertex_faces)
     markers = vertices.index_select(1, tables.marker_rows)
     helpers = vertices.index_select(1, tables.helper_rows)
     ns = _unit(normals_raw)

@@ -63,13 +63,13 @@ def helper_vertices(faces: np.ndarray, vertex_ids: Sequence[int]) -> list:
 
 
 def compute_vertex_and_face_normals(vertices: torch.Tensor, faces: torch.Tensor,
-                                    vertex_faces: torch.Tensor, normalize: bool = False
+                                    vertex_faces: torch.Tensor
                                     ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Vertex normals (the mean of the incident face normals) and face normals.
+    """Unnormalized vertex normals (the mean of the incident face normals)
+    and face normals.
 
     :param vertices: (N, V, 3); :param faces: (F, 3) int64;
     :param vertex_faces: (Q, MAX_DEG) face ids per queried vertex, -1 padded.
-    :param normalize: scale both to unit length.
     :return: vertex normals (N, Q, 3) and face normals (N, F, 3).
     """
     n = vertices.shape[0]
@@ -79,15 +79,4 @@ def compute_vertex_and_face_normals(vertices: torch.Tensor, faces: torch.Tensor,
     gathered = face_normals.index_select(1, vertex_faces.clamp(min=0).reshape(-1))
     gathered = gathered.reshape(n, *vertex_faces.shape, 3) * valid[None, :, :, None]
     degrees = valid.sum(-1).to(vertices.dtype)
-    vertex_normals = gathered.sum(-2) / degrees[None, :, None]
-    if normalize:
-        face_normals = face_normals / torch.linalg.norm(face_normals, dim=-1, keepdim=True)
-        vertex_normals = vertex_normals / torch.linalg.norm(vertex_normals, dim=-1, keepdim=True)
-    return vertex_normals, face_normals
-
-
-def compute_vertex_normals(vertices: torch.Tensor, faces: torch.Tensor,
-                           vertex_faces: torch.Tensor) -> torch.Tensor:
-    """Unnormalized vertex normals (N, Q, 3); see
-    :func:`compute_vertex_and_face_normals`."""
-    return compute_vertex_and_face_normals(vertices, faces, vertex_faces)[0]
+    return gathered.sum(-2) / degrees[None, :, None], face_normals

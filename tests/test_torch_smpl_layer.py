@@ -14,8 +14,10 @@ import torch
 import jax.numpy as jnp
 
 from empose_tpu.bodymodel.smplh import SMPLLayer as JSMPLLayer, load_smplh as j_load_smplh
+from empose_tpu.ops import mesh as j_mesh_ops
 
 from empose_tpu_torch.bodymodel.smplh import SMPLLayer, create_default_smpl_model, load_smplh
+from empose_tpu_torch.ops import mesh as mesh_ops
 from empose_tpu_torch.ops import skinning as SK
 
 torch.set_num_threads(1)
@@ -76,6 +78,19 @@ def test_vertex_normals_and_topology(layers, inputs):
                                np.asarray(j_layer.vertex_normals(j_verts, ids)), atol=1e-5)
     np.testing.assert_array_equal(layer.vertex_faces(), j_layer.vertex_faces())
     np.testing.assert_array_equal(layer.faces, np.asarray(j_layer.faces))
+
+
+def test_vertex_and_face_normals_match_jax(layers, inputs):
+    layer, _ = layers
+    verts, _ = layer.fk(*inputs)
+    faces, vf = np.asarray(layer.faces, np.int64), layer.vertex_faces()
+    vn, fn = mesh_ops.compute_vertex_and_face_normals(verts, torch.as_tensor(faces),
+                                                      torch.as_tensor(vf))
+    j_vn, j_fn = j_mesh_ops.compute_vertex_and_face_normals(jnp.asarray(verts.numpy()),
+                                                            jnp.asarray(faces), jnp.asarray(vf))
+    assert vn.shape == (N, 6890, 3) and fn.shape == (N, faces.shape[0], 3)
+    np.testing.assert_allclose(vn.numpy(), np.asarray(j_vn), atol=1e-5)
+    np.testing.assert_allclose(fn.numpy(), np.asarray(j_fn), atol=1e-5)
 
 
 def test_vposer_hooks_raise_without_a_model(layers):

@@ -12,6 +12,8 @@ Phases, each printed on its own line:
      (F=16, N=64), the eval window (F=256, N=64) and one stream's chunk
      (F=16, N=1), with 0-length, partial and full rows and non-zero state;
      its median times beside the plain version and torch.nn.LSTM (cuDNN);
+     at (16, 1) also 11 rounds of kernel, cuDNN, cuDNN, kernel, with the
+     median and quartiles of each and of their ratio;
      on the same inputs the wavefront schedule of the stack kernel against
      its plain version and against the stack kernel, and its median times;
   4. the LSTM training pair (forward and reverse sweep) against its plain
@@ -26,10 +28,13 @@ Phases, each printed on its own line:
      0-length, partial and full rows and non-zero state; its median times
      beside the plain version and torch.nn.LSTM(bidirectional=True) (cuDNN);
   4c. the LBS kernel against its plain version at the full synthetic mesh
-     (V=6890, J=52) for N = 512 (an export chunk), 64 and 1 frames, with
-     normalized random weights and random rotations; its median times
-     beside the plain version's and torch.matmul(A, W^T)'s (cuBLAS, the
-     blend product alone), and its device time alone (torch.profiler);
+     (V=6890, J=52) for N = 512 (an export chunk), 64, 1, 600 (the
+     SMPLLayer.fk call), 76 (the export's last chunk) and 7 (a ragged
+     chunk), with normalized random weights and random rotations, each with
+     its launch plan; at 512, 64 and 1 its median times beside the plain
+     version's and torch.matmul(A, W^T)'s (cuBLAS, the blend product alone),
+     and its device time alone (torch.profiler); strided R_glob/t_skin
+     refused with ValueError;
   4d. the port's bench tool (``python -m
      empose_tpu_torch.tools.bench_lstm_kernels``'s main) at --batch 1 64
      --window 16 --iters 5: the stack and the wavefront kernel launch once
@@ -215,9 +220,35 @@ def frozen_rows(got, mask, h0, c0) -> bool:
     return bool((got[1][:, idle] == h0[:, idle]).all() and (got[2][:, idle] == c0[:, idle]).all())
 
 
-def stack_phase(f: int, n: int, seed: int) -> dict:
+def quartiles(xs) -> str:
+    q1, q2, q3 = np.percentile(xs, [25, 50, 75])
+    return f"median {q2:.4f} (quartiles {q1:.4f}-{q3:.4f})"
+
+
+def stack_vs_cudnn_rounds(f: int, n: int, rounds: int, kernel, kernel_proj, cudnn) -> None:
+    """``rounds`` rounds of median event times (``cuda_ms``) in turns: kernel,
+    kernel with input projection, cuDNN, cuDNN, kernel with input
+    projection, kernel; per round the ratio of the kernel's two times to
+    cuDNN's two. Prints the median and quartiles of each and of the ratios."""
+    k, kp, c, ratio, ratio_p = [], [], [], [], []
+    for _ in range(rounds):
+        k1, kp1, c1, c2, kp2, k2 = (cuda_ms(fn) for fn in
+                                    (kernel, kernel_proj, cudnn, cudnn, kernel_proj, kernel))
+        k += [k1, k2]
+        kp += [kp1, kp2]
+        c += [c1, c2]
+        ratio.append((k1 + k2) / (c1 + c2))
+        ratio_p.append((kp1 + kp2) / (c1 + c2))
+    print(f"stack vs cuDNN F={f} N={n}, {rounds} rounds in turns (ms): kernel {quartiles(k)}; "
+          f"kernel with input projection {quartiles(kp)}; torch.nn.LSTM (cuDNN, from x) "
+          f"{quartiles(c)}; kernel / cuDNN {quartiles(ratio)}; kernel with input projection / "
+          f"cuDNN {quartiles(ratio_p)}", flush=True)
+
+
+def stack_phase(f: int, n: int, seed: int, rounds: int = 0) -> dict:
     """The stack kernel and its wavefront schedule against their plain
-    versions, then median times beside cuDNN's stack; returns both rows."""
+    versions, then median times beside cuDNN's stack (and ``rounds`` rounds
+    in turns against cuDNN); returns both rows."""
     cells, x, mask, h0, c0 = stack_case(f, n, seed)
     args = K.stack_operands(cells, x)
     args = (args[0], mask, args[1], args[2], args[3], h0, c0)
@@ -258,6 +289,10 @@ def stack_phase(f: int, n: int, seed: int) -> dict:
         wave_ms = cuda_ms(lambda: K.lstm_stack_wavefront_fused(*args))
         wave_plain_ms = cuda_ms(lambda: K.lstm_stack_wavefront_plain(*args),
                                 reps=7 if f > 64 else 15)
+        if rounds:
+            stack_vs_cudnn_rounds(f, n, rounds, lambda: K.lstm_stack_fused(*args),
+                                  lambda: K.lstm_stack(cells, x, mask, h0, c0),
+                                  lambda: lstm(x, (h0, c0)))
     b_ms, b_by = stack_bound_ms(f, n)
     print(f"times F={f} N={n}: kernel {ms:.4f} ms, kernel with input projection "
           f"{stack_ms:.4f} ms, plain {plain_ms:.4f} ms, torch.nn.LSTM (cuDNN, from x) "
@@ -372,17 +407,18 @@ def random_rotations(g: torch.Generator, *shape) -> torch.Tensor:
 
 def lbs_bound_ms(n: int) -> tuple:
     """Least time for skinning n frames of the full mesh: 2*12*J + 18 fp32
-    operations per (frame, vertex); bytes of A, W^T and v_posed read once
-    and the vertices written once."""
+    operations per (frame, vertex); bytes of R_glob, t_skin, W^T and v_posed
+    read once and the vertices written once."""
     flops = float(n) * V_FULL * (2 * 12 * J_FULL + 18)
     n_bytes = 4.0 * (n * 12 * J_FULL + J_FULL * V_FULL + 2 * n * V_FULL * 3)
     return bound_ms(flops, n_bytes)
 
 
-def lbs_phase(n: int, seed: int) -> dict:
-    """The LBS kernel against its plain version at the full mesh, then the
-    median event times of the wrapper, the plain version and cuBLAS's
-    A @ W^T, and the device time of the kernel alone (``device_ms``)."""
+def lbs_phase(n: int, seed: int, timed: bool) -> dict:
+    """The LBS kernel against its plain version at the full mesh (its launch
+    plan on a line of its own); when ``timed``, the median event times of the
+    wrapper, the plain version and cuBLAS's A @ W^T, and the device time of
+    the kernel alone (``device_ms``)."""
     g = torch.Generator().manual_seed(seed)
     weights = torch.rand(V_FULL, J_FULL, generator=g)
     weights /= weights.sum(1, keepdim=True)
@@ -390,6 +426,8 @@ def lbs_phase(n: int, seed: int) -> dict:
     t = torch.randn(n, J_FULL, 3, generator=g).cuda()
     v_posed = torch.randn(n, V_FULL, 3, generator=g).cuda()
     lbs, w_dev = SK.FusedLBS(weights.numpy(), "cuda"), weights.cuda()
+    plan = SK.lbs_launch_plan(n, V_FULL, J_FULL)
+    print(f"LBS launch plan N={n}: {plan._asdict()}", flush=True)
     got = lbs(R, t, v_posed)
     want = SK.lbs_apply_plain(w_dev, R, t, v_posed)
     torch.cuda.synchronize()
@@ -397,21 +435,43 @@ def lbs_phase(n: int, seed: int) -> dict:
     print(f"LBS kernel N={n} V={V_FULL} J={J_FULL}: max_abs_err vs plain {err:.3e} "
           f"(max |v| {want.abs().max().item():.2f})", flush=True)
     check(err <= TOL_LBS, f"LBS kernel disagrees with its plain version at N={n}: {err} > {TOL_LBS}")
+    if not timed:
+        return dict(max_abs_err=err, plan=plan._asdict())
     a = SK.pack_transforms(R, t).contiguous()
     with torch.no_grad():
         ms = cuda_ms(lambda: lbs(R, t, v_posed))
         plain_ms = cuda_ms(lambda: SK.lbs_apply_plain(w_dev, R, t, v_posed), reps=7)
         library_ms = cuda_ms(lambda: torch.matmul(a, lbs.weights_t))
         fused = device_ms(lambda: lbs(R, t, v_posed))
+        library_dev = device_ms(lambda: torch.matmul(a, lbs.weights_t))
     kernel_ms = sum(v for k, v in fused.items() if "lbs_kernel" in k)
+    check(kernel_ms > 0 and all("lbs_kernel" in k for k in fused),
+          f"the LBS wrapper ran other device ops than lbs_kernel: {fused}")
     b_ms, b_by = lbs_bound_ms(n)
     print(f"LBS times N={n}: kernel wrapper {ms:.4f} ms (median event time, as for the other "
-          f"kernels; device time of lbs_kernel alone {kernel_ms:.4f} ms and of the wrapper's "
-          f"packing of A {sum(fused.values()) - kernel_ms:.4f} ms), plain {plain_ms:.4f} ms, "
-          f"torch.matmul(A, W^T) (cuBLAS, blend product only) {library_ms:.4f} ms, bound "
-          f"{b_ms:.4f} ms by {b_by}", flush=True)
+          f"kernels; device time of lbs_kernel alone {kernel_ms:.4f} ms), plain {plain_ms:.4f} "
+          f"ms, torch.matmul(A, W^T) (cuBLAS, blend product only) {library_ms:.4f} ms (device "
+          f"time {sum(library_dev.values()):.4f} ms), bound {b_ms:.4f} ms by {b_by}", flush=True)
     return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
-                library_ms=library_ms, device_ms=kernel_ms)
+                library_ms=library_ms, device_ms=kernel_ms, plan=plan._asdict())
+
+
+def lbs_refuses_strided() -> None:
+    """R_glob and t_skin as strided slices (every other frame): the wrapper
+    documents that it refuses them with ValueError and launches nothing."""
+    g = torch.Generator().manual_seed(SEED)
+    lbs = SK.FusedLBS(torch.rand(V_FULL, J_FULL, generator=g).numpy(), "cuda")
+    R = random_rotations(g, 8, J_FULL).cuda()[::2]
+    t = torch.randn(8, J_FULL, 3, generator=g).cuda()[::2]
+    launches = SK.LBS_LAUNCHES
+    try:
+        lbs(R, t, torch.randn(4, V_FULL, 3, generator=g).cuda())
+        refused = ""
+    except ValueError as e:
+        refused = str(e)
+    print(f"LBS with strided R_glob/t_skin: refused with ValueError: {refused!r}", flush=True)
+    check(bool(refused) and SK.LBS_LAUNCHES == launches,
+          "the LBS wrapper took a strided R_glob/t_skin instead of refusing it")
 
 
 def rel_err(a: torch.Tensor, b: torch.Tensor) -> float:
@@ -1136,11 +1196,14 @@ def main() -> int:
         regs = sorted({line.split("info    : ")[-1] for line in log.splitlines()
                        if "registers" in line or "spill" in line})
         print(f"build {name}: {'; '.join(regs)}", flush=True)
+    spills = [line for line in logs[SK.NAME].splitlines()
+              if "spill" in line and "0 bytes spill stores, 0 bytes spill loads" not in line]
+    check(not spills, f"the LBS kernel spills registers: {spills}")
     print(f"build: nvcc {time.perf_counter() - t0:.2f} s for {len(logs)} sources in parallel",
           flush=True)
 
     # The batched serving chunk, the eval window, and one stream's chunk.
-    stack = {(f, n): stack_phase(f, n, seed=SEED + f + n)
+    stack = {(f, n): stack_phase(f, n, seed=SEED + f + n, rounds=11 if n == 1 else 0)
              for f, n in ((CHUNK, STREAMS), (256, STREAMS), (CHUNK, 1))}
     # The flagship training step and a large one.
     pair = {(f, n): train_pair_phase(f, n, seed=SEED + f + n)
@@ -1149,8 +1212,11 @@ def main() -> int:
           f"H={HIDDEN}", flush=True)
     bidi = {(f, n): bidi_phase(f, n, seed=SEED + f + n + 1)
             for f, n in ((CHUNK, STREAMS), (256, STREAMS), (CHUNK, 1))}
-    # An export chunk, a batch, one frame.
-    lbs = {n: lbs_phase(n, seed=SEED + n + 3) for n in (512, 64, 1)}
+    # Timed: an export chunk, a batch, one frame; checked: the SMPLLayer.fk
+    # call, the export's last chunk, a ragged chunk.
+    lbs = {n: lbs_phase(n, seed=SEED + n + 3, timed=n in (512, 64, 1))
+           for n in (512, 64, 1, SMPL_FRAMES, 76, 7)}
+    lbs_refuses_strided()
     wavefront_launches = bench_path()
 
     with tempfile.TemporaryDirectory(dir=cuda_build.BUILD_DIR) as root:

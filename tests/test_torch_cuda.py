@@ -1,7 +1,8 @@
 """Checks that need the card: the LSTM stack kernel, its wavefront schedule,
 the bidirectional layer kernel and the LSTM training pair against their
 plain versions at the released widths (H=512), the LBS kernel against its
-plain version at the full mesh, SMPLLayer's launches, and served steps
+plain version at the full mesh (and captured in a CUDA graph), SMPLLayer's
+launches, and served steps
 (LGD-RNN, BiRNN) against the same model run with the plain LSTM. Skipped
 without a CUDA device; on the card run
 
@@ -90,11 +91,10 @@ def test_wavefront_kernel_matches_plain_and_stack(cuda, f, n):
     assert torch.equal(got[1][0][:, idle], h0[:, idle]) and torch.equal(got[1][1][:, idle], c0[:, idle])
 
 
-@pytest.mark.parametrize("n", [512, 64, 1])
-def test_lbs_kernel_matches_plain_full_mesh(cuda, n):
-    """The LBS kernel at the full mesh (V=6890, J=52), normalized random
-    weights, random rotations: atol 2e-5, one launch."""
-    g = torch.Generator().manual_seed(n)
+def _lbs_case(n, seed, device):
+    """Normalized random weights (V=6890, J=52), random rotations, metre-scale
+    translations and vertices."""
+    g = torch.Generator().manual_seed(seed)
     v, j = 6890, 52
     weights = torch.rand(v, j, generator=g)
     weights /= weights.sum(1, keepdim=True)
@@ -103,14 +103,56 @@ def test_lbs_kernel_matches_plain_full_mesh(cuda, n):
     R = torch.stack([1 - 2 * (y_ * y_ + z_ * z_), 2 * (x_ * y_ - w_ * z_), 2 * (x_ * z_ + w_ * y_),
                      2 * (x_ * y_ + w_ * z_), 1 - 2 * (x_ * x_ + z_ * z_), 2 * (y_ * z_ - w_ * x_),
                      2 * (x_ * z_ - w_ * y_), 2 * (y_ * z_ + w_ * x_), 1 - 2 * (x_ * x_ + y_ * y_)],
-                    -1).reshape(n, j, 3, 3).to(cuda)
-    t = torch.randn(n, j, 3, generator=g).to(cuda)
-    v_posed = torch.randn(n, v, 3, generator=g).to(cuda)
+                    -1).reshape(n, j, 3, 3).to(device)
+    t = torch.randn(n, j, 3, generator=g).to(device)
+    v_posed = torch.randn(n, v, 3, generator=g).to(device)
+    return weights, R, t, v_posed
+
+
+@pytest.mark.parametrize("n", [512, 64, 1, 7, 76, 600])
+def test_lbs_kernel_matches_plain_full_mesh(cuda, n):
+    """The LBS kernel at the full mesh (V=6890, J=52), normalized random
+    weights, random rotations: atol 2e-5, one launch; N=7 and 76 end in a
+    ragged chunk, N=1 runs the one-frame tile."""
+    weights, R, t, v_posed = _lbs_case(n, n, cuda)
     launches = SK.LBS_LAUNCHES
     got = SK.FusedLBS(weights.numpy(), cuda)(R, t, v_posed)
     assert SK.LBS_LAUNCHES == launches + 1
     want = SK.lbs_apply_plain(weights.to(cuda), R, t, v_posed)
     torch.testing.assert_close(got, want, atol=2e-5, rtol=0)
+
+
+def test_lbs_kernel_refuses_strided_transforms(cuda):
+    """A strided R_glob is refused with ValueError before any launch."""
+    weights, R, t, v_posed = _lbs_case(8, 3, cuda)
+    lbs = SK.FusedLBS(weights.numpy(), cuda)
+    launches = SK.LBS_LAUNCHES
+    with pytest.raises(ValueError, match="contiguous"):
+        lbs(R[::2], t[::2], v_posed[:4])
+    assert SK.LBS_LAUNCHES == launches
+
+
+def test_lbs_kernel_cuda_graph_capture(cuda):
+    """FusedLBS.__call__ captured once in a CUDA graph (the call does no
+    setup and no synchronization), replayed on new inputs copied into the
+    captured buffers: equal to the eager call, bit for bit."""
+    weights, R, t, v_posed = _lbs_case(64, 4, cuda)
+    lbs = SK.FusedLBS(weights.numpy(), cuda)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        lbs(R, t, v_posed)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = lbs(R, t, v_posed)
+    _, R2, t2, v2 = _lbs_case(64, 5, cuda)
+    R.copy_(R2)
+    t.copy_(t2)
+    v_posed.copy_(v2)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(out, lbs(R2, t2, v2))
 
 
 def test_smpl_layer_fk_one_launch(cuda):

@@ -4,7 +4,9 @@ References: ``empose_tpu.ops.skinning.PallasLBS`` in Pallas interpret mode
 and ``lbs_apply_xla``; ``smplh_fk`` with the interpret-mode kernel as its
 ``lbs_fn`` at the full synthetic mesh. Tolerance atol 2e-5, the JAX test's
 (``tests/test_skinning.py``): fp32 on both sides, another summation order,
-coordinates of about a metre.
+coordinates of about a metre. Also the CUDA kernel's launch plan (pure
+Python) and the wrapper's operand checks, which run before the device
+dispatch and so raise on CPU tensors too.
 """
 
 import numpy as np
@@ -95,3 +97,74 @@ def test_smplh_fk_full_mesh_through_lbs(models):
     assert t_v.shape == (2, 6890, 3) and t_j.shape == (2, 52, 3)
     np.testing.assert_allclose(t_v.numpy(), np.asarray(j_v), atol=ATOL)
     np.testing.assert_allclose(t_j.numpy(), np.asarray(j_j), atol=1e-5)
+
+
+def _block_ranges(plan, n, v):
+    """Per block of ``plan``, the (frames, vertices) ranges it skins, as
+    ``csrc/lbs.cu`` ``lbs_kernel`` splits the (vertex tile, chunk) units,
+    tile-major, evenly among the blocks."""
+    chunks = -(-n // SK.CHUNK)
+    units = chunks * -(-v // plan.tile_v)
+    for b in range(plan.blocks):
+        segments = []
+        for u in range(b * units // plan.blocks, (b + 1) * units // plan.blocks):
+            tile, c = divmod(u, chunks)
+            segments.append((range(c * SK.CHUNK, min(n, c * SK.CHUNK + SK.CHUNK)),
+                             range(tile * plan.tile_v, min(v, tile * plan.tile_v + plan.tile_v))))
+        yield segments
+
+
+@pytest.mark.parametrize("v", [6890, 700])  # the full mesh; a ragged last vertex tile
+@pytest.mark.parametrize("n", [1, 7, 64, 76, 512, 600, 1100])
+def test_launch_plan_covers_every_frame_and_vertex_once(n, v):
+    plan = SK.lbs_launch_plan(n, v)
+    hits = np.zeros((n, v), np.int32)
+    for segments in _block_ranges(plan, n, v):
+        assert len(segments) * SK.CHUNK <= plan.frames_per_block
+        for frames, verts in segments:
+            assert len(verts) <= plan.tile_v
+            hits[frames.start:frames.stop, verts.start:verts.stop] += 1
+    assert (hits == 1).all()
+    assert plan.blocks <= plan.blocks_per_sm * SK.SMS  # one wave
+    if v == 6890:  # the full mesh fills every SM at every N
+        assert plan.blocks >= SK.SMS
+
+
+def test_launch_plan_fits_shared_memory_and_refuses_empty_shapes():
+    for n in (1, 512):
+        plan = SK.lbs_launch_plan(n, 6890)
+        assert plan.smem_bytes == SK.lbs_smem_bytes(plan.tile_v, 52)
+        assert plan.blocks_per_sm * (plan.smem_bytes + 1024) <= SK.SM_SHARED_BYTES
+    with pytest.raises(ValueError, match="positive sizes"):
+        SK.lbs_launch_plan(0, 6890)
+
+
+def _bad_operands():
+    weights, R, t, v_posed = _case(2, 40, 52, seed=5)
+    good = dict(weights_t=torch.from_numpy(weights.T.copy()), R_glob=torch.from_numpy(R),
+                t_skin=torch.from_numpy(t), v_posed=torch.from_numpy(v_posed))
+    R4 = torch.from_numpy(np.concatenate([R, R]))
+    t4 = torch.from_numpy(np.concatenate([t, t]))
+    return good, {
+        "float64": (dict(R_glob=good["R_glob"].double()), "float32"),
+        "shape": (dict(t_skin=torch.zeros(2, 52, 4)), "shape"),
+        "frames": (dict(v_posed=torch.zeros(3, 40, 3)), "shape"),
+        "strided_R": (dict(R_glob=R4[::2]), "contiguous"),
+        "strided_t": (dict(t_skin=t4[::2]), "contiguous"),
+        "transposed_weights": (dict(weights_t=torch.from_numpy(weights).t()), "shape|contiguous"),
+        "weights_view": (dict(weights_t=torch.from_numpy(np.ascontiguousarray(
+            np.concatenate([weights.T, weights.T], 1)))[:, ::2]), "contiguous"),
+        "rank": (dict(v_posed=torch.zeros(2, 40)), "N, V, 3"),
+    }
+
+
+@pytest.mark.parametrize("case", ["float64", "shape", "frames", "strided_R", "strided_t",
+                                  "transposed_weights", "weights_view", "rank"])
+def test_fused_checks_operands_on_cpu(case):
+    good, bad = _bad_operands()
+    change, match = bad[case]
+    launches = SK.LBS_LAUNCHES
+    with pytest.raises(ValueError, match=match):
+        SK.lbs_apply_fused(**dict(good, **change))
+    assert SK.LBS_LAUNCHES == launches
+    SK.lbs_apply_fused(**good)  # the unchanged operands pass

@@ -6,22 +6,28 @@
 Phases, each printed on its own line:
   1. the card's name and power limit (nvidia-smi);
   2. build of the CUDA kernels from empose_tpu_torch/csrc, one nvcc per
-     source, all at once, with their register reports;
+     source, all at once, with their register reports (the LBS kernel and
+     the reverse sweep must not spill);
   3. the LSTM stack kernel against its plain torch version on the card at
      the released init-RNN shape (L=2, H=512) for the batched serving chunk
      (F=16, N=64), the eval window (F=256, N=64) and one stream's chunk
      (F=16, N=1), with 0-length, partial and full rows and non-zero state;
      its median times beside the plain version and torch.nn.LSTM (cuDNN);
-     at (16, 1) also 11 rounds of kernel, cuDNN, cuDNN, kernel, with the
-     median and quartiles of each and of their ratio;
+     at (16, 1) also 11 rounds of stack kernel, wavefront kernel, cuDNN,
+     cuDNN, wavefront kernel, stack kernel, with the median and quartiles of
+     each and of their ratios;
      on the same inputs the wavefront schedule of the stack kernel against
      its plain version and against the stack kernel, and its median times;
   4. the LSTM training pair (forward and reverse sweep) against its plain
-     versions at H=512 for the flagship training step (F=64, N=16) and a
-     large one (F=256, N=64): the sweeps' outputs, the gradients through
-     the autograd function against torch.autograd over the plain cell, and
-     0-length rows bit for bit; median times beside the plain versions and
-     cuDNN's training forward and backward;
+     versions at H=512 for the flagship training step (F=64, N=16), a large
+     one (F=256, N=64), a ragged batch (33, 7), more rows than one staging
+     of the reverse sweep holds (64, 100), one row of one step (1, 1) and
+     more rows than the reverse sweep keeps in shared memory (3, 1300):
+     the sweeps' outputs, the gradients through the autograd function
+     against torch.autograd over the plain cell, 0-length rows bit for bit,
+     a second reverse sweep bit for bit equal to the first, the reverse
+     sweep's launch plan; at the first two and at (64, 100), median times
+     beside the plain versions and cuDNN's training forward and backward;
   4b. the bidirectional layer kernel against its plain torch version at the
      released BiRNN width (H=512) for the batched serving chunk (F=16,
      N=64), the eval window (F=256, N=64) and one stream (F=16, N=1), with
@@ -77,6 +83,11 @@ Phases, each printed on its own line:
 reads how far fp32 rounding alone moves a full-width LGD-RNN-6 train step
 (``step_rounding_study``), at many trained states, beside the kernel pair.
 
+    python3 chip_smoke.py --step-probe
+
+reads the reverse sweep's time per step at F=64 for N = 1, 4, 16, 32 and 64
+(``bwd_step_probe``): what a step is made of beyond its grid barrier.
+
 Exits non-zero on any failure, and when no CUDA device is present.
 Imports torch, numpy and the port only.
 """
@@ -126,6 +137,8 @@ TOL_GRAD_REL = 1e-4  # a whole train step, kernel vs plain pair: max abs error /
 # 2.28e-3, over 38 states on an H100 (``--step-rounding``, 4 and 8 seeds).
 TOL_GRAD_LGD = 5e-3
 TRAIN_WINDOW, TRAIN_BATCH, TRAIN_STEPS, RESUME_STEPS = 64, 16, 8, 4
+# The flagship step, a large one, and one past the reverse sweep's shared step operands.
+PAIR_TIMED = ((TRAIN_WINDOW, TRAIN_BATCH), (256, 64), (64, 100))
 BIRNN_TRAIN_STEPS, BIRNN_RESUME_STEPS = 4, 2
 STREAMS, CHUNK, CHUNKS = 64, 16, 4
 HIDDEN, LAYERS, N_IN = 512, 2, 6 * 12  # init RNN of LGD-RNN-6: 6 markers x (3 pos + 9 ori)
@@ -225,24 +238,32 @@ def quartiles(xs) -> str:
     return f"median {q2:.4f} (quartiles {q1:.4f}-{q3:.4f})"
 
 
-def stack_vs_cudnn_rounds(f: int, n: int, rounds: int, kernel, kernel_proj, cudnn) -> None:
+def stack_vs_cudnn_rounds(f: int, n: int, rounds: int, kernel, kernel_proj, wave,
+                          cudnn) -> None:
     """``rounds`` rounds of median event times (``cuda_ms``) in turns: kernel,
-    kernel with input projection, cuDNN, cuDNN, kernel with input
-    projection, kernel; per round the ratio of the kernel's two times to
-    cuDNN's two. Prints the median and quartiles of each and of the ratios."""
-    k, kp, c, ratio, ratio_p = [], [], [], [], []
+    kernel with input projection, wavefront kernel, cuDNN, cuDNN, wavefront
+    kernel, kernel with input projection, kernel; per round the ratio of the
+    stack kernel's two times (alone, with the projection) and of the
+    wavefront's two to cuDNN's two. Prints the median and quartiles of each
+    and of the ratios."""
+    k, kp, w, c, ratio, ratio_p, ratio_w = [], [], [], [], [], [], []
     for _ in range(rounds):
-        k1, kp1, c1, c2, kp2, k2 = (cuda_ms(fn) for fn in
-                                    (kernel, kernel_proj, cudnn, cudnn, kernel_proj, kernel))
+        k1, kp1, w1, c1, c2, w2, kp2, k2 = (
+            cuda_ms(fn) for fn in (kernel, kernel_proj, wave, cudnn, cudnn, wave, kernel_proj,
+                                   kernel))
         k += [k1, k2]
         kp += [kp1, kp2]
+        w += [w1, w2]
         c += [c1, c2]
         ratio.append((k1 + k2) / (c1 + c2))
         ratio_p.append((kp1 + kp2) / (c1 + c2))
+        ratio_w.append((w1 + w2) / (c1 + c2))
     print(f"stack vs cuDNN F={f} N={n}, {rounds} rounds in turns (ms): kernel {quartiles(k)}; "
           f"kernel with input projection {quartiles(kp)}; torch.nn.LSTM (cuDNN, from x) "
           f"{quartiles(c)}; kernel / cuDNN {quartiles(ratio)}; kernel with input projection / "
           f"cuDNN {quartiles(ratio_p)}", flush=True)
+    print(f"wavefront vs cuDNN F={f} N={n}, the same {rounds} rounds (ms): wavefront kernel "
+          f"{quartiles(w)}; wavefront / cuDNN {quartiles(ratio_w)}", flush=True)
 
 
 def stack_phase(f: int, n: int, seed: int, rounds: int = 0) -> dict:
@@ -292,6 +313,7 @@ def stack_phase(f: int, n: int, seed: int, rounds: int = 0) -> dict:
         if rounds:
             stack_vs_cudnn_rounds(f, n, rounds, lambda: K.lstm_stack_fused(*args),
                                   lambda: K.lstm_stack(cells, x, mask, h0, c0),
+                                  lambda: K.lstm_stack_wavefront_fused(*args),
                                   lambda: lstm(x, (h0, c0)))
     b_ms, b_by = stack_bound_ms(f, n)
     print(f"times F={f} N={n}: kernel {ms:.4f} ms, kernel with input projection "
@@ -474,6 +496,19 @@ def lbs_refuses_strided() -> None:
           "the LBS wrapper took a strided R_glob/t_skin instead of refusing it")
 
 
+def ptxas_report(log: str) -> dict:
+    """The ``-Xptxas -v`` lines of a build log (registers, stack, spills) by
+    entry function (its mangled name)."""
+    out, fn = {}, None
+    for line in log.splitlines():
+        for mark in ("Compiling entry function '", "Function properties for "):
+            if mark in line:
+                fn = line.split(mark)[1].split("'")[0].strip()
+        if fn and ("registers" in line or "spill" in line):
+            out.setdefault(fn, []).append(line.split("info    : ")[-1].strip())
+    return out
+
+
 def rel_err(a: torch.Tensor, b: torch.Tensor) -> float:
     """max |a - b| over max |b|."""
     return float((a - b).abs().max() / b.abs().max().clamp(min=1e-30))
@@ -491,17 +526,22 @@ def pair_bounds(f: int, n: int) -> dict:
     return {"fwd": bound_ms(flops, fwd_bytes), "bwd": bound_ms(flops, bwd_bytes)}
 
 
-def train_pair_phase(f: int, n: int, seed: int) -> dict:
+def train_pair_phase(f: int, n: int, seed: int, timed: bool) -> dict:
     """The training pair against its plain versions and against autograd
-    over the plain cell, 0-length rows bit for bit, then median times."""
+    over the plain cell, 0-length rows bit for bit, a second launch of the
+    reverse sweep bit for bit equal to the first, its launch plan on a line
+    of its own; when ``timed``, median times."""
     g = torch.Generator().manual_seed(seed)
     r = lambda *s, sc=1.0: (torch.randn(*s, generator=g) * sc).cuda()
     w_hh = ((torch.rand(HIDDEN, 4 * HIDDEN, generator=g) * 2 - 1) * HIDDEN ** -0.5).cuda()
     x_proj = r(f, n, 4 * HIDDEN, sc=0.5)
     h0, c0 = r(n, HIDDEN, sc=0.5), r(n, HIDDEN, sc=0.5)
-    lengths = torch.randint(1, f, (n,), generator=g)
-    lengths[: max(n // 16, 1)] = 0
-    lengths[max(n // 16, 1): n // 16 + n // 3] = f
+    if n == 1:  # the one row runs every step
+        lengths = torch.full((1,), f)
+    else:
+        lengths = torch.randint(1, f, (n,), generator=g)
+        lengths[: max(n // 16, 1)] = 0
+        lengths[max(n // 16, 1): n // 16 + n // 3] = f
     mask = (torch.arange(f)[:, None] < lengths[None]).float().cuda()
     idle = lengths.cuda() == 0
     dh_all, dc_all = r(f, n, HIDDEN), r(f, n, HIDDEN)
@@ -510,9 +550,13 @@ def train_pair_phase(f: int, n: int, seed: int) -> dict:
     want = TK.lstm_train_fwd_plain(x_proj, mask, w_hh, h0, c0)
     gates, _, c_all = want
     c_prev = torch.cat([c0[None], c_all[:-1]])
+    plan = TK.lstm_train_bwd_plan(n, HIDDEN)
+    print(f"reverse sweep launch plan F={f} N={n}: {plan._asdict()}", flush=True)
     got_b = TK.lstm_train_bwd(dh_all, dc_all, gates, c_prev, mask, w_hh)
+    again = TK.lstm_train_bwd(dh_all, dc_all, gates, c_prev, mask, w_hh)
     want_b = TK.lstm_train_bwd_plain(dh_all, dc_all, gates, c_prev, mask, w_hh)
     torch.cuda.synchronize()
+    repeat = all(torch.equal(a, b) for a, b in zip(got_b, again))
     fwd_err = {k: rel_err(a, b) for k, a, b in zip(("gates", "h_all", "c_all"), got, want)}
     bwd_err = {k: rel_err(a, b) for k, a, b in zip(("dgates", "dh0", "dc0"), got_b, want_b)}
     fwd_abs = max(float((a - b).abs().max()) for a, b in zip(got, want))
@@ -540,11 +584,15 @@ def train_pair_phase(f: int, n: int, seed: int) -> dict:
                   and torch.equal(got_b[2][idle], want_b[2][idle]))
     print(f"training pair F={f} N={n}: max abs error / max abs value vs plain: forward "
           f"{fwd_err}, reverse {bwd_err}; autograd vs plain cell {grad_err}; "
-          f"0-length rows bit for bit (state, dgates, dh0, dc0): {frozen}", flush=True)
+          f"0-length rows bit for bit (state, dgates, dh0, dc0): {frozen}; a second reverse "
+          f"sweep bit for bit equal to the first: {repeat}", flush=True)
     worst = max(*fwd_err.values(), *bwd_err.values(), *grad_err.values())
-    check(worst <= TOL_REL, f"training pair disagrees with its plain version at F={f}: "
+    check(worst <= TOL_REL, f"training pair disagrees with its plain version at F={f} N={n}: "
                             f"{worst} > {TOL_REL}")
-    check(frozen, f"training pair changed 0-length rows at F={f}")
+    check(frozen, f"training pair changed 0-length rows at F={f} N={n}")
+    check(repeat, f"two reverse sweeps on the same inputs differ at F={f} N={n}")
+    if not timed:
+        return {"fwd": dict(max_abs_err=fwd_abs), "bwd": dict(max_abs_err=bwd_abs)}
 
     lstm = torch.nn.LSTM(HIDDEN, HIDDEN, 1).cuda()
     with torch.no_grad():
@@ -569,16 +617,45 @@ def train_pair_phase(f: int, n: int, seed: int) -> dict:
           f"{times['fwd_plain']:.4f}, cuDNN training forward {times['fwd_lib']:.4f}, bound "
           f"{bounds['fwd'][0]:.4f} by {bounds['fwd'][1]}); reverse kernel {times['bwd']:.4f} ms "
           f"(plain {times['bwd_plain']:.4f}, cuDNN backward incl. dW and dx "
-          f"{times['bwd_lib']:.4f}, bound {bounds['bwd'][0]:.4f} by {bounds['bwd'][1]})",
-          flush=True)
+          f"{times['bwd_lib']:.4f}, bound {bounds['bwd'][0]:.4f} by {bounds['bwd'][1]}; "
+          f"{times['bwd'] * 1e3 / f:.2f} us per step)", flush=True)
     return {
         "fwd": dict(max_abs_err=fwd_abs, ms=times["fwd"], plain_ms=times["fwd_plain"],
                     bound_ms=bounds["fwd"][0], bound_by=bounds["fwd"][1],
                     library_ms=times["fwd_lib"]),
         "bwd": dict(max_abs_err=bwd_abs, ms=times["bwd"], plain_ms=times["bwd_plain"],
                     bound_ms=bounds["bwd"][0], bound_by=bounds["bwd"][1],
-                    library_ms=times["bwd_lib"]),
+                    library_ms=times["bwd_lib"], plan=plan._asdict(),
+                    us_per_step=times["bwd"] * 1e3 / f),
     }
+
+
+def bwd_step_probe(f: int = TRAIN_WINDOW, ns=(1, 4, 16, 32, 64)) -> int:
+    """``python3 chip_smoke.py --step-probe``: what a step of the reverse
+    sweep is made of: its time per step at F steps for growing N (median
+    event time of the wrapper over F). At N=1 the staged rows and the FMAs
+    are nearly nothing, so the step is the grid barrier, the elementwise
+    phase and the launch; each row adds its 8 KB of dgates[t] per block (at
+    H=512) and its FMAs."""
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)", file=sys.stderr)
+        return 2
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                          capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
+    print(card, flush=True)
+    cuda_build.build([TK.NAME], force=True)
+    g = torch.Generator().manual_seed(SEED)
+    us = {}
+    for n in ns:
+        r = lambda *s: torch.randn(*s, generator=g).cuda()
+        args = (r(f, n, HIDDEN), r(f, n, HIDDEN), r(f, n, 4 * HIDDEN), r(f, n, HIDDEN),
+                torch.ones(f, n, device="cuda"), r(HIDDEN, 4 * HIDDEN) * HIDDEN ** -0.5)
+        us[n] = cuda_ms(lambda: TK.lstm_train_bwd(*args)) * 1e3 / f
+    print(f"reverse sweep per step at F={f}, us by N (plans: "
+          f"{ {n: TK.lstm_train_bwd_plan(n, HIDDEN).stage_rows for n in ns} } rows staged at "
+          f"once): " + ", ".join(f"N={n} {v:.2f}" for n, v in us.items()), flush=True)
+    print(json.dumps({"bwd_us_per_step": us}), flush=True)
+    return 0
 
 
 def write_assets(root: str, rng) -> None:
@@ -1199,15 +1276,23 @@ def main() -> int:
     spills = [line for line in logs[SK.NAME].splitlines()
               if "spill" in line and "0 bytes spill stores, 0 bytes spill loads" not in line]
     check(not spills, f"the LBS kernel spills registers: {spills}")
+    bwd = {fn: lines for fn, lines in ptxas_report(logs[TK.NAME]).items()
+           if "lstm_train_bwd_kernel" in fn}
+    for fn, lines in sorted(bwd.items()):
+        print(f"build {TK.NAME} {fn}: {'; '.join(lines)}", flush=True)
+    spills = [line for lines in bwd.values() for line in lines
+              if "spill" in line and "0 bytes spill stores, 0 bytes spill loads" not in line]
+    check(len(bwd) == 4 and not spills, f"the reverse sweep spills registers: {spills}")
     print(f"build: nvcc {time.perf_counter() - t0:.2f} s for {len(logs)} sources in parallel",
           flush=True)
 
     # The batched serving chunk, the eval window, and one stream's chunk.
     stack = {(f, n): stack_phase(f, n, seed=SEED + f + n, rounds=11 if n == 1 else 0)
              for f, n in ((CHUNK, STREAMS), (256, STREAMS), (CHUNK, 1))}
-    # The flagship training step and a large one.
-    pair = {(f, n): train_pair_phase(f, n, seed=SEED + f + n)
-            for f, n in ((TRAIN_WINDOW, TRAIN_BATCH), (256, 64))}
+    # Timed: PAIR_TIMED; checked: a ragged batch, one step of one row, more
+    # rows than the reverse sweep could keep in shared memory.
+    pair = {(f, n): train_pair_phase(f, n, seed=SEED + f + n, timed=(f, n) in PAIR_TIMED)
+            for f, n in (*PAIR_TIMED, (33, 7), (1, 1), (3, 1300))}
     print(f"bidi kernel: {K._bidi_library().lstm_bidi_units(HIDDEN)} units per block at "
           f"H={HIDDEN}", flush=True)
     bidi = {(f, n): bidi_phase(f, n, seed=SEED + f + n + 1)
@@ -1291,4 +1376,6 @@ def main() -> int:
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--step-rounding"]:
         sys.exit(step_rounding_study(seeds=range(int(sys.argv[2]) if sys.argv[2:] else 4)))
+    if sys.argv[1:2] == ["--step-probe"]:
+        sys.exit(bwd_step_probe())
     sys.exit(main())

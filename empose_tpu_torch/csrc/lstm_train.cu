@@ -10,37 +10,70 @@
 //   * lstm_train_bwd_kernel <- _pallas_bwd (body _make_bwd_kernel): the
 //     reverse-time sweep that turns the cotangents of every carried (h, c)
 //     into dgates (the cotangent of the pre-activations) and carries dh, dc
-//     back into dh0, dc0; frozen steps pass the cotangents straight through.
+//     back into dh0, dc0; frozen steps give zero dgates and pass the
+//     cotangents straight through.
 // Everything else of the layer's gradient is one large GEMM outside
 // (dW_hh = h_prev^T @ dgates, dx_proj = dgates), as in the JAX package.
 //
 // What bounds them on this card.  Both sweeps are serial in time and need
 // all of W_hh (4 MB at H=512) every step.  With W_hh resident the least time
-// is the fp32 FMA work, 2*F*N*H*4H operations per sweep; what the kernels
-// actually pay per step is a grid barrier and one round trip of the step's
-// exchange buffer through L2.  W_hh is spread over the SMs:
-//   * forward: each block owns U consecutive hidden units j and keeps their
-//     four gate columns {j, H+j, 2H+j, 3H+j} of W_hh in shared memory
-//     (512 x 16 floats = 32 KB at H=512, U=4, 128 blocks).  h_all[t-1] is the
-//     exchange buffer every block reads at step t; c stays with the thread
-//     that owns (row, unit).  One grid barrier per step.
-//   * backward: the step's product dh_prev = dgates[t] @ W_hh^T needs ROWS of
-//     W_hh, so each block keeps W_hh[j, 0:4H] of its U units resident
-//     (32 KB at H=512, U=4).  Step t: (A) for its own units the block forms
-//     Dh = dh_carry + dh_all[t], Dc = dc_carry + dc_all[t], the four dgates
-//     columns and dc_carry = dc_new * f + Dc * (1 - m) (block-local), and
-//     writes dgates[t], which is both an output and the exchange buffer;
-//     (B) grid barrier; (C) dh_carry = dgates[t] @ W_hh[j, :]^T + Dh * (1 - m)
-//     for its units, reading all 4H columns of dgates[t] from L2.  One grid
-//     barrier per step; the carries live in dh0/dc0 and never leave their
-//     block until the sweep ends.
-//   * fp32 FMAs on the CUDA cores (the fp32 parity mode); each thread
-//     multiplies 4 rows by 4 columns per k (8 float4 shared reads per 64
-//     FMAs) and the k-split partial sums meet in shared memory.
-// Reads of buffers written by other blocks before the last grid barrier
-// (h_all[t-1], dgates[t]) go through __ldcg, never through a stale L1.
-// The grid must be co-resident for the barrier, so the host side launches
-// it with cudaLaunchCooperativeKernel and refuses a grid that does not fit.
+// is the fp32 FMA work, 2*F*N*H*4H operations per sweep (0.032 ms at F=64,
+// N=16, H=512); the serial floor is F grid barriers, one per step (1.5-2.8 us
+// each on an H100).  W_hh is spread over the SMs: each block owns U
+// consecutive hidden units j (U=4 at H=512: 128 blocks, one per SM).
+//
+// Forward: the block keeps the four gate columns {j, H+j, 2H+j, 3H+j} of its
+// units resident (512 x 16 floats = 32 KB at H=512, U=4).  h_all[t-1] is the
+// exchange buffer every block reads at step t, in k-tiles through registers
+// into shared memory; c stays with the thread that owns (row, unit); each
+// thread multiplies 4 rows by 4 columns per k and the k-split partial sums
+// meet in shared memory.  One grid barrier per step.
+//
+// Reverse: the step's product dh_prev = dgates[t] @ W_hh^T needs ROWS of
+// W_hh, so the block keeps W_hh[j, 0:4H] of its units resident (32 KB), as
+// they lie in memory.  Step t:
+//   (A) for its own units the block forms Dh = dh + dh_all[t], Dc = dc +
+//       dc_all[t], the four dgates columns and the carries dc = dc_new * f +
+//       Dc * (1 - m), dh = Dh * (1 - m), and writes its columns of dgates[t],
+//       which is both an output and the step's exchange buffer.  Its
+//       operands (dh_all, dc_all, c_prev, the 4U gate columns, mask of step
+//       t) were copied into shared memory by cp.async during step t + 1: no
+//       device-memory latency is exposed here.  The carries dh, dc live in
+//       shared memory for the whole sweep and reach dh0, dc0 once, at the
+//       end.  Where these 9U + 1 floats a row would cost the ring of (C) a
+//       chunk per step (the plan's choice: N = 100 at H=512, and any N
+//       above 121), the operands are read from device memory in (A) and the
+//       carries live in the block's columns of dh0, dc0 instead, so the
+//       shared memory does not grow with N: any N runs.
+//   (B) one grid barrier: every block's columns of dgates[t] are written.
+//   (C) dh += dgates[t] @ W_hh[j, :]^T.  The block issues 16-byte cp.async
+//       copies of all of dgates[t] (N x 4H, 128 KB at N=16) at once and waits
+//       once, so the L2 latency is paid about once per step.  Where N x 4H
+//       does not fit beside the resident rows (N > 23 at H=512), a ring of
+//       two stages of up to 16 rows keeps the next chunk in flight while the
+//       current one's FMAs run.  The launch plan (ops/lstm_train_kernel.py::
+//       lstm_train_bwd_plan) sizes the stages.  What a step then costs on an
+//       H100 (PERF.md): the barrier, phase (A) and the launch about 4 us, and
+//       each pass of up to 16 rows about 2 us more; so the sweep is bound by
+//       its serial steps and passes, far above the FMA bound.
+// The product's register tile: thread (row group g, k-split s) multiplies
+// NR <= 4 rows of its group by the block's U units over the float4 columns
+// s, s + S, ... of 4H (neighbouring threads on neighbouring float4: no bank
+// conflicts), so every staged value of dgates is read once per block and
+// W_hh's rows once per row group.  NR is the number of rows the group really
+// has: no FMA or shared load on a row beyond N (a pass covers 4, 8 or 16
+// rows as N asks).  The S partial sums of a (row, unit) meet in a fixed order: an
+// xor butterfly within the warp, then the warps of the group in order, then
+// the carry.  No atomics, so two launches on the same inputs give the same
+// bits.
+//
+// fp32 FMAs on the CUDA cores (the fp32 parity mode).  Reads of buffers
+// written by other blocks before the last grid barrier (h_all[t-1],
+// dgates[t]) go through L2 (__ldcg, cp.async.cg), never through a stale L1.
+// The grid must be co-resident for the barrier: lstm_train_prepare sets the
+// kernels' shared memory and checks their occupancy once per device, the
+// wrapper keeps the grid within the SMs, and the C entries only launch
+// (cudaLaunchCooperativeKernel), so a call does no per-call queries.
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
@@ -55,7 +88,6 @@ constexpr int kRows = 4;  // batch rows per thread in the products
 // Error codes beside cudaError_t values (which are >= 0); the same values
 // as lstm_stack.cu.
 constexpr int kErrGridTooLarge = -1;
-constexpr int kErrSharedTooLarge = -2;
 constexpr int kErrNoCooperative = -3;
 constexpr int kErrBadShape = -4;
 
@@ -238,18 +270,133 @@ lstm_train_fwd_kernel(const float* __restrict__ x_proj,  // (F, N, 4H)
 
 // ---------------------------------------------------------------------------
 // Reverse sweep.
-//
-// Product layout: a pass covers RGB batch rows; thread t = ((ks * RGNB) + rg)
-// * UQ + q multiplies the rows {rg, rg + RGNB, ...} by the four units
-// 4q..4q+3 (units beyond U are zero columns) over the ks-th slice of every
-// staged k-tile of dgates[t]; the KSPLIT partial sums meet in shared memory.
-constexpr int kRowsPassB = 64;
-constexpr int kTileB = 128;
-__host__ __device__ constexpr int bwd_quads(int U) { return (U + 3) / 4; }
+constexpr int kWarps = kThreads / 32;
 
-// Shared memory (floats): wt_s [4H][UP] | g_s [RGB][KTB + 4] | red [KSPLIT][RGB][UP]
+__host__ __device__ constexpr size_t round4(size_t x) { return (x + 3) / 4 * 4; }
+__host__ __device__ constexpr size_t round32(size_t x) { return (x + 31) / 32 * 32; }
+
+// Shared memory of the reverse sweep (floats), in this order:
+//   wt_s  [U][4H], to 128 bytes        the block's rows of W_hh
+//   g_s   [stages][stage_rows][4H]     the staged rows of dgates[t], from a
+//                                      128-byte boundary (an H100 run with
+//                                      them 16 bytes off it was much slower)
+//   ops   [3][N][U] + [N][4][U], [N]   the next step's dh_all, dc_all, c_prev,
+//                                      gate columns and mask (resident only)
+//   car   [2][N][U]                    the carries dh, dc (resident only)
+//   red   [kWarps][kRows][U]          the warps' partial sums of a pass
+// The same formula as ops/lstm_train_kernel.py::bwd_smem_bytes.
+__host__ __device__ constexpr size_t bwd_smem_floats(int U, int N, int H, int stages,
+                                                     int stage_rows, bool resident) {
+  return round32((size_t)U * 4 * H) + (size_t)stages * stage_rows * 4 * H +
+         (resident ? round4((size_t)7 * U * N) + round4((size_t)N) + (size_t)2 * U * N : 0) +
+         (size_t)kWarps * kRows * U;
+}
+
+__device__ __forceinline__ unsigned smem_u32(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
+template <int kBytes>
+__device__ __forceinline__ void cp_async(float* dst, const float* src) {
+  const unsigned d = smem_u32(dst);
+  if constexpr (kBytes == 16)
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d), "l"(src));
+  else
+    asm volatile("cp.async.ca.shared.global [%0], [%1], %2;\n" ::"r"(d), "l"(src), "n"(kBytes));
+}
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+template <int kPending>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(kPending) : "memory");
+}
+
+// Start the copies of step s's operands of the block's units into `ops`:
+// per row the U floats of dh_all, dc_all and c_prev at j0, the U floats of
+// each of the four gates, and the mask.  None depends on the recurrence.
 template <int U>
-__global__ void __launch_bounds__(kThreads)
+__device__ __forceinline__ void copy_step_operands(float* ops, const float* __restrict__ dh_all,
+                                                   const float* __restrict__ dc_all,
+                                                   const float* __restrict__ c_prev,
+                                                   const float* __restrict__ gates,
+                                                   const float* __restrict__ mask, int s, int N,
+                                                   int H, int j0, int tid) {
+  constexpr int kPiece = U < 4 ? U : 4;  // floats per copy (16 bytes at most)
+  constexpr int kPieces = U / kPiece;
+  const size_t row0 = (size_t)s * N;
+  for (int e = tid; e < N * 7 * kPieces; e += kThreads) {
+    const int piece = e % kPieces;
+    const int seg = (e / kPieces) % 7;
+    const int n = e / (kPieces * 7);
+    const float* src;
+    float* dst;
+    if (seg < 3) {
+      const float* base = seg == 0 ? dh_all : seg == 1 ? dc_all : c_prev;
+      src = base + (row0 + n) * H + j0;
+      dst = ops + (size_t)seg * U * N + n * U;
+    } else {
+      src = gates + (row0 + n) * 4 * H + (seg - 3) * H + j0;
+      dst = ops + (size_t)3 * U * N + (n * 4 + seg - 3) * U;
+    }
+    cp_async<4 * kPiece>(dst + piece * kPiece, src + piece * kPiece);
+  }
+  float* m_s = ops + round4((size_t)7 * U * N);
+  for (int n = tid; n < N; n += kThreads) cp_async<4>(m_s + n, mask + row0 + n);
+}
+
+// One thread's share of a pass: NR rows (`rows`, stride 4H, in shared
+// memory) times the block's U resident rows of W_hh over the float4 columns
+// s, s + S, ... of 4H; the warp's sums, added by an xor butterfly, go to
+// red_w (lane 0).
+template <int U, int NR>
+__device__ __forceinline__ void pass_tile(const float* rows, const float* wt_s, float* red_w,
+                                          int H, int s, int S, int lane) {
+  const int H4 = 4 * H;
+  float acc[NR][U];
+#pragma unroll
+  for (int r = 0; r < NR; ++r)
+#pragma unroll
+    for (int u = 0; u < U; ++u) acc[r][u] = 0.0f;
+#pragma unroll 2
+  for (int c = s; c < H; c += S) {
+    float4 g[NR], w[U];
+#pragma unroll
+    for (int r = 0; r < NR; ++r) g[r] = *reinterpret_cast<const float4*>(rows + r * H4 + 4 * c);
+#pragma unroll
+    for (int u = 0; u < U; ++u) w[u] = *reinterpret_cast<const float4*>(wt_s + u * H4 + 4 * c);
+#pragma unroll
+    for (int r = 0; r < NR; ++r)
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        acc[r][u] = fmaf(g[r].x, w[u].x, acc[r][u]);
+        acc[r][u] = fmaf(g[r].y, w[u].y, acc[r][u]);
+        acc[r][u] = fmaf(g[r].z, w[u].z, acc[r][u]);
+        acc[r][u] = fmaf(g[r].w, w[u].w, acc[r][u]);
+      }
+  }
+#pragma unroll
+  for (int r = 0; r < NR; ++r)
+#pragma unroll
+    for (int u = 0; u < U; ++u)
+#pragma unroll
+      for (int off = 16; off > 0; off >>= 1)
+        acc[r][u] += __shfl_xor_sync(0xffffffffu, acc[r][u], off);
+  if (lane == 0) {
+#pragma unroll
+    for (int r = 0; r < NR; ++r)
+#pragma unroll
+      for (int u = 0; u < U; ++u) red_w[r * U + u] = acc[r][u];
+  }
+}
+
+// Threads: row group grp = tid / S of `groups`, k-split s = tid % S with S =
+// kThreads / groups (whole warps per group).  A pass covers 4 * groups rows
+// of a stage; stages of stage_rows rows each (1 stage: all N rows).
+// resident = 1: the step operands are prefetched into shared memory and the
+// carries live there; resident = 0: (A) reads the operands of step t from
+// device memory and the carries live in the block's columns of dh0, dc0 (only
+// this block reads or writes them, ordered by its __syncthreads).
+template <int U>
+__global__ void __launch_bounds__(kThreads, 1)
 lstm_train_bwd_kernel(const float* __restrict__ dh_all,  // (F, N, H)
                       const float* __restrict__ dc_all,  // (F, N, H)
                       const float* __restrict__ gates,   // (F, N, 4H)
@@ -257,160 +404,156 @@ lstm_train_bwd_kernel(const float* __restrict__ dh_all,  // (F, N, H)
                       const float* __restrict__ mask,    // (F, N)
                       const float* __restrict__ w_hh,    // (H, 4H)
                       float* dgates,                     // (F, N, 4H)
-                      float* dh_c,                       // (N, H): carry, ends as dh0
-                      float* dc_c,                       // (N, H): carry, ends as dc0
-                      int F, int N, int H) {
-  constexpr int UQ = bwd_quads(U);
-  constexpr int UP = 4 * UQ;
-  constexpr int RGB = kRowsPassB;
-  constexpr int RGNB = RGB / kRows;
-  constexpr int KSPLIT = kThreads / (RGNB * UQ);
-  constexpr int KTB = kTileB;
-  constexpr int KTS = KTB / KSPLIT;
-  constexpr int KS = KTB + 4;
-  constexpr int V4 = RGB * KTB / 4 / kThreads;
-  static_assert(KSPLIT * RGNB * UQ == kThreads, "thread layout must cover the block");
-  static_assert(KTS % 4 == 0 && KTS > 0, "a split must be whole float4");
-  static_assert(V4 * 4 * kThreads == RGB * KTB, "tile must split evenly over the threads");
+                      float* dh0,                        // (N, H)
+                      float* dc0,                        // (N, H)
+                      int F, int N, int H, int groups, int stage_rows, int stages,
+                      int resident) {
   extern __shared__ __align__(16) float smem[];
   const int H4 = 4 * H;
+  const int j0 = blockIdx.x * U;
   float* wt_s = smem;
-  float* g_s = wt_s + (size_t)H4 * UP;
-  float* red = g_s + RGB * KS;
+  float* g_s = wt_s + round32((size_t)U * H4);
+  float* ops = g_s + (size_t)stages * stage_rows * H4;
+  const float* op_dh = ops;
+  const float* op_dc = ops + U * N;
+  const float* op_cp = ops + 2 * U * N;
+  const float* op_g = ops + 3 * U * N;
+  const float* m_s = ops + round4((size_t)7 * U * N);
+  float* dh_s = ops + round4((size_t)7 * U * N) + round4((size_t)N);
+  float* red = resident ? dh_s + 2 * U * N : ops;
+  // The carries of (row n, unit u) at n * cs + u.
+  float* dh_c = resident ? dh_s : dh0 + j0;
+  float* dc_c = resident ? dh_s + U * N : dc0 + j0;
+  const int cs = resident ? U : H;
 
   const int tid = threadIdx.x;
-  const int q = tid % UQ;
-  const int rg = (tid / UQ) % RGNB;
-  const int ks = tid / (UQ * RGNB);
-  const int j0 = blockIdx.x * U;
-  const size_t NH = (size_t)N * H;
-  const size_t NG = (size_t)N * H4;
-  const int n_tiles = (H4 + KTB - 1) / KTB;
+  const int lane = tid % 32;
+  const int S = kThreads / groups;
+  const int grp = tid / S;
+  const int s = tid % S;
+  const int wpg = S / 32;  // warps per row group
+  const int rows_pass = kRows * groups;
+  const int n_chunks = (N + stage_rows - 1) / stage_rows;
   cg::grid_group grid = cg::this_grid();
 
-  // Resident rows W_hh[j0 + u, :], transposed to k-major; zero for padding units.
-  for (int idx = tid; idx < UP * H4; idx += kThreads) {
-    const int uu = idx / H4;
-    const int k = idx % H4;
-    wt_s[(size_t)k * UP + uu] = uu < U ? w_hh[(size_t)(j0 + uu) * H4 + k] : 0.0f;
+  for (int i = 4 * tid; i < U * H4; i += 4 * kThreads)
+    cp_async<16>(wt_s + i, w_hh + (size_t)j0 * H4 + i);
+  if (resident) copy_step_operands<U>(ops, dh_all, dc_all, c_prev, gates, mask, F - 1, N, H, j0, tid);
+  cp_async_commit();
+  for (int i = tid; i < U * N; i += kThreads) {
+    const int c = i / U * cs + i % U;
+    dh_c[c] = dc_c[c] = 0.0f;
   }
-  for (int idx = tid; idx < N * U; idx += kThreads) {
-    const size_t off = (size_t)(idx / U) * H + j0 + idx % U;
-    dh_c[off] = 0.0f;
-    dc_c[off] = 0.0f;
-  }
+  cp_async_wait<0>();
   __syncthreads();
 
-  float4 g_reg[V4];
-  const float4 zero4 = make_float4(0.f, 0.f, 0.f, 0.f);
-
   for (int t = F - 1; t >= 0; --t) {
-    const size_t base_h = (size_t)t * NH;
-    const size_t base_g = (size_t)t * NG;
-    float* dg_t = dgates + base_g;
+    float* dg_t = dgates + (size_t)t * N * H4;
 
-    // (A) Elementwise, for the block's own units: dgates[t], dc carry, and
-    // the frozen-step bypass Dh * (1 - m) parked in the dh carry.
+    // (A) The block's columns of dgates[t] and the carries.
     for (int idx = tid; idx < N * U; idx += kThreads) {
       const int n = idx / U;
-      const int j = j0 + idx % U;
-      const size_t off = (size_t)n * H + j;
-      const float m = mask[(size_t)t * N + n];
-      const float Dh = dh_c[off] + dh_all[base_h + off];
-      const float Dc = dc_c[off] + dc_all[base_h + off];
-      const float* gp = gates + base_g + (size_t)n * H4 + j;
-      const float i_g = sigmoid_f(gp[0]);
-      const float f_g = sigmoid_f(gp[H]);
-      const float g_g = tanhf(gp[2 * H]);
-      const float o_g = sigmoid_f(gp[3 * H]);
-      const float cp = c_prev[base_h + off];
+      const int u = idx % U;
+      const int c = n * cs + u;
+      float m, dh_in, dc_in, cp, gi, gf, gg, go;
+      if (resident) {
+        const float* gp = op_g + n * 4 * U + u;
+        m = m_s[n];
+        dh_in = op_dh[idx];
+        dc_in = op_dc[idx];
+        cp = op_cp[idx];
+        gi = gp[0];
+        gf = gp[U];
+        gg = gp[2 * U];
+        go = gp[3 * U];
+      } else {
+        const size_t row = (size_t)t * N + n;
+        const float* gp = gates + row * H4 + j0 + u;
+        m = __ldg(mask + row);
+        dh_in = __ldg(dh_all + row * H + j0 + u);
+        dc_in = __ldg(dc_all + row * H + j0 + u);
+        cp = __ldg(c_prev + row * H + j0 + u);
+        gi = __ldg(gp);
+        gf = __ldg(gp + H);
+        gg = __ldg(gp + 2 * H);
+        go = __ldg(gp + 3 * H);
+      }
+      const float Dh = dh_c[c] + dh_in;
+      const float Dc = dc_c[c] + dc_in;
+      const float i_g = sigmoid_f(gi);
+      const float f_g = sigmoid_f(gf);
+      const float g_g = tanhf(gg);
+      const float o_g = sigmoid_f(go);
       const float c_new = f_g * cp + i_g * g_g;
       const float tc = tanhf(c_new);
       const float dh_new = Dh * m;
       const float dc_new = Dc * m + dh_new * o_g * (1.0f - tc * tc);
-      float* dgp = dg_t + (size_t)n * H4 + j;
+      float* dgp = dg_t + (size_t)n * H4 + j0 + u;
       dgp[0] = dc_new * g_g * i_g * (1.0f - i_g);
       dgp[H] = dc_new * cp * f_g * (1.0f - f_g);
       dgp[2 * H] = dc_new * i_g * (1.0f - g_g * g_g);
       dgp[3 * H] = dh_new * tc * o_g * (1.0f - o_g);
-      dh_c[off] = Dh * (1.0f - m);
-      dc_c[off] = dc_new * f_g + Dc * (1.0f - m);
+      dh_c[c] = Dh * (1.0f - m);
+      dc_c[c] = dc_new * f_g + Dc * (1.0f - m);
     }
 
-    // (B) Every block's dgates[t] columns are written.
+    // (B) Every block's columns of dgates[t] are written (and every thread
+    // of this block is done with the step's operands).
     grid.sync();
 
-    // (C) dh carry += dgates[t] @ W_hh[j, :]^T for the block's units.
-    for (int n0 = 0; n0 < N; n0 += RGB) {
-      auto fetch = [&](int k0) {
-#pragma unroll
-        for (int v = 0; v < V4; ++v) {
-          const int e = (v * kThreads + tid) * 4;
-          const int nn = n0 + e / KTB;
-          const int k = k0 + e % KTB;
-          g_reg[v] = (nn < N && k < H4)
-                         ? __ldcg(reinterpret_cast<const float4*>(dg_t + (size_t)nn * H4 + k))
-                         : zero4;
-        }
-      };
-      float acc[kRows][4];
-#pragma unroll
-      for (int i = 0; i < kRows; ++i)
-#pragma unroll
-        for (int c = 0; c < 4; ++c) acc[i][c] = 0.0f;
-      const bool active = n0 + rg < N;
-
-      fetch(0);
-      for (int tile = 0; tile < n_tiles; ++tile) {
-        const int k0 = tile * KTB;
-        __syncthreads();
-#pragma unroll
-        for (int v = 0; v < V4; ++v) {
-          const int e = (v * kThreads + tid) * 4;
-          *reinterpret_cast<float4*>(g_s + (e / KTB) * KS + e % KTB) = g_reg[v];
-        }
-        __syncthreads();
-        if (tile + 1 < n_tiles) fetch(k0 + KTB);
-        const int k_lo = ks * KTS;
-        const int k_hi = active ? min(k_lo + KTS, H4 - k0) : k_lo;
-        for (int kk = k_lo; kk < k_hi; kk += 4) {
-          float4 gv[kRows];
-#pragma unroll
-          for (int i = 0; i < kRows; ++i)
-            gv[i] = *reinterpret_cast<const float4*>(g_s + (rg + i * RGNB) * KS + kk);
-#pragma unroll
-          for (int qq = 0; qq < 4; ++qq) {
-            const float4 w = *reinterpret_cast<const float4*>(wt_s + (size_t)(k0 + kk + qq) * UP + 4 * q);
-#pragma unroll
-            for (int i = 0; i < kRows; ++i) {
-              const float a = lane(gv[i], qq);
-              acc[i][0] = fmaf(a, w.x, acc[i][0]);
-              acc[i][1] = fmaf(a, w.y, acc[i][1]);
-              acc[i][2] = fmaf(a, w.z, acc[i][2]);
-              acc[i][3] = fmaf(a, w.w, acc[i][3]);
-            }
-          }
-        }
-      }
-
-#pragma unroll
-      for (int i = 0; i < kRows; ++i) {
-        const int row = rg + i * RGNB;
-        *reinterpret_cast<float4*>(red + ((size_t)ks * RGB + row) * UP + 4 * q) =
-            make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]);
-      }
+    // (C) dh += dgates[t] @ W_hh[j0:j0+U, :]^T.  Step t-1's operands go into
+    // the first copy group, beside the first chunk of dgates[t].
+    if (resident && t > 0)
+      copy_step_operands<U>(ops, dh_all, dc_all, c_prev, gates, mask, t - 1, N, H, j0, tid);
+    auto issue = [&](int c) {
+      const int r0 = c * stage_rows;
+      const int cr = min(stage_rows, N - r0);
+      float* dst = g_s + (size_t)(c % stages) * stage_rows * H4;
+      const float* src = dg_t + (size_t)r0 * H4;
+      for (int i = 4 * tid; i < cr * H4; i += 4 * kThreads) cp_async<16>(dst + i, src + i);
+      cp_async_commit();
+    };
+    for (int c = 0; c < min(stages, n_chunks); ++c) issue(c);
+    for (int c = 0; c < n_chunks; ++c) {
+      if (c + 1 < n_chunks && stages > 1)
+        cp_async_wait<1>();  // chunk c has landed; chunk c + 1 stays in flight
+      else
+        cp_async_wait<0>();
       __syncthreads();
-      for (int idx = tid; idx < RGB * U; idx += kThreads) {
-        const int row = idx / U;
-        const int uu = idx % U;
-        const int n = n0 + row;
-        if (n < N) {
-          float s = 0.0f;
-          for (int p = 0; p < KSPLIT; ++p) s += red[((size_t)p * RGB + row) * UP + uu];
-          dh_c[(size_t)n * H + j0 + uu] += s;
+      const int r0 = c * stage_rows;
+      const int cr = min(stage_rows, N - r0);
+      const float* st = g_s + (size_t)(c % stages) * stage_rows * H4;
+      for (int p0 = 0; p0 < cr; p0 += rows_pass) {
+        const int lr0 = p0 + kRows * grp;
+        const float* rows = st + (size_t)lr0 * H4;
+        float* red_w = red + (tid / 32) * kRows * U;
+        switch (min(kRows, cr - lr0)) {
+          case 4: pass_tile<U, 4>(rows, wt_s, red_w, H, s, S, lane); break;
+          case 3: pass_tile<U, 3>(rows, wt_s, red_w, H, s, S, lane); break;
+          case 2: pass_tile<U, 2>(rows, wt_s, red_w, H, s, S, lane); break;
+          case 1: pass_tile<U, 1>(rows, wt_s, red_w, H, s, S, lane); break;
+          default: break;  // the group has no row in this pass
         }
+        __syncthreads();
+        for (int idx = tid; idx < min(rows_pass, cr - p0) * U; idx += kThreads) {
+          const int lr = idx / U;
+          const int u = idx % U;
+          const float* part = red + ((size_t)(lr / kRows) * wpg * kRows + lr % kRows) * U + u;
+          float sum = 0.0f;
+          for (int w = 0; w < wpg; ++w) sum += part[(size_t)w * kRows * U];
+          dh_c[(r0 + p0 + lr) * cs + u] += sum;
+        }
+        __syncthreads();  // red is written again by the next pass
       }
-      __syncthreads();  // red and the carries are read again next pass / step
+      if (c + stages < n_chunks) issue(c + stages);  // stage c % stages is free here
+    }
+  }
+
+  if (resident) {
+    for (int idx = tid; idx < N * U; idx += kThreads) {
+      const size_t off = (size_t)(idx / U) * H + j0 + idx % U;
+      dh0[off] = dh_c[idx];
+      dc0[off] = dc_c[idx];
     }
   }
 }
@@ -421,35 +564,30 @@ size_t fwd_shared_bytes(int U, int H) {
                           (size_t)kSplitF * rg * U * 4);
 }
 
-size_t bwd_shared_bytes(int U, int H) {
-  const int up = 4 * bwd_quads(U);
-  const int ksplit = kThreads / (kRowsPassB / kRows * bwd_quads(U));
-  return sizeof(float) * ((size_t)4 * H * up + (size_t)kRowsPassB * (kTileB + 4) +
-                          (size_t)ksplit * kRowsPassB * up);
+// Lets `kernel` use up to max_smem bytes of dynamic shared memory and checks
+// that an SM holds one block of it with that much.
+cudaError_t prepare_kernel(const void* kernel, int max_smem, bool* fits) {
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         max_smem);
+  int per_sm = 0;
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kThreads, max_smem);
+  if (per_sm < 1) *fits = false;
+  return err;
 }
 
-// Sets the kernel's shared memory, checks that the grid of H / U blocks is
-// co-resident, and launches it cooperatively on `stream`.
-int launch_cooperative(const void* kernel, int U, int H, size_t smem, void** args,
-                       cudaStream_t stream) {
-  int dev = 0, n_sms = 0, coop = 0, max_smem = 0;
-  cudaGetDevice(&dev);
-  cudaDeviceGetAttribute(&n_sms, cudaDevAttrMultiProcessorCount, dev);
-  cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev);
-  cudaDeviceGetAttribute(&max_smem, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
-  if (!coop) return kErrNoCooperative;
-  if (smem > (size_t)max_smem) return kErrSharedTooLarge;
-  cudaError_t err =
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  int per_sm = 0;
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kThreads, smem);
-  if (err != cudaSuccess) return (int)err;
-  const int blocks = H / U;
-  if (per_sm * n_sms < blocks) return kErrGridTooLarge;
-  err = cudaLaunchCooperativeKernel(kernel, dim3(blocks), dim3(kThreads), args, smem, stream);
-  if (err != cudaSuccess) return (int)err;
-  return (int)cudaGetLastError();
+template <int U>
+cudaError_t prepare_units(int max_smem, bool* fits) {
+  cudaError_t err = prepare_kernel((const void*)lstm_train_fwd_kernel<U>, max_smem, fits);
+  if (err == cudaSuccess) err = prepare_kernel((const void*)lstm_train_bwd_kernel<U>, max_smem, fits);
+  return err;
+}
+
+int launch(const void* kernel, int blocks, size_t smem, void** args, cudaStream_t stream) {
+  const cudaError_t err =
+      cudaLaunchCooperativeKernel(kernel, dim3(blocks), dim3(kThreads), args, smem, stream);
+  const cudaError_t last = cudaGetLastError();
+  return (int)(err != cudaSuccess ? err : last);
 }
 
 template <int U>
@@ -459,69 +597,99 @@ int launch_fwd(const float* x_proj, const float* mask, const float* w_hh, const 
   void* args[] = {(void*)&x_proj, (void*)&mask,  (void*)&w_hh,  (void*)&h0,
                   (void*)&c0,     (void*)&gates, (void*)&h_all, (void*)&c_all,
                   (void*)&F,      (void*)&N,     (void*)&H};
-  return launch_cooperative((const void*)lstm_train_fwd_kernel<U>, U, H, fwd_shared_bytes(U, H),
-                            args, stream);
+  return launch((const void*)lstm_train_fwd_kernel<U>, H / U, fwd_shared_bytes(U, H), args, stream);
 }
 
 template <int U>
 int launch_bwd(const float* dh_all, const float* dc_all, const float* gates, const float* c_prev,
                const float* mask, const float* w_hh, float* dgates, float* dh0, float* dc0,
-               int F, int N, int H, cudaStream_t stream) {
-  void* args[] = {(void*)&dh_all, (void*)&dc_all, (void*)&gates, (void*)&c_prev,
+               int F, int N, int H, int groups, int stage_rows, int stages, int resident,
+               cudaStream_t stream) {
+  void* args[] = {(void*)&dh_all, (void*)&dc_all, (void*)&gates,  (void*)&c_prev,
                   (void*)&mask,   (void*)&w_hh,   (void*)&dgates, (void*)&dh0,
-                  (void*)&dc0,    (void*)&F,      (void*)&N,      (void*)&H};
-  return launch_cooperative((const void*)lstm_train_bwd_kernel<U>, U, H, bwd_shared_bytes(U, H),
-                            args, stream);
+                  (void*)&dc0,    (void*)&F,      (void*)&N,      (void*)&H,
+                  (void*)&groups, (void*)&stage_rows, (void*)&stages, (void*)&resident};
+  const size_t smem = sizeof(float) * bwd_smem_floats(U, N, H, stages, stage_rows, resident);
+  return launch((const void*)lstm_train_bwd_kernel<U>, H / U, smem, args, stream);
 }
 
 }  // namespace
 
 extern "C" {
 
-// Units per block for hidden size H on this card: the smallest power of two
-// that divides H and gives at most one block per SM.  0 if there is none.
-int lstm_train_units(int H) {
-  int dev = 0, n_sms = 0;
-  cudaGetDevice(&dev);
-  cudaDeviceGetAttribute(&n_sms, cudaDevAttrMultiProcessorCount, dev);
-  for (int U = 1; U <= 8; U *= 2) {
-    if (H % U == 0 && H / U <= n_sms) return U;
-  }
-  return 0;
+// Once per device, before the first launch there (and outside any CUDA graph
+// capture): checks that the card launches cooperative grids, lets every
+// instance of both sweeps use the card's opt-in shared memory per block, and
+// checks that an SM holds one block of each with that much.  Writes the SM
+// count and the opt-in limit in bytes to info[0], info[1].  Returns 0, a
+// cudaError_t value, or a negative code above.
+int lstm_train_prepare(int device, int* info) {
+  int prev = 0, coop = 0;
+  cudaError_t err = cudaGetDevice(&prev);
+  if (err != cudaSuccess) return (int)err;
+  err = cudaSetDevice(device);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&info[0], cudaDevAttrMultiProcessorCount, device);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, device);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&info[1], cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
+  bool fits = true;
+  if (err == cudaSuccess) err = prepare_units<1>(info[1], &fits);
+  if (err == cudaSuccess) err = prepare_units<2>(info[1], &fits);
+  if (err == cudaSuccess) err = prepare_units<4>(info[1], &fits);
+  if (err == cudaSuccess) err = prepare_units<8>(info[1], &fits);
+  cudaSetDevice(prev);
+  if (err != cudaSuccess) return (int)err;
+  if (!coop) return kErrNoCooperative;
+  return fits ? 0 : kErrGridTooLarge;
 }
 
-// Forward sweep over all F steps in one cooperative launch on `stream`.
-// gates may be null (the undifferentiated primal).  Returns 0, a
-// cudaError_t value, or a negative code above.
+// Forward sweep over all F steps in one cooperative launch of H / units
+// blocks on `stream`.  gates may be null (the undifferentiated primal).
+// Launches only: lstm_train_prepare must have run on the current device.
+// Returns 0, a cudaError_t value, or a negative code above.
 int lstm_train_forward(const float* x_proj, const float* mask, const float* w_hh,
                        const float* h0, const float* c0, float* gates, float* h_all,
-                       float* c_all, int F, int N, int H, void* stream) {
-  if (F <= 0 || N <= 0 || H <= 0 || H % 4 != 0) return kErrBadShape;
+                       float* c_all, int F, int N, int H, int units, void* stream) {
+  if (F <= 0 || N <= 0 || H <= 0 || H % 4 != 0 || H % units != 0) return kErrBadShape;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (lstm_train_units(H)) {
+  switch (units) {
     case 1: return launch_fwd<1>(x_proj, mask, w_hh, h0, c0, gates, h_all, c_all, F, N, H, s);
     case 2: return launch_fwd<2>(x_proj, mask, w_hh, h0, c0, gates, h_all, c_all, F, N, H, s);
     case 4: return launch_fwd<4>(x_proj, mask, w_hh, h0, c0, gates, h_all, c_all, F, N, H, s);
     case 8: return launch_fwd<8>(x_proj, mask, w_hh, h0, c0, gates, h_all, c_all, F, N, H, s);
-    default: return kErrGridTooLarge;
+    default: return kErrBadShape;
   }
 }
 
 // Reverse sweep over all F steps in one cooperative launch on `stream`;
-// writes dgates (F, N, 4H) and dh0, dc0 (N, H).  Returns as above.
+// writes dgates (F, N, 4H) and dh0, dc0 (N, H).  units, groups, stage_rows,
+// stages, resident (1: step operands and carries in shared memory) and
+// smem_bytes are the launch plan's; smem_bytes must equal the layout's size.
+// Launches only, as above.  Returns as above.
 int lstm_train_backward(const float* dh_all, const float* dc_all, const float* gates,
                         const float* c_prev, const float* mask, const float* w_hh,
-                        float* dgates, float* dh0, float* dc0, int F, int N, int H,
+                        float* dgates, float* dh0, float* dc0, int F, int N, int H, int units,
+                        int groups, int stage_rows, int stages, int resident, int smem_bytes,
                         void* stream) {
-  if (F <= 0 || N <= 0 || H <= 0 || H % 4 != 0) return kErrBadShape;
+  if (F <= 0 || N <= 0 || H <= 0 || H % 4 != 0 || H % units != 0 || stage_rows <= 0 ||
+      stages < 1 || stages > 2 || (groups != 1 && groups != 2 && groups != 4) ||
+      (resident != 0 && resident != 1) ||
+      (size_t)smem_bytes !=
+          sizeof(float) * bwd_smem_floats(units, N, H, stages, stage_rows, resident))
+    return kErrBadShape;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (lstm_train_units(H)) {
-    case 1: return launch_bwd<1>(dh_all, dc_all, gates, c_prev, mask, w_hh, dgates, dh0, dc0, F, N, H, s);
-    case 2: return launch_bwd<2>(dh_all, dc_all, gates, c_prev, mask, w_hh, dgates, dh0, dc0, F, N, H, s);
-    case 4: return launch_bwd<4>(dh_all, dc_all, gates, c_prev, mask, w_hh, dgates, dh0, dc0, F, N, H, s);
-    case 8: return launch_bwd<8>(dh_all, dc_all, gates, c_prev, mask, w_hh, dgates, dh0, dc0, F, N, H, s);
-    default: return kErrGridTooLarge;
+#define LSTM_TRAIN_BWD(U)                                                                        \
+  launch_bwd<U>(dh_all, dc_all, gates, c_prev, mask, w_hh, dgates, dh0, dc0, F, N, H, groups, \
+                stage_rows, stages, resident, s)
+  switch (units) {
+    case 1: return LSTM_TRAIN_BWD(1);
+    case 2: return LSTM_TRAIN_BWD(2);
+    case 4: return LSTM_TRAIN_BWD(4);
+    case 8: return LSTM_TRAIN_BWD(8);
+    default: return kErrBadShape;
   }
+#undef LSTM_TRAIN_BWD
 }
 
 }  // extern "C"

@@ -26,13 +26,17 @@ valid steps):
 
 ``lstm_train_fwd``/``lstm_train_bwd`` launch the kernels for CUDA tensors
 and run the plain versions for CPU tensors; ``FWD_LAUNCHES`` and
-``BWD_LAUNCHES`` count kernel launches.
+``BWD_LAUNCHES`` count kernel launches. Setup is out of the per-call path:
+:func:`lstm_train_prepare` sets the kernels' shared memory and checks their
+occupancy once per device, and the grids come from pure-Python plans
+(:func:`lstm_train_units`, :func:`lstm_train_bwd_plan`).
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Optional
+import functools
+from typing import Dict, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -44,13 +48,120 @@ BWD_LAUNCHES = 0
 
 NAME = "lstm_train"  # csrc/lstm_train.cu
 
+# The kernels' geometry, as csrc/lstm_train.cu fixes it (threads per block,
+# rows of a thread's register tile in the reverse sweep), and the H100 SXM's
+# SMs and opt-in shared memory per block.
+THREADS = 256
+TILE_ROWS = 4
+SMS = 132
+SMEM_LIMIT = 232448
+
+_prepared: Dict[int, Tuple[int, int]] = {}  # device index -> (SMs, opt-in shared bytes)
+_lib = None  # the kernels' library, once lstm_train_prepare has loaded it
+
+
+class BwdPlan(NamedTuple):
+    units: int       # hidden units per block (U)
+    blocks: int      # the cooperative grid, H / U
+    row_groups: int  # thread row groups of a pass (THREADS / row_groups k-splits each)
+    rows_per_pass: int  # rows a pass multiplies (at most TILE_ROWS per group)
+    stage_rows: int  # rows of dgates[t] per staged chunk
+    stages: int      # 1: all N rows staged at once; 2: a ring of two row chunks
+    resident: bool   # step operands and carries in shared memory (else in device memory)
+    smem_bytes: int  # dynamic shared memory per block
+
+
+def lstm_train_units(h: int, sms: int = SMS) -> int:
+    """Hidden units per block for hidden size H: the smallest power of two
+    (at most 8) that divides H and gives at most one block per SM."""
+    for u in (1, 2, 4, 8):
+        if h % u == 0 and h // u <= sms:
+            return u
+    raise ValueError(f"no units-per-block choice puts H={h} on {sms} SMs")
+
+
+def bwd_smem_bytes(units: int, n: int, h: int, stages: int, stage_rows: int,
+                   resident: bool = True) -> int:
+    """Shared memory of one reverse-sweep block (``csrc/lstm_train.cu``
+    ``bwd_smem_floats``): the resident rows of W_hh (to 128 bytes), the
+    stages of dgates[t], where ``resident`` the next step's operands
+    (dh_all, dc_all, c_prev, four gate columns per unit, and the mask) and
+    the carries dh and dc, and the warps' partial sums."""
+    r4 = lambda x: -(-x // 4) * 4
+    rows = r4(7 * units * n) + r4(n) + 2 * units * n if resident else 0
+    return 4 * (-(-units * 4 * h // 32) * 32 + stages * stage_rows * 4 * h + rows
+                + THREADS // 32 * TILE_ROWS * units)
+
+
+@functools.lru_cache(maxsize=256)
+def lstm_train_bwd_plan(n: int, h: int, sms: int = SMS,
+                        smem_limit: int = SMEM_LIMIT) -> BwdPlan:
+    """Launch plan of the reverse sweep for N rows at hidden size H.
+
+    Row groups: 1, 2 or 4, the fewest whose register tiles (TILE_ROWS rows a
+    group) cover min(N, 16) rows, so a pass is sized to N. All N rows of
+    dgates[t] are staged at once where they fit beside the rest of the
+    block's shared memory; else a ring of two stages of up to 16 rows each,
+    so that a pass still spans up to four row groups (on an H100, passes of
+    16 rows were faster than more, smaller passes with a deeper ring). The
+    step operands and carries go into shared memory (``resident``) unless
+    the ring then needs more chunks per step than without them (at H=512:
+    N = 24, 100 and any N above 121, among others); else they stay in
+    device memory, and the shared memory does not grow with N. Raises
+    ValueError only where not one row of dgates fits in each of two
+    stages."""
+    if n <= 0 or h <= 0 or h % 4:
+        raise ValueError(f"the reverse sweep needs N > 0 and H a positive multiple of 4, got "
+                         f"N={n}, H={h}")
+    units = lstm_train_units(h, sms)
+    if bwd_smem_bytes(units, n, h, 1, n) <= smem_limit:
+        stages, rows, resident = 1, n, True
+    else:
+        stages = 2
+        ring = {r: min(4 * TILE_ROWS, n, (smem_limit - bwd_smem_bytes(units, n, h, 0, 0, r))
+                       // (2 * 4 * 4 * h)) for r in (True, False)}
+        resident = ring[True] >= 1 and -(-n // ring[True]) <= -(-n // ring[False])
+        rows = ring[resident]
+        if rows < 1:
+            raise ValueError(f"the reverse sweep at N={n}, H={h} does not fit in {smem_limit} "
+                             "bytes of shared memory")
+    groups = next(g for g in (1, 2, 4) if TILE_ROWS * g >= min(rows, 4 * TILE_ROWS))
+    return BwdPlan(units, h // units, groups, min(TILE_ROWS * groups, rows), rows, stages,
+                   resident, bwd_smem_bytes(units, n, h, stages, rows, resident))
+
 
 def _library():
     p, i = ctypes.c_void_p, ctypes.c_int
     return cuda_build.load(NAME, {
-        "lstm_train_forward": ([p, p, p, p, p, p, p, p, i, i, i, p], i),
-        "lstm_train_backward": ([p, p, p, p, p, p, p, p, p, i, i, i, p], i),
+        "lstm_train_prepare": ([i, ctypes.POINTER(i)], i),
+        "lstm_train_forward": ([p, p, p, p, p, p, p, p, i, i, i, i, p], i),
+        "lstm_train_backward": ([p, p, p, p, p, p, p, p, p, i, i, i, i, i, i, i, i, i, p], i),
     })
+
+
+def lstm_train_prepare(device) -> None:
+    """Once per device (the wrappers call it at their first launch there):
+    build the kernels if needed, set their shared memory and check their
+    occupancy. Outside the per-call path, and outside any CUDA graph capture."""
+    global _lib
+    index = torch.device(device).index
+    index = torch.cuda.current_device() if index is None else index
+    if index in _prepared:
+        return
+    _lib = _library()
+    info = (ctypes.c_int * 2)()
+    cuda_build.check(_lib.lstm_train_prepare(index, info), "LSTM training kernel setup")
+    _prepared[index] = (info[0], info[1])
+
+
+def _launch(fn, index: int, *args) -> int:
+    """Call a C entry on device ``index``'s current raw stream, switching the
+    current device only where it differs."""
+    args = (*args, torch._C._cuda_getCurrentRawStream(index))
+    if index == torch._C._cuda_getDevice():
+        return fn(*args)
+    with torch.cuda.device(index):
+        return fn(*args)
 
 
 def lstm_train_fwd_plain(x_proj, mask, w_hh, h0, c0, save_gates: bool = True):
@@ -109,16 +220,17 @@ def lstm_train_fwd(x_proj, mask, w_hh, h0, c0, save_gates: bool = True):
     _check("w_hh", w_hh, (hidden, 4 * hidden), dev)
     _check("h0", h0, (n, hidden), dev)
     _check("c0", c0, (n, hidden), dev)
-    lib = _library()
+    index = x_proj.get_device()
+    if index not in _prepared:
+        lstm_train_prepare(dev)
+    units = lstm_train_units(hidden, _prepared[index][0])
     gates = torch.empty(f, n, 4 * hidden, device=dev) if save_gates else None
     h_all = torch.empty(f, n, hidden, device=dev)
     c_all = torch.empty(f, n, hidden, device=dev)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        code = lib.lstm_train_forward(
-            x_proj.data_ptr(), mask.data_ptr(), w_hh.data_ptr(), h0.data_ptr(), c0.data_ptr(),
-            gates.data_ptr() if save_gates else None, h_all.data_ptr(), c_all.data_ptr(),
-            f, n, hidden, stream)
+    code = _launch(_lib.lstm_train_forward, index, x_proj.data_ptr(), mask.data_ptr(),
+                   w_hh.data_ptr(), h0.data_ptr(), c0.data_ptr(),
+                   gates.data_ptr() if save_gates else None, h_all.data_ptr(), c_all.data_ptr(),
+                   f, n, hidden, units)
     cuda_build.check(code, "LSTM training forward kernel")
     FWD_LAUNCHES += 1
     return gates, h_all, c_all
@@ -140,16 +252,19 @@ def lstm_train_bwd(dh_all, dc_all, gates, c_prev, mask, w_hh):
     _check("gates", gates, (f, n, 4 * hidden), dev)
     _check("mask", mask, (f, n), dev)
     _check("w_hh", w_hh, (hidden, 4 * hidden), dev)
-    lib = _library()
+    index = gates.get_device()
+    if index not in _prepared:
+        lstm_train_prepare(dev)
+    sms, max_smem = _prepared[index]
+    plan = lstm_train_bwd_plan(n, hidden, sms, max_smem)
     dgates = torch.empty_like(gates)
     dh0 = torch.empty(n, hidden, device=dev)
     dc0 = torch.empty(n, hidden, device=dev)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        code = lib.lstm_train_backward(
-            dh_all.data_ptr(), dc_all.data_ptr(), gates.data_ptr(), c_prev.data_ptr(),
-            mask.data_ptr(), w_hh.data_ptr(), dgates.data_ptr(), dh0.data_ptr(),
-            dc0.data_ptr(), f, n, hidden, stream)
+    code = _launch(_lib.lstm_train_backward, index, dh_all.data_ptr(), dc_all.data_ptr(),
+                   gates.data_ptr(), c_prev.data_ptr(), mask.data_ptr(), w_hh.data_ptr(),
+                   dgates.data_ptr(), dh0.data_ptr(), dc0.data_ptr(), f, n, hidden, plan.units,
+                   plan.row_groups, plan.stage_rows, plan.stages, int(plan.resident),
+                   plan.smem_bytes)
     cuda_build.check(code, "LSTM training backward kernel")
     BWD_LAUNCHES += 1
     return dgates, dh0, dc0

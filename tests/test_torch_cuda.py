@@ -1,8 +1,9 @@
 """Checks that need the card: the LSTM stack kernel, its wavefront schedule,
 the bidirectional layer kernel and the LSTM training pair against their
-plain versions at the released widths (H=512), the LBS kernel against its
-plain version at the full mesh (and captured in a CUDA graph), SMPLLayer's
-launches, and served steps
+plain versions at the released widths (H=512; the reverse sweep also
+launched twice bit for bit, and captured in a CUDA graph), the LBS kernel
+against its plain version at the full mesh (and captured in a CUDA graph),
+SMPLLayer's launches, and served steps
 (LGD-RNN, BiRNN) against the same model run with the plain LSTM. Skipped
 without a CUDA device; on the card run
 
@@ -195,31 +196,75 @@ def test_bidi_kernel_matches_plain_released_shape(cuda, f, n):
     assert torch.equal(got[1][:, idle], h0[:, idle]) and torch.equal(got[2][:, idle], c0[:, idle])
 
 
-@pytest.mark.parametrize("f, n", [(64, 16), (256, 64)])
-def test_training_pair_matches_plain_released_shape(cuda, f, n):
-    """Both sweeps at H=512 against their plain versions (atol 1e-4 relative
-    to each output's largest entry), and 0-length rows bit for bit."""
+def _pair_case(f, n, cuda):
+    """Operands of the training pair at H=512: 0-length rows 0-1 and full
+    rows 2-5 where N allows; the one row of N=1 runs every step."""
     g = torch.Generator().manual_seed(f + n)
     h = 512
     r = lambda *s: torch.randn(*s, generator=g).to(cuda)
     x_proj, w_hh = r(f, n, 4 * h) * 0.5, r(h, 4 * h) * h ** -0.5
     h0, c0 = r(n, h) * 0.5, r(n, h) * 0.5
-    lengths = torch.randint(1, f, (n,), generator=g)
-    lengths[:2], lengths[2:6] = 0, f
+    if n == 1:
+        lengths = torch.full((1,), f)
+    else:
+        lengths = torch.randint(1, f, (n,), generator=g)
+        lengths[:2], lengths[2:6] = 0, f
     mask = (torch.arange(f)[:, None] < lengths[None]).float().to(cuda)
+    return x_proj, mask, w_hh, h0, c0, r(f, n, h), r(f, n, h), (lengths == 0).to(cuda)
+
+
+@pytest.mark.parametrize("f, n", [(64, 16), (256, 64), (33, 7), (64, 100), (1, 1), (3, 1300)])
+def test_training_pair_matches_plain_released_shape(cuda, f, n):
+    """Both sweeps at H=512 against their plain versions (atol 1e-4 relative
+    to each output's largest entry), 0-length rows bit for bit, and a second
+    reverse sweep bit for bit equal to the first; (64, 100) has more rows
+    than one staging of the reverse sweep holds, (33, 7) is ragged; at
+    (64, 100) and (3, 1300) the reverse sweep keeps its step operands and
+    carries in device memory (1300 rows would not fit in shared memory)."""
+    x_proj, mask, w_hh, h0, c0, dh, dc, idle = _pair_case(f, n, cuda)
     got = TK.lstm_train_fwd(x_proj, mask, w_hh, h0, c0)
     want = TK.lstm_train_fwd_plain(x_proj, mask, w_hh, h0, c0)
     for a, b in zip(got, want):
         torch.testing.assert_close(a, b, atol=ATOL * float(b.abs().max()), rtol=0)
-    assert torch.equal(got[1][:, :2], h0[None, :2].expand(f, 2, h))
+    assert torch.equal(got[1][:, idle], h0[idle].expand(f, -1, -1))
     c_prev = torch.cat([c0[None], want[2][:-1]])
-    dh, dc = r(f, n, h), r(f, n, h)
+    launches = TK.BWD_LAUNCHES
     got_b = TK.lstm_train_bwd(dh, dc, want[0], c_prev, mask, w_hh)
+    again = TK.lstm_train_bwd(dh, dc, want[0], c_prev, mask, w_hh)
+    assert TK.BWD_LAUNCHES == launches + 2
     want_b = TK.lstm_train_bwd_plain(dh, dc, want[0], c_prev, mask, w_hh)
-    for a, b in zip(got_b, want_b):
+    for a, b, c in zip(got_b, want_b, again):
         torch.testing.assert_close(a, b, atol=ATOL * float(b.abs().max()), rtol=0)
-    assert torch.equal(got_b[0][:, :2], torch.zeros_like(got_b[0][:, :2]))
-    assert torch.equal(got_b[1][:2], want_b[1][:2]) and torch.equal(got_b[2][:2], want_b[2][:2])
+        assert torch.equal(a, c)
+    assert torch.equal(got_b[0][:, idle], torch.zeros_like(got_b[0][:, idle]))
+    assert torch.equal(got_b[1][idle], want_b[1][idle]) and torch.equal(got_b[2][idle], want_b[2][idle])
+
+
+def test_reverse_sweep_cuda_graph_capture(cuda):
+    """lstm_train_bwd captured once in a CUDA graph (the call does no setup
+    and no synchronization; the cooperative launch is captured), replayed
+    on new inputs copied into the captured buffers: equal to the eager call,
+    bit for bit."""
+    x_proj, mask, w_hh, h0, c0, dh, dc, _ = _pair_case(64, 16, cuda)
+    gates, _, c_all = TK.lstm_train_fwd_plain(x_proj, mask, w_hh, h0, c0)
+    c_prev = torch.cat([c0[None], c_all[:-1]])
+    args = (dh, dc, gates, c_prev, mask, w_hh)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        TK.lstm_train_bwd(*args)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = TK.lstm_train_bwd(*args)
+    new = _pair_case(64, 17, cuda)
+    dh.copy_(new[5][:, :16])
+    dc.copy_(new[6][:, :16])
+    gates.mul_(0.5)
+    graph.replay()
+    torch.cuda.synchronize()
+    for a, b in zip(out, TK.lstm_train_bwd(*args)):
+        assert torch.equal(a, b)
 
 
 def _synthetic_smplh():

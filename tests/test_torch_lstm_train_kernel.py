@@ -179,3 +179,52 @@ def test_lstm_apply_training_matches_jax(bidirectional):
     ((outs * _t(w_out)).sum() + hF.sum() + (cF * 0.5).sum()).backward()
     np.testing.assert_allclose(outs.detach().numpy(), np.asarray(j_outs), **TOL)
     np.testing.assert_allclose(t_x.grad.numpy(), np.asarray(j_dx), **TOL)
+
+
+@pytest.mark.parametrize("n", [1, 7, 16, 64, 100, 256, 1300, 100000])
+def test_bwd_launch_plan_covers_rows_and_fits(n):
+    """The reverse sweep's launch plan at H=512: its chunks and passes span
+    all N rows (none beyond N), its shared memory fits in an H100 block's
+    232,448 bytes and equals the layout's size, the units divide H, the grid
+    is one block per SM at most, and all N rows are staged at once where
+    they fit (N=16), else two stages of more than 8 rows each. The step
+    operands and carries are in shared memory where that costs the ring no
+    chunk (N <= 64 here), else in device memory, so any N has a plan whose
+    shared memory does not grow with N."""
+    h = 512
+    plan = K.lstm_train_bwd_plan(n, h)
+    assert 1 <= plan.rows_per_pass <= min(n, K.TILE_ROWS * plan.row_groups, plan.stage_rows)
+    assert plan.stage_rows <= n and plan.stages * plan.stage_rows >= min(n, 2)
+    assert plan.smem_bytes <= 232448
+    assert plan.smem_bytes == K.bwd_smem_bytes(plan.units, n, h, plan.stages, plan.stage_rows,
+                                               plan.resident)
+    assert h % plan.units == 0 and plan.blocks == h // plan.units <= K.SMS
+    assert plan.stages in (1, 2) and (plan.stages == 2 or plan.stage_rows == n)
+    if n <= 16:
+        assert plan.stages == 1
+    else:  # a ring of two chunks; a pass still spans all four row groups
+        assert plan.stages == 2 and plan.row_groups == 4 and plan.stage_rows > 2 * K.TILE_ROWS
+    assert plan.resident == (n <= 64)
+    if not plan.resident:
+        assert plan.smem_bytes == K.lstm_train_bwd_plan(1300, h).smem_bytes
+
+
+def test_reverse_sweep_matches_pallas_bwd_ragged():
+    """F=5, N=7: 0-length, one-frame, partial and full rows (a batch that is
+    not a multiple of the kernel's 4-row register tile)."""
+    f, n = 5, 7
+    rng = np.random.RandomState(12)
+    lengths = np.array([0, 5, 1, 3, 5, 0, 4])
+    mask = (np.arange(f)[:, None] < lengths[None, :]).astype(np.float32)
+    w_hh = rng.uniform(-H ** -0.5, H ** -0.5, (H, 4 * H)).astype(np.float32)
+    gates = rng.randn(f, n, 4 * H).astype(np.float32)
+    c_prev, dh_all, dc_all = (rng.randn(f, n, H).astype(np.float32) for _ in range(3))
+    want = JK._pallas_bwd(jnp.asarray(dh_all), jnp.asarray(dc_all), jnp.asarray(gates),
+                          jnp.asarray(c_prev), jnp.asarray(mask)[:, :, None], jnp.asarray(w_hh),
+                          hidden=H, interpret=True, precision=lax.Precision.HIGHEST)
+    got = K.lstm_train_bwd(_t(dh_all), _t(dc_all), _t(gates), _t(c_prev), _t(mask), _t(w_hh))
+    for name, g, w in zip(("dgates", "dh0", "dc0"), got, want):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), err_msg=name, **TOL)
+    for row in (0, 5):  # the empty rows: zero dgates, cotangents summed straight through
+        assert torch.equal(got[0][:, row], torch.zeros(f, 4 * H))
+        np.testing.assert_allclose(got[2][row].numpy(), dc_all[:, row].sum(0), rtol=1e-6, atol=1e-6)

@@ -7,7 +7,7 @@ Phases, each printed on its own line:
   1. the card's name and power limit (nvidia-smi);
   2. build of the CUDA kernels from empose_tpu_torch/csrc, one nvcc per
      source, all at once, with their register reports (the LBS kernel and
-     the reverse sweep must not spill);
+     the 8 instantiations of the training pair must not spill);
   3. the LSTM stack kernel against its plain torch version on the card at
      the released init-RNN shape (L=2, H=512) for the batched serving chunk
      (F=16, N=64), the eval window (F=256, N=64) and one stream's chunk
@@ -22,11 +22,12 @@ Phases, each printed on its own line:
      versions at H=512 for the flagship training step (F=64, N=16), a large
      one (F=256, N=64), a ragged batch (33, 7), more rows than one staging
      of the reverse sweep holds (64, 100), one row of one step (1, 1) and
-     more rows than the reverse sweep keeps in shared memory (3, 1300):
+     more rows than either sweep keeps in shared memory (3, 1300), and at
+     H=1024 (64, 32), where the forward sweep's ring has one slot:
      the sweeps' outputs, the gradients through the autograd function
      against torch.autograd over the plain cell, 0-length rows bit for bit,
-     a second reverse sweep bit for bit equal to the first, the reverse
-     sweep's launch plan; at the first two and at (64, 100), median times
+     a second launch of each sweep bit for bit equal to the first, both
+     sweeps' launch plans; at the first two and at (64, 100), median times
      beside the plain versions and cuDNN's training forward and backward;
   4b. the bidirectional layer kernel against its plain torch version at the
      released BiRNN width (H=512) for the batched serving chunk (F=16,
@@ -85,8 +86,15 @@ reads how far fp32 rounding alone moves a full-width LGD-RNN-6 train step
 
     python3 chip_smoke.py --step-probe
 
-reads the reverse sweep's time per step at F=64 for N = 1, 4, 16, 32 and 64
-(``bwd_step_probe``): what a step is made of beyond its grid barrier.
+reads the forward and the reverse sweep's time per step at F=64 for N = 1,
+4, 16, 32 and 64 (``step_probe``): what a step is made of beyond its grid
+barrier.
+
+    PYTHONPATH=TREE python3 -P chip_smoke.py --time-pair
+
+times both training sweeps at phase 4's timed shapes on its inputs
+(``time_pair``), for the package under TREE (``-P``: not the one beside
+the script); runs of two trees in turns within one call compare them.
 
 Exits non-zero on any failure, and when no CUDA device is present.
 Imports torch, numpy and the port only.
@@ -170,6 +178,18 @@ BIRNN_6 = dict(
 def check(cond: bool, msg: str) -> None:
     if not cond:
         raise RuntimeError(f"chip_smoke: {msg}")
+
+
+def print_card() -> bool:
+    """Print the card's name and power limit (nvidia-smi) on a line of its
+    own; False, with a message on stderr, where no CUDA device is present."""
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)", file=sys.stderr)
+        return False
+    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True).stdout.strip().splitlines()[0],
+          flush=True)
+    return True
 
 
 def cuda_ms(fn, warmup: int = 3, reps: int = 15) -> float:
@@ -514,10 +534,10 @@ def rel_err(a: torch.Tensor, b: torch.Tensor) -> float:
     return float((a - b).abs().max() / b.abs().max().clamp(min=1e-30))
 
 
-def pair_bounds(f: int, n: int) -> dict:
+def pair_bounds(f: int, n: int, h: int = HIDDEN) -> dict:
     """Least times of the two sweeps: fp32 FMA work 2*F*N*H*4H each; bytes
     of each input read once and each output written once."""
-    h, h4 = HIDDEN, 4 * HIDDEN
+    h4 = 4 * h
     flops = 2.0 * f * n * h * h4
     fwd_bytes = 4.0 * (f * n * h4 + f * n + h * h4 + 2 * n * h      # x_proj, mask, W_hh, h0/c0
                        + f * n * h4 + 2 * f * n * h)                # gates, h_all, c_all
@@ -526,36 +546,49 @@ def pair_bounds(f: int, n: int) -> dict:
     return {"fwd": bound_ms(flops, fwd_bytes), "bwd": bound_ms(flops, bwd_bytes)}
 
 
-def train_pair_phase(f: int, n: int, seed: int, timed: bool) -> dict:
-    """The training pair against its plain versions and against autograd
-    over the plain cell, 0-length rows bit for bit, a second launch of the
-    reverse sweep bit for bit equal to the first, its launch plan on a line
-    of its own; when ``timed``, median times."""
-    g = torch.Generator().manual_seed(seed)
+def pair_inputs(g: torch.Generator, f: int, n: int, h: int = HIDDEN):
+    """Seeded operands of the training pair at (F, N, H) on the card: x_proj,
+    mask, W_hh, h0, c0, the rows' lengths (0-length, partial and full rows;
+    the one row of N=1 runs every step), dh_all and dc_all."""
     r = lambda *s, sc=1.0: (torch.randn(*s, generator=g) * sc).cuda()
-    w_hh = ((torch.rand(HIDDEN, 4 * HIDDEN, generator=g) * 2 - 1) * HIDDEN ** -0.5).cuda()
-    x_proj = r(f, n, 4 * HIDDEN, sc=0.5)
-    h0, c0 = r(n, HIDDEN, sc=0.5), r(n, HIDDEN, sc=0.5)
-    if n == 1:  # the one row runs every step
+    w_hh = ((torch.rand(h, 4 * h, generator=g) * 2 - 1) * h ** -0.5).cuda()
+    x_proj = r(f, n, 4 * h, sc=0.5)
+    h0, c0 = r(n, h, sc=0.5), r(n, h, sc=0.5)
+    if n == 1:
         lengths = torch.full((1,), f)
     else:
         lengths = torch.randint(1, f, (n,), generator=g)
         lengths[: max(n // 16, 1)] = 0
         lengths[max(n // 16, 1): n // 16 + n // 3] = f
     mask = (torch.arange(f)[:, None] < lengths[None]).float().cuda()
-    idle = lengths.cuda() == 0
-    dh_all, dc_all = r(f, n, HIDDEN), r(f, n, HIDDEN)
+    return x_proj, mask, w_hh, h0, c0, lengths, r(f, n, h), r(f, n, h)
 
+
+def train_pair_phase(f: int, n: int, seed: int, timed: bool, h: int = HIDDEN) -> dict:
+    """The training pair at hidden size ``h`` against its plain versions and
+    against autograd over the plain cell, 0-length rows bit for bit, a
+    second launch of each sweep bit for bit equal to the first, their launch
+    plans on lines of their own; when ``timed``, median times."""
+    g = torch.Generator().manual_seed(seed)
+    r = lambda *s, sc=1.0: (torch.randn(*s, generator=g) * sc).cuda()
+    x_proj, mask, w_hh, h0, c0, lengths, dh_all, dc_all = pair_inputs(g, f, n, h)
+    idle = lengths.cuda() == 0
+    shape = f"F={f} N={n}" + ("" if h == HIDDEN else f" H={h}")
+
+    fwd_plan = TK.lstm_train_fwd_plan(n, h)
+    print(f"forward sweep launch plan {shape}: {fwd_plan._asdict()}", flush=True)
     got = TK.lstm_train_fwd(x_proj, mask, w_hh, h0, c0)
+    again_f = TK.lstm_train_fwd(x_proj, mask, w_hh, h0, c0)
     want = TK.lstm_train_fwd_plain(x_proj, mask, w_hh, h0, c0)
     gates, _, c_all = want
     c_prev = torch.cat([c0[None], c_all[:-1]])
-    plan = TK.lstm_train_bwd_plan(n, HIDDEN)
-    print(f"reverse sweep launch plan F={f} N={n}: {plan._asdict()}", flush=True)
+    plan = TK.lstm_train_bwd_plan(n, h)
+    print(f"reverse sweep launch plan {shape}: {plan._asdict()}", flush=True)
     got_b = TK.lstm_train_bwd(dh_all, dc_all, gates, c_prev, mask, w_hh)
     again = TK.lstm_train_bwd(dh_all, dc_all, gates, c_prev, mask, w_hh)
     want_b = TK.lstm_train_bwd_plain(dh_all, dc_all, gates, c_prev, mask, w_hh)
     torch.cuda.synchronize()
+    repeat_f = all(torch.equal(a, b) for a, b in zip(got, again_f))
     repeat = all(torch.equal(a, b) for a, b in zip(got_b, again))
     fwd_err = {k: rel_err(a, b) for k, a, b in zip(("gates", "h_all", "c_all"), got, want)}
     bwd_err = {k: rel_err(a, b) for k, a, b in zip(("dgates", "dh0", "dc0"), got_b, want_b)}
@@ -563,7 +596,7 @@ def train_pair_phase(f: int, n: int, seed: int, timed: bool) -> dict:
     bwd_abs = max(float((a - b).abs().max()) for a, b in zip(got_b, want_b))
 
     # Gradients through the autograd function against autograd over the plain cell.
-    w_out, w_h, w_c = r(f, n, HIDDEN), r(n, HIDDEN), r(n, HIDDEN)
+    w_out, w_h, w_c = r(f, n, h), r(n, h), r(n, h)
 
     def grads(cell):
         leaves = [t.clone().requires_grad_() for t in (x_proj, w_hh, h0, c0)]
@@ -582,22 +615,24 @@ def train_pair_phase(f: int, n: int, seed: int, timed: bool) -> dict:
     frozen = bool((got[1][:, idle] == h0[idle]).all() and (got[2][:, idle] == c0[idle]).all()
                   and (got_b[0][:, idle] == 0).all() and torch.equal(got_b[1][idle], want_b[1][idle])
                   and torch.equal(got_b[2][idle], want_b[2][idle]))
-    print(f"training pair F={f} N={n}: max abs error / max abs value vs plain: forward "
+    print(f"training pair {shape}: max abs error / max abs value vs plain: forward "
           f"{fwd_err}, reverse {bwd_err}; autograd vs plain cell {grad_err}; "
-          f"0-length rows bit for bit (state, dgates, dh0, dc0): {frozen}; a second reverse "
-          f"sweep bit for bit equal to the first: {repeat}", flush=True)
+          f"0-length rows bit for bit (state, dgates, dh0, dc0): {frozen}; a second forward "
+          f"sweep bit for bit equal to the first: {repeat_f}; a second reverse sweep: {repeat}",
+          flush=True)
     worst = max(*fwd_err.values(), *bwd_err.values(), *grad_err.values())
-    check(worst <= TOL_REL, f"training pair disagrees with its plain version at F={f} N={n}: "
+    check(worst <= TOL_REL, f"training pair disagrees with its plain version at {shape}: "
                             f"{worst} > {TOL_REL}")
-    check(frozen, f"training pair changed 0-length rows at F={f} N={n}")
-    check(repeat, f"two reverse sweeps on the same inputs differ at F={f} N={n}")
+    check(frozen, f"training pair changed 0-length rows at {shape}")
+    check(repeat_f, f"two forward sweeps on the same inputs differ at {shape}")
+    check(repeat, f"two reverse sweeps on the same inputs differ at {shape}")
     if not timed:
         return {"fwd": dict(max_abs_err=fwd_abs), "bwd": dict(max_abs_err=bwd_abs)}
 
-    lstm = torch.nn.LSTM(HIDDEN, HIDDEN, 1).cuda()
+    lstm = torch.nn.LSTM(h, h, 1).cuda()
     with torch.no_grad():
         lstm.weight_hh_l0.copy_(w_hh.t())
-    x = r(f, n, HIDDEN).requires_grad_()
+    x = r(f, n, h).requires_grad_()
     out_lib, _ = lstm(x, (h0[None], c0[None]))
     grad_lib = torch.ones_like(out_lib)
     lib_params = [x, *lstm.parameters()]
@@ -612,17 +647,19 @@ def train_pair_phase(f: int, n: int, seed: int, timed: bool) -> dict:
         "bwd_lib": cuda_ms(lambda: torch.autograd.grad(out_lib, lib_params, grad_lib,
                                                        retain_graph=True)),
     }
-    bounds = pair_bounds(f, n)
-    print(f"training pair times F={f} N={n}: forward kernel {times['fwd']:.4f} ms (plain "
+    bounds = pair_bounds(f, n, h)
+    print(f"training pair times {shape}: forward kernel {times['fwd']:.4f} ms (plain "
           f"{times['fwd_plain']:.4f}, cuDNN training forward {times['fwd_lib']:.4f}, bound "
-          f"{bounds['fwd'][0]:.4f} by {bounds['fwd'][1]}); reverse kernel {times['bwd']:.4f} ms "
+          f"{bounds['fwd'][0]:.4f} by {bounds['fwd'][1]}; {times['fwd'] * 1e3 / f:.2f} us per "
+          f"step); reverse kernel {times['bwd']:.4f} ms "
           f"(plain {times['bwd_plain']:.4f}, cuDNN backward incl. dW and dx "
           f"{times['bwd_lib']:.4f}, bound {bounds['bwd'][0]:.4f} by {bounds['bwd'][1]}; "
           f"{times['bwd'] * 1e3 / f:.2f} us per step)", flush=True)
     return {
         "fwd": dict(max_abs_err=fwd_abs, ms=times["fwd"], plain_ms=times["fwd_plain"],
                     bound_ms=bounds["fwd"][0], bound_by=bounds["fwd"][1],
-                    library_ms=times["fwd_lib"]),
+                    library_ms=times["fwd_lib"], plan=fwd_plan._asdict(),
+                    us_per_step=times["fwd"] * 1e3 / f),
         "bwd": dict(max_abs_err=bwd_abs, ms=times["bwd"], plain_ms=times["bwd_plain"],
                     bound_ms=bounds["bwd"][0], bound_by=bounds["bwd"][1],
                     library_ms=times["bwd_lib"], plan=plan._asdict(),
@@ -630,31 +667,59 @@ def train_pair_phase(f: int, n: int, seed: int, timed: bool) -> dict:
     }
 
 
-def bwd_step_probe(f: int = TRAIN_WINDOW, ns=(1, 4, 16, 32, 64)) -> int:
-    """``python3 chip_smoke.py --step-probe``: what a step of the reverse
+def time_pair() -> int:
+    """``python3 chip_smoke.py --time-pair``: both training sweeps' median
+    times at PAIR_TIMED on phase 4's inputs, and nothing else. It times the
+    package that ``import empose_tpu_torch`` finds: ``PYTHONPATH=TREE
+    python3 -P chip_smoke.py --time-pair`` (``-P``: not the script's own
+    directory) times the source tree TREE, so runs of two trees in turns
+    within one call (e.g. an unpacked parent commit) compare them on equal
+    inputs."""
+    if not print_card():
+        return 2
+    print(f"package: {os.path.dirname(TK.__file__)}", flush=True)
+    cuda_build.build([TK.NAME], force=True)
+    out = {}
+    for f, n in PAIR_TIMED:
+        g = torch.Generator().manual_seed(SEED + f + n)
+        x_proj, mask, w_hh, h0, c0, _, dh_all, dc_all = pair_inputs(g, f, n)
+        gates, _, c_all = TK.lstm_train_fwd_plain(x_proj, mask, w_hh, h0, c0)
+        c_prev = torch.cat([c0[None], c_all[:-1]])
+        row = {"fwd_ms": cuda_ms(lambda: TK.lstm_train_fwd(x_proj, mask, w_hh, h0, c0)),
+               "bwd_ms": cuda_ms(lambda: TK.lstm_train_bwd(dh_all, dc_all, gates, c_prev, mask,
+                                                          w_hh))}
+        print(f"training pair times F={f} N={n}: {row}", flush=True)
+        out[f"{f}x{n}"] = row
+    print(json.dumps({"package": os.path.dirname(TK.__file__), "times": out}), flush=True)
+    return 0
+
+
+def step_probe(f: int = TRAIN_WINDOW, ns=(1, 4, 16, 32, 64)) -> int:
+    """``python3 chip_smoke.py --step-probe``: what a step of each training
     sweep is made of: its time per step at F steps for growing N (median
     event time of the wrapper over F). At N=1 the staged rows and the FMAs
     are nearly nothing, so the step is the grid barrier, the elementwise
-    phase and the launch; each row adds its 8 KB of dgates[t] per block (at
-    H=512) and its FMAs."""
-    if not torch.cuda.is_available():
-        print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)", file=sys.stderr)
+    work and the launch; each row adds its FMAs and, per block at H=512,
+    its 2 KB of h_all[t-1] (forward) or 8 KB of dgates[t] (reverse)."""
+    if not print_card():
         return 2
-    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-                          capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
-    print(card, flush=True)
     cuda_build.build([TK.NAME], force=True)
     g = torch.Generator().manual_seed(SEED)
-    us = {}
+    fwd_us, us = {}, {}
     for n in ns:
         r = lambda *s: torch.randn(*s, generator=g).cuda()
         args = (r(f, n, HIDDEN), r(f, n, HIDDEN), r(f, n, 4 * HIDDEN), r(f, n, HIDDEN),
                 torch.ones(f, n, device="cuda"), r(HIDDEN, 4 * HIDDEN) * HIDDEN ** -0.5)
+        fwd_args = (r(f, n, 4 * HIDDEN) * 0.5, args[4], args[5], r(n, HIDDEN) * 0.5,
+                    r(n, HIDDEN) * 0.5)
+        fwd_us[n] = cuda_ms(lambda: TK.lstm_train_fwd(*fwd_args)) * 1e3 / f
         us[n] = cuda_ms(lambda: TK.lstm_train_bwd(*args)) * 1e3 / f
-    print(f"reverse sweep per step at F={f}, us by N (plans: "
-          f"{ {n: TK.lstm_train_bwd_plan(n, HIDDEN).stage_rows for n in ns} } rows staged at "
-          f"once): " + ", ".join(f"N={n} {v:.2f}" for n, v in us.items()), flush=True)
-    print(json.dumps({"bwd_us_per_step": us}), flush=True)
+    for name, plan, times in (("forward", TK.lstm_train_fwd_plan, fwd_us),
+                              ("reverse", TK.lstm_train_bwd_plan, us)):
+        print(f"{name} sweep per step at F={f}, us by N (plans: "
+              f"{ {n: plan(n, HIDDEN).stage_rows for n in ns} } rows staged at once): "
+              + ", ".join(f"N={n} {v:.2f}" for n, v in times.items()), flush=True)
+    print(json.dumps({"fwd_us_per_step": fwd_us, "bwd_us_per_step": us}), flush=True)
     return 0
 
 
@@ -1020,13 +1085,9 @@ def step_rounding_study(seeds=range(4), reads: int = 3, steps_between: int = 6) 
     each seed the seeded initial weights and the states ``steps_between``,
     2 * ``steps_between``, ... train steps on. One line per state, then a
     JSON summary of the largest readings."""
-    if not torch.cuda.is_available():
-        print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)", file=sys.stderr)
+    if not print_card():
         return 2
     set_precision("highest")
-    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-                          capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
-    print(card, flush=True)
     cuda_build.build([TK.NAME], force=True)
     rows = []
     with tempfile.TemporaryDirectory(dir=cuda_build.BUILD_DIR) as root:
@@ -1258,14 +1319,10 @@ def bench_path() -> int:
 
 
 def main() -> int:
-    if not torch.cuda.is_available():
-        print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)", file=sys.stderr)
+    if not print_card():
         return 2
     t_start = time.perf_counter()
     set_precision("highest")
-    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-                          capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
-    print(card, flush=True)
 
     t0 = time.perf_counter()
     logs = cuda_build.build([K.NAME, K.BIDI_NAME, TK.NAME, SK.NAME], force=True, verbose=True)
@@ -1276,13 +1333,14 @@ def main() -> int:
     spills = [line for line in logs[SK.NAME].splitlines()
               if "spill" in line and "0 bytes spill stores, 0 bytes spill loads" not in line]
     check(not spills, f"the LBS kernel spills registers: {spills}")
-    bwd = {fn: lines for fn, lines in ptxas_report(logs[TK.NAME]).items()
-           if "lstm_train_bwd_kernel" in fn}
-    for fn, lines in sorted(bwd.items()):
+    pair = {fn: lines for fn, lines in ptxas_report(logs[TK.NAME]).items()
+            if "lstm_train_fwd_kernel" in fn or "lstm_train_bwd_kernel" in fn}
+    for fn, lines in sorted(pair.items()):
         print(f"build {TK.NAME} {fn}: {'; '.join(lines)}", flush=True)
-    spills = [line for lines in bwd.values() for line in lines
+    spills = [line for lines in pair.values() for line in lines
               if "spill" in line and "0 bytes spill stores, 0 bytes spill loads" not in line]
-    check(len(bwd) == 4 and not spills, f"the reverse sweep spills registers: {spills}")
+    check(len(pair) == 8 and not spills, f"the training pair's instantiations {sorted(pair)} "
+                                         f"do not all build without spills: {spills}")
     print(f"build: nvcc {time.perf_counter() - t0:.2f} s for {len(logs)} sources in parallel",
           flush=True)
 
@@ -1290,9 +1348,11 @@ def main() -> int:
     stack = {(f, n): stack_phase(f, n, seed=SEED + f + n, rounds=11 if n == 1 else 0)
              for f, n in ((CHUNK, STREAMS), (256, STREAMS), (CHUNK, 1))}
     # Timed: PAIR_TIMED; checked: a ragged batch, one step of one row, more
-    # rows than the reverse sweep could keep in shared memory.
+    # rows than either sweep could keep in shared memory.
     pair = {(f, n): train_pair_phase(f, n, seed=SEED + f + n, timed=(f, n) in PAIR_TIMED)
             for f, n in (*PAIR_TIMED, (33, 7), (1, 1), (3, 1300))}
+    # H=1024, where the forward sweep's ring has one slot.
+    train_pair_phase(TRAIN_WINDOW, 32, seed=SEED + 1024, timed=False, h=2 * HIDDEN)
     print(f"bidi kernel: {K._bidi_library().lstm_bidi_units(HIDDEN)} units per block at "
           f"H={HIDDEN}", flush=True)
     bidi = {(f, n): bidi_phase(f, n, seed=SEED + f + n + 1)
@@ -1377,5 +1437,7 @@ if __name__ == "__main__":
     if sys.argv[1:2] == ["--step-rounding"]:
         sys.exit(step_rounding_study(seeds=range(int(sys.argv[2]) if sys.argv[2:] else 4)))
     if sys.argv[1:2] == ["--step-probe"]:
-        sys.exit(bwd_step_probe())
+        sys.exit(step_probe())
+    if sys.argv[1:2] == ["--time-pair"]:
+        sys.exit(time_pair())
     sys.exit(main())

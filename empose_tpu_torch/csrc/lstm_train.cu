@@ -16,18 +16,58 @@
 // (dW_hh = h_prev^T @ dgates, dx_proj = dgates), as in the JAX package.
 //
 // What bounds them on this card.  Both sweeps are serial in time and need
-// all of W_hh (4 MB at H=512) every step.  With W_hh resident the least time
-// is the fp32 FMA work, 2*F*N*H*4H operations per sweep (0.032 ms at F=64,
-// N=16, H=512); the serial floor is F grid barriers, one per step (1.5-2.8 us
-// each on an H100).  W_hh is spread over the SMs: each block owns U
-// consecutive hidden units j (U=4 at H=512: 128 blocks, one per SM).
+// all of W_hh (4 MB at H=512) every step.  W_hh is spread over the SMs: each
+// block owns U consecutive hidden units j (U=4 at H=512: 128 blocks, one per
+// SM) and keeps its part resident in shared memory (32 KB).  A sweep is then
+// bound by three things:
+//   * the fp32 FMA work, 2*F*N*H*4H operations (0.032 ms at F=64, N=16,
+//     H=512: about 0.5 us per step);
+//   * F grid barriers, one per step (1.5-2.8 us each on an H100);
+//   * the step's exchange buffer, which every block writes just before the
+//     barrier and reads in full just after it, so it cannot be prefetched:
+//     h_all[t-1] in the forward sweep, N*H*4 bytes per block and step (32 KB
+//     at N=16, 128 KB at N=64), dgates[t] in the reverse sweep, N*4H*4
+//     bytes, each from L2.
 //
-// Forward: the block keeps the four gate columns {j, H+j, 2H+j, 3H+j} of its
-// units resident (512 x 16 floats = 32 KB at H=512, U=4).  h_all[t-1] is the
-// exchange buffer every block reads at step t, in k-tiles through registers
-// into shared memory; c stays with the thread that owns (row, unit); each
-// thread multiplies 4 rows by 4 columns per k and the k-split partial sums
-// meet in shared memory.  One grid barrier per step.
+// Forward.  The block keeps the four gate columns {j, H+j, 2H+j, 3H+j} of
+// its units resident, laid out so that neighbouring threads read
+// neighbouring float4 (no bank conflicts).  Step t:
+//   * Staging.  The block issues 16-byte cp.async.cg copies of all of
+//     h_all[t-1] at once, one copy group per chunk of 16 rows, on a 128-byte
+//     boundary; the pass over chunk c waits only for chunk c's group, so its
+//     FMAs run while the later chunks land, and the L2 latency is paid about
+//     once per step.  Where the N rows do not fit beside the resident columns
+//     (N > 97 at H=512), the chunks cycle through a ring of up to 8 slots of
+//     16 rows, the next chunks in flight while the current one's FMAs run.
+//     Where only one slot fits (H=1024, N > 24), a chunk is copied only once
+//     every thread is done with the one before, so nothing overlaps there.
+//     The launch plan (ops/lstm_train_kernel.py::lstm_train_fwd_plan) sizes
+//     it.
+//   * FMAs.  Warp (unit pair, row group) multiplies its rows of the chunk
+//     by the eight gate columns of its two units, lane l over the float4
+//     columns l, l + 32, ... of H, with W_hh of the first four of them held
+//     in registers for the whole sweep: a staged h value is read from shared
+//     memory once per unit pair and W_hh not at all (at H <= 512).  A piece
+//     covers the rows the warp has (4, 2 and 1-row register tiles as N
+//     asks): no FMA and no shared load falls on a row beyond N.  The warp's
+//     partial sums meet in a fixed order, a butterfly in which a lane hands
+//     half of the values it still holds to its partner at each stage (31
+//     shuffles for 4 rows x 2 units x 4 gates), which leaves each lane with
+//     the whole sum of one (row, unit, gate).  No atomics and no shared
+//     memory: two launches on the same inputs give the same bits, and a
+//     chunk needs one __syncthreads.
+//   * Epilogue and carries, in the warp.  Each lane adds x_proj's column to
+//     its sum and applies its gate's nonlinearity; the first lane of each
+//     (row, unit) gathers the four gates by shuffles and writes h_all[t] and
+//     c_all[t] (each gate's lane writes gates[t]).  Each lane reads its
+//     step operands (x_proj[t]'s gate column, mask[t], the carry c from the
+//     block's own columns of c_all[t-1]) from device memory before its FMAs,
+//     which hide their latency (an H100 run that prefetched them into shared
+//     memory a step ahead and kept c there was no faster at N=16 or N=64);
+//     the old h that a masked row keeps is read from the staged row.  So the
+//     shared memory does not grow with N beyond the staged rows, and any N
+//     runs.
+//   * One grid barrier per step, none after the last.
 //
 // Reverse: the step's product dh_prev = dgates[t] @ W_hh^T needs ROWS of
 // W_hh, so the block keeps W_hh[j, 0:4H] of its units resident (32 KB), as
@@ -69,7 +109,7 @@
 //
 // fp32 FMAs on the CUDA cores (the fp32 parity mode).  Reads of buffers
 // written by other blocks before the last grid barrier (h_all[t-1],
-// dgates[t]) go through L2 (__ldcg, cp.async.cg), never through a stale L1.
+// dgates[t]) go through L2 (cp.async.cg), never through a stale L1.
 // The grid must be co-resident for the barrier: lstm_train_prepare sets the
 // kernels' shared memory and checks their occupancy once per device, the
 // wrapper keeps the grid within the SMs, and the C entries only launch
@@ -83,7 +123,8 @@ namespace cg = cooperative_groups;
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kRows = 4;  // batch rows per thread in the products
+constexpr int kWarps = kThreads / 32;
+constexpr int kRows = 4;  // batch rows per thread in the reverse sweep's product
 
 // Error codes beside cudaError_t values (which are >= 0); the same values
 // as lstm_stack.cu.
@@ -93,204 +134,12 @@ constexpr int kErrBadShape = -4;
 
 __device__ __forceinline__ float sigmoid_f(float x) { return 1.0f / (1.0f + expf(-x)); }
 
-__device__ __forceinline__ float lane(const float4& v, int q) {
+__device__ __forceinline__ float component(const float4& v, int q) {
   return q == 0 ? v.x : q == 1 ? v.y : q == 2 ? v.z : v.w;
 }
 
-// ---------------------------------------------------------------------------
-// Forward sweep.
-//
-// Thread t = ((ks * RGN) + rg) * U + u owns unit j0 + u, the rows
-// {rg, rg + RGN, ...} of each pass of RG rows, and the ks-th quarter of every
-// staged k-tile of h_prev; the KSPLIT partial sums of the four gates are
-// added through shared memory by thread (row = t / U, unit u), which then
-// owns that (row, unit)'s c/h update.
-constexpr int kSplitF = 4;
-__host__ __device__ constexpr int fwd_tile_k(int U) { return U == 1 ? 32 : U == 2 ? 64 : U == 4 ? 128 : 64; }
-
-// Shared memory (floats): w_s [H][U][4] | h_s [RG][KT + 4] | red [KSPLIT][RG][U][4]
-template <int U>
-__global__ void __launch_bounds__(kThreads)
-lstm_train_fwd_kernel(const float* __restrict__ x_proj,  // (F, N, 4H)
-                      const float* __restrict__ mask,    // (F, N)
-                      const float* __restrict__ w_hh,    // (H, 4H)
-                      const float* __restrict__ h0,      // (N, H)
-                      const float* __restrict__ c0,      // (N, H)
-                      float* __restrict__ gates,         // (F, N, 4H) or null
-                      float* h_all,                      // (F, N, H)
-                      float* c_all,                      // (F, N, H)
-                      int F, int N, int H) {
-  constexpr int RG = kThreads / U;
-  constexpr int RGN = RG / kRows;
-  constexpr int KT = fwd_tile_k(U);
-  constexpr int KTS = KT / kSplitF;
-  constexpr int KS = KT + 4;
-  constexpr int V4 = RG * KT / 4 / kThreads;
-  static_assert(V4 * 4 * kThreads == RG * KT, "tile must split evenly over the threads");
-  static_assert(kSplitF * RGN * U == kThreads, "thread layout must cover the block");
-  static_assert(KTS % 4 == 0, "a split must be whole float4");
-  extern __shared__ __align__(16) float smem[];
-  float* w_s = smem;
-  float* h_s = w_s + (size_t)H * U * 4;
-  float* red = h_s + RG * KS;
-
-  const int tid = threadIdx.x;
-  const int u = tid % U;
-  const int rg = (tid / U) % RGN;
-  const int ks = tid / (U * RGN);
-  const int r = tid / U;
-  const int j0 = blockIdx.x * U;
-  const int j = j0 + u;
-  const int H4 = 4 * H;
-  const size_t NH = (size_t)N * H;
-  const int n_tiles = (H + KT - 1) / KT;
-  cg::grid_group grid = cg::this_grid();
-
-  for (int idx = tid; idx < H * U * 4; idx += kThreads) {
-    const int k = idx / (U * 4);
-    const int uu = (idx / 4) % U;
-    const int g = idx % 4;
-    w_s[idx] = w_hh[(size_t)k * H4 + g * H + j0 + uu];
-  }
-  __syncthreads();
-
-  float4 h_reg[V4];
-  const float4 zero4 = make_float4(0.f, 0.f, 0.f, 0.f);
-  const float* w_u = w_s + u * 4;
-
-  for (int t = 0; t < F; ++t) {
-    const float* h_prev = t == 0 ? h0 : h_all + (size_t)(t - 1) * NH;
-    const float* c_prev = t == 0 ? c0 : c_all + (size_t)(t - 1) * NH;
-    float* h_next = h_all + (size_t)t * NH;
-    float* c_next = c_all + (size_t)t * NH;
-    const float* mask_t = mask + (size_t)t * N;
-
-    for (int n0 = 0; n0 < N; n0 += RG) {
-      auto fetch = [&](int k0) {
-#pragma unroll
-        for (int v = 0; v < V4; ++v) {
-          const int e = (v * kThreads + tid) * 4;
-          const int nn = n0 + e / KT;
-          const int k = k0 + e % KT;
-          h_reg[v] = (nn < N && k < H)
-                         ? __ldcg(reinterpret_cast<const float4*>(h_prev + (size_t)nn * H + k))
-                         : zero4;
-        }
-      };
-
-      float acc[kRows][4];
-#pragma unroll
-      for (int i = 0; i < kRows; ++i)
-#pragma unroll
-        for (int g = 0; g < 4; ++g) acc[i][g] = 0.0f;
-      const bool active = n0 + rg < N;
-
-      // The epilogue's own reads are issued first so their latency hides
-      // behind the tile sweep.
-      const int n = n0 + r;
-      const bool row_ok = n < N;
-      const size_t off = (size_t)(row_ok ? n : 0) * H + j;
-      float gate[4];
-      float c_old = 0.0f, h_old = 0.0f, m = 0.0f;
-      if (row_ok) {
-        const float* xp = x_proj + ((size_t)t * N + n) * H4 + j;
-#pragma unroll
-        for (int g = 0; g < 4; ++g) gate[g] = xp[g * H];
-        c_old = __ldcg(c_prev + off);
-        h_old = __ldcg(h_prev + off);
-        m = mask_t[n];
-      }
-
-      fetch(0);
-      for (int tile = 0; tile < n_tiles; ++tile) {
-        const int k0 = tile * KT;
-        __syncthreads();  // the previous tile is consumed
-#pragma unroll
-        for (int v = 0; v < V4; ++v) {
-          const int e = (v * kThreads + tid) * 4;
-          *reinterpret_cast<float4*>(h_s + (e / KT) * KS + e % KT) = h_reg[v];
-        }
-        __syncthreads();
-        if (tile + 1 < n_tiles) fetch(k0 + KT);
-        const int k_lo = ks * KTS;
-        const int k_hi = active ? min(k_lo + KTS, H - k0) : k_lo;
-        for (int kk = k_lo; kk < k_hi; kk += 4) {
-          const float* w_k = w_u + (k0 + kk) * U * 4;
-          float4 hv[kRows];
-#pragma unroll
-          for (int i = 0; i < kRows; ++i)
-            hv[i] = *reinterpret_cast<const float4*>(h_s + (rg + i * RGN) * KS + kk);
-#pragma unroll
-          for (int q = 0; q < 4; ++q) {
-            const float4 w = *reinterpret_cast<const float4*>(w_k + q * U * 4);
-#pragma unroll
-            for (int i = 0; i < kRows; ++i) {
-              const float a = lane(hv[i], q);
-              acc[i][0] = fmaf(a, w.x, acc[i][0]);
-              acc[i][1] = fmaf(a, w.y, acc[i][1]);
-              acc[i][2] = fmaf(a, w.z, acc[i][2]);
-              acc[i][3] = fmaf(a, w.w, acc[i][3]);
-            }
-          }
-        }
-      }
-
-#pragma unroll
-      for (int i = 0; i < kRows; ++i) {
-        const int row = rg + i * RGN;
-        *reinterpret_cast<float4*>(red + (((size_t)ks * RG + row) * U + u) * 4) =
-            make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]);
-      }
-      __syncthreads();
-      if (row_ok) {
-#pragma unroll
-        for (int s = 0; s < kSplitF; ++s) {
-          const float4 p = *reinterpret_cast<const float4*>(red + (((size_t)s * RG + r) * U + u) * 4);
-          gate[0] += p.x; gate[1] += p.y; gate[2] += p.z; gate[3] += p.w;
-        }
-        if (gates != nullptr) {
-          float* gp = gates + ((size_t)t * N + n) * H4 + j;
-#pragma unroll
-          for (int g = 0; g < 4; ++g) gp[g * H] = gate[g];
-        }
-        const float i_g = sigmoid_f(gate[0]);
-        const float f_g = sigmoid_f(gate[1]);
-        const float g_g = tanhf(gate[2]);
-        const float o_g = sigmoid_f(gate[3]);
-        const float c_new = f_g * c_old + i_g * g_g;
-        const float h_new = o_g * tanhf(c_new);
-        h_next[off] = m > 0.0f ? h_new : h_old;
-        c_next[off] = m > 0.0f ? c_new : c_old;
-      }
-      __syncthreads();  // red is reused by the next pass
-    }
-    grid.sync();
-  }
-}
-
-// ---------------------------------------------------------------------------
-// Reverse sweep.
-constexpr int kWarps = kThreads / 32;
-
 __host__ __device__ constexpr size_t round4(size_t x) { return (x + 3) / 4 * 4; }
 __host__ __device__ constexpr size_t round32(size_t x) { return (x + 31) / 32 * 32; }
-
-// Shared memory of the reverse sweep (floats), in this order:
-//   wt_s  [U][4H], to 128 bytes        the block's rows of W_hh
-//   g_s   [stages][stage_rows][4H]     the staged rows of dgates[t], from a
-//                                      128-byte boundary (an H100 run with
-//                                      them 16 bytes off it was much slower)
-//   ops   [3][N][U] + [N][4][U], [N]   the next step's dh_all, dc_all, c_prev,
-//                                      gate columns and mask (resident only)
-//   car   [2][N][U]                    the carries dh, dc (resident only)
-//   red   [kWarps][kRows][U]          the warps' partial sums of a pass
-// The same formula as ops/lstm_train_kernel.py::bwd_smem_bytes.
-__host__ __device__ constexpr size_t bwd_smem_floats(int U, int N, int H, int stages,
-                                                     int stage_rows, bool resident) {
-  return round32((size_t)U * 4 * H) + (size_t)stages * stage_rows * 4 * H +
-         (resident ? round4((size_t)7 * U * N) + round4((size_t)N) + (size_t)2 * U * N : 0) +
-         (size_t)kWarps * kRows * U;
-}
 
 __device__ __forceinline__ unsigned smem_u32(const void* p) {
   return static_cast<unsigned>(__cvta_generic_to_shared(p));
@@ -309,6 +158,314 @@ template <int kPending>
 __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(kPending) : "memory");
 }
+
+// Waits until at most `pending` of this thread's newest copy groups are in
+// flight (exactly for up to 7; for more it waits until 7 are, which is safe).
+__device__ __forceinline__ void cp_async_wait_upto(int pending) {
+  switch (pending) {
+    case 0: cp_async_wait<0>(); break;
+    case 1: cp_async_wait<1>(); break;
+    case 2: cp_async_wait<2>(); break;
+    case 3: cp_async_wait<3>(); break;
+    case 4: cp_async_wait<4>(); break;
+    case 5: cp_async_wait<5>(); break;
+    case 6: cp_async_wait<6>(); break;
+    default: cp_async_wait<7>(); break;
+  }
+}
+
+
+// ---------------------------------------------------------------------------
+// Forward sweep.
+constexpr int kPassRows = 16;  // rows of h_all[t-1] per staged chunk
+constexpr int kRegCols = 4;    // float4 columns per lane whose W_hh lives in registers
+
+// Shared memory of the forward sweep (floats), in this order:
+//   w_s  [4][U][H], to 128 bytes    the block's gate columns of W_hh: the
+//                                   float4 of unit u's four gates at row
+//                                   k = 4c + q sits at (q * U + u) * H + 4c
+//   h_s  [stage_rows][H]            the staged rows of h_all[t-1], from a
+//                                   128-byte boundary: all N, or a ring of
+//                                   stage_rows / 16 chunk slots
+// The same formula as ops/lstm_train_kernel.py::fwd_smem_bytes.
+__host__ __device__ constexpr size_t fwd_smem_floats(int U, int H, int stage_rows) {
+  return round32((size_t)4 * U * H) + (size_t)stage_rows * H;
+}
+
+// The sums over the warp's 32 lanes of the CNT <= 32 values v[0..CNT-1],
+// scattered over the lanes: each stage at lane offset O hands half of the
+// values a lane still holds to lane ^ O and adds the other half's, so after
+// log2(CNT) stages lane l holds in v[0] the sum of value l / (32 / CNT); the
+// offsets left add whole values.  The same lanes add in the same order every
+// launch.
+template <int CNT, int O>
+__device__ __forceinline__ void warp_reduce_scatter(float* v, int lane) {
+  if constexpr (O > 0) {
+    if constexpr (CNT > 1) {
+      constexpr int kHalf = CNT / 2;
+      const bool up = (lane & O) != 0;
+#pragma unroll
+      for (int i = 0; i < kHalf; ++i) {
+        const float send = up ? v[i] : v[i + kHalf];
+        const float keep = up ? v[i + kHalf] : v[i];
+        v[i] = keep + __shfl_xor_sync(0xffffffffu, send, O);
+      }
+      warp_reduce_scatter<kHalf, O / 2>(v, lane);
+    } else {
+      v[0] += __shfl_xor_sync(0xffffffffu, v[0], O);
+      warp_reduce_scatter<1, O / 2>(v, lane);
+    }
+  }
+}
+
+// What the pieces of a forward step share.
+struct FwdStep {
+  const float* x_proj;
+  const float* mask;
+  const float* c_prev;  // c_all[t-1] or c0
+  float* gates;         // null: the gates are not kept
+  float* h_next;        // h_all[t]
+  float* c_next;        // c_all[t]
+  int t, N, H, j0;
+};
+
+// Units a forward warp multiplies at once: a staged h value read from
+// shared memory serves both units' FMAs.
+template <int U>
+__host__ __device__ constexpr int fwd_pair() { return U < 2 ? U : 2; }
+
+// One warp's piece of a step: NP staged rows (`rows`, stride H; global rows
+// n0 ...) times the four gate columns of its UP units u0, u0 + 1.  Lane l
+// multiplies the float4 columns l, l + 32, ... of H (W_hh of the first
+// kRegCols of them in registers).  The warp's 4 UP NP <= 32 sums are
+// scattered so that lane l holds the sum of value l / kC (kC = 32 / (4 UP
+// NP)), value (row r, unit ui, gate g) being (r UP + ui) 4 + g; each such lane
+// adds x_proj's column and applies its gate's nonlinearity, and the first
+// lane of each (row, unit) gathers the four gates and writes its h and c.
+template <int U, int NP>
+__device__ __forceinline__ void fwd_piece(const FwdStep& p, const float* rows, int n0,
+                                          const float4 (&wreg)[fwd_pair<U>()][kRegCols][4],
+                                          const float* w_s, int u0, int lane) {
+  constexpr int UP = fwd_pair<U>();
+  constexpr int V = 4 * UP * NP;
+  constexpr int kC = 32 / V;  // lanes holding the same sum
+  static_assert(V <= 32, "a piece holds at most 32 sums");
+  const int C4 = p.H / 4;
+  const int idx = lane / kC;
+  const int g = idx % 4;
+  const int u = u0 + idx / 4 % UP;
+  const int r_own = idx / (4 * UP);
+  const int n = n0 + r_own;
+  const int j = p.j0 + u;
+  const bool lead = lane % (4 * kC) == 0;
+
+  // The epilogue's operands, read before the FMAs so that their latency
+  // hides behind them; the old h of a masked row is its staged row.
+  const float x = __ldg(p.x_proj + ((size_t)p.t * p.N + n) * 4 * p.H + g * p.H + j);
+  float m = 0.0f, c_old = 0.0f, h_old = 0.0f;
+  if (lead) {
+    h_old = rows[(size_t)r_own * p.H + j];
+    m = __ldg(p.mask + (size_t)p.t * p.N + n);
+    c_old = p.c_prev[(size_t)n * p.H + j];
+  }
+
+  const float4* r4 = reinterpret_cast<const float4*>(rows);
+  float acc[V];
+#pragma unroll
+  for (int i = 0; i < V; ++i) acc[i] = 0.0f;
+  auto fma_rows = [&](const float4(&w)[UP][4], int c) {
+#pragma unroll
+    for (int r = 0; r < NP; ++r) {
+      const float4 h = r4[r * C4 + c];
+#pragma unroll
+      for (int ui = 0; ui < UP; ++ui)
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          const float a = component(h, q);
+          float* out = acc + (r * UP + ui) * 4;
+          out[0] = fmaf(a, w[ui][q].x, out[0]);
+          out[1] = fmaf(a, w[ui][q].y, out[1]);
+          out[2] = fmaf(a, w[ui][q].z, out[2]);
+          out[3] = fmaf(a, w[ui][q].w, out[3]);
+        }
+    }
+  };
+#pragma unroll
+  for (int i = 0; i < kRegCols; ++i) {
+    if (lane + 32 * i < C4) {
+      float4 w[UP][4];
+#pragma unroll
+      for (int ui = 0; ui < UP; ++ui)
+#pragma unroll
+        for (int q = 0; q < 4; ++q) w[ui][q] = wreg[ui][i][q];
+      fma_rows(w, lane + 32 * i);
+    }
+  }
+  const float4* w4 = reinterpret_cast<const float4*>(w_s);
+  for (int c = lane + 32 * kRegCols; c < C4; c += 32) {
+    float4 w[UP][4];
+#pragma unroll
+    for (int ui = 0; ui < UP; ++ui)
+#pragma unroll
+      for (int q = 0; q < 4; ++q) w[ui][q] = w4[(q * U + u0 + ui) * C4 + c];
+    fma_rows(w, c);
+  }
+  warp_reduce_scatter<V, 16>(acc, lane);
+
+  const float pre = x + acc[0];
+  const float act = g == 2 ? tanhf(pre) : sigmoid_f(pre);
+  const int base = lane / (4 * kC) * (4 * kC);
+  const float i_g = __shfl_sync(0xffffffffu, act, base);
+  const float f_g = __shfl_sync(0xffffffffu, act, base + kC);
+  const float g_g = __shfl_sync(0xffffffffu, act, base + 2 * kC);
+  const float o_g = __shfl_sync(0xffffffffu, act, base + 3 * kC);
+  if (p.gates != nullptr && lane % kC == 0)
+    p.gates[((size_t)p.t * p.N + n) * 4 * p.H + g * p.H + j] = pre;
+  if (lead) {
+    const float c_new = f_g * c_old + i_g * g_g;
+    const float h_new = o_g * tanhf(c_new);
+    p.h_next[(size_t)n * p.H + j] = m > 0.0f ? h_new : h_old;
+    p.c_next[(size_t)n * p.H + j] = m > 0.0f ? c_new : c_old;
+  }
+}
+
+// Warps: unit pair warp % (U / UP) (units u0, u0 + 1; UP = 1 where U = 1),
+// row group warp / (U / UP); the rows of a 16-row chunk are split over the
+// row groups and each warp does its rows in pieces of at most 8 / UP.  Chunk c lies in slot c % slots of
+// h_s (slots = stage_rows / 16 rounded up; all chunks where stage_rows ==
+// N).  The pieces read x_proj's gate columns and the mask of step t and the
+// carry c from device memory (c from the block's own columns of c_all[t-1],
+// written by the same lane a step before).
+template <int U>
+__global__ void __launch_bounds__(kThreads, 1)
+lstm_train_fwd_kernel(const float* __restrict__ x_proj,  // (F, N, 4H)
+                      const float* __restrict__ mask,    // (F, N)
+                      const float* __restrict__ w_hh,    // (H, 4H)
+                      const float* __restrict__ h0,      // (N, H)
+                      const float* __restrict__ c0,      // (N, H)
+                      float* __restrict__ gates,         // (F, N, 4H) or null
+                      float* h_all,                      // (F, N, H)
+                      float* c_all,                      // (F, N, H)
+                      int F, int N, int H, int stage_rows) {
+  constexpr int UP = fwd_pair<U>();
+  constexpr int kRowsW = kPassRows * U / UP / kWarps;  // rows of a chunk per warp
+  constexpr int kMaxNP = 8 / UP;                        // rows of a piece at most
+  static_assert(kWarps % (U / UP) == 0, "whole row groups of warps");
+  extern __shared__ __align__(16) float smem[];
+  const int j0 = blockIdx.x * U;
+  const size_t NH = (size_t)N * H;
+  float* w_s = smem;
+  float* h_s = w_s + round32((size_t)4 * U * H);
+
+  const int tid = threadIdx.x;
+  const int lane = tid % 32;
+  const int warp = tid / 32;
+  const int u0 = warp % (U / UP) * UP;
+  const int row_lo = warp / (U / UP) * kRowsW;
+  const int C4 = H / 4;
+  const int n_chunks = (N + kPassRows - 1) / kPassRows;
+  const int slots = (stage_rows + kPassRows - 1) / kPassRows;
+  const int first = min(slots, n_chunks);  // chunks issued at the start of a step
+  cg::grid_group grid = cg::this_grid();
+
+  for (int idx = tid; idx < 4 * U * H; idx += kThreads) {
+    const int qu = idx / H;
+    const int k = (idx % H) / 4 * 4 + qu / U;
+    w_s[idx] = w_hh[(size_t)k * 4 * H + (idx % 4) * H + j0 + qu % U];
+  }
+  __syncthreads();
+  float4 wreg[UP][kRegCols][4];
+  const float4* w4 = reinterpret_cast<const float4*>(w_s);
+#pragma unroll
+  for (int ui = 0; ui < UP; ++ui)
+#pragma unroll
+    for (int i = 0; i < kRegCols; ++i)
+#pragma unroll
+      for (int q = 0; q < 4; ++q)
+        wreg[ui][i][q] = lane + 32 * i < C4 ? w4[(q * U + u0 + ui) * C4 + lane + 32 * i]
+                                            : make_float4(0.f, 0.f, 0.f, 0.f);
+
+  for (int t = 0; t < F; ++t) {
+    const float* h_prev = t == 0 ? h0 : h_all + (size_t)(t - 1) * NH;
+    FwdStep p;
+    p.x_proj = x_proj;
+    p.mask = mask;
+    p.c_prev = t == 0 ? c0 : c_all + (size_t)(t - 1) * NH;
+    p.gates = gates;
+    p.h_next = h_all + (size_t)t * NH;
+    p.c_next = c_all + (size_t)t * NH;
+    p.t = t;
+    p.N = N;
+    p.H = H;
+    p.j0 = j0;
+
+    // Every chunk that has a slot, one copy group each.
+    auto issue = [&](int c) {
+      const int r0 = c * kPassRows;
+      const int cr = min(kPassRows, N - r0);
+      float* dst = h_s + (size_t)(c % slots) * kPassRows * H;
+      const float* src = h_prev + (size_t)r0 * H;
+      for (int i = 4 * tid; i < cr * H; i += 4 * kThreads) cp_async<16>(dst + i, src + i);
+      cp_async_commit();
+    };
+    for (int c = 0; c < first; ++c) issue(c);
+    int groups = first;
+
+    for (int c = 0; c < n_chunks; ++c) {
+      if (slots == 1 && c > 0) {  // a one-slot ring: chunk c goes where chunk c - 1 was read
+        __syncthreads();          // every thread is done with chunk c - 1
+        issue(c);
+        ++groups;
+      }
+      cp_async_wait_upto(groups - c - 1);  // chunk c has landed
+      __syncthreads();  // ... for every thread, and every thread is done with chunk c - 1
+      if (slots > 1 && c > 0 && c - 1 + slots < n_chunks) {
+        issue(c - 1 + slots);  // into chunk c - 1's slot, while chunk c is read
+        ++groups;
+      }
+      const int r0 = c * kPassRows;
+      const float* st = h_s + (size_t)(c % slots) * kPassRows * H;
+      int lo = row_lo;
+      int nr = max(0, min(kRowsW, N - r0 - lo));
+      for (; nr >= kMaxNP; nr -= kMaxNP, lo += kMaxNP)
+        fwd_piece<U, kMaxNP>(p, st + (size_t)lo * H, r0 + lo, wreg, w_s, u0, lane);
+      if constexpr (kMaxNP > 4) {
+        if (nr & 4) {
+          fwd_piece<U, 4>(p, st + (size_t)lo * H, r0 + lo, wreg, w_s, u0, lane);
+          lo += 4;
+        }
+      }
+      if (nr & 2) {
+        fwd_piece<U, 2>(p, st + (size_t)lo * H, r0 + lo, wreg, w_s, u0, lane);
+        lo += 2;
+      }
+      if (nr & 1) fwd_piece<U, 1>(p, st + (size_t)lo * H, r0 + lo, wreg, w_s, u0, lane);
+    }
+
+    if (t + 1 < F) grid.sync();  // every block's rows of h_all[t] are written
+  }
+}
+
+// ---------------------------------------------------------------------------
+// Reverse sweep.
+
+// Shared memory of the reverse sweep (floats), in this order:
+//   wt_s  [U][4H], to 128 bytes        the block's rows of W_hh
+//   g_s   [stages][stage_rows][4H]     the staged rows of dgates[t], from a
+//                                      128-byte boundary (an H100 run with
+//                                      them 16 bytes off it was much slower)
+//   ops   [3][N][U] + [N][4][U], [N]   the next step's dh_all, dc_all, c_prev,
+//                                      gate columns and mask (resident only)
+//   car   [2][N][U]                    the carries dh, dc (resident only)
+//   red   [kWarps][kRows][U]          the warps' partial sums of a pass
+// The same formula as ops/lstm_train_kernel.py::bwd_smem_bytes.
+__host__ __device__ constexpr size_t bwd_smem_floats(int U, int N, int H, int stages,
+                                                     int stage_rows, bool resident) {
+  return round32((size_t)U * 4 * H) + (size_t)stages * stage_rows * 4 * H +
+         (resident ? round4((size_t)7 * U * N) + round4((size_t)N) + (size_t)2 * U * N : 0) +
+         (size_t)kWarps * kRows * U;
+}
+
 
 // Start the copies of step s's operands of the block's units into `ops`:
 // per row the U floats of dh_all, dc_all and c_prev at j0, the U floats of
@@ -558,12 +715,6 @@ lstm_train_bwd_kernel(const float* __restrict__ dh_all,  // (F, N, H)
   }
 }
 
-size_t fwd_shared_bytes(int U, int H) {
-  const int rg = kThreads / U;
-  return sizeof(float) * ((size_t)H * U * 4 + (size_t)rg * (fwd_tile_k(U) + 4) +
-                          (size_t)kSplitF * rg * U * 4);
-}
-
 // Lets `kernel` use up to max_smem bytes of dynamic shared memory and checks
 // that an SM holds one block of it with that much.
 cudaError_t prepare_kernel(const void* kernel, int max_smem, bool* fits) {
@@ -593,11 +744,12 @@ int launch(const void* kernel, int blocks, size_t smem, void** args, cudaStream_
 template <int U>
 int launch_fwd(const float* x_proj, const float* mask, const float* w_hh, const float* h0,
                const float* c0, float* gates, float* h_all, float* c_all, int F, int N, int H,
-               cudaStream_t stream) {
+               int stage_rows, cudaStream_t stream) {
   void* args[] = {(void*)&x_proj, (void*)&mask,  (void*)&w_hh,  (void*)&h0,
                   (void*)&c0,     (void*)&gates, (void*)&h_all, (void*)&c_all,
-                  (void*)&F,      (void*)&N,     (void*)&H};
-  return launch((const void*)lstm_train_fwd_kernel<U>, H / U, fwd_shared_bytes(U, H), args, stream);
+                  (void*)&F,      (void*)&N,     (void*)&H,     (void*)&stage_rows};
+  const size_t smem = sizeof(float) * fwd_smem_floats(U, H, stage_rows);
+  return launch((const void*)lstm_train_fwd_kernel<U>, H / U, smem, args, stream);
 }
 
 template <int U>
@@ -646,20 +798,30 @@ int lstm_train_prepare(int device, int* info) {
 
 // Forward sweep over all F steps in one cooperative launch of H / units
 // blocks on `stream`.  gates may be null (the undifferentiated primal).
-// Launches only: lstm_train_prepare must have run on the current device.
-// Returns 0, a cudaError_t value, or a negative code above.
+// units, stage_rows (N: all rows staged at once; else a multiple of 16 below
+// N, a ring of 16-row slots) and smem_bytes are the launch plan's;
+// smem_bytes must equal the layout's size.  x_proj and h0 start on a 16-byte boundary.  Launches
+// only: lstm_train_prepare must have run on the current device.  Returns 0, a
+// cudaError_t value, or a negative code above.
 int lstm_train_forward(const float* x_proj, const float* mask, const float* w_hh,
                        const float* h0, const float* c0, float* gates, float* h_all,
-                       float* c_all, int F, int N, int H, int units, void* stream) {
-  if (F <= 0 || N <= 0 || H <= 0 || H % 4 != 0 || H % units != 0) return kErrBadShape;
+                       float* c_all, int F, int N, int H, int units, int stage_rows,
+                       int smem_bytes, void* stream) {
+  if (F <= 0 || N <= 0 || H <= 0 || H % 4 != 0 || H % units != 0 || stage_rows <= 0 ||
+      stage_rows > N || (stage_rows != N && stage_rows % kPassRows != 0) ||
+      (size_t)smem_bytes != sizeof(float) * fwd_smem_floats(units, H, stage_rows))
+    return kErrBadShape;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+#define LSTM_TRAIN_FWD(U) \
+  launch_fwd<U>(x_proj, mask, w_hh, h0, c0, gates, h_all, c_all, F, N, H, stage_rows, s)
   switch (units) {
-    case 1: return launch_fwd<1>(x_proj, mask, w_hh, h0, c0, gates, h_all, c_all, F, N, H, s);
-    case 2: return launch_fwd<2>(x_proj, mask, w_hh, h0, c0, gates, h_all, c_all, F, N, H, s);
-    case 4: return launch_fwd<4>(x_proj, mask, w_hh, h0, c0, gates, h_all, c_all, F, N, H, s);
-    case 8: return launch_fwd<8>(x_proj, mask, w_hh, h0, c0, gates, h_all, c_all, F, N, H, s);
+    case 1: return LSTM_TRAIN_FWD(1);
+    case 2: return LSTM_TRAIN_FWD(2);
+    case 4: return LSTM_TRAIN_FWD(4);
+    case 8: return LSTM_TRAIN_FWD(8);
     default: return kErrBadShape;
   }
+#undef LSTM_TRAIN_FWD
 }
 
 // Reverse sweep over all F steps in one cooperative launch on `stream`;

@@ -29,7 +29,8 @@ and run the plain versions for CPU tensors; ``FWD_LAUNCHES`` and
 ``BWD_LAUNCHES`` count kernel launches. Setup is out of the per-call path:
 :func:`lstm_train_prepare` sets the kernels' shared memory and checks their
 occupancy once per device, and the grids come from pure-Python plans
-(:func:`lstm_train_units`, :func:`lstm_train_bwd_plan`).
+(:func:`lstm_train_units`, :func:`lstm_train_fwd_plan`,
+:func:`lstm_train_bwd_plan`).
 """
 
 from __future__ import annotations
@@ -49,15 +50,26 @@ BWD_LAUNCHES = 0
 NAME = "lstm_train"  # csrc/lstm_train.cu
 
 # The kernels' geometry, as csrc/lstm_train.cu fixes it (threads per block,
-# rows of a thread's register tile in the reverse sweep), and the H100 SXM's
-# SMs and opt-in shared memory per block.
+# rows of a thread's register tile in the reverse sweep, rows of a staged
+# chunk and pass in the forward sweep), the forward sweep's most ring slots,
+# and the H100 SXM's SMs and opt-in shared memory per block.
 THREADS = 256
 TILE_ROWS = 4
+PASS_ROWS = 16
+MAX_SLOTS = 8
 SMS = 132
 SMEM_LIMIT = 232448
 
 _prepared: Dict[int, Tuple[int, int]] = {}  # device index -> (SMs, opt-in shared bytes)
 _lib = None  # the kernels' library, once lstm_train_prepare has loaded it
+
+
+class FwdPlan(NamedTuple):
+    units: int       # hidden units per block (U)
+    blocks: int      # the cooperative grid, H / U
+    stage_rows: int  # rows of h_all[t-1] in shared memory: N (all at once), or fewer: a ring
+                     # of stage_rows / PASS_ROWS slots that the PASS_ROWS-row chunks cycle through
+    smem_bytes: int  # dynamic shared memory per block
 
 
 class BwdPlan(NamedTuple):
@@ -78,6 +90,37 @@ def lstm_train_units(h: int, sms: int = SMS) -> int:
         if h % u == 0 and h // u <= sms:
             return u
     raise ValueError(f"no units-per-block choice puts H={h} on {sms} SMs")
+
+
+def fwd_smem_bytes(units: int, h: int, stage_rows: int) -> int:
+    """Shared memory of one forward-sweep block (``csrc/lstm_train.cu``
+    ``fwd_smem_floats``): the resident gate columns of W_hh (to 128 bytes)
+    and the staged rows of h_all[t-1]."""
+    return 4 * (-(-4 * units * h // 32) * 32 + stage_rows * h)
+
+
+@functools.lru_cache(maxsize=256)
+def lstm_train_fwd_plan(n: int, h: int, sms: int = SMS,
+                        smem_limit: int = SMEM_LIMIT) -> FwdPlan:
+    """Launch plan of the forward sweep for N rows at hidden size H.
+
+    All N rows of h_all[t-1] are staged at once where they fit beside the
+    block's columns of W_hh (at H=512: N <= 97). Otherwise the chunks of
+    PASS_ROWS rows cycle through a ring of as many slots as fit (at most
+    MAX_SLOTS; one at H=1024), so the shared memory stops growing with N and
+    any N has a plan. Raises ValueError only where not one slot fits."""
+    if n <= 0 or h <= 0 or h % 4:
+        raise ValueError(f"the forward sweep needs N > 0 and H a positive multiple of 4, got "
+                         f"N={n}, H={h}")
+    units = lstm_train_units(h, sms)
+    rows = n
+    if fwd_smem_bytes(units, h, n) > smem_limit:
+        slots = min(MAX_SLOTS, (smem_limit - fwd_smem_bytes(units, h, 0)) // (4 * PASS_ROWS * h))
+        if slots < 1:
+            raise ValueError(f"the forward sweep at N={n}, H={h} does not fit in {smem_limit} "
+                             "bytes of shared memory")
+        rows = PASS_ROWS * slots
+    return FwdPlan(units, h // units, rows, fwd_smem_bytes(units, h, rows))
 
 
 def bwd_smem_bytes(units: int, n: int, h: int, stages: int, stage_rows: int,
@@ -134,7 +177,7 @@ def _library():
     p, i = ctypes.c_void_p, ctypes.c_int
     return cuda_build.load(NAME, {
         "lstm_train_prepare": ([i, ctypes.POINTER(i)], i),
-        "lstm_train_forward": ([p, p, p, p, p, p, p, p, i, i, i, i, p], i),
+        "lstm_train_forward": ([p, p, p, p, p, p, p, p, i, i, i, i, i, i, p], i),
         "lstm_train_backward": ([p, p, p, p, p, p, p, p, p, i, i, i, i, i, i, i, i, i, p], i),
     })
 
@@ -223,14 +266,16 @@ def lstm_train_fwd(x_proj, mask, w_hh, h0, c0, save_gates: bool = True):
     index = x_proj.get_device()
     if index not in _prepared:
         lstm_train_prepare(dev)
-    units = lstm_train_units(hidden, _prepared[index][0])
+    plan = lstm_train_fwd_plan(n, hidden, *_prepared[index])
+    # The kernel copies x_proj's gate columns and h0's rows 16 bytes at a time.
+    x_proj, h0 = (t if t.data_ptr() % 16 == 0 else t.clone() for t in (x_proj, h0))
     gates = torch.empty(f, n, 4 * hidden, device=dev) if save_gates else None
     h_all = torch.empty(f, n, hidden, device=dev)
     c_all = torch.empty(f, n, hidden, device=dev)
     code = _launch(_lib.lstm_train_forward, index, x_proj.data_ptr(), mask.data_ptr(),
                    w_hh.data_ptr(), h0.data_ptr(), c0.data_ptr(),
                    gates.data_ptr() if save_gates else None, h_all.data_ptr(), c_all.data_ptr(),
-                   f, n, hidden, units)
+                   f, n, hidden, plan.units, plan.stage_rows, plan.smem_bytes)
     cuda_build.check(code, "LSTM training forward kernel")
     FWD_LAUNCHES += 1
     return gates, h_all, c_all

@@ -1,7 +1,7 @@
 """Checks that need the card: the LSTM stack kernel, its wavefront schedule,
 the bidirectional layer kernel and the LSTM training pair against their
-plain versions at the released widths (H=512; the reverse sweep also
-launched twice bit for bit, and captured in a CUDA graph), the LBS kernel
+plain versions at the released widths (H=512; each sweep also launched
+twice bit for bit, and captured in a CUDA graph), the LBS kernel
 against its plain version at the full mesh (and captured in a CUDA graph),
 SMPLLayer's launches, and served steps
 (LGD-RNN, BiRNN) against the same model run with the plain LSTM. Skipped
@@ -196,11 +196,10 @@ def test_bidi_kernel_matches_plain_released_shape(cuda, f, n):
     assert torch.equal(got[1][:, idle], h0[:, idle]) and torch.equal(got[2][:, idle], c0[:, idle])
 
 
-def _pair_case(f, n, cuda):
-    """Operands of the training pair at H=512: 0-length rows 0-1 and full
-    rows 2-5 where N allows; the one row of N=1 runs every step."""
+def _pair_case(f, n, cuda, h=512):
+    """Operands of the training pair at hidden size h: 0-length rows 0-1 and
+    full rows 2-5 where N allows; the one row of N=1 runs every step."""
     g = torch.Generator().manual_seed(f + n)
-    h = 512
     r = lambda *s: torch.randn(*s, generator=g).to(cuda)
     x_proj, w_hh = r(f, n, 4 * h) * 0.5, r(h, 4 * h) * h ** -0.5
     h0, c0 = r(n, h) * 0.5, r(n, h) * 0.5
@@ -213,20 +212,30 @@ def _pair_case(f, n, cuda):
     return x_proj, mask, w_hh, h0, c0, r(f, n, h), r(f, n, h), (lengths == 0).to(cuda)
 
 
-@pytest.mark.parametrize("f, n", [(64, 16), (256, 64), (33, 7), (64, 100), (1, 1), (3, 1300)])
-def test_training_pair_matches_plain_released_shape(cuda, f, n):
-    """Both sweeps at H=512 against their plain versions (atol 1e-4 relative
-    to each output's largest entry), 0-length rows bit for bit, and a second
-    reverse sweep bit for bit equal to the first; (64, 100) has more rows
-    than one staging of the reverse sweep holds, (33, 7) is ragged; at
-    (64, 100) and (3, 1300) the reverse sweep keeps its step operands and
-    carries in device memory (1300 rows would not fit in shared memory)."""
-    x_proj, mask, w_hh, h0, c0, dh, dc, idle = _pair_case(f, n, cuda)
+@pytest.mark.parametrize("f, n, h", [(64, 16, 512), (256, 64, 512), (33, 7, 512), (64, 100, 512),
+                                     (1, 1, 512), (3, 1300, 512), (64, 32, 1024), (16, 25, 1024),
+                                     (3, 1300, 1024)])
+def test_training_pair_matches_plain_released_shape(cuda, f, n, h):
+    """Both sweeps at the released H=512 (and at H=1024) against their plain
+    versions (atol 1e-4 relative to each output's largest entry), 0-length
+    rows bit for bit (h_all and c_all frozen at h0, c0), and a second launch
+    of each sweep bit for bit equal to the first; (64, 100) has more rows
+    than one staging of either sweep holds (the forward sweep cycles them
+    through a ring), (33, 7) is ragged; at (64, 100) and (3, 1300) the
+    reverse sweep keeps its step operands and carries in device memory, and
+    at (3, 1300) the forward sweep too (1300 rows would not fit in shared
+    memory). At H=1024 from N=25 on the forward sweep's ring has one slot."""
+    x_proj, mask, w_hh, h0, c0, dh, dc, idle = _pair_case(f, n, cuda, h)
+    launches = TK.FWD_LAUNCHES
     got = TK.lstm_train_fwd(x_proj, mask, w_hh, h0, c0)
+    again = TK.lstm_train_fwd(x_proj, mask, w_hh, h0, c0)
+    assert TK.FWD_LAUNCHES == launches + 2
     want = TK.lstm_train_fwd_plain(x_proj, mask, w_hh, h0, c0)
-    for a, b in zip(got, want):
+    for a, b, c in zip(got, want, again):
         torch.testing.assert_close(a, b, atol=ATOL * float(b.abs().max()), rtol=0)
+        assert torch.equal(a, c)
     assert torch.equal(got[1][:, idle], h0[idle].expand(f, -1, -1))
+    assert torch.equal(got[2][:, idle], c0[idle].expand(f, -1, -1))
     c_prev = torch.cat([c0[None], want[2][:-1]])
     launches = TK.BWD_LAUNCHES
     got_b = TK.lstm_train_bwd(dh, dc, want[0], c_prev, mask, w_hh)
@@ -238,6 +247,31 @@ def test_training_pair_matches_plain_released_shape(cuda, f, n):
         assert torch.equal(a, c)
     assert torch.equal(got_b[0][:, idle], torch.zeros_like(got_b[0][:, idle]))
     assert torch.equal(got_b[1][idle], want_b[1][idle]) and torch.equal(got_b[2][idle], want_b[2][idle])
+
+
+def test_forward_sweep_cuda_graph_capture(cuda):
+    """lstm_train_fwd captured once in a CUDA graph (the call does no setup
+    and no synchronization; the cooperative launch is captured), replayed
+    on new inputs copied into the captured buffers: equal to the eager call,
+    bit for bit."""
+    x_proj, mask, w_hh, h0, c0, _, _, _ = _pair_case(64, 16, cuda)
+    args = (x_proj, mask, w_hh, h0, c0)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        TK.lstm_train_fwd(*args)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = TK.lstm_train_fwd(*args)
+    new = _pair_case(64, 17, cuda)
+    x_proj.copy_(new[0][:, :16])
+    h0.copy_(new[3][:16])
+    c0.copy_(new[4][:16])
+    graph.replay()
+    torch.cuda.synchronize()
+    for a, b in zip(out, TK.lstm_train_fwd(*args)):
+        assert torch.equal(a, b)
 
 
 def test_reverse_sweep_cuda_graph_capture(cuda):

@@ -209,6 +209,33 @@ def test_bwd_launch_plan_covers_rows_and_fits(n):
         assert plan.smem_bytes == K.lstm_train_bwd_plan(1300, h).smem_bytes
 
 
+@pytest.mark.parametrize("h, n", [(512, n) for n in (1, 7, 16, 64, 90, 100, 1300, 100000)]
+                         + [(1024, n) for n in (25, 32, 1300)])
+def test_fwd_launch_plan_fits(h, n):
+    """The forward sweep's launch plan: its shared memory fits in an H100
+    block's 232,448 bytes and equals the layout's size, the units divide H,
+    the grid is one block per SM at most, and all N rows are staged at once
+    wherever they fit (at H=512 up to N=97: N=16, N=64 and N=90 here); a
+    ring of 16-row slots appears only where the rows do not fit, and its
+    shared memory does not grow with N, so any N has a plan. At H=1024 the
+    ring has one slot from N=25 on (the kernel then copies a chunk only once
+    the one before it is done)."""
+    plan = K.lstm_train_fwd_plan(n, h)
+    assert plan.smem_bytes <= 232448
+    assert plan.smem_bytes == K.fwd_smem_bytes(plan.units, h, plan.stage_rows)
+    assert h % plan.units == 0 and plan.blocks == h // plan.units <= K.SMS
+    ring = plan.stage_rows < n
+    assert plan.stage_rows <= n
+    assert ring != (K.fwd_smem_bytes(plan.units, h, n) <= 232448)
+    if ring:
+        assert plan.stage_rows % K.PASS_ROWS == 0
+        assert 1 <= plan.stage_rows // K.PASS_ROWS <= K.MAX_SLOTS
+        assert plan.smem_bytes == K.lstm_train_fwd_plan(100000, h).smem_bytes
+    assert ring == (n > 97 if h == 512 else True)
+    if h == 1024:
+        assert plan.stage_rows == K.PASS_ROWS
+
+
 def test_reverse_sweep_matches_pallas_bwd_ragged():
     """F=5, N=7: 0-length, one-frame, partial and full rows (a batch that is
     not a multiple of the kernel's 4-row register tile)."""

@@ -6,8 +6,9 @@
 Phases, each printed on its own line:
   1. the card's name and power limit (nvidia-smi);
   2. build of the CUDA kernels from empose_tpu_torch/csrc, one nvcc per
-     source, all at once, with their register reports (the LBS kernel and
-     the 8 instantiations of the training pair must not spill);
+     source, all at once, with their register reports (the LBS kernel, the
+     8 instantiations of the training pair and the 2 of the bidirectional
+     layer kernel must not spill);
   3. the LSTM stack kernel against its plain torch version on the card at
      the released init-RNN shape (L=2, H=512) for the batched serving chunk
      (F=16, N=64), the eval window (F=256, N=64) and one stream's chunk
@@ -31,9 +32,16 @@ Phases, each printed on its own line:
      beside the plain versions and cuDNN's training forward and backward;
   4b. the bidirectional layer kernel against its plain torch version at the
      released BiRNN width (H=512) for the batched serving chunk (F=16,
-     N=64), the eval window (F=256, N=64) and one stream (F=16, N=1), with
-     0-length, partial and full rows and non-zero state; its median times
-     beside the plain version and torch.nn.LSTM(bidirectional=True) (cuDNN);
+     N=64), the eval window (F=256, N=64), one stream (F=16, N=1), a ragged
+     batch (33, 7) and more rows than one staging holds (3, 1300), and at
+     the default width H=1024 (16, 32), one launch per direction, and at
+     the other widths each instance and mode of the plan runs (H=64, U=8
+     with fewer float4 columns than lanes; H=260, U=4, both directions in
+     one grid; H=516, U=4, one direction per launch); each with its launch
+     plan, 0-length, partial and full rows and non-zero state, a
+     second call bit for bit equal to the first; at the first three and at
+     H=1024 its median times beside the plain version and
+     torch.nn.LSTM(bidirectional=True) (cuDNN);
   4c. the LBS kernel against its plain version at the full synthetic mesh
      (V=6890, J=52) for N = 512 (an export chunk), 64, 1, 600 (the
      SMPLLayer.fk call), 76 (the export's last chunk) and 7 (a ragged
@@ -55,6 +63,10 @@ Phases, each printed on its own line:
      then step times and one profiled window;
   5b. the same for full-width BiRNN-6: the bidirectional layer kernel must
      launch twice per served forward (once per layer) and no other kernel;
+  5c. the same for the RNNs at the default width (2x1024, unidirectional
+     and bidirectional): the stack kernel launches once per layer (the
+     whole stack does not fit in one launch), the bidirectional layer
+     kernel twice per layer (once per direction);
   6. the training main path: full-width LGD-RNN-6 trained through
      ``python -m empose_tpu_torch.train``'s main on a synthetic asset tree
      (synthetic SMPL-H, per-subject offsets, a seeded EMR corpus) for 8
@@ -86,15 +98,16 @@ reads how far fp32 rounding alone moves a full-width LGD-RNN-6 train step
 
     python3 chip_smoke.py --step-probe
 
-reads the forward and the reverse sweep's time per step at F=64 for N = 1,
-4, 16, 32 and 64 (``step_probe``): what a step is made of beyond its grid
-barrier.
+reads the time per step of the forward and the reverse sweep and of the
+bidirectional layer at F=64 for N = 1, 4, 16, 32 and 64 (``step_probe``):
+what a step is made of beyond its grid barrier.
 
     PYTHONPATH=TREE python3 -P chip_smoke.py --time-pair
 
-times both training sweeps at phase 4's timed shapes on its inputs
-(``time_pair``), for the package under TREE (``-P``: not the one beside
-the script); runs of two trees in turns within one call compare them.
+times both training sweeps at phase 4's timed shapes on its inputs and the
+bidirectional layer at phase 4b's (``time_pair``), for the package under
+TREE (``-P``: not the one beside the script); runs of two trees in turns
+within one call compare them.
 
 Exits non-zero on any failure, and when no CUDA device is present.
 Imports torch, numpy and the port only.
@@ -149,6 +162,9 @@ TRAIN_WINDOW, TRAIN_BATCH, TRAIN_STEPS, RESUME_STEPS = 64, 16, 8, 4
 PAIR_TIMED = ((TRAIN_WINDOW, TRAIN_BATCH), (256, 64), (64, 100))
 BIRNN_TRAIN_STEPS, BIRNN_RESUME_STEPS = 4, 2
 STREAMS, CHUNK, CHUNKS = 64, 16, 4
+# The bidirectional layer's timed shapes: the batched serving chunk, the eval
+# window, one stream's chunk.
+BIDI_TIMED = ((CHUNK, STREAMS), (256, STREAMS), (CHUNK, 1))
 HIDDEN, LAYERS, N_IN = 512, 2, 6 * 12  # init RNN of LGD-RNN-6: 6 markers x (3 pos + 9 ori)
 TOL_LBS = 2e-5      # LBS kernel vs plain at metre-scale coordinates (the JAX test's)
 V_FULL, J_FULL = 6890, 52  # full SMPL-H mesh
@@ -173,6 +189,16 @@ BIRNN_6 = dict(
     m_estimate_shape=True, m_shape_hidden_size=256, m_average_shape=True,
     use_marker_pos=True, use_marker_ori=True, use_real_offsets=True, offset_noise_level=0,
     n_markers=6, window_size=256, lr=5e-4)
+
+
+# The RNNs that ``python -m empose_tpu_torch.train --m_type rnn
+# [--m_bidirectional]`` builds without width flags: 2x1024 (config.py
+# defaults), fed the BiRNN-6 inputs.
+RNN_DEFAULT = dict(
+    m_type="rnn", m_bidirectional=False, m_hidden_size=1024, m_num_layers=2,
+    use_marker_pos=True, use_marker_ori=True, use_real_offsets=True, offset_noise_level=0,
+    n_markers=6, window_size=256)
+BIRNN_DEFAULT = dict(RNN_DEFAULT, m_bidirectional=True)
 
 
 def check(cond: bool, msg: str) -> None:
@@ -351,51 +377,77 @@ def stack_phase(f: int, n: int, seed: int, rounds: int = 0) -> dict:
                               library_ms=library_ms)}
 
 
-def bidi_bound_ms(f: int, n: int) -> tuple:
+def bidi_bound_ms(f: int, n: int, h: int = HIDDEN) -> tuple:
     """Least time for one bidirectional layer: both directions' fp32 FMA work
     over the fp32 peak, or its bytes (each input read once, each output
     written once) over the memory rate."""
-    h, h4 = HIDDEN, 4 * HIDDEN
+    h4 = 4 * h
     flops = 2.0 * 2 * f * n * h * h4
     n_bytes = 4.0 * (2 * f * n * h4 + f * n + 2 * h * h4 + 4 * n * h  # x_proj, mask, W_hh, h0/c0
                      + 2 * f * n * h + 4 * n * h)                      # outs, hF, cF
     return bound_ms(flops, n_bytes)
 
 
-def bidi_phase(f: int, n: int, seed: int) -> dict:
-    """The bidirectional layer kernel against its plain version on layer 0
-    of BiRNN-6 (input 72), 0-length rows bit for bit, then median times
-    beside the plain version and cuDNN's bidirectional layer."""
+def bidi_inputs(f: int, n: int, seed: int, h: int = HIDDEN):
+    """Layer 0 of a BiRNN of width ``h`` (input 72) with seeded random
+    weights, a batch with 0-length, partial and full rows (one 0-length row
+    at least where N > 1; the one row of N=1 runs), non-zero state; returns
+    the cells, x, x reversed by length, the lengths and the kernel's
+    operands (x_proj, mask, w_hh2, h0, c0)."""
     g = torch.Generator().manual_seed(seed)
-    bound = HIDDEN ** -0.5
+    bound = h ** -0.5
     u = lambda *s: ((torch.rand(*s, generator=g) * 2 - 1) * bound).cuda()
-    cells = [dict(w_ih=u(N_IN, 4 * HIDDEN), w_hh=u(HIDDEN, 4 * HIDDEN), b_ih=u(4 * HIDDEN),
-                  b_hh=u(4 * HIDDEN)) for _ in range(2)]
+    cells = [dict(w_ih=u(N_IN, 4 * h), w_hh=u(h, 4 * h), b_ih=u(4 * h), b_hh=u(4 * h))
+             for _ in range(2)]
     x = torch.randn(f, n, N_IN, generator=g).cuda()
     lengths = torch.randint(1, f, (n,), generator=g)
-    lengths[: n // 16] = 0
-    lengths[n // 16: n // 16 + n // 3] = f
+    idle = max(n // 16, 1) if n > 1 else 0
+    lengths[:idle] = 0
+    lengths[idle: idle + n // 3] = f
     lengths = lengths.cuda()
     mask = (torch.arange(f, device="cuda")[:, None] < lengths[None]).float()
-    h0 = (torch.randn(2, n, HIDDEN, generator=g) * 0.5).cuda()
-    c0 = (torch.randn(2, n, HIDDEN, generator=g) * 0.5).cuda()
+    h0 = (torch.randn(2, n, h, generator=g) * 0.5).cuda()
+    c0 = (torch.randn(2, n, h, generator=g) * 0.5).cuda()
     x_rev = _reverse_by_length(x, lengths)
     x_proj = torch.stack([xs @ c["w_ih"] + c["b_ih"] + c["b_hh"]
                           for c, xs in zip(cells, (x, x_rev))], dim=1).contiguous()
     w_hh2 = torch.stack([c["w_hh"] for c in cells])
-    args = (x_proj, mask, w_hh2, h0, c0)
+    return cells, x, x_rev, lengths, (x_proj, mask, w_hh2, h0, c0)
+
+
+def bidi_phase(f: int, n: int, seed: int, h: int = HIDDEN, timed: bool = True) -> dict:
+    """The bidirectional layer kernel against its plain version on layer 0
+    of a BiRNN of width ``h`` (its launch plan on a line of its own; as many
+    launches as the plan has), 0-length rows bit for bit, a second call bit
+    for bit equal to the first; when ``timed``, median times beside the
+    plain version and cuDNN's bidirectional layer."""
+    cells, x, x_rev, lengths, args = bidi_inputs(f, n, seed, h)
+    x_proj, mask, w_hh2, h0, c0 = args
+    shape = f"F={f} N={n}" + ("" if h == HIDDEN else f" H={h}")
+    plan = K.lstm_bidi_plan(n, h)
+    print(f"bidi launch plan {shape}: {plan._asdict()}", flush=True)
+    launches = K.BIDI_LAUNCHES
     got = K.lstm_bidi_fused(*args)
+    again = K.lstm_bidi_fused(*args)
+    check(K.BIDI_LAUNCHES - launches == 2 * plan.launches,
+          f"bidi kernel at {shape}: {K.BIDI_LAUNCHES - launches} launches for 2 calls, expected "
+          f"{2 * plan.launches}")
     want = K.lstm_bidi_plain(*args)
     torch.cuda.synchronize()
     err = max((a - b).abs().max().item() for a, b in zip(got, want))
+    repeat = all(torch.equal(a, b) for a, b in zip(got, again))
     idle = lengths == 0
     frozen = bool((got[1][:, idle] == h0[:, idle]).all() and (got[2][:, idle] == c0[:, idle]).all())
-    print(f"bidi kernel F={f} N={n}: max_abs_err vs plain {err:.3e} (outs, hF, cF); "
-          f"0-length rows frozen bit for bit: {frozen}", flush=True)
-    check(err <= TOL, f"bidi kernel disagrees with its plain version at F={f} N={n}: {err} > {TOL}")
-    check(frozen, f"bidi kernel changed the state of 0-length rows at F={f} N={n}")
+    print(f"bidi kernel {shape}: max_abs_err vs plain {err:.3e} (outs, hF, cF); "
+          f"0-length rows ({int(idle.sum())}) frozen bit for bit: {frozen}; a second call bit "
+          f"for bit equal to the first: {repeat}", flush=True)
+    check(err <= TOL, f"bidi kernel disagrees with its plain version at {shape}: {err} > {TOL}")
+    check(frozen, f"bidi kernel changed the state of 0-length rows at {shape}")
+    check(repeat, f"two bidi kernel calls on the same inputs differ at {shape}")
+    if not timed:
+        return dict(max_abs_err=err, plan=plan._asdict())
 
-    lstm = torch.nn.LSTM(N_IN, HIDDEN, 1, bidirectional=True).cuda()
+    lstm = torch.nn.LSTM(N_IN, h, 1, bidirectional=True).cuda()
     with torch.no_grad():
         for c, suffix in zip(cells, ("", "_reverse")):
             getattr(lstm, f"weight_ih_l0{suffix}").copy_(c["w_ih"].t())
@@ -411,13 +463,13 @@ def bidi_phase(f: int, n: int, seed: int) -> dict:
         layer_ms = cuda_ms(lambda: K.lstm_bidi_layer(cells[0], cells[1], x, x_rev, mask, h0, c0))
         plain_ms = cuda_ms(lambda: K.lstm_bidi_plain(*args), reps=5 if f > 64 else 15)
         library_ms = cuda_ms(lambda: lstm(x, (h0, c0)))
-    b_ms, b_by = bidi_bound_ms(f, n)
-    print(f"bidi times F={f} N={n}: kernel {ms:.4f} ms, kernel with input projections "
-          f"{layer_ms:.4f} ms, plain {plain_ms:.4f} ms, torch.nn.LSTM bidirectional (cuDNN, from "
-          f"x) {library_ms:.4f} ms (max diff to plain at full lengths {lib_err:.2e}), bound "
-          f"{b_ms:.4f} ms by {b_by}", flush=True)
+    b_ms, b_by = bidi_bound_ms(f, n, h)
+    print(f"bidi times {shape}: kernel {ms:.4f} ms ({ms * 1e3 / f:.2f} us per step), kernel with "
+          f"input projections {layer_ms:.4f} ms, plain {plain_ms:.4f} ms, torch.nn.LSTM "
+          f"bidirectional (cuDNN, from x) {library_ms:.4f} ms (max diff to plain at full lengths "
+          f"{lib_err:.2e}), bound {b_ms:.4f} ms by {b_by}", flush=True)
     return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
-                library_ms=library_ms)
+                library_ms=library_ms, plan=plan._asdict())
 
 
 def device_ms(fn, reps: int = 20) -> dict:
@@ -669,16 +721,17 @@ def train_pair_phase(f: int, n: int, seed: int, timed: bool, h: int = HIDDEN) ->
 
 def time_pair() -> int:
     """``python3 chip_smoke.py --time-pair``: both training sweeps' median
-    times at PAIR_TIMED on phase 4's inputs, and nothing else. It times the
-    package that ``import empose_tpu_torch`` finds: ``PYTHONPATH=TREE
-    python3 -P chip_smoke.py --time-pair`` (``-P``: not the script's own
-    directory) times the source tree TREE, so runs of two trees in turns
-    within one call (e.g. an unpacked parent commit) compare them on equal
-    inputs."""
+    times at PAIR_TIMED on phase 4's inputs, and the bidirectional layer's
+    (``lstm_bidi_fused``) at BIDI_TIMED on phase 4b's, and nothing else. It
+    times the package that ``import empose_tpu_torch`` finds:
+    ``PYTHONPATH=TREE python3 -P chip_smoke.py --time-pair`` (``-P``: not the
+    script's own directory) times the source tree TREE, so runs of two trees
+    in turns within one call (e.g. an unpacked parent commit) compare them on
+    equal inputs."""
     if not print_card():
         return 2
     print(f"package: {os.path.dirname(TK.__file__)}", flush=True)
-    cuda_build.build([TK.NAME], force=True)
+    cuda_build.build([TK.NAME, K.BIDI_NAME], force=True)
     out = {}
     for f, n in PAIR_TIMED:
         g = torch.Generator().manual_seed(SEED + f + n)
@@ -690,20 +743,25 @@ def time_pair() -> int:
                                                           w_hh))}
         print(f"training pair times F={f} N={n}: {row}", flush=True)
         out[f"{f}x{n}"] = row
+    for f, n in BIDI_TIMED:
+        args = bidi_inputs(f, n, seed=SEED + f + n + 1)[-1]
+        out[f"bidi {f}x{n}"] = {"bidi_ms": cuda_ms(lambda: K.lstm_bidi_fused(*args))}
+        print(f"bidi times F={f} N={n}: {out[f'bidi {f}x{n}']}", flush=True)
     print(json.dumps({"package": os.path.dirname(TK.__file__), "times": out}), flush=True)
     return 0
 
 
 def step_probe(f: int = TRAIN_WINDOW, ns=(1, 4, 16, 32, 64)) -> int:
     """``python3 chip_smoke.py --step-probe``: what a step of each training
-    sweep is made of: its time per step at F steps for growing N (median
-    event time of the wrapper over F). At N=1 the staged rows and the FMAs
-    are nearly nothing, so the step is the grid barrier, the elementwise
-    work and the launch; each row adds its FMAs and, per block at H=512,
-    its 2 KB of h_all[t-1] (forward) or 8 KB of dgates[t] (reverse)."""
+    sweep and of the bidirectional layer is made of: its time per step at F
+    steps for growing N (median event time of the wrapper over F). At N=1
+    the staged rows and the FMAs are nearly nothing, so the step is the grid
+    barrier, the elementwise work and the launch; each row adds its FMAs
+    and, per block at H=512, its 2 KB of h_all[t-1] (forward, bidi) or 8 KB
+    of dgates[t] (reverse)."""
     if not print_card():
         return 2
-    cuda_build.build([TK.NAME], force=True)
+    cuda_build.build([TK.NAME, K.BIDI_NAME], force=True)
     g = torch.Generator().manual_seed(SEED)
     fwd_us, us = {}, {}
     for n in ns:
@@ -719,7 +777,15 @@ def step_probe(f: int = TRAIN_WINDOW, ns=(1, 4, 16, 32, 64)) -> int:
         print(f"{name} sweep per step at F={f}, us by N (plans: "
               f"{ {n: plan(n, HIDDEN).stage_rows for n in ns} } rows staged at once): "
               + ", ".join(f"N={n} {v:.2f}" for n, v in times.items()), flush=True)
-    print(json.dumps({"fwd_us_per_step": fwd_us, "bwd_us_per_step": us}), flush=True)
+    bidi_us = {}
+    for n in ns:
+        args = bidi_inputs(f, n, seed=SEED + n)[-1]
+        bidi_us[n] = cuda_ms(lambda: K.lstm_bidi_fused(*args)) * 1e3 / f
+    print(f"bidi layer per step at F={f}, U={K.lstm_bidi_plan(1, HIDDEN).units}, us by N (plans: "
+          f"{ {n: K.lstm_bidi_plan(n, HIDDEN).stage_rows for n in ns} } rows staged at once): "
+          + ", ".join(f"N={n} {v:.2f}" for n, v in bidi_us.items()), flush=True)
+    print(json.dumps({"fwd_us_per_step": fwd_us, "bwd_us_per_step": us,
+                      "bidi_us_per_step": bidi_us}), flush=True)
     return 0
 
 
@@ -1341,6 +1407,15 @@ def main() -> int:
               if "spill" in line and "0 bytes spill stores, 0 bytes spill loads" not in line]
     check(len(pair) == 8 and not spills, f"the training pair's instantiations {sorted(pair)} "
                                          f"do not all build without spills: {spills}")
+    bidi_fns = {fn: lines for fn, lines in ptxas_report(logs[K.BIDI_NAME]).items()
+                if "lstm_bidi_kernel" in fn}
+    for fn, lines in sorted(bidi_fns.items()):
+        print(f"build {K.BIDI_NAME} {fn}: {'; '.join(lines)}", flush=True)
+    spills = [line for lines in bidi_fns.values() for line in lines
+              if "spill" in line and "0 bytes spill stores, 0 bytes spill loads" not in line]
+    check(len(bidi_fns) == 2 and not spills, f"the bidi kernel's instantiations "
+                                             f"{sorted(bidi_fns)} do not all build without "
+                                             f"spills: {spills}")
     print(f"build: nvcc {time.perf_counter() - t0:.2f} s for {len(logs)} sources in parallel",
           flush=True)
 
@@ -1353,10 +1428,15 @@ def main() -> int:
             for f, n in (*PAIR_TIMED, (33, 7), (1, 1), (3, 1300))}
     # H=1024, where the forward sweep's ring has one slot.
     train_pair_phase(TRAIN_WINDOW, 32, seed=SEED + 1024, timed=False, h=2 * HIDDEN)
-    print(f"bidi kernel: {K._bidi_library().lstm_bidi_units(HIDDEN)} units per block at "
-          f"H={HIDDEN}", flush=True)
-    bidi = {(f, n): bidi_phase(f, n, seed=SEED + f + n + 1)
-            for f, n in ((CHUNK, STREAMS), (256, STREAMS), (CHUNK, 1))}
+    # Timed: BIDI_TIMED and, at H=1024 (one direction per launch), (16, 32);
+    # checked: a ragged batch, more rows than one staging holds, and the
+    # widths that take the plan's other instance and modes.
+    bidi = {(f, n): bidi_phase(f, n, seed=SEED + f + n + 1) for f, n in BIDI_TIMED}
+    for f, n in ((33, 7), (3, 1300)):
+        bidi_phase(f, n, seed=SEED + f + n + 1, timed=False)
+    bidi_phase(CHUNK, 32, seed=SEED + 1024, h=2 * HIDDEN)
+    for n, h in ((7, 64), (STREAMS, 260), (7, 516)):
+        bidi_phase(CHUNK, n, seed=SEED + h, h=h, timed=False)
     # Timed: an export chunk, a batch, one frame; checked: the SMPLLayer.fk
     # call, the export's last chunk, a ragged chunk.
     lbs = {n: lbs_phase(n, seed=SEED + n + 3, timed=n in (512, 64, 1))
@@ -1385,6 +1465,21 @@ def main() -> int:
                                 plain_stack)
         bidi_launches = serving_path("BiRNN-6", "900003", feeds, offsets, "lstm_bidi",
                                      BIRNN_6["m_num_layers"], plain_bidi)
+
+        # The default-width RNNs (H=1024): the stack one layer per launch,
+        # the bidirectional layer one direction per launch.
+        h_default, layers = RNN_DEFAULT["m_hidden_size"], RNN_DEFAULT["m_num_layers"]
+        per_forward = 1 if K.lstm_stack_fits(layers, h_default) else layers
+        n_params = write_experiment(root, "900005", RNN_DEFAULT, "RNN-1024")
+        print(f"model: RNN at the default width ({layers}x{h_default}), {n_params} parameters "
+              f"(seeded random weights); {per_forward} stack launches per forward", flush=True)
+        serving_path("RNN-1024", "900005", feeds, offsets, "lstm_stack", per_forward, plain_stack)
+        per_forward = layers * K.lstm_bidi_plan(STREAMS, h_default).launches
+        n_params = write_experiment(root, "900006", BIRNN_DEFAULT, "BiRNN-1024")
+        print(f"model: BiRNN at the default width ({layers}x{h_default}), {n_params} parameters "
+              f"(seeded random weights); {per_forward} bidi launches per forward", flush=True)
+        serving_path("BiRNN-1024", "900006", feeds, offsets, "lstm_bidi", per_forward,
+                     plain_bidi)
 
         n_layers = LGD_RNN_6["m_rnn_num_layers"]
         trained = training_path("LGD-RNN-6", LGD_RNN_6, "900002", TRAIN_STEPS, RESUME_STEPS,

@@ -8,7 +8,8 @@ H100 and how the weights are spread over the SMs:
   of a whole unidirectional L-layer LSTM stack over F steps in one launch,
   with every layer's gate weights resident on chip for the whole sweep;
 * ``csrc/lstm_bidi.cu`` replaces ``_pallas_bidi``: one bidirectional layer,
-  both directions in one launch with both recurrent weights resident.
+  both directions in one launch (or one launch per direction) with the
+  recurrent weights resident.
 
 Contract shared by :func:`lstm_stack_plain` and :func:`lstm_stack_fused`
 (time-major, the JAX kernel's layouts):
@@ -49,13 +50,24 @@ Both return ``(outs (F, 2, N, H), hF (2, N, H), cF (2, N, H))``, the backward
 outputs still in reversed time, zero at masked steps; the final states frozen
 bit for bit at masked steps. ``lstm_bidi_fused`` launches the kernel for CUDA
 tensors and runs the plain version for CPU tensors; ``BIDI_LAUNCHES`` counts
-its launches.
+its kernel launches: one per layer where both directions fit on the card in
+one grid (H=512), two (one per direction) where they do not (H=1024). Its
+setup is out of the per-call path: :func:`lstm_bidi_prepare` sets the
+kernel's shared memory and checks its occupancy once per device, and
+:func:`lstm_bidi_plan` (pure Python) sizes the grid and the staged rows.
+
+Any H the models take runs at inference: where the whole stack does not fit
+in one launch (:func:`lstm_stack_fits`; at H=1024 with 2 layers),
+:func:`lstm_stack` runs it one layer per launch of the same kernel, layer
+l > 0's input projection one GEMM outside. The wavefront schedule keeps
+needing the whole stack.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import List, Optional, Tuple
+import functools
+from typing import Dict, List, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -67,6 +79,20 @@ WAVEFRONT_LAUNCHES = 0
 
 NAME = "lstm_stack"  # csrc/lstm_stack.cu
 BIDI_NAME = "lstm_bidi"  # csrc/lstm_bidi.cu
+
+# The kernels' geometry, as their sources fix it (threads per block, rows of
+# a staged chunk of h, the most ring slots), and the H100 SXM's SMs and
+# opt-in shared memory per block.
+THREADS = 256
+PASS_ROWS = 16
+MAX_SLOTS = 8
+SMS = 132
+SMEM_LIMIT = 232448
+# k-width of the stack kernel's staged tiles by units per block (lstm_stack.cu tile_k).
+_STACK_TILE_K = {1: 32, 2: 64, 4: 128, 8: 64}
+
+_bidi_prepared: Dict[int, Tuple[int, int]] = {}  # device index -> (SMs, opt-in shared bytes)
+_bidi_lib = None  # the bidirectional kernel's library, once lstm_bidi_prepare has loaded it
 
 
 def _library():
@@ -82,9 +108,44 @@ def _library():
 def _bidi_library():
     p, i = ctypes.c_void_p, ctypes.c_int
     return cuda_build.load(BIDI_NAME, {
-        "lstm_bidi_forward": ([p, p, p, p, p, p, p, i, i, i, p], i),
-        "lstm_bidi_units": ([i], i),
+        "lstm_bidi_prepare": ([i, ctypes.POINTER(i)], i),
+        "lstm_bidi_forward": ([p, p, p, p, p, p, p, p, i, i, i, i, i, i, i, i, p], i),
     })
+
+
+def _launch(fn, index: int, *args) -> int:
+    """Call a C entry on device ``index``'s current raw stream, switching the
+    current device only where it differs."""
+    args = (*args, torch._C._cuda_getCurrentRawStream(index))
+    if index == torch._C._cuda_getDevice():
+        return fn(*args)
+    with torch.cuda.device(index):
+        return fn(*args)
+
+
+def units_per_block(h: int, max_blocks: int) -> int:
+    """The smallest power of two U (at most 8) that divides H with H / U <=
+    ``max_blocks``; 0 where there is none."""
+    return next((u for u in (1, 2, 4, 8) if h % u == 0 and h // u <= max_blocks), 0)
+
+
+def stack_smem_bytes(units: int, h: int, layers: int) -> int:
+    """Shared memory of one stack-kernel block (``csrc/lstm_stack.cu``
+    ``shared_bytes``): the gate columns of every W_hh and of W_ih of layers
+    >= 1, their biases, and two padded staged tiles."""
+    rows = THREADS // units
+    return 4 * ((2 * layers - 1) * h * units * 4 + (layers - 1) * units * 4
+                + 2 * rows * (_STACK_TILE_K[units] + 4))
+
+
+def lstm_stack_fits(layers: int, h: int, sms: int = SMS, smem_limit: int = SMEM_LIMIT) -> bool:
+    """Whether the stack kernel runs an L-layer stack at hidden size H in one
+    launch: a units-per-block choice puts H / U blocks on the SMs
+    (``lstm_stack.cu`` ``lstm_stack_units``) and a block's shared memory fits
+    (at 2 layers: H=512 yes, H=1024 no, 410752 bytes; one layer of H=1024
+    148480)."""
+    units = units_per_block(h, sms)
+    return units > 0 and stack_smem_bytes(units, h, layers) <= smem_limit
 
 
 def _sigmoid_tanh_cell(gates: torch.Tensor, c: torch.Tensor):
@@ -130,7 +191,7 @@ def _check(name: str, t: Optional[torch.Tensor], shape: Tuple[int, ...], device)
         raise ValueError(f"{name} is required")
     if t.device != device or t.dtype != torch.float32:
         raise ValueError(f"{name} must be float32 on {device}, got {t.dtype} on {t.device}")
-    if tuple(t.shape) != shape:
+    if t.shape != shape:
         raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {shape}")
     if not t.is_contiguous():
         raise ValueError(f"{name} must be contiguous")
@@ -252,20 +313,36 @@ def stack_operands(cells: List[dict], x: torch.Tensor):
 def lstm_stack(cells: List[dict], x, mask, h0, c0, stack_fn=lstm_stack_fused):
     """Same contract as ``empose_tpu/ops/lstm_kernel.py::lstm_stack_pallas``:
     ``x`` (F, N, I), ``mask`` (F, N), ``h0``/``c0`` (L, N, H) ->
-    (outputs (F, N, H), (hF, cF))."""
+    (outputs (F, N, H), (hF, cF)).
+
+    The whole stack goes to ``stack_fn`` in one call where it fits in one
+    launch (:func:`lstm_stack_fits`); otherwise one layer per call, layer
+    l > 0's input projection one GEMM outside, as layer 0's is."""
     x0_proj, w_hh, w_ih_up, b_up = stack_operands(cells, x)
-    outs, hF, cF = stack_fn(x0_proj, mask.contiguous(), w_hh, w_ih_up, b_up,
-                            h0.contiguous(), c0.contiguous())
-    return outs, (hF, cF)
+    mask, h0, c0 = mask.contiguous(), h0.contiguous(), c0.contiguous()
+    if lstm_stack_fits(len(cells), w_hh.shape[1]):
+        outs, hF, cF = stack_fn(x0_proj, mask, w_hh, w_ih_up, b_up, h0, c0)
+        return outs, (hF, cF)
+    xp, hs, cs = x0_proj, [], []
+    for l in range(len(cells)):
+        if l > 0:
+            xp = (outs @ w_ih_up[l - 1] + b_up[l - 1]).contiguous()
+        outs, hF, cF = stack_fn(xp, mask, w_hh[l:l + 1], None, None, h0[l:l + 1], c0[l:l + 1])
+        hs.append(hF[0])
+        cs.append(cF[0])
+    return outs, (torch.stack(hs), torch.stack(cs))
 
 
 def lstm_stack_wavefront(cells: List[dict], x, mask, h0, c0,
                          stack_fn=lstm_stack_wavefront_fused):
     """Same contract and errors as
     ``empose_tpu/ops/lstm_kernel.py::lstm_stack_pallas_wavefront``: the
-    results of :func:`lstm_stack`; ``ValueError`` below 2 layers (raised by
-    ``stack_fn``)."""
-    return lstm_stack(cells, x, mask, h0, c0, stack_fn)
+    results of :func:`lstm_stack`, the whole stack in one call of
+    ``stack_fn``; ``ValueError`` below 2 layers (raised by ``stack_fn``)."""
+    x0_proj, w_hh, w_ih_up, b_up = stack_operands(cells, x)
+    outs, hF, cF = stack_fn(x0_proj, mask.contiguous(), w_hh, w_ih_up, b_up,
+                            h0.contiguous(), c0.contiguous())
+    return outs, (hF, cF)
 
 
 def lstm_bidi_plain(x_proj, mask, w_hh2, h0, c0):
@@ -280,9 +357,75 @@ def lstm_bidi_plain(x_proj, mask, w_hh2, h0, c0):
     return torch.stack(outs, dim=1), torch.stack(hs), torch.stack(cs)
 
 
+class BidiPlan(NamedTuple):
+    units: int       # hidden units per block (U): 8, or 4 where H % 8 == 4
+    blocks: int      # the cooperative grid of one launch, dirs * H / U, one block per SM
+    dirs: int        # directions per launch: 2 (both in one grid) or 1 (one launch each)
+    launches: int    # launches per layer, 2 / dirs
+    stage_rows: int  # rows of h[t-1] in shared memory: N (all at once), or fewer: a ring
+                     # of stage_rows / PASS_ROWS slots that the PASS_ROWS-row chunks cycle through
+    smem_bytes: int  # dynamic shared memory per block
+
+
+def bidi_smem_bytes(units: int, h: int, stage_rows: int) -> int:
+    """Shared memory of one bidirectional-kernel block (``csrc/lstm_bidi.cu``
+    ``smem_floats``): the resident gate columns of W_hh (to 128 bytes) and
+    the staged rows of h[t-1]."""
+    return 4 * (-(-4 * units * h // 32) * 32 + stage_rows * h)
+
+
+@functools.lru_cache(maxsize=256)
+def lstm_bidi_plan(n: int, h: int, sms: int = SMS, smem_limit: int = SMEM_LIMIT) -> BidiPlan:
+    """Launch plan of the bidirectional layer kernel for N rows at hidden
+    size H.
+
+    Each block owns U=8 units of one direction (U=4 where H % 8 == 4), one
+    block per SM. Both directions run in one grid of 2H / U blocks where
+    that fits on the SMs (H=512: 128 blocks); otherwise one direction per
+    launch, H / U blocks each (H=1024: 128 blocks of 128 KB of columns). All
+    N rows of h[t-1] are staged at once where they fit beside the block's
+    columns (H=512: N <= 81); otherwise the PASS_ROWS-row chunks cycle
+    through a ring of as many slots as fit (at most MAX_SLOTS; one at
+    H=1024), so the shared memory stops growing with N and any N has a plan.
+    Raises ValueError where H / U blocks do not fit on the SMs or not one
+    slot fits beside the columns."""
+    if n <= 0 or h <= 0 or h % 4:
+        raise ValueError(f"the bidirectional kernel needs N > 0 and H a positive multiple of "
+                         f"4, got N={n}, H={h}")
+    units = 8 if h % 8 == 0 else 4
+    dirs = 2 if 2 * h // units <= sms else 1
+    rows = n
+    if bidi_smem_bytes(units, h, n) > smem_limit:
+        rows = PASS_ROWS * min(MAX_SLOTS,
+                               (smem_limit - bidi_smem_bytes(units, h, 0)) // (4 * PASS_ROWS * h))
+    if h // units > sms or rows < 1:
+        raise ValueError(f"the bidirectional kernel at N={n}, H={h} does not fit on {sms} SMs "
+                         f"with {smem_limit} bytes of shared memory per block")
+    return BidiPlan(units, dirs * h // units, dirs, 2 // dirs, rows,
+                    bidi_smem_bytes(units, h, rows))
+
+
+def lstm_bidi_prepare(device) -> None:
+    """Once per device (the wrapper calls it at its first launch there):
+    build the kernel if needed, set its shared memory and check its
+    occupancy. Outside the per-call path, and outside any CUDA graph capture."""
+    global _bidi_lib
+    index = torch.device(device).index
+    index = torch.cuda.current_device() if index is None else index
+    if index in _bidi_prepared:
+        return
+    _bidi_lib = _bidi_library()
+    info = (ctypes.c_int * 2)()
+    cuda_build.check(_bidi_lib.lstm_bidi_prepare(index, info),
+                     "bidirectional LSTM kernel setup")
+    _bidi_prepared[index] = (info[0], info[1])
+
+
 def lstm_bidi_fused(x_proj, mask, w_hh2, h0, c0):
     """One bidirectional layer: the CUDA kernel for CUDA tensors, the plain
-    version for CPU tensors (see module doc for the contract)."""
+    version for CPU tensors (see module doc for the contract). The launches
+    follow :func:`lstm_bidi_plan`. The call does no setup after the first on
+    a device and no synchronization, so it can be captured in a CUDA graph."""
     global BIDI_LAUNCHES
     if x_proj.device.type == "cpu":
         return lstm_bidi_plain(x_proj, mask, w_hh2, h0, c0)
@@ -295,20 +438,27 @@ def lstm_bidi_fused(x_proj, mask, w_hh2, h0, c0):
     _check("w_hh2", w_hh2, (2, hidden, 4 * hidden), dev)
     _check("h0", h0, (2, n, hidden), dev)
     _check("c0", c0, (2, n, hidden), dev)
-    lib = _bidi_library()
+    index = x_proj.get_device()
+    if index not in _bidi_prepared:
+        lstm_bidi_prepare(dev)
+    plan = lstm_bidi_plan(n, hidden, *_bidi_prepared[index])
+    # The kernel copies h0's rows 16 bytes at a time.
+    h0 = h0 if h0.data_ptr() % 16 == 0 else h0.clone()
     outs = torch.empty(f, 2, n, hidden, device=dev)
-    hbuf = torch.empty(2, 2, n, hidden, device=dev)
-    hbuf[0].copy_(h0)
-    c_state = c0.clone()
-    h_final = torch.empty(2, n, hidden, device=dev)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        code = lib.lstm_bidi_forward(
-            x_proj.data_ptr(), mask.data_ptr(), w_hh2.data_ptr(), outs.data_ptr(),
-            hbuf.data_ptr(), c_state.data_ptr(), h_final.data_ptr(), f, n, hidden, stream)
-    cuda_build.check(code, "bidirectional LSTM kernel")
-    BIDI_LAUNCHES += 1
-    return outs, h_final, c_state
+    # The state apart from the outputs, so that a caller keeping only (hF, cF)
+    # keeps no more: the h exchange buffer (2, 2) and cF (2), each plane on a
+    # 16-byte boundary (H % 4 == 0).
+    state = torch.empty(6, n, hidden, device=dev)
+    ptr = state.data_ptr()
+    for d0 in range(0, 2, plan.dirs):
+        code = _launch(_bidi_lib.lstm_bidi_forward, index, x_proj.data_ptr(), mask.data_ptr(),
+                       w_hh2.data_ptr(), h0.data_ptr(), c0.data_ptr(), outs.data_ptr(), ptr,
+                       ptr + 16 * n * hidden, f, n, hidden, plan.units, d0, plan.dirs,
+                       plan.stage_rows, plan.smem_bytes)
+        cuda_build.check(code, "bidirectional LSTM kernel")
+        BIDI_LAUNCHES += 1
+    h_last = 2 * (f & 1)  # h after the last step: hbuf[F & 1]
+    return outs, state[h_last:h_last + 2], state[4:]
 
 
 def lstm_bidi_layer(cell_fwd: dict, cell_bwd: dict, x_fwd, x_bwd, mask, h0, c0,

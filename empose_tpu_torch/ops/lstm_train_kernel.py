@@ -42,23 +42,20 @@ from typing import Dict, NamedTuple, Optional, Tuple
 import torch
 
 from empose_tpu_torch.ops import cuda_build
-from empose_tpu_torch.ops.lstm_kernel import _check, _sigmoid_tanh_cell
+# The geometry csrc/lstm_train.cu shares with the inference kernels (threads
+# per block, rows of a staged chunk and pass in the forward sweep, the
+# forward sweep's most ring slots) and the H100 SXM's SMs and opt-in shared
+# memory per block.
+from empose_tpu_torch.ops.lstm_kernel import (MAX_SLOTS, PASS_ROWS, SMEM_LIMIT, SMS, THREADS,
+                                              _check, _launch, _sigmoid_tanh_cell,
+                                              units_per_block)
 
 FWD_LAUNCHES = 0
 BWD_LAUNCHES = 0
 
 NAME = "lstm_train"  # csrc/lstm_train.cu
 
-# The kernels' geometry, as csrc/lstm_train.cu fixes it (threads per block,
-# rows of a thread's register tile in the reverse sweep, rows of a staged
-# chunk and pass in the forward sweep), the forward sweep's most ring slots,
-# and the H100 SXM's SMs and opt-in shared memory per block.
-THREADS = 256
-TILE_ROWS = 4
-PASS_ROWS = 16
-MAX_SLOTS = 8
-SMS = 132
-SMEM_LIMIT = 232448
+TILE_ROWS = 4  # rows of a thread's register tile in the reverse sweep
 
 _prepared: Dict[int, Tuple[int, int]] = {}  # device index -> (SMs, opt-in shared bytes)
 _lib = None  # the kernels' library, once lstm_train_prepare has loaded it
@@ -86,10 +83,10 @@ class BwdPlan(NamedTuple):
 def lstm_train_units(h: int, sms: int = SMS) -> int:
     """Hidden units per block for hidden size H: the smallest power of two
     (at most 8) that divides H and gives at most one block per SM."""
-    for u in (1, 2, 4, 8):
-        if h % u == 0 and h // u <= sms:
-            return u
-    raise ValueError(f"no units-per-block choice puts H={h} on {sms} SMs")
+    units = units_per_block(h, sms)
+    if not units:
+        raise ValueError(f"no units-per-block choice puts H={h} on {sms} SMs")
+    return units
 
 
 def fwd_smem_bytes(units: int, h: int, stage_rows: int) -> int:
@@ -195,16 +192,6 @@ def lstm_train_prepare(device) -> None:
     info = (ctypes.c_int * 2)()
     cuda_build.check(_lib.lstm_train_prepare(index, info), "LSTM training kernel setup")
     _prepared[index] = (info[0], info[1])
-
-
-def _launch(fn, index: int, *args) -> int:
-    """Call a C entry on device ``index``'s current raw stream, switching the
-    current device only where it differs."""
-    args = (*args, torch._C._cuda_getCurrentRawStream(index))
-    if index == torch._C._cuda_getDevice():
-        return fn(*args)
-    with torch.cuda.device(index):
-        return fn(*args)
 
 
 def lstm_train_fwd_plain(x_proj, mask, w_hh, h0, c0, save_gates: bool = True):

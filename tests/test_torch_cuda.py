@@ -1,10 +1,12 @@
 """Checks that need the card: the LSTM stack kernel, its wavefront schedule,
 the bidirectional layer kernel and the LSTM training pair against their
-plain versions at the released widths (H=512; each sweep also launched
-twice bit for bit, and captured in a CUDA graph), the LBS kernel
+plain versions at the released widths (H=512, and H=1024; the bidirectional
+layer and each sweep also launched twice bit for bit, and captured in a
+CUDA graph), the LBS kernel
 against its plain version at the full mesh (and captured in a CUDA graph),
 SMPLLayer's launches, and served steps
-(LGD-RNN, BiRNN) against the same model run with the plain LSTM. Skipped
+(LGD-RNN, BiRNN, and both RNNs at the default width 2x1024) against the same
+model run with the plain LSTM. Skipped
 without a CUDA device; on the card run
 
     python -m pytest tests/test_torch_cuda.py -q
@@ -172,28 +174,70 @@ def test_smpl_layer_fk_one_launch(cuda):
     assert torch.isfinite(layer.vertex_normals(verts)).all()
 
 
-@pytest.mark.parametrize("f, n", [(16, 64), (256, 64), (16, 1)])
-def test_bidi_kernel_matches_plain_released_shape(cuda, f, n):
-    """The bidirectional layer kernel at the released BiRNN width, 0-length,
-    partial and full rows, non-zero state: atol 1e-4, 0-length rows frozen
-    bit for bit, one launch."""
-    g = torch.Generator().manual_seed(f + n)
-    h = 512
+def _bidi_case(f, n, h, seed, cuda):
+    """Operands of the bidirectional layer kernel at hidden size h: 0-length
+    rows (one at least where N > 1), partial and full rows, non-zero state."""
+    g = torch.Generator().manual_seed(seed)
     x_proj = (torch.randn(f, 2, n, 4 * h, generator=g) * 0.5).to(cuda)
     w_hh2 = ((torch.rand(2, h, 4 * h, generator=g) * 2 - 1) * h ** -0.5).to(cuda)
     h0, c0 = (torch.randn(2, 2, n, h, generator=g) * 0.5).to(cuda)
     lengths = torch.randint(1, f, (n,), generator=g)
-    lengths[: n // 16] = 0
-    lengths[n // 16: n // 16 + n // 3] = f
+    idle = max(n // 16, 1) if n > 1 else 0
+    lengths[:idle] = 0
+    lengths[idle: idle + n // 3] = f
     mask = (torch.arange(f)[:, None] < lengths[None]).float().to(cuda)
+    return x_proj, mask, w_hh2, h0, c0, (lengths == 0).to(cuda)
+
+
+@pytest.mark.parametrize("f, n, h", [(16, 64, 512), (256, 64, 512), (16, 1, 512), (33, 7, 512),
+                                     (3, 1300, 512), (16, 32, 1024), (16, 7, 64), (16, 64, 260),
+                                     (16, 7, 516)])
+def test_bidi_kernel_matches_plain_released_shape(cuda, f, n, h):
+    """The bidirectional layer kernel at the released BiRNN width (and at the
+    default H=1024, one launch per direction), 0-length, partial and full
+    rows, non-zero state: atol 1e-4, 0-length rows frozen bit for bit, the
+    launches of its plan, and a second call bit for bit equal to the first;
+    (3, 1300) has more rows than one staging holds (a ring of 16-row slots).
+    H=64 runs U=8 with fewer float4 columns than lanes; H=260 and 516 run
+    the U=4 instance, both directions in one grid and one per launch."""
+    x_proj, mask, w_hh2, h0, c0, idle = _bidi_case(f, n, h, f + n, cuda)
+    plan = K.lstm_bidi_plan(n, h)
+    assert plan.launches == (2 if h in (1024, 516) else 1)
+    assert plan.units == (4 if h % 8 else 8)
     launches = K.BIDI_LAUNCHES
     got = K.lstm_bidi_fused(x_proj, mask, w_hh2, h0, c0)
-    assert K.BIDI_LAUNCHES == launches + 1
+    again = K.lstm_bidi_fused(x_proj, mask, w_hh2, h0, c0)
+    assert K.BIDI_LAUNCHES == launches + 2 * plan.launches
     want = K.lstm_bidi_plain(x_proj, mask, w_hh2, h0, c0)
-    for a, b in zip(got, want):
+    for a, b, c in zip(got, want, again):
         torch.testing.assert_close(a, b, atol=ATOL, rtol=0)
-    idle = (lengths == 0).to(cuda)
+        assert torch.equal(a, c)
     assert torch.equal(got[1][:, idle], h0[:, idle]) and torch.equal(got[2][:, idle], c0[:, idle])
+
+
+@pytest.mark.parametrize("h", [512, 1024])
+def test_bidi_kernel_cuda_graph_capture(cuda, h):
+    """lstm_bidi_fused captured once in a CUDA graph (the call does no setup
+    and no synchronization; its cooperative launches are captured), replayed
+    on new inputs copied into the captured buffers: equal to the eager call,
+    bit for bit."""
+    x_proj, mask, w_hh2, h0, c0, _ = _bidi_case(16, 64, h, 1, cuda)
+    args = (x_proj, mask, w_hh2, h0, c0)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        K.lstm_bidi_fused(*args)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = K.lstm_bidi_fused(*args)
+    new = _bidi_case(16, 64, h, 2, cuda)
+    for dst, src in zip((x_proj, mask, h0, c0), (new[0], new[1], new[3], new[4])):
+        dst.copy_(src)
+    graph.replay()
+    torch.cuda.synchronize()
+    for a, b in zip(out, K.lstm_bidi_fused(*args)):
+        assert torch.equal(a, b)
 
 
 def _pair_case(f, n, cuda, h=512):
@@ -318,18 +362,22 @@ def _synthetic_sensor():
     return SensorSMPL(_synthetic_smplh())
 
 
-@pytest.mark.parametrize("m_type", ["ief", "rnn"], ids=["lgd_rnn", "birnn"])
-def test_served_step_matches_plain_lstm_forward(cuda, m_type):
+@pytest.mark.parametrize("m_type, hidden, bidirectional, per_step", [
+    ("ief", 512, False, 1), ("rnn", 512, True, 2), ("rnn", 1024, False, 2),
+    ("rnn", 1024, True, 4)], ids=["lgd_rnn", "birnn", "rnn_1024", "birnn_1024"])
+def test_served_step_matches_plain_lstm_forward(cuda, m_type, hidden, bidirectional, per_step):
     """Two batched serving steps at full width: one launch of the stack
     kernel per step for LGD-RNN, one of the bidirectional kernel per layer
-    for the BiRNN; poses equal the same model with the plain LSTM."""
+    for the BiRNN; at the default width 2x1024 one stack launch per layer
+    (unidirectional) and one bidirectional launch per direction and layer;
+    poses equal the same model with the plain LSTM."""
     if m_type == "ief":
         config = dict(m_type="ief", m_rnn_init=True, m_use_gradient=True, m_num_iterations=2,
                       m_rnn_hidden_size=512, m_rnn_num_layers=2)
     else:
-        config = dict(m_type="rnn", m_bidirectional=True, m_estimate_shape=True,
-                      m_shape_hidden_size=256)
-    config = Configuration.from_dict(dict(config, m_average_shape=True, m_hidden_size=512,
+        config = dict(m_type="rnn", m_bidirectional=bidirectional,
+                      m_estimate_shape=bidirectional, m_shape_hidden_size=256)
+    config = Configuration.from_dict(dict(config, m_average_shape=True, m_hidden_size=hidden,
                                           m_num_layers=2, use_marker_pos=True,
                                           use_marker_ori=True, n_markers=6))
     model = create_model(config, _synthetic_sensor())
@@ -337,7 +385,6 @@ def test_served_step_matches_plain_lstm_forward(cuda, m_type):
     ref_model = copy.deepcopy(model)
     ref_model.rnn.lstm_stack = K.lstm_stack_plain
     ref_model.rnn.lstm_bidi = K.lstm_bidi_plain
-    per_step = 1 if m_type == "ief" else 2
     rng = np.random.RandomState(0)
     streams, chunk = 32, 16
     pos = (rng.randn(streams, 2 * chunk, 36) * 0.3).astype(np.float32)

@@ -154,3 +154,75 @@ def test_operand_checks_before_launch(bad, error):
     K._check("h0", t, (2, N, H), t.device)
     with pytest.raises(ValueError, match=error):
         K._check("h0", bad(t), (2, N, H), t.device)
+
+
+@pytest.mark.parametrize("h, n", [(512, n) for n in (1, 7, 16, 64, 81, 82, 100, 1300, 100000)]
+                         + [(1024, n) for n in (1, 25, 32, 1300)]
+                         + [(64, 1), (64, 100), (260, 7), (516, 7)])
+def test_bidi_launch_plan_fits(h, n):
+    """The pure-Python launch plan: within a block's shared memory and equal
+    to the layout's formula; U=8 where 8 divides H, else U=4; both
+    directions in one grid where 2H / U blocks fit on the SMs (H=512, 64,
+    260), else one direction per launch (H=1024, 516); a co-resident grid of
+    one block per SM; a ring of 16-row slots only where the N rows do not
+    fit, and then no more bytes for more rows."""
+    plan = K.lstm_bidi_plan(n, h)
+    assert plan.smem_bytes <= 232448
+    assert plan.smem_bytes == K.bidi_smem_bytes(plan.units, h, plan.stage_rows)
+    assert plan.units == (8 if h % 8 == 0 else 4) and h % plan.units == 0
+    assert (plan.dirs, plan.launches) == ((1, 2) if h in (1024, 516) else (2, 1))
+    assert plan.blocks == plan.dirs * h // plan.units <= K.SMS
+    all_rows = K.bidi_smem_bytes(plan.units, h, n)
+    if all_rows <= K.SMEM_LIMIT:
+        assert plan.stage_rows == n
+    else:
+        assert plan.stage_rows < n and plan.stage_rows % K.PASS_ROWS == 0
+        assert 1 <= plan.stage_rows // K.PASS_ROWS <= K.MAX_SLOTS
+        assert plan.smem_bytes == K.lstm_bidi_plan(10 * n, h).smem_bytes
+
+
+@pytest.mark.parametrize("n, h", [(0, 512), (4, 510), (4, 1028), (4, 4096)])
+def test_bidi_launch_plan_refusals(n, h):
+    """No plan for an empty batch, an H the float4 rows cannot hold, or an H
+    whose H / U blocks of one direction do not fit on the SMs."""
+    with pytest.raises(ValueError):
+        K.lstm_bidi_plan(n, h)
+
+
+def test_lstm_apply_default_width_bidirectional_matches_jax():
+    """A 2-layer bidirectional LSTM at the default width H=1024 at inference,
+    ragged lengths, carried state: the port's ``lstm_apply`` (plain versions
+    on the CPU) equals JAX ``lstm_apply`` (its scan route, which JAX takes at
+    this width); each layer goes to ``bidi_fn`` once, and its plan launches
+    the kernel once per direction."""
+    hidden, num_layers, batch, f = 1024, 2, 3, 4
+    rng = np.random.RandomState(11)
+    j_params = JL.lstm_init(jax.random.PRNGKey(11), I, hidden, num_layers, bidirectional=True)
+    lstm = TL.LSTM(I, hidden, num_layers, bidirectional=True)
+    with torch.no_grad():
+        for l, layer in enumerate(j_params["layers"]):
+            for d, suffix in (("fwd", ""), ("bwd", "_reverse")):
+                for k in ("ih", "hh"):
+                    getattr(lstm, f"weight_{k}_l{l}{suffix}").copy_(
+                        torch.from_numpy(np.array(layer[d][f"w_{k}"]).T.copy()))
+                    getattr(lstm, f"bias_{k}_l{l}{suffix}").copy_(
+                        torch.from_numpy(np.array(layer[d][f"b_{k}"])))
+    lengths = np.array([f, 0, 2])
+    x = rng.randn(batch, f, I).astype(np.float32)
+    h0 = (rng.randn(2 * num_layers, batch, hidden) * 0.3).astype(np.float32)
+    c0 = (rng.randn(2 * num_layers, batch, hidden) * 0.3).astype(np.float32)
+    j_out, (j_h, j_c) = JL.lstm_apply(j_params, jnp.asarray(x), jnp.asarray(lengths),
+                                      (jnp.asarray(h0), jnp.asarray(c0)), inference=True)
+    launches = []
+
+    def bidi_fn(*args):
+        launches.append(K.lstm_bidi_plan(args[0].shape[2], args[2].shape[1]).launches)
+        return K.lstm_bidi_fused(*args)
+
+    with torch.no_grad():
+        out, (hF, cF) = TL.lstm_apply(lstm, *_t(x, lengths), _t(h0, c0), inference=True,
+                                      bidi_fn=bidi_fn)
+    assert launches == [2] * num_layers
+    np.testing.assert_allclose(out.numpy(), np.asarray(j_out), **TOL)
+    np.testing.assert_allclose(hF.numpy(), np.asarray(j_h), **TOL)
+    np.testing.assert_allclose(cF.numpy(), np.asarray(j_c), **TOL)

@@ -102,6 +102,53 @@ def test_lstm_apply_matches_jax(bidirectional):
     np.testing.assert_allclose(cF.numpy(), np.asarray(j_c), atol=ATOL)
 
 
+@pytest.mark.parametrize("layers, h, fits", [(2, 512, True), (2, 1024, False), (1, 1024, True)])
+def test_stack_fits_one_launch(layers, h, fits):
+    """The stack kernel's one-launch check, from lstm_stack.cu's shared
+    memory formula: the released 2x512 fits, the default 2x1024 does not
+    (about 410 KB a block), one layer of 1024 does (about 148 KB)."""
+    assert K.lstm_stack_fits(layers, h) is fits
+    units = K.units_per_block(h, K.SMS)
+    assert (K.stack_smem_bytes(units, h, layers) <= K.SMEM_LIMIT) is fits
+
+
+def test_lstm_apply_default_width_matches_jax():
+    """A 2-layer unidirectional LSTM at the default width H=1024 at inference,
+    ragged lengths, carried state: the port's ``lstm_apply`` (plain versions
+    on the CPU) equals JAX ``lstm_apply`` (its scan route, which JAX takes at
+    this width), atol 1e-5, rtol 1e-5; the stack does not fit in one launch,
+    so ``stack_fn`` runs one layer per call."""
+    hidden, num_layers, n, f = 1024, 2, 3, 4
+    rng = np.random.RandomState(13)
+    j_params = JL.lstm_init(jax.random.PRNGKey(13), I, hidden, num_layers, False)
+    lstm = TL.LSTM(I, hidden, num_layers, False)
+    with torch.no_grad():
+        for l, layer in enumerate(j_params["layers"]):
+            for k in ("ih", "hh"):
+                getattr(lstm, f"weight_{k}_l{l}").copy_(
+                    torch.from_numpy(np.array(layer["fwd"][f"w_{k}"]).T.copy()))
+                getattr(lstm, f"bias_{k}_l{l}").copy_(torch.from_numpy(np.array(layer["fwd"][f"b_{k}"])))
+    lengths = np.array([f, 0, 2])
+    x = rng.randn(n, f, I).astype(np.float32)
+    h0 = (rng.randn(num_layers, n, hidden) * 0.3).astype(np.float32)
+    c0 = (rng.randn(num_layers, n, hidden) * 0.3).astype(np.float32)
+    j_out, (j_h, j_c) = JL.lstm_apply(j_params, jnp.asarray(x), jnp.asarray(lengths),
+                                      (jnp.asarray(h0), jnp.asarray(c0)), inference=True)
+    layers_per_call = []
+
+    def stack_fn(*args):
+        layers_per_call.append(args[2].shape[0])
+        return K.lstm_stack_fused(*args)
+
+    with torch.no_grad():
+        out, (hF, cF) = TL.lstm_apply(lstm, torch.from_numpy(x), torch.from_numpy(lengths),
+                                      (torch.from_numpy(h0), torch.from_numpy(c0)),
+                                      stack_fn=stack_fn)
+    assert layers_per_call == [1] * num_layers
+    for got, want in ((out, j_out), (hF, j_h), (cF, j_c)):
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-5, rtol=1e-5)
+
+
 def test_rnn_layer_learned_init_state_slot_swap():
     """RNNLayer with a learned initial state == JAX rnn_layer_apply, including
     the reference quirk that feeds to_init_state_c into the h slot."""

@@ -7,18 +7,24 @@ Phases, each printed on its own line:
   1. the card's name and power limit (nvidia-smi);
   2. build of the CUDA kernels from empose_tpu_torch/csrc, one nvcc per
      source, all at once, with their register reports (the LBS kernel, the
-     8 instantiations of the training pair and the 2 of the bidirectional
-     layer kernel must not spill);
-  3. the LSTM stack kernel against its plain torch version on the card at
-     the released init-RNN shape (L=2, H=512) for the batched serving chunk
-     (F=16, N=64), the eval window (F=256, N=64) and one stream's chunk
-     (F=16, N=1), with 0-length, partial and full rows and non-zero state;
-     its median times beside the plain version and torch.nn.LSTM (cuDNN);
-     at (16, 1) also 11 rounds of stack kernel, wavefront kernel, cuDNN,
-     cuDNN, wavefront kernel, stack kernel, with the median and quartiles of
-     each and of their ratios;
-     on the same inputs the wavefront schedule of the stack kernel against
-     its plain version and against the stack kernel, and its median times;
+     8 instantiations of the training pair, the 2 of the bidirectional
+     layer kernel and the 3 of the stack kernel must not spill);
+  3. the LSTM stack kernel and its wavefront schedule against their plain
+     torch versions on the card, each with its launch plan, 0-length,
+     partial and full rows and non-zero state, 0-length rows frozen bit for
+     bit and a second call bit for bit equal to the first, the wavefront
+     also against the stack kernel: at the released init-RNN shape (L=2,
+     H=512) for the batched serving chunk (F=16, N=64), the eval window
+     (F=256, N=64) and one stream's chunk (F=16, N=1), timed beside the
+     plain versions and torch.nn.LSTM (cuDNN), at (16, 1) also 11 rounds of
+     stack kernel, wavefront kernel, cuDNN, cuDNN, wavefront kernel, stack
+     kernel, with the median and quartiles of each and of their ratios; at
+     a ragged batch (33, 7) and more rows than one staging holds (3, 1300);
+     at one layer of the default width H=1024 (16, 64), timed, beside the
+     whole 2x1024 stack as lstm_stack runs it (two launches) and
+     torch.nn.LSTM(72, 1024, 2); and at the widths that take the plan's
+     other modes (3 layers at H=64, a ring of 5 slots at H=260, U=8 with all
+     rows staged at H=1000);
   4. the LSTM training pair (forward and reverse sweep) against its plain
      versions at H=512 for the flagship training step (F=64, N=16), a large
      one (F=256, N=64), a ragged batch (33, 7), more rows than one staging
@@ -98,14 +104,16 @@ reads how far fp32 rounding alone moves a full-width LGD-RNN-6 train step
 
     python3 chip_smoke.py --step-probe
 
-reads the time per step of the forward and the reverse sweep and of the
-bidirectional layer at F=64 for N = 1, 4, 16, 32 and 64 (``step_probe``):
-what a step is made of beyond its grid barrier.
+reads the time per step of the forward and the reverse sweep, of the
+bidirectional layer and of the stack (2x512 in both schedules, and one
+layer of 1024) at F=64 for N = 1, 4, 16, 32 and 64 (``step_probe``): what a
+step is made of beyond its grid barriers.
 
     PYTHONPATH=TREE python3 -P chip_smoke.py --time-pair
 
-times both training sweeps at phase 4's timed shapes on its inputs and the
-bidirectional layer at phase 4b's (``time_pair``), for the package under
+times both training sweeps at phase 4's timed shapes on its inputs, the
+bidirectional layer at phase 4b's and the stack and its wavefront schedule
+at phase 3's (``time_pair``), for the package under
 TREE (``-P``: not the one beside the script); runs of two trees in turns
 within one call compare them.
 
@@ -165,6 +173,8 @@ STREAMS, CHUNK, CHUNKS = 64, 16, 4
 # The bidirectional layer's timed shapes: the batched serving chunk, the eval
 # window, one stream's chunk.
 BIDI_TIMED = ((CHUNK, STREAMS), (256, STREAMS), (CHUNK, 1))
+# The stack's (and its wavefront schedule's) timed shapes at 2x512: the same three.
+STACK_TIMED = BIDI_TIMED
 HIDDEN, LAYERS, N_IN = 512, 2, 6 * 12  # init RNN of LGD-RNN-6: 6 markers x (3 pos + 9 ori)
 TOL_LBS = 2e-5      # LBS kernel vs plain at metre-scale coordinates (the JAX test's)
 V_FULL, J_FULL = 6890, 52  # full SMPL-H mesh
@@ -233,20 +243,23 @@ def cuda_ms(fn, warmup: int = 3, reps: int = 15) -> float:
     return float(np.median(times))
 
 
-def stack_case(f: int, n: int, seed: int):
-    """Random init-RNN weights and a batch with 0-length, partial and full rows."""
+def stack_case(f: int, n: int, seed: int, h: int = HIDDEN, layers: int = LAYERS):
+    """Random weights of an L-layer stack of width H (input 72) and a batch
+    with 0-length, partial and full rows (one 0-length row at least where N >
+    1; the one row of N=1 runs), non-zero state."""
     g = torch.Generator().manual_seed(seed)
-    bound = HIDDEN ** -0.5
+    bound = h ** -0.5
     u = lambda *s: ((torch.rand(*s, generator=g) * 2 - 1) * bound).cuda()
-    cells = [dict(w_ih=u(N_IN if l == 0 else HIDDEN, 4 * HIDDEN), w_hh=u(HIDDEN, 4 * HIDDEN),
-                  b_ih=u(4 * HIDDEN), b_hh=u(4 * HIDDEN)) for l in range(LAYERS)]
+    cells = [dict(w_ih=u(N_IN if l == 0 else h, 4 * h), w_hh=u(h, 4 * h),
+                  b_ih=u(4 * h), b_hh=u(4 * h)) for l in range(layers)]
     x = torch.randn(f, n, N_IN, generator=g).cuda()
     lengths = torch.randint(1, f, (n,), generator=g)
-    lengths[: n // 16] = 0
-    lengths[n // 16: n // 16 + n // 3] = f
+    idle = max(n // 16, 1) if n > 1 else 0
+    lengths[:idle] = 0
+    lengths[idle: idle + n // 3] = f
     mask = (torch.arange(f)[:, None] < lengths[None]).float().cuda()
-    h0 = (torch.randn(LAYERS, n, HIDDEN, generator=g) * 0.5).cuda()
-    c0 = (torch.randn(LAYERS, n, HIDDEN, generator=g) * 0.5).cuda()
+    h0 = (torch.randn(layers, n, h, generator=g) * 0.5).cuda()
+    c0 = (torch.randn(layers, n, h, generator=g) * 0.5).cuda()
     return cells, x, mask, h0, c0
 
 
@@ -256,16 +269,16 @@ def bound_ms(flops: float, n_bytes: float) -> tuple:
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
-def stack_bound_ms(f: int, n: int) -> tuple:
+def stack_bound_ms(f: int, n: int, h: int = HIDDEN, layers: int = LAYERS) -> tuple:
     """Least time for the stack on this card: the larger of its fp32 FMA
     work over the fp32 peak and its bytes (each input read once, each
     output written once) over the memory rate."""
-    h4 = 4 * HIDDEN
-    flops = 2.0 * f * n * HIDDEN * h4 * (2 * LAYERS - 1)
+    h4 = 4 * h
+    flops = 2.0 * f * n * h * h4 * (2 * layers - 1)
     n_bytes = 4.0 * (f * n * h4 + f * n                       # x0_proj, mask
-                     + (2 * LAYERS - 1) * HIDDEN * h4 + (LAYERS - 1) * h4  # weights, b_up
-                     + 2 * LAYERS * n * HIDDEN                  # h0, c0
-                     + f * n * HIDDEN + 2 * LAYERS * n * HIDDEN)  # outs, hF, cF
+                     + (2 * layers - 1) * h * h4 + (layers - 1) * h4  # weights, b_up
+                     + 2 * layers * n * h                       # h0, c0
+                     + f * n * h + 2 * layers * n * h)          # outs, hF, cF
     return bound_ms(flops, n_bytes)
 
 
@@ -312,40 +325,72 @@ def stack_vs_cudnn_rounds(f: int, n: int, rounds: int, kernel, kernel_proj, wave
           f"{quartiles(w)}; wavefront / cuDNN {quartiles(ratio_w)}", flush=True)
 
 
-def stack_phase(f: int, n: int, seed: int, rounds: int = 0) -> dict:
-    """The stack kernel and its wavefront schedule against their plain
-    versions, then median times beside cuDNN's stack (and ``rounds`` rounds
-    in turns against cuDNN); returns both rows."""
-    cells, x, mask, h0, c0 = stack_case(f, n, seed)
-    args = K.stack_operands(cells, x)
-    args = (args[0], mask, args[1], args[2], args[3], h0, c0)
-    got = K.lstm_stack_fused(*args)
-    want = K.lstm_stack_plain(*args)
-    torch.cuda.synchronize()
-    err = max_err(got, want)
-    frozen = frozen_rows(got, mask, h0, c0)
-    print(f"kernel F={f} N={n}: max_abs_err vs plain {err:.3e} (outs, hF, cF); "
-          f"0-length rows frozen bit for bit: {frozen}", flush=True)
-    check(err <= TOL, f"kernel disagrees with its plain version at F={f}: {err} > {TOL}")
-    check(frozen, f"kernel changed the state of 0-length rows at F={f}")
-    wave = K.lstm_stack_wavefront_fused(*args)
-    wave_err = max_err(wave, K.lstm_stack_wavefront_plain(*args))
-    wave_stack_err = max_err(wave, got)
-    wave_frozen = frozen_rows(wave, mask, h0, c0)
-    print(f"wavefront kernel F={f} N={n}: max_abs_err vs its plain version {wave_err:.3e}, vs "
-          f"the stack kernel {wave_stack_err:.3e} (outs, hF, cF); 0-length rows frozen bit for "
-          f"bit: {wave_frozen}", flush=True)
-    check(max(wave_err, wave_stack_err) <= TOL,
-          f"wavefront kernel disagrees at F={f} N={n}: {wave_err}, {wave_stack_err} > {TOL}")
-    check(wave_frozen, f"wavefront kernel changed the state of 0-length rows at F={f} N={n}")
-
-    lstm = torch.nn.LSTM(N_IN, HIDDEN, LAYERS).cuda()
+def cudnn_stack(cells, h: int):
+    """torch.nn.LSTM (cuDNN) holding the stack's weights."""
+    lstm = torch.nn.LSTM(N_IN, h, len(cells)).cuda()
     with torch.no_grad():
         for l, c in enumerate(cells):
             getattr(lstm, f"weight_ih_l{l}").copy_(c["w_ih"].t())
             getattr(lstm, f"weight_hh_l{l}").copy_(c["w_hh"].t())
             getattr(lstm, f"bias_ih_l{l}").copy_(c["b_ih"])
             getattr(lstm, f"bias_hh_l{l}").copy_(c["b_hh"])
+    return lstm
+
+
+def stack_check(name: str, shape: str, fused, plain, args, counter: str) -> float:
+    """One schedule of the stack kernel against its plain version: one launch
+    per call, 0-length rows frozen bit for bit, a second call bit for bit
+    equal to the first; returns the largest error."""
+    launches = getattr(K, counter)
+    got = fused(*args)
+    again = fused(*args)
+    check(getattr(K, counter) - launches == 2,
+          f"{name} at {shape}: {getattr(K, counter) - launches} launches for 2 calls")
+    want = plain(*args)
+    torch.cuda.synchronize()
+    err = max_err(got, want)
+    frozen = frozen_rows(got, args[1], args[5], args[6])
+    repeat = all(torch.equal(a, b) for a, b in zip(got, again))
+    print(f"{name} {shape}: max_abs_err vs its plain version {err:.3e} (outs, hF, cF); 0-length "
+          f"rows ({int((args[1].sum(0) == 0).sum())}) frozen bit for bit: {frozen}; a second "
+          f"call bit for bit equal to the first: {repeat}", flush=True)
+    check(err <= TOL, f"{name} disagrees with its plain version at {shape}: {err} > {TOL}")
+    check(frozen, f"{name} changed the state of 0-length rows at {shape}")
+    check(repeat, f"two {name} calls on the same inputs differ at {shape}")
+    return err
+
+
+def stack_phase(f: int, n: int, seed: int, h: int = HIDDEN, layers: int = LAYERS,
+                rounds: int = 0, timed: bool = True) -> dict:
+    """The stack kernel and (from 2 layers) its wavefront schedule at width
+    ``h`` against their plain versions (``stack_check``), each with its
+    launch plan, the wavefront also against the stack kernel; when
+    ``timed``, median times beside the plain versions and cuDNN's stack (and
+    ``rounds`` rounds in turns against cuDNN). Returns both rows."""
+    cells, x, mask, h0, c0 = stack_case(f, n, seed, h, layers)
+    ops = K.stack_operands(cells, x)
+    args = (ops[0], mask, ops[1], ops[2], ops[3], h0, c0)
+    shape = f"F={f} N={n}" + ("" if (h, layers) == (HIDDEN, LAYERS) else f" {layers}x{h}")
+    print(f"stack launch plan {shape}: {K.lstm_stack_plan(layers, n, h)._asdict()}", flush=True)
+    err = stack_check("stack kernel", shape, K.lstm_stack_fused, K.lstm_stack_plain, args,
+                      "LAUNCHES")
+    wave_err = None
+    if layers > 1:
+        print(f"wavefront launch plan {shape}: "
+              f"{K.lstm_stack_plan(layers, n, h, wavefront=True)._asdict()}", flush=True)
+        wave_err = stack_check("wavefront kernel", shape, K.lstm_stack_wavefront_fused,
+                               K.lstm_stack_wavefront_plain, args, "WAVEFRONT_LAUNCHES")
+        wave_stack_err = max_err(K.lstm_stack_wavefront_fused(*args), K.lstm_stack_fused(*args))
+        print(f"wavefront kernel {shape}: max_abs_err vs the stack kernel {wave_stack_err:.3e}",
+              flush=True)
+        check(wave_stack_err <= TOL, f"wavefront kernel disagrees with the stack kernel at "
+                                     f"{shape}: {wave_stack_err} > {TOL}")
+        wave_err = max(wave_err, wave_stack_err)
+    if not timed:
+        return {"stack": dict(max_abs_err=err), "wavefront": dict(max_abs_err=wave_err)}
+
+    lstm = cudnn_stack(cells, h)
+    with torch.no_grad():
         full = torch.ones_like(mask)
         lib_err = (lstm(x, (h0, c0))[0] - K.lstm_stack(cells, x, full, h0, c0, K.lstm_stack_plain)[0]
                    ).abs().max().item()
@@ -353,28 +398,55 @@ def stack_phase(f: int, n: int, seed: int, rounds: int = 0) -> dict:
         stack_ms = cuda_ms(lambda: K.lstm_stack(cells, x, mask, h0, c0))
         plain_ms = cuda_ms(lambda: K.lstm_stack_plain(*args), reps=7 if f > 64 else 15)
         library_ms = cuda_ms(lambda: lstm(x, (h0, c0)))
-        wave_ms = cuda_ms(lambda: K.lstm_stack_wavefront_fused(*args))
-        wave_plain_ms = cuda_ms(lambda: K.lstm_stack_wavefront_plain(*args),
-                                reps=7 if f > 64 else 15)
+        if layers > 1:
+            wave_ms = cuda_ms(lambda: K.lstm_stack_wavefront_fused(*args))
+            wave_plain_ms = cuda_ms(lambda: K.lstm_stack_wavefront_plain(*args),
+                                    reps=7 if f > 64 else 15)
         if rounds:
             stack_vs_cudnn_rounds(f, n, rounds, lambda: K.lstm_stack_fused(*args),
                                   lambda: K.lstm_stack(cells, x, mask, h0, c0),
                                   lambda: K.lstm_stack_wavefront_fused(*args),
                                   lambda: lstm(x, (h0, c0)))
-    b_ms, b_by = stack_bound_ms(f, n)
-    print(f"times F={f} N={n}: kernel {ms:.4f} ms, kernel with input projection "
-          f"{stack_ms:.4f} ms, plain {plain_ms:.4f} ms, torch.nn.LSTM (cuDNN, from x) "
-          f"{library_ms:.4f} ms (max diff to plain at full lengths {lib_err:.2e}), "
-          f"bound {b_ms:.4f} ms by {b_by}", flush=True)
-    print(f"wavefront times F={f} N={n}: wavefront kernel {wave_ms:.4f} ms ({f + LAYERS - 1} "
-          f"grid barriers) against the stack kernel {ms:.4f} ms ({f * LAYERS}), wavefront plain "
-          f"{wave_plain_ms:.4f} ms, torch.nn.LSTM (cuDNN) {library_ms:.4f} ms, bound "
-          f"{b_ms:.4f} ms by {b_by}", flush=True)
-    return {"stack": dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
-                          library_ms=library_ms),
-            "wavefront": dict(max_abs_err=max(wave_err, wave_stack_err), ms=wave_ms,
-                              plain_ms=wave_plain_ms, bound_ms=b_ms, bound_by=b_by,
-                              library_ms=library_ms)}
+    b_ms, b_by = stack_bound_ms(f, n, h, layers)
+    print(f"times {shape}: kernel {ms:.4f} ms ({ms * 1e3 / (f * layers):.2f} us per (step, "
+          f"layer)), kernel with input projection {stack_ms:.4f} ms, plain {plain_ms:.4f} ms, "
+          f"torch.nn.LSTM (cuDNN, from x) {library_ms:.4f} ms (max diff to plain at full lengths "
+          f"{lib_err:.2e}), bound {b_ms:.4f} ms by {b_by}", flush=True)
+    out = {"stack": dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                         library_ms=library_ms)}
+    if layers > 1:
+        print(f"wavefront times {shape}: wavefront kernel {wave_ms:.4f} ms ({f + layers - 1} "
+              f"grid barriers) against the stack kernel {ms:.4f} ms ({f * layers}), wavefront "
+              f"plain {wave_plain_ms:.4f} ms, torch.nn.LSTM (cuDNN) {library_ms:.4f} ms, bound "
+              f"{b_ms:.4f} ms by {b_by}", flush=True)
+        out["wavefront"] = dict(max_abs_err=wave_err, ms=wave_ms, plain_ms=wave_plain_ms,
+                                bound_ms=b_ms, bound_by=b_by, library_ms=library_ms)
+    return out
+
+
+def stack_default_width_times(f: int, n: int, seed: int) -> dict:
+    """The default-width (2x1024) stack as ``lstm_stack`` runs it, one layer
+    per launch of the stack kernel (two launches and layer 1's input
+    projection), beside torch.nn.LSTM(72, 1024, 2) (cuDNN) and the plain
+    version, on the same inputs."""
+    h = 2 * HIDDEN
+    cells, x, mask, h0, c0 = stack_case(f, n, seed, h, LAYERS)
+    check(not K.lstm_stack_fits(LAYERS, h), "the 2x1024 stack fits one launch")
+    lstm = cudnn_stack(cells, h)
+    with torch.no_grad():
+        launches = K.LAUNCHES
+        got = K.lstm_stack(cells, x, mask, h0, c0)
+        check(K.LAUNCHES - launches == LAYERS, f"2x1024 stack: {K.LAUNCHES - launches} launches")
+        want = K.lstm_stack(cells, x, mask, h0, c0, K.lstm_stack_plain)
+        err = max(max_err((got[0],), (want[0],)), max_err(got[1], want[1]))
+        times = {"lstm_stack_ms": cuda_ms(lambda: K.lstm_stack(cells, x, mask, h0, c0)),
+                 "plain_ms": cuda_ms(lambda: K.lstm_stack(cells, x, mask, h0, c0,
+                                                          K.lstm_stack_plain)),
+                 "cudnn_ms": cuda_ms(lambda: lstm(x, (h0, c0)))}
+    print(f"2x1024 stack F={f} N={n} (lstm_stack: {LAYERS} launches, one layer each): "
+          f"max_abs_err vs plain {err:.3e}; times (ms) {times}", flush=True)
+    check(err <= TOL, f"the 2x1024 stack disagrees with its plain version: {err} > {TOL}")
+    return dict(times, max_abs_err=err)
 
 
 def bidi_bound_ms(f: int, n: int, h: int = HIDDEN) -> tuple:
@@ -721,8 +793,10 @@ def train_pair_phase(f: int, n: int, seed: int, timed: bool, h: int = HIDDEN) ->
 
 def time_pair() -> int:
     """``python3 chip_smoke.py --time-pair``: both training sweeps' median
-    times at PAIR_TIMED on phase 4's inputs, and the bidirectional layer's
-    (``lstm_bidi_fused``) at BIDI_TIMED on phase 4b's, and nothing else. It
+    times at PAIR_TIMED on phase 4's inputs, the bidirectional layer's
+    (``lstm_bidi_fused``) at BIDI_TIMED on phase 4b's, and the stack's and
+    its wavefront schedule's at STACK_TIMED (2x512) and of the stack at one
+    layer of 1024 (16, 64) on phase 3's, and nothing else. It
     times the package that ``import empose_tpu_torch`` finds:
     ``PYTHONPATH=TREE python3 -P chip_smoke.py --time-pair`` (``-P``: not the
     script's own directory) times the source tree TREE, so runs of two trees
@@ -731,7 +805,7 @@ def time_pair() -> int:
     if not print_card():
         return 2
     print(f"package: {os.path.dirname(TK.__file__)}", flush=True)
-    cuda_build.build([TK.NAME, K.BIDI_NAME], force=True)
+    cuda_build.build([TK.NAME, K.BIDI_NAME, K.NAME], force=True)
     out = {}
     for f, n in PAIR_TIMED:
         g = torch.Generator().manual_seed(SEED + f + n)
@@ -747,21 +821,34 @@ def time_pair() -> int:
         args = bidi_inputs(f, n, seed=SEED + f + n + 1)[-1]
         out[f"bidi {f}x{n}"] = {"bidi_ms": cuda_ms(lambda: K.lstm_bidi_fused(*args))}
         print(f"bidi times F={f} N={n}: {out[f'bidi {f}x{n}']}", flush=True)
+    for f, n, h, layers in (*((f, n, HIDDEN, LAYERS) for f, n in STACK_TIMED),
+                            (CHUNK, STREAMS, 2 * HIDDEN, 1)):
+        cells, x, mask, h0, c0 = stack_case(f, n, SEED + f + n, h, layers)
+        ops = K.stack_operands(cells, x)
+        args = (ops[0], mask, ops[1], ops[2], ops[3], h0, c0)
+        row = {"stack_ms": cuda_ms(lambda: K.lstm_stack_fused(*args))}
+        if layers > 1:
+            row["wavefront_ms"] = cuda_ms(lambda: K.lstm_stack_wavefront_fused(*args))
+        key = f"stack {f}x{n}" + ("" if layers > 1 else f" 1x{h}")
+        out[key] = row
+        print(f"{key} times: {row}", flush=True)
     print(json.dumps({"package": os.path.dirname(TK.__file__), "times": out}), flush=True)
     return 0
 
 
 def step_probe(f: int = TRAIN_WINDOW, ns=(1, 4, 16, 32, 64)) -> int:
     """``python3 chip_smoke.py --step-probe``: what a step of each training
-    sweep and of the bidirectional layer is made of: its time per step at F
+    sweep, of the bidirectional layer and of the stack (2x512 in both
+    schedules, and one layer of 1024) is made of: its time per step at F
     steps for growing N (median event time of the wrapper over F). At N=1
     the staged rows and the FMAs are nearly nothing, so the step is the grid
-    barrier, the elementwise work and the launch; each row adds its FMAs
+    barriers, the elementwise work and the launch; each row adds its FMAs
     and, per block at H=512, its 2 KB of h_all[t-1] (forward, bidi) or 8 KB
-    of dgates[t] (reverse)."""
+    of dgates[t] (reverse), or 2 KB per staged state (stack: 3 per step,
+    wavefront: 2)."""
     if not print_card():
         return 2
-    cuda_build.build([TK.NAME, K.BIDI_NAME], force=True)
+    cuda_build.build([TK.NAME, K.BIDI_NAME, K.NAME], force=True)
     g = torch.Generator().manual_seed(SEED)
     fwd_us, us = {}, {}
     for n in ns:
@@ -784,8 +871,24 @@ def step_probe(f: int = TRAIN_WINDOW, ns=(1, 4, 16, 32, 64)) -> int:
     print(f"bidi layer per step at F={f}, U={K.lstm_bidi_plan(1, HIDDEN).units}, us by N (plans: "
           f"{ {n: K.lstm_bidi_plan(n, HIDDEN).stage_rows for n in ns} } rows staged at once): "
           + ", ".join(f"N={n} {v:.2f}" for n, v in bidi_us.items()), flush=True)
+    stack_us = {}
+    for name, h, layers, fn in (("stack", HIDDEN, LAYERS, K.lstm_stack_fused),
+                                ("wavefront", HIDDEN, LAYERS, K.lstm_stack_wavefront_fused),
+                                ("stack 1x1024", 2 * HIDDEN, 1, K.lstm_stack_fused)):
+        times = {}
+        for n in ns:
+            cells, x, mask, h0, c0 = stack_case(f, n, SEED + n, h, layers)
+            ops = K.stack_operands(cells, x)
+            args = (ops[0], mask, ops[1], ops[2], ops[3], h0, c0)
+            times[n] = cuda_ms(lambda: fn(*args)) * 1e3 / f
+        stack_us[name] = times
+        wave = name == "wavefront"
+        print(f"{name} per step at F={f}, us by N (plans: "
+              f"{ {n: K.lstm_stack_plan(layers, n, h, wavefront=wave).stage_rows for n in ns} } "
+              f"rows staged at once): " + ", ".join(f"N={n} {v:.2f}" for n, v in times.items()),
+              flush=True)
     print(json.dumps({"fwd_us_per_step": fwd_us, "bwd_us_per_step": us,
-                      "bidi_us_per_step": bidi_us}), flush=True)
+                      "bidi_us_per_step": bidi_us, "stack_us_per_step": stack_us}), flush=True)
     return 0
 
 
@@ -1416,12 +1519,32 @@ def main() -> int:
     check(len(bidi_fns) == 2 and not spills, f"the bidi kernel's instantiations "
                                              f"{sorted(bidi_fns)} do not all build without "
                                              f"spills: {spills}")
+    stack_fns = {fn: lines for fn, lines in ptxas_report(logs[K.NAME]).items()
+                 if "lstm_stack_kernel" in fn}
+    for fn, lines in sorted(stack_fns.items()):
+        print(f"build {K.NAME} {fn}: {'; '.join(lines)}", flush=True)
+    spills = [line for lines in stack_fns.values() for line in lines
+              if "spill" in line and "0 bytes spill stores, 0 bytes spill loads" not in line]
+    check(len(stack_fns) == 3 and not spills, f"the stack kernel's instantiations "
+                                              f"{sorted(stack_fns)} do not all build without "
+                                              f"spills: {spills}")
     print(f"build: nvcc {time.perf_counter() - t0:.2f} s for {len(logs)} sources in parallel",
           flush=True)
 
-    # The batched serving chunk, the eval window, and one stream's chunk.
+    # Timed: STACK_TIMED at 2x512 (one stream's chunk also in rounds against
+    # cuDNN) and one layer of the default width 1024 at the serving chunk,
+    # beside the whole 2x1024 stack as lstm_stack runs it; checked: a ragged
+    # batch, more rows than one staging holds, and the widths that take the
+    # plan's other modes (L=3 at H=64, fewer float4 columns than lanes; a
+    # ring of 5 slots at H=260; U=8 with all rows staged at H=1000).
     stack = {(f, n): stack_phase(f, n, seed=SEED + f + n, rounds=11 if n == 1 else 0)
-             for f, n in ((CHUNK, STREAMS), (256, STREAMS), (CHUNK, 1))}
+             for f, n in STACK_TIMED}
+    for f, n in ((33, 7), (3, 1300)):
+        stack_phase(f, n, seed=SEED + f + n, timed=False)
+    stack_phase(CHUNK, STREAMS, seed=SEED + 1024, h=2 * HIDDEN, layers=1)
+    stack_default_width_times(CHUNK, STREAMS, seed=SEED + 1024)
+    for f, n, h, layers in ((CHUNK, 7, 64, 3), (CHUNK, 300, 260, 2), (CHUNK, 20, 1000, 1)):
+        stack_phase(f, n, seed=SEED + h, h=h, layers=layers, timed=False)
     # Timed: PAIR_TIMED; checked: a ragged batch, one step of one row, more
     # rows than either sweep could keep in shared memory.
     pair = {(f, n): train_pair_phase(f, n, seed=SEED + f + n, timed=(f, n) in PAIR_TIMED)

@@ -1,431 +1,557 @@
-// Weight-resident LSTM stack forward for Hopper (sm_90a), one cooperative launch.
+// LSTM stack forward for Hopper (sm_90a): a whole unidirectional L-layer
+// stack over F steps in one cooperative launch, in the stack schedule or the
+// wavefront schedule.
 //
-// Replaces the Pallas TPU kernel empose_tpu/ops/lstm_kernel.py::_pallas_forward
-// (body _make_kernel): the inference forward of a unidirectional L-layer LSTM
-// stack over F steps, gates in torch order (i, f, g, o).  Layer 0's gate input
-// is the hoisted projection x0_proj (both biases folded in, computed outside
-// as one GEMM); deeper layers use prev_out @ W_ih + b.  Where mask == 0 the
-// (h, c) state is frozen bit for bit and the step's output is h_new * mask.
+// Replaces two Pallas TPU kernels of empose_tpu/ops/lstm_kernel.py:
+//   * _pallas_forward (body _make_kernel), entry lstm_stack_forward: the
+//     inference forward of the stack, one (step, layer) per phase;
+//   * _pallas_wavefront (body _make_wavefront_kernel), entry
+//     lstm_wavefront_forward: the same stack with layer l at time t - l in
+//     phase t, so F + L - 1 phases instead of F * L.
+// Gates in torch order (i, f, g, o).  Layer 0's gate input is the hoisted
+// projection x0_proj (both biases folded in, computed outside as one GEMM);
+// layer l >= 1's is prev_out @ W_ih[l] + b[l], prev_out being layer l-1's
+// output h_new * mask.  Where mask == 0 the (h, c) state is selected, frozen
+// bit for bit, and the step's output is h_new * mask.
 //
 // What bounds it on this card.  The recurrence is serial in time, and every
-// step needs all (2L-1) weight matrices: 12.6 MB at L=2, H=512.  Re-reading
-// them from device memory each step (what a loop of library GEMMs does) makes
-// the stack weight-reload-bound; with the weights resident the least time is
-// the fp32 FMA work, 2*F*N*H*4H*(2L-1) operations, which at N=64 is above the
-// card's bytes line.  The TPU kernel kept all weights in one core's 16 MB
-// VMEM.  One H100 SM has 227 KB of shared memory, so here the weights are
-// spread over the SMs instead:
-//   * each block owns U consecutive hidden units j and computes their four
-//     gate columns {j, H+j, 2H+j, 3H+j} for every batch row, so the c/h
-//     update of a unit never leaves its block;
-//   * the block's columns of W_hh (every layer) and W_ih (layers >= 1) are
-//     loaded into dynamic shared memory once and stay there for all F steps
-//     (3 * 512 * 16 * 4 B = 96 KB at L=2, H=512, U=4);
-//   * the h of every layer goes through a double-buffered global buffer that
-//     stays in L2, and one grid-wide barrier separates dependent phases:
-//     L barriers per time step;
-//   * fp32 FMAs on the CUDA cores, no tensor cores (the fp32 parity mode).
-//     Inside a block the loop is bound by shared-memory reads, not FMAs:
-//     each thread multiplies 4 batch rows by its unit's 4 gate columns over
-//     a quarter of every k-tile (8 float4 reads per 64 FMAs), and the four
-//     partial sums meet in shared memory.
-// The grid must be co-resident for the barrier, so the host side launches it
-// with cudaLaunchCooperativeKernel and refuses a grid that does not fit.
-//
-// The same kernel runs the wavefront schedule (lstm_wavefront_forward), which
-// replaces the Pallas TPU kernel empose_tpu/ops/lstm_kernel.py::
-// _pallas_wavefront: in phase p every layer l with 0 <= p - l < F steps at
-// its own time t = p - l, so the stack needs F + L - 1 grid barriers instead
-// of F * L.  Each phase then does up to L gate products per block, one after
-// the other; the weights, tiles and exchange buffer are the stack's.  Layer
-// l >= 1's input is layer l-1's state at the same time t, written one phase
-// earlier, times mask[t]: the output h_new * m of the TPU kernel's pipe.
+// step needs all (2L-1) weight matrices (12.6 MB at L=2, H=512).  With the
+// weights resident on chip the least time is the fp32 FMA work,
+// 2*F*N*H*4H*(2L-1) operations (0.096 ms at F=16, N=64, 2x512); beyond it
+// each phase pays a grid barrier (1.5-2.8 us on an H100) and the staging of
+// the rows of h it multiplies, which are written by every block just before
+// the barrier and so cannot be prefetched.  The design is the bidirectional
+// kernel's recurrence (csrc/lstm_bidi.cu) carried across the layer loop:
+//   * Grid.  Each block owns U consecutive hidden units j of EVERY layer and
+//     keeps their four gate columns {j, H+j, 2H+j, 3H+j} of every W_hh and of
+//     W_ih of layers >= 1 resident in shared memory, laid out so that
+//     neighbouring threads read neighbouring float4.  U=4 where H/4 blocks
+//     fit on the SMs (2x512: 128 blocks of 96 KB of columns), else U=8 (one
+//     layer of 1024: 128 blocks of 128 KB).  The launch plan
+//     (ops/lstm_kernel.py::lstm_stack_plan) refuses a stack whose columns do
+//     not fit (2x1024), which the wrapper then runs one layer per launch.
+//   * Staging.  A phase multiplies the states of a run of layers: in the
+//     stack order, phase (t, l) layer l's h after t-1 and, for l >= 1, layer
+//     l-1's h after t (its output, up to the mask); in the wavefront order
+//     phase p needs every active layer k's h after p-k-1, and each staged
+//     state serves twice: as layer k's recurrent operand and as layer k+1's
+//     input, from ONE staging.  In the stack order at two layers the same
+//     holds across phases: phase (t, 1) stages layer 0's h after t as its
+//     input, and phase (t + 1, 0) multiplies the rows still in shared memory
+//     in place (all of them where every row is staged at once, 2x512: N <=
+//     32; else the last chunk of each team's ring) and copies only the rest.
+//     The rows are copied by 16-byte cp.async.cg (through L2, never a stale
+//     L1), one copy group per chunk of 16 rows holding every operand's rows
+//     of the chunk; the pass over chunk c waits only for chunk c's group.
+//     Where the rows do not fit beside the columns, the chunks cycle through
+//     a ring of 16-row slots, the next in flight while the current one is
+//     multiplied; with one slot a chunk is copied only once every thread is
+//     done with the one before.  So any N runs.  h0 is read in place at the
+//     first step.
+//   * Teams.  At U=4 a block runs two teams of 8 warps (512 threads of at
+//     most 128 registers each), which take a phase's chunks in turns, each
+//     with its own share of the ring and its own named barrier, so that one
+//     team's tile epilogue and staging wait overlap the other's FMAs (faster
+//     at N=64 on an H100 than one team of 256 threads); a phase of one
+//     chunk, or a one-slot ring, runs one team.  U=8 runs one team (its
+//     64-sum tiles spill at 128 registers).
+//   * FMAs.  Warp (unit pair, row group) multiplies its rows of the chunk by
+//     the eight gate columns of its two units, lane l over the float4
+//     columns l, l + 32, ... of H; a staged value is read from shared memory
+//     once per unit pair, and the columns straight from their resident copy
+//     (holding a share of them in registers for the whole sweep, as the
+//     bidirectional kernel does, was no faster on an H100 at any shape
+//     timed).  At U=8 a warp's 8 rows of a chunk are one register tile of
+//     64 sums, at U=4 its 4 rows one of 32; fewer rows take 4, 2 and 1-row
+//     tiles, so no FMA and no shared load falls on a row beyond N.  A layer
+//     l >= 1 adds its input product first, scales each row's sums by the
+//     row's mask (the input is h_new * mask, and the staged row is the
+//     state, h_new where the mask is 1), then its recurrent product, into
+//     the same tile.  The kernel's pointers stay in parameter space
+//     (StackArgs) until a tile's epilogue needs them.
+//   * Sums and cell, in the warp.  The partial sums meet in a fixed-order
+//     warp reduce-scatter (lstm_common.cuh), each lane adds its gate input
+//     (x0_proj or the bias, read before the FMAs) and applies its gate's
+//     nonlinearity, and the first lane of each (row, unit) gathers the four
+//     gates and writes h, c and the output: no atomics and no shared memory,
+//     so two launches on the same inputs give the same bits.  c0 is read in
+//     place at the first step; c then lives in c_out, each element read and
+//     written by the same lane.
+//   * One grid barrier per phase, none after the last: F * L in the stack
+//     order, F + L - 1 in the wavefront order.
+// fp32 FMAs on the CUDA cores, no tensor cores (the fp32 parity mode).
+// The grid must be co-resident for the barrier: lstm_stack_prepare sets the
+// kernel's shared memory and checks its occupancy once per device, the plan
+// keeps the grid within the SMs, and the C entries only launch
+// (cudaLaunchCooperativeKernel): no attribute or device query per call, so
+// a call can be captured in a CUDA graph.
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
+
+#include "lstm_common.cuh"
 
 namespace cg = cooperative_groups;
 
 namespace {
 
-constexpr int kThreads = 256;
+using lstm::component;
+using lstm::cp_async16;
+using lstm::cp_async_commit;
+using lstm::cp_async_wait_upto;
+using lstm::sigmoid_f;
+using lstm::warp_reduce_scatter;
 
-// k-width of one staged activation tile, per units-per-block U: the widest
-// that keeps weights + two tiles inside a block's 227 KB at L=2 (fewer
-// tiles = fewer block barriers per phase).
-__host__ __device__ constexpr int tile_k(int U) { return U == 1 ? 32 : U == 2 ? 64 : U == 4 ? 128 : 64; }
+constexpr int kTeamThreads = 256;  // threads of a team: 8 warps
+constexpr int kTeamWarps = kTeamThreads / 32;
+constexpr int kPassRows = 16;  // rows of a staged chunk
+constexpr int kUnitPair = 2;   // units a warp multiplies at once
 
-// Error codes beside cudaError_t values (which are >= 0).
+// Teams of a block, at most (see the head note): U=4 runs two, U=8 one.
+template <int U>
+constexpr int kTeams = U == 4 ? 2 : 1;
+template <int U>
+constexpr int kBlockThreads = kTeamThreads * kTeams<U>;
+
+// Error codes beside cudaError_t values (which are >= 0); the same values
+// as lstm_bidi.cu and lstm_train.cu.
 constexpr int kErrGridTooLarge = -1;
-constexpr int kErrSharedTooLarge = -2;
 constexpr int kErrNoCooperative = -3;
 constexpr int kErrBadShape = -4;
 
-__device__ __forceinline__ float sigmoid_f(float x) { return 1.0f / (1.0f + expf(-x)); }
+__host__ __device__ constexpr size_t round32(size_t x) { return (x + 31) / 32 * 32; }
 
-// Thread layout.  Thread t = ((ks * RGN) + rg) * U + u owns unit j0 + u,
-// the R rows {rg, rg + RGN, ...} of each pass of RG = R * RGN rows, and the
-// ks-th quarter of every staged k-tile: per 4 k it reads 4 weight float4
-// (the unit's four gates) and R activation float4, and does 16 R FMAs.  The
-// KSPLIT partial sums are then added through shared memory by thread
-// (row = t / U, unit u), which owns that (row, unit)'s c/h update.
-constexpr int kRows = 4;    // R: batch rows per thread
-constexpr int kSplit = 4;   // KSPLIT: ways the k range of a tile is split
+// Whether instance U runs stacks of more than one layer.  U=8 runs one layer
+// only: it is taken where H > 528 (H / 4 blocks do not fit on 132 SMs), and
+// there the columns of two layers (3 * 128 H bytes) leave no room for one
+// 16-row slot of two staged states.
+template <int U>
+constexpr bool kStacked = U == 4;
 
-// Shared-memory layout (floats):
-//   w_s   [(2L-1)][H][U][4]  matrix m < L is W_hh[m], m >= L is W_ih_up[m-L]
-//   b_s   [(L-1)][U][4]
-//   h_s   [RG][KT + 4]       staged tile of h_prev rows (padded: float4-aligned,
-//                            consecutive rows on distinct banks)
-//   x_s   [RG][KT + 4]       staged tile of the layer input (layers >= 1)
-//   red   [KSPLIT][RG][U][4] partial gate sums; aliases h_s/x_s after a tile sweep
+// State planes staged per phase: the stack order multiplies at most two
+// layers' states (layer l's and layer l-1's), the wavefront order all L.
+__host__ __device__ constexpr int stage_planes(int L, bool wave) {
+  return wave ? L : (L < 2 ? L : 2);
+}
+
+// Shared memory of a block (floats), in this order:
+//   w_s  [2L-1][4][U][H], each matrix to 128 bytes: the block's gate columns
+//        of matrix m; the float4 of unit u's four gates at row k = 4c + q
+//        sits at m * round32(4UH) + (q * U + u) * H + 4c
+//   h_s  [planes][stage_rows][H]: plane o holds the staged rows of the
+//        phase's o-th state, all N, or a ring of stage_rows / 16 chunk slots
+// The same formula as ops/lstm_kernel.py::stack_smem_bytes.
+__host__ __device__ constexpr size_t smem_floats(int U, int H, int L, int planes,
+                                                 int stage_rows) {
+  return (size_t)(2 * L - 1) * round32((size_t)4 * U * H) + (size_t)planes * stage_rows * H;
+}
+
+// The kernel's arguments, passed as one struct in parameter space: a piece
+// reads its pointers from there where it needs them, so they hold no
+// registers across the FMAs.
+struct StackArgs {
+  const float* x0_proj;  // (F, N, 4H)
+  const float* mask;     // (F, N)
+  const float* w_hh;     // (L, H, 4H)
+  const float* w_ih_up;  // (L-1, H, 4H) or null
+  const float* b_up;     // (L-1, 4H) or null
+  const float* h0;       // (L, N, H)
+  const float* c0;       // (L, N, H)
+  float* outs;           // (F, N, H)
+  float* hbuf;           // (2, L, N, H): layer l's h after step t in hbuf[(t + 1) & 1][l]
+  float* c_out;          // (L, N, H): c, cF at the end
+  int F, N, H, L, stage_rows, teams;
+};
+
+// acc += the NP staged rows `rows` (stride H) times the eight gate columns
+// of units u0, u0 + 1 of one matrix (w4: the block's resident columns of it
+// as float4).  Lane l multiplies the float4 columns l, l + 32, ... of H.
+template <int U, int NP>
+__device__ __forceinline__ void fma_tile(float* acc, const float* rows, const float4* w4, int u0,
+                                         int lane, int C4) {
+  constexpr int UP = kUnitPair;
+  const float4* r4 = reinterpret_cast<const float4*>(rows);
+  for (int c = lane; c < C4; c += 32) {
+    float4 w[UP][4];
+#pragma unroll
+    for (int ui = 0; ui < UP; ++ui)
+#pragma unroll
+      for (int q = 0; q < 4; ++q) w[ui][q] = w4[(q * U + u0 + ui) * C4 + c];
+#pragma unroll
+    for (int r = 0; r < NP; ++r) {
+      const float4 h = r4[r * C4 + c];
+#pragma unroll
+      for (int ui = 0; ui < UP; ++ui)
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          const float a = component(h, q);
+          float* out = acc + (r * UP + ui) * 4;
+          out[0] = fmaf(a, w[ui][q].x, out[0]);
+          out[1] = fmaf(a, w[ui][q].y, out[1]);
+          out[2] = fmaf(a, w[ui][q].z, out[2]);
+          out[3] = fmaf(a, w[ui][q].w, out[3]);
+        }
+    }
+  }
+}
+
+// One warp's piece of a layer's step: NP staged rows (global rows n0 ...)
+// of the recurrent operand `rec` and, for a layer >= 1, of the input `inp`,
+// times the gate columns of its units u0, u0 + 1.  The warp's V = 4 UP NP
+// <= 64 sums, value (row r, unit ui, gate g) being (r UP + ui) 4 + g, are
+// scattered over the lanes: where V <= 32 lane l holds value l / kC (kC =
+// 32 / V lanes hold each), where V = 64 it holds values 2l and 2l + 1.  Each
+// lane adds its gate input and applies its gate's nonlinearity, and the
+// first lane of each (row, unit) gathers the four gates and writes its h, c
+// and output.
+template <int U, int NP>
+__device__ __forceinline__ void step_piece(const StackArgs& a, int l, int t, const float* rec,
+                                           const float* inp, int n0, const float* w_s, size_t ws,
+                                           int j0, int u0, int lane) {
+  constexpr int UP = kUnitPair;
+  constexpr int V = 4 * UP * NP;
+  constexpr int kPer = V > 32 ? V / 32 : 1;  // sums a lane ends with
+  constexpr int kC = V < 32 ? 32 / V : 1;    // lanes holding the same sum
+  constexpr int kCell = 4 / kPer * kC;       // lanes holding one (row, unit)'s four gates
+  static_assert(V <= 64, "a piece holds at most 64 sums");
+  const int H = a.H;
+  const int C4 = H / 4;
+  const int idx = lane / kC * kPer;  // the lane's first value
+  const int g = idx % 4;             // its gate; the lane's value k has gate g + k
+  const int u = u0 + idx / 4 % UP;
+  const int r_own = idx / (4 * UP);
+  const int n = n0 + r_own;
+  const int j = j0 + u;
+  const bool lead = lane % kCell == 0;
+  const float* mask_t = a.mask + (size_t)t * a.N;
+
+  // The cell's operands, read before the FMAs so that their latency hides
+  // behind them: the gate input (x0_proj for layer 0, the bias above), the
+  // mask, the old c; the old h of a masked row is its staged row.
+  float x[kPer];
+#pragma unroll
+  for (int k = 0; k < kPer; ++k)
+    x[k] = __ldg(l == 0 ? a.x0_proj + ((size_t)t * a.N + n) * 4 * H + (g + k) * H + j
+                        : a.b_up + (size_t)(l - 1) * 4 * H + (g + k) * H + j);
+  float m = 0.0f, c_old = 0.0f, h_old = 0.0f;
+  if (lead) {
+    h_old = rec[(size_t)r_own * H + j];
+    m = __ldg(mask_t + n);
+    c_old = (t == 0 ? a.c0 : a.c_out)[((size_t)l * a.N + n) * H + j];
+  }
+
+  float acc[V];
+#pragma unroll
+  for (int i = 0; i < V; ++i) acc[i] = 0.0f;
+  if (kStacked<U> && l > 0) {  // the input product, with W_ih[l] (matrix L + l - 1)
+    fma_tile<U, NP>(acc, inp, reinterpret_cast<const float4*>(w_s + (a.L + l - 1) * ws), u0,
+                    lane, C4);
+    // The input is layer l-1's output h_new * mask; the staged row is its
+    // state, h_new where the mask is 1 (and the old h where it is 0).
+#pragma unroll
+    for (int r = 0; r < NP; ++r) {
+      const float mr = __ldg(mask_t + n0 + r);
+#pragma unroll
+      for (int i = 0; i < 4 * UP; ++i) acc[r * 4 * UP + i] *= mr;
+    }
+  }
+  fma_tile<U, NP>(acc, rec, reinterpret_cast<const float4*>(w_s + l * ws), u0, lane, C4);
+  warp_reduce_scatter<V, 16>(acc, lane);
+
+  float act[kPer];
+#pragma unroll
+  for (int k = 0; k < kPer; ++k) {
+    const float pre = x[k] + acc[k];
+    act[k] = g + k == 2 ? tanhf(pre) : sigmoid_f(pre);
+  }
+  // Gate q of the lane's (row, unit) is value q % kPer of lane base + q / kPer * kC.
+  const int base = lane / kCell * kCell;
+  float gate[4];
+#pragma unroll
+  for (int q = 0; q < 4; ++q)
+    gate[q] = __shfl_sync(0xffffffffu, act[q % kPer], base + q / kPer * kC);
+  if (lead) {
+    const float c_new = gate[1] * c_old + gate[0] * gate[2];
+    const float h_new = gate[3] * tanhf(c_new);
+    const size_t NH = (size_t)a.N * H;
+    const size_t off = (size_t)n * H + j;
+    a.hbuf[((size_t)((t + 1) & 1) * a.L + l) * NH + off] = m > 0.0f ? h_new : h_old;
+    a.c_out[l * NH + off] = m > 0.0f ? c_new : c_old;
+    if (l == a.L - 1) a.outs[t * NH + off] = h_new * m;
+  }
+}
+
+// Block b owns units j0 = b * U, ... of every layer.  Team tid / 256 takes
+// chunks team, team + teams, ...; its warps: unit pair warp % (U / 2)
+// (units u0, u0 + 1), row group warp / (U / 2); the rows of a 16-row chunk
+// are split over the row groups, U rows each, which a warp multiplies as one
+// tile where all of them exist, else in tiles of 4, 2 and 1 rows.
+//
+// Phases.  The stack order runs phase (t, l) = (ph / L, ph % L); the
+// wavefront order runs in phase p every layer l with 0 <= p - l < F at time
+// t = p - l.  Either way a phase has a wave index p (t + l) and a run of
+// active layers [l_first, l_last], and stages the states of layers lo =
+// max(0, l_first - 1) ... l_last, layer k's after step p - k - 1 (h0 in
+// place before the first step): layer l's recurrent operand is plane l - lo,
+// its input plane l - 1 - lo.  Layer l's h after step t lies in hbuf[(t + 1)
+// & 1][l], so no slot is read and written in one phase.
 template <int U, bool kWave>
-__global__ void __launch_bounds__(kThreads)
-lstm_stack_kernel(const float* __restrict__ x0_proj,   // (F, N, 4H)
-                  const float* __restrict__ mask,      // (F, N)
-                  const float* __restrict__ w_hh,      // (L, H, 4H)
-                  const float* __restrict__ w_ih_up,   // (L-1, H, 4H) or null
-                  const float* __restrict__ b_up,      // (L-1, 4H) or null
-                  float* __restrict__ outs,            // (F, N, H)
-                  float* hbuf,                         // (2, L, N, H), [0] holds h0
-                  float* c_state,                      // (L, N, H), holds c0, ends as cF
-                  float* __restrict__ h_final,         // (L, N, H)
-                  int F, int N, int H, int L) {
-  constexpr int RG = kThreads / U;           // batch rows per pass
-  constexpr int RGN = RG / kRows;            // row groups per pass
-  constexpr int KT = tile_k(U);
-  constexpr int KTS = KT / kSplit;           // k per split per tile
-  constexpr int KS = KT + 4;                 // padded tile row stride
-  constexpr int V4 = RG * KT / 4 / kThreads; // float4 per thread per tile
-  static_assert(V4 * 4 * kThreads == RG * KT, "tile must split evenly over the threads");
-  static_assert(kSplit * RGN * U == kThreads, "thread layout must cover the block");
-  static_assert(KTS % 4 == 0, "a split must be whole float4");
-  static_assert(kSplit * RG * U * 4 <= 2 * RG * KS, "partial sums must fit the tiles they alias");
+__global__ void __launch_bounds__(kBlockThreads<U>, 1)
+lstm_stack_kernel(const __grid_constant__ StackArgs a) {
+  const int F = a.F, N = a.N, H = a.H, L = a.L, stage_rows = a.stage_rows, teams = a.teams;
+  constexpr int UP = kUnitPair;
+  constexpr int kRowsW = kPassRows * U / UP / kTeamWarps;  // rows of a chunk per warp: U
+  static_assert(U == 4 || U == 8, "a warp's rows of a chunk are one tile of at most 64 sums");
   extern __shared__ __align__(16) float smem[];
   const int n_mats = 2 * L - 1;
+  const size_t ws = round32((size_t)4 * U * H);
+  const size_t NH = (size_t)N * H;
+  const int H4 = 4 * H;
   float* w_s = smem;
-  float* b_s = w_s + (size_t)n_mats * H * U * 4;
-  float* h_s = b_s + (size_t)(L - 1) * U * 4;
-  float* x_s = h_s + RG * KS;
-  float* red = h_s;
+  float* h_s = w_s + n_mats * ws;
 
   const int tid = threadIdx.x;
-  const int u = tid % U;
-  const int rg = (tid / U) % RGN;
-  const int ks = tid / (U * RGN);
-  const int r = tid / U;  // epilogue row within the pass
+  const int team = tid / kTeamThreads;
+  const int ttid = tid % kTeamThreads;  // the thread within its team
+  const int lane = tid % 32;
+  const int warp = ttid / 32;
+  const int u0 = warp % (U / UP) * UP;
+  const int row_lo = warp / (U / UP) * kRowsW;
   const int j0 = blockIdx.x * U;
-  const int j = j0 + u;
-  const int H4 = 4 * H;
-  const size_t NH = (size_t)N * H;
-  const int n_tiles = (H + KT - 1) / KT;
+  const int n_chunks = (N + kPassRows - 1) / kPassRows;
+  const int slots = (stage_rows + kPassRows - 1) / kPassRows;
+  // The team's chunks team, team + teams, ... (its i-th is chunk team + teams * i) and
+  // its slots: a ring of slots / teams where the rows do not all fit, else one per chunk.
+  const int my_chunks = (n_chunks - team + teams - 1) / teams;
+  const int my_slots = (slots - team + teams - 1) / teams;
+  const int first = min(my_slots, my_chunks);  // chunks issued at the start of a phase
+  auto team_sync = [&]() {  // named barrier 1 + team of the team's 256 threads
+    if (team == 0)
+      asm volatile("bar.sync 1, %0;\n" ::"n"(kTeamThreads) : "memory");
+    else
+      asm volatile("bar.sync 2, %0;\n" ::"n"(kTeamThreads) : "memory");
+  };
   cg::grid_group grid = cg::this_grid();
 
-  // Resident weights: this block's 4*U gate columns of every matrix
-  // (with U a multiple of 4, one float4 read covers 4 units of one gate).
-  for (int m = 0; m < n_mats; ++m) {
-    const float* src = m < L ? w_hh + (size_t)m * H * H4 : w_ih_up + (size_t)(m - L) * H * H4;
-    float* dst = w_s + (size_t)m * H * U * 4;
-    if constexpr (U % 4 == 0) {
-      constexpr int Q = U / 4;
-#pragma unroll 4
-      for (int idx = tid; idx < H * 4 * Q; idx += kThreads) {
-        const int k = idx / (4 * Q);
-        const int g = (idx / Q) % 4;
-        const int q = idx % Q;
-        const float4 v = *reinterpret_cast<const float4*>(src + (size_t)k * H4 + g * H + j0 + 4 * q);
-        float* d = dst + ((size_t)k * U + 4 * q) * 4 + g;
-        d[0] = v.x; d[4] = v.y; d[8] = v.z; d[12] = v.w;
-      }
-    } else {
-#pragma unroll 4
-      for (int idx = tid; idx < H * U * 4; idx += kThreads) {
-        const int k = idx / (U * 4);
-        const int uu = (idx / 4) % U;
-        const int g = idx % 4;
-        dst[idx] = src[(size_t)k * H4 + g * H + j0 + uu];
-      }
+  for (int mi = 0; mi < n_mats; ++mi) {
+    const float* src =
+        mi < L ? a.w_hh + (size_t)mi * H * H4 : a.w_ih_up + (size_t)(mi - L) * H * H4;
+    float* dst = w_s + mi * ws;
+    for (int idx = tid; idx < 4 * U * H; idx += teams * kTeamThreads) {
+      const int qu = idx / H;
+      const int k = (idx % H) / 4 * 4 + qu / U;
+      dst[idx] = src[(size_t)k * H4 + (idx % 4) * H + j0 + qu % U];
     }
-  }
-  for (int idx = tid; idx < (L - 1) * U * 4; idx += kThreads) {
-    const int l = idx / (U * 4);
-    const int uu = (idx / 4) % U;
-    const int g = idx % 4;
-    b_s[idx] = b_up[(size_t)l * H4 + g * H + j0 + uu];
   }
   __syncthreads();
-
-  // Staging registers: the next tile is fetched from L2 while the current
-  // one is multiplied (one tile in flight per thread).
-  float4 h_reg[V4], x_reg[V4];
-  const float4 zero4 = make_float4(0.f, 0.f, 0.f, 0.f);
-
-  // Phases: the stack runs one (step, layer) per phase, F * L of them; the
-  // wavefront runs layers l_first..l_last of phase p at times p - l.  Either
-  // way layer l at time t reads its h from slot t & 1 and writes slot
-  // (t & 1) ^ 1, and layer l-1's state at time t lies in slot (t & 1) ^ 1,
-  // written one phase earlier; no slot is read and written in one phase.
   const int n_phases = kWave ? F + L - 1 : F * L;
-  for (int p = 0; p < n_phases; ++p) {
-    const int l_first = kWave ? max(0, p - F + 1) : p % L;
-    const int l_last = kWave ? min(L - 1, p) : p % L;
-    for (int l = l_first; l <= l_last; ++l) {
-      const int t = kWave ? p - l : p / L;
-      const int rd = t & 1;
-      const int wr = rd ^ 1;
-      const float* mask_t = mask + (size_t)t * N;
-      const float* h_prev = hbuf + ((size_t)rd * L + l) * NH;
-      float* h_next = hbuf + ((size_t)wr * L + l) * NH;
-      // Layer l-1's state at time t; times the mask it is that layer's output.
-      const float* x_in = l > 0 ? hbuf + ((size_t)wr * L + l - 1) * NH : nullptr;
-      const float* w_rec = w_s + (size_t)l * H * U * 4 + u * 4;
-      const float* w_inp = l > 0 ? w_s + (size_t)(L + l - 1) * H * U * 4 + u * 4 : nullptr;
+  for (int ph = 0; ph < n_phases; ++ph) {
+    const int l_first = kWave ? max(0, ph - F + 1) : ph % L;
+    const int l_last = kWave ? min(L - 1, ph) : ph % L;
+    const int wave = kWave ? ph : ph / L + l_first;
+    const int lo = max(0, l_first - 1);
+    const int n_ops = l_last - lo + 1;
 
-      for (int n0 = 0; n0 < N; n0 += RG) {
-        // __ldcg: these rows were written by other blocks before the last
-        // grid barrier, so they are read from L2, never from a stale L1.
-        auto fetch = [&](int k0) {
-#pragma unroll
-          for (int v = 0; v < V4; ++v) {
-            const int e = (v * kThreads + tid) * 4;
-            const int nn = n0 + e / KT;
-            const int k = k0 + e % KT;
-            const bool in = nn < N && k < H;
-            const size_t off = (size_t)nn * H + k;
-            h_reg[v] = in ? __ldcg(reinterpret_cast<const float4*>(h_prev + off)) : zero4;
-            if (l > 0) {
-              float4 xv = in ? __ldcg(reinterpret_cast<const float4*>(x_in + off)) : zero4;
-              const float mv = in ? mask_t[nn] : 0.0f;
-              xv.x *= mv; xv.y *= mv; xv.z *= mv; xv.w *= mv;
-              x_reg[v] = xv;
-            }
-          }
-        };
+    // The team's i-th chunk, one copy group, holding the chunk's rows of
+    // every staged state.
+    auto issue = [&](int i) {
+      const int c = team + teams * i;
+      const int r0 = c * kPassRows;
+      const int cr = min(kPassRows, N - r0);
+      for (int o = 0; o < n_ops; ++o) {
+        const int k = lo + o;
+        const int tau = wave - k - 1;  // the step after which layer k's state is read
+        const float* src =
+            (tau < 0 ? a.h0 + k * NH : a.hbuf + ((size_t)((tau + 1) & 1) * L + k) * NH) +
+            (size_t)r0 * H;
+        float* dst = h_s + ((size_t)o * stage_rows + (size_t)(c % slots) * kPassRows) * H;
+        for (int e = 4 * ttid; e < cr * H; e += 4 * kTeamThreads) cp_async16(dst + e, src + e);
+      }
+      cp_async_commit();
+    };
+    // In the stack order at two layers, phase (t, 0) multiplies layer 0's h
+    // after t - 1, which phase (t - 1, 1) staged as its input in plane 0: the
+    // team's chunks still in their slots (the last my_slots it read, all of
+    // them where every row is staged at once) are read in place, and the
+    // phase takes the team's chunks in reverse order, those first.  Each
+    // team reads only chunks it staged and waited for itself.
+    const bool reuse = !kWave && L == 2 && l_first == 0 && ph > 0;
+    const int resident = reuse ? min(my_slots, my_chunks) : 0;
+    auto chunk_of = [&](int j) { return reuse ? my_chunks - 1 - j : j; };  // the j-th taken
+    const int issued = resident ? 0 : first;
+    for (int j = 0; j < issued; ++j) issue(chunk_of(j));
+    int groups = issued;
 
-        float acc[kRows][4];
-#pragma unroll
-        for (int i = 0; i < kRows; ++i)
-#pragma unroll
-          for (int g = 0; g < 4; ++g) acc[i][g] = 0.0f;
-        const bool active = n0 + rg < N;  // this thread has at least one real row
-
-        // The epilogue's own reads are issued now so their latency hides
-        // behind the tile sweep.
-        const int n = n0 + r;
-        const bool row_ok = n < N;
-        const size_t off = (size_t)(row_ok ? n : 0) * H + j;
-        float* c_ptr = c_state + (size_t)l * NH + off;
-        float gate[4];
-        float c_old = 0.0f, h_old = 0.0f, m = 0.0f;
-        if (row_ok) {
-          if (l == 0) {
-            const float* xp = x0_proj + ((size_t)t * N + n) * H4 + j;
-#pragma unroll
-            for (int g = 0; g < 4; ++g) gate[g] = xp[g * H];
-          } else {
-#pragma unroll
-            for (int g = 0; g < 4; ++g) gate[g] = b_s[((l - 1) * U + u) * 4 + g];
-          }
-          c_old = *c_ptr;
-          h_old = __ldcg(h_prev + off);
-          m = mask_t[n];
+    for (int j = 0; j < my_chunks; ++j) {
+      // The j-th chunk taken is the (j - resident)-th copy group issued.
+      if (my_slots == 1) {  // a one-slot ring: each chunk goes where the one before was read
+        if (j > 0 && j >= resident) {
+          team_sync();  // every thread of the team is done with the chunk before
+          issue(chunk_of(j));
+          ++groups;
         }
-
-        fetch(0);
-        for (int tile = 0; tile < n_tiles; ++tile) {
-          const int k0 = tile * KT;
-          __syncthreads();  // the previous tile is consumed
-#pragma unroll
-          for (int v = 0; v < V4; ++v) {
-            const int e = (v * kThreads + tid) * 4;
-            *reinterpret_cast<float4*>(h_s + (e / KT) * KS + e % KT) = h_reg[v];
-            if (l > 0) *reinterpret_cast<float4*>(x_s + (e / KT) * KS + e % KT) = x_reg[v];
-          }
-          __syncthreads();
-          if (tile + 1 < n_tiles) fetch(k0 + KT);
-          const int k_lo = ks * KTS;
-          const int k_hi = active ? min(k_lo + KTS, H - k0) : k_lo;
-          for (int kk = k_lo; kk < k_hi; kk += 4) {
-            const float* wr_k = w_rec + (k0 + kk) * U * 4;
-            float4 hv[kRows];
-#pragma unroll
-            for (int i = 0; i < kRows; ++i)
-              hv[i] = *reinterpret_cast<const float4*>(h_s + (rg + i * RGN) * KS + kk);
-#pragma unroll
-            for (int q = 0; q < 4; ++q) {
-              const float4 w = *reinterpret_cast<const float4*>(wr_k + q * U * 4);
-#pragma unroll
-              for (int i = 0; i < kRows; ++i) {
-                const float a = q == 0 ? hv[i].x : q == 1 ? hv[i].y : q == 2 ? hv[i].z : hv[i].w;
-                acc[i][0] = fmaf(a, w.x, acc[i][0]);
-                acc[i][1] = fmaf(a, w.y, acc[i][1]);
-                acc[i][2] = fmaf(a, w.z, acc[i][2]);
-                acc[i][3] = fmaf(a, w.w, acc[i][3]);
-              }
-            }
-            if (l > 0) {
-              const float* wi_k = w_inp + (k0 + kk) * U * 4;
-#pragma unroll
-              for (int i = 0; i < kRows; ++i)
-                hv[i] = *reinterpret_cast<const float4*>(x_s + (rg + i * RGN) * KS + kk);
-#pragma unroll
-              for (int q = 0; q < 4; ++q) {
-                const float4 w = *reinterpret_cast<const float4*>(wi_k + q * U * 4);
-#pragma unroll
-                for (int i = 0; i < kRows; ++i) {
-                  const float a = q == 0 ? hv[i].x : q == 1 ? hv[i].y : q == 2 ? hv[i].z : hv[i].w;
-                  acc[i][0] = fmaf(a, w.x, acc[i][0]);
-                  acc[i][1] = fmaf(a, w.y, acc[i][1]);
-                  acc[i][2] = fmaf(a, w.z, acc[i][2]);
-                  acc[i][3] = fmaf(a, w.w, acc[i][3]);
-                }
-              }
-            }
-          }
+        if (j >= resident) {
+          cp_async_wait_upto(groups - (j - resident) - 1);  // the chunk has landed
+          team_sync();                                      // ... for every thread of the team
         }
-
-        // Add the KSPLIT partial sums: red[ks][row][u][g].
-        __syncthreads();  // the last tile is consumed; red aliases it
-#pragma unroll
-        for (int i = 0; i < kRows; ++i) {
-          const int row = rg + i * RGN;
-          *reinterpret_cast<float4*>(red + (((size_t)ks * RG + row) * U + u) * 4) =
-              make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]);
-        }
-        __syncthreads();
-        if (row_ok) {
-#pragma unroll
-          for (int s = 0; s < kSplit; ++s) {
-            const float4 p = *reinterpret_cast<const float4*>(red + (((size_t)s * RG + r) * U + u) * 4);
-            gate[0] += p.x; gate[1] += p.y; gate[2] += p.z; gate[3] += p.w;
-          }
-          const float i_g = sigmoid_f(gate[0]);
-          const float f_g = sigmoid_f(gate[1]);
-          const float g_g = tanhf(gate[2]);
-          const float o_g = sigmoid_f(gate[3]);
-          const float c_new = f_g * c_old + i_g * g_g;
-          const float h_new = o_g * tanhf(c_new);
-          h_next[off] = m > 0.0f ? h_new : h_old;
-          *c_ptr = m > 0.0f ? c_new : c_old;
-          if (l == L - 1) outs[((size_t)t * N) * H + off] = h_new * m;
+      } else {
+        if (j >= resident) cp_async_wait_upto(groups - (j - resident) - 1);
+        team_sync();  // the chunk is there for the team, which is done with the one before
+        if (j > 0 && j - 1 + my_slots < my_chunks) {
+          issue(chunk_of(j - 1 + my_slots));  // into that one's slot, while this one is read
+          ++groups;
         }
       }
-    }
-    grid.sync();
-  }
-
-  // Final h of the units this block owns (written by these same threads).
-  const float* h_last = hbuf + (size_t)(F & 1) * L * NH;
-  for (int l = 0; l < L; ++l) {
-    for (int n0 = 0; n0 < N; n0 += RG) {
-      const int n = n0 + r;
-      if (n < N) {
-        const size_t off = (size_t)l * NH + (size_t)n * H + j;
-        h_final[off] = h_last[off];
+      const int i = chunk_of(j);
+      const int c = team + teams * i;
+      const int r0 = c * kPassRows;
+      const size_t slot_off = (size_t)(c % slots) * kPassRows * H;
+      for (int l = l_first; l <= l_last; ++l) {
+        const int t = wave - l;
+        const float* rec = h_s + (size_t)(l - lo) * stage_rows * H + slot_off;
+        const float* inp = l > 0 ? h_s + (size_t)(l - 1 - lo) * stage_rows * H + slot_off : nullptr;
+        int lr = row_lo;
+        int nr = max(0, min(kRowsW, N - r0 - lr));
+        if (nr == kRowsW) {
+          step_piece<U, kRowsW>(a, l, t, rec + (size_t)lr * H, inp ? inp + (size_t)lr * H : nullptr,
+                                r0 + lr, w_s, ws, j0, u0, lane);
+          nr = 0;
+        }
+        if constexpr (kRowsW > 4) {
+          if (nr & 4) {
+            step_piece<U, 4>(a, l, t, rec + (size_t)lr * H, inp ? inp + (size_t)lr * H : nullptr,
+                             r0 + lr, w_s, ws, j0, u0, lane);
+            lr += 4;
+          }
+        }
+        if (nr & 2) {
+          step_piece<U, 2>(a, l, t, rec + (size_t)lr * H, inp ? inp + (size_t)lr * H : nullptr,
+                           r0 + lr, w_s, ws, j0, u0, lane);
+          lr += 2;
+        }
+        if (nr & 1)
+          step_piece<U, 1>(a, l, t, rec + (size_t)lr * H, inp ? inp + (size_t)lr * H : nullptr,
+                           r0 + lr, w_s, ws, j0, u0, lane);
       }
     }
+
+    if (ph + 1 < n_phases) grid.sync();  // every block's rows of this phase's states are written
   }
 }
 
-size_t shared_bytes(int U, int H, int L) {
-  const int rg = kThreads / U;
-  return sizeof(float) * ((size_t)(2 * L - 1) * H * U * 4 + (size_t)(L - 1) * U * 4 +
-                          2 * (size_t)rg * (tile_k(U) + 4));
+// Lets lstm_stack_kernel<U, kWave> use up to max_smem bytes of dynamic shared
+// memory and clears *fits unless an SM holds one block of it with that much.
+template <int U, bool kWave>
+cudaError_t prepare_instance(int max_smem, bool* fits) {
+  const void* kernel = (const void*)lstm_stack_kernel<U, kWave>;
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         max_smem);
+  int per_sm = 0;
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kBlockThreads<U>,
+                                                        max_smem);
+  if (per_sm < 1) *fits = false;
+  return err;
 }
 
 template <int U, bool kWave>
-int launch(const float* x0_proj, const float* mask, const float* w_hh, const float* w_ih_up,
-           const float* b_up, float* outs, float* hbuf, float* c_state, float* h_final, int F,
-           int N, int H, int L, int n_sms, cudaStream_t stream) {
-  const size_t smem = shared_bytes(U, H, L);
-  int max_smem = 0;
-  cudaDeviceGetAttribute(&max_smem, cudaDevAttrMaxSharedMemoryPerBlockOptin, 0);
-  if (smem > (size_t)max_smem) return kErrSharedTooLarge;
-  auto kernel = lstm_stack_kernel<U, kWave>;
-  cudaError_t err =
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  int per_sm = 0;
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kThreads, smem);
-  if (err != cudaSuccess) return (int)err;
-  const int blocks = H / U;
-  if (per_sm * n_sms < blocks) return kErrGridTooLarge;
-  void* args[] = {(void*)&x0_proj, (void*)&mask, (void*)&w_hh,  (void*)&w_ih_up,
-                  (void*)&b_up,    (void*)&outs, (void*)&hbuf,  (void*)&c_state,
-                  (void*)&h_final, (void*)&F,    (void*)&N,     (void*)&H,
-                  (void*)&L};
-  err = cudaLaunchCooperativeKernel((void*)kernel, dim3(blocks), dim3(kThreads), args, smem,
-                                    stream);
-  if (err != cudaSuccess) return (int)err;
-  return (int)cudaGetLastError();
+int launch(const StackArgs& args, size_t smem, cudaStream_t stream) {
+  void* params[] = {(void*)&args};
+  const cudaError_t err =
+      cudaLaunchCooperativeKernel((const void*)lstm_stack_kernel<U, kWave>, dim3(args.H / U),
+                                  dim3(kTeamThreads * args.teams), params, smem, stream);
+  const cudaError_t last = cudaGetLastError();
+  return (int)(err != cudaSuccess ? err : last);
 }
-
-}  // namespace
-
-extern "C" {
-
-// Units per block for hidden size H on this card: the smallest power of two
-// that divides H and gives at most one block per SM.  0 if there is none.
-int lstm_stack_units(int H) {
-  int dev = 0, n_sms = 0;
-  cudaGetDevice(&dev);
-  cudaDeviceGetAttribute(&n_sms, cudaDevAttrMultiProcessorCount, dev);
-  for (int U = 1; U <= 8; U *= 2) {
-    if (H % U == 0 && H / U <= n_sms) return U;
-  }
-  return 0;
-}
-
-}  // extern "C"
-
-namespace {
 
 template <bool kWave>
 int forward(const float* x0_proj, const float* mask, const float* w_hh, const float* w_ih_up,
-            const float* b_up, float* outs, float* hbuf, float* c_state, float* h_final, int F,
-            int N, int H, int L, void* stream) {
-  if (F <= 0 || N <= 0 || H <= 0 || L <= 0 || H % 4 != 0) return kErrBadShape;
-  if (L > 1 && (w_ih_up == nullptr || b_up == nullptr)) return kErrBadShape;
-  int dev = 0, n_sms = 0, coop = 0;
-  cudaGetDevice(&dev);
-  cudaDeviceGetAttribute(&n_sms, cudaDevAttrMultiProcessorCount, dev);
-  cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev);
-  if (!coop) return kErrNoCooperative;
+            const float* b_up, const float* h0, const float* c0, float* outs, float* hbuf,
+            float* c_out, int F, int N, int H, int L, int units, int stage_rows, int teams,
+            int smem_bytes, void* stream) {
+  if (F <= 0 || N <= 0 || H <= 0 || L <= 0 || H % 4 != 0 || (units != 4 && units != 8) ||
+      H % units != 0 || stage_rows <= 0 || stage_rows > N ||
+      (stage_rows != N && stage_rows % kPassRows != 0) ||
+      teams < 1 || teams > (units == 4 ? kTeams<4> : kTeams<8>) ||
+      (stage_rows != N && stage_rows / kPassRows % teams != 0) ||
+      (L > 1 && (w_ih_up == nullptr || b_up == nullptr || units != 4)) ||
+      (size_t)smem_bytes !=
+          sizeof(float) * smem_floats(units, H, L, stage_planes(L, kWave), stage_rows))
+    return kErrBadShape;
+  const StackArgs args{x0_proj, mask, w_hh, w_ih_up, b_up, h0,         c0,   outs,
+                       hbuf,    c_out, F,   N,       H,    L, stage_rows, teams};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (lstm_stack_units(H)) {
-    case 1: return launch<1, kWave>(x0_proj, mask, w_hh, w_ih_up, b_up, outs, hbuf, c_state, h_final, F, N, H, L, n_sms, s);
-    case 2: return launch<2, kWave>(x0_proj, mask, w_hh, w_ih_up, b_up, outs, hbuf, c_state, h_final, F, N, H, L, n_sms, s);
-    case 4: return launch<4, kWave>(x0_proj, mask, w_hh, w_ih_up, b_up, outs, hbuf, c_state, h_final, F, N, H, L, n_sms, s);
-    case 8: return launch<8, kWave>(x0_proj, mask, w_hh, w_ih_up, b_up, outs, hbuf, c_state, h_final, F, N, H, L, n_sms, s);
-    default: return kErrGridTooLarge;
+  const size_t smem = (size_t)smem_bytes;
+  // U=8 runs one layer, and the wavefront order needs two: it has no U=8 instance.
+  if constexpr (!kWave) {
+    if (units == 8) return launch<8, false>(args, smem, s);
   }
+  return launch<4, kWave>(args, smem, s);
 }
 
 }  // namespace
 
 extern "C" {
 
-// Runs the whole stack over all F steps in one cooperative launch on `stream`.
-// hbuf (2, L, N, H) must hold h0 in its first half and c_state (L, N, H) must
-// hold c0; on return outs, h_final and c_state (= cF) are written (stream
-// ordered).  Returns 0, a cudaError_t value, or a negative code above.
-int lstm_stack_forward(const float* x0_proj, const float* mask, const float* w_hh,
-                       const float* w_ih_up, const float* b_up, float* outs, float* hbuf,
-                       float* c_state, float* h_final, int F, int N, int H, int L,
-                       void* stream) {
-  return forward<false>(x0_proj, mask, w_hh, w_ih_up, b_up, outs, hbuf, c_state, h_final, F, N,
-                        H, L, stream);
+// Once per device, before the first launch there (and outside any CUDA graph
+// capture): checks that the card launches cooperative grids, lets the three
+// instances (U=4 in the stack and the wavefront order, U=8 in the stack
+// order) use the card's opt-in shared memory per block, and checks that an
+// SM holds one block of each with that much.  Writes the SM count and the opt-in limit in bytes to
+// info[0..1].  Returns 0, a cudaError_t value, or a negative code above.
+int lstm_stack_prepare(int device, int* info) {
+  int prev = 0, coop = 0;
+  cudaError_t err = cudaGetDevice(&prev);
+  if (err != cudaSuccess) return (int)err;
+  err = cudaSetDevice(device);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&info[0], cudaDevAttrMultiProcessorCount, device);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, device);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&info[1], cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
+  bool fits = true;
+  if (err == cudaSuccess) err = prepare_instance<4, false>(info[1], &fits);
+  if (err == cudaSuccess) err = prepare_instance<8, false>(info[1], &fits);
+  if (err == cudaSuccess) err = prepare_instance<4, true>(info[1], &fits);
+  cudaSetDevice(prev);
+  if (err != cudaSuccess) return (int)err;
+  if (!coop) return kErrNoCooperative;
+  return fits ? 0 : kErrGridTooLarge;
 }
 
-// The same stack, the same operands and results, in the wavefront schedule:
-// F + L - 1 grid barriers.  Needs L >= 2 (at one layer the schedules are one).
+// Runs the whole stack over all F steps in one cooperative launch of H /
+// units blocks on `stream`, one (step, layer) per phase (units 8: one layer
+// only).  h0, c0 (L, N, H) are read in place; outs (F, N, H), hbuf (2, L,
+// N, H) and c_out (L, N, H) are written: h after the last step in hbuf[F &
+// 1], c in c_out.  units (4 or 8), stage_rows (N: all rows staged at once;
+// else a multiple of 16 below N, a ring of 16-row slots), teams (the block
+// is 256 * teams threads; U=4: 2, or 1 for one chunk or a one-slot ring;
+// U=8: 1; a ring's slots a multiple of it) and smem_bytes are the launch
+// plan's (ops/lstm_kernel.py::lstm_stack_plan); smem_bytes must equal the
+// layout's size.  h0 and hbuf start on a 16-byte boundary.  Launches only:
+// lstm_stack_prepare must have run on the current device.  Returns 0, a
+// cudaError_t value, or a negative code above.
+int lstm_stack_forward(const float* x0_proj, const float* mask, const float* w_hh,
+                       const float* w_ih_up, const float* b_up, const float* h0,
+                       const float* c0, float* outs, float* hbuf, float* c_out, int F, int N,
+                       int H, int L, int units, int stage_rows, int teams, int smem_bytes,
+                       void* stream) {
+  return forward<false>(x0_proj, mask, w_hh, w_ih_up, b_up, h0, c0, outs, hbuf, c_out, F, N, H,
+                        L, units, stage_rows, teams, smem_bytes, stream);
+}
+
+// The same stack, the same operands and results, in the wavefront order:
+// F + L - 1 grid barriers, each phase staging every active layer's state
+// once.  Needs L >= 2 (at one layer the orders are one); its plan stages L
+// state planes.
 int lstm_wavefront_forward(const float* x0_proj, const float* mask, const float* w_hh,
-                           const float* w_ih_up, const float* b_up, float* outs, float* hbuf,
-                           float* c_state, float* h_final, int F, int N, int H, int L,
-                           void* stream) {
+                           const float* w_ih_up, const float* b_up, const float* h0,
+                           const float* c0, float* outs, float* hbuf, float* c_out, int F,
+                           int N, int H, int L, int units, int stage_rows, int teams,
+                           int smem_bytes, void* stream) {
   if (L < 2) return kErrBadShape;
-  return forward<true>(x0_proj, mask, w_hh, w_ih_up, b_up, outs, hbuf, c_state, h_final, F, N,
-                       H, L, stream);
+  return forward<true>(x0_proj, mask, w_hh, w_ih_up, b_up, h0, c0, outs, hbuf, c_out, F, N, H,
+                       L, units, stage_rows, teams, smem_bytes, stream);
 }
 
 }  // extern "C"

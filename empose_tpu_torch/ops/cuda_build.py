@@ -10,10 +10,11 @@ from __future__ import annotations
 
 import ctypes
 import os
+import re
 import shutil
 import subprocess
 import threading
-from typing import Dict, Iterable
+from typing import Dict, Iterable, List
 
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG_DIR, "csrc")
@@ -25,11 +26,13 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 ERRORS = {
     -1: "the cooperative grid cannot be co-resident on this card (no units-per-block "
         "choice fits the hidden size, or the occupancy API allows too few blocks per SM)",
-    -2: "the kernel's shared-memory layout exceeds what a block can use on this card",
     -3: "the card does not support cooperative launches",
     -4: "bad shape (a size is not positive, the hidden size is not a multiple of 4, "
-        "the wavefront stack has fewer than 2 layers, or the grid exceeds the launch limits)",
+        "the wavefront stack has fewer than 2 layers, the launch plan does not match the "
+        "kernel's layout, or the grid exceeds the launch limits)",
 }
+
+_INCLUDE = re.compile(r'\s*#\s*include\s+"([^"]+)"')
 
 _libs: Dict[str, ctypes.CDLL] = {}
 _lock = threading.Lock()
@@ -41,6 +44,31 @@ def source_path(name: str) -> str:
 
 def library_path(name: str) -> str:
     return os.path.join(BUILD_DIR, f"lib{name}.so")
+
+
+def source_files(name: str) -> List[str]:
+    """``csrc/<name>.cu`` and the headers of ``csrc/`` it includes
+    (``#include "..."``, followed into the headers)."""
+    files, todo = [], [source_path(name)]
+    while todo:
+        path = todo.pop()
+        if path in files:
+            continue
+        files.append(path)
+        with open(path) as f:
+            for line in f:
+                m = _INCLUDE.match(line)
+                if m:
+                    todo.append(os.path.join(os.path.dirname(path), m.group(1)))
+    return files
+
+
+def _stale(name: str) -> bool:
+    """Whether the library is missing or older than its source or any header
+    the source includes."""
+    lib = library_path(name)
+    return not os.path.exists(lib) or os.path.getmtime(lib) < max(
+        os.path.getmtime(p) for p in source_files(name))
 
 
 def _nvcc() -> str:
@@ -57,13 +85,14 @@ def _nvcc() -> str:
 def build(names: Iterable[str], force: bool = False, verbose: bool = False) -> Dict[str, str]:
     """Compile ``csrc/<name>.cu`` for each name, in parallel.
 
-    A library newer than its source is kept unless ``force``. Returns each
+    A library newer than its source and every header the source includes
+    is kept unless ``force``. Returns each
     compiled name's compiler output (the ``-Xptxas -v`` register report when
     ``verbose``); raises if any compile fails."""
     procs = {}
     for name in names:
         src, lib = source_path(name), library_path(name)
-        if not force and os.path.exists(lib) and os.path.getmtime(lib) >= os.path.getmtime(src):
+        if not force and not _stale(name):
             continue
         os.makedirs(BUILD_DIR, exist_ok=True)
         tmp = f"{lib}.{os.getpid()}.tmp"

@@ -25,8 +25,13 @@ layer's outputs, zero at masked steps, and the final states, frozen bit for
 bit at masked steps.
 
 ``lstm_stack_fused`` launches the kernel for CUDA tensors and runs the plain
-version for CPU tensors; ``LAUNCHES`` counts kernel launches. The libraries
-are compiled with ``nvcc`` at first use into ``empose_tpu_torch/_build/``.
+version for CPU tensors; ``LAUNCHES`` counts kernel launches. Its setup is
+out of the per-call path: :func:`lstm_stack_prepare` sets the kernel's
+shared memory and checks its occupancy once per device, and
+:func:`lstm_stack_plan` (pure Python) sizes the grid and the staged rows;
+h0 and c0 are read in place, so a call can be captured in a CUDA graph. The
+libraries are compiled with ``nvcc`` at first use into
+``empose_tpu_torch/_build/``.
 
 The wavefront schedule (``_pallas_wavefront``, entry
 ``lstm_stack_pallas_wavefront``) has the same contract and results: layer l
@@ -88,20 +93,20 @@ PASS_ROWS = 16
 MAX_SLOTS = 8
 SMS = 132
 SMEM_LIMIT = 232448
-# k-width of the stack kernel's staged tiles by units per block (lstm_stack.cu tile_k).
-_STACK_TILE_K = {1: 32, 2: 64, 4: 128, 8: 64}
 
+_stack_prepared: Dict[int, Tuple[int, int]] = {}  # device index -> (SMs, opt-in shared bytes)
+_stack_lib = None  # the stack kernel's library, once lstm_stack_prepare has loaded it
 _bidi_prepared: Dict[int, Tuple[int, int]] = {}  # device index -> (SMs, opt-in shared bytes)
 _bidi_lib = None  # the bidirectional kernel's library, once lstm_bidi_prepare has loaded it
 
 
-def _library():
+def _stack_library():
     p, i = ctypes.c_void_p, ctypes.c_int
-    stack_args = [p, p, p, p, p, p, p, p, p, i, i, i, i, p]
+    stack_args = [p, p, p, p, p, p, p, p, p, p, i, i, i, i, i, i, i, i, p]
     return cuda_build.load(NAME, {
+        "lstm_stack_prepare": ([i, ctypes.POINTER(i)], i),
         "lstm_stack_forward": (stack_args, i),
         "lstm_wavefront_forward": (stack_args, i),
-        "lstm_stack_units": ([i], i),
     })
 
 
@@ -123,29 +128,93 @@ def _launch(fn, index: int, *args) -> int:
         return fn(*args)
 
 
+def _device_index(device) -> int:
+    index = torch.device(device).index
+    return torch.cuda.current_device() if index is None else index
+
+
 def units_per_block(h: int, max_blocks: int) -> int:
     """The smallest power of two U (at most 8) that divides H with H / U <=
     ``max_blocks``; 0 where there is none."""
     return next((u for u in (1, 2, 4, 8) if h % u == 0 and h // u <= max_blocks), 0)
 
 
-def stack_smem_bytes(units: int, h: int, layers: int) -> int:
+class StackPlan(NamedTuple):
+    units: int       # hidden units per block (U) of every layer: 4, or 8 where H / 4 blocks
+                     # do not fit on the SMs
+    blocks: int      # the cooperative grid, H / U, one block per SM
+    planes: int      # layer states staged per phase: 2 (1 for one layer) in the stack
+                     # order, L in the wavefront order
+    stage_rows: int  # rows of each staged state in shared memory: N (all at once), or
+                     # fewer: a ring of stage_rows / PASS_ROWS slots that the PASS_ROWS-row
+                     # chunks cycle through
+    teams: int       # teams of 256 threads (the block's size) that take the chunks in turns,
+                     # each with its share of the ring: 2 at U=4 (1 for one chunk, N <= 16,
+                     # or where the ring has one slot), 1 at U=8
+    smem_bytes: int  # dynamic shared memory per block
+
+
+def stack_smem_bytes(units: int, h: int, layers: int, planes: int, stage_rows: int) -> int:
     """Shared memory of one stack-kernel block (``csrc/lstm_stack.cu``
-    ``shared_bytes``): the gate columns of every W_hh and of W_ih of layers
-    >= 1, their biases, and two padded staged tiles."""
-    rows = THREADS // units
-    return 4 * ((2 * layers - 1) * h * units * 4 + (layers - 1) * units * 4
-                + 2 * rows * (_STACK_TILE_K[units] + 4))
+    ``smem_floats``): the resident gate columns of every W_hh and of W_ih of
+    layers >= 1 (each to 128 bytes), and ``planes`` staged states of
+    ``stage_rows`` rows."""
+    return 4 * ((2 * layers - 1) * (-(-4 * units * h // 32) * 32) + planes * stage_rows * h)
+
+
+@functools.lru_cache(maxsize=256)
+def lstm_stack_plan(layers: int, n: int, h: int, sms: int = SMS, smem_limit: int = SMEM_LIMIT,
+                    wavefront: bool = False) -> StackPlan:
+    """Launch plan of the stack kernel (``csrc/lstm_stack.cu``) for an
+    L-layer stack, N rows, hidden size H, in the stack order or (with
+    ``wavefront``) the wavefront order.
+
+    Each block owns U units of every layer, one block per SM: U=4 where H / 4
+    blocks fit on the SMs (2x512: 128 blocks with 96 KB of columns), else U=8
+    for one layer (one layer of 1024: 128 blocks, 128 KB; the columns of two
+    such layers leave no room for a slot). A phase stages the states of up
+    to ``planes`` layers; all N rows of each where they fit beside the
+    columns (2x512: N <= 32), else the PASS_ROWS-row chunks cycle through a
+    ring of as many slots as fit (at most MAX_SLOTS; 2x512: 2, one layer of
+    1024: 1), so the shared memory stops growing with N and any N has a plan.
+    At U=4 two teams of 256 threads take the chunks in turns, each with half
+    of the ring (an odd slot count loses a slot), where there are two chunks
+    or more and the ring has two slots or more. Raises ValueError where no U
+    puts the grid on the SMs or not one slot fits beside the columns
+    (2x1024)."""
+    if layers <= 0 or n <= 0 or h <= 0 or h % 4:
+        raise ValueError(f"the stack kernel needs L > 0, N > 0 and H a positive multiple of 4, "
+                         f"got L={layers}, N={n}, H={h}")
+    if wavefront and layers < 2:
+        raise ValueError("wavefront schedule needs >= 2 layers "
+                         "(use lstm_stack for a single layer)")
+    units = next((u for u in (4, 8) if h % u == 0 and h // u <= sms), 0)
+    if units == 8 and layers > 1:
+        units = 0  # U=8 runs one layer (at H > 4 SMs no slot fits beside two layers' columns)
+    planes = layers if wavefront else min(layers, 2)
+    rows, teams = n, 2 if units == 4 and n > PASS_ROWS else 1
+    if units and stack_smem_bytes(units, h, layers, planes, n) > smem_limit:
+        free = smem_limit - stack_smem_bytes(units, h, layers, planes, 0)
+        slots = min(MAX_SLOTS, max(0, free) // (4 * PASS_ROWS * planes * h))
+        teams = min(teams, max(slots, 1))
+        rows = PASS_ROWS * (slots - slots % teams)  # each team its share of the ring
+    if not units or rows < 1:
+        raise ValueError(f"the stack kernel at L={layers}, N={n}, H={h} does not fit on {sms} "
+                         f"SMs with {smem_limit} bytes of shared memory per block")
+    return StackPlan(units, h // units, planes, rows, teams,
+                     stack_smem_bytes(units, h, layers, planes, rows))
 
 
 def lstm_stack_fits(layers: int, h: int, sms: int = SMS, smem_limit: int = SMEM_LIMIT) -> bool:
     """Whether the stack kernel runs an L-layer stack at hidden size H in one
-    launch: a units-per-block choice puts H / U blocks on the SMs
-    (``lstm_stack.cu`` ``lstm_stack_units``) and a block's shared memory fits
-    (at 2 layers: H=512 yes, H=1024 no, 410752 bytes; one layer of H=1024
-    148480)."""
-    units = units_per_block(h, sms)
-    return units > 0 and stack_smem_bytes(units, h, layers) <= smem_limit
+    launch for every N: :func:`lstm_stack_plan` has a plan with one
+    PASS_ROWS-row slot (at 2 layers: H=512 yes, H=1024 no; one layer of 1024
+    yes)."""
+    try:
+        lstm_stack_plan(layers, PASS_ROWS, h, sms, smem_limit)
+    except ValueError:
+        return False
+    return True
 
 
 def _sigmoid_tanh_cell(gates: torch.Tensor, c: torch.Tensor):
@@ -197,8 +266,27 @@ def _check(name: str, t: Optional[torch.Tensor], shape: Tuple[int, ...], device)
         raise ValueError(f"{name} must be contiguous")
 
 
-def _launch_stack(entry: str, what: str, x0_proj, mask, w_hh, w_ih_up, b_up, h0, c0):
-    """Check the stack's operands and launch ``entry`` of ``csrc/lstm_stack.cu``."""
+def lstm_stack_prepare(device) -> None:
+    """Once per device (the wrappers call it at their first launch there):
+    build the stack kernel if needed, set the shared memory of its three
+    instances (U=4 in the stack and the wavefront order, U=8 in the stack
+    order) and check their occupancy. Outside the per-call path, and outside
+    any CUDA graph capture."""
+    global _stack_lib
+    index = _device_index(device)
+    if index in _stack_prepared:
+        return
+    _stack_lib = _stack_library()
+    info = (ctypes.c_int * 2)()
+    cuda_build.check(_stack_lib.lstm_stack_prepare(index, info), "LSTM stack kernel setup")
+    _stack_prepared[index] = (info[0], info[1])
+
+
+def _launch_stack(wavefront: bool, what: str, x0_proj, mask, w_hh, w_ih_up, b_up, h0, c0):
+    """Check the stack's operands and launch ``csrc/lstm_stack.cu`` in the
+    stack or the wavefront order, as :func:`lstm_stack_plan` says. No setup
+    after the first call on a device, no copy of h0/c0 (read in place) and
+    no synchronization, so the call can be captured in a CUDA graph."""
     if x0_proj.device.type != "cuda":
         raise ValueError(f"no {what} for device {x0_proj.device}")
     f, n, h4 = x0_proj.shape
@@ -212,22 +300,27 @@ def _launch_stack(entry: str, what: str, x0_proj, mask, w_hh, w_ih_up, b_up, h0,
         _check("b_up", b_up, (num_layers - 1, 4 * hidden), dev)
     _check("h0", h0, (num_layers, n, hidden), dev)
     _check("c0", c0, (num_layers, n, hidden), dev)
-    lib = _library()
+    index = x0_proj.get_device()
+    if index not in _stack_prepared:
+        lstm_stack_prepare(dev)
+    plan = lstm_stack_plan(num_layers, n, hidden, *_stack_prepared[index], wavefront=wavefront)
+    # The kernel copies h0's rows 16 bytes at a time.
+    h0 = h0 if h0.data_ptr() % 16 == 0 else h0.clone()
     outs = torch.empty(f, n, hidden, device=dev)
-    hbuf = torch.empty(2, num_layers, n, hidden, device=dev)
-    hbuf[0].copy_(h0)
-    c_state = c0.clone()
-    h_final = torch.empty(num_layers, n, hidden, device=dev)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        code = getattr(lib, entry)(
-            x0_proj.data_ptr(), mask.data_ptr(), w_hh.data_ptr(),
-            w_ih_up.data_ptr() if num_layers > 1 else None,
-            b_up.data_ptr() if num_layers > 1 else None,
-            outs.data_ptr(), hbuf.data_ptr(), c_state.data_ptr(), h_final.data_ptr(),
-            f, n, hidden, num_layers, stream)
+    # The state apart from the outputs, so that a caller keeping only (hF, cF)
+    # keeps no more: the h exchange buffer (2, L) and cF (L), each plane on a
+    # 16-byte boundary (H % 4 == 0).
+    state = torch.empty(3 * num_layers, n, hidden, device=dev)
+    ptr = state.data_ptr()
+    entry = _stack_lib.lstm_wavefront_forward if wavefront else _stack_lib.lstm_stack_forward
+    code = _launch(entry, index, x0_proj.data_ptr(), mask.data_ptr(), w_hh.data_ptr(),
+                   w_ih_up.data_ptr() if num_layers > 1 else None,
+                   b_up.data_ptr() if num_layers > 1 else None, h0.data_ptr(), c0.data_ptr(),
+                   outs.data_ptr(), ptr, ptr + 4 * 2 * num_layers * n * hidden, f, n, hidden,
+                   num_layers, plan.units, plan.stage_rows, plan.teams, plan.smem_bytes)
     cuda_build.check(code, what)
-    return outs, h_final, c_state
+    h_last = num_layers * (f & 1)  # h after the last step: hbuf[F & 1]
+    return outs, state[h_last:h_last + num_layers], state[2 * num_layers:]
 
 
 def lstm_stack_fused(x0_proj, mask, w_hh, w_ih_up, b_up, h0, c0):
@@ -236,8 +329,7 @@ def lstm_stack_fused(x0_proj, mask, w_hh, w_ih_up, b_up, h0, c0):
     global LAUNCHES
     if x0_proj.device.type == "cpu":
         return lstm_stack_plain(x0_proj, mask, w_hh, w_ih_up, b_up, h0, c0)
-    out = _launch_stack("lstm_stack_forward", "LSTM stack kernel", x0_proj, mask, w_hh, w_ih_up,
-                        b_up, h0, c0)
+    out = _launch_stack(False, "LSTM stack kernel", x0_proj, mask, w_hh, w_ih_up, b_up, h0, c0)
     LAUNCHES += 1
     return out
 
@@ -286,8 +378,8 @@ def lstm_stack_wavefront_fused(x0_proj, mask, w_hh, w_ih_up, b_up, h0, c0):
     _need_two_layers(w_hh.shape[0])
     if x0_proj.device.type == "cpu":
         return lstm_stack_wavefront_plain(x0_proj, mask, w_hh, w_ih_up, b_up, h0, c0)
-    out = _launch_stack("lstm_wavefront_forward", "LSTM wavefront kernel", x0_proj, mask, w_hh,
-                        w_ih_up, b_up, h0, c0)
+    out = _launch_stack(True, "LSTM wavefront kernel", x0_proj, mask, w_hh, w_ih_up, b_up, h0,
+                        c0)
     WAVEFRONT_LAUNCHES += 1
     return out
 
@@ -410,8 +502,7 @@ def lstm_bidi_prepare(device) -> None:
     build the kernel if needed, set its shared memory and check its
     occupancy. Outside the per-call path, and outside any CUDA graph capture."""
     global _bidi_lib
-    index = torch.device(device).index
-    index = torch.cuda.current_device() if index is None else index
+    index = _device_index(device)
     if index in _bidi_prepared:
         return
     _bidi_lib = _bidi_library()

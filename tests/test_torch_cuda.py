@@ -1,8 +1,9 @@
 """Checks that need the card: the LSTM stack kernel, its wavefront schedule,
 the bidirectional layer kernel and the LSTM training pair against their
-plain versions at the released widths (H=512, and H=1024; the bidirectional
-layer and each sweep also launched twice bit for bit, and captured in a
-CUDA graph), the LBS kernel
+plain versions at the released widths (H=512, and H=1024; the stack and its
+wavefront schedule, the bidirectional layer and each sweep also launched
+twice bit for bit, and captured in a CUDA graph; the stack wrapper
+allocating nothing but its results), the LBS kernel
 against its plain version at the full mesh (and captured in a CUDA graph),
 SMPLLayer's launches, and served steps
 (LGD-RNN, BiRNN, and both RNNs at the default width 2x1024) against the same
@@ -92,6 +93,90 @@ def test_wavefront_kernel_matches_plain_and_stack(cuda, f, n):
             torch.testing.assert_close(a, b, atol=ATOL, rtol=0)
     idle = (lengths == 0).to(cuda)
     assert torch.equal(got[1][0][:, idle], h0[:, idle]) and torch.equal(got[1][1][:, idle], c0[:, idle])
+
+
+def _stack_case(f, n, h, layers, seed, cuda):
+    """Kernel operands of an L-layer stack of width h: 0-length rows 0-1,
+    full rows 2-5, the rest partial; non-zero state."""
+    g = torch.Generator().manual_seed(seed)
+    u = lambda *s: ((torch.rand(*s, generator=g) * 2 - 1) * h ** -0.5).to(cuda)
+    x0_proj = (torch.randn(f, n, 4 * h, generator=g) * 0.5).to(cuda)
+    w_hh = u(layers, h, 4 * h)
+    w_ih_up = u(layers - 1, h, 4 * h) if layers > 1 else None
+    b_up = u(layers - 1, 4 * h) if layers > 1 else None
+    lengths = torch.randint(1, f, (n,), generator=g)
+    lengths[:2], lengths[2:6] = 0, f
+    mask = (torch.arange(f)[:, None] < lengths[None]).float().to(cuda)
+    h0, c0 = (torch.randn(2, layers, n, h, generator=g) * 0.5).to(cuda)
+    return (x0_proj, mask, w_hh, w_ih_up, b_up, h0, c0), (lengths == 0).to(cuda)
+
+
+@pytest.mark.parametrize("f, n, h, layers", [(16, 64, 1024, 1), (33, 100, 512, 2)])
+def test_stack_kernel_matches_plain_default_width_and_ragged(cuda, f, n, h, layers):
+    """One layer of the default width H=1024 (U=8, a one-slot ring) and a
+    ragged batch of more rows than one staging holds at 2x512 (a ring of two
+    slots, the last chunk partial): the stack kernel and, from 2 layers, its
+    wavefront schedule against their plain versions, atol 1e-4, one launch
+    per call, 0-length rows frozen bit for bit, a second call bit for bit
+    equal to the first."""
+    args, idle = _stack_case(f, n, h, layers, f + n + h, cuda)
+    schedules = [(K.lstm_stack_fused, K.lstm_stack_plain, "LAUNCHES")]
+    if layers > 1:
+        schedules.append((K.lstm_stack_wavefront_fused, K.lstm_stack_wavefront_plain,
+                          "WAVEFRONT_LAUNCHES"))
+    for fused, plain, counter in schedules:
+        launches = getattr(K, counter)
+        got, again = fused(*args), fused(*args)
+        assert getattr(K, counter) == launches + 2
+        for a, b, c in zip(got, plain(*args), again):
+            torch.testing.assert_close(a, b, atol=ATOL, rtol=0)
+            assert torch.equal(a, c)
+        assert torch.equal(got[1][:, idle], args[5][:, idle])
+        assert torch.equal(got[2][:, idle], args[6][:, idle])
+
+
+@pytest.mark.parametrize("wavefront", [False, True])
+def test_stack_kernel_cuda_graph_capture(cuda, wavefront):
+    """lstm_stack_fused and lstm_stack_wavefront_fused at 2x512 (16, 64),
+    each captured once in a CUDA graph (the call does no setup and no
+    synchronization; its cooperative launch is captured), replayed on new
+    inputs copied into the captured buffers: equal to the eager call, bit
+    for bit."""
+    fused = K.lstm_stack_wavefront_fused if wavefront else K.lstm_stack_fused
+    args, _ = _stack_case(16, 64, 512, 2, 1, cuda)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fused(*args)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = fused(*args)
+    new, _ = _stack_case(16, 64, 512, 2, 2, cuda)
+    for i in (0, 1, 5, 6):
+        args[i].copy_(new[i])
+    graph.replay()
+    torch.cuda.synchronize()
+    for a, b in zip(out, fused(*args)):
+        assert torch.equal(a, b)
+
+
+def test_stack_wrapper_reads_state_in_place(cuda):
+    """After its first call on the device the stack wrapper allocates its two
+    results (the outputs and one tensor of state planes) and nothing else:
+    no copy or clone of h0/c0 (the kernel reads them in place), which it
+    leaves untouched."""
+    args, _ = _stack_case(16, 64, 512, 2, 3, cuda)
+    h0, c0 = args[5].clone(), args[6].clone()
+    K.lstm_stack_fused(*args)
+    torch.cuda.synchronize()
+    for fused in (K.lstm_stack_fused, K.lstm_stack_wavefront_fused):
+        before = torch.cuda.memory_stats()["allocation.all.allocated"]
+        out = fused(*args)
+        assert torch.cuda.memory_stats()["allocation.all.allocated"] - before == 2
+        assert out[1].data_ptr() != args[5].data_ptr() and out[2].data_ptr() != args[6].data_ptr()
+    torch.cuda.synchronize()
+    assert torch.equal(args[5], h0) and torch.equal(args[6], c0)
 
 
 def _lbs_case(n, seed, device):

@@ -1,0 +1,57 @@
+"""The port's nvcc build bookkeeping (``empose_tpu_torch/ops/cuda_build.py``)
+on the CPU: which files a source's library depends on, and when it is stale.
+No compiler runs here."""
+
+import os
+
+import pytest
+
+from empose_tpu_torch.ops import cuda_build
+
+
+def test_stack_source_includes_common_header():
+    """The stack kernel's library depends on its source and the shared
+    device helpers; the sources that keep their own copies depend on
+    themselves alone."""
+    files = [os.path.basename(f) for f in cuda_build.source_files("lstm_stack")]
+    assert files == ["lstm_stack.cu", "lstm_common.cuh"]
+    for name in ("lstm_bidi", "lstm_train", "lbs"):
+        assert [os.path.basename(f) for f in cuda_build.source_files(name)] == [f"{name}.cu"]
+
+
+@pytest.fixture
+def tree(tmp_path, monkeypatch):
+    csrc, build = tmp_path / "csrc", tmp_path / "_build"
+    csrc.mkdir()
+    build.mkdir()
+    monkeypatch.setattr(cuda_build, "CSRC", str(csrc))
+    monkeypatch.setattr(cuda_build, "BUILD_DIR", str(build))
+    (csrc / "k.cu").write_text('#include <cuda_runtime.h>\n#include "a.cuh"\n')
+    (csrc / "a.cuh").write_text('#pragma once\n  #  include "b.cuh"\n')
+    (csrc / "b.cuh").write_text("#pragma once\n")
+    return csrc, build
+
+
+def _touch(path, t):
+    os.utime(path, (t, t))
+
+
+def test_library_stale_when_any_included_header_is_newer(tree):
+    """A library older than its source or than any header the source
+    includes, directly or through another header, is rebuilt; one newer
+    than all of them is kept."""
+    csrc, build = tree
+    assert [os.path.basename(f) for f in cuda_build.source_files("k")] == ["k.cu", "a.cuh",
+                                                                           "b.cuh"]
+    assert cuda_build._stale("k")  # no library yet
+    lib = build / "libk.so"
+    lib.write_bytes(b"")
+    for f in ("k.cu", "a.cuh", "b.cuh"):
+        _touch(csrc / f, 1000)
+    _touch(lib, 2000)
+    assert not cuda_build._stale("k")
+    for f in ("k.cu", "a.cuh", "b.cuh"):
+        _touch(csrc / f, 3000)
+        assert cuda_build._stale("k"), f
+        _touch(csrc / f, 1000)
+    assert cuda_build.build(["k"]) == {}  # up to date: no nvcc started

@@ -104,12 +104,59 @@ def test_lstm_apply_matches_jax(bidirectional):
 
 @pytest.mark.parametrize("layers, h, fits", [(2, 512, True), (2, 1024, False), (1, 1024, True)])
 def test_stack_fits_one_launch(layers, h, fits):
-    """The stack kernel's one-launch check, from lstm_stack.cu's shared
-    memory formula: the released 2x512 fits, the default 2x1024 does not
-    (about 410 KB a block), one layer of 1024 does (about 148 KB)."""
+    """The stack kernel's one-launch check, from its launch plan: the
+    released 2x512 fits, the default 2x1024 does not (the columns of two
+    layers of 1024 exceed a block's shared memory), one layer of 1024 does."""
     assert K.lstm_stack_fits(layers, h) is fits
-    units = K.units_per_block(h, K.SMS)
-    assert (K.stack_smem_bytes(units, h, layers) <= K.SMEM_LIMIT) is fits
+    if fits:
+        assert K.lstm_stack_plan(layers, K.PASS_ROWS, h).smem_bytes <= K.SMEM_LIMIT
+    else:
+        with pytest.raises(ValueError, match="does not fit"):
+            K.lstm_stack_plan(layers, K.PASS_ROWS, h)
+
+
+@pytest.mark.parametrize("wavefront", [False, True])
+@pytest.mark.parametrize("n", [1, 64, 1300])
+@pytest.mark.parametrize("layers, h", [(2, 512), (1, 1024)])
+def test_stack_launch_plan_fits(layers, h, n, wavefront):
+    """The stack kernel's plan at the released 2x512 and at one layer of the
+    default 1024 (the wavefront needs 2 layers): within the block's shared
+    memory and the SMs, staged rows all of N or whole 16-row slots, the
+    layout of csrc/lstm_stack.cu (resident columns, staged states)."""
+    if wavefront and layers < 2:
+        with pytest.raises(ValueError, match="needs >= 2 layers"):
+            K.lstm_stack_plan(layers, n, h, wavefront=True)
+        return
+    plan = K.lstm_stack_plan(layers, n, h, wavefront=wavefront)
+    assert plan.smem_bytes <= K.SMEM_LIMIT and plan.blocks <= K.SMS
+    assert plan.blocks * plan.units == h and plan.units == (4 if h == 512 else 8)
+    assert plan.planes == (layers if wavefront else min(layers, 2))
+    assert plan.stage_rows == n or (plan.stage_rows % K.PASS_ROWS == 0 and plan.stage_rows < n)
+    assert plan.stage_rows <= K.PASS_ROWS * K.MAX_SLOTS or plan.stage_rows == n
+    # Two teams of 256 threads at U=4 where a phase has more than one chunk,
+    # each with an equal share of a ring.
+    assert plan.teams == (2 if plan.units == 4 and n > K.PASS_ROWS else 1)
+    assert plan.stage_rows == n or plan.stage_rows // K.PASS_ROWS % plan.teams == 0
+    assert plan.smem_bytes == 4 * ((2 * layers - 1) * 4 * plan.units * h
+                                   + plan.planes * plan.stage_rows * h)
+
+
+def test_stack_launch_plan_refusals():
+    """No plan for the whole 2x1024 stack in either order (the wrapper runs
+    it one layer per launch), nor for bad shapes; a smaller card's limits
+    shrink the ring or refuse."""
+    for wavefront in (False, True):
+        with pytest.raises(ValueError, match="does not fit"):
+            K.lstm_stack_plan(2, 64, 1024, wavefront=wavefront)
+    for layers, n, h in ((2, 0, 512), (0, 4, 512), (2, 4, 510)):
+        with pytest.raises(ValueError, match="positive multiple of 4"):
+            K.lstm_stack_plan(layers, n, h)
+    one_slot = K.lstm_stack_plan(2, 64, 512, smem_limit=180000)
+    assert (one_slot.stage_rows, one_slot.teams) == (K.PASS_ROWS, 1)
+    odd = K.lstm_stack_plan(2, 300, 260)  # 5 slots fit: 4, 2 per team
+    assert (odd.stage_rows, odd.teams) == (4 * K.PASS_ROWS, 2)
+    with pytest.raises(ValueError, match="does not fit on 100 SMs"):
+        K.lstm_stack_plan(2, 64, 512, sms=100)
 
 
 def test_lstm_apply_default_width_matches_jax():

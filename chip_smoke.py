@@ -95,6 +95,21 @@ Phases, each printed on its own line:
      poses, betas and trans exactly); the FK stage's frames/s;
   6e. export_visualization of one 1100-frame sequence: 6 LBS launches (3
      chunks each for GT and prediction), the npz and two OBJ files written;
+  6f. real-data evaluation through ``python -m empose_tpu_torch.eval``'s
+     main on a seeded real tree (16 recordings of 1024-4096 frames over 4
+     subjects, 12 sensors from the port's FK and virtual sensors with
+     masked sensor-frames, and a hold-out recording): full-width LGD-RNN-6
+     in windows of 256 frames (the stack kernel once per window of the
+     batched pass) and BiRNN-6 over whole sequences (the bidirectional layer
+     kernel twice per forward); the serial pass, the host oracle and the
+     plain-LSTM run give the batched table within 1e-3 (relative);
+     ``--cross_subject``; the batched pass's wall time, frames/s, device
+     busy time and device ops (one profiled pass); then BiRNN-6 trained 3
+     steps through an eval boundary (``--eval_every 3``): one validation and
+     test pass at step 2 writes the best-test checkpoint. Every training run
+     of 6 and 6b ends with the CLI's final validation and test passes, which
+     launch the inference kernel once (LGD-RNN-6) or twice (BiRNN-6) per
+     forward; phase 4b also checks the bidirectional layer at F=4096, N=17;
   7. a "kernels" JSON line; 8. a last JSON line with the device.
 
     python3 chip_smoke.py --step-rounding [N_SEEDS, default 4]
@@ -123,8 +138,10 @@ Imports torch, numpy and the port only.
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import functools
+import io
 import itertools
 import json
 import os
@@ -142,9 +159,11 @@ from empose_tpu_torch.bodymodel.smplh import SMPLLayer, create_default_smpl_mode
 from empose_tpu_torch.bodymodel.synthetic import (make_offset_data, make_synthetic_smplh,
                                                   smooth_random_poses)
 from empose_tpu_torch.config import Configuration
-from empose_tpu_torch.data.datasets import EMRBatchLoader
+from empose_tpu_torch.data.datasets import EMRBatchLoader, make_real_loader
 from empose_tpu_torch.data.emr import EMRReader, EMRWriter
 from empose_tpu_torch.device import set_precision
+from empose_tpu_torch.eval import cli as eval_cli
+from empose_tpu_torch.eval import harness as EH
 from empose_tpu_torch.eval.harness import export_visualization
 from empose_tpu_torch.nn.layers import _reverse_by_length, init_parameters
 from empose_tpu_torch.nn.models import SensorSMPL, create_model
@@ -179,6 +198,14 @@ HIDDEN, LAYERS, N_IN = 512, 2, 6 * 12  # init RNN of LGD-RNN-6: 6 markers x (3 p
 TOL_LBS = 2e-5      # LBS kernel vs plain at metre-scale coordinates (the JAX test's)
 V_FULL, J_FULL = 6890, 52  # full SMPL-H mesh
 SMPL_FRAMES, EXPORT_FRAMES = 600, 1100
+# The real-data tree of the eval phase: 16 recordings over 4 subjects of
+# 1024-4096 frames and one hold-out recording; a 3DPW-style corpus of 24
+# sequences for the trainer's validation pass.
+REAL_SUBJECTS = (402, 403, 404, 405)
+REAL_RECORDINGS, HOLD_OUT_FRAMES, VALID_SEQUENCES = 16, 2000, 24
+EVAL_BATCH = 16      # bs_eval: the config's default, which train_flags keeps
+TOL_EVAL = 1e-3      # metric tables against each other: |a - b| <= 1e-3 * max(|b|, 1)
+BIDI_LONG = (4096, REAL_RECORDINGS + 1)  # the longest whole-sequence forward, beyond it
 FP32_PEAK = 67e12    # H100 SXM fp32 FLOP/s outside the tensor cores
 HBM_BYTES_S = 3.35e12  # H100 SXM HBM3 bytes/s
 
@@ -371,13 +398,15 @@ def stack_phase(f: int, n: int, seed: int, h: int = HIDDEN, layers: int = LAYERS
     ops = K.stack_operands(cells, x)
     args = (ops[0], mask, ops[1], ops[2], ops[3], h0, c0)
     shape = f"F={f} N={n}" + ("" if (h, layers) == (HIDDEN, LAYERS) else f" {layers}x{h}")
-    print(f"stack launch plan {shape}: {K.lstm_stack_plan(layers, n, h)._asdict()}", flush=True)
+    lim = K.stack_limits(x.device)
+    print(f"stack launch plan {shape}: {K.lstm_stack_plan(layers, n, h, *lim)._asdict()}",
+          flush=True)
     err = stack_check("stack kernel", shape, K.lstm_stack_fused, K.lstm_stack_plain, args,
                       "LAUNCHES")
     wave_err = None
     if layers > 1:
         print(f"wavefront launch plan {shape}: "
-              f"{K.lstm_stack_plan(layers, n, h, wavefront=True)._asdict()}", flush=True)
+              f"{K.lstm_stack_plan(layers, n, h, *lim, wavefront=True)._asdict()}", flush=True)
         wave_err = stack_check("wavefront kernel", shape, K.lstm_stack_wavefront_fused,
                                K.lstm_stack_wavefront_plain, args, "WAVEFRONT_LAUNCHES")
         wave_stack_err = max_err(K.lstm_stack_wavefront_fused(*args), K.lstm_stack_fused(*args))
@@ -431,7 +460,8 @@ def stack_default_width_times(f: int, n: int, seed: int) -> dict:
     version, on the same inputs."""
     h = 2 * HIDDEN
     cells, x, mask, h0, c0 = stack_case(f, n, seed, h, LAYERS)
-    check(not K.lstm_stack_fits(LAYERS, h), "the 2x1024 stack fits one launch")
+    check(not K.lstm_stack_fits(LAYERS, h, *K.stack_limits(x.device)),
+          "the 2x1024 stack fits one launch")
     lstm = cudnn_stack(cells, h)
     with torch.no_grad():
         launches = K.LAUNCHES
@@ -496,7 +526,7 @@ def bidi_phase(f: int, n: int, seed: int, h: int = HIDDEN, timed: bool = True) -
     cells, x, x_rev, lengths, args = bidi_inputs(f, n, seed, h)
     x_proj, mask, w_hh2, h0, c0 = args
     shape = f"F={f} N={n}" + ("" if h == HIDDEN else f" H={h}")
-    plan = K.lstm_bidi_plan(n, h)
+    plan = K.lstm_bidi_plan(n, h, *K.bidi_limits(x_proj.device))
     print(f"bidi launch plan {shape}: {plan._asdict()}", flush=True)
     launches = K.BIDI_LAUNCHES
     got = K.lstm_bidi_fused(*args)
@@ -868,8 +898,10 @@ def step_probe(f: int = TRAIN_WINDOW, ns=(1, 4, 16, 32, 64)) -> int:
     for n in ns:
         args = bidi_inputs(f, n, seed=SEED + n)[-1]
         bidi_us[n] = cuda_ms(lambda: K.lstm_bidi_fused(*args)) * 1e3 / f
-    print(f"bidi layer per step at F={f}, U={K.lstm_bidi_plan(1, HIDDEN).units}, us by N (plans: "
-          f"{ {n: K.lstm_bidi_plan(n, HIDDEN).stage_rows for n in ns} } rows staged at once): "
+    lim = K.bidi_limits(torch.device("cuda"))
+    print(f"bidi layer per step at F={f}, U={K.lstm_bidi_plan(1, HIDDEN, *lim).units}, us by N "
+          f"(plans: { {n: K.lstm_bidi_plan(n, HIDDEN, *lim).stage_rows for n in ns} } rows "
+          f"staged at once): "
           + ", ".join(f"N={n} {v:.2f}" for n, v in bidi_us.items()), flush=True)
     stack_us = {}
     for name, h, layers, fn in (("stack", HIDDEN, LAYERS, K.lstm_stack_fused),
@@ -882,9 +914,9 @@ def step_probe(f: int = TRAIN_WINDOW, ns=(1, 4, 16, 32, 64)) -> int:
             args = (ops[0], mask, ops[1], ops[2], ops[3], h0, c0)
             times[n] = cuda_ms(lambda: fn(*args)) * 1e3 / f
         stack_us[name] = times
-        wave = name == "wavefront"
+        wave, lim = name == "wavefront", K.stack_limits(x.device)
         print(f"{name} per step at F={f}, us by N (plans: "
-              f"{ {n: K.lstm_stack_plan(layers, n, h, wavefront=wave).stage_rows for n in ns} } "
+              f"{ {n: K.lstm_stack_plan(layers, n, h, *lim, wavefront=wave).stage_rows for n in ns} } "
               f"rows staged at once): " + ", ".join(f"N={n} {v:.2f}" for n, v in times.items()),
               flush=True)
     print(json.dumps({"fwd_us_per_step": fwd_us, "bwd_us_per_step": us,
@@ -892,33 +924,88 @@ def step_probe(f: int = TRAIN_WINDOW, ns=(1, 4, 16, 32, 64)) -> int:
     return 0
 
 
-def write_assets(root: str, rng) -> None:
-    """The asset tree the entry points read: the synthetic SMPL-H, offsets
-    of 4 subjects, and an EMR corpus of 64 smooth seeded pose sequences of
-    150-300 frames; points $SMPL_MODELS, $EM_DATA_REAL, $EM_DATA_SYNTH and
-    $EM_EXPERIMENTS at it."""
-    smpl_dir = os.path.join(root, "smpl_models", "smplh_amass", "neutral")
-    real_dir = os.path.join(root, "data_real")
-    emr_dir = os.path.join(root, "data_synth", "amass_emr")
-    for d in (smpl_dir, real_dir, emr_dir):
-        os.makedirs(d)
-    np.savez(os.path.join(smpl_dir, "model.npz"), **make_synthetic_smplh(seed=SEED))
-    for subj in range(402, 406):
-        np.savez(os.path.join(real_dir, f"{subj:04d}_offsets.npz"), **make_offset_data(rng))
-    with EMRWriter(os.path.join(emr_dir, "corpus.emr")) as w:
-        for i in range(64):
-            n_frames = int(rng.randint(150, 301))
+def smooth_corpus(path: str, rng, n: int, frames: tuple, prefix: str) -> None:
+    """An EMR corpus of ``n`` smooth seeded pose sequences (poses, trans,
+    betas) of ``frames`` = (least, most) frames."""
+    with EMRWriter(os.path.join(path, "corpus.emr")) as w:
+        for i in range(n):
+            n_frames = int(rng.randint(frames[0], frames[1] + 1))
             t = np.linspace(0.0, 1.0, n_frames)
             ctrl_t = np.linspace(0.0, 1.0, 8)
             ctrl = rng.randn(8, 69) * 0.3
             curves = np.stack([np.interp(t, ctrl_t, ctrl[:, d]) for d in range(69)], -1)
-            w.add_record({"id": f"seq{i:03d}", "gender": "neutral", "n_frames": n_frames},
+            w.add_record({"id": f"{prefix}{i:03d}", "gender": "neutral", "n_frames": n_frames},
                          {"poses": curves[:, :66].astype(np.float32),
                           "trans": curves[:, 66:].astype(np.float32),
                           "betas": (rng.randn(10) * 0.5).astype(np.float32)})
+
+
+def write_recording(path: str, seq_id: str, offsets: dict, n_frames: int, sensor: SensorSMPL,
+                    rng) -> None:
+    """A ``*_clean.npz`` real recording (the keys ``RealSample.from_npz_clean``
+    reads): smooth seeded poses, shape and translation, the 12 sensors from
+    the port's FK and virtual sensors with the subject's mounting offsets and
+    2 mm of noise, and 3 gaps of 30 frames in which one sensor is missing."""
+    poses = smooth_random_poses(rng, n_frames, 66, 0.35).astype(np.float32)
+    shape = (rng.randn(10) * 0.5).astype(np.float32)
+    trans = smooth_random_poses(rng, n_frames, 3, 0.3).astype(np.float32)
+    with torch.no_grad():
+        pos, ori, _, _ = sensor.markers_and_joints(torch.from_numpy(poses).cuda(),
+                                                   torch.from_numpy(shape[None]).cuda(),
+                                                   trans=torch.from_numpy(trans).cuda())
+    pos, ori = pos.cpu().numpy(), ori.cpu().numpy()
+    ori_corr = np.einsum("fmab,mbc->fmac", ori, offsets["r"])
+    pos_corr = pos + np.einsum("fmab,mb->fma", ori, offsets["means"])
+    pos_corr += rng.randn(*pos_corr.shape) * 0.002
+    masks = np.ones((n_frames, 12), np.float32)
+    for _ in range(3):
+        t0 = rng.randint(0, n_frames - 30)
+        masks[t0:t0 + 30, rng.randint(0, 12)] = 0.0
+    np.savez(path, id=seq_id, sensor_pos=pos_corr.reshape(n_frames, -1).astype(np.float32),
+             sensor_oris=ori_corr.reshape(n_frames, -1).astype(np.float32), sensor_masks=masks,
+             smpl_poses=poses, smpl_shape=shape, smpl_trans=trans,
+             offset_means=offsets["means"], offset_covs=offsets["covs"], offset_r=offsets["r"])
+
+
+def recording_lengths(rng) -> np.ndarray:
+    """REAL_RECORDINGS lengths in 1024-4096 frames: one of 4096 and one of
+    1024, the rest not a multiple of 256."""
+    lengths = rng.randint(1024, 4097, REAL_RECORDINGS)
+    lengths[0], lengths[1] = 4096, 1024
+    lengths[2:] -= lengths[2:] % 256 == 0
+    return lengths
+
+
+def write_assets(root: str, rng) -> None:
+    """The asset tree the entry points read: the synthetic SMPL-H; offsets
+    of 4 subjects and of the hold-out subject 0715; 16 real recordings of
+    1024-4096 frames over the 4 subjects and one of 2000 frames of 0715 in
+    ``hold_out/``; an EMR corpus of 64 smooth seeded pose sequences of
+    150-300 frames (training) and a 3DPW-style one of 24 of 300-900 frames
+    (validation). Points $SMPL_MODELS, $EM_DATA_REAL, $EM_DATA_SYNTH and
+    $EM_EXPERIMENTS at it."""
+    smpl_dir = os.path.join(root, "smpl_models", "smplh_amass", "neutral")
+    real_dir = os.path.join(root, "data_real")
+    emr_dir = os.path.join(root, "data_synth", "amass_emr")
+    valid_dir = os.path.join(root, "data_synth", "3dpw_emr")
+    for d in (smpl_dir, os.path.join(real_dir, "hold_out"), emr_dir, valid_dir):
+        os.makedirs(d)
+    np.savez(os.path.join(smpl_dir, "model.npz"), **make_synthetic_smplh(seed=SEED))
+    offsets = {subj: make_offset_data(rng) for subj in REAL_SUBJECTS + (715,)}
+    for subj, off in offsets.items():
+        np.savez(os.path.join(real_dir, f"{subj:04d}_offsets.npz"), **off)
+    smooth_corpus(emr_dir, rng, 64, (150, 300), "seq")
+    smooth_corpus(valid_dir, rng, VALID_SEQUENCES, (300, 900), "3dpw")
     os.environ.update(SMPL_MODELS=os.path.join(root, "smpl_models"), EM_DATA_REAL=real_dir,
                       EM_DATA_SYNTH=os.path.join(root, "data_synth"),
                       EM_EXPERIMENTS=os.path.join(root, "experiments"))
+    sensor = SensorSMPL(load_smplh()).cuda()
+    for i, n_frames in enumerate(recording_lengths(rng)):
+        subj = REAL_SUBJECTS[i % len(REAL_SUBJECTS)]
+        write_recording(os.path.join(real_dir, f"{subj:04d}_rec{i:02d}_clean.npz"),
+                        f"{subj:04d}_rec{i:02d}", offsets[subj], int(n_frames), sensor, rng)
+    write_recording(os.path.join(real_dir, "hold_out", "0715_rec00_clean.npz"), "0715_rec00",
+                    offsets[715], HOLD_OUT_FRAMES, sensor, rng)
 
 
 def write_experiment(root: str, model_id: str, cfg: dict, name: str) -> int:
@@ -1038,11 +1125,11 @@ def profile_window(name: str, step, n_steps: int) -> None:
 
 
 def train_flags(model_cfg: dict, experiment_id: str, max_steps: int,
-                resume: bool = False) -> list:
+                resume: bool = False, eval_every: int = 10 ** 6) -> list:
     """The CLI flags of full-width training of ``model_cfg`` at the flagship
-    step (window 64, batch 16), evaluation beyond the run."""
+    step (window 64, batch 16), evaluation beyond the run by default."""
     cfg = dict(model_cfg, window_size=TRAIN_WINDOW, bs_train=TRAIN_BATCH, n_epochs=10,
-               print_every=4, eval_every=10 ** 6, seed=SEED, experiment_id=experiment_id)
+               print_every=4, eval_every=eval_every, seed=SEED, experiment_id=experiment_id)
     flags = []
     for k, v in cfg.items():
         if v is True:
@@ -1056,6 +1143,19 @@ def train_losses(model_dir: str) -> dict:
     with open(os.path.join(model_dir, "logs", "scalars.jsonl")) as f:
         rows = [json.loads(line) for line in f]
     return {r["step"]: r["value"] for r in rows if r["tag"] == "train/total_loss"}
+
+
+def stack_forward_launches(layers: int, h: int) -> int:
+    """Stack kernel launches per forward on this card: one where the whole
+    stack fits, by the card's own SMs and shared memory, as lstm_stack
+    decides, else one per layer."""
+    return 1 if K.lstm_stack_fits(layers, h, *K.stack_limits(torch.device("cuda"))) else layers
+
+
+def bidi_layer_launches(n: int, h: int) -> int:
+    """Bidirectional kernel launches per layer at N rows on this card: the
+    plan of lstm_bidi_fused with the card's own SMs and shared memory."""
+    return K.lstm_bidi_plan(n, h, *K.bidi_limits(torch.device("cuda"))).launches
 
 
 def reset_counts() -> None:
@@ -1118,12 +1218,21 @@ def serving_path(label: str, model_id: str, feeds, offsets, kernel: str, per_for
     return launched[kernel]
 
 
+def final_eval_forwards() -> int:
+    """Forwards of the CLI's final validation and test passes: one per
+    validation batch and one per recording (whole sequences)."""
+    return -(-VALID_SEQUENCES // EVAL_BATCH) + REAL_RECORDINGS
+
+
 def training_path(label: str, model_cfg: dict, experiment_id: str, steps: int,
-                  resume_steps: int, per_step: int) -> dict:
+                  resume_steps: int, per_step: int, eval_kernel: str,
+                  eval_per_forward: int) -> dict:
     """Train ``steps`` steps through the CLI's main, resume for
     ``resume_steps``; each training kernel must launch ``per_step`` times per
-    step (once per direction-layer) and no other kernel. Returns the trainer
-    and the training kernels' launch counts of that run."""
+    step (once per direction-layer), the inference kernel ``eval_kernel``
+    ``eval_per_forward`` times per forward of each run's final validation
+    and test passes, and no other kernel. Returns the trainer and the
+    kernels' launch counts of that run."""
     torch.cuda.synchronize()
     reset_counts()
     model_dir, trainer = train_cli.main(train_flags(model_cfg, experiment_id, steps))
@@ -1146,13 +1255,16 @@ def training_path(label: str, model_cfg: dict, experiment_id: str, steps: int,
     check(sorted(losses) == list(range(1, steps + resume_steps + 1)),
           f"the resumed run did not continue from step {steps}")
     check(all(np.isfinite(v) for v in losses.values()), "a training loss is not finite")
+    evals = {eval_kernel: eval_per_forward * final_eval_forwards()}
     for n, got in ((steps, first), (resume_steps, second)):
-        check(got == expected(lstm_train_fwd=per_step * n, lstm_train_bwd=per_step * n),
-              f"{label}: each training kernel must launch {per_step} times per step and no "
-              f"other kernel, got {got} over {n} steps")
+        check(got == expected(lstm_train_fwd=per_step * n, lstm_train_bwd=per_step * n, **evals),
+              f"{label}: each training kernel must launch {per_step} times per step, "
+              f"{eval_kernel} {evals[eval_kernel]} times in the final passes, and no other "
+              f"kernel; got {got} over {n} steps")
     return {"trainer": trainer, "model_dir": model_dir,
             "fwd": first["lstm_train_fwd"] + second["lstm_train_fwd"],
-            "bwd": first["lstm_train_bwd"] + second["lstm_train_bwd"]}
+            "bwd": first["lstm_train_bwd"] + second["lstm_train_bwd"],
+            eval_kernel: first[eval_kernel] + second[eval_kernel]}
 
 
 def fwd_in_fp64(x_proj, mask, w_hh, h0, c0, save_gates: bool = True):
@@ -1467,6 +1579,142 @@ def export_path(root: str, layer: SMPLLayer, rng) -> int:
     return launched["lbs"]
 
 
+def table_diff(a: list, b: list) -> float:
+    """Largest |a - b| / max(|b|, 1) over the numbers of two metric tables
+    with the same ids (inf where the ids differ)."""
+    if [r[0] for r in a] != [r[0] for r in b]:
+        return float("inf")
+    x, y = np.array([r[1:] for r in a], float), np.array([r[1:] for r in b], float)
+    return float((np.abs(x - y) / np.maximum(np.abs(y), 1.0)).max())
+
+
+def quiet_eval(argv: list) -> tuple:
+    """``python -m empose_tpu_torch.eval``'s main with its printout kept:
+    (rows, printed text)."""
+    with contextlib.redirect_stdout(io.StringIO()) as out:
+        rows, _ = eval_cli.main(argv)
+    return rows, out.getvalue()
+
+
+def eval_path(label: str, model_id: str, kernel: str, per_forward, window) -> dict:
+    """Real-data evaluation of ``model_id`` through ``python -m
+    empose_tpu_torch.eval``'s main on the recordings of $EM_DATA_REAL.
+
+    The batched pass runs with the counts at 0: ``kernel`` must launch
+    ``per_forward(N)`` times per forward of the pass (one per window of each
+    group of N sequences) and no other kernel. The serial pass, the host
+    oracle and the batched pass with the plain LSTM versions (no launch)
+    must give its table within TOL_EVAL; ``--cross_subject`` gives the
+    hold-out row. Then one batched pass timed on the host clock and one
+    profiled. Returns the launches and the numbers."""
+    argv = ["--model_id", model_id]
+    _, _, groups = EH.build_eval_corpus(make_real_loader(), window)
+    forwards = [stacked["poses"].shape[0] for _, stacked, w in groups
+                for _ in range(stacked["poses"].shape[1] // w)]
+    want = sum(per_forward(n) for n in forwards)
+    torch.cuda.synchronize()
+    reset_counts()
+    rows, text = quiet_eval(argv)
+    torch.cuda.synchronize()
+    launched = counts()
+    print(text[text.index("Nr"):].rstrip(), flush=True)
+    print(f"{label} eval main path (batched): {len(groups)} groups, {len(forwards)} forwards "
+          f"(N = {sorted(set(forwards))}), launches {launched}", flush=True)
+    check(launched == expected(**{kernel: want}),
+          f"{label} eval: expected {want} {kernel} launches and no other kernel, got {launched}")
+    finite = all(np.isfinite(r[1:]).all() for r in rows)
+    check(finite and len(rows) == REAL_RECORDINGS + 1 and rows[-1][0] == "Overall average",
+          f"{label} eval: the table is not {REAL_RECORDINGS} finite rows and the overall row")
+
+    cross = quiet_eval(argv + ["--cross_subject"])[0]
+    check(len(cross) == 2 and all(np.isfinite(r[1:]).all() for r in cross),
+          f"{label} eval: --cross_subject did not give the hold-out row and the overall")
+
+    from torch.profiler import ProfilerActivity, profile
+    session, loader, _ = EH.load_model_and_eval_data(model_id)
+    lengths = [int(b["seq_lengths"][0]) for b in loader]
+
+    def one_pass():
+        with contextlib.redirect_stdout(io.StringIO()):
+            got = EH.evaluate_real_sequences(session, loader, window)[0]
+        torch.cuda.synchronize()
+        return got
+
+    diffs = {"serial": table_diff(quiet_eval(argv + ["--serial"])[0], rows),
+             "host_metrics": table_diff(quiet_eval(argv + ["--host_metrics"])[0], rows)}
+    rnn = session.model.rnn
+    rnn.lstm_stack, rnn.lstm_bidi = K.lstm_stack_plain, K.lstm_bidi_plain
+    before = counts()
+    diffs["plain_lstm"] = table_diff(one_pass(), rows)
+    check(counts() == before, f"{label} eval: the plain-LSTM run launched a kernel")
+    rnn.lstm_stack, rnn.lstm_bidi = K.lstm_stack_fused, K.lstm_bidi_fused
+    print(f"{label} eval: largest relative difference to the batched table {diffs}; "
+          f"--cross_subject rows {[r[0] for r in cross]}", flush=True)
+    for name, d in diffs.items():
+        check(d <= TOL_EVAL, f"{label} eval: the {name} table differs from the batched one by "
+                             f"{d} > {TOL_EVAL}")
+
+    one_pass()
+    t0 = time.perf_counter()
+    one_pass()
+    wall = time.perf_counter() - t0
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        one_pass()
+        wall_prof = time.perf_counter() - t0
+    dev = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy = {e.key: getattr(e, "self_device_time_total", getattr(e, "self_cuda_time_total", 0.0))
+            / 1e3 for e in dev}
+    busy_ms = sum(busy.values())
+    ops = sum(e.count for e in dev)
+    top = sorted(busy.items(), key=lambda kv: -kv[1])[:5]
+    out = dict(launches=launched[kernel], groups=len(groups), forwards=len(forwards),
+               frames=sum(lengths), wall_s=wall, frames_per_s=sum(lengths) / wall,
+               wall_profiled_s=wall_prof, busy_ms=busy_ms, busy_share=busy_ms / 1e3 / wall_prof,
+               device_ops=ops, diffs=diffs)
+    print(f"{label} eval pass (batched, {len(lengths)} recordings, {sum(lengths)} frames): wall "
+          f"{wall:.3f} s, {out['frames_per_s']:.0f} frames/s; profiled pass: wall "
+          f"{wall_prof:.3f} s, device busy {busy_ms:.1f} ms ({100 * out['busy_share']:.1f}%), "
+          f"{ops} device ops, {launched[kernel]} {kernel} launches; largest: "
+          + "; ".join(f"{k[:48]} {v:.1f} ms" for k, v in top), flush=True)
+    return out
+
+
+def eval_fit_path(label: str, model_cfg: dict, experiment_id: str, per_step: int,
+                  eval_kernel: str, eval_per_forward: int) -> int:
+    """3 training steps through the train CLI's main with ``--eval_every 3``:
+    one validation and test pass at step 2, which writes the best-test
+    checkpoint, then the final passes on it; the training kernels launch
+    ``per_step`` times per step and ``eval_kernel`` ``eval_per_forward``
+    times per forward of the two rounds of passes. Returns the latter."""
+    torch.cuda.synchronize()
+    reset_counts()
+    with contextlib.redirect_stdout(io.StringIO()) as out:
+        model_dir, trainer = train_cli.main(train_flags(model_cfg, experiment_id, 3,
+                                                        eval_every=3))
+    torch.cuda.synchronize()
+    launched = counts()
+    text = out.getvalue()
+    state = torch.load(os.path.join(model_dir, "checkpoint", "train_state.pt"),
+                       map_location="cpu", weights_only=True)
+    evals = eval_per_forward * 2 * final_eval_forwards()
+    lines = [line for line in text.splitlines()
+             if line.startswith(("[VALID", "[TEST", "[VALID FINAL]", "[TEST FINAL]"))]
+    print(f"{label} training through an eval boundary: launches {launched}; checkpoint at step "
+          f"{state['global_step']}, best test loss {state['best_test_loss']:.6f}; "
+          + " | ".join(line[:100] for line in lines), flush=True)
+    check(trainer.global_step == 3 and state["global_step"] == 2,
+          f"{label}: the eval at step 2 did not write the best-test checkpoint")
+    check(sum(line.startswith("[VALID 0") for line in lines) == 1
+          and sum(line.startswith("[TEST  ") for line in lines) == 1
+          and np.isfinite(state["best_test_loss"]), f"{label}: no eval at step 2")
+    check(launched == expected(lstm_train_fwd=3 * per_step, lstm_train_bwd=3 * per_step,
+                               **{eval_kernel: evals}),
+          f"{label}: expected {3 * per_step} launches of each training kernel and {evals} "
+          f"{eval_kernel} launches, got {launched}")
+    return launched[eval_kernel]
+
+
 def bench_path() -> int:
     """The port's bench tool at --batch 1 64 --window 16 --iters 5 with the
     counts at 0: each timed call of the stack and of the wavefront launches
@@ -1560,6 +1808,9 @@ def main() -> int:
     bidi_phase(CHUNK, 32, seed=SEED + 1024, h=2 * HIDDEN)
     for n, h in ((7, 64), (STREAMS, 260), (7, 516)):
         bidi_phase(CHUNK, n, seed=SEED + h, h=h, timed=False)
+    # The longest whole-sequence forward of the eval phase (F=4096), at one
+    # row more than the eval corpus holds.
+    bidi_phase(*BIDI_LONG, seed=SEED + BIDI_LONG[0])
     # Timed: an export chunk, a batch, one frame; checked: the SMPLLayer.fk
     # call, the export's last chunk, a ragged chunk.
     lbs = {n: lbs_phase(n, seed=SEED + n + 3, timed=n in (512, 64, 1))
@@ -1584,20 +1835,22 @@ def main() -> int:
         def plain_bidi(model):
             model.rnn.lstm_bidi = K.lstm_bidi_plain
 
-        launches = serving_path("LGD-RNN-6", "900001", feeds, offsets, "lstm_stack", 1,
-                                plain_stack)
+        # The stack runs whole where it fits the card, else one layer per launch.
+        stack_per_forward = stack_forward_launches(LAYERS, HIDDEN)
+        launches = serving_path("LGD-RNN-6", "900001", feeds, offsets, "lstm_stack",
+                                stack_per_forward, plain_stack)
         bidi_launches = serving_path("BiRNN-6", "900003", feeds, offsets, "lstm_bidi",
                                      BIRNN_6["m_num_layers"], plain_bidi)
 
         # The default-width RNNs (H=1024): the stack one layer per launch,
         # the bidirectional layer one direction per launch.
         h_default, layers = RNN_DEFAULT["m_hidden_size"], RNN_DEFAULT["m_num_layers"]
-        per_forward = 1 if K.lstm_stack_fits(layers, h_default) else layers
+        per_forward = stack_forward_launches(layers, h_default)
         n_params = write_experiment(root, "900005", RNN_DEFAULT, "RNN-1024")
         print(f"model: RNN at the default width ({layers}x{h_default}), {n_params} parameters "
               f"(seeded random weights); {per_forward} stack launches per forward", flush=True)
         serving_path("RNN-1024", "900005", feeds, offsets, "lstm_stack", per_forward, plain_stack)
-        per_forward = layers * K.lstm_bidi_plan(STREAMS, h_default).launches
+        per_forward = layers * bidi_layer_launches(STREAMS, h_default)
         n_params = write_experiment(root, "900006", BIRNN_DEFAULT, "BiRNN-1024")
         print(f"model: BiRNN at the default width ({layers}x{h_default}), {n_params} parameters "
               f"(seeded random weights); {per_forward} bidi launches per forward", flush=True)
@@ -1606,18 +1859,33 @@ def main() -> int:
 
         n_layers = LGD_RNN_6["m_rnn_num_layers"]
         trained = training_path("LGD-RNN-6", LGD_RNN_6, "900002", TRAIN_STEPS, RESUME_STEPS,
-                                n_layers)
+                                n_layers, "lstm_stack", stack_per_forward)
         training_step_vs_plain("LGD-RNN-6", trained["trainer"], n_layers, TOL_GRAD_LGD)
         training_times("LGD-RNN-6", trained["trainer"])
         trained_fwd, trained_bwd = trained["fwd"], trained["bwd"]
+        launches += trained["lstm_stack"]
         del trained
 
         per_step = 2 * BIRNN_6["m_num_layers"]
+        bidi_per_forward = BIRNN_6["m_num_layers"] * bidi_layer_launches(1, HIDDEN)
         birnn = training_path("BiRNN-6", BIRNN_6, "900004", BIRNN_TRAIN_STEPS,
-                              BIRNN_RESUME_STEPS, per_step)
+                              BIRNN_RESUME_STEPS, per_step, "lstm_bidi", bidi_per_forward)
         training_step_vs_plain("BiRNN-6", birnn["trainer"], per_step, TOL_GRAD_REL)
         training_times("BiRNN-6", birnn["trainer"])
+        bidi_launches += birnn["lstm_bidi"]
         del birnn
+
+        # Real-data evaluation: LGD-RNN-6 in windows of 256 frames (the
+        # stack kernel), BiRNN-6 over whole sequences (the bidirectional
+        # layer kernel, one launch per layer at H=512 for any N).
+        lgd_eval = eval_path("LGD-RNN-6", "900001", "lstm_stack", lambda n: stack_per_forward,
+                             256)
+        birnn_eval = eval_path("BiRNN-6", "900003", "lstm_bidi",
+                               lambda n: BIRNN_6["m_num_layers"] * bidi_layer_launches(n, HIDDEN),
+                               None)
+        launches += lgd_eval["launches"]
+        bidi_launches += birnn_eval["launches"] + eval_fit_path(
+            "BiRNN-6", BIRNN_6, "900007", per_step, "lstm_bidi", bidi_per_forward)
 
         layer, lbs_launches = smpl_layer_path(rng)
         datagen_path(root, rng)

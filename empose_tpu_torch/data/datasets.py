@@ -1,6 +1,8 @@
-"""The training batch loader over an EMR corpus, with background prefetch
-(port of ``empose_tpu/data/datasets.py``: ``EMRBatchLoader``,
-``_prefetch_iter``, ``get_all_offset_files``).
+"""Dataset readers and batch loaders, with background prefetch (port of
+``empose_tpu/data/datasets.py``): ``EMRBatchLoader`` (training batches
+straight from an EMR corpus), ``EMRSequenceDataset`` (windowed sequences of
+an EMR corpus), ``RealDataset`` (the ``*_clean.npz`` recordings), ``Loader``
+(batches of a dataset through a collate function) and ``make_real_loader``.
 
 Batches are the JAX package's byte for byte: the same shuffle stream (from
 ``seed``), the same crop stream (``window_rng``), the same time padding to a
@@ -13,12 +15,14 @@ import glob
 import os
 import queue
 import threading
-from typing import Dict, Iterator, Optional
+from typing import Callable, Dict, Iterator, Optional
 
 import numpy as np
 
 from empose_tpu_torch import constants as C
+from empose_tpu_torch.data.batches import AMASSSample, RealSample, collate_real
 from empose_tpu_torch.data.emr import EMRReader
+from empose_tpu_torch.data.transforms import extract_window
 
 
 def get_all_offset_files(data_dir: Optional[str] = None) -> Dict[str, str]:
@@ -72,6 +76,96 @@ def _prefetch_iter(gen: Iterator, prefetch: int) -> Iterator:
             yield item
     finally:
         stop.set()
+
+
+class EMRSequenceDataset:
+    """Sequences of an EMR corpus (fields poses (F, 66), betas (10,), trans
+    (F, 3), optional joints (F, 66); meta id, gender, n_frames), each cut to
+    a window of ``window_size`` frames (``extract_window``: random, at the
+    beginning or in the middle) or whole."""
+
+    def __init__(self, path: str, window_size: Optional[int] = None, window_mode: str = "random",
+                 rng: Optional[np.random.RandomState] = None):
+        if os.path.isdir(path):
+            path = os.path.join(path, "corpus.emr")
+        self.reader = EMRReader(path)
+        self.window_size = window_size
+        self.window_mode = window_mode
+        self.rng = rng
+
+    def __len__(self) -> int:
+        return len(self.reader)
+
+    def __getitem__(self, i: int) -> AMASSSample:
+        meta = self.reader.meta(i)
+        n_frames = meta["n_frames"]
+        if self.window_size is not None:
+            sf, ef = extract_window(n_frames, self.window_size, self.rng, self.window_mode)
+        else:
+            sf, ef = 0, n_frames
+        r = self.reader
+        return AMASSSample(meta["id"], r.read(i, "poses", sf, ef), r.read(i, "betas"),
+                           r.read(i, "trans", sf, ef), fps=C.FPS,
+                           joints=r.read(i, "joints", sf, ef) if "joints" in r.fields(i) else None,
+                           gender=meta.get("gender", "unknown"))
+
+
+class RealDataset:
+    """All ``*_clean.npz`` recordings of a directory in name order, their
+    sensor data normalized to the frame-0 root frame unless ``normalize`` is
+    False."""
+
+    def __init__(self, data_dir: str, normalize: bool = True):
+        self.files = sorted(glob.glob(os.path.join(data_dir, "*_clean.npz")))
+        if not self.files:
+            raise FileNotFoundError(f"No *_clean.npz files found in {data_dir}")
+        self.normalize = normalize
+
+    def __len__(self) -> int:
+        return len(self.files)
+
+    def __getitem__(self, i: int) -> RealSample:
+        s = RealSample.from_npz_clean(self.files[i])
+        return s.normalize_markers() if self.normalize else s
+
+
+class Loader:
+    """Batches of ``collate_fn([dataset[i], ...])``, shuffled from ``seed``
+    where asked, drawn ``prefetch`` batches ahead on a background thread."""
+
+    def __init__(self, dataset, batch_size: int, collate_fn: Callable, shuffle: bool = False,
+                 seed: int = 0, drop_last: bool = False, prefetch: int = 2):
+        self.dataset = dataset
+        self.batch_size = batch_size
+        self.collate_fn = collate_fn
+        self.shuffle = shuffle
+        self.rng = np.random.RandomState(seed)
+        self.drop_last = drop_last
+        self.prefetch = prefetch
+
+    def __len__(self) -> int:
+        n = len(self.dataset)
+        return n // self.batch_size if self.drop_last else -(-n // self.batch_size)
+
+    def _batches(self) -> Iterator[Dict]:
+        idx = np.arange(len(self.dataset))
+        if self.shuffle:
+            self.rng.shuffle(idx)
+        for start in range(0, len(idx), self.batch_size):
+            chunk = idx[start:start + self.batch_size]
+            if self.drop_last and len(chunk) < self.batch_size:
+                return
+            yield self.collate_fn([self.dataset[int(i)] for i in chunk])
+
+    def __iter__(self) -> Iterator[Dict]:
+        yield from _prefetch_iter(self._batches(), self.prefetch)
+
+
+def make_real_loader(data_dir: Optional[str] = None, batch_size: int = 1) -> Loader:
+    """The real recordings of ``data_dir`` ($EM_DATA_REAL by default) in
+    order, ``batch_size`` per batch."""
+    return Loader(RealDataset(data_dir or C.data_dir_real()), batch_size, collate_real,
+                  shuffle=False)
 
 
 class EMRBatchLoader:

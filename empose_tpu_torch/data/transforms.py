@@ -1,5 +1,7 @@
 """Training-data synthesis on the device: root normalization, FK + virtual
-sensors, mounting offsets (port of ``empose_tpu/data/transforms.py``).
+sensors, mounting offsets; and the host transforms of the input pipeline,
+the window draw and the normalization of real sensor data (port of
+``empose_tpu/data/transforms.py``).
 
 Every random draw (the subject of each sequence, the offset normals) comes
 from an explicit ``torch.Generator`` on the batch's device. Each random
@@ -16,6 +18,7 @@ import numpy as np
 import torch
 
 from empose_tpu_torch.data.noise import make_noise_fn
+from empose_tpu_torch.ops.quaternions import np_quat_from_aa
 from empose_tpu_torch.ops.so3 import aa2rot, rot2aa
 
 NOISE_LEVELS = (-1, 0, 1, 2, 3)
@@ -168,3 +171,44 @@ def make_preprocess_fn(sensor_smpl, bank: OffsetBank, config, randomize_if_confi
         raise ValueError(f"Mode '{mode}' unknown.")
 
     return preprocess
+
+
+def extract_window(n_frames: int, window_size: int, rng: Optional[np.random.RandomState],
+                   mode: str = "random"):
+    """A (start, end) crop of ``window_size`` frames: the whole sequence when
+    it is no longer, else at the start, the middle or a uniform random start."""
+    if mode not in ("random", "beginning", "middle"):
+        raise ValueError(f"Unknown window mode {mode!r}")
+    if n_frames <= window_size:
+        return 0, n_frames
+    if mode == "beginning":
+        return 0, window_size
+    if mode == "middle":
+        sf = n_frames // 2 - window_size // 2
+        return sf, sf + window_size
+    sf = rng.randint(0, n_frames - window_size + 1)
+    return sf, sf + window_size
+
+
+def normalize_real_markers(marker_pos: np.ndarray, marker_ori: np.ndarray,
+                           smpl_poses: np.ndarray, smpl_trans: np.ndarray):
+    """Real sensor data in the frame-0 root frame (host numpy, the JAX
+    package's arithmetic, so the same bits): positions minus the per-frame root
+    translation, then rotated by the inverse frame-0 root orientation;
+    orientations left-multiplied by the same rotation.
+
+    :param marker_pos: (F, M*3); :param marker_ori: (F, M*9);
+    :param smpl_poses: (F, 66); :param smpl_trans: (F, 3).
+    :return: (pos (F, M*3), ori (F, M*9)).
+    """
+    f = marker_pos.shape[0]
+    m = marker_pos.shape[-1] // 3
+    w, x, y, z = np_quat_from_aa(smpl_poses[0:1, :3])[0]
+    r0 = np.asarray([
+        [1 - 2 * (y * y + z * z), 2 * (x * y - w * z), 2 * (x * z + w * y)],
+        [2 * (x * y + w * z), 1 - 2 * (x * x + z * z), 2 * (y * z - w * x)],
+        [2 * (x * z - w * y), 2 * (y * z + w * x), 1 - 2 * (x * x + y * y)],
+    ])
+    pos = np.einsum("ab,fmb->fma", r0.T, marker_pos.reshape(f, m, 3) - smpl_trans[:, None, :])
+    ori = np.einsum("ab,fmbc->fmac", r0.T, marker_ori.reshape(f, m, 3, 3))
+    return pos.reshape(f, -1), ori.reshape(f, -1)

@@ -62,10 +62,12 @@ kernel's shared memory and checks its occupancy once per device, and
 :func:`lstm_bidi_plan` (pure Python) sizes the grid and the staged rows.
 
 Any H the models take runs at inference: where the whole stack does not fit
-in one launch (:func:`lstm_stack_fits`; at H=1024 with 2 layers),
-:func:`lstm_stack` runs it one layer per launch of the same kernel, layer
-l > 0's input projection one GEMM outside. The wavefront schedule keeps
-needing the whole stack.
+in one launch on the card at hand (:func:`lstm_stack_fits` with the card's
+SMs and shared memory, :func:`stack_limits`; at H=1024 with 2 layers, or at
+2x512 on a card with fewer than 128 SMs), :func:`lstm_stack` runs it one
+layer per launch of the same kernel, layer l > 0's input projection one GEMM
+outside. The wavefront schedule (the bench tool's only) keeps needing the
+whole stack in one launch.
 """
 
 from __future__ import annotations
@@ -207,9 +209,10 @@ def lstm_stack_plan(layers: int, n: int, h: int, sms: int = SMS, smem_limit: int
 
 def lstm_stack_fits(layers: int, h: int, sms: int = SMS, smem_limit: int = SMEM_LIMIT) -> bool:
     """Whether the stack kernel runs an L-layer stack at hidden size H in one
-    launch for every N: :func:`lstm_stack_plan` has a plan with one
-    PASS_ROWS-row slot (at 2 layers: H=512 yes, H=1024 no; one layer of 1024
-    yes)."""
+    launch for every N on a card with ``sms`` SMs and ``smem_limit`` bytes of
+    opt-in shared memory per block: :func:`lstm_stack_plan` has a plan with
+    one PASS_ROWS-row slot (on an H100 SXM, at 2 layers: H=512 yes, H=1024
+    no; one layer of 1024 yes; on a 114-SM H100 PCIe, 2x512 no)."""
     try:
         lstm_stack_plan(layers, PASS_ROWS, h, sms, smem_limit)
     except ValueError:
@@ -266,6 +269,29 @@ def _check(name: str, t: Optional[torch.Tensor], shape: Tuple[int, ...], device)
         raise ValueError(f"{name} must be contiguous")
 
 
+def _limits(device, prepared: Dict[int, Tuple[int, int]], prepare) -> Tuple[int, int]:
+    device = torch.device(device)
+    if device.type != "cuda":
+        return SMS, SMEM_LIMIT
+    index = _device_index(device)
+    if index not in prepared:
+        prepare(device)
+    return prepared[index]
+
+
+def stack_limits(device) -> Tuple[int, int]:
+    """(SMs, opt-in shared bytes per block) that the stack kernel plans with
+    on ``device``: a CUDA device's own (:func:`lstm_stack_prepare` reads
+    them once), the H100 SXM's constants elsewhere (the CPU plans of the
+    tests)."""
+    return _limits(device, _stack_prepared, lstm_stack_prepare)
+
+
+def bidi_limits(device) -> Tuple[int, int]:
+    """The same for the bidirectional layer kernel (:func:`lstm_bidi_prepare`)."""
+    return _limits(device, _bidi_prepared, lstm_bidi_prepare)
+
+
 def lstm_stack_prepare(device) -> None:
     """Once per device (the wrappers call it at their first launch there):
     build the stack kernel if needed, set the shared memory of its three
@@ -301,9 +327,7 @@ def _launch_stack(wavefront: bool, what: str, x0_proj, mask, w_hh, w_ih_up, b_up
     _check("h0", h0, (num_layers, n, hidden), dev)
     _check("c0", c0, (num_layers, n, hidden), dev)
     index = x0_proj.get_device()
-    if index not in _stack_prepared:
-        lstm_stack_prepare(dev)
-    plan = lstm_stack_plan(num_layers, n, hidden, *_stack_prepared[index], wavefront=wavefront)
+    plan = lstm_stack_plan(num_layers, n, hidden, *stack_limits(dev), wavefront=wavefront)
     # The kernel copies h0's rows 16 bytes at a time.
     h0 = h0 if h0.data_ptr() % 16 == 0 else h0.clone()
     outs = torch.empty(f, n, hidden, device=dev)
@@ -408,11 +432,14 @@ def lstm_stack(cells: List[dict], x, mask, h0, c0, stack_fn=lstm_stack_fused):
     (outputs (F, N, H), (hF, cF)).
 
     The whole stack goes to ``stack_fn`` in one call where it fits in one
-    launch (:func:`lstm_stack_fits`); otherwise one layer per call, layer
-    l > 0's input projection one GEMM outside, as layer 0's is."""
+    launch on ``x``'s device (:func:`lstm_stack_fits` with
+    :func:`stack_limits`, the (SMs, shared bytes) the launch plans with);
+    otherwise one layer per call, layer l > 0's input projection one
+    GEMM outside, as layer 0's is. (:func:`lstm_stack_wavefront`, run by the
+    bench tool only, needs the whole stack in one launch.)"""
     x0_proj, w_hh, w_ih_up, b_up = stack_operands(cells, x)
     mask, h0, c0 = mask.contiguous(), h0.contiguous(), c0.contiguous()
-    if lstm_stack_fits(len(cells), w_hh.shape[1]):
+    if lstm_stack_fits(len(cells), w_hh.shape[1], *stack_limits(x.device)):
         outs, hF, cF = stack_fn(x0_proj, mask, w_hh, w_ih_up, b_up, h0, c0)
         return outs, (hF, cF)
     xp, hs, cs = x0_proj, [], []
@@ -430,7 +457,9 @@ def lstm_stack_wavefront(cells: List[dict], x, mask, h0, c0,
     """Same contract and errors as
     ``empose_tpu/ops/lstm_kernel.py::lstm_stack_pallas_wavefront``: the
     results of :func:`lstm_stack`, the whole stack in one call of
-    ``stack_fn``; ``ValueError`` below 2 layers (raised by ``stack_fn``)."""
+    ``stack_fn``; ``ValueError`` below 2 layers or where the stack does not
+    fit in one launch on the card (raised by ``stack_fn``: unlike
+    :func:`lstm_stack`, the wavefront has no per-layer route)."""
     x0_proj, w_hh, w_ih_up, b_up = stack_operands(cells, x)
     outs, hF, cF = stack_fn(x0_proj, mask.contiguous(), w_hh, w_ih_up, b_up,
                             h0.contiguous(), c0.contiguous())
@@ -530,9 +559,7 @@ def lstm_bidi_fused(x_proj, mask, w_hh2, h0, c0):
     _check("h0", h0, (2, n, hidden), dev)
     _check("c0", c0, (2, n, hidden), dev)
     index = x_proj.get_device()
-    if index not in _bidi_prepared:
-        lstm_bidi_prepare(dev)
-    plan = lstm_bidi_plan(n, hidden, *_bidi_prepared[index])
+    plan = lstm_bidi_plan(n, hidden, *bidi_limits(dev))
     # The kernel copies h0's rows 16 bytes at a time.
     h0 = h0 if h0.data_ptr() % 16 == 0 else h0.clone()
     outs = torch.empty(f, 2, n, hidden, device=dev)

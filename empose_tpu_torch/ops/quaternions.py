@@ -1,15 +1,37 @@
-"""Host numpy quaternions for offline resampling: conversions, sign
-continuity, SLERP and SQUAD.
+"""Quaternions: host numpy for offline resampling (conversions, sign
+continuity, SLERP and SQUAD) and torch for the angular metric.
 
-The port's own copy of the numpy half of ``empose_tpu/ops/quaternions.py``
+The port's own copy of ``empose_tpu/ops/quaternions.py``: the numpy half
 (``np_quat_*``, ``fix_quaternions``, ``np_slerp``, ``squad``,
-``resample_rotations``): the same numpy arithmetic, so the same inputs give
-the same bits. Quaternions are (..., 4) arrays in (w, x, y, z) order.
+``resample_rotations``) with the same numpy arithmetic, so the same inputs
+give the same bits, and ``quat_from_aa`` with
+``rotation_intrinsic_distance_from_aa`` in torch. Quaternions are (..., 4)
+in (w, x, y, z) order.
 """
 
 from __future__ import annotations
 
 import numpy as np
+import torch
+
+
+def quat_from_aa(aa: torch.Tensor) -> torch.Tensor:
+    """Angle-axis (..., 3) -> unit quaternions (..., 4), with the small-angle
+    guard of the JAX version (sin(x)/x -> 1/2 below 1e-8)."""
+    angle = torch.linalg.norm(aa, dim=-1, keepdim=True)
+    small = angle < 1e-8
+    sinc = torch.where(small, torch.full_like(angle, 0.5),
+                       torch.sin(0.5 * angle) / torch.where(small, torch.ones_like(angle), angle))
+    return torch.cat([torch.cos(0.5 * angle), aa * sinc], dim=-1)
+
+
+def rotation_intrinsic_distance_from_aa(aa1: torch.Tensor, aa2: torch.Tensor) -> torch.Tensor:
+    """Geodesic distance (radians) between angle-axis rotations (..., 3):
+    ``2 * arccos(clip(<q1, q2>, -1, 1))``. The dot product keeps its sign:
+    the double cover is not collapsed, as in numpy-quaternion's
+    ``rotation_intrinsic_distance`` that the reference metrics use."""
+    dot = (quat_from_aa(aa1) * quat_from_aa(aa2)).sum(-1)
+    return 2.0 * torch.arccos(dot.clamp(-1.0, 1.0))
 
 
 def np_quat_from_aa(aa: np.ndarray) -> np.ndarray:

@@ -3,12 +3,16 @@
 The smplx Rodrigues of ``empose_tpu/bodymodel/smplh.py::rodrigues`` (the
 angle-axis -> rotation map FK uses), and the clamped exponential and log
 maps of ``empose_tpu/ops/so3.py`` (``aa2rot``/``rot2aa``) that root
-normalization uses. The two exponential maps are not interchangeable: the
-smplx one adds 1e-8 to the components, the other clamps the squared angle at
-``eps``. Arbitrary leading batch dimensions, differentiable.
+normalization uses, with ``so3_relative_angle`` and ``local_to_global`` of
+the same module for the angular metric. The two exponential maps are not
+interchangeable: the smplx one adds 1e-8 to the components, the other clamps
+the squared angle at ``eps``. Arbitrary leading batch dimensions,
+differentiable.
 """
 
 from __future__ import annotations
+
+from typing import Sequence
 
 import torch
 
@@ -73,3 +77,38 @@ def so3_log_map(R: torch.Tensor, eps: float = 1e-4) -> torch.Tensor:
 
 aa2rot = so3_exponential_map
 rot2aa = so3_log_map
+
+
+def so3_relative_angle(R1: torch.Tensor, R2: torch.Tensor, cos_angle: bool = False) -> torch.Tensor:
+    """Geodesic angle between rotation matrices (..., 3, 3): the angle of
+    ``R1 R2^T``."""
+    return so3_rotation_angle(R1 @ R2.transpose(-1, -2), cos_angle=cos_angle)
+
+
+def local_to_global(poses: torch.Tensor, parents: Sequence[int], output_format: str = "aa",
+                    input_format: str = "aa") -> torch.Tensor:
+    """Relative joint rotations -> global rotations along a kinematic tree.
+
+    :param poses: (..., J * 3) angle-axis ('aa') or (..., J * 9) rotation
+      matrices ('rotmat'); :param parents: static parent per joint, -1 at
+      the root (a parent precedes its children).
+    :return: (..., J * 3) for 'aa', (..., J * 9) for 'rotmat'.
+    """
+    if output_format not in ("aa", "rotmat") or input_format not in ("aa", "rotmat"):
+        raise ValueError(f"formats must be 'aa' or 'rotmat', got {input_format!r} -> "
+                         f"{output_format!r}")
+    dof = 3 if input_format == "aa" else 9
+    n_joints = poses.shape[-1] // dof
+    batch = poses.shape[:-1]
+    if input_format == "aa":
+        local = so3_exponential_map(poses.reshape(batch + (n_joints, 3)))
+    else:
+        local = poses.reshape(batch + (n_joints, 3, 3))
+    glob = []
+    for j in range(n_joints):
+        p = parents[j]
+        glob.append(local[..., j, :, :] if p < 0 else glob[p] @ local[..., j, :, :])
+    glob = torch.stack(glob, dim=-3)
+    if output_format == "aa":
+        return so3_log_map(glob).reshape(batch + (n_joints * 3,))
+    return glob.reshape(batch + (n_joints * 9,))

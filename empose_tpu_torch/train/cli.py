@@ -8,8 +8,10 @@ plus ``--device`` (default: CUDA, raises without it) and ``--max_steps``;
 the same experiment directory (``<id>-<model name>`` with ``config.json``,
 ``cmd.txt``, ``code.zip``, ``logs/``, ``checkpoint/``) and ``model.pth``;
 ``--load``/``--resume``, and a ``ValueError`` on an existing id without
-either. The final validation and test passes come with the evaluation
-slice (ROADMAP.md).
+either. Validation runs on the 3DPW-style corpus of $EM_DATA_SYNTH (middle
+windows), the test on the real recordings of $EM_DATA_REAL; after training,
+the best checkpoint (the last where no eval fired) goes through both passes
+once more, with their metric tables.
 """
 
 from __future__ import annotations
@@ -19,10 +21,13 @@ import os
 import time
 
 import numpy as np
+import torch
 
 from empose_tpu_torch import constants as C
 from empose_tpu_torch.config import Configuration
-from empose_tpu_torch.data.datasets import EMRBatchLoader
+from empose_tpu_torch.data.batches import collate_real
+from empose_tpu_torch.data.datasets import EMRBatchLoader, Loader, RealDataset
+from empose_tpu_torch.eval.metrics import MetricsEngine
 from empose_tpu_torch.train.loop import Trainer, fit
 from empose_tpu_torch.utils import experiments as U
 from empose_tpu_torch.utils.logging import ScalarWriter
@@ -54,6 +59,10 @@ def run(config, max_steps=None, device=None):
                                   config.bs_train, config.window_size, shuffle=True,
                                   seed=config.seed, window_mode="random",
                                   window_rng=np.random.RandomState(4313), prefetch=2)
+    valid_loader = EMRBatchLoader(os.path.join(C.data_dir_synth(), "3dpw_emr"),
+                                  config.bs_eval, config.window_size, shuffle=False,
+                                  window_mode="middle", prefetch=2)
+    test_loader = Loader(RealDataset(C.data_dir_real()), 1, collate_real, shuffle=False)
     trainer = Trainer(config, device=device)
 
     experiment_id = config.experiment_id
@@ -86,9 +95,27 @@ def run(config, max_steps=None, device=None):
 
     writer = ScalarWriter(os.path.join(model_dir, "logs"))
     try:
-        fit(trainer, train_loader, model_dir, writer, max_steps=max_steps)
+        fit(trainer, train_loader, valid_loader, test_loader, model_dir, writer,
+            max_steps=max_steps)
     finally:
         writer.close()
+
+    # The final passes run the best checkpoint's weights; the returned trainer
+    # keeps the state that the run ended with.
+    ended = {k: v.clone() for k, v in trainer.model.state_dict().items()}
+    best = torch.load(os.path.join(model_dir, "checkpoint", "train_state.pt"),
+                      map_location="cpu", weights_only=True)["model"]
+    trainer.model.load_state_dict(best)
+    try:
+        me = MetricsEngine(trainer.smplh, trainer.device)
+        final_valid = trainer.evaluate_valid(valid_loader, me)
+        print("[VALID FINAL] " + " ".join(f"{k}: {v:.6f}" for k, v in final_valid.items()))
+        print(MetricsEngine.to_pretty_string(me.get_metrics(), experiment_id))
+        final_test = trainer.evaluate_test(test_loader, me, config.eval_window_size)
+        print("[TEST FINAL] " + " ".join(f"{k}: {v:.6f}" for k, v in final_test.items()))
+        print(MetricsEngine.to_pretty_string(me.get_metrics(), experiment_id), flush=True)
+    finally:
+        trainer.model.load_state_dict(ended)
     return model_dir, trainer
 
 

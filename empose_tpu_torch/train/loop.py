@@ -1,5 +1,5 @@
-"""Training loop: ``Trainer`` (one step, save, restore) and ``fit``
-(port of ``empose_tpu/train/loop.py``).
+"""Training loop: ``Trainer`` (one step, the validation and test passes,
+save, restore) and ``fit`` (port of ``empose_tpu/train/loop.py``).
 
 One step: root normalization -> FK + sensor synthesis with mounting offsets
 -> the model's train forward -> ``compute_loss`` -> rescaled to the real
@@ -22,20 +22,21 @@ import os
 import time
 from typing import Dict, Optional
 
-import numpy as np
 import torch
 
 from empose_tpu_torch.bodymodel.smplh import load_smplh
 from empose_tpu_torch.data import transforms as T
+from empose_tpu_torch.data.batches import to_device
 from empose_tpu_torch.data.datasets import get_all_offset_files
 from empose_tpu_torch.device import resolve_device, set_precision
+from empose_tpu_torch.eval.harness import EvalSession, merge_stats, serial_pass
+from empose_tpu_torch.eval.metrics import (MetricsEngine, metric_stats_init, metric_stats_update,
+                                           stats_to_host)
 from empose_tpu_torch.nn.layers import init_parameters
 from empose_tpu_torch.nn.models import IterativeErrorFeedback, SensorSMPL, create_model
 from empose_tpu_torch.utils.logging import ScalarWriter, StepTimer
 
-EVAL_NOT_PORTED = ("validation and test passes are not ported yet: ROADMAP.md, queue 1, "
-                   "'Real-data evaluation' (and the eval hooks of fit); set --eval_every "
-                   "beyond the run")
+EVAL_SEED = 8004  # the validation pass's draws: batch b from EVAL_SEED + b, every pass alike
 
 
 def _precision(config) -> str:
@@ -84,6 +85,8 @@ class Trainer:
         init_parameters(model, torch.Generator().manual_seed(self.seed))
         self.model = model.to(self.device).train()
         self.pre_train = T.make_preprocess_fn(self.model.smpl, self.bank, config, True)
+        self.pre_eval = T.make_preprocess_fn(self.model.smpl, self.bank, config, False)
+        self._session = None
         self.match_reference_grads = match_reference_grads
         self.opt = torch.optim.Adam(self.model.parameters(), lr=config.lr, eps=1e-8)
         self.global_step = 0
@@ -92,13 +95,7 @@ class Trainer:
 
     def upload(self, host_batch: Dict) -> Dict[str, torch.Tensor]:
         """Host batch (numpy) -> tensors on the device; lengths as int64."""
-        out = {}
-        for k, v in host_batch.items():
-            if k == "ids":
-                continue
-            t = torch.as_tensor(np.asarray(v))
-            out[k] = t.to(self.device, torch.int64 if k == "seq_lengths" else torch.float32)
-        return out
+        return to_device(host_batch, self.device)
 
     def loss(self, batch: Dict[str, torch.Tensor]):
         """The train loss of a synthesized batch: ``(loss_for_grad, vals)``.
@@ -124,6 +121,80 @@ class Trainer:
         self.opt.step()
         self.global_step += 1
         return {k: v.detach() for k, v in vals.items()}
+
+    def session(self) -> EvalSession:
+        """The eval session of the trained model, built at first use."""
+        if self._session is None:
+            self._session = EvalSession(self.model, self.smplh)
+        return self._session
+
+    @staticmethod
+    def _mean_losses(pending) -> Dict[str, float]:
+        """Sample-weighted means of ``[(loss dict of device scalars, weight)]``,
+        read back in one copy."""
+        if not pending:
+            return {}
+        names = list(pending[0][0])
+        host = torch.stack([torch.stack([v[k] for k in names]) for v, _ in pending]).cpu()
+        weights = torch.tensor([w for _, w in pending], dtype=torch.float64)
+        means = (host.double() * weights[:, None]).sum(0) / weights.sum()
+        return dict(zip(names, means.tolist()))
+
+    def evaluate_valid(self, loader, metrics_engine: Optional[MetricsEngine] = None
+                       ) -> Dict[str, float]:
+        """The synthetic validation pass: each batch synthesized without
+        randomization from a fixed generator (seeded ``EVAL_SEED`` + batch
+        index, so every pass draws alike), the eval forward and its losses.
+        With ``metrics_engine`` the metrics accumulate as statistics on the
+        device and go to ``metrics_engine.set_stats`` at the end. The model
+        runs in eval mode and returns to its mode after.
+
+        :return: the loss values averaged over samples.
+        """
+        session = self.session()
+        was_training = self.model.training
+        self.model.eval()
+        stats = metric_stats_init(device=self.device) if metrics_engine is not None else None
+        pending = []
+        with torch.no_grad():
+            for b_idx, host_batch in enumerate(loader):
+                g = torch.Generator(device=self.device).manual_seed(EVAL_SEED + b_idx)
+                batch = self.pre_eval(self.upload(host_batch), g, mode="all")
+                out, _ = self.model(batch, None)
+                _, vals = self.model.compute_loss(batch, out)
+                pending.append((vals, host_batch["poses"].shape[0]))
+                if stats is not None:
+                    stats = metric_stats_update(
+                        session.body, stats, pose=batch["poses"][:, :, 3:], shape=batch["shapes"],
+                        pose_hat=out["pose_hat"], shape_hat=out.get("shape_hat"),
+                        seq_lengths=batch["seq_lengths"], pose_root=batch["poses"][:, :, :3],
+                        pose_root_hat=out["root_ori_hat"])
+        self.model.train(was_training)
+        if metrics_engine is not None:
+            metrics_engine.reset()
+            metrics_engine.set_stats(stats_to_host(stats))
+        return self._mean_losses(pending)
+
+    def evaluate_test(self, loader, metrics_engine: Optional[MetricsEngine] = None,
+                      window_size: Optional[int] = None) -> Dict[str, float]:
+        """The real-data test pass: the eval harness's serial loop
+        (:func:`serial_pass`: each sequence root-normalized, streamed window
+        by window with the carry threaded, whole and padded to a multiple of
+        256 without ``window_size``, the shape estimate frozen at its first
+        window) with the loss values. With ``metrics_engine`` the merged
+        statistics go to its ``set_stats``. The model returns to its mode
+        after.
+
+        :return: the loss values averaged over each sequence's windows, then
+          over sequences.
+        """
+        was_training = self.model.training
+        seqs = serial_pass(self.session(), loader, window_size, with_losses=True)
+        self.model.train(was_training)
+        if metrics_engine is not None:
+            metrics_engine.reset()
+            metrics_engine.set_stats(merge_stats([st for _, st, _, _ in seqs]))
+        return self._mean_losses([(losses, n) for _, _, losses, n in seqs])
 
     def train_state_dict(self) -> Dict:
         return {"model": self.model.state_dict(), "optimizer": self.opt.state_dict(),
@@ -151,39 +222,28 @@ class Trainer:
         self.generator.set_state(state["generator"])
 
 
-def _first_eval_step(global_step: int, eval_every: int) -> int:
-    """The first global step after ``global_step`` at which the JAX loop
-    would evaluate."""
-    eval_mod = max(eval_every - 1, 1)
-    return (global_step // eval_mod + 1) * eval_mod
-
-
-def fit(trainer: Trainer, train_loader, model_dir: str, writer: Optional[ScalarWriter] = None,
-        max_steps: Optional[int] = None) -> Dict[str, float]:
+def fit(trainer: Trainer, train_loader, valid_loader, test_loader, model_dir: str,
+        writer: Optional[ScalarWriter] = None, max_steps: Optional[int] = None) -> Dict[str, float]:
     """The training schedule of the JAX ``fit``: print every ``print_every``
-    batches, stop after ``max_steps``, always leave a checkpoint.
+    batches; every ``eval_every - 1`` steps the validation and the test pass
+    with their metrics, and a checkpoint where the test loss is the best so
+    far; stop after ``max_steps``; always leave a checkpoint.
 
-    Loss values stay on the device until a print, ``max_steps`` or the end.
-    A run that has steps already (``--resume``) fast-forwards the loader's
-    random streams past them, so it sees the batches an uninterrupted run
-    would. Validation and test passes are not ported: a run that would reach
-    an eval boundary raises ``NotImplementedError`` before its first step.
+    Loss values stay on the device until a print, an eval, ``max_steps`` or
+    the end. A run that has steps already (``--resume``) fast-forwards the
+    loader's random streams past them, so it sees the batches an
+    uninterrupted run would.
     """
     config = trainer.config
     n_batches = len(train_loader)
-    last_step = config.n_epochs * n_batches
-    if max_steps is not None:
-        last_step = min(last_step, max(max_steps, trainer.global_step + 1))
-    if trainer.global_step < last_step and \
-            _first_eval_step(trainer.global_step, config.eval_every) <= last_step:
-        raise NotImplementedError(EVAL_NOT_PORTED)
-
+    me = MetricsEngine(trainer.smplh, trainer.device)
     checkpoint_dir = os.path.join(model_dir, "checkpoint")
     start_epoch, start_i = divmod(trainer.global_step, n_batches)
     if trainer.global_step:
         train_loader.fast_forward(trainer.global_step)
     timer = StepTimer()
     print_mod = max(config.print_every - 1, 1)
+    eval_mod = max(config.eval_every - 1, 1)
     last_vals: Dict[str, float] = {}
     pending = []  # (global step, device loss dict) since the last flush
     steps_in_window = 0
@@ -201,6 +261,31 @@ def fit(trainer: Trainer, train_loader, model_dir: str, writer: Optional[ScalarW
                 writer.add_scalar("lr", config.lr, gs)
         pending.clear()
 
+    def evaluate(i: int, epoch: int) -> None:
+        valid_losses = trainer.evaluate_valid(valid_loader, me)
+        valid_metrics = me.get_metrics()
+        test_losses = trainer.evaluate_test(test_loader, me, config.eval_window_size)
+        test_metrics = me.get_metrics()
+        print(f"[VALID {i + 1:05d} | {epoch + 1:03d}] "
+              + " ".join(f"{k}: {v:.6f}" for k, v in valid_losses.items()))
+        print(f"[TEST  {i + 1:05d} | {epoch + 1:03d}] "
+              + " ".join(f"{k}: {v:.6f}" for k, v in test_losses.items()), end="")
+        current = test_losses.get("total_loss", float("inf"))
+        if current < trainer.best_test_loss:
+            print(" ***")
+            trainer.best_test_loss = current
+            trainer.save(model_dir)
+        else:
+            print()
+        print(MetricsEngine.to_pretty_string(valid_metrics, "VALID"))
+        print(MetricsEngine.to_pretty_string(test_metrics, "TEST"), flush=True)
+        if writer:
+            gs = trainer.global_step
+            writer.add_scalars(valid_losses, gs, prefix="valid/")
+            writer.add_scalars(test_losses, gs, prefix="test/")
+            writer.add_scalars(MetricsEngine.to_log_dict(valid_metrics, "valid"), gs)
+            writer.add_scalars(MetricsEngine.to_log_dict(test_metrics, "test"), gs)
+
     for epoch in range(start_epoch, config.n_epochs):
         trainer.epoch = epoch
         for i, batch in enumerate(train_loader, start=start_i if epoch == start_epoch else 0):
@@ -213,6 +298,12 @@ def fit(trainer: Trainer, train_loader, model_dir: str, writer: Optional[ScalarW
                 loss_string = " ".join(f"{k}: {v:.6f}" for k, v in last_vals.items())
                 print(f"[TRAIN {i + 1:05d} | {epoch + 1:03d}] {loss_string} "
                       f"elapsed: {per_step:.3f} secs", flush=True)
+            if trainer.global_step % eval_mod == 0:
+                flush()
+                evaluate(i, epoch)
+                # Eval time is not billed to the next print window's steps.
+                timer.reset()
+                steps_in_window = 0
             if max_steps is not None and trainer.global_step >= max_steps:
                 flush()
                 if not os.path.isdir(checkpoint_dir):

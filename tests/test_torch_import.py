@@ -72,3 +72,25 @@ def test_resolve_device():
     set_precision("highest")
     assert torch.backends.cuda.matmul.allow_tf32 is False
     assert torch.backends.cudnn.allow_tf32 is False
+
+
+def test_eval_modules_are_covered_and_import_no_jax_or_tabulate():
+    """The real-data eval modules are walked by the checks above, and they
+    import neither jax, the JAX package nor tabulate (the card's machine
+    has no tabulate; the port formats its tables itself)."""
+    new = ["empose_tpu_torch.eval.metrics", "empose_tpu_torch.eval.cli",
+           "empose_tpu_torch.eval.harness", "empose_tpu_torch.data.batches",
+           "empose_tpu_torch.data.datasets"]
+    assert set(new) <= set(_port_modules())
+    code = (
+        "import importlib, sys\n"
+        f"for m in {new!r}:\n"
+        "    importlib.import_module(m)\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'empose_tpu', 'tabulate'))\n"
+        "print('BAD', bad)\n"
+    )
+    env = dict(os.environ, PYTHONPATH=REPO)
+    res = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stderr
+    assert "BAD []" in res.stdout, res.stdout

@@ -161,15 +161,15 @@ def test_existing_id_without_load_raises(assets_env, tmp_path, monkeypatch):
 
 
 @pytest.mark.parametrize("flags, error", [
-    (["--eval_every", "3"], NotImplementedError),
+    (["--remat"], NotImplementedError),
     (["--matmul_precision", "high"], ValueError),
     (["--bf16"], ValueError),
     (["--dp_devices", "2"], NotImplementedError),
     (["--suppression_noise_length", "0.5"], NotImplementedError),
-], ids=["eval_boundary", "precision", "bf16", "data_parallel", "noise"])
+], ids=["remat", "precision", "bf16", "data_parallel", "noise"])
 def test_unported_paths_raise(assets_env, tmp_path, monkeypatch, flags, error):
-    """An eval boundary inside the run, other precisions, data parallelism
-    and noise raise before any step, naming what is missing."""
+    """Rematerialization, other precisions, data parallelism and noise raise
+    before any step, naming what is missing."""
     monkeypatch.setenv("EM_EXPERIMENTS", str(tmp_path))
     with pytest.raises(error, match="ROADMAP|bf16|precision"):
         main(TINY_LGD + ["--max_steps", "4"] + flags)

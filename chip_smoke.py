@@ -60,6 +60,20 @@ Phases, each printed on its own line:
      empose_tpu_torch.tools.bench_lstm_kernels``'s main) at --batch 1 64
      --window 16 --iters 5: the stack and the wavefront kernel launch once
      per timed call;
+  4e. the high and default precision modes (the kernels' bf16 tensor-core
+     branches, ``cuobjdump -sass``: HMMA in each of their instantiations and
+     in none of the highest ones): the stack and the wavefront at 2x512 for
+     (F, N) = (16, 64), (256, 64), (16, 1) (timed), (33, 7), (3, 1300) and
+     at one layer of 1024 (16, 64) (timed), the bidi layer at (16, 64),
+     (256, 64), (16, 1), H=1024 (16, 32) and the eval's (4096, 17) (timed),
+     each at both modes against its plain version at the same mode
+     (TOL_MODE; at high also closer to it than to the plain version at
+     highest), with its launch plan, 0-length rows frozen bit for bit, a
+     second call and a CUDA-graph replay bit for bit; times beside the plain
+     version, torch.nn.LSTM in bf16 (cuDNN, a yardstick) and the bound at
+     the bf16 tensor-core rate (3 passes at high); the bench tool at each
+     mode; cuBLAS's bf16 product with an f32 output (the products outside
+     the kernels) against an fp32 GEMM of the same bf16 values;
   5. the serving main path: full-width LGD-RNN-6 with seeded random weights
      written as a model.pth, served to 64 streams x 4 chunks of 16 frames
      through MultiStreamPredictor.from_experiment (with one reset, one flush
@@ -73,6 +87,11 @@ Phases, each printed on its own line:
      and bidirectional): the stack kernel launches once per layer (the
      whole stack does not fit in one launch), the bidirectional layer
      kernel twice per layer (once per direction);
+  5d. the four served models at --precision high and default (both knobs
+     bound by ``device.precision_scope``, as the serve CLI binds them): their
+     kernel at the mode only, poses against the plain-LSTM model at the
+     mode (TOL_SERVE_MODE), the shift from highest (largest FK joint
+     difference, mm) and the batched step's p50;
   6. the training main path: full-width LGD-RNN-6 trained through
      ``python -m empose_tpu_torch.train``'s main on a synthetic asset tree
      (synthetic SMPL-H, per-subject offsets, a seeded EMR corpus) for 8
@@ -110,7 +129,12 @@ Phases, each printed on its own line:
      of 6 and 6b ends with the CLI's final validation and test passes, which
      launch the inference kernel once (LGD-RNN-6) or twice (BiRNN-6) per
      forward; phase 4b also checks the bidirectional layer at F=4096, N=17;
-  7. a "kernels" JSON line; 8. a last JSON line with the device.
+     then the eval CLI at --precision default for both: the same launches
+     at the mode, the table's shift from highest (TOL_EVAL_MODE), the
+     batched pass's wall time and frames/s;
+  7. a "kernels" JSON line (a row per kernel, and per kernel and mode,
+     "<kernel>@high" and "<kernel>@default"); 8. a last JSON line with the
+     device.
 
     python3 chip_smoke.py --step-rounding [N_SEEDS, default 4]
 
@@ -124,11 +148,19 @@ bidirectional layer and of the stack (2x512 in both schedules, and one
 layer of 1024) at F=64 for N = 1, 4, 16, 32 and 64 (``step_probe``): what a
 step is made of beyond its grid barriers.
 
+    python3 chip_smoke.py --mode-rounding [N_SEEDS, default 8]
+
+reads how far each kernel at high and default lies from its plain version
+at the same mode over seeds at every shape of phase 4e, and at high its gap
+to the plain version at highest (``mode_rounding_study``); the readings set
+TOL_MODE.
+
     PYTHONPATH=TREE python3 -P chip_smoke.py --time-pair
 
 times both training sweeps at phase 4's timed shapes on its inputs, the
 bidirectional layer at phase 4b's and the stack and its wavefront schedule
-at phase 3's (``time_pair``), for the package under
+at phase 3's (``time_pair``; each inference wrapper as an event pair around
+one call, as device time alone and as host time alone), for the package under
 TREE (``-P``: not the one beside the script); runs of two trees in turns
 within one call compare them.
 
@@ -141,11 +173,14 @@ from __future__ import annotations
 import contextlib
 import copy
 import functools
+import hashlib
 import io
 import itertools
 import json
 import os
 import pickle
+import re
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -208,6 +243,29 @@ TOL_EVAL = 1e-3      # metric tables against each other: |a - b| <= 1e-3 * max(|
 BIDI_LONG = (4096, REAL_RECORDINGS + 1)  # the longest whole-sequence forward, beyond it
 FP32_PEAK = 67e12    # H100 SXM fp32 FLOP/s outside the tensor cores
 HBM_BYTES_S = 3.35e12  # H100 SXM HBM3 bytes/s
+BF16_PEAK = 989e12     # H100 SXM bf16 tensor-core FLOP/s, dense
+
+# The high and default precision modes: a kernel against its plain version
+# at the same mode, from ``--mode-rounding`` (8 seeds over the 16 (kernel,
+# shape) cases the mode phases check, seed 0 theirs, on an H100). HIGH's
+# readings reach 4.768e-07 and its gap to the plain version at highest is
+# 9.239e-07 at the least (wavefront F=16 N=1), so TOL_HIGH lies between
+# them, and mode_check also holds every HIGH reading under that shape's
+# gap. DEFAULT sits at bf16's step, since the kernel and its plain version
+# sum in different orders and a 1-ulp difference in h can round an element
+# of the next step's bf16 h the other way: about twice its largest reading,
+# 1.431e-04 (stack and wavefront F=3 N=1300).
+MODES = ("high", "default")
+TOL_HIGH = 7e-7
+TOL_DEFAULT = 3e-4
+TOL_MODE = {"high": TOL_HIGH, "default": TOL_DEFAULT}
+# Served poses (radians) against the plain-LSTM model at the same mode: at
+# high about 6x the largest reading of the four models (1.6e-07); at
+# default about 5x theirs (9.074e-05); the eval table at default against
+# the highest one (relative, as TOL_EVAL): about 12x the largest reading
+# (7.986e-05).
+TOL_SERVE_MODE = {"high": 1e-6, "default": 5e-4}
+TOL_EVAL_MODE = 1e-3
 
 # The released LGD-RNN-6 architecture (bench.py:115-126).
 LGD_RNN_6 = dict(
@@ -268,6 +326,35 @@ def cuda_ms(fn, warmup: int = 3, reps: int = 15) -> float:
         torch.cuda.synchronize()
         times.append(e0.elapsed_time(e1))
     return float(np.median(times))
+
+
+def graph_ms(fn, calls: int = 10, reps: int = 15) -> float:
+    """Median device time of one ``fn()`` in ms with no host work around
+    it: ``calls`` calls captured in one CUDA graph, each replay timed by a
+    CUDA event pair."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            fn()
+    return cuda_ms(graph.replay, warmup=2, reps=reps) / calls
+
+
+def host_us(fn, calls: int = 100) -> float:
+    """Host time of one ``fn()`` in us: ``calls`` calls issued back to back
+    on the host clock while the device runs behind."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    t = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return t / calls * 1e6
 
 
 def stack_case(f: int, n: int, seed: int, h: int = HIDDEN, layers: int = LAYERS):
@@ -821,17 +908,27 @@ def train_pair_phase(f: int, n: int, seed: int, timed: bool, h: int = HIDDEN) ->
     }
 
 
+def digest(tensors) -> str:
+    """The first 16 hex digits of the SHA-256 of the tensors' bytes."""
+    return hashlib.sha256(b"".join(t.detach().cpu().numpy().tobytes() for t in tensors)
+                          ).hexdigest()[:16]
+
+
 def time_pair() -> int:
     """``python3 chip_smoke.py --time-pair``: both training sweeps' median
     times at PAIR_TIMED on phase 4's inputs, the bidirectional layer's
     (``lstm_bidi_fused``) at BIDI_TIMED on phase 4b's, and the stack's and
     its wavefront schedule's at STACK_TIMED (2x512) and of the stack at one
-    layer of 1024 (16, 64) on phase 3's, and nothing else. It
+    layer of 1024 (16, 64) on phase 3's, all at highest; each inference
+    kernel's wrapper timed three ways (an event pair around one call; the
+    device alone, ``graph_ms``; the host alone, ``host_us``) and with a
+    digest of its outputs (equal digests: the same bits), and nothing else. It
     times the package that ``import empose_tpu_torch`` finds:
     ``PYTHONPATH=TREE python3 -P chip_smoke.py --time-pair`` (``-P``: not the
     script's own directory) times the source tree TREE, so runs of two trees
     in turns within one call (e.g. an unpacked parent commit) compare them on
-    equal inputs."""
+    equal inputs. The script imports nothing of the package that a parent
+    tree lacks at its top, so it runs on the trees of earlier slices."""
     if not print_card():
         return 2
     print(f"package: {os.path.dirname(TK.__file__)}", flush=True)
@@ -847,18 +944,24 @@ def time_pair() -> int:
                                                           w_hh))}
         print(f"training pair times F={f} N={n}: {row}", flush=True)
         out[f"{f}x{n}"] = row
+    def timings(key: str, fn) -> dict:
+        # The event pair around one call (host and device), the device
+        # alone (graph replays) and the host alone (calls issued back to back).
+        return {f"{key}_ms": cuda_ms(fn), f"{key}_graph_ms": graph_ms(fn),
+                f"{key}_host_us": host_us(fn), f"{key}_digest": digest(fn())}
+
     for f, n in BIDI_TIMED:
         args = bidi_inputs(f, n, seed=SEED + f + n + 1)[-1]
-        out[f"bidi {f}x{n}"] = {"bidi_ms": cuda_ms(lambda: K.lstm_bidi_fused(*args))}
+        out[f"bidi {f}x{n}"] = timings("bidi", lambda: K.lstm_bidi_fused(*args))
         print(f"bidi times F={f} N={n}: {out[f'bidi {f}x{n}']}", flush=True)
     for f, n, h, layers in (*((f, n, HIDDEN, LAYERS) for f, n in STACK_TIMED),
                             (CHUNK, STREAMS, 2 * HIDDEN, 1)):
         cells, x, mask, h0, c0 = stack_case(f, n, SEED + f + n, h, layers)
         ops = K.stack_operands(cells, x)
         args = (ops[0], mask, ops[1], ops[2], ops[3], h0, c0)
-        row = {"stack_ms": cuda_ms(lambda: K.lstm_stack_fused(*args))}
+        row = timings("stack", lambda: K.lstm_stack_fused(*args))
         if layers > 1:
-            row["wavefront_ms"] = cuda_ms(lambda: K.lstm_stack_wavefront_fused(*args))
+            row.update(timings("wavefront", lambda: K.lstm_stack_wavefront_fused(*args)))
         key = f"stack {f}x{n}" + ("" if layers > 1 else f" 1x{h}")
         out[key] = row
         print(f"{key} times: {row}", flush=True)
@@ -1145,22 +1248,25 @@ def train_losses(model_dir: str) -> dict:
     return {r["step"]: r["value"] for r in rows if r["tag"] == "train/total_loss"}
 
 
-def stack_forward_launches(layers: int, h: int) -> int:
-    """Stack kernel launches per forward on this card: one where the whole
-    stack fits, by the card's own SMs and shared memory, as lstm_stack
-    decides, else one per layer."""
-    return 1 if K.lstm_stack_fits(layers, h, *K.stack_limits(torch.device("cuda"))) else layers
+def stack_forward_launches(layers: int, h: int, mode: str = "highest") -> int:
+    """Stack kernel launches per forward on this card at ``mode``: one where
+    the whole stack fits, by the card's own SMs and shared memory, as
+    lstm_stack decides, else one per layer."""
+    return 1 if K.lstm_stack_fits(layers, h, *K.stack_limits(torch.device("cuda")),
+                                  precision=mode) else layers
 
 
-def bidi_layer_launches(n: int, h: int) -> int:
+def bidi_layer_launches(n: int, h: int, mode: str = "highest") -> int:
     """Bidirectional kernel launches per layer at N rows on this card: the
-    plan of lstm_bidi_fused with the card's own SMs and shared memory."""
-    return K.lstm_bidi_plan(n, h, *K.bidi_limits(torch.device("cuda"))).launches
+    plan of lstm_bidi_fused at ``mode`` with the card's own SMs and shared
+    memory."""
+    return K.lstm_bidi_plan(n, h, *K.bidi_limits(torch.device("cuda")), precision=mode).launches
 
 
 def reset_counts() -> None:
     K.LAUNCHES = K.BIDI_LAUNCHES = K.WAVEFRONT_LAUNCHES = TK.FWD_LAUNCHES = TK.BWD_LAUNCHES = 0
     SK.LBS_LAUNCHES = 0
+    K.MODE_LAUNCHES.clear()
 
 
 def counts() -> dict:
@@ -1215,7 +1321,7 @@ def serving_path(label: str, model_id: str, feeds, offsets, kernel: str, per_for
     check(finite and shapes_ok, f"{label}: served outputs are not finite or have wrong shapes")
     check(err <= TOL, f"{label}: served outputs differ from the plain-LSTM forward: {err} > {TOL}")
     serving_times(label, multi, single, feeds)
-    return launched[kernel]
+    return launched[kernel], served
 
 
 def final_eval_forwards() -> int:
@@ -1668,7 +1774,7 @@ def eval_path(label: str, model_id: str, kernel: str, per_forward, window) -> di
     busy_ms = sum(busy.values())
     ops = sum(e.count for e in dev)
     top = sorted(busy.items(), key=lambda kv: -kv[1])[:5]
-    out = dict(launches=launched[kernel], groups=len(groups), forwards=len(forwards),
+    out = dict(launches=launched[kernel], rows=rows, groups=len(groups), forwards=len(forwards),
                frames=sum(lengths), wall_s=wall, frames_per_s=sum(lengths) / wall,
                wall_profiled_s=wall_prof, busy_ms=busy_ms, busy_share=busy_ms / 1e3 / wall_prof,
                device_ops=ops, diffs=diffs)
@@ -1715,11 +1821,12 @@ def eval_fit_path(label: str, model_cfg: dict, experiment_id: str, per_step: int
     return launched[eval_kernel]
 
 
-def bench_path() -> int:
-    """The port's bench tool at --batch 1 64 --window 16 --iters 5 with the
-    counts at 0: each timed call of the stack and of the wavefront launches
-    its kernel once. Returns the wavefront's launches."""
-    flags = ["--batch", "1", "64", "--window", "16", "--iters", "5"]
+def bench_path(mode: str = "highest") -> int:
+    """The port's bench tool at --batch 1 64 --window 16 --iters 5
+    --precision ``mode`` with the counts at 0: each timed call of the stack
+    and of the wavefront launches its kernel once, at the mode. Returns the
+    wavefront's launches."""
+    flags = ["--batch", "1", "64", "--window", "16", "--iters", "5", "--precision", mode]
     torch.cuda.synchronize()
     reset_counts()
     rows = bench_lstm_kernels.main(flags)
@@ -1730,9 +1837,420 @@ def bench_path() -> int:
     print(f"bench tool main path ({' '.join(flags)}): {len(rows)} rows, launches {launched}",
           flush=True)
     check(len(rows) == 6 and all(np.isfinite(r[2]) for r in rows), "bench tool rows missing")
-    check(launched == expected(lstm_stack=per_kernel, lstm_wavefront=per_kernel),
-          f"bench tool: expected {per_kernel} stack and wavefront launches, got {launched}")
+    check(launched == expected(lstm_stack=per_kernel, lstm_wavefront=per_kernel)
+          and K.MODE_LAUNCHES == {("lstm_stack", mode): per_kernel,
+                                  ("lstm_wavefront", mode): per_kernel},
+          f"bench tool: expected {per_kernel} stack and wavefront launches at {mode}, got "
+          f"{launched}, {K.MODE_LAUNCHES}")
     return launched["lstm_wavefront"]
+
+
+# ---------------------------------------------------------------------------
+# The high and default precision modes: the stack, wavefront and bidi
+# kernels' tensor-core branches against their plain versions at the same
+# mode, the served models and the eval CLI at each mode.
+
+def graph_replays(fn, args, fresh: dict) -> bool:
+    """``fn(*args)`` captured once in a CUDA graph, replayed after copying
+    ``fresh`` {arg index: tensor} into the captured inputs: equal to the
+    eager call on them, bit for bit."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn(*args)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = fn(*args)
+    for i, t in fresh.items():
+        args[i].copy_(t)
+    graph.replay()
+    torch.cuda.synchronize()
+    return all(torch.equal(a, b) for a, b in zip(out, fn(*args)))
+
+
+def mode_bound_ms(flops: float, n_bytes: float, mode: str) -> tuple:
+    """The larger of the bf16 tensor-core time of the mode's products (3
+    passes at HIGH) and the memory time, and which it is."""
+    t_ops = flops * (3 if mode == "high" else 1) / BF16_PEAK * 1e3
+    t_bytes = n_bytes / HBM_BYTES_S * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def stack_mode_bound_ms(f: int, n: int, mode: str, h: int = HIDDEN, layers: int = LAYERS):
+    h4 = 4 * h
+    flops = 2.0 * f * n * h * h4 * (2 * layers - 1)
+    n_bytes = 4.0 * (f * n * h4 + f * n + (2 * layers - 1) * h * h4 + (layers - 1) * h4
+                     + 2 * layers * n * h + f * n * h + 2 * layers * n * h)
+    return mode_bound_ms(flops, n_bytes, mode)
+
+
+def bidi_mode_bound_ms(f: int, n: int, mode: str, h: int = HIDDEN):
+    h4 = 4 * h
+    flops = 2.0 * 2 * f * n * h * h4
+    n_bytes = 4.0 * (2 * f * n * h4 + f * n + 2 * h * h4 + 4 * n * h + 2 * f * n * h + 4 * n * h)
+    return mode_bound_ms(flops, n_bytes, mode)
+
+
+def mode_check(name: str, kernel: str, shape: str, mode: str, fused, plain, args, idle,
+               h0, c0, fresh: dict, launches_per_call: int) -> float:
+    """One kernel at ``mode`` against its plain version at the same mode
+    (at high also closer to it than to the plain version at highest): its
+    launches, 0-length rows frozen bit for bit, a second call and a
+    CUDA-graph replay bit for bit; returns the largest error."""
+    key = (kernel, mode)
+    before = K.MODE_LAUNCHES.get(key, 0)
+    got = fused(*args, mode)
+    again = fused(*args, mode)
+    launched = K.MODE_LAUNCHES.get(key, 0) - before
+    want = plain(*args, mode)
+    torch.cuda.synchronize()
+    err = max_err(got, want)
+    frozen = bool((got[1][:, idle] == h0[:, idle]).all() and (got[2][:, idle] == c0[:, idle]).all())
+    repeat = all(torch.equal(a, b) for a, b in zip(got, again))
+    gap = max_err(got, plain(*args, "highest")) if mode == "high" else None
+    replay = graph_replays(lambda *a: fused(*a, mode), list(args), fresh)
+    tol = TOL_MODE[mode]
+    print(f"mode {mode} {name} {shape}: max_abs_err vs its plain version at {mode} {err:.3e} "
+          f"(tolerance {tol:g})" + ("" if gap is None else f", vs it at highest {gap:.3e}")
+          + f"; 0-length rows ({int(idle.sum())}) frozen bit for bit: {frozen}; "
+          f"second call bit for bit: {repeat}; CUDA-graph replay bit for bit: {replay}; "
+          f"{launched} launches for 2 calls", flush=True)
+    check(launched == 2 * launches_per_call,
+          f"{name} at {shape} {mode}: {launched} launches for 2 calls")
+    check(err <= tol, f"{name} at {mode} disagrees with its plain version at {shape}: {err} > {tol}")
+    check(gap is None or err < gap, f"{name} at {mode} lies no closer to its plain version at "
+                                    f"{mode} than at highest at {shape}: {err} >= {gap}")
+    check(frozen, f"{name} at {mode} changed the state of 0-length rows at {shape}")
+    check(repeat, f"two {name} calls at {mode} differ at {shape}")
+    check(replay, f"{name} at {mode}: the CUDA-graph replay differs at {shape}")
+    return err
+
+
+def stack_mode_phase(f: int, n: int, mode: str, seed: int, h: int = HIDDEN,
+                     layers: int = LAYERS, timed: bool = True) -> dict:
+    """The stack kernel and (from 2 layers) its wavefront schedule at
+    ``mode`` (``mode_check``), each with its launch plan; when ``timed``,
+    median times beside the plain versions at the mode and cuDNN's LSTM in
+    bf16 (a yardstick: its outputs are bf16), and the bound at the bf16
+    tensor-core rate. Returns both rows."""
+    cells, x, mask, h0, c0 = stack_case(f, n, seed, h, layers)
+    ops = K.stack_operands(cells, x, mode)
+    args = (ops[0], mask, ops[1], ops[2], ops[3], h0, c0)
+    idle = mask.sum(0) == 0
+    shape = f"F={f} N={n}" + ("" if (h, layers) == (HIDDEN, LAYERS) else f" {layers}x{h}")
+    lim = K.stack_limits(x.device)
+    fresh = {0: torch.randn_like(ops[0]) * 0.5, 5: torch.randn_like(h0) * 0.5}
+    out = {}
+    for name, kernel, fused, plain, wave in (
+            ("stack kernel", "lstm_stack", K.lstm_stack_fused, K.lstm_stack_plain, False),
+            ("wavefront kernel", "lstm_wavefront", K.lstm_stack_wavefront_fused,
+             K.lstm_stack_wavefront_plain, True)):
+        if wave and layers < 2:
+            continue
+        plan = K.lstm_stack_plan(layers, n, h, *lim, wavefront=wave, precision=mode)
+        print(f"mode {mode} {name} launch plan {shape}: {plan._asdict()}", flush=True)
+        err = mode_check(name, kernel, shape, mode, fused, plain, args, idle, h0, c0, fresh, 1)
+        out[kernel] = dict(max_abs_err=err)
+        if timed:
+            with torch.no_grad():
+                ms = cuda_ms(lambda: fused(*args, mode))
+                plain_ms = cuda_ms(lambda: plain(*args, mode), reps=5 if f > 64 else 15)
+            out[kernel].update(ms=ms, plain_ms=plain_ms)
+    if not timed:
+        return out
+    lstm = cudnn_stack(cells, h).bfloat16()
+    xb, h0b, c0b = x.bfloat16(), h0.bfloat16(), c0.bfloat16()
+    with torch.no_grad():
+        library_ms = cuda_ms(lambda: lstm(xb, (h0b, c0b)))
+    b_ms, b_by = stack_mode_bound_ms(f, n, mode, h, layers)
+    for kernel, row in out.items():
+        row.update(bound_ms=b_ms, bound_by=b_by, library_ms=library_ms)
+        print(f"mode {mode} times {kernel} {shape}: kernel {row['ms']:.4f} ms "
+              f"({row['ms'] * 1e3 / (f * layers):.2f} us per (step, layer)), plain at {mode} "
+              f"{row['plain_ms']:.4f} ms, torch.nn.LSTM in bf16 (cuDNN) {library_ms:.4f} ms, "
+              f"bound {b_ms:.4f} ms by {b_by} (bf16 tensor cores)", flush=True)
+    return out
+
+
+def bidi_mode_inputs(f: int, n: int, mode: str, seed: int, h: int = HIDDEN):
+    """``bidi_inputs`` with the input projections at ``mode``: ((cells, x,
+    lengths), the kernel's operands)."""
+    from empose_tpu_torch.ops.precision import matmul_at
+
+    cells, x, x_rev, lengths, args = bidi_inputs(f, n, seed, h)
+    x_proj = torch.stack([matmul_at(xs, c["w_ih"], mode) + c["b_ih"] + c["b_hh"]
+                          for c, xs in zip(cells, (x, x_rev))], dim=1).contiguous()
+    return (cells, x, lengths), (x_proj,) + args[1:]
+
+
+def bidi_mode_phase(f: int, n: int, mode: str, seed: int, h: int = HIDDEN,
+                    timed: bool = True) -> dict:
+    """The bidirectional layer kernel at ``mode`` (``mode_check``, the input
+    projections at the mode too), with its launch plan; when ``timed``,
+    median times beside the plain version at the mode and cuDNN's
+    bidirectional LSTM in bf16, and the bound at the bf16 rate."""
+    (cells, x, lengths), args = bidi_mode_inputs(f, n, mode, seed, h)
+    x_proj, mask, _, h0, c0 = args
+    shape = f"F={f} N={n}" + ("" if h == HIDDEN else f" H={h}")
+    plan = K.lstm_bidi_plan(n, h, *K.bidi_limits(x_proj.device), precision=mode)
+    print(f"mode {mode} bidi launch plan {shape}: {plan._asdict()}", flush=True)
+    fresh = {0: torch.randn_like(x_proj) * 0.5, 3: torch.randn_like(h0) * 0.5}
+    err = mode_check("bidi kernel", "lstm_bidi", shape, mode, K.lstm_bidi_fused,
+                     K.lstm_bidi_plain, args, lengths == 0, h0, c0, fresh, plan.launches)
+    if not timed:
+        return dict(max_abs_err=err)
+    lstm = torch.nn.LSTM(N_IN, h, 1, bidirectional=True).cuda()
+    with torch.no_grad():
+        for c, suffix in zip(cells, ("", "_reverse")):
+            getattr(lstm, f"weight_ih_l0{suffix}").copy_(c["w_ih"].t())
+            getattr(lstm, f"weight_hh_l0{suffix}").copy_(c["w_hh"].t())
+            getattr(lstm, f"bias_ih_l0{suffix}").copy_(c["b_ih"])
+            getattr(lstm, f"bias_hh_l0{suffix}").copy_(c["b_hh"])
+        lstm = lstm.bfloat16()
+        xb, h0b, c0b = x.bfloat16(), h0.bfloat16(), c0.bfloat16()
+        ms = cuda_ms(lambda: K.lstm_bidi_fused(*args, mode))
+        plain_ms = cuda_ms(lambda: K.lstm_bidi_plain(*args, mode), reps=3 if f > 256 else 7)
+        library_ms = cuda_ms(lambda: lstm(xb, (h0b, c0b)))
+    b_ms, b_by = bidi_mode_bound_ms(f, n, mode, h)
+    print(f"mode {mode} bidi times {shape}: kernel {ms:.4f} ms ({ms * 1e3 / f:.2f} us per step), "
+          f"plain at {mode} {plain_ms:.4f} ms, torch.nn.LSTM bidirectional in bf16 (cuDNN) "
+          f"{library_ms:.4f} ms, bound {b_ms:.4f} ms by {b_by} (bf16 tensor cores)", flush=True)
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                library_ms=library_ms)
+
+
+def bf16_product_check() -> None:
+    """The bf16 products outside the kernels (``ops/precision.mm_bf16``:
+    cuBLAS's bf16 GEMM with an f32 output) at a layer-0 projection's shape,
+    against an fp32 GEMM of the same bf16 values (exact products; the sums'
+    order differs): an f32 result within 2e-6 of the largest value (about
+    8x the reading on an H100, 2.575e-07; a bf16 result is 4e-3 off)."""
+    from empose_tpu_torch.ops.precision import mm_bf16
+
+    g = torch.Generator().manual_seed(SEED)
+    a = torch.randn(STREAMS * CHUNK, N_IN, generator=g).cuda().bfloat16()
+    b = torch.randn(N_IN, 4 * HIDDEN, generator=g).cuda().bfloat16()
+    got, want = mm_bf16(a, b), a.float() @ b.float()
+    rel = max_err((got,), (want,)) / float(want.abs().max())
+    print(f"mode: bf16 product outside the kernels (torch.mm, out_dtype float32) returns "
+          f"{got.dtype}; relative max error vs fp32 GEMM of the bf16 values {rel:.3e} "
+          f"(tolerance 2e-6)", flush=True)
+    check(got.dtype == torch.float32 and rel <= 2e-6,
+          f"the bf16 product returns {got.dtype}, {rel} from the fp32 GEMM of its operands")
+
+
+def kernel_modes() -> dict:
+    """Every mode phase of the kernels: the stack and the wavefront at
+    STACK_TIMED (timed), (33, 7) and (3, 1300) at 2x512 and one layer of
+    1024 at (16, 64) (timed); the bidi layer at BIDI_TIMED, H=1024 (16, 32)
+    and the eval's (4096, 17) (timed). Returns the (16, 64) rows per mode."""
+    rows = {}
+    for mode in MODES:
+        stack = {}
+        for f, n in (*STACK_TIMED, (33, 7), (3, 1300)):
+            stack[(f, n)] = stack_mode_phase(f, n, mode, seed=SEED + f + n,
+                                             timed=(f, n) in STACK_TIMED)
+        stack_mode_phase(CHUNK, STREAMS, mode, seed=SEED + 1024, h=2 * HIDDEN, layers=1)
+        bidi = {}
+        for f, n, h in (*((f, n, HIDDEN) for f, n in BIDI_TIMED), (CHUNK, 32, 2 * HIDDEN),
+                        (*BIDI_LONG, HIDDEN)):
+            bidi[(f, n, h)] = bidi_mode_phase(f, n, mode, seed=SEED + f + n + 1, h=h)
+        rows[mode] = dict(stack=stack[(CHUNK, STREAMS)], bidi=bidi[(CHUNK, STREAMS, HIDDEN)])
+    return rows
+
+
+def hmma_counts(name: str) -> dict:
+    """HMMA instructions per kernel instantiation of a built library
+    (``cuobjdump -sass``), by (U, [wavefront,] mode)."""
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    sass = subprocess.run([tool, "-sass", cuda_build.library_path(name)], capture_output=True,
+                          text=True, check=True).stdout
+    counts, fn = {}, None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            m = re.search(r"kernelILi(\d)E(?:Lb(\d)E)?Li(\d)EE", line)
+            fn = None if m is None else (int(m.group(1)), m.group(2) == "1",
+                                         {0: "highest", 1: "high", 2: "default"}[int(m.group(3))])
+            if fn is not None:
+                counts[fn] = 0
+        elif fn is not None and "HMMA" in line:
+            counts[fn] += 1
+    return counts
+
+
+def served_joints(sensor: SensorSMPL, out: dict) -> torch.Tensor:
+    """FK joints (B, 22, 3) of a served chunk (root_ori, pose_body[, shape])."""
+    poses = torch.from_numpy(np.concatenate([out["root_ori"], out["pose_body"]], -1)).cuda()
+    shapes = torch.from_numpy(out["shape"]).cuda() if "shape" in out else \
+        poses.new_zeros(poses.shape[0], 10)
+    return sensor.joints(poses, shapes[:, :10]).reshape(poses.shape[0], -1, 3)
+
+
+def joint_shift_mm(sensor: SensorSMPL, a: list, b: list) -> float:
+    """The largest FK joint difference (mm) between two runs of served steps."""
+    worst = 0.0
+    with torch.no_grad():
+        for x, y in zip(a, b):
+            for s in x:
+                d = (served_joints(sensor, x[s]) - served_joints(sensor, y[s])).norm(dim=-1)
+                worst = max(worst, float(d.max()) * 1e3)
+    return worst
+
+
+def serving_mode_path(label: str, model_id: str, feeds, offsets, kernel: str, per_forward: int,
+                      use_plain, mode: str, base: list, sensor: SensorSMPL) -> int:
+    """Serve ``model_id`` at ``mode`` (both knobs bound by the caller, as the
+    serve CLI's --precision binds them) through
+    MultiStreamPredictor.from_experiment and one StreamingPredictor session
+    with the counts at 0: ``kernel`` must launch ``per_forward`` times per served forward,
+    all at ``mode``, and no other kernel; the served poses must equal the
+    same model with its LSTM's plain version at ``mode`` within
+    TOL_SERVE_MODE; the shift from the ``highest`` run ``base`` (largest
+    FK joint difference, mm), the batched step's p50 and one profiled
+    window. Returns the kernel's launches."""
+    multi = MultiStreamPredictor.from_experiment(model_id, n_streams=STREAMS, chunk_size=CHUNK)
+    model = multi.model
+    single = StreamingPredictor(model, CHUNK)
+    torch.cuda.synchronize()
+    reset_counts()
+    served = serve_rounds(multi, feeds, offsets)
+    single_out = single_session(single, feeds, offsets)
+    torch.cuda.synchronize()
+    launched, by_mode = counts(), dict(K.MODE_LAUNCHES)
+    forwards = len(served) + 4
+    print(f"{label} at {mode} main path: {forwards} served forwards, launches {launched}, by "
+          f"mode {by_mode}", flush=True)
+    check(launched == expected(**{kernel: per_forward * forwards})
+          and by_mode == {(kernel, mode): per_forward * forwards},
+          f"{label} at {mode}: expected {per_forward} {kernel} launches at {mode} per served "
+          f"forward and no other kernel, got {launched}, {by_mode}")
+    ref_model = copy.deepcopy(model)
+    use_plain(ref_model)
+    ref_served = serve_rounds(MultiStreamPredictor(ref_model, STREAMS, CHUNK), feeds, offsets)
+    ref_single = single_session(StreamingPredictor(ref_model, CHUNK), feeds, offsets)
+    check(counts() == launched, f"{label} at {mode}: the plain reference launched a kernel")
+    finite = all(np.isfinite(v).all() for o in served for s in o.values() for v in s.values())
+    err = max(max(max_diff(a, b) for a, b in zip(served, ref_served)),
+              max(max_diff(a, b) for a, b in zip(single_out, ref_single)))
+    shift = joint_shift_mm(sensor, served, base)
+    pos, ori = feeds
+
+    def batched_step() -> float:
+        for s in range(STREAMS):
+            multi.push(s, pos[s, :CHUNK], ori[s, :CHUNK])
+        t0 = time.perf_counter()
+        multi.step()
+        return (time.perf_counter() - t0) * 1e3
+
+    step_ms = [batched_step() for _ in range(20)]
+    p50 = float(np.median(step_ms))
+    print(f"{label} at {mode}: outputs finite {finite}; max |kernel path - plain LSTM path at "
+          f"{mode}| {err:.3e} (tolerance {TOL_SERVE_MODE[mode]:g}); shift from highest: largest "
+          f"joint difference {shift:.4f} mm; {STREAMS} streams x chunk {CHUNK}: p50 "
+          f"{p50:.3f} ms per batched step (min {min(step_ms):.3f}, max {max(step_ms):.3f})",
+          flush=True)
+    check(finite, f"{label} at {mode}: served outputs are not finite")
+    check(err <= TOL_SERVE_MODE[mode], f"{label} at {mode}: served outputs differ from the "
+                                       f"plain-LSTM forward: {err} > {TOL_SERVE_MODE[mode]}")
+    profile_window(f"{label} at {mode} serving", batched_step, 5)
+    return launched[kernel]
+
+
+def eval_mode_path(label: str, model_id: str, kernel: str, window, base: dict,
+                   mode: str = "default") -> int:
+    """The eval CLI's main at ``--precision mode`` with the counts at 0:
+    ``kernel`` launches as at ``highest``, all at the mode, and no other
+    kernel; the table's MPJPE, PA-MPJPE and MPJAE shift from the ``highest``
+    table ``base`` (overall row; within TOL_EVAL_MODE relative), then one
+    batched pass at the mode timed on the host clock. Returns the launches."""
+    from empose_tpu_torch.device import precision_scope
+
+    argv = ["--model_id", model_id]
+    torch.cuda.synchronize()
+    reset_counts()
+    rows, _ = quiet_eval(argv + ["--precision", mode])
+    torch.cuda.synchronize()
+    launched, by_mode = counts(), dict(K.MODE_LAUNCHES)
+    want = base["launches"]
+    check(launched == expected(**{kernel: want}) and by_mode == {(kernel, mode): want},
+          f"{label} eval at {mode}: expected {want} {kernel} launches at {mode}, got "
+          f"{launched}, {by_mode}")
+    got, ref = np.array(rows[-1][1:], float), np.array(base["rows"][-1][1:], float)
+    shift = dict(zip(("MPJPE", "PA-MPJPE", "MPJAE"), (got - ref)[[0, 2, 4]]))
+    rel = table_diff(rows, base["rows"])
+    session, loader, _ = EH.load_model_and_eval_data(model_id)
+    frames = sum(int(b["seq_lengths"][0]) for b in loader)
+    with precision_scope(mode), contextlib.redirect_stdout(io.StringIO()):
+        EH.evaluate_real_sequences(session, loader, window)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        EH.evaluate_real_sequences(session, loader, window)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    print(f"{label} eval at {mode}: launches {launched}; overall row {rows[-1][1:]}; shift from "
+          f"highest (mm, mm, deg) {shift}; largest relative difference to the highest table "
+          f"{rel:.3e} (tolerance {TOL_EVAL_MODE:g}); batched pass wall {wall:.3f} s, "
+          f"{frames / wall:.0f} frames/s (highest: {base['wall_s']:.3f} s, "
+          f"{base['frames_per_s']:.0f} frames/s)", flush=True)
+    check(all(np.isfinite(r[1:]).all() for r in rows) and len(rows) == len(base["rows"]),
+          f"{label} eval at {mode}: the table is not finite or has other rows")
+    check(rel <= TOL_EVAL_MODE, f"{label} eval at {mode}: the table moved {rel} > "
+                                f"{TOL_EVAL_MODE} from highest's")
+    return launched[kernel]
+
+
+def mode_cases():
+    """Every (kind, F, N, H, L) that kernel_modes checks."""
+    return ([("stack", f, n, HIDDEN, LAYERS) for f, n in (*STACK_TIMED, (33, 7), (3, 1300))]
+            + [("stack", CHUNK, STREAMS, 2 * HIDDEN, 1)]
+            + [("bidi", f, n, HIDDEN, 1) for f, n in BIDI_TIMED]
+            + [("bidi", CHUNK, 32, 2 * HIDDEN, 1), ("bidi", *BIDI_LONG, HIDDEN, 1)])
+
+
+def mode_rounding_study(seeds=range(8)) -> int:
+    """How far each kernel at HIGH and DEFAULT lies from its plain version
+    at the same mode, over seeds and every shape kernel_modes checks (seed
+    0 is its inputs): at DEFAULT a 1-ulp fp32 difference in h can round an
+    element of the next step's bf16 h the other way. At HIGH also the gap
+    to the plain version at HIGHEST, which TOL_HIGH must stay under. Prints
+    each reading and, per shape and mode, the largest reading (and the
+    smallest gap); they set TOL_MODE."""
+    if not print_card():
+        return 2
+    set_precision("highest")
+    for mode in MODES:
+        worst, gap = {}, {}
+        for seed in seeds:
+            for kind, f, n, h, layers in mode_cases():
+                if kind == "stack":
+                    cells, x, mask, h0, c0 = stack_case(f, n, 1000 * seed + f + n, h, layers)
+                    ops = K.stack_operands(cells, x, mode)
+                    args = (ops[0], mask, ops[1], ops[2], ops[3], h0, c0)
+                    pairs = [("stack", K.lstm_stack_fused, K.lstm_stack_plain)]
+                    if layers > 1:
+                        pairs.append(("wavefront", K.lstm_stack_wavefront_fused,
+                                      K.lstm_stack_wavefront_plain))
+                else:
+                    args = bidi_mode_inputs(f, n, mode, 1000 * seed + f + n + 1, h)[1]
+                    pairs = [("bidi", K.lstm_bidi_fused, K.lstm_bidi_plain)]
+                for name, fused, plain in pairs:
+                    got = fused(*args, mode)
+                    err = max_err(got, plain(*args, mode))
+                    key = f"{name} F={f} N={n} H={h}"
+                    worst[key] = max(worst.get(key, 0.0), err)
+                    line = f"mode-rounding {mode} seed {seed} {key}: {err:.3e}"
+                    if mode == "high":
+                        g = max_err(got, plain(*args, "highest"))
+                        gap[key] = min(gap.get(key, g), g)
+                        line += f"; gap to the plain version at highest {g:.3e}"
+                    print(line, flush=True)
+        print(f"mode-rounding {mode}: largest over {len(seeds)} seeds {worst}; overall "
+              f"{max(worst.values()):.3e}", flush=True)
+        if gap:
+            print(f"mode-rounding {mode}: smallest gap to highest over {len(seeds)} seeds {gap}; "
+                  f"overall {min(gap.values()):.3e}", flush=True)
+    return 0
 
 
 def main() -> int:
@@ -1764,7 +2282,7 @@ def main() -> int:
         print(f"build {K.BIDI_NAME} {fn}: {'; '.join(lines)}", flush=True)
     spills = [line for lines in bidi_fns.values() for line in lines
               if "spill" in line and "0 bytes spill stores, 0 bytes spill loads" not in line]
-    check(len(bidi_fns) == 2 and not spills, f"the bidi kernel's instantiations "
+    check(len(bidi_fns) == 6 and not spills, f"the bidi kernel's instantiations "
                                              f"{sorted(bidi_fns)} do not all build without "
                                              f"spills: {spills}")
     stack_fns = {fn: lines for fn, lines in ptxas_report(logs[K.NAME]).items()
@@ -1773,11 +2291,20 @@ def main() -> int:
         print(f"build {K.NAME} {fn}: {'; '.join(lines)}", flush=True)
     spills = [line for lines in stack_fns.values() for line in lines
               if "spill" in line and "0 bytes spill stores, 0 bytes spill loads" not in line]
-    check(len(stack_fns) == 3 and not spills, f"the stack kernel's instantiations "
+    check(len(stack_fns) == 9 and not spills, f"the stack kernel's instantiations "
                                               f"{sorted(stack_fns)} do not all build without "
                                               f"spills: {spills}")
     print(f"build: nvcc {time.perf_counter() - t0:.2f} s for {len(logs)} sources in parallel",
           flush=True)
+    # The tensor cores: HMMA in every HIGH and DEFAULT instantiation of the
+    # stack and bidi kernels, in none of the HIGHEST ones.
+    for name in (K.NAME, K.BIDI_NAME):
+        hmma = hmma_counts(name)
+        print(f"build {name}: HMMA instructions per instantiation (U, [wavefront,] mode) "
+              f"{ {k: v for k, v in sorted(hmma.items())} }", flush=True)
+        check(len(hmma) == (9 if name == K.NAME else 6)
+              and all((v > 0) == (k[-1] != "highest") for k, v in hmma.items()),
+              f"{name}: HMMA not in exactly the high and default instantiations: {hmma}")
 
     # Timed: STACK_TIMED at 2x512 (one stream's chunk also in rounds against
     # cuDNN) and one layer of the default width 1024 at the serving chunk,
@@ -1818,6 +2345,15 @@ def main() -> int:
     lbs_refuses_strided()
     wavefront_launches = bench_path()
 
+    # The high and default modes of the stack, wavefront and bidi kernels,
+    # and the bench tool at each mode.
+    bf16_product_check()
+    modes = kernel_modes()
+    mode_launches = {(k, m): 0 for k in ("lstm_stack", "lstm_wavefront", "lstm_bidi")
+                     for m in MODES}
+    for mode in MODES:
+        mode_launches[("lstm_wavefront", mode)] = bench_path(mode)
+
     with tempfile.TemporaryDirectory(dir=cuda_build.BUILD_DIR) as root:
         rng = np.random.RandomState(SEED)
         write_assets(root, rng)
@@ -1837,10 +2373,11 @@ def main() -> int:
 
         # The stack runs whole where it fits the card, else one layer per launch.
         stack_per_forward = stack_forward_launches(LAYERS, HIDDEN)
-        launches = serving_path("LGD-RNN-6", "900001", feeds, offsets, "lstm_stack",
-                                stack_per_forward, plain_stack)
-        bidi_launches = serving_path("BiRNN-6", "900003", feeds, offsets, "lstm_bidi",
-                                     BIRNN_6["m_num_layers"], plain_bidi)
+        launches, lgd_served = serving_path("LGD-RNN-6", "900001", feeds, offsets, "lstm_stack",
+                                            stack_per_forward, plain_stack)
+        bidi_launches, birnn_served = serving_path("BiRNN-6", "900003", feeds, offsets,
+                                                   "lstm_bidi", BIRNN_6["m_num_layers"],
+                                                   plain_bidi)
 
         # The default-width RNNs (H=1024): the stack one layer per launch,
         # the bidirectional layer one direction per launch.
@@ -1849,13 +2386,37 @@ def main() -> int:
         n_params = write_experiment(root, "900005", RNN_DEFAULT, "RNN-1024")
         print(f"model: RNN at the default width ({layers}x{h_default}), {n_params} parameters "
               f"(seeded random weights); {per_forward} stack launches per forward", flush=True)
-        serving_path("RNN-1024", "900005", feeds, offsets, "lstm_stack", per_forward, plain_stack)
+        rnn_served = serving_path("RNN-1024", "900005", feeds, offsets, "lstm_stack",
+                                  per_forward, plain_stack)[1]
         per_forward = layers * bidi_layer_launches(STREAMS, h_default)
         n_params = write_experiment(root, "900006", BIRNN_DEFAULT, "BiRNN-1024")
         print(f"model: BiRNN at the default width ({layers}x{h_default}), {n_params} parameters "
               f"(seeded random weights); {per_forward} bidi launches per forward", flush=True)
-        serving_path("BiRNN-1024", "900006", feeds, offsets, "lstm_bidi", per_forward,
-                     plain_bidi)
+        birnn_default_served = serving_path("BiRNN-1024", "900006", feeds, offsets, "lstm_bidi",
+                                            per_forward, plain_bidi)[1]
+
+        # Serving at each mode: the four models, their kernels at the mode
+        # (launches per forward by the plan at the mode), held against the
+        # plain LSTM at the mode, and shifted from the highest runs above.
+        from empose_tpu_torch.device import precision_scope
+
+        sensor = SensorSMPL(load_smplh()).cuda()
+        for mode in MODES:
+            for label, model_id, kernel, per, use_plain, base in (
+                    ("LGD-RNN-6", "900001", "lstm_stack",
+                     stack_forward_launches(LAYERS, HIDDEN, mode), plain_stack, lgd_served),
+                    ("BiRNN-6", "900003", "lstm_bidi",
+                     BIRNN_6["m_num_layers"] * bidi_layer_launches(STREAMS, HIDDEN, mode),
+                     plain_bidi, birnn_served),
+                    ("RNN-1024", "900005", "lstm_stack",
+                     stack_forward_launches(layers, h_default, mode), plain_stack, rnn_served),
+                    ("BiRNN-1024", "900006", "lstm_bidi",
+                     layers * bidi_layer_launches(STREAMS, h_default, mode), plain_bidi,
+                     birnn_default_served)):
+                with precision_scope(mode):
+                    mode_launches[(kernel, mode)] += serving_mode_path(
+                        label, model_id, feeds, offsets, kernel, per, use_plain, mode, base,
+                        sensor)
 
         n_layers = LGD_RNN_6["m_rnn_num_layers"]
         trained = training_path("LGD-RNN-6", LGD_RNN_6, "900002", TRAIN_STEPS, RESUME_STEPS,
@@ -1886,6 +2447,11 @@ def main() -> int:
         launches += lgd_eval["launches"]
         bidi_launches += birnn_eval["launches"] + eval_fit_path(
             "BiRNN-6", BIRNN_6, "900007", per_step, "lstm_bidi", bidi_per_forward)
+        # The eval CLI at --precision default: the same launches, at the mode.
+        mode_launches[("lstm_stack", "default")] += eval_mode_path(
+            "LGD-RNN-6", "900001", "lstm_stack", 256, lgd_eval)
+        mode_launches[("lstm_bidi", "default")] += eval_mode_path(
+            "BiRNN-6", "900003", "lstm_bidi", None, birnn_eval)
 
         layer, lbs_launches = smpl_layer_path(rng)
         datagen_path(root, rng)
@@ -1911,6 +2477,17 @@ def main() -> int:
              replaces="empose_tpu/ops/lstm_kernel.py:377", launches=wavefront_launches,
              **stack[(CHUNK, STREAMS)]["wavefront"]),
     ]
+    # A row per (kernel, mode): the (16, 64) readings of the mode phases.
+    for mode in MODES:
+        for kernel, source, replaces, row in (
+                ("lstm_stack", "lstm_stack.cu", 150, modes[mode]["stack"]["lstm_stack"]),
+                ("lstm_wavefront", "lstm_stack.cu", 377, modes[mode]["stack"]["lstm_wavefront"]),
+                ("lstm_bidi", "lstm_bidi.cu", 589, modes[mode]["bidi"])):
+            check(mode_launches[(kernel, mode)] > 0, f"{kernel} never launched at {mode}")
+            kernels.append(dict(name=f"{kernel}@{mode}", route="cuda",
+                                source=f"empose_tpu_torch/csrc/{source}",
+                                replaces=f"empose_tpu/ops/lstm_kernel.py:{replaces}",
+                                launches=mode_launches[(kernel, mode)], **row))
     print(f"total {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
@@ -1926,4 +2503,6 @@ if __name__ == "__main__":
         sys.exit(step_probe())
     if sys.argv[1:2] == ["--time-pair"]:
         sys.exit(time_pair())
+    if sys.argv[1:2] == ["--mode-rounding"]:
+        sys.exit(mode_rounding_study(seeds=range(int(sys.argv[2]) if sys.argv[2:] else 8)))
     sys.exit(main())

@@ -27,8 +27,10 @@ import torch
 from empose_tpu_torch import constants as C
 from empose_tpu_torch.device import resolve_device
 from empose_tpu_torch.ops import mesh as mesh_ops
+from empose_tpu_torch.ops.precision import matmul_at
 from empose_tpu_torch.ops.skinning import FusedLBS, lbs_apply_plain
 from empose_tpu_torch.ops.so3 import aa2rot, rodrigues, rot2aa
+from empose_tpu_torch.utils.precision import HIGHEST
 
 ARRAY_FIELDS = ("v_template", "shapedirs", "posedirs", "j_regressor", "weights",
                  "j_template", "j_shapedirs")
@@ -227,7 +229,7 @@ def _rigid_transform_chain(rot_mats: torch.Tensor, joints: torch.Tensor, parents
 def smplh_fk(model: SMPLHModel, poses_body: torch.Tensor, betas: torch.Tensor,
              poses_root: Optional[torch.Tensor] = None, trans: Optional[torch.Tensor] = None,
              poses_hands: Optional[torch.Tensor] = None, want_vertices: bool = True,
-             lbs_fn=None):
+             lbs_fn=None, precision: str = HIGHEST):
     """Evaluate SMPL-H on a tensor model (``SMPLHModel.to``).
 
     Hand poses default to zero, root/trans to zero; betas broadcast over the
@@ -235,6 +237,12 @@ def smplh_fk(model: SMPLHModel, poses_body: torch.Tensor, betas: torch.Tensor,
     t_skin, v_posed)``, when given, does the skinning (the full-mesh kernel,
     ``ops/skinning.FusedLBS``); otherwise its plain version
     (``ops/skinning.lbs_apply_plain``) does.
+
+    ``precision`` is the mode of the joint-regressor, shape-blend,
+    pose-blend and (without ``lbs_fn``) skinning blend products, the GEMMs
+    of ``empose_tpu/ops/fk_lanes.py``; ``SensorSMPL.markers_and_joints``
+    passes the kinematics knob. The rotation compose and the full-mesh LBS
+    stay f32 at every mode, as in JAX.
 
     :param poses_body: (N, 63+) body pose angle-axis (extra dofs ignored).
     :param betas: (N, B) or (B,) or (1, B).
@@ -257,18 +265,22 @@ def smplh_fk(model: SMPLHModel, poses_body: torch.Tensor, betas: torch.Tensor,
 
     full_pose = torch.cat([poses_root.to(dtype), poses_body, poses_hands.to(dtype)], dim=-1)
     rot_mats = rodrigues(full_pose.reshape(n, model.n_joints, 3))
-    j_rest = model.j_template[None] + torch.einsum("jdb,nb->njd", model.j_shapedirs, betas)
+    nb = betas.shape[1]
+    j_rest = model.j_template[None] + matmul_at(
+        betas, model.j_shapedirs.reshape(-1, nb).t(), precision).reshape(n, -1, 3)
     joints_posed, R_glob, t_skin = _rigid_transform_chain(rot_mats, j_rest, model.parents)
     joints_out = joints_posed + trans[:, None]
     if not want_vertices:
         return None, joints_out
 
-    v_rest = model.v_template[None] + torch.einsum("vdb,nb->nvd", model.shapedirs, betas)
+    v_rest = model.v_template[None] + matmul_at(
+        betas, model.shapedirs.reshape(-1, nb).t(), precision).reshape(n, -1, 3)
     ident = torch.eye(3, dtype=dtype, device=device)
     pose_feature = (rot_mats[:, 1:] - ident).reshape(n, -1)
-    v_posed = v_rest + (pose_feature @ model.posedirs).reshape(n, -1, 3)
+    v_posed = v_rest + matmul_at(pose_feature, model.posedirs, precision).reshape(n, -1, 3)
     if lbs_fn is None:
-        return lbs_apply_plain(model.weights, R_glob, t_skin, v_posed) + trans[:, None], joints_out
+        return (lbs_apply_plain(model.weights, R_glob, t_skin, v_posed, precision)
+                + trans[:, None], joints_out)
     return lbs_fn(R_glob, t_skin, v_posed) + trans[:, None], joints_out
 
 

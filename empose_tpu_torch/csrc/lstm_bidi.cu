@@ -66,7 +66,16 @@
 //     by shuffles and writes h[t], c and the output.  h0 and c0 are read in
 //     place at the first step: no copy before the launch.
 //   * One grid barrier per step, none after the last.
-// fp32 FMAs on the CUDA cores, no tensor cores (the fp32 parity mode).
+// That is the HIGHEST instance (fp32 FMAs on the CUDA cores, the fp32 parity
+// mode).  At HIGH and DEFAULT (template argument P, lstm_common.cuh) the
+// recurrent product runs on the tensor cores, mma.sync m16n8k16 bf16 with
+// f32 accumulation, as in the stack kernel (csrc/lstm_stack.cu): W_hh comes
+// in rounded (DEFAULT) or split into a bf16 hi/lo pair (HIGH) by the wrapper
+// and stays resident in B-fragment order; each 16-row chunk of h[t-1] is
+// converted once into bf16 planes (hi; hi and lo at HIGH), the 8 warps
+// multiply over disjoint k-steps, and the partial tiles meet in shared
+// memory, summed in warp order by one thread per (row, unit, gate).  The
+// cell, masking and writes are the HIGHEST code's, in f32; no atomics.
 // The grid must be co-resident for the barrier: lstm_bidi_prepare sets the
 // kernel's shared memory and checks its occupancy once per device, the
 // wrapper keeps the grid within the SMs, and lstm_bidi_forward only launches
@@ -76,9 +85,24 @@
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
+#include "lstm_common.cuh"
+
 namespace cg = cooperative_groups;
 
 namespace {
+
+using lstm::component;
+using lstm::cp_async16;
+using lstm::cp_async_commit;
+using lstm::cp_async_wait_upto;
+using lstm::kDefault;
+using lstm::kHigh;
+using lstm::kHighest;
+using lstm::kMmaRows;
+using lstm::kParts;
+using lstm::round32;
+using lstm::sigmoid_f;
+using lstm::warp_reduce_scatter;
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
@@ -89,39 +113,6 @@ constexpr int kPassRows = 16;  // rows of h[t-1] per staged chunk
 constexpr int kErrGridTooLarge = -1;
 constexpr int kErrNoCooperative = -3;
 constexpr int kErrBadShape = -4;
-
-__device__ __forceinline__ float sigmoid_f(float x) { return 1.0f / (1.0f + expf(-x)); }
-
-__device__ __forceinline__ float component(const float4& v, int q) {
-  return q == 0 ? v.x : q == 1 ? v.y : q == 2 ? v.z : v.w;
-}
-
-__host__ __device__ constexpr size_t round32(size_t x) { return (x + 31) / 32 * 32; }
-
-__device__ __forceinline__ void cp_async16(float* dst, const float* src) {
-  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d), "l"(src));
-}
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-template <int kPending>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(kPending) : "memory");
-}
-
-// Waits until at most `pending` of this thread's newest copy groups are in
-// flight (exactly for up to 7; for more it waits until 7 are, which is safe).
-__device__ __forceinline__ void cp_async_wait_upto(int pending) {
-  switch (pending) {
-    case 0: cp_async_wait<0>(); break;
-    case 1: cp_async_wait<1>(); break;
-    case 2: cp_async_wait<2>(); break;
-    case 3: cp_async_wait<3>(); break;
-    case 4: cp_async_wait<4>(); break;
-    case 5: cp_async_wait<5>(); break;
-    case 6: cp_async_wait<6>(); break;
-    default: cp_async_wait<7>(); break;
-  }
-}
 
 // Shared memory of a block (floats), in this order:
 //   w_s  [4][U][H], to 128 bytes    the block's gate columns of W_hh[d]: the
@@ -135,38 +126,21 @@ __host__ __device__ constexpr size_t smem_floats(int U, int H, int stage_rows) {
   return round32((size_t)4 * U * H) + (size_t)stage_rows * H;
 }
 
+// Shared memory of a block at HIGH and DEFAULT (bytes): the B fragments of
+// the block's columns of W_hh[d] (lstm_common.cuh, `parts` planes), one
+// staged bf16 chunk of h[t-1] (`parts` planes) and the partial tiles.  The
+// same formula as ops/lstm_kernel.py::bidi_smem_bytes.
+__host__ __device__ constexpr size_t mma_smem_bytes(int U, int H, int parts) {
+  return lstm::mma_matrix_bytes(U, H, parts) + (size_t)parts * lstm::mma_plane_bytes(H) +
+         lstm::mma_partial_bytes(U);
+}
+
 // Units a warp multiplies at once (a staged h value read from shared memory
 // serves both units' FMAs), and float4 columns of H per lane whose W_hh
 // lives in registers for the whole sweep: half of W_hh at H=512; with four,
 // the 64 sums of an 8-row tile no longer fit in 255 registers without spills.
 constexpr int kUnitPair = 2;
 constexpr int kRegCols = 2;
-
-// The sums over the warp's 32 lanes of the CNT <= 32 values v[0..CNT-1],
-// scattered over the lanes: each stage at lane offset O hands half of the
-// values a lane still holds to lane ^ O and adds the other half's, so after
-// log2(CNT) stages lane l holds in v[0] the sum of value l / (32 / CNT); the
-// offsets left add whole values.  The same lanes add in the same order every
-// launch.
-template <int CNT, int O>
-__device__ __forceinline__ void warp_reduce_scatter(float* v, int lane) {
-  if constexpr (O > 0) {
-    if constexpr (CNT > 1) {
-      constexpr int kHalf = CNT / 2;
-      const bool up = (lane & O) != 0;
-#pragma unroll
-      for (int i = 0; i < kHalf; ++i) {
-        const float send = up ? v[i] : v[i + kHalf];
-        const float keep = up ? v[i + kHalf] : v[i];
-        v[i] = keep + __shfl_xor_sync(0xffffffffu, send, O);
-      }
-      warp_reduce_scatter<kHalf, O / 2>(v, lane);
-    } else {
-      v[0] += __shfl_xor_sync(0xffffffffu, v[0], O);
-      warp_reduce_scatter<1, O / 2>(v, lane);
-    }
-  }
-}
 
 // What the pieces of a step share (pointers already at step t and the
 // block's direction d).
@@ -294,21 +268,116 @@ __device__ __forceinline__ void step_piece(const Step& p, const float* rows, int
 // h of step t goes to hbuf[(t + 1) & 1], read at step t + 1 (h0 in place at
 // step 0); c is kept in c_out, each element read and written by the same
 // lane (c0 in place at step 0).
+// The HIGH and DEFAULT body (see the head note): step t takes the chunks of
+// h[t-1] one at a time through one slot of staged bf16 planes and one set of
+// partial tiles; h[t-1] is read through L2 (other blocks wrote it before the
+// grid barrier; h0 in place at step 0).
+template <int U, int P>
+__device__ __forceinline__ void mma_body(const float* __restrict__ x_proj,
+                                         const float* __restrict__ mask,
+                                         const unsigned short* w_hi, const unsigned short* w_lo,
+                                         const float* __restrict__ h0,
+                                         const float* __restrict__ c0, float* __restrict__ outs,
+                                         float* hbuf, float* c_out, int F, int N, int H, int d0,
+                                         float* smem) {
+  constexpr int C = 4 * U;                       // the block's gate columns of W_hh[d]
+  constexpr int kEpi = kMmaRows * C / kThreads;  // (row, column) outputs of a thread
+  constexpr int kP = kParts<P>;
+  const int blocks_per_dir = H / U;
+  const int d = d0 + blockIdx.x / blocks_per_dir;
+  const int j0 = (blockIdx.x % blocks_per_dir) * U;
+  const size_t NH = (size_t)N * H;
+  const size_t plane = lstm::mma_plane_bytes(H) / 2;  // bf16 per plane
+  uint2* w_b = reinterpret_cast<uint2*>(smem);
+  __nv_bfloat16* a_s = reinterpret_cast<__nv_bfloat16*>(
+      reinterpret_cast<char*>(smem) + lstm::mma_matrix_bytes(U, H, kP));
+  float* part = reinterpret_cast<float*>(reinterpret_cast<char*>(a_s) +
+                                         kP * lstm::mma_plane_bytes(H));
+  const int tid = threadIdx.x;
+  const int lane = tid % 32;
+  const int warp = tid / 32;
+  cg::grid_group grid = cg::this_grid();
+
+  const size_t off = (size_t)d * H * 4 * H;
+  lstm::stage_b_fragments<U, P>(w_b, w_hi + off, w_lo ? w_lo + off : nullptr, H, j0, tid,
+                                kThreads);
+  __syncthreads();
+
+  const int n_chunks = (N + kMmaRows - 1) / kMmaRows;
+  for (int t = 0; t < F; ++t) {
+    const float* h_prev = t == 0 ? h0 + d * NH : hbuf + ((size_t)(t & 1) * 2 + d) * NH;
+    const float* x_t = x_proj + ((size_t)t * 2 + d) * N * 4 * H;
+    const float* c_prev = (t == 0 ? c0 : c_out) + d * NH;
+    float* h_next = hbuf + ((size_t)((t + 1) & 1) * 2 + d) * NH;
+    float* out_t = outs + ((size_t)t * 2 + d) * NH;
+    for (int c = 0; c < n_chunks; ++c) {
+      const int r0 = c * kMmaRows;
+      // The cell's operands of thread (row r, column n = 4u + g), read
+      // before the staging and the product so that their latency hides
+      // behind them: x_proj's gate column, and for the first of each four
+      // the mask, the old c and the old h.
+      float x_in[kEpi], m[kEpi], c_old[kEpi], h_old[kEpi];
+#pragma unroll
+      for (int e = 0; e < kEpi; ++e) {
+        const int idx = tid + kThreads * e;
+        const int nn = idx % C, g = nn % 4, n = r0 + idx / C;
+        const size_t o = (size_t)n * H + j0 + nn / 4;
+        x_in[e] = m[e] = c_old[e] = h_old[e] = 0.0f;
+        if (n < N) {
+          x_in[e] = __ldg(x_t + (size_t)n * 4 * H + g * H + j0 + nn / 4);
+          if (g == 0) {
+            m[e] = __ldg(mask + (size_t)t * N + n);
+            c_old[e] = c_prev[o];
+            h_old[e] = __ldcg(h_prev + o);
+          }
+        }
+      }
+      lstm::stage_rows_bf16<P>(a_s, plane, h_prev, r0, N, H, tid, kThreads);
+      __syncthreads();  // the chunk's planes are staged, and the partials of the chunk before read
+      float acc[U / 2][4];
+#pragma unroll
+      for (int nt = 0; nt < U / 2; ++nt) acc[nt][0] = acc[nt][1] = acc[nt][2] = acc[nt][3] = 0.f;
+      lstm::mma_rows<U, P>(acc, a_s, plane, w_b, H, warp, lane);
+      lstm::store_partials<U>(part, acc, warp, lane);
+      __syncthreads();  // the partials are there, and every warp is done with the planes
+
+      // Thread (row r, column n = 4u + g): the gate's sum, input, nonlinearity.
+#pragma unroll
+      for (int e = 0; e < kEpi; ++e) {
+        const int idx = tid + kThreads * e;
+        const int r = idx / C, nn = idx % C, g = nn % 4;
+        const int n = r0 + r;
+        const float pre = lstm::sum_partials<U>(part, r, nn) + x_in[e];
+        const float act = g == 2 ? tanhf(pre) : sigmoid_f(pre);
+        float gate[4];
+#pragma unroll
+        for (int q = 0; q < 4; ++q) gate[q] = __shfl_sync(0xffffffffu, act, (lane & ~3) + q);
+        if (g == 0 && n < N) {
+          const size_t o = (size_t)n * H + j0 + nn / 4;
+          const float c_new = gate[1] * c_old[e] + gate[0] * gate[2];
+          const float h_new = gate[3] * tanhf(c_new);
+          h_next[o] = m[e] > 0.0f ? h_new : h_old[e];
+          c_out[d * NH + o] = m[e] > 0.0f ? c_new : c_old[e];
+          out_t[o] = h_new * m[e];
+        }
+      }
+    }
+    if (t + 1 < F) grid.sync();  // every block's rows of h[t] are written
+  }
+}
+
 template <int U>
-__global__ void __launch_bounds__(kThreads, 1)
-lstm_bidi_kernel(const float* __restrict__ x_proj,  // (F, 2, N, 4H)
-                 const float* __restrict__ mask,    // (F, N)
-                 const float* __restrict__ w_hh,    // (2, H, 4H)
-                 const float* __restrict__ h0,      // (2, N, H)
-                 const float* __restrict__ c0,      // (2, N, H)
-                 float* __restrict__ outs,          // (F, 2, N, H)
-                 float* hbuf,                       // (2, 2, N, H)
-                 float* c_out,                      // (2, N, H): cF at the end
-                 int F, int N, int H, int d0, int stage_rows) {
+__device__ __forceinline__ void fp32_body(const float* __restrict__ x_proj,
+                                          const float* __restrict__ mask,
+                                          const float* __restrict__ w_hh,
+                                          const float* __restrict__ h0,
+                                          const float* __restrict__ c0,
+                                          float* __restrict__ outs, float* hbuf, float* c_out,
+                                          int F, int N, int H, int d0, int stage_rows,
+                                          float* smem) {
   constexpr int UP = kUnitPair, RC = kRegCols;
   constexpr int kRowsW = kPassRows * U / UP / kWarps;  // rows of a chunk per warp: U
   static_assert(U == 4 || U == 8, "a warp's rows of a chunk are one tile of at most 64 sums");
-  extern __shared__ __align__(16) float smem[];
   const int blocks_per_dir = H / U;
   const int d = d0 + blockIdx.x / blocks_per_dir;
   const int j0 = (blockIdx.x % blocks_per_dir) * U;
@@ -406,11 +475,33 @@ lstm_bidi_kernel(const float* __restrict__ x_proj,  // (F, 2, N, 4H)
   }
 }
 
-// Lets lstm_bidi_kernel<U> use up to max_smem bytes of dynamic shared memory
-// and clears *fits unless an SM holds one block of it with that much.
-template <int U>
+template <int U, int P>
+__global__ void __launch_bounds__(kThreads, 1)
+lstm_bidi_kernel(const float* __restrict__ x_proj,  // (F, 2, N, 4H)
+                 const float* __restrict__ mask,    // (F, N)
+                 const void* w_hh,                  // (2, H, 4H): f32 at HIGHEST, else bf16 (hi)
+                 const void* w_lo,                  // HIGH: the bf16 lo parts, else null
+                 const float* __restrict__ h0,      // (2, N, H)
+                 const float* __restrict__ c0,      // (2, N, H)
+                 float* __restrict__ outs,          // (F, 2, N, H)
+                 float* hbuf,                       // (2, 2, N, H)
+                 float* c_out,                      // (2, N, H): cF at the end
+                 int F, int N, int H, int d0, int stage_rows) {
+  extern __shared__ __align__(16) float smem[];
+  if constexpr (P == kHighest)
+    fp32_body<U>(x_proj, mask, static_cast<const float*>(w_hh), h0, c0, outs, hbuf, c_out, F, N,
+                 H, d0, stage_rows, smem);
+  else
+    mma_body<U, P>(x_proj, mask, static_cast<const unsigned short*>(w_hh),
+                   static_cast<const unsigned short*>(w_lo), h0, c0, outs, hbuf, c_out, F, N, H,
+                   d0, smem);
+}
+
+// Lets lstm_bidi_kernel<U, P> use up to max_smem bytes of dynamic shared
+// memory and clears *fits unless an SM holds one block of it with that much.
+template <int U, int P>
 cudaError_t prepare_units(int max_smem, bool* fits) {
-  const void* kernel = (const void*)lstm_bidi_kernel<U>;
+  const void* kernel = (const void*)lstm_bidi_kernel<U, P>;
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          max_smem);
   int per_sm = 0;
@@ -420,20 +511,37 @@ cudaError_t prepare_units(int max_smem, bool* fits) {
   return err;
 }
 
-template <int U>
-int launch(const float* x_proj, const float* mask, const float* w_hh, const float* h0,
-           const float* c0, float* outs, float* hbuf, float* c_out, int F, int N, int H,
-           int d0, int dirs, int stage_rows, cudaStream_t stream) {
-  void* args[] = {(void*)&x_proj, (void*)&mask, (void*)&w_hh,  (void*)&h0,
-                  (void*)&c0,     (void*)&outs, (void*)&hbuf,  (void*)&c_out,
-                  (void*)&F,      (void*)&N,    (void*)&H,     (void*)&d0,
-                  (void*)&stage_rows};
-  const size_t smem = sizeof(float) * smem_floats(U, H, stage_rows);
+template <int P>
+cudaError_t prepare_mode(int max_smem, bool* fits) {
+  cudaError_t err = prepare_units<4, P>(max_smem, fits);
+  if (err == cudaSuccess) err = prepare_units<8, P>(max_smem, fits);
+  return err;
+}
+
+template <int U, int P>
+int launch(const float* x_proj, const float* mask, const void* w_hh, const void* w_lo,
+           const float* h0, const float* c0, float* outs, float* hbuf, float* c_out, int F,
+           int N, int H, int d0, int dirs, int stage_rows, size_t smem, cudaStream_t stream) {
+  void* args[] = {(void*)&x_proj, (void*)&mask, (void*)&w_hh, (void*)&w_lo,
+                  (void*)&h0,     (void*)&c0,   (void*)&outs, (void*)&hbuf,
+                  (void*)&c_out,  (void*)&F,    (void*)&N,    (void*)&H,
+                  (void*)&d0,     (void*)&stage_rows};
   const cudaError_t err =
-      cudaLaunchCooperativeKernel((const void*)lstm_bidi_kernel<U>, dim3(dirs * H / U),
+      cudaLaunchCooperativeKernel((const void*)lstm_bidi_kernel<U, P>, dim3(dirs * H / U),
                                   dim3(kThreads), args, smem, stream);
   const cudaError_t last = cudaGetLastError();
   return (int)(err != cudaSuccess ? err : last);
+}
+
+template <int P>
+int launch_units(const float* x_proj, const float* mask, const void* w_hh, const void* w_lo,
+                 const float* h0, const float* c0, float* outs, float* hbuf, float* c_out,
+                 int F, int N, int H, int units, int d0, int dirs, int stage_rows, size_t smem,
+                 cudaStream_t s) {
+  return units == 8 ? launch<8, P>(x_proj, mask, w_hh, w_lo, h0, c0, outs, hbuf, c_out, F, N, H,
+                                   d0, dirs, stage_rows, smem, s)
+                    : launch<4, P>(x_proj, mask, w_hh, w_lo, h0, c0, outs, hbuf, c_out, F, N, H,
+                                   d0, dirs, stage_rows, smem, s);
 }
 
 }  // namespace
@@ -441,11 +549,11 @@ int launch(const float* x_proj, const float* mask, const float* w_hh, const floa
 extern "C" {
 
 // Once per device, before the first launch there (and outside any CUDA graph
-// capture): checks that the card launches cooperative grids, lets both
-// instances use the card's opt-in shared memory per block, and checks that
-// an SM holds one block of each with that much.  Writes the SM count and the
-// opt-in limit in bytes to info[0..1].  Returns 0, a cudaError_t value, or a
-// negative code above.
+// capture): checks that the card launches cooperative grids, lets the six
+// instances (U=4 and U=8 at each of the three modes) use the card's opt-in
+// shared memory per block, and checks that an SM holds one block of each
+// with that much.  Writes the SM count and the opt-in limit in bytes to
+// info[0..1].  Returns 0, a cudaError_t value, or a negative code above.
 int lstm_bidi_prepare(int device, int* info) {
   int prev = 0, coop = 0;
   cudaError_t err = cudaGetDevice(&prev);
@@ -457,8 +565,9 @@ int lstm_bidi_prepare(int device, int* info) {
   if (err == cudaSuccess)
     err = cudaDeviceGetAttribute(&info[1], cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
   bool fits = true;
-  if (err == cudaSuccess) err = prepare_units<4>(info[1], &fits);
-  if (err == cudaSuccess) err = prepare_units<8>(info[1], &fits);
+  if (err == cudaSuccess) err = prepare_mode<kHighest>(info[1], &fits);
+  if (err == cudaSuccess) err = prepare_mode<kHigh>(info[1], &fits);
+  if (err == cudaSuccess) err = prepare_mode<kDefault>(info[1], &fits);
   cudaSetDevice(prev);
   if (err != cudaSuccess) return (int)err;
   if (!coop) return kErrNoCooperative;
@@ -470,27 +579,39 @@ int lstm_bidi_prepare(int device, int* info) {
 // F steps in one cooperative launch of dirs * H / units blocks on `stream`.
 // h0, c0 (2, N, H) are read in place; outs (F, 2, N, H), hbuf (2, 2, N, H)
 // and c_out (2, N, H) are written for the launch's directions: h after the
-// last step in hbuf[F & 1], c in c_out.  units (8, or 4 where H % 8 == 4),
-// stage_rows (N: all rows staged at once; else a multiple of 16 below N, a
-// ring of 16-row slots) and smem_bytes are the launch plan's; smem_bytes
-// must equal the layout's size.  h0 and hbuf start on a 16-byte boundary.
-// Launches only: lstm_bidi_prepare must have run on the current device.
-// Returns 0, a cudaError_t value, or a negative code above.
-int lstm_bidi_forward(const float* x_proj, const float* mask, const float* w_hh,
+// last step in hbuf[F & 1], c in c_out.  mode (0 HIGHEST, 1 HIGH, 2
+// DEFAULT): w_hh is f32 at HIGHEST (w_lo null), W_hh rounded to bf16 at
+// DEFAULT, its bf16 hi parts at HIGH with w_lo the lo parts.  units (8, or 4
+// where H % 8 == 4), stage_rows (HIGHEST: N, all rows staged at once, or a
+// multiple of 16 below N, a ring of 16-row slots; else 16) and smem_bytes
+// are the launch plan's; smem_bytes must equal the layout's size.  h0 and
+// hbuf start on a 16-byte boundary.  Launches only: lstm_bidi_prepare must
+// have run on the current device.  Returns 0, a cudaError_t value, or a
+// negative code above.
+int lstm_bidi_forward(const float* x_proj, const float* mask, const void* w_hh,
                       const float* h0, const float* c0, float* outs, float* hbuf, float* c_out,
                       int F, int N, int H, int units, int d0, int dirs, int stage_rows,
-                      int smem_bytes, void* stream) {
+                      int smem_bytes, int mode, const void* w_lo, void* stream) {
+  const size_t layout = mode == kHighest ? sizeof(float) * smem_floats(units, H, stage_rows)
+                                         : mma_smem_bytes(units, H, mode == kHigh ? 2 : 1);
   if (F <= 0 || N <= 0 || H <= 0 || H % 4 != 0 || (units != 4 && units != 8) ||
       H % units != 0 || (dirs != 1 && dirs != 2) || d0 < 0 || d0 + dirs > 2 ||
-      stage_rows <= 0 || stage_rows > N || (stage_rows != N && stage_rows % kPassRows != 0) ||
-      (size_t)smem_bytes != sizeof(float) * smem_floats(units, H, stage_rows))
+      mode < kHighest || mode > kDefault || stage_rows <= 0 ||
+      (mode == kHighest &&
+       (stage_rows > N || (stage_rows != N && stage_rows % kPassRows != 0))) ||
+      (mode != kHighest && stage_rows != kMmaRows) || (mode == kHigh && w_lo == nullptr) ||
+      (size_t)smem_bytes != layout)
     return kErrBadShape;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return units == 8
-             ? launch<8>(x_proj, mask, w_hh, h0, c0, outs, hbuf, c_out, F, N, H, d0, dirs,
-                         stage_rows, s)
-             : launch<4>(x_proj, mask, w_hh, h0, c0, outs, hbuf, c_out, F, N, H, d0, dirs,
-                         stage_rows, s);
+  const size_t smem = (size_t)smem_bytes;
+  if (mode == kHigh)
+    return launch_units<kHigh>(x_proj, mask, w_hh, w_lo, h0, c0, outs, hbuf, c_out, F, N, H,
+                               units, d0, dirs, stage_rows, smem, s);
+  if (mode == kDefault)
+    return launch_units<kDefault>(x_proj, mask, w_hh, w_lo, h0, c0, outs, hbuf, c_out, F, N, H,
+                                  units, d0, dirs, stage_rows, smem, s);
+  return launch_units<kHighest>(x_proj, mask, w_hh, w_lo, h0, c0, outs, hbuf, c_out, F, N, H,
+                                units, d0, dirs, stage_rows, smem, s);
 }
 
 }  // extern "C"

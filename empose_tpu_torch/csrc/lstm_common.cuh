@@ -1,14 +1,32 @@
-// Device helpers of the LSTM kernels: 16-byte cp.async staging through L2
-// and the fixed-order warp reduce-scatter of a register tile's partial sums.
+// Device helpers of the LSTM inference kernels: 16-byte cp.async staging
+// through L2, the fixed-order warp reduce-scatter of a register tile's
+// partial sums, and the bf16 tensor-core pieces of the HIGH and DEFAULT
+// precision modes (bf16 hi/lo split, ldmatrix, mma.sync m16n8k16).
 //
-// Included by lstm_stack.cu.  lstm_bidi.cu and lstm_train.cu still carry
-// their own copies of the same functions.
+// Included by lstm_stack.cu and lstm_bidi.cu.  lstm_train.cu still carries
+// its own copies of the fp32 helpers.
 
 #pragma once
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 namespace lstm {
+
+// Precision modes, the codes of ops/precision.py MODE_CODES:
+//   kHighest  fp32 FMAs on the CUDA cores (the fp32 parity mode);
+//   kHigh     bf16_3x on the tensor cores: ah*bh + al*bh + ah*bl of the bf16
+//             hi/lo splits of both operands, f32 accumulation (JAX's dot3);
+//   kDefault  bf16 inputs, f32 accumulation.
+constexpr int kHighest = 0;
+constexpr int kHigh = 1;
+constexpr int kDefault = 2;
+
+// bf16 planes of an operand at mode P: hi, and lo at HIGH.
+template <int P>
+constexpr int kParts = P == kHigh ? 2 : 1;
+
+__host__ __device__ constexpr size_t round32(size_t x) { return (x + 31) / 32 * 32; }
 
 __device__ __forceinline__ float sigmoid_f(float x) { return 1.0f / (1.0f + expf(-x)); }
 
@@ -68,6 +86,159 @@ __device__ __forceinline__ void warp_reduce_scatter(float* v, int lane) {
       warp_reduce_scatter<1, O / 2>(v, lane);
     }
   }
+}
+
+// ---------------------------------------------------------------------------
+// The tensor-core products of the HIGH and DEFAULT modes.
+//
+// A block owns 4U gate columns of a matrix W (H, 4H): its column n = 4u + g
+// is W's column g H + j0 + u (unit j0 + u, gate g), so the four gates of a
+// unit are neighbouring columns.  A product multiplies 16 staged rows (one
+// chunk, rows past N zero) by those columns: an m16n8k16 tile per k-step of
+// 16 and n-tile of 8 columns; the kMmaWarps warps of a team take the
+// k-steps warp, warp + kMmaWarps, ..., and their partial tiles meet in
+// shared memory, summed in warp order by the epilogue (no atomics: the same
+// bits every launch).  H is padded with zeros to Kp = 16 * ceil(H / 16).
+constexpr int kMmaWarps = 8;
+constexpr int kMmaRows = 16;
+
+__host__ __device__ constexpr int kpad16(int H) { return (H + 15) / 16 * 16; }
+
+// Bytes of a block's resident columns of one matrix (uint2 B fragments,
+// `parts` planes) and of one staged bf16 plane of a chunk (row stride Kp + 8:
+// ldmatrix's eight row addresses fall in distinct banks).
+__host__ __device__ constexpr size_t mma_matrix_bytes(int U, int H, int parts) {
+  return (size_t)parts * 8 * U * kpad16(H);
+}
+__host__ __device__ constexpr size_t mma_plane_bytes(int H) {
+  return (size_t)kMmaRows * (kpad16(H) + 8) * 2;
+}
+__host__ __device__ constexpr size_t mma_partial_bytes(int U) {
+  return (size_t)kMmaWarps * kMmaRows * 4 * U * 4;
+}
+
+// Round-to-nearest-even bf16 of a pair, and the pair's lo parts bf16(x - hi).
+__device__ __forceinline__ unsigned bf16x2_bits(__nv_bfloat162 v) {
+  return *reinterpret_cast<unsigned*>(&v);
+}
+__device__ __forceinline__ void split_bf16x2(float x, float y, unsigned& hi, unsigned& lo) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(x, y);
+  hi = bf16x2_bits(h);
+  lo = bf16x2_bits(__floats2bfloat162_rn(x - __low2float(h), y - __high2float(h)));
+}
+
+// A 16x16 bf16 A fragment of row-major rows (stride in elements) by one
+// ldmatrix.x4: lane l gives the address of row l % 16, column (l / 16) * 8.
+__device__ __forceinline__ void ldmatrix_x4(unsigned (&r)[4], const __nv_bfloat16* p) {
+  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(p));
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(a));
+}
+
+// d += a (16x16, row) * b (16x8, col) in bf16 with f32 accumulation.
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const unsigned (&a)[4], uint2 b) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b.x), "r"(b.y));
+}
+
+// The block's columns of W (bf16 hi, and lo at HIGH, each (H, 4H) row-major)
+// in B-fragment order: uint2 ((part KS + ks) NT + nt) 32 + lane holds
+// W[k][n], W[k + 1][n] and W[k + 8][n], W[k + 9][n] for k = 16 ks + 2 (lane %
+// 4), n = 8 nt + lane / 4 (k >= H zero), so a lane fetches its fragment with
+// one 8-byte load and a warp's loads are contiguous.
+template <int U, int P>
+__device__ void stage_b_fragments(uint2* dst, const unsigned short* w_hi,
+                                  const unsigned short* w_lo, int H, int j0, int tid,
+                                  int nthreads) {
+  constexpr int NT = U / 2;
+  const int KS = kpad16(H) / 16;
+  const int per_part = KS * NT * 32;
+  for (int idx = tid; idx < kParts<P> * per_part; idx += nthreads) {
+    const unsigned short* w = idx < per_part ? w_hi : w_lo;
+    const int rem = idx % per_part;
+    const int lane = rem % 32, nt = rem / 32 % NT, ks = rem / 32 / NT;
+    const int n = nt * 8 + lane / 4;
+    const size_t col = (size_t)(n % 4) * H + j0 + n / 4;
+    const int k0 = ks * 16 + (lane % 4) * 2;
+    auto at = [&](int k) -> unsigned { return k < H ? (unsigned)__ldg(w + (size_t)k * 4 * H + col) : 0u; };
+    dst[idx] = make_uint2(at(k0) | at(k0 + 1) << 16, at(k0 + 8) | at(k0 + 9) << 16);
+  }
+}
+
+// Rows r0 .. r0 + 15 of the f32 state src (N rows of H, read through L2:
+// other blocks wrote them before the grid barrier) as bf16 planes of row
+// stride Kp + 8: hi at dst, lo at dst + lo_off at HIGH; rows past N and
+// columns past H zero.  Threads ttid of nthreads, 4 columns each.
+template <int P>
+__device__ __forceinline__ void stage_rows_bf16(__nv_bfloat16* dst, size_t lo_off,
+                                                const float* src, int r0, int N, int H,
+                                                int ttid, int nthreads) {
+  const int Kp = kpad16(H), C4 = Kp / 4, stride = Kp + 8;
+  for (int e = ttid; e < kMmaRows * C4; e += nthreads) {
+    const int r = e / C4, c = e % C4 * 4;
+    float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (r0 + r < N && c < H)
+      v = __ldcg(reinterpret_cast<const float4*>(src + (size_t)(r0 + r) * H + c));
+    uint2 hi, lo;
+    split_bf16x2(v.x, v.y, hi.x, lo.x);
+    split_bf16x2(v.z, v.w, hi.y, lo.y);
+    *reinterpret_cast<uint2*>(dst + (size_t)r * stride + c) = hi;
+    if constexpr (P == kHigh) *reinterpret_cast<uint2*>(dst + lo_off + (size_t)r * stride + c) = lo;
+  }
+}
+
+// acc[nt] += the staged chunk (planes a, a + lo_off) times the resident
+// fragments b of one matrix, over this warp's k-steps.  HIGH adds ah*bh,
+// al*bh, ah*bl per k-step (al*bl dropped, as in JAX's dot3).
+template <int U, int P>
+__device__ __forceinline__ void mma_rows(float (&acc)[U / 2][4], const __nv_bfloat16* a,
+                                         size_t lo_off, const uint2* b, int H, int warp,
+                                         int lane) {
+  constexpr int NT = U / 2;
+  const int KS = kpad16(H) / 16;
+  const __nv_bfloat16* row = a + (size_t)(lane % 16) * (kpad16(H) + 8) + (lane / 16) * 8;
+  for (int ks = warp; ks < KS; ks += kMmaWarps) {
+    unsigned ah[4], al[4];
+    ldmatrix_x4(ah, row + ks * 16);
+    if constexpr (P == kHigh) ldmatrix_x4(al, row + lo_off + ks * 16);
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt) {
+      const uint2 bh = b[(ks * NT + nt) * 32 + lane];
+      mma_bf16(acc[nt], ah, bh);
+      if constexpr (P == kHigh) {
+        mma_bf16(acc[nt], al, bh);
+        mma_bf16(acc[nt], ah, b[((KS + ks) * NT + nt) * 32 + lane]);
+      }
+    }
+  }
+}
+
+// The warp's partial tile into part[warp][16][4U] (f32): lane l holds rows
+// l / 4 and l / 4 + 8, columns 8 nt + 2 (l % 4) + {0, 1}.
+template <int U>
+__device__ __forceinline__ void store_partials(float* part, const float (&acc)[U / 2][4],
+                                               int warp, int lane) {
+  constexpr int C = 4 * U;
+  float* p = part + (size_t)(warp * kMmaRows + lane / 4) * C + (lane % 4) * 2;
+#pragma unroll
+  for (int nt = 0; nt < U / 2; ++nt) {
+    *reinterpret_cast<float2*>(p + nt * 8) = make_float2(acc[nt][0], acc[nt][1]);
+    *reinterpret_cast<float2*>(p + 8 * C + nt * 8) = make_float2(acc[nt][2], acc[nt][3]);
+  }
+}
+
+// The sum of the kMmaWarps partials of (row r, column n), in warp order.
+template <int U>
+__device__ __forceinline__ float sum_partials(const float* part, int r, int n) {
+  constexpr int C = 4 * U;
+  float s = 0.0f;
+#pragma unroll
+  for (int w = 0; w < kMmaWarps; ++w) s += part[(size_t)(w * kMmaRows + r) * C + n];
+  return s;
 }
 
 }  // namespace lstm

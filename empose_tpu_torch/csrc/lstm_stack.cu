@@ -79,7 +79,23 @@
 //     written by the same lane.
 //   * One grid barrier per phase, none after the last: F * L in the stack
 //     order, F + L - 1 in the wavefront order.
-// fp32 FMAs on the CUDA cores, no tensor cores (the fp32 parity mode).
+// That is the HIGHEST instance (fp32 FMAs on the CUDA cores, the fp32 parity
+// mode).  The third template argument P selects the mode (lstm_common.cuh):
+// at HIGH and DEFAULT the recurrent product and layer l >= 1's input product
+// (JAX's w_ih_up) run on the tensor cores, mma.sync m16n8k16 bf16 with f32
+// accumulation (wgmma's 64-row tiles exceed serving's rows).  The wrapper
+// hands in the weights already rounded (DEFAULT) or split into a bf16 hi/lo
+// pair (HIGH), as JAX pre-splits them outside its kernel; the block keeps its
+// columns in B-fragment order (half of HIGHEST's bytes at DEFAULT, the same
+// at HIGH).  A team takes its chunks of 16 rows one at a time: it converts
+// each staged state's rows once into bf16 (a hi plane; hi and lo at HIGH,
+// rows past N zero), its 8 warps multiply over disjoint k-steps, and the
+// partial tiles meet in shared memory, summed in warp order by one thread
+// per (row, unit, gate), which adds the gate input and applies the
+// nonlinearity; the first of each four writes h, c and the output.  Gates,
+// cell update and masking are the HIGHEST code's, in f32.  Same schedule,
+// grid barriers and teams (2 at U=4 where they fit), no atomics: two
+// launches give the same bits.
 // The grid must be co-resident for the barrier: lstm_stack_prepare sets the
 // kernel's shared memory and checks its occupancy once per device, the plan
 // keeps the grid within the SMs, and the C entries only launch
@@ -99,6 +115,12 @@ using lstm::component;
 using lstm::cp_async16;
 using lstm::cp_async_commit;
 using lstm::cp_async_wait_upto;
+using lstm::kDefault;
+using lstm::kHigh;
+using lstm::kHighest;
+using lstm::kMmaRows;
+using lstm::kParts;
+using lstm::round32;
 using lstm::sigmoid_f;
 using lstm::warp_reduce_scatter;
 
@@ -118,8 +140,6 @@ constexpr int kBlockThreads = kTeamThreads * kTeams<U>;
 constexpr int kErrGridTooLarge = -1;
 constexpr int kErrNoCooperative = -3;
 constexpr int kErrBadShape = -4;
-
-__host__ __device__ constexpr size_t round32(size_t x) { return (x + 31) / 32 * 32; }
 
 // Whether instance U runs stacks of more than one layer.  U=8 runs one layer
 // only: it is taken where H > 528 (H / 4 blocks do not fit on 132 SMs), and
@@ -146,14 +166,28 @@ __host__ __device__ constexpr size_t smem_floats(int U, int H, int L, int planes
   return (size_t)(2 * L - 1) * round32((size_t)4 * U * H) + (size_t)planes * stage_rows * H;
 }
 
+// Shared memory of a block at HIGH and DEFAULT (bytes), in this order: the
+// B fragments of every W_hh and of W_ih of layers >= 1 (lstm_common.cuh,
+// `parts` planes each), then per team `planes` staged bf16 chunks of
+// `parts` planes each and the team's partial tiles.  The same formula as
+// ops/lstm_kernel.py::stack_smem_bytes.
+__host__ __device__ constexpr size_t mma_smem_bytes(int U, int H, int L, int planes, int teams,
+                                                    int parts) {
+  return (size_t)(2 * L - 1) * lstm::mma_matrix_bytes(U, H, parts) +
+         (size_t)teams * ((size_t)planes * parts * lstm::mma_plane_bytes(H) +
+                          lstm::mma_partial_bytes(U));
+}
+
 // The kernel's arguments, passed as one struct in parameter space: a piece
 // reads its pointers from there where it needs them, so they hold no
 // registers across the FMAs.
 struct StackArgs {
   const float* x0_proj;  // (F, N, 4H)
   const float* mask;     // (F, N)
-  const float* w_hh;     // (L, H, 4H)
-  const float* w_ih_up;  // (L-1, H, 4H) or null
+  const void* w_hh;      // (L, H, 4H): f32 at HIGHEST, else bf16 (hi)
+  const void* w_ih_up;   // (L-1, H, 4H) or null, the same type
+  const void* w_hh_lo;   // HIGH: the bf16 lo parts of w_hh, else null
+  const void* w_ih_up_lo;  // HIGH: the bf16 lo parts of w_ih_up, else null
   const float* b_up;     // (L-1, 4H) or null
   const float* h0;       // (L, N, H)
   const float* c0;       // (L, N, H)
@@ -296,13 +330,11 @@ __device__ __forceinline__ void step_piece(const StackArgs& a, int l, int t, con
 // its input plane l - 1 - lo.  Layer l's h after step t lies in hbuf[(t + 1)
 // & 1][l], so no slot is read and written in one phase.
 template <int U, bool kWave>
-__global__ void __launch_bounds__(kBlockThreads<U>, 1)
-lstm_stack_kernel(const __grid_constant__ StackArgs a) {
+__device__ __forceinline__ void fp32_body(const StackArgs& a, float* smem) {
   const int F = a.F, N = a.N, H = a.H, L = a.L, stage_rows = a.stage_rows, teams = a.teams;
   constexpr int UP = kUnitPair;
   constexpr int kRowsW = kPassRows * U / UP / kTeamWarps;  // rows of a chunk per warp: U
   static_assert(U == 4 || U == 8, "a warp's rows of a chunk are one tile of at most 64 sums");
-  extern __shared__ __align__(16) float smem[];
   const int n_mats = 2 * L - 1;
   const size_t ws = round32((size_t)4 * U * H);
   const size_t NH = (size_t)N * H;
@@ -334,8 +366,8 @@ lstm_stack_kernel(const __grid_constant__ StackArgs a) {
   cg::grid_group grid = cg::this_grid();
 
   for (int mi = 0; mi < n_mats; ++mi) {
-    const float* src =
-        mi < L ? a.w_hh + (size_t)mi * H * H4 : a.w_ih_up + (size_t)(mi - L) * H * H4;
+    const float* src = mi < L ? static_cast<const float*>(a.w_hh) + (size_t)mi * H * H4
+                              : static_cast<const float*>(a.w_ih_up) + (size_t)(mi - L) * H * H4;
     float* dst = w_s + mi * ws;
     for (int idx = tid; idx < 4 * U * H; idx += teams * kTeamThreads) {
       const int qu = idx / H;
@@ -439,11 +471,163 @@ lstm_stack_kernel(const __grid_constant__ StackArgs a) {
   }
 }
 
-// Lets lstm_stack_kernel<U, kWave> use up to max_smem bytes of dynamic shared
-// memory and clears *fits unless an SM holds one block of it with that much.
-template <int U, bool kWave>
+// The HIGH and DEFAULT body (see the head note): the phases of fp32_body,
+// each team taking its chunks team, team + teams, ... one at a time through
+// one slot of staged bf16 planes and one set of partial tiles.  Layer l's
+// state after step tau is read through L2 (hbuf, h0 before the first step).
+template <int U, bool kWave, int P>
+__device__ __forceinline__ void mma_body(const StackArgs& a, float* smem) {
+  constexpr int NT = U / 2;
+  constexpr int C = 4 * U;                           // the block's gate columns of a matrix
+  constexpr int kEpi = kMmaRows * C / kTeamThreads;  // (row, column) outputs of a thread
+  constexpr int kP = kParts<P>;
+  const int F = a.F, N = a.N, H = a.H, L = a.L, teams = a.teams;
+  const size_t NH = (size_t)N * H;
+  const int planes = stage_planes(L, kWave);
+  const size_t mat = lstm::mma_matrix_bytes(U, H, kP) / sizeof(uint2);  // fragments per matrix
+  const size_t plane = lstm::mma_plane_bytes(H) / 2;                     // bf16 per plane
+  uint2* w_b = reinterpret_cast<uint2*>(smem);
+  char* teams_base = reinterpret_cast<char*>(w_b + (2 * L - 1) * mat);
+  const size_t team_bytes = (size_t)planes * kP * lstm::mma_plane_bytes(H) +
+                            lstm::mma_partial_bytes(U);
+
+  const int tid = threadIdx.x;
+  const int team = tid / kTeamThreads;
+  const int ttid = tid % kTeamThreads;
+  const int lane = tid % 32;
+  const int warp = ttid / 32;
+  const int j0 = blockIdx.x * U;
+  __nv_bfloat16* a_s = reinterpret_cast<__nv_bfloat16*>(teams_base + team * team_bytes);
+  float* part = reinterpret_cast<float*>(teams_base + team * team_bytes +
+                                         (size_t)planes * kP * lstm::mma_plane_bytes(H));
+  auto team_sync = [&]() {
+    if (team == 0)
+      asm volatile("bar.sync 1, %0;\n" ::"n"(kTeamThreads) : "memory");
+    else
+      asm volatile("bar.sync 2, %0;\n" ::"n"(kTeamThreads) : "memory");
+  };
+  cg::grid_group grid = cg::this_grid();
+
+  const size_t HW = (size_t)H * 4 * H;
+  for (int mi = 0; mi < 2 * L - 1; ++mi) {
+    const bool up = mi >= L;
+    const size_t off = (up ? mi - L : mi) * HW;
+    const auto* hi = static_cast<const unsigned short*>(up ? a.w_ih_up : a.w_hh) + off;
+    const auto* lo = static_cast<const unsigned short*>(up ? a.w_ih_up_lo : a.w_hh_lo);
+    lstm::stage_b_fragments<U, P>(w_b + mi * mat, hi, lo ? lo + off : nullptr, H, j0, tid,
+                                  teams * kTeamThreads);
+  }
+  __syncthreads();
+
+  const int n_chunks = (N + kMmaRows - 1) / kMmaRows;
+  const int n_phases = kWave ? F + L - 1 : F * L;
+  for (int ph = 0; ph < n_phases; ++ph) {
+    const int l_first = kWave ? max(0, ph - F + 1) : ph % L;
+    const int l_last = kWave ? min(L - 1, ph) : ph % L;
+    const int wave = kWave ? ph : ph / L + l_first;
+    const int lo = max(0, l_first - 1);
+    // Layer k's state after step tau: h0 before the first step, else hbuf[(tau + 1) & 1].
+    auto state = [&](int k, int tau) -> const float* {
+      return tau < 0 ? a.h0 + k * NH : a.hbuf + ((size_t)((tau + 1) & 1) * L + k) * NH;
+    };
+    for (int c = team; c < n_chunks; c += teams) {
+      const int r0 = c * kMmaRows;
+      for (int l = l_first; l <= l_last; ++l) {
+        const int t = wave - l;
+        const float* mask_t = a.mask + (size_t)t * N;
+        // The cell's operands of thread (row r, column n = 4u + g), read
+        // before the staging and the products so that their latency hides
+        // behind them: the gate input (x0_proj for layer 0, the bias
+        // above), and for the first of each four the mask, the old c and
+        // the old h (layer l's state after t - 1).
+        float x_in[kEpi], m[kEpi], c_old[kEpi], h_old[kEpi];
+#pragma unroll
+        for (int e = 0; e < kEpi; ++e) {
+          const int idx = ttid + kTeamThreads * e;
+          const int nn = idx % C, g = nn % 4, n = r0 + idx / C;
+          const size_t off = (size_t)n * H + j0 + nn / 4;
+          x_in[e] = m[e] = c_old[e] = h_old[e] = 0.0f;
+          if (n < N) {
+            x_in[e] = __ldg(l == 0 ? a.x0_proj + ((size_t)t * N + n) * 4 * H + g * H + j0 + nn / 4
+                                   : a.b_up + (size_t)(l - 1) * 4 * H + g * H + j0 + nn / 4);
+            if (g == 0) {
+              m[e] = __ldg(mask_t + n);
+              c_old[e] = (t == 0 ? a.c0 : a.c_out)[l * NH + off];
+              h_old[e] = __ldcg(state(l, t - 1) + off);
+            }
+          }
+        }
+        if (l == l_first) {
+          for (int k = lo; k <= l_last; ++k)
+            lstm::stage_rows_bf16<P>(a_s + (size_t)(k - lo) * kP * plane, plane,
+                                     state(k, wave - k - 1), r0, N, H, ttid, kTeamThreads);
+          team_sync();  // the chunk's planes are staged, and the partials of the chunk before read
+        }
+        float acc[NT][4];
+#pragma unroll
+        for (int nt = 0; nt < NT; ++nt) acc[nt][0] = acc[nt][1] = acc[nt][2] = acc[nt][3] = 0.f;
+        if (kStacked<U> && l > 0) {  // the input product, with W_ih[l] (matrix L + l - 1)
+          lstm::mma_rows<U, P>(acc, a_s + (size_t)(l - 1 - lo) * kP * plane, plane,
+                               w_b + (L + l - 1) * mat, H, warp, lane);
+          // The input is layer l-1's output h_new * mask; the staged row is its state.
+          const int g = r0 + lane / 4;
+          const float m0 = g < N ? __ldg(mask_t + g) : 0.f;
+          const float m1 = g + 8 < N ? __ldg(mask_t + g + 8) : 0.f;
+#pragma unroll
+          for (int nt = 0; nt < NT; ++nt) {
+            acc[nt][0] *= m0;
+            acc[nt][1] *= m0;
+            acc[nt][2] *= m1;
+            acc[nt][3] *= m1;
+          }
+        }
+        lstm::mma_rows<U, P>(acc, a_s + (size_t)(l - lo) * kP * plane, plane, w_b + l * mat, H,
+                             warp, lane);
+        lstm::store_partials<U>(part, acc, warp, lane);
+        team_sync();  // the partials are there, and every warp is done with the planes
+
+        // Thread (row r, column n = 4u + g): the gate's sum, input, nonlinearity.
+#pragma unroll
+        for (int e = 0; e < kEpi; ++e) {
+          const int idx = ttid + kTeamThreads * e;
+          const int r = idx / C, nn = idx % C, g = nn % 4;
+          const int n = r0 + r;
+          const float pre = lstm::sum_partials<U>(part, r, nn) + x_in[e];
+          const float act = g == 2 ? tanhf(pre) : sigmoid_f(pre);
+          float gate[4];
+#pragma unroll
+          for (int q = 0; q < 4; ++q) gate[q] = __shfl_sync(0xffffffffu, act, (lane & ~3) + q);
+          if (g == 0 && n < N) {
+            const size_t off = (size_t)n * H + j0 + nn / 4;
+            const float c_new = gate[1] * c_old[e] + gate[0] * gate[2];
+            const float h_new = gate[3] * tanhf(c_new);
+            a.hbuf[((size_t)((t + 1) & 1) * L + l) * NH + off] = m[e] > 0.0f ? h_new : h_old[e];
+            a.c_out[l * NH + off] = m[e] > 0.0f ? c_new : c_old[e];
+            if (l == L - 1) a.outs[t * NH + off] = h_new * m[e];
+          }
+        }
+        if (l < l_last) team_sync();  // every thread has read the partials
+      }
+    }
+    if (ph + 1 < n_phases) grid.sync();  // every block's rows of this phase's states are written
+  }
+}
+
+template <int U, bool kWave, int P>
+__global__ void __launch_bounds__(kBlockThreads<U>, 1)
+lstm_stack_kernel(const __grid_constant__ StackArgs a) {
+  extern __shared__ __align__(16) float smem[];
+  if constexpr (P == kHighest)
+    fp32_body<U, kWave>(a, smem);
+  else
+    mma_body<U, kWave, P>(a, smem);
+}
+
+// Lets lstm_stack_kernel<U, kWave, P> use up to max_smem bytes of dynamic
+// shared memory and clears *fits unless an SM holds one block of it with that much.
+template <int U, bool kWave, int P>
 cudaError_t prepare_instance(int max_smem, bool* fits) {
-  const void* kernel = (const void*)lstm_stack_kernel<U, kWave>;
+  const void* kernel = (const void*)lstm_stack_kernel<U, kWave, P>;
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          max_smem);
   int per_sm = 0;
@@ -454,39 +638,62 @@ cudaError_t prepare_instance(int max_smem, bool* fits) {
   return err;
 }
 
-template <int U, bool kWave>
+// The three instances (U=4 in the stack and the wavefront order, U=8 in the
+// stack order) at mode P.
+template <int P>
+cudaError_t prepare_mode(int max_smem, bool* fits) {
+  cudaError_t err = prepare_instance<4, false, P>(max_smem, fits);
+  if (err == cudaSuccess) err = prepare_instance<8, false, P>(max_smem, fits);
+  if (err == cudaSuccess) err = prepare_instance<4, true, P>(max_smem, fits);
+  return err;
+}
+
+template <int U, bool kWave, int P>
 int launch(const StackArgs& args, size_t smem, cudaStream_t stream) {
   void* params[] = {(void*)&args};
   const cudaError_t err =
-      cudaLaunchCooperativeKernel((const void*)lstm_stack_kernel<U, kWave>, dim3(args.H / U),
+      cudaLaunchCooperativeKernel((const void*)lstm_stack_kernel<U, kWave, P>, dim3(args.H / U),
                                   dim3(kTeamThreads * args.teams), params, smem, stream);
   const cudaError_t last = cudaGetLastError();
   return (int)(err != cudaSuccess ? err : last);
 }
 
-template <bool kWave>
-int forward(const float* x0_proj, const float* mask, const float* w_hh, const float* w_ih_up,
-            const float* b_up, const float* h0, const float* c0, float* outs, float* hbuf,
-            float* c_out, int F, int N, int H, int L, int units, int stage_rows, int teams,
-            int smem_bytes, void* stream) {
-  if (F <= 0 || N <= 0 || H <= 0 || L <= 0 || H % 4 != 0 || (units != 4 && units != 8) ||
-      H % units != 0 || stage_rows <= 0 || stage_rows > N ||
-      (stage_rows != N && stage_rows % kPassRows != 0) ||
-      teams < 1 || teams > (units == 4 ? kTeams<4> : kTeams<8>) ||
-      (stage_rows != N && stage_rows / kPassRows % teams != 0) ||
-      (L > 1 && (w_ih_up == nullptr || b_up == nullptr || units != 4)) ||
-      (size_t)smem_bytes !=
-          sizeof(float) * smem_floats(units, H, L, stage_planes(L, kWave), stage_rows))
-    return kErrBadShape;
-  const StackArgs args{x0_proj, mask, w_hh, w_ih_up, b_up, h0,         c0,   outs,
-                       hbuf,    c_out, F,   N,       H,    L, stage_rows, teams};
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const size_t smem = (size_t)smem_bytes;
+template <bool kWave, int P>
+int launch_units(const StackArgs& args, int units, size_t smem, cudaStream_t s) {
   // U=8 runs one layer, and the wavefront order needs two: it has no U=8 instance.
   if constexpr (!kWave) {
-    if (units == 8) return launch<8, false>(args, smem, s);
+    if (units == 8) return launch<8, false, P>(args, smem, s);
   }
-  return launch<4, kWave>(args, smem, s);
+  return launch<4, kWave, P>(args, smem, s);
+}
+
+template <bool kWave>
+int forward(const float* x0_proj, const float* mask, const void* w_hh, const void* w_ih_up,
+            const float* b_up, const float* h0, const float* c0, float* outs, float* hbuf,
+            float* c_out, int F, int N, int H, int L, int units, int stage_rows, int teams,
+            int smem_bytes, int mode, const void* w_hh_lo, const void* w_ih_up_lo, void* stream) {
+  const int parts = mode == kHigh ? 2 : 1;
+  const int planes = stage_planes(L, kWave);
+  const size_t layout =
+      mode == kHighest ? sizeof(float) * smem_floats(units, H, L, planes, stage_rows)
+                       : mma_smem_bytes(units, H, L, planes, teams, parts);
+  if (F <= 0 || N <= 0 || H <= 0 || L <= 0 || H % 4 != 0 || (units != 4 && units != 8) ||
+      H % units != 0 || mode < kHighest || mode > kDefault || stage_rows <= 0 ||
+      (mode == kHighest && (stage_rows > N || (stage_rows != N && stage_rows % kPassRows != 0) ||
+                            (stage_rows != N && stage_rows / kPassRows % teams != 0))) ||
+      (mode != kHighest && stage_rows != kMmaRows) ||
+      teams < 1 || teams > (units == 4 ? kTeams<4> : kTeams<8>) ||
+      (L > 1 && (w_ih_up == nullptr || b_up == nullptr || units != 4)) ||
+      (mode == kHigh && (w_hh_lo == nullptr || (L > 1 && w_ih_up_lo == nullptr))) ||
+      (size_t)smem_bytes != layout)
+    return kErrBadShape;
+  const StackArgs args{x0_proj, mask, w_hh, w_ih_up,    w_hh_lo,    w_ih_up_lo, b_up, h0, c0,
+                       outs,    hbuf, c_out, F,      N, H,          L,          stage_rows, teams};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const size_t smem = (size_t)smem_bytes;
+  if (mode == kHigh) return launch_units<kWave, kHigh>(args, units, smem, s);
+  if (mode == kDefault) return launch_units<kWave, kDefault>(args, units, smem, s);
+  return launch_units<kWave, kHighest>(args, units, smem, s);
 }
 
 }  // namespace
@@ -494,11 +701,12 @@ int forward(const float* x0_proj, const float* mask, const float* w_hh, const fl
 extern "C" {
 
 // Once per device, before the first launch there (and outside any CUDA graph
-// capture): checks that the card launches cooperative grids, lets the three
+// capture): checks that the card launches cooperative grids, lets the nine
 // instances (U=4 in the stack and the wavefront order, U=8 in the stack
-// order) use the card's opt-in shared memory per block, and checks that an
-// SM holds one block of each with that much.  Writes the SM count and the opt-in limit in bytes to
-// info[0..1].  Returns 0, a cudaError_t value, or a negative code above.
+// order, at each of the three modes) use the card's opt-in shared memory per
+// block, and checks that an SM holds one block of each with that much.
+// Writes the SM count and the opt-in limit in bytes to info[0..1].  Returns
+// 0, a cudaError_t value, or a negative code above.
 int lstm_stack_prepare(int device, int* info) {
   int prev = 0, coop = 0;
   cudaError_t err = cudaGetDevice(&prev);
@@ -510,9 +718,9 @@ int lstm_stack_prepare(int device, int* info) {
   if (err == cudaSuccess)
     err = cudaDeviceGetAttribute(&info[1], cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
   bool fits = true;
-  if (err == cudaSuccess) err = prepare_instance<4, false>(info[1], &fits);
-  if (err == cudaSuccess) err = prepare_instance<8, false>(info[1], &fits);
-  if (err == cudaSuccess) err = prepare_instance<4, true>(info[1], &fits);
+  if (err == cudaSuccess) err = prepare_mode<kHighest>(info[1], &fits);
+  if (err == cudaSuccess) err = prepare_mode<kHigh>(info[1], &fits);
+  if (err == cudaSuccess) err = prepare_mode<kDefault>(info[1], &fits);
   cudaSetDevice(prev);
   if (err != cudaSuccess) return (int)err;
   if (!coop) return kErrNoCooperative;
@@ -523,35 +731,42 @@ int lstm_stack_prepare(int device, int* info) {
 // units blocks on `stream`, one (step, layer) per phase (units 8: one layer
 // only).  h0, c0 (L, N, H) are read in place; outs (F, N, H), hbuf (2, L,
 // N, H) and c_out (L, N, H) are written: h after the last step in hbuf[F &
-// 1], c in c_out.  units (4 or 8), stage_rows (N: all rows staged at once;
-// else a multiple of 16 below N, a ring of 16-row slots), teams (the block
-// is 256 * teams threads; U=4: 2, or 1 for one chunk or a one-slot ring;
-// U=8: 1; a ring's slots a multiple of it) and smem_bytes are the launch
-// plan's (ops/lstm_kernel.py::lstm_stack_plan); smem_bytes must equal the
-// layout's size.  h0 and hbuf start on a 16-byte boundary.  Launches only:
+// 1], c in c_out.  mode (0 HIGHEST, 1 HIGH, 2 DEFAULT): at HIGHEST w_hh and
+// w_ih_up are f32 and w_hh_lo, w_ih_up_lo null; at DEFAULT they are the
+// weights rounded to bf16; at HIGH their bf16 hi parts, and w_hh_lo,
+// w_ih_up_lo the lo parts.  units (4 or 8), stage_rows (HIGHEST: N, all rows
+// staged at once, or a multiple of 16 below N, a ring of 16-row slots; else
+// 16), teams (the block is 256 * teams threads; U=4: 2, or 1 for one chunk,
+// a one-slot ring or where two teams' slots do not fit; U=8: 1; a ring's
+// slots a multiple of it) and smem_bytes are the launch plan's
+// (ops/lstm_kernel.py::lstm_stack_plan); smem_bytes must equal the layout's
+// size.  h0 and hbuf start on a 16-byte boundary.  Launches only:
 // lstm_stack_prepare must have run on the current device.  Returns 0, a
 // cudaError_t value, or a negative code above.
-int lstm_stack_forward(const float* x0_proj, const float* mask, const float* w_hh,
-                       const float* w_ih_up, const float* b_up, const float* h0,
+int lstm_stack_forward(const float* x0_proj, const float* mask, const void* w_hh,
+                       const void* w_ih_up, const float* b_up, const float* h0,
                        const float* c0, float* outs, float* hbuf, float* c_out, int F, int N,
                        int H, int L, int units, int stage_rows, int teams, int smem_bytes,
-                       void* stream) {
+                       int mode, const void* w_hh_lo, const void* w_ih_up_lo, void* stream) {
   return forward<false>(x0_proj, mask, w_hh, w_ih_up, b_up, h0, c0, outs, hbuf, c_out, F, N, H,
-                        L, units, stage_rows, teams, smem_bytes, stream);
+                        L, units, stage_rows, teams, smem_bytes, mode, w_hh_lo, w_ih_up_lo,
+                        stream);
 }
 
 // The same stack, the same operands and results, in the wavefront order:
 // F + L - 1 grid barriers, each phase staging every active layer's state
 // once.  Needs L >= 2 (at one layer the orders are one); its plan stages L
 // state planes.
-int lstm_wavefront_forward(const float* x0_proj, const float* mask, const float* w_hh,
-                           const float* w_ih_up, const float* b_up, const float* h0,
+int lstm_wavefront_forward(const float* x0_proj, const float* mask, const void* w_hh,
+                           const void* w_ih_up, const float* b_up, const float* h0,
                            const float* c0, float* outs, float* hbuf, float* c_out, int F,
                            int N, int H, int L, int units, int stage_rows, int teams,
-                           int smem_bytes, void* stream) {
+                           int smem_bytes, int mode, const void* w_hh_lo,
+                           const void* w_ih_up_lo, void* stream) {
   if (L < 2) return kErrBadShape;
   return forward<true>(x0_proj, mask, w_hh, w_ih_up, b_up, h0, c0, outs, hbuf, c_out, F, N, H,
-                       L, units, stage_rows, teams, smem_bytes, stream);
+                       L, units, stage_rows, teams, smem_bytes, mode, w_hh_lo, w_ih_up_lo,
+                       stream);
 }
 
 }  // extern "C"

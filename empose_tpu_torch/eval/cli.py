@@ -1,7 +1,8 @@
 """Evaluate a trained model on the real EM-POSE recordings with the port.
 
     python -m empose_tpu_torch.eval --model_id <id> [--cross_subject] [--window_size W]
-        [--serial | --host_metrics] [--visualize I] [--device cpu]
+        [--serial | --host_metrics] [--visualize I] [--precision highest|high|default]
+        [--device cpu]
 
 Port of ``scripts/evaluate_real.py``: the per-sequence metric rows and the
 'Overall average' row (MPJPE, PA-MPJPE, MPJAE and their stds) of the
@@ -9,6 +10,10 @@ recordings in $EM_DATA_REAL, or of its ``hold_out`` subject with
 ``--cross_subject``, for the experiment ``--model_id`` in $EM_EXPERIMENTS.
 The window defaults to 256 frames for an LGD/IEF model and to whole
 sequences otherwise. ``--device`` defaults to CUDA and raises without it.
+``--precision`` runs every pass (batched, serial, host oracle) with the NN
+and kinematics GEMMs at that mode, as ``scripts/evaluate_real.py`` does
+(``device.set_precision``); the metrics stay fp32. The knobs are restored
+when the run ends.
 """
 
 from __future__ import annotations
@@ -17,7 +22,7 @@ import argparse
 import os
 
 from empose_tpu_torch import constants as C
-from empose_tpu_torch.device import set_precision
+from empose_tpu_torch.device import precision_scope
 from empose_tpu_torch.eval.harness import (evaluate_real_sequences, load_model_and_eval_data,
                                            print_metric_table)
 from empose_tpu_torch.nn.models import IterativeErrorFeedback
@@ -35,7 +40,8 @@ def parser() -> argparse.ArgumentParser:
     p.add_argument("--suppression_markers", type=int, default=1,
                    help="How many markers are suppressed at a time.")
     p.add_argument("--precision", choices=("highest", "high", "default"), default="highest",
-                   help="Matmul precision; the port runs only 'highest' (fp32, TF32 off).")
+                   help="Matmul precision of the NN and kinematics GEMMs: 'highest' = fp32 "
+                        "(TF32 off); 'high' = 3-pass bf16; 'default' = bf16 inputs.")
     p.add_argument("--host_metrics", action="store_true",
                    help="Aggregate on the host with MetricsEngine (the oracle) instead of the "
                         "batched pass.")
@@ -55,7 +61,11 @@ def run(args: argparse.Namespace):
     if args.suppression_length > 0.0:
         raise NotImplementedError("--suppression_length needs marker-suppression noise, which is "
                                   "not ported yet: ROADMAP.md, queue 1, item 2 ('Noise functions')")
-    set_precision(args.precision)
+    with precision_scope(args.precision):
+        return _run(args)
+
+
+def _run(args: argparse.Namespace):
     session, loader, _ = load_model_and_eval_data(
         args.model_id, "test_real_0715" if args.cross_subject else "test_real",
         device=args.device)

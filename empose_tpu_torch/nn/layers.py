@@ -29,9 +29,28 @@ from torch import nn
 from empose_tpu_torch.ops.lstm_kernel import (lstm_bidi_fused, lstm_bidi_layer, lstm_stack,
                                               lstm_stack_fused)
 from empose_tpu_torch.ops.lstm_train_kernel import lstm_cell_train
+from empose_tpu_torch.ops.precision import matmul_at
+from empose_tpu_torch.utils.precision import HIGHEST, resolve
 
 BN_EPS = 1e-5
 BN_MOMENTUM = 0.1
+
+# Matmul precision of the NN layers (``empose_tpu/nn/layers.py:_HI``): the
+# Linear layers (MLPs, residual blocks, heads), the LSTM input projections
+# and the LSTM kernels' products. ``highest`` is the fp32 parity mode;
+# ``default`` the bf16 serving mode. The kinematics have their own knob
+# (``nn.models.set_fk_precision``); ``device.set_precision`` sets both.
+_NN_PRECISION = HIGHEST
+
+
+def set_nn_precision(name: str) -> None:
+    """Switch the NN-layer matmul precision for every later forward."""
+    global _NN_PRECISION
+    _NN_PRECISION = resolve(name)
+
+
+def nn_precision() -> str:
+    return _NN_PRECISION
 
 
 def _uniform_(t: torch.Tensor, bound: float, generator: torch.Generator, low: Optional[float] = None):
@@ -64,7 +83,7 @@ class Linear(nn.Module):
         _uniform_(self.bias, bound, generator)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return x @ self.weight.t() + self.bias
+        return matmul_at(x, self.weight.t(), _NN_PRECISION) + self.bias
 
 
 class BatchNorm1d(nn.Module):
@@ -271,9 +290,11 @@ def lstm_apply(lstm: LSTM, x: torch.Tensor, lengths: torch.Tensor,
 
     Inference: a unidirectional stack runs through the weight-resident stack
     kernel (``stack_fn``), a bidirectional one layer by layer through the
-    bidirectional layer kernel (``bidi_fn``), both directions in one call.
-    Training: every direction-layer runs through ``train_cell``, the
-    differentiable kernel pair on CUDA.
+    bidirectional layer kernel (``bidi_fn``), both directions in one call;
+    both, and the input projections, at the NN knob's precision
+    (:func:`set_nn_precision`). Training: every direction-layer runs through
+    ``train_cell``, the differentiable kernel pair on CUDA, which has only
+    the ``highest`` mode (another raises).
 
     :param x: (N, F, I) batch-first; :param lengths: (N,) int.
     :param init_state: (h0, c0), each (num_layers * dirs, N, H), torch layout.
@@ -290,9 +311,15 @@ def lstm_apply(lstm: LSTM, x: torch.Tensor, lengths: torch.Tensor,
     else:
         h0, c0 = init_state
 
+    precision = _NN_PRECISION
+    if not inference and precision != HIGHEST:
+        raise NotImplementedError(
+            f"LSTM training at precision {precision!r} is not ported yet: the training pair "
+            "runs only 'highest' (ROADMAP.md, queue 2, 'Training precision branches')")
     if inference and not lstm.bidirectional:
         cells = [lstm.cell(l) for l in range(lstm.num_layers)]
-        outs, (hF, cF) = lstm_stack(cells, xt, mask, h0, c0, stack_fn=stack_fn)
+        outs, (hF, cF) = lstm_stack(cells, xt, mask, h0, c0, stack_fn=stack_fn,
+                                    precision=precision)
         return outs.transpose(0, 1), (hF, cF)
 
     h_finals, c_finals = [], []
@@ -300,7 +327,8 @@ def lstm_apply(lstm: LSTM, x: torch.Tensor, lengths: torch.Tensor,
         if inference:  # bidirectional: both directions of the layer in one call
             outs2, (hF, cF) = lstm_bidi_layer(
                 lstm.cell(l), lstm.cell(l, "_reverse"), xt, _reverse_by_length(xt, lengths),
-                mask, h0[2 * l:2 * l + 2], c0[2 * l:2 * l + 2], bidi_fn=bidi_fn)
+                mask, h0[2 * l:2 * l + 2], c0[2 * l:2 * l + 2], bidi_fn=bidi_fn,
+                precision=precision)
             xt = torch.cat([outs2[:, 0], _reverse_by_length(outs2[:, 1], lengths)], dim=-1)
             h_finals += [hF[0], hF[1]]
             c_finals += [cF[0], cF[1]]

@@ -28,6 +28,24 @@ from empose_tpu_torch.bodymodel.smplh import ARRAY_FIELDS, SMPLHModel, fold_zero
 from empose_tpu_torch.data import virtual_sensors as vsens
 from empose_tpu_torch.nn import layers as L
 from empose_tpu_torch.nn import losses as LS
+from empose_tpu_torch.utils.precision import HIGHEST, resolve
+
+# Matmul precision of the kinematics GEMMs of ``SensorSMPL.markers_and_joints``
+# (``empose_tpu/ops/fk_lanes.py:_HI``, the lane-major FK whose counterpart in
+# the port is this row-major FK): joint regression, shape and pose blends and
+# the subset skinning blend. ``SensorSMPL.joints``, the metrics and the
+# full-mesh LBS stay f32 at every mode, as in JAX.
+_FK_PRECISION = HIGHEST
+
+
+def set_fk_precision(name: str) -> None:
+    """Switch the kinematics GEMM precision for every later forward."""
+    global _FK_PRECISION
+    _FK_PRECISION = resolve(name)
+
+
+def fk_precision() -> str:
+    return _FK_PRECISION
 
 
 def create_model(config, sensor_smpl: "SensorSMPL") -> nn.Module:
@@ -77,7 +95,7 @@ class SensorSMPL(nn.Module):
         :return: (pos (B, M, 3), ori (B, M, 3, 3), normals (B, M, 3), joints (B, 22, 3))
         """
         verts, joints = smplh_fk(self._sub_model(), poses[:, 3:], shapes,
-                                 poses_root=poses[:, :3], trans=trans)
+                                 poses_root=poses[:, :3], trans=trans, precision=_FK_PRECISION)
         pos, ori, nor = vsens.virtual_pos_and_rot(verts, self._tables())
         return pos, ori, nor, joints[:, : C.N_JOINTS + 1]
 

@@ -29,6 +29,7 @@ version for CPU tensors; ``LAUNCHES`` counts kernel launches. Its setup is
 out of the per-call path: :func:`lstm_stack_prepare` sets the kernel's
 shared memory and checks its occupancy once per device, and
 :func:`lstm_stack_plan` (pure Python) sizes the grid and the staged rows;
+``MODE_LAUNCHES`` counts every kernel's launches by precision;
 h0 and c0 are read in place, so a call can be captured in a CUDA graph. The
 libraries are compiled with ``nvcc`` at first use into
 ``empose_tpu_torch/_build/``.
@@ -61,6 +62,16 @@ setup is out of the per-call path: :func:`lstm_bidi_prepare` sets the
 kernel's shared memory and checks its occupancy once per device, and
 :func:`lstm_bidi_plan` (pure Python) sizes the grid and the staged rows.
 
+Every function here takes ``precision`` (``utils/precision.py``; default
+``highest``), the mode of the JAX kernels' ``precision`` argument: at
+``highest`` the products are fp32; at ``default`` bf16 inputs with f32
+sums; at ``high`` the bf16_3x product of JAX's ``dot3`` (``ops/precision.py``).
+The plain versions compute them with ``ops/precision.py``; the kernels run
+the recurrent products (and the stack's in-kernel input products) on the
+tensor cores at ``high`` and ``default``, with the weights rounded or split
+by the wrapper, as JAX pre-splits them outside its kernel. The hoisted
+input projections go through ``matmul_at`` at the same mode.
+
 Any H the models take runs at inference: where the whole stack does not fit
 in one launch on the card at hand (:func:`lstm_stack_fits` with the card's
 SMs and shared memory, :func:`stack_limits`; at H=1024 with 2 layers, or at
@@ -79,10 +90,20 @@ from typing import Dict, List, NamedTuple, Optional, Tuple
 import torch
 
 from empose_tpu_torch.ops import cuda_build
+from empose_tpu_torch.ops.precision import MODE_CODES, derived, matmul_at, weight_parts
+from empose_tpu_torch.utils.precision import HIGH, HIGHEST, resolve
 
 LAUNCHES = 0
 BIDI_LAUNCHES = 0
 WAVEFRONT_LAUNCHES = 0
+# The same launches by (kernel, precision): ("lstm_stack" | "lstm_wavefront" |
+# "lstm_bidi", "highest" | "high" | "default") -> count.
+MODE_LAUNCHES: Dict[Tuple[str, str], int] = {}
+
+
+def _count(kernel: str, mode: str) -> None:
+    key = (kernel, mode)
+    MODE_LAUNCHES[key] = MODE_LAUNCHES.get(key, 0) + 1
 
 NAME = "lstm_stack"  # csrc/lstm_stack.cu
 BIDI_NAME = "lstm_bidi"  # csrc/lstm_bidi.cu
@@ -104,7 +125,7 @@ _bidi_lib = None  # the bidirectional kernel's library, once lstm_bidi_prepare h
 
 def _stack_library():
     p, i = ctypes.c_void_p, ctypes.c_int
-    stack_args = [p, p, p, p, p, p, p, p, p, p, i, i, i, i, i, i, i, i, p]
+    stack_args = [p, p, p, p, p, p, p, p, p, p, i, i, i, i, i, i, i, i, i, p, p, p]
     return cuda_build.load(NAME, {
         "lstm_stack_prepare": ([i, ctypes.POINTER(i)], i),
         "lstm_stack_forward": (stack_args, i),
@@ -116,7 +137,7 @@ def _bidi_library():
     p, i = ctypes.c_void_p, ctypes.c_int
     return cuda_build.load(BIDI_NAME, {
         "lstm_bidi_prepare": ([i, ctypes.POINTER(i)], i),
-        "lstm_bidi_forward": ([p, p, p, p, p, p, p, p, i, i, i, i, i, i, i, i, p], i),
+        "lstm_bidi_forward": ([p, p, p, p, p, p, p, p, i, i, i, i, i, i, i, i, i, p, p], i),
     })
 
 
@@ -149,24 +170,51 @@ class StackPlan(NamedTuple):
                      # order, L in the wavefront order
     stage_rows: int  # rows of each staged state in shared memory: N (all at once), or
                      # fewer: a ring of stage_rows / PASS_ROWS slots that the PASS_ROWS-row
-                     # chunks cycle through
+                     # chunks cycle through; at high and default one PASS_ROWS-row bf16 slot
+                     # per team
     teams: int       # teams of 256 threads (the block's size) that take the chunks in turns,
                      # each with its share of the ring: 2 at U=4 (1 for one chunk, N <= 16,
-                     # or where the ring has one slot), 1 at U=8
+                     # where the ring has one slot, or where two teams' slots do not fit), 1
+                     # at U=8
     smem_bytes: int  # dynamic shared memory per block
 
 
-def stack_smem_bytes(units: int, h: int, layers: int, planes: int, stage_rows: int) -> int:
-    """Shared memory of one stack-kernel block (``csrc/lstm_stack.cu``
-    ``smem_floats``): the resident gate columns of every W_hh and of W_ih of
-    layers >= 1 (each to 128 bytes), and ``planes`` staged states of
-    ``stage_rows`` rows."""
-    return 4 * ((2 * layers - 1) * (-(-4 * units * h // 32) * 32) + planes * stage_rows * h)
+MMA_WARPS = 8  # warps of a team that split a product's k-steps at high and default
+
+
+def _bf16_parts(precision: str) -> int:
+    """bf16 planes of an operand at a mode: 1 (default), 2 (high: hi and lo)."""
+    return 2 if resolve(precision) == HIGH else 1
+
+
+def _mma_bytes(units: int, h: int, precision: str):
+    """(one matrix's resident B fragments, one staged bf16 plane, the partial
+    tiles) in bytes at high or default (``csrc/lstm_common.cuh``)."""
+    kp = -(-h // 16) * 16
+    parts = _bf16_parts(precision)
+    return (parts * 8 * units * kp, PASS_ROWS * (kp + 8) * 2,
+            MMA_WARPS * PASS_ROWS * 4 * units * 4)
+
+
+def stack_smem_bytes(units: int, h: int, layers: int, planes: int, stage_rows: int,
+                     precision: str = HIGHEST, teams: int = 1) -> int:
+    """Shared memory of one stack-kernel block (``csrc/lstm_stack.cu``). At
+    highest (``smem_floats``): the resident fp32 gate columns of every W_hh
+    and of W_ih of layers >= 1 (each to 128 bytes), and ``planes`` staged
+    states of ``stage_rows`` rows. At high and default
+    (``mma_smem_bytes``): those columns as bf16 B fragments (half the bytes
+    at default, a hi/lo pair at high), and for each of ``teams`` teams
+    ``planes`` staged 16-row bf16 chunks (hi, and lo at high) and its
+    partial tiles."""
+    if resolve(precision) == HIGHEST:
+        return 4 * ((2 * layers - 1) * (-(-4 * units * h // 32) * 32) + planes * stage_rows * h)
+    mat, plane, partial = _mma_bytes(units, h, precision)
+    return (2 * layers - 1) * mat + teams * (planes * _bf16_parts(precision) * plane + partial)
 
 
 @functools.lru_cache(maxsize=256)
 def lstm_stack_plan(layers: int, n: int, h: int, sms: int = SMS, smem_limit: int = SMEM_LIMIT,
-                    wavefront: bool = False) -> StackPlan:
+                    wavefront: bool = False, precision: str = HIGHEST) -> StackPlan:
     """Launch plan of the stack kernel (``csrc/lstm_stack.cu``) for an
     L-layer stack, N rows, hidden size H, in the stack order or (with
     ``wavefront``) the wavefront order.
@@ -183,7 +231,12 @@ def lstm_stack_plan(layers: int, n: int, h: int, sms: int = SMS, smem_limit: int
     of the ring (an odd slot count loses a slot), where there are two chunks
     or more and the ring has two slots or more. Raises ValueError where no U
     puts the grid on the SMs or not one slot fits beside the columns
-    (2x1024)."""
+    (2x1024).
+
+    At high and default the grid is the same; each team stages one 16-row
+    chunk at a time as bf16, so ``stage_rows`` is PASS_ROWS, and two teams
+    run at U=4 where there are two chunks or more and both teams' slots fit
+    beside the columns (2x512: default yes, high no)."""
     if layers <= 0 or n <= 0 or h <= 0 or h % 4:
         raise ValueError(f"the stack kernel needs L > 0, N > 0 and H a positive multiple of 4, "
                          f"got L={layers}, N={n}, H={h}")
@@ -195,6 +248,16 @@ def lstm_stack_plan(layers: int, n: int, h: int, sms: int = SMS, smem_limit: int
         units = 0  # U=8 runs one layer (at H > 4 SMs no slot fits beside two layers' columns)
     planes = layers if wavefront else min(layers, 2)
     rows, teams = n, 2 if units == 4 and n > PASS_ROWS else 1
+    if resolve(precision) != HIGHEST:
+        while teams and stack_smem_bytes(units, h, layers, planes, PASS_ROWS, precision,
+                                         teams) > smem_limit:
+            teams -= 1
+        if not units or not teams:
+            raise ValueError(f"the stack kernel at L={layers}, N={n}, H={h}, precision "
+                             f"{precision} does not fit on {sms} SMs with {smem_limit} bytes "
+                             "of shared memory per block")
+        return StackPlan(units, h // units, planes, PASS_ROWS, teams,
+                         stack_smem_bytes(units, h, layers, planes, PASS_ROWS, precision, teams))
     if units and stack_smem_bytes(units, h, layers, planes, n) > smem_limit:
         free = smem_limit - stack_smem_bytes(units, h, layers, planes, 0)
         slots = min(MAX_SLOTS, max(0, free) // (4 * PASS_ROWS * planes * h))
@@ -207,14 +270,16 @@ def lstm_stack_plan(layers: int, n: int, h: int, sms: int = SMS, smem_limit: int
                      stack_smem_bytes(units, h, layers, planes, rows))
 
 
-def lstm_stack_fits(layers: int, h: int, sms: int = SMS, smem_limit: int = SMEM_LIMIT) -> bool:
+def lstm_stack_fits(layers: int, h: int, sms: int = SMS, smem_limit: int = SMEM_LIMIT,
+                    precision: str = HIGHEST) -> bool:
     """Whether the stack kernel runs an L-layer stack at hidden size H in one
-    launch for every N on a card with ``sms`` SMs and ``smem_limit`` bytes of
-    opt-in shared memory per block: :func:`lstm_stack_plan` has a plan with
-    one PASS_ROWS-row slot (on an H100 SXM, at 2 layers: H=512 yes, H=1024
-    no; one layer of 1024 yes; on a 114-SM H100 PCIe, 2x512 no)."""
+    launch for every N at ``precision`` on a card with ``sms`` SMs and
+    ``smem_limit`` bytes of opt-in shared memory per block:
+    :func:`lstm_stack_plan` has a plan with one PASS_ROWS-row slot (on an
+    H100 SXM, at 2 layers: H=512 yes, H=1024 no, at every mode; one layer of
+    1024 yes; on a 114-SM H100 PCIe, 2x512 no)."""
     try:
-        lstm_stack_plan(layers, PASS_ROWS, h, sms, smem_limit)
+        lstm_stack_plan(layers, PASS_ROWS, h, sms, smem_limit, precision=precision)
     except ValueError:
         return False
     return True
@@ -228,8 +293,9 @@ def _sigmoid_tanh_cell(gates: torch.Tensor, c: torch.Tensor):
 
 
 def lstm_cell_plain(x_proj: torch.Tensor, mask: torch.Tensor, w_hh: torch.Tensor,
-                    h0: torch.Tensor, c0: torch.Tensor):
-    """One LSTM direction over time (``nn/layers.py::_lstm_cell_scan``).
+                    h0: torch.Tensor, c0: torch.Tensor, precision: str = HIGHEST):
+    """One LSTM direction over time (``nn/layers.py::_lstm_cell_scan``), the
+    recurrent product at ``precision``.
 
     :param x_proj: (F, N, 4H) input projection with biases; :param mask: (F, N).
     :return: (outputs (F, N, H) zeroed at masked steps, hF, cF).
@@ -237,7 +303,7 @@ def lstm_cell_plain(x_proj: torch.Tensor, mask: torch.Tensor, w_hh: torch.Tensor
     h, c = h0, c0
     outs = []
     for t in range(x_proj.shape[0]):
-        h_new, c_new = _sigmoid_tanh_cell(x_proj[t] + h @ w_hh, c)
+        h_new, c_new = _sigmoid_tanh_cell(x_proj[t] + matmul_at(h, w_hh, precision), c)
         m = mask[t][:, None]
         h = torch.where(m > 0, h_new, h)
         c = torch.where(m > 0, c_new, c)
@@ -245,14 +311,14 @@ def lstm_cell_plain(x_proj: torch.Tensor, mask: torch.Tensor, w_hh: torch.Tensor
     return torch.stack(outs), h, c
 
 
-def lstm_stack_plain(x0_proj, mask, w_hh, w_ih_up, b_up, h0, c0):
+def lstm_stack_plain(x0_proj, mask, w_hh, w_ih_up, b_up, h0, c0, precision: str = HIGHEST):
     """The kernel's function in plain torch, layer by layer (see module doc)."""
     xp = x0_proj
     hs, cs = [], []
     for l in range(w_hh.shape[0]):
         if l > 0:
-            xp = outs @ w_ih_up[l - 1] + b_up[l - 1]
-        outs, hF, cF = lstm_cell_plain(xp, mask, w_hh[l], h0[l], c0[l])
+            xp = matmul_at(outs, w_ih_up[l - 1], precision) + b_up[l - 1]
+        outs, hF, cF = lstm_cell_plain(xp, mask, w_hh[l], h0[l], c0[l], precision)
         hs.append(hF)
         cs.append(cF)
     return outs, torch.stack(hs), torch.stack(cs)
@@ -294,9 +360,9 @@ def bidi_limits(device) -> Tuple[int, int]:
 
 def lstm_stack_prepare(device) -> None:
     """Once per device (the wrappers call it at their first launch there):
-    build the stack kernel if needed, set the shared memory of its three
+    build the stack kernel if needed, set the shared memory of its nine
     instances (U=4 in the stack and the wavefront order, U=8 in the stack
-    order) and check their occupancy. Outside the per-call path, and outside
+    order, at each mode) and check their occupancy. Outside the per-call path, and outside
     any CUDA graph capture."""
     global _stack_lib
     index = _device_index(device)
@@ -308,11 +374,26 @@ def lstm_stack_prepare(device) -> None:
     _stack_prepared[index] = (info[0], info[1])
 
 
-def _launch_stack(wavefront: bool, what: str, x0_proj, mask, w_hh, w_ih_up, b_up, h0, c0):
+def kernel_weights(w: torch.Tensor, mode: str):
+    """A weight as a kernel takes it at high or default: (bf16(w), None) at
+    default, the bf16 (hi, lo) pair at high; made once per weight
+    (``ops/precision.weight_parts``)."""
+    parts = weight_parts(w, mode)
+    return parts[0], parts[1] if len(parts) > 1 else None
+
+
+def _ptr(t: Optional[torch.Tensor]):
+    return None if t is None else t.data_ptr()
+
+
+def _launch_stack(wavefront: bool, what: str, x0_proj, mask, w_hh, w_ih_up, b_up, h0, c0,
+                  mode: str):
     """Check the stack's operands and launch ``csrc/lstm_stack.cu`` in the
-    stack or the wavefront order, as :func:`lstm_stack_plan` says. No setup
-    after the first call on a device, no copy of h0/c0 (read in place) and
-    no synchronization, so the call can be captured in a CUDA graph."""
+    stack or the wavefront order at ``mode`` (a resolved name), as
+    :func:`lstm_stack_plan` says. At highest the weights go in as they are;
+    at high and default in their bf16 form (:func:`kernel_weights`). No setup after the first call on a device, no copy of h0/c0 (read
+    in place) and no synchronization, so the call can be captured in a CUDA
+    graph."""
     if x0_proj.device.type != "cuda":
         raise ValueError(f"no {what} for device {x0_proj.device}")
     f, n, h4 = x0_proj.shape
@@ -327,7 +408,13 @@ def _launch_stack(wavefront: bool, what: str, x0_proj, mask, w_hh, w_ih_up, b_up
     _check("h0", h0, (num_layers, n, hidden), dev)
     _check("c0", c0, (num_layers, n, hidden), dev)
     index = x0_proj.get_device()
-    plan = lstm_stack_plan(num_layers, n, hidden, *stack_limits(dev), wavefront=wavefront)
+    if mode == HIGHEST:
+        plan = lstm_stack_plan(num_layers, n, hidden, *stack_limits(dev), wavefront)
+        w_hh_lo = w_ih_up_lo = None
+    else:
+        plan = lstm_stack_plan(num_layers, n, hidden, *stack_limits(dev), wavefront, mode)
+        w_hh, w_hh_lo = kernel_weights(w_hh, mode)
+        w_ih_up, w_ih_up_lo = kernel_weights(w_ih_up, mode) if num_layers > 1 else (None, None)
     # The kernel copies h0's rows 16 bytes at a time.
     h0 = h0 if h0.data_ptr() % 16 == 0 else h0.clone()
     outs = torch.empty(f, n, hidden, device=dev)
@@ -338,23 +425,26 @@ def _launch_stack(wavefront: bool, what: str, x0_proj, mask, w_hh, w_ih_up, b_up
     ptr = state.data_ptr()
     entry = _stack_lib.lstm_wavefront_forward if wavefront else _stack_lib.lstm_stack_forward
     code = _launch(entry, index, x0_proj.data_ptr(), mask.data_ptr(), w_hh.data_ptr(),
-                   w_ih_up.data_ptr() if num_layers > 1 else None,
-                   b_up.data_ptr() if num_layers > 1 else None, h0.data_ptr(), c0.data_ptr(),
-                   outs.data_ptr(), ptr, ptr + 4 * 2 * num_layers * n * hidden, f, n, hidden,
-                   num_layers, plan.units, plan.stage_rows, plan.teams, plan.smem_bytes)
+                   _ptr(w_ih_up), b_up.data_ptr() if num_layers > 1 else None, h0.data_ptr(),
+                   c0.data_ptr(), outs.data_ptr(), ptr, ptr + 4 * 2 * num_layers * n * hidden, f,
+                   n, hidden, num_layers, plan.units, plan.stage_rows, plan.teams,
+                   plan.smem_bytes, MODE_CODES[mode], _ptr(w_hh_lo), _ptr(w_ih_up_lo))
     cuda_build.check(code, what)
     h_last = num_layers * (f & 1)  # h after the last step: hbuf[F & 1]
     return outs, state[h_last:h_last + num_layers], state[2 * num_layers:]
 
 
-def lstm_stack_fused(x0_proj, mask, w_hh, w_ih_up, b_up, h0, c0):
-    """The stack forward: the CUDA kernel for CUDA tensors, the plain version
-    for CPU tensors (see module doc for the contract)."""
+def lstm_stack_fused(x0_proj, mask, w_hh, w_ih_up, b_up, h0, c0, precision: str = HIGHEST):
+    """The stack forward at ``precision``: the CUDA kernel for CUDA tensors,
+    the plain version for CPU tensors (see module doc for the contract)."""
     global LAUNCHES
     if x0_proj.device.type == "cpu":
-        return lstm_stack_plain(x0_proj, mask, w_hh, w_ih_up, b_up, h0, c0)
-    out = _launch_stack(False, "LSTM stack kernel", x0_proj, mask, w_hh, w_ih_up, b_up, h0, c0)
+        return lstm_stack_plain(x0_proj, mask, w_hh, w_ih_up, b_up, h0, c0, precision)
+    mode = resolve(precision)
+    out = _launch_stack(False, "LSTM stack kernel", x0_proj, mask, w_hh, w_ih_up, b_up, h0, c0,
+                        mode)
     LAUNCHES += 1
+    _count("lstm_stack", mode)
     return out
 
 
@@ -364,7 +454,8 @@ def _need_two_layers(num_layers: int) -> None:
                          "(use lstm_stack for a single layer)")
 
 
-def lstm_stack_wavefront_plain(x0_proj, mask, w_hh, w_ih_up, b_up, h0, c0):
+def lstm_stack_wavefront_plain(x0_proj, mask, w_hh, w_ih_up, b_up, h0, c0,
+                               precision: str = HIGHEST):
     """The wavefront kernel's function in plain torch, in its order: in
     phase t every layer l with 0 <= t - l < F steps at time t - l; a deeper
     layer's input is the output its predecessor made in the previous phase
@@ -380,9 +471,10 @@ def lstm_stack_wavefront_plain(x0_proj, mask, w_hh, w_ih_up, b_up, h0, c0):
         for l in range(max(0, t - f + 1), min(num_layers - 1, t) + 1):
             s = t - l
             if l == 0:
-                gates = x0_proj[s] + h[0] @ w_hh[0]
+                gates = x0_proj[s] + matmul_at(h[0], w_hh[0], precision)
             else:
-                gates = torch.cat([pipe[l - 1], h[l]], dim=-1) @ w_cat[l - 1] + b_up[l - 1]
+                gates = matmul_at(torch.cat([pipe[l - 1], h[l]], dim=-1), w_cat[l - 1],
+                                  precision) + b_up[l - 1]
             h_new, c_new = _sigmoid_tanh_cell(gates, c[l])
             m = mask[s][:, None]
             h[l] = torch.where(m > 0, h_new, h[l])
@@ -395,41 +487,56 @@ def lstm_stack_wavefront_plain(x0_proj, mask, w_hh, w_ih_up, b_up, h0, c0):
     return torch.stack(outs), torch.stack(h), torch.stack(c)
 
 
-def lstm_stack_wavefront_fused(x0_proj, mask, w_hh, w_ih_up, b_up, h0, c0):
-    """The stack forward in the wavefront schedule: the CUDA kernel for CUDA
-    tensors, the plain version for CPU tensors (see module doc)."""
+def lstm_stack_wavefront_fused(x0_proj, mask, w_hh, w_ih_up, b_up, h0, c0,
+                               precision: str = HIGHEST):
+    """The stack forward in the wavefront schedule at ``precision``: the CUDA
+    kernel for CUDA tensors, the plain version for CPU tensors (see module
+    doc)."""
     global WAVEFRONT_LAUNCHES
     _need_two_layers(w_hh.shape[0])
     if x0_proj.device.type == "cpu":
-        return lstm_stack_wavefront_plain(x0_proj, mask, w_hh, w_ih_up, b_up, h0, c0)
+        return lstm_stack_wavefront_plain(x0_proj, mask, w_hh, w_ih_up, b_up, h0, c0, precision)
+    mode = resolve(precision)
     out = _launch_stack(True, "LSTM wavefront kernel", x0_proj, mask, w_hh, w_ih_up, b_up, h0,
-                        c0)
+                        c0, mode)
     WAVEFRONT_LAUNCHES += 1
+    _count("lstm_wavefront", mode)
     return out
 
 
-def stack_operands(cells: List[dict], x: torch.Tensor):
-    """Hoisted layer-0 projection and stacked weights of a unidirectional
-    stack, as ``empose_tpu/ops/lstm_kernel.py::lstm_stack_pallas`` builds them.
+def _stacked(tensors: List[torch.Tensor], precision: str) -> torch.Tensor:
+    """``torch.stack(tensors)``; at high and default kept per weight set
+    (``ops/precision.derived``), so that the kernels' bf16 form of it is
+    made once."""
+    if resolve(precision) == HIGHEST:
+        return torch.stack(tensors)
+    return derived("stack", tensors, lambda: torch.stack(tensors))
+
+
+def stack_operands(cells: List[dict], x: torch.Tensor, precision: str = HIGHEST):
+    """Hoisted layer-0 projection (at ``precision``) and stacked weights of a
+    unidirectional stack, as ``empose_tpu/ops/lstm_kernel.py::lstm_stack_pallas``
+    builds them.
 
     :param cells: L dicts of w_ih (I|H, 4H), w_hh (H, 4H), b_ih, b_hh (4H,).
     :param x: (F, N, I).
     :return: (x0_proj (F, N, 4H), w_hh (L, H, 4H), w_ih_up, b_up) with
       ``w_ih_up``/``b_up`` None for a single layer.
     """
-    x0_proj = x @ cells[0]["w_ih"] + cells[0]["b_ih"] + cells[0]["b_hh"]
-    w_hh = torch.stack([c["w_hh"] for c in cells]).contiguous()
+    x0_proj = matmul_at(x, cells[0]["w_ih"], precision) + cells[0]["b_ih"] + cells[0]["b_hh"]
+    w_hh = _stacked([c["w_hh"] for c in cells], precision)
     if len(cells) == 1:
         return x0_proj.contiguous(), w_hh, None, None
-    w_ih_up = torch.stack([c["w_ih"] for c in cells[1:]]).contiguous()
+    w_ih_up = _stacked([c["w_ih"] for c in cells[1:]], precision)
     b_up = torch.stack([c["b_ih"] + c["b_hh"] for c in cells[1:]]).contiguous()
     return x0_proj.contiguous(), w_hh, w_ih_up, b_up
 
 
-def lstm_stack(cells: List[dict], x, mask, h0, c0, stack_fn=lstm_stack_fused):
+def lstm_stack(cells: List[dict], x, mask, h0, c0, stack_fn=lstm_stack_fused,
+               precision: str = HIGHEST):
     """Same contract as ``empose_tpu/ops/lstm_kernel.py::lstm_stack_pallas``:
     ``x`` (F, N, I), ``mask`` (F, N), ``h0``/``c0`` (L, N, H) ->
-    (outputs (F, N, H), (hF, cF)).
+    (outputs (F, N, H), (hF, cF)), every product at ``precision``.
 
     The whole stack goes to ``stack_fn`` in one call where it fits in one
     launch on ``x``'s device (:func:`lstm_stack_fits` with
@@ -437,41 +544,42 @@ def lstm_stack(cells: List[dict], x, mask, h0, c0, stack_fn=lstm_stack_fused):
     otherwise one layer per call, layer l > 0's input projection one
     GEMM outside, as layer 0's is. (:func:`lstm_stack_wavefront`, run by the
     bench tool only, needs the whole stack in one launch.)"""
-    x0_proj, w_hh, w_ih_up, b_up = stack_operands(cells, x)
+    x0_proj, w_hh, w_ih_up, b_up = stack_operands(cells, x, precision)
     mask, h0, c0 = mask.contiguous(), h0.contiguous(), c0.contiguous()
-    if lstm_stack_fits(len(cells), w_hh.shape[1], *stack_limits(x.device)):
-        outs, hF, cF = stack_fn(x0_proj, mask, w_hh, w_ih_up, b_up, h0, c0)
+    if lstm_stack_fits(len(cells), w_hh.shape[1], *stack_limits(x.device), precision=precision):
+        outs, hF, cF = stack_fn(x0_proj, mask, w_hh, w_ih_up, b_up, h0, c0, precision)
         return outs, (hF, cF)
     xp, hs, cs = x0_proj, [], []
     for l in range(len(cells)):
         if l > 0:
-            xp = (outs @ w_ih_up[l - 1] + b_up[l - 1]).contiguous()
-        outs, hF, cF = stack_fn(xp, mask, w_hh[l:l + 1], None, None, h0[l:l + 1], c0[l:l + 1])
+            xp = (matmul_at(outs, w_ih_up[l - 1], precision) + b_up[l - 1]).contiguous()
+        outs, hF, cF = stack_fn(xp, mask, w_hh[l:l + 1], None, None, h0[l:l + 1], c0[l:l + 1],
+                                precision)
         hs.append(hF[0])
         cs.append(cF[0])
     return outs, (torch.stack(hs), torch.stack(cs))
 
 
 def lstm_stack_wavefront(cells: List[dict], x, mask, h0, c0,
-                         stack_fn=lstm_stack_wavefront_fused):
+                         stack_fn=lstm_stack_wavefront_fused, precision: str = HIGHEST):
     """Same contract and errors as
     ``empose_tpu/ops/lstm_kernel.py::lstm_stack_pallas_wavefront``: the
     results of :func:`lstm_stack`, the whole stack in one call of
     ``stack_fn``; ``ValueError`` below 2 layers or where the stack does not
     fit in one launch on the card (raised by ``stack_fn``: unlike
     :func:`lstm_stack`, the wavefront has no per-layer route)."""
-    x0_proj, w_hh, w_ih_up, b_up = stack_operands(cells, x)
+    x0_proj, w_hh, w_ih_up, b_up = stack_operands(cells, x, precision)
     outs, hF, cF = stack_fn(x0_proj, mask.contiguous(), w_hh, w_ih_up, b_up,
-                            h0.contiguous(), c0.contiguous())
+                            h0.contiguous(), c0.contiguous(), precision)
     return outs, (hF, cF)
 
 
-def lstm_bidi_plain(x_proj, mask, w_hh2, h0, c0):
+def lstm_bidi_plain(x_proj, mask, w_hh2, h0, c0, precision: str = HIGHEST):
     """The bidirectional kernel's function in plain torch, one direction after
     the other (see module doc)."""
     outs, hs, cs = [], [], []
     for d in range(2):
-        o, hF, cF = lstm_cell_plain(x_proj[:, d], mask, w_hh2[d], h0[d], c0[d])
+        o, hF, cF = lstm_cell_plain(x_proj[:, d], mask, w_hh2[d], h0[d], c0[d], precision)
         outs.append(o)
         hs.append(hF)
         cs.append(cF)
@@ -484,19 +592,26 @@ class BidiPlan(NamedTuple):
     dirs: int        # directions per launch: 2 (both in one grid) or 1 (one launch each)
     launches: int    # launches per layer, 2 / dirs
     stage_rows: int  # rows of h[t-1] in shared memory: N (all at once), or fewer: a ring
-                     # of stage_rows / PASS_ROWS slots that the PASS_ROWS-row chunks cycle through
+                     # of stage_rows / PASS_ROWS slots that the PASS_ROWS-row chunks cycle
+                     # through; at high and default one PASS_ROWS-row bf16 slot
     smem_bytes: int  # dynamic shared memory per block
 
 
-def bidi_smem_bytes(units: int, h: int, stage_rows: int) -> int:
-    """Shared memory of one bidirectional-kernel block (``csrc/lstm_bidi.cu``
-    ``smem_floats``): the resident gate columns of W_hh (to 128 bytes) and
-    the staged rows of h[t-1]."""
-    return 4 * (-(-4 * units * h // 32) * 32 + stage_rows * h)
+def bidi_smem_bytes(units: int, h: int, stage_rows: int, precision: str = HIGHEST) -> int:
+    """Shared memory of one bidirectional-kernel block (``csrc/lstm_bidi.cu``):
+    at highest (``smem_floats``) the resident fp32 gate columns of W_hh (to
+    128 bytes) and the staged rows of h[t-1]; at high and default
+    (``mma_smem_bytes``) the columns as bf16 B fragments (hi, and lo at
+    high), one staged 16-row bf16 chunk and the partial tiles."""
+    if resolve(precision) == HIGHEST:
+        return 4 * (-(-4 * units * h // 32) * 32 + stage_rows * h)
+    mat, plane, partial = _mma_bytes(units, h, precision)
+    return mat + _bf16_parts(precision) * plane + partial
 
 
 @functools.lru_cache(maxsize=256)
-def lstm_bidi_plan(n: int, h: int, sms: int = SMS, smem_limit: int = SMEM_LIMIT) -> BidiPlan:
+def lstm_bidi_plan(n: int, h: int, sms: int = SMS, smem_limit: int = SMEM_LIMIT,
+                   precision: str = HIGHEST) -> BidiPlan:
     """Launch plan of the bidirectional layer kernel for N rows at hidden
     size H.
 
@@ -509,21 +624,25 @@ def lstm_bidi_plan(n: int, h: int, sms: int = SMS, smem_limit: int = SMEM_LIMIT)
     through a ring of as many slots as fit (at most MAX_SLOTS; one at
     H=1024), so the shared memory stops growing with N and any N has a plan.
     Raises ValueError where H / U blocks do not fit on the SMs or not one
-    slot fits beside the columns."""
+    slot fits beside the columns. At high and default the grid is the same,
+    and one 16-row bf16 chunk is staged at a time (``stage_rows`` =
+    PASS_ROWS)."""
     if n <= 0 or h <= 0 or h % 4:
         raise ValueError(f"the bidirectional kernel needs N > 0 and H a positive multiple of "
                          f"4, got N={n}, H={h}")
     units = 8 if h % 8 == 0 else 4
     dirs = 2 if 2 * h // units <= sms else 1
     rows = n
-    if bidi_smem_bytes(units, h, n) > smem_limit:
+    if resolve(precision) != HIGHEST:
+        rows = PASS_ROWS if bidi_smem_bytes(units, h, PASS_ROWS, precision) <= smem_limit else 0
+    elif bidi_smem_bytes(units, h, n) > smem_limit:
         rows = PASS_ROWS * min(MAX_SLOTS,
                                (smem_limit - bidi_smem_bytes(units, h, 0)) // (4 * PASS_ROWS * h))
     if h // units > sms or rows < 1:
         raise ValueError(f"the bidirectional kernel at N={n}, H={h} does not fit on {sms} SMs "
                          f"with {smem_limit} bytes of shared memory per block")
     return BidiPlan(units, dirs * h // units, dirs, 2 // dirs, rows,
-                    bidi_smem_bytes(units, h, rows))
+                    bidi_smem_bytes(units, h, rows, precision))
 
 
 def lstm_bidi_prepare(device) -> None:
@@ -541,14 +660,15 @@ def lstm_bidi_prepare(device) -> None:
     _bidi_prepared[index] = (info[0], info[1])
 
 
-def lstm_bidi_fused(x_proj, mask, w_hh2, h0, c0):
-    """One bidirectional layer: the CUDA kernel for CUDA tensors, the plain
-    version for CPU tensors (see module doc for the contract). The launches
-    follow :func:`lstm_bidi_plan`. The call does no setup after the first on
-    a device and no synchronization, so it can be captured in a CUDA graph."""
+def lstm_bidi_fused(x_proj, mask, w_hh2, h0, c0, precision: str = HIGHEST):
+    """One bidirectional layer at ``precision``: the CUDA kernel for CUDA
+    tensors, the plain version for CPU tensors (see module doc for the
+    contract). The launches follow :func:`lstm_bidi_plan`. The call does no
+    setup after the first on a device and no synchronization, so it can be
+    captured in a CUDA graph."""
     global BIDI_LAUNCHES
     if x_proj.device.type == "cpu":
-        return lstm_bidi_plain(x_proj, mask, w_hh2, h0, c0)
+        return lstm_bidi_plain(x_proj, mask, w_hh2, h0, c0, precision)
     if x_proj.device.type != "cuda":
         raise ValueError(f"no bidirectional LSTM kernel for device {x_proj.device}")
     f, n, hidden = x_proj.shape[0], x_proj.shape[2], w_hh2.shape[1]
@@ -559,7 +679,13 @@ def lstm_bidi_fused(x_proj, mask, w_hh2, h0, c0):
     _check("h0", h0, (2, n, hidden), dev)
     _check("c0", c0, (2, n, hidden), dev)
     index = x_proj.get_device()
-    plan = lstm_bidi_plan(n, hidden, *bidi_limits(dev))
+    mode = resolve(precision)
+    if mode == HIGHEST:
+        plan = lstm_bidi_plan(n, hidden, *bidi_limits(dev))
+        w_lo = None
+    else:
+        plan = lstm_bidi_plan(n, hidden, *bidi_limits(dev), mode)
+        w_hh2, w_lo = kernel_weights(w_hh2, mode)
     # The kernel copies h0's rows 16 bytes at a time.
     h0 = h0 if h0.data_ptr() % 16 == 0 else h0.clone()
     outs = torch.empty(f, 2, n, hidden, device=dev)
@@ -572,22 +698,25 @@ def lstm_bidi_fused(x_proj, mask, w_hh2, h0, c0):
         code = _launch(_bidi_lib.lstm_bidi_forward, index, x_proj.data_ptr(), mask.data_ptr(),
                        w_hh2.data_ptr(), h0.data_ptr(), c0.data_ptr(), outs.data_ptr(), ptr,
                        ptr + 16 * n * hidden, f, n, hidden, plan.units, d0, plan.dirs,
-                       plan.stage_rows, plan.smem_bytes)
+                       plan.stage_rows, plan.smem_bytes, MODE_CODES[mode], _ptr(w_lo))
         cuda_build.check(code, "bidirectional LSTM kernel")
         BIDI_LAUNCHES += 1
+        _count("lstm_bidi", mode)
     h_last = 2 * (f & 1)  # h after the last step: hbuf[F & 1]
     return outs, state[h_last:h_last + 2], state[4:]
 
 
 def lstm_bidi_layer(cell_fwd: dict, cell_bwd: dict, x_fwd, x_bwd, mask, h0, c0,
-                    bidi_fn=lstm_bidi_fused):
+                    bidi_fn=lstm_bidi_fused, precision: str = HIGHEST):
     """Same contract as ``empose_tpu/ops/lstm_kernel.py::lstm_bidi_layer_pallas``:
     ``x_fwd`` (F, N, I) and ``x_bwd``, the same input reversed per sample by
     length; ``mask`` (F, N); ``h0``/``c0`` (2, N, H) [fwd, bwd] ->
-    (outs (F, 2, N, H), the backward outputs in reversed time, (hF, cF))."""
-    xp_f = x_fwd @ cell_fwd["w_ih"] + cell_fwd["b_ih"] + cell_fwd["b_hh"]
-    xp_b = x_bwd @ cell_bwd["w_ih"] + cell_bwd["b_ih"] + cell_bwd["b_hh"]
+    (outs (F, 2, N, H), the backward outputs in reversed time, (hF, cF)),
+    every product at ``precision``."""
+    xp_f = matmul_at(x_fwd, cell_fwd["w_ih"], precision) + cell_fwd["b_ih"] + cell_fwd["b_hh"]
+    xp_b = matmul_at(x_bwd, cell_bwd["w_ih"], precision) + cell_bwd["b_ih"] + cell_bwd["b_hh"]
     x_proj = torch.stack([xp_f, xp_b], dim=1)
-    w_hh2 = torch.stack([cell_fwd["w_hh"], cell_bwd["w_hh"]])
-    outs, hF, cF = bidi_fn(x_proj, mask.contiguous(), w_hh2, h0.contiguous(), c0.contiguous())
+    w_hh2 = _stacked([cell_fwd["w_hh"], cell_bwd["w_hh"]], precision)
+    outs, hF, cF = bidi_fn(x_proj, mask.contiguous(), w_hh2, h0.contiguous(), c0.contiguous(),
+                           precision)
     return outs, (hF, cF)

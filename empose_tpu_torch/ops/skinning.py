@@ -33,6 +33,8 @@ import numpy as np
 import torch
 
 from empose_tpu_torch.ops import cuda_build
+from empose_tpu_torch.ops.precision import matmul_at
+from empose_tpu_torch.utils.precision import HIGHEST
 
 LBS_LAUNCHES = 0
 
@@ -125,12 +127,17 @@ def pack_transforms(R_glob: torch.Tensor, t_skin: torch.Tensor) -> torch.Tensor:
 
 
 def lbs_apply_plain(weights: torch.Tensor, R_glob: torch.Tensor, t_skin: torch.Tensor,
-                    v_posed: torch.Tensor) -> torch.Tensor:
+                    v_posed: torch.Tensor, precision: str = HIGHEST) -> torch.Tensor:
     """verts = (W R) v + W t with weights (V, J): the kernel's function in
-    plain torch (``empose_tpu/ops/skinning.py::lbs_apply_xla``)."""
-    Rw = torch.einsum("vj,njab->nvab", weights, R_glob)
-    tw = torch.einsum("vj,nja->nva", weights, t_skin)
-    return (Rw @ v_posed[..., None])[..., 0] + tw
+    plain torch (``empose_tpu/ops/skinning.py::lbs_apply_xla``), the blend
+    product ``[R | t] @ W^T`` at ``precision`` (the kinematics knob's subset
+    LBS; the full mesh stays at highest); the rotation of the vertices is
+    f32."""
+    n, j = R_glob.shape[:2]
+    rt = torch.cat([R_glob.reshape(n, j, 9), t_skin], dim=-1).transpose(1, 2)  # (N, 12, J)
+    blended = matmul_at(rt, weights.t(), precision)                             # (N, 12, V)
+    Rw = blended[:, :9].transpose(1, 2).reshape(n, -1, 3, 3)
+    return (Rw @ v_posed[..., None])[..., 0] + blended[:, 9:].transpose(1, 2)
 
 
 def _check_operands(weights_t, R_glob, t_skin, v_posed) -> None:

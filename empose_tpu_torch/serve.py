@@ -12,7 +12,13 @@ the kernel's mask freeze.
 CLI (JSON lines over stdin/stdout, the protocol of ``scripts/serve.py``)::
 
     python -m empose_tpu_torch.serve --model_id <id> [--chunk 16] [--streams N]
-        [--device cuda|cpu] < frames.jsonl
+        [--precision highest|high|default] [--device cuda|cpu] < frames.jsonl
+
+``--precision`` binds the NN and the kinematics matmul precision together,
+as ``scripts/serve.py`` does (``device.set_precision``): ``highest`` is the
+fp32 parity mode, ``high`` the bf16_3x product, ``default`` the bf16 serving
+mode (bf16 inputs, f32 sums; the LSTM kernels on the tensor cores). The
+predictors run at the knobs' mode.
 """
 
 from __future__ import annotations
@@ -25,7 +31,8 @@ from typing import Dict, Optional
 import numpy as np
 import torch
 
-from empose_tpu_torch.device import PRECISIONS, set_precision
+from empose_tpu_torch.device import set_precision
+from empose_tpu_torch.utils.precision import PRECISIONS
 
 
 def _run(model, pos_d: int, pos_ori: np.ndarray, lengths: np.ndarray, offset_t, offset_r, carry):
@@ -341,9 +348,10 @@ def parser() -> argparse.ArgumentParser:
     p.add_argument("--streams", type=int, default=1,
                    help="Serve N independent sessions batched into one forward.")
     p.add_argument("--device", choices=("cuda", "cpu"), default="cuda")
-    p.add_argument("--precision", default="highest",
-                   help=f"Matmul precision; the port has {', '.join(PRECISIONS)} only "
-                        "(fp32, TF32 off).")
+    p.add_argument("--precision", choices=tuple(PRECISIONS), default="highest",
+                   help="Matmul precision of the NN and kinematics GEMMs: 'highest' = fp32 "
+                        "(TF32 off), the parity mode; 'high' = 3-pass bf16; 'default' = the "
+                        "bf16-input serving mode (LSTM kernels on the tensor cores).")
     return p
 
 

@@ -8,12 +8,13 @@ Port of ``tools/bench_lstm_kernels.py``. For the released init-RNN shape
 
     python -m empose_tpu_torch.tools.bench_lstm_kernels [--batch 8 64] [--window 256]
         [--hidden 512] [--layers 2] [--input 144] [--iters 20] [--repeats 5]
-        [--precision highest] [--device cuda|cpu]
+        [--precision highest|high|default] [--device cuda|cpu]
 
 Each call chains through the previous call's final state (the streaming
 pattern); a row is the best of ``--repeats`` runs of ``--iters`` calls,
-synchronized, and names the device it ran on. ``--precision`` takes only
-``highest`` (fp32, TF32 off), as the rest of the port.
+synchronized, and names the device it ran on. Every path runs its products
+at ``--precision`` (the kernels on the tensor cores at ``high`` and
+``default``); the knobs are restored when the bench ends.
 """
 
 from __future__ import annotations
@@ -24,7 +25,7 @@ import time
 import numpy as np
 import torch
 
-from empose_tpu_torch.device import resolve_device, set_precision
+from empose_tpu_torch.device import precision_scope, resolve_device
 from empose_tpu_torch.ops import lstm_kernel as K
 
 
@@ -38,7 +39,8 @@ def parser() -> argparse.ArgumentParser:
     p.add_argument("--iters", type=int, default=20)
     p.add_argument("--repeats", type=int, default=5)
     p.add_argument("--precision", default="highest", choices=("highest", "high", "default"),
-                   help="matmul precision; the port runs only 'highest' and raises for the others")
+                   help="matmul precision of every path: 'highest' = fp32 (TF32 off), 'high' = "
+                        "3-pass bf16, 'default' = bf16 inputs")
     p.add_argument("--device", choices=("cuda", "cpu"), default="cuda")
     return p
 
@@ -55,15 +57,20 @@ def _cells(n_in: int, hidden: int, layers: int, device) -> list:
 def main(argv=None) -> list:
     """Run the bench; returns rows of (batch, impl, ms per call, frames/s, device name)."""
     args = parser().parse_args(argv)
-    set_precision(args.precision)
+    with precision_scope(args.precision):
+        return _bench(args)
+
+
+def _bench(args) -> list:
     device = resolve_device(args.device)
     where = torch.cuda.get_device_name(device) if device.type == "cuda" else "cpu"
-    f, h, nl = args.window, args.hidden, args.layers
+    f, h, nl, prec = args.window, args.hidden, args.layers, args.precision
     cells = _cells(args.input, h, nl, device)
     impls = {
-        "scan": lambda x, m, h0, c0: K.lstm_stack(cells, x, m, h0, c0, K.lstm_stack_plain),
-        "kernel": lambda x, m, h0, c0: K.lstm_stack(cells, x, m, h0, c0),
-        "wavefront": lambda x, m, h0, c0: K.lstm_stack_wavefront(cells, x, m, h0, c0),
+        "scan": lambda x, m, h0, c0: K.lstm_stack(cells, x, m, h0, c0, K.lstm_stack_plain, prec),
+        "kernel": lambda x, m, h0, c0: K.lstm_stack(cells, x, m, h0, c0, precision=prec),
+        "wavefront": lambda x, m, h0, c0: K.lstm_stack_wavefront(cells, x, m, h0, c0,
+                                                                 precision=prec),
     }
     sync = torch.cuda.synchronize if device.type == "cuda" else (lambda: None)
     rows = []
@@ -73,7 +80,7 @@ def main(argv=None) -> list:
             x = torch.as_tensor(rng.randn(f, n, args.input).astype(np.float32), device=device)
             mask = torch.ones(f, n, device=device)
             zeros = torch.zeros(nl, n, h, device=device)
-            print(f"batch={n} window={f} stack={nl}x{h} on {where}", flush=True)
+            print(f"batch={n} window={f} stack={nl}x{h} precision={prec} on {where}", flush=True)
             for name, fn in impls.items():
                 _, state = fn(x, mask, zeros, zeros)
                 sync()

@@ -49,6 +49,19 @@ def _precision(config) -> str:
     return prec
 
 
+def _training_precision(config) -> str:
+    """The run's matmul precision (``--matmul_precision``/``--bf16``, as JAX
+    resolves them); only ``highest`` trains in the port."""
+    prec = _precision(config)
+    if prec != "highest":
+        raise ValueError(
+            f"training at matmul precision {prec!r} is not ported yet: the LSTM training "
+            "pair has only its 'highest' branch; its 'high' and 'default' branches are "
+            "ROADMAP.md, queue 2, 'Training precision branches' (serving and evaluation run "
+            "every mode)")
+    return prec
+
+
 def _refuse_unported(config) -> None:
     if max(1, int(getattr(config, "dp_devices", 1))) > 1:
         raise NotImplementedError("--dp_devices > 1 is not ported yet: ROADMAP.md, queue 1, "
@@ -69,7 +82,7 @@ class Trainer:
                  device=None):
         self.config = config
         self.device = resolve_device(device)
-        set_precision(_precision(config))
+        set_precision(_training_precision(config))
         _refuse_unported(config)
         # Seed 0 is a seed: the JAX trainer's ``config.seed or time.time()``
         # turns it into the clock.

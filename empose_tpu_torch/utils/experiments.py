@@ -20,7 +20,7 @@ from torch import nn
 
 from empose_tpu_torch import constants as C
 from empose_tpu_torch.config import Configuration
-from empose_tpu_torch.device import resolve_device, set_precision
+from empose_tpu_torch.device import disable_tf32, resolve_device
 
 
 def get_model_dir(experiment_dir: str, model_id) -> Optional[str]:
@@ -68,8 +68,9 @@ def count_parameters(model: nn.Module) -> int:
 
 def load_model(model_id, experiment_dir: Optional[str] = None, device=None):
     """Rebuild a model from its experiment dir, in eval mode on ``device``
-    (None = CUDA), in the fp32 parity mode. The SMPL-H model comes from
-    ``$SMPL_MODELS``.
+    (None = CUDA), with TF32 off; its products run at the precision knobs'
+    mode (``device.set_precision``, ``highest`` unless set). The SMPL-H
+    model comes from ``$SMPL_MODELS``.
 
     :return: (model, config, model_dir)
     """
@@ -77,7 +78,7 @@ def load_model(model_id, experiment_dir: Optional[str] = None, device=None):
     from empose_tpu_torch.nn.models import SensorSMPL, create_model
 
     dev = resolve_device(device)
-    set_precision("highest")
+    disable_tf32()
     experiment_dir = experiment_dir or C.experiment_dir()
     model_dir = get_model_dir(experiment_dir, model_id)
     if model_dir is None:

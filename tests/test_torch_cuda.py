@@ -14,7 +14,10 @@ without a CUDA device; on the card run
 
 Tolerance atol 1e-4 (fp32 on both sides, different summation order; the LGD
 gradient input is scaled by n*f); the LBS kernel atol 2e-5 (coordinates of a
-metre, 52 joints).
+metre, 52 joints). The stack, wavefront and bidi kernels also run at the
+high and default precision modes (their bf16 tensor-core branches) against
+their plain versions at the same mode, captured in CUDA graphs, and served
+(MODE_ATOL below).
 """
 
 import copy
@@ -26,7 +29,7 @@ import torch
 from empose_tpu_torch.bodymodel.smplh import SMPLHModel, SMPLLayer
 from empose_tpu_torch.bodymodel.synthetic import make_synthetic_smplh
 from empose_tpu_torch.config import Configuration
-from empose_tpu_torch.device import set_precision
+from empose_tpu_torch.device import precision_scope, set_precision
 from empose_tpu_torch.nn.layers import init_parameters
 from empose_tpu_torch.nn.models import SensorSMPL, create_model
 from empose_tpu_torch.ops import lstm_kernel as K
@@ -489,3 +492,133 @@ def test_served_step_matches_plain_lstm_forward(cuda, m_type, hidden, bidirectio
         for s in want:
             for k in want[s]:
                 np.testing.assert_allclose(got[s][k], want[s][k], atol=ATOL)
+
+
+# ---------------------------------------------------------------------------
+# The high and default modes: the kernels' bf16 tensor-core branches. HIGH is
+# held at atol 1e-4 as HIGHEST, and closer to its plain version at high than
+# to the plain version at highest; DEFAULT at bf16's step: a 1-ulp
+# difference in h rounds an element of the next step's bf16 h the other way.
+# These cases draw x0_proj/x_proj directly (0.5 N(0, 1)), larger gate inputs
+# than chip_smoke.py's projected ones, so 5e-4: above its TOL_DEFAULT (3e-4,
+# set by its --mode-rounding study).
+MODE_ATOL = {"high": ATOL, "default": 5e-4}
+
+
+def _closer_at_high(got, plain, args):
+    """At high: the kernel's outputs lie closer to the plain version at high
+    than to the plain version at highest (both 0 where no row runs, as at
+    N=1 here, whose row is a 0-length one)."""
+    err = lambda want: max(float((a - b).abs().max()) for a, b in zip(got, want))
+    at_high, at_highest = err(plain(*args, "high")), err(plain(*args, "highest"))
+    assert at_high < at_highest or at_high == at_highest == 0.0
+
+
+@pytest.mark.parametrize("mode", ["high", "default"])
+@pytest.mark.parametrize("f, n, h, layers", [(16, 64, 512, 2), (16, 1, 512, 2), (33, 7, 512, 2),
+                                             (3, 1300, 512, 2), (16, 64, 1024, 1),
+                                             (16, 7, 260, 3)])
+def test_stack_kernel_at_mode_matches_plain(cuda, mode, f, n, h, layers):
+    """The stack kernel and (from 2 layers) its wavefront schedule at the
+    mode against their plain versions at the same mode, one launch per call,
+    0-length rows frozen bit for bit, a second call bit for bit."""
+    args, idle = _stack_case(f, n, h, layers, f + n, cuda)
+    pairs = [(K.lstm_stack_fused, K.lstm_stack_plain)]
+    if layers > 1:
+        pairs.append((K.lstm_stack_wavefront_fused, K.lstm_stack_wavefront_plain))
+    for fused, plain in pairs:
+        got, again, want = fused(*args, mode), fused(*args, mode), plain(*args, mode)
+        for a, b, c in zip(got, want, again):
+            torch.testing.assert_close(a, b, atol=MODE_ATOL[mode], rtol=0)
+            assert torch.equal(a, c)
+        if mode == "high":
+            _closer_at_high(got, plain, args)
+        h0, c0 = args[5], args[6]
+        assert torch.equal(got[1][:, idle], h0[:, idle]) and torch.equal(got[2][:, idle],
+                                                                           c0[:, idle])
+
+
+@pytest.mark.parametrize("mode", ["high", "default"])
+@pytest.mark.parametrize("f, n, h", [(16, 64, 512), (16, 1, 512), (3, 1300, 512), (16, 32, 1024),
+                                     (16, 7, 516)])
+def test_bidi_kernel_at_mode_matches_plain(cuda, mode, f, n, h):
+    x_proj, mask, w_hh2, h0, c0, idle = _bidi_case(f, n, h, f + n, cuda)
+    args = (x_proj, mask, w_hh2, h0, c0)
+    launches = K.MODE_LAUNCHES.get(("lstm_bidi", mode), 0)
+    got, again = K.lstm_bidi_fused(*args, mode), K.lstm_bidi_fused(*args, mode)
+    assert K.MODE_LAUNCHES[("lstm_bidi", mode)] == launches + 2 * K.lstm_bidi_plan(
+        n, h, precision=mode).launches
+    for a, b, c in zip(got, K.lstm_bidi_plain(*args, mode), again):
+        torch.testing.assert_close(a, b, atol=MODE_ATOL[mode], rtol=0)
+        assert torch.equal(a, c)
+    if mode == "high":
+        _closer_at_high(got, K.lstm_bidi_plain, args)
+    assert torch.equal(got[1][:, idle], h0[:, idle]) and torch.equal(got[2][:, idle], c0[:, idle])
+
+
+@pytest.mark.parametrize("mode", ["high", "default"])
+@pytest.mark.parametrize("kernel", ["stack", "wavefront", "bidi"])
+def test_kernels_at_mode_cuda_graph_capture(cuda, mode, kernel):
+    """Each wrapper at the mode (its weight split included) captured once in
+    a CUDA graph and replayed on new inputs: equal to the eager call, bit
+    for bit."""
+    if kernel == "bidi":
+        x_proj, mask, w_hh2, h0, c0, _ = _bidi_case(16, 64, 512, 1, cuda)
+        args, fused, fresh = [x_proj, mask, w_hh2, h0, c0], K.lstm_bidi_fused, (0, 3)
+        new = _bidi_case(16, 64, 512, 2, cuda)
+    else:
+        args, _ = _stack_case(16, 64, 512, 2, 1, cuda)
+        args, fresh = list(args), (0, 5)
+        fused = K.lstm_stack_wavefront_fused if kernel == "wavefront" else K.lstm_stack_fused
+        new = _stack_case(16, 64, 512, 2, 2, cuda)[0]
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fused(*args, mode)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = fused(*args, mode)
+    for i in fresh:
+        args[i].copy_(new[i])
+    graph.replay()
+    torch.cuda.synchronize()
+    for a, b in zip(out, fused(*args, mode)):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("mode", ["high", "default"])
+@pytest.mark.parametrize("bidirectional", [False, True], ids=["rnn", "birnn"])
+def test_served_step_at_mode_matches_plain_lstm(cuda, mode, bidirectional):
+    """A full-width RNN and BiRNN served at the mode: their kernel launches
+    at the mode only, and the poses equal the same model with the plain LSTM
+    at the mode (atol 1e-4 at high; 1e-3 at default, about 10x chip_smoke.py's
+    largest served reading, 9.074e-05)."""
+    config = Configuration.from_dict(dict(
+        m_type="rnn", m_bidirectional=bidirectional, m_estimate_shape=bidirectional,
+        m_shape_hidden_size=256, m_average_shape=True, m_hidden_size=512, m_num_layers=2,
+        use_marker_pos=True, use_marker_ori=True, n_markers=6))
+    model = create_model(config, _synthetic_sensor())
+    init_parameters(model, torch.Generator().manual_seed(0)).to(cuda)
+    ref_model = copy.deepcopy(model)
+    ref_model.rnn.lstm_stack = K.lstm_stack_plain
+    ref_model.rnn.lstm_bidi = K.lstm_bidi_plain
+    rng = np.random.RandomState(0)
+    streams, chunk = 32, 16
+    pos = (rng.randn(streams, chunk, 36) * 0.3).astype(np.float32)
+    ori = (rng.randn(streams, chunk, 108) * 0.3).astype(np.float32)
+    served = MultiStreamPredictor(model, streams, chunk)
+    ref = MultiStreamPredictor(ref_model, streams, chunk)
+    for p in (served, ref):
+        for s in range(streams):
+            p.push(s, pos[s], ori[s])
+    K.MODE_LAUNCHES.clear()
+    with precision_scope(mode):
+        got = served.step()
+        want = ref.step()
+    kernel = "lstm_bidi" if bidirectional else "lstm_stack"
+    assert K.MODE_LAUNCHES == {(kernel, mode): 2 if bidirectional else 1}
+    for s in want:
+        for k in want[s]:
+            np.testing.assert_allclose(got[s][k], want[s][k],
+                                       atol=ATOL if mode == "high" else 1e-3)

@@ -10,12 +10,13 @@ from empose_tpu_torch.ops import cuda_build
 
 
 def test_stack_source_includes_common_header():
-    """The stack kernel's library depends on its source and the shared
-    device helpers; the sources that keep their own copies depend on
-    themselves alone."""
-    files = [os.path.basename(f) for f in cuda_build.source_files("lstm_stack")]
-    assert files == ["lstm_stack.cu", "lstm_common.cuh"]
-    for name in ("lstm_bidi", "lstm_train", "lbs"):
+    """The stack and bidirectional kernels' libraries depend on their source
+    and the shared device helpers; the sources that keep their own copies
+    depend on themselves alone."""
+    for name in ("lstm_stack", "lstm_bidi"):
+        files = [os.path.basename(f) for f in cuda_build.source_files(name)]
+        assert files == [f"{name}.cu", "lstm_common.cuh"]
+    for name in ("lstm_train", "lbs"):
         assert [os.path.basename(f) for f in cuda_build.source_files(name)] == [f"{name}.cu"]
 
 

@@ -147,8 +147,6 @@ def test_cli_refusals(experiments):
     write_experiment(experiments, "9300", variant_config("resnet", 6), seed=1)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         cli.main(["--model_id", "9300", "--device", "cpu", "--suppression_length", "0.5"])
-    with pytest.raises(ValueError, match="ROADMAP"):
-        cli.main(["--model_id", "9300", "--device", "cpu", "--precision", "default"])
     with pytest.raises(FileNotFoundError, match="experiment"):
         cli.main(["--model_id", "9399", "--device", "cpu"])
 

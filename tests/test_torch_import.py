@@ -67,9 +67,18 @@ def test_resolve_device():
             resolve_device()
         with pytest.raises(RuntimeError, match="CUDA"):
             resolve_device("cuda")
-    with pytest.raises(ValueError, match="ROADMAP"):
-        set_precision("default")
-    set_precision("highest")
+    from empose_tpu_torch.nn.layers import nn_precision
+    from empose_tpu_torch.nn.models import fk_precision
+    try:
+        set_precision("default")  # the bf16 serving mode binds both knobs, TF32 stays off
+        assert (nn_precision(), fk_precision()) == ("default", "default")
+        assert torch.backends.cuda.matmul.allow_tf32 is False
+        assert torch.backends.cudnn.allow_tf32 is False
+        with pytest.raises(ValueError, match="unknown precision"):
+            set_precision("bf16")
+    finally:
+        set_precision("highest")
+    assert (nn_precision(), fk_precision()) == ("highest", "highest")
     assert torch.backends.cuda.matmul.allow_tf32 is False
     assert torch.backends.cudnn.allow_tf32 is False
 

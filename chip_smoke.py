@@ -7,8 +7,11 @@ Phases, each printed on its own line:
   1. the card's name and power limit (nvidia-smi);
   2. build of the CUDA kernels from empose_tpu_torch/csrc, one nvcc per
      source, all at once, with their register reports (the LBS kernel, the
-     8 instantiations of the training pair, the 2 of the bidirectional
-     layer kernel and the 3 of the stack kernel must not spill);
+     20 instantiations of the training pair (U = 1, 2, 4, 8 at highest, U =
+     2, 4, 8 at high and default, per sweep), the 6 of the bidirectional
+     layer kernel and the 9 of the stack kernel must not spill);
+     ``cuobjdump -sass``: HMMA in every high and default instantiation of
+     the stack, bidi and training kernels and in no highest one;
   3. the LSTM stack kernel and its wavefront schedule against their plain
      torch versions on the card, each with its launch plan, 0-length,
      partial and full rows and non-zero state, 0-length rows frozen bit for
@@ -74,6 +77,15 @@ Phases, each printed on its own line:
      the bf16 tensor-core rate (3 passes at high); the bench tool at each
      mode; cuBLAS's bf16 product with an f32 output (the products outside
      the kernels) against an fp32 GEMM of the same bf16 values;
+  4f. the training pair at high and default at phase 4's shapes (F, N) =
+     (64, 16), (256, 64), (64, 100) (timed), (33, 7), (1, 1), (3, 1300) at
+     H=512 and (64, 32) at H=1024: both sweeps against their plain versions
+     at the mode (TOL_PAIR_MODE; at high also closer to them than to the
+     plain versions at highest), their launch plans, launches counted under
+     the mode, 0-length rows frozen (state) and zero (dgates) bit for bit, a
+     second launch and a CUDA-graph replay bit for bit; times beside the
+     plain versions, cuDNN's LSTM in bf16 (training forward; backward incl.
+     dW and dx) and the bound at the bf16 tensor-core rate;
   5. the serving main path: full-width LGD-RNN-6 with seeded random weights
      written as a model.pth, served to 64 streams x 4 chunks of 16 frames
      through MultiStreamPredictor.from_experiment (with one reset, one flush
@@ -132,14 +144,25 @@ Phases, each printed on its own line:
      then the eval CLI at --precision default for both: the same launches
      at the mode, the table's shift from highest (TOL_EVAL_MODE), the
      batched pass's wall time and frames/s;
+  6g. (run right after 6b) training at the modes: LGD-RNN-6 (4 steps) and
+     BiRNN-6 (2 steps) through ``python -m empose_tpu_torch.train``'s main
+     at ``--matmul_precision high`` and at ``--bf16`` from the seed of the
+     highest runs: the training sweeps launch once per direction-layer and
+     step at the mode, the inference kernel of the final passes at the
+     mode, and nothing else; the loss after the steps beside the highest
+     run's; one step against the same step with the plain pair at the mode
+     (TOL_STEP_MODE); the step's p50, device ops and busy share;
   7. a "kernels" JSON line (a row per kernel, and per kernel and mode,
      "<kernel>@high" and "<kernel>@default"); 8. a last JSON line with the
      device.
 
-    python3 chip_smoke.py --step-rounding [N_SEEDS, default 4]
+    python3 chip_smoke.py --step-rounding [N_SEEDS, default 4] [MODE] [MODEL]
 
-reads how far fp32 rounding alone moves a full-width LGD-RNN-6 train step
-(``step_rounding_study``), at many trained states, beside the kernel pair.
+reads how far rounding alone moves a full-width LGD-RNN-6 (MODEL ``lgd``,
+the default) or BiRNN-6 (``birnn``) train step at MODE (default
+``highest``; ``high``, ``default``) (``step_rounding_study``), at many
+trained states, beside the kernel pair: it sets TOL_GRAD_LGD and
+TOL_STEP_MODE.
 
     python3 chip_smoke.py --step-probe
 
@@ -151,9 +174,9 @@ step is made of beyond its grid barriers.
     python3 chip_smoke.py --mode-rounding [N_SEEDS, default 8]
 
 reads how far each kernel at high and default lies from its plain version
-at the same mode over seeds at every shape of phase 4e, and at high its gap
-to the plain version at highest (``mode_rounding_study``); the readings set
-TOL_MODE.
+at the same mode over seeds at every shape of phases 4e and 4f, and at high
+its gap to the plain version at highest (``mode_rounding_study``); the
+readings set TOL_MODE and TOL_PAIR_MODE.
 
     PYTHONPATH=TREE python3 -P chip_smoke.py --time-pair
 
@@ -200,7 +223,7 @@ from empose_tpu_torch.device import set_precision
 from empose_tpu_torch.eval import cli as eval_cli
 from empose_tpu_torch.eval import harness as EH
 from empose_tpu_torch.eval.harness import export_visualization
-from empose_tpu_torch.nn.layers import _reverse_by_length, init_parameters
+from empose_tpu_torch.nn.layers import _reverse_by_length, init_parameters, nn_precision
 from empose_tpu_torch.nn.models import SensorSMPL, create_model
 from empose_tpu_torch.ops import cuda_build
 from empose_tpu_torch.ops import lstm_kernel as K
@@ -266,6 +289,39 @@ TOL_MODE = {"high": TOL_HIGH, "default": TOL_DEFAULT}
 # (7.986e-05).
 TOL_SERVE_MODE = {"high": 1e-6, "default": 5e-4}
 TOL_EVAL_MODE = 1e-3
+# The training pair at the modes against its plain version at the same
+# mode, the largest max abs error over max abs value of a sweep's outputs
+# (as TOL_REL), from ``--mode-rounding`` (8 seeds over the 7 shapes of
+# phase 4f, seed 0 theirs, on an H100): about twice the largest readings,
+# 1.355e-06 at HIGH (reverse sweep, F=1 N=1) and 1.170e-04 at DEFAULT
+# (forward sweep, F=256 N=64). At K = 4H = 2048 the reverse sweep's f32
+# sums in another order come near HIGH's own distance from highest (its
+# smallest gap on this measure, 5.791e-07, lies under the largest reading),
+# so the check that HIGH lies closer to its plain version than to the
+# plain version at highest compares the largest max abs errors of a
+# sweep's outputs, as mode_check does.
+TOL_PAIR_MODE = {"high": 3e-6, "default": 3e-4}
+# A whole train step at the modes, kernel pair vs plain pair at the mode
+# (``--step-rounding 2 MODE MODEL``, 7 states each on an H100): the loss
+# (relative), the (Bi)RNN's gradients (max abs error over max abs value
+# per tensor) and every gradient (max abs error over the largest gradient),
+# per model and mode, at 2-4x the largest readings: LGD-RNN-6 high loss
+# 6.61e-07, RNN 5.61e-05, all 6.35e-04 (TOL_GRAD_LGD); default 2.48e-04,
+# 2.13e-02, 2.02e-02 (the fp64-rounded forward moves it 1.29e-02, the
+# plain pair run to run 3.46e-03); BiRNN-6 high 0, 8.55e-07, 1.24e-07;
+# default 8.21e-07, 4.31e-04, 2.99e-04.
+TOL_STEP_MODE = {
+    ("lgd", "high"): dict(loss=1e-5, rnn=2e-4, grad=TOL_GRAD_LGD),
+    ("lgd", "default"): dict(loss=1e-3, rnn=5e-2, grad=5e-2),
+    ("birnn", "high"): dict(loss=1e-5, rnn=1e-4, grad=TOL_GRAD_REL),
+    ("birnn", "default"): dict(loss=1e-5, rnn=1e-3, grad=1e-3),
+}
+# Steps of each training run at a mode (phase 6g), compared with the
+# highest run's loss at the same step.
+MODE_TRAIN_STEPS = {"LGD-RNN-6": 4, "BiRNN-6": 2}
+# The keys of a row of the `kernels` line besides name, route, source,
+# replaces and launches.
+KERNEL_KEYS = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
 
 # The released LGD-RNN-6 architecture (bench.py:115-126).
 LGD_RNN_6 = dict(
@@ -915,14 +971,14 @@ def digest(tensors) -> str:
 
 
 def time_pair() -> int:
-    """``python3 chip_smoke.py --time-pair``: both training sweeps' median
-    times at PAIR_TIMED on phase 4's inputs, the bidirectional layer's
+    """``python3 chip_smoke.py --time-pair``: both training sweeps' times at
+    PAIR_TIMED on phase 4's inputs, the bidirectional layer's
     (``lstm_bidi_fused``) at BIDI_TIMED on phase 4b's, and the stack's and
     its wavefront schedule's at STACK_TIMED (2x512) and of the stack at one
-    layer of 1024 (16, 64) on phase 3's, all at highest; each inference
-    kernel's wrapper timed three ways (an event pair around one call; the
-    device alone, ``graph_ms``; the host alone, ``host_us``) and with a
-    digest of its outputs (equal digests: the same bits), and nothing else. It
+    layer of 1024 (16, 64) on phase 3's, all at highest; each wrapper timed
+    three ways (an event pair around one call; the device alone,
+    ``graph_ms``; the host alone, ``host_us``) and with a digest of its
+    outputs (equal digests: the same bits), and nothing else. It
     times the package that ``import empose_tpu_torch`` finds:
     ``PYTHONPATH=TREE python3 -P chip_smoke.py --time-pair`` (``-P``: not the
     script's own directory) times the source tree TREE, so runs of two trees
@@ -932,24 +988,35 @@ def time_pair() -> int:
     if not print_card():
         return 2
     print(f"package: {os.path.dirname(TK.__file__)}", flush=True)
-    cuda_build.build([TK.NAME, K.BIDI_NAME, K.NAME], force=True)
+    logs = cuda_build.build([TK.NAME, K.BIDI_NAME, K.NAME], force=True, verbose=True)
+    # The training pair's highest instantiations: registers, and a digest
+    # of their SASS (equal digests: the same instructions).
+    regs = {fn: lines for fn, lines in ptxas_report(logs[TK.NAME]).items() if "lstm_train" in fn}
+    for (kernel, units, _, mode), ins in sorted(sass_functions(TK.NAME).items()):
+        if mode == "highest":
+            reg = next((l for fn, ls in regs.items()
+                        if re.search(rf"{kernel}ILi{units}E(?:Li0E)?E", fn)
+                        for l in ls if "registers" in l), "")
+            print(f"highest {kernel} U={units}: {reg}; {len(ins)} instructions, SASS digest "
+                  f"{hashlib.sha256(chr(10).join(ins).encode()).hexdigest()[:16]}", flush=True)
     out = {}
-    for f, n in PAIR_TIMED:
-        g = torch.Generator().manual_seed(SEED + f + n)
-        x_proj, mask, w_hh, h0, c0, _, dh_all, dc_all = pair_inputs(g, f, n)
-        gates, _, c_all = TK.lstm_train_fwd_plain(x_proj, mask, w_hh, h0, c0)
-        c_prev = torch.cat([c0[None], c_all[:-1]])
-        row = {"fwd_ms": cuda_ms(lambda: TK.lstm_train_fwd(x_proj, mask, w_hh, h0, c0)),
-               "bwd_ms": cuda_ms(lambda: TK.lstm_train_bwd(dh_all, dc_all, gates, c_prev, mask,
-                                                          w_hh))}
-        print(f"training pair times F={f} N={n}: {row}", flush=True)
-        out[f"{f}x{n}"] = row
+
     def timings(key: str, fn) -> dict:
         # The event pair around one call (host and device), the device
         # alone (graph replays) and the host alone (calls issued back to back).
         return {f"{key}_ms": cuda_ms(fn), f"{key}_graph_ms": graph_ms(fn),
                 f"{key}_host_us": host_us(fn), f"{key}_digest": digest(fn())}
 
+    for f, n in PAIR_TIMED:
+        g = torch.Generator().manual_seed(SEED + f + n)
+        x_proj, mask, w_hh, h0, c0, _, dh_all, dc_all = pair_inputs(g, f, n)
+        gates, _, c_all = TK.lstm_train_fwd_plain(x_proj, mask, w_hh, h0, c0)
+        c_prev = torch.cat([c0[None], c_all[:-1]])
+        row = timings("fwd", lambda: TK.lstm_train_fwd(x_proj, mask, w_hh, h0, c0))
+        row.update(timings("bwd", lambda: TK.lstm_train_bwd(dh_all, dc_all, gates, c_prev, mask,
+                                                           w_hh)))
+        print(f"training pair times F={f} N={n}: {row}", flush=True)
+        out[f"{f}x{n}"] = row
     for f, n in BIDI_TIMED:
         args = bidi_inputs(f, n, seed=SEED + f + n + 1)[-1]
         out[f"bidi {f}x{n}"] = timings("bidi", lambda: K.lstm_bidi_fused(*args))
@@ -1373,12 +1440,36 @@ def training_path(label: str, model_cfg: dict, experiment_id: str, steps: int,
             eval_kernel: first[eval_kernel] + second[eval_kernel]}
 
 
-def fwd_in_fp64(x_proj, mask, w_hh, h0, c0, save_gates: bool = True):
+def fwd_in_fp64(x_proj, mask, w_hh, h0, c0, save_gates: bool = True,
+                precision: str = "highest", w_parts=None):
     """The plain forward sweep computed in fp64 and rounded to fp32: an
-    equally valid fp32 result, rounded elsewhere than either sweep."""
-    out = TK.lstm_train_fwd_plain(x_proj.double(), mask.double(), w_hh.double(), h0.double(),
-                                  c0.double(), save_gates)
-    return tuple(t.float() for t in out)
+    equally valid fp32 result, rounded elsewhere than either sweep. At high
+    and default the step's product takes bf16 operands as the sweeps do
+    (the fp64 h rounded or split, W_hh's form), exact in fp64, with fp64
+    sums."""
+    from empose_tpu_torch.ops.precision import bf16_parts
+
+    if precision == "highest":
+        out = TK.lstm_train_fwd_plain(x_proj.double(), mask.double(), w_hh.double(),
+                                      h0.double(), c0.double(), save_gates)
+        return tuple(t.float() for t in out)
+    w = [p.double() for p in (w_parts or bf16_parts(w_hh, precision))]
+    h, c = h0.double(), c0.double()
+    gates_all, hs, cs = [], [], []
+    for t in range(x_proj.shape[0]):
+        a = [p.double() for p in bf16_parts(h, precision)]
+        rec = a[0] @ w[0] if precision == "default" else a[0] @ w[0] + a[1] @ w[0] + a[0] @ w[1]
+        gates = x_proj[t].double() + rec
+        i, f, g, o = gates.chunk(4, dim=-1)
+        c_new = torch.sigmoid(f) * c + torch.sigmoid(i) * torch.tanh(g)
+        h_new = torch.sigmoid(o) * torch.tanh(c_new)
+        m = mask[t][:, None] > 0
+        h, c = torch.where(m, h_new, h), torch.where(m, c_new, c)
+        gates_all.append(gates)
+        hs.append(h)
+        cs.append(c)
+    out = (torch.stack(gates_all) if save_gates else None, torch.stack(hs), torch.stack(cs))
+    return tuple(None if t is None else t.float() for t in out)
 
 
 def step_errors(trainer, host_batch) -> dict:
@@ -1433,13 +1524,15 @@ def step_errors(trainer, host_batch) -> dict:
                 fp64=worst(grads_d, grads_p), noise=worst(grads_p2, grads_p))
 
 
-def training_step_vs_plain(label: str, trainer, per_step: int, grad_tol: float) -> None:
+def training_step_vs_plain(label: str, trainer, per_step: int, grad_tol: float,
+                           loss_tol: float = 1e-5, rnn_tol: float = TOL_REL) -> None:
     """One step from the same state and batch with the kernel pair and with
-    the plain pair on the card (``step_errors``): the loss and the init RNN's
-    gradients against the plain pair; every parameter gradient within
-    ``grad_tol`` of the largest gradient against the plain pair, and against
-    the mixed step, which holds the reverse sweep where the forward values
-    are the same bits."""
+    the plain pair on the card (``step_errors``), at the precision knobs'
+    mode: the loss (within ``loss_tol``, relative) and the (Bi)RNN's
+    gradients (``rnn_tol``) against the plain pair; every parameter
+    gradient within ``grad_tol`` of the largest gradient against the plain
+    pair, and against the mixed step, which holds the reverse sweep where
+    the forward values are the same bits."""
     loader = EMRBatchLoader(os.path.join(os.environ["EM_DATA_SYNTH"], "amass_emr"), TRAIN_BATCH,
                             TRAIN_WINDOW, seed=SEED + 1)
     launches = counts()
@@ -1448,7 +1541,8 @@ def training_step_vs_plain(label: str, trainer, per_step: int, grad_tol: float) 
                            lstm_train_bwd=launches["lstm_train_bwd"] + per_step),
           f"{label}: the kernel steps did not launch the sweeps once per direction-layer")
     (rnn_err, rnn_at), (pair_err, pair_at), (mixed_err, mixed_at) = e["rnn"], e["pair"], e["mixed"]
-    print(f"{label} training step, kernel pair vs plain pair: loss {e['loss_k']:.6f} vs "
+    print(f"{label} training step at {nn_precision()}, kernel pair vs plain pair: loss "
+          f"{e['loss_k']:.6f} vs "
           f"{e['loss_p']:.6f} (rel {e['loss']:.2e}); init-RNN gradients, max abs error / max "
           f"abs value, largest {rnn_err:.2e} ({rnn_at}); all {e['n_grads']} gradients, max abs "
           f"error / the largest gradient ({e['scale']:.3e}): kernel pair vs plain pair "
@@ -1456,31 +1550,39 @@ def training_step_vs_plain(label: str, trainer, per_step: int, grad_tol: float) 
           f"forward vs plain pair {e['fp64'][0]:.2e} ({e['fp64'][1]}); kernel pair vs kernel "
           f"forward + plain reverse sweep {mixed_err:.2e} ({mixed_at}); plain pair against "
           f"itself, run to run, {e['noise'][0]:.2e}", flush=True)
-    check(e["loss"] <= 1e-5, f"train loss differs from the plain pair: {e['loss']}")
-    check(rnn_err <= TOL_REL, f"gradient {rnn_at} differs from the plain pair: "
-                              f"{rnn_err} > {TOL_REL}")
+    check(e["loss"] <= loss_tol, f"train loss differs from the plain pair: {e['loss']} > "
+                                 f"{loss_tol}")
+    check(rnn_err <= rnn_tol, f"gradient {rnn_at} differs from the plain pair: "
+                              f"{rnn_err} > {rnn_tol}")
     check(pair_err <= grad_tol, f"gradient {pair_at} differs from the plain pair: "
                                 f"{pair_err} > {grad_tol}")
     check(mixed_err <= grad_tol, f"gradient {mixed_at} differs from the step with the plain "
                                  f"reverse sweep: {mixed_err} > {grad_tol}")
 
 
-def step_rounding_study(seeds=range(4), reads: int = 3, steps_between: int = 6) -> int:
-    """``python3 chip_smoke.py --step-rounding [N_SEEDS]``: the readings that set
-    TOL_GRAD_LGD. ``step_errors`` of full-width LGD-RNN-6 at many states:
-    12 steps trained through the CLI (the smoke run checks 8 + 4), then for
-    each seed the seeded initial weights and the states ``steps_between``,
-    2 * ``steps_between``, ... train steps on. One line per state, then a
-    JSON summary of the largest readings."""
+def step_rounding_study(seeds=range(4), reads: int = 3, steps_between: int = 6,
+                        mode: str = "highest", model: str = "lgd") -> int:
+    """``python3 chip_smoke.py --step-rounding [N_SEEDS [MODE [MODEL]]]``:
+    the readings that set TOL_GRAD_LGD (highest, LGD-RNN-6) and
+    TOL_STEP_MODE (high and default; ``lgd`` for LGD-RNN-6, ``birnn`` for
+    BiRNN-6). ``step_errors`` at ``mode`` at many states: 12 steps trained
+    through the CLI at the mode (the smoke run checks 8 + 4), then for each
+    seed the seeded initial weights and the states ``steps_between``, 2 *
+    ``steps_between``, ... train steps on. One line per state, then a JSON
+    summary of the largest readings."""
     if not print_card():
         return 2
     set_precision("highest")
     cuda_build.build([TK.NAME], force=True)
+    cfg, experiment_id = (LGD_RNN_6, "900002") if model == "lgd" else (BIRNN_6, "900004")
+    flags = [] if mode == "highest" else ["--matmul_precision", mode]
     rows = []
     with tempfile.TemporaryDirectory(dir=cuda_build.BUILD_DIR) as root:
         write_assets(root, np.random.RandomState(SEED))
         emr_dir = os.path.join(os.environ["EM_DATA_SYNTH"], "amass_emr")
-        _, trainer = train_cli.main(train_flags(LGD_RNN_6, "900002", TRAIN_STEPS + RESUME_STEPS))
+        _, trainer = train_cli.main(train_flags(cfg, experiment_id, TRAIN_STEPS + RESUME_STEPS)
+                                    + flags)
+        check(nn_precision() == mode, f"the trainer did not bind the knobs to {mode}")
         host_batch = next(iter(EMRBatchLoader(emr_dir, TRAIN_BATCH, TRAIN_WINDOW, seed=SEED + 1)))
 
         def train_batches():
@@ -1489,11 +1591,14 @@ def step_rounding_study(seeds=range(4), reads: int = 3, steps_between: int = 6) 
 
         def read(state: str) -> None:
             e = step_errors(trainer, host_batch)
-            rows.append(dict(state=state, **{k: e[k][0] for k in ("pair", "fp64", "mixed", "noise")}))
-            print(f"step rounding, {state}: kernel pair vs plain pair {e['pair'][0]:.3e} "
-                  f"({e['pair'][1]}); fp64-rounded plain forward vs plain pair {e['fp64'][0]:.3e} "
-                  f"({e['fp64'][1]}); kernel pair vs mixed step {e['mixed'][0]:.3e}; plain pair "
-                  f"run to run {e['noise'][0]:.3e}; loss rel {e['loss']:.2e}", flush=True)
+            rows.append(dict(state=state, loss=e["loss"], rnn=e["rnn"][0],
+                             **{k: e[k][0] for k in ("pair", "fp64", "mixed", "noise")}))
+            print(f"step rounding {model} at {mode}, {state}: kernel pair vs plain pair "
+                  f"{e['pair'][0]:.3e} ({e['pair'][1]}); fp64-rounded plain forward vs plain pair "
+                  f"{e['fp64'][0]:.3e} ({e['fp64'][1]}); kernel pair vs mixed step "
+                  f"{e['mixed'][0]:.3e}; plain pair run to run {e['noise'][0]:.3e}; loss rel "
+                  f"{e['loss']:.2e}; (Bi)RNN gradients {e['rnn'][0]:.3e} ({e['rnn'][1]})",
+                  flush=True)
 
         read(f"CLI-trained, {TRAIN_STEPS + RESUME_STEPS} steps")
         batches = train_batches()
@@ -1504,9 +1609,10 @@ def step_rounding_study(seeds=range(4), reads: int = 3, steps_between: int = 6) 
                 for _ in range(steps_between if r else 0):
                     trainer.train_step(next(batches))
                 read(f"seed {seed}, {r * steps_between} steps from init")
+    set_precision("highest")
     print(json.dumps({"step_rounding": {k: max(r[k] for r in rows)
-                                        for k in ("pair", "fp64", "mixed", "noise")},
-                      "states": len(rows)}), flush=True)
+                                        for k in ("pair", "fp64", "mixed", "noise", "loss", "rnn")},
+                      "states": len(rows), "mode": mode, "model": model}), flush=True)
     return 0
 
 
@@ -1534,6 +1640,51 @@ def training_times(label: str, trainer) -> None:
           f"(min {min(times):.3f}, max {max(times):.3f}, {len(times)} steps), "
           f"{frames / p50 * 1e3:.1f} frames/s", flush=True)
     profile_window(f"{label} training", step, 3)
+
+
+def training_mode_path(label: str, model_cfg: dict, model: str, experiment_id: str, mode: str,
+                       flags: list, per_step: int, eval_kernel: str, eval_per_forward: int,
+                       base_losses: dict) -> dict:
+    """Train MODE_TRAIN_STEPS[label] steps through the CLI's main with
+    ``flags`` (``--matmul_precision high`` or ``--bf16``, both knobs then at
+    ``mode``) from the seed of the highest run: each training sweep
+    launches ``per_step`` times per step and the inference kernel
+    ``eval_kernel`` ``eval_per_forward`` times per forward of the final
+    passes, all at the mode, and no other kernel; the loss after the steps
+    beside the highest run's (``base_losses``; the shift is what the mode
+    costs, no limit); one step against the same step with the plain pair at
+    the mode (TOL_STEP_MODE); the step's p50, device ops and busy share.
+    Returns the launches of that run by kernel."""
+    steps = MODE_TRAIN_STEPS[label]
+    torch.cuda.synchronize()
+    reset_counts()
+    model_dir, trainer = train_cli.main(train_flags(model_cfg, experiment_id, steps) + flags)
+    torch.cuda.synchronize()
+    launched, by_mode = counts(), dict(K.MODE_LAUNCHES)
+    losses = train_losses(model_dir)
+    evals = eval_per_forward * final_eval_forwards()
+    shift = losses.get(steps, float("nan")) - base_losses[steps]
+    print(f"{label} training at {mode} ({' '.join(flags)}): {steps} steps, launches {launched}, "
+          f"by mode {by_mode}; losses by step { {k: round(v, 6) for k, v in sorted(losses.items())} }"
+          f"; loss after {steps} steps {losses.get(steps, float('nan')):.6f} against "
+          f"{base_losses[steps]:.6f} at highest (shift {shift:+.3e}, relative "
+          f"{shift / abs(base_losses[steps]):+.3e})", flush=True)
+    check(nn_precision() == mode, f"{label}: the trainer ran at {nn_precision()}, not {mode}")
+    check(trainer.global_step == steps and sorted(losses) == list(range(1, steps + 1))
+          and all(np.isfinite(v) for v in losses.values()),
+          f"{label} at {mode}: the run did not take {steps} steps with finite losses")
+    want = {("lstm_train_fwd", mode): per_step * steps, ("lstm_train_bwd", mode): per_step * steps,
+            (eval_kernel, mode): evals}
+    check(launched == expected(lstm_train_fwd=per_step * steps, lstm_train_bwd=per_step * steps,
+                               **{eval_kernel: evals}) and by_mode == want,
+          f"{label} at {mode}: expected the launches {want} and no other kernel, got {launched}, "
+          f"{by_mode}")
+    tol = TOL_STEP_MODE[(model, mode)]
+    training_step_vs_plain(label, trainer, per_step, tol["grad"], tol["loss"], tol["rnn"])
+    training_times(f"{label} at {mode}", trainer)
+    set_precision("highest")
+    return {"lstm_train_fwd": launched["lstm_train_fwd"],
+            "lstm_train_bwd": launched["lstm_train_bwd"], eval_kernel: launched[eval_kernel]}
 
 
 def smpl_layer_path(rng) -> tuple:
@@ -2020,6 +2171,160 @@ def bidi_mode_phase(f: int, n: int, mode: str, seed: int, h: int = HIDDEN,
                 library_ms=library_ms)
 
 
+def pair_mode_bounds(f: int, n: int, mode: str, h: int = HIDDEN) -> dict:
+    """Least times of the two sweeps at ``mode``: each sweep's product
+    2*F*N*H*4H on the bf16 tensor cores (3 passes at high), and its bytes
+    as ``pair_bounds`` counts them with W_hh in its bf16 form."""
+    h4, parts = 4 * h, 2 if mode == "high" else 1
+    flops = 2.0 * f * n * h * h4
+    weights = 2.0 * parts * h * h4
+    fwd_bytes = 4.0 * (f * n * h4 + f * n + 2 * n * h + f * n * h4 + 2 * f * n * h) + weights
+    bwd_bytes = 4.0 * (3 * f * n * h + f * n * h4 + f * n + f * n * h4 + 2 * n * h) + weights
+    return {"fwd": mode_bound_ms(flops, fwd_bytes, mode), "bwd": mode_bound_ms(flops, bwd_bytes, mode)}
+
+
+def pair_mode_errors(f: int, n: int, mode: str, seed: int, h: int = HIDDEN) -> dict:
+    """Both sweeps at ``mode`` on phase 4's inputs against their plain
+    versions at the mode (and, at high, at highest): the largest max abs
+    error over max abs value of each sweep's outputs, and the operands."""
+    g = torch.Generator().manual_seed(seed)
+    x_proj, mask, w_hh, h0, c0, lengths, dh_all, dc_all = pair_inputs(g, f, n, h)
+    fwd_args = (x_proj, mask, w_hh, h0, c0, True)
+    got = TK.lstm_train_fwd(*fwd_args, mode)
+    want = TK.lstm_train_fwd_plain(*fwd_args, mode)
+    c_prev = torch.cat([c0[None], want[2][:-1]])
+    bwd_args = (dh_all, dc_all, want[0], c_prev, mask, w_hh)
+    got_b = TK.lstm_train_bwd(*bwd_args, mode)
+    want_b = TK.lstm_train_bwd_plain(*bwd_args, mode)
+    worst = lambda a, b: max(rel_err(x, y) for x, y in zip(a, b))
+    out = dict(fwd=worst(got, want), bwd=worst(got_b, want_b), fwd_abs=max_err(got, want),
+               bwd_abs=max_err(got_b, want_b), got=got, want=want, got_b=got_b, want_b=want_b,
+               fwd_args=fwd_args, bwd_args=bwd_args, lengths=lengths)
+    if mode == "high":
+        hi, hi_b = (TK.lstm_train_fwd_plain(*fwd_args, "highest"),
+                    TK.lstm_train_bwd_plain(*bwd_args, "highest"))
+        out.update(fwd_gap=worst(got, hi), bwd_gap=worst(got_b, hi_b),
+                   fwd_abs_gap=max_err(got, hi), bwd_abs_gap=max_err(got_b, hi_b))
+    return out
+
+
+def pair_mode_phase(f: int, n: int, mode: str, seed: int, timed: bool, h: int = HIDDEN) -> dict:
+    """Both training sweeps at ``mode`` against their plain versions at the
+    mode (``pair_mode_errors``; TOL_PAIR_MODE, at high also closer to them
+    than to the plain versions at highest), with their launch plans: one
+    launch per call counted under the mode, 0-length rows frozen (state)
+    and zero (dgates) bit for bit, a second launch and a CUDA-graph replay
+    of each sweep bit for bit; when ``timed``, median times beside the
+    plain versions at the mode and cuDNN's LSTM in bf16 (training forward;
+    backward incl. dW and dx: a yardstick), and the bound at the bf16
+    tensor-core rate."""
+    shape = f"F={f} N={n}" + ("" if h == HIDDEN else f" H={h}")
+    for name, plan in (("forward", TK.lstm_train_fwd_plan), ("reverse", TK.lstm_train_bwd_plan)):
+        print(f"mode {mode} {name} sweep launch plan {shape}: "
+              f"{plan(n, h, precision=mode)._asdict()}", flush=True)
+    before = dict(K.MODE_LAUNCHES)
+    e = pair_mode_errors(f, n, mode, seed, h)
+    fwd_args, bwd_args = e["fwd_args"], e["bwd_args"]
+    again = TK.lstm_train_fwd(*fwd_args, mode)
+    again_b = TK.lstm_train_bwd(*bwd_args, mode)
+    launched = {k: K.MODE_LAUNCHES.get((k, mode), 0) - before.get((k, mode), 0)
+                for k in ("lstm_train_fwd", "lstm_train_bwd")}
+    torch.cuda.synchronize()
+    got, got_b, want, want_b = e["got"], e["got_b"], e["want"], e["want_b"]
+    idle = e["lengths"].cuda() == 0
+    h0, c0 = fwd_args[3], fwd_args[4]
+    frozen = bool((got[1][:, idle] == h0[idle]).all() and (got[2][:, idle] == c0[idle]).all()
+                  and (got_b[0][:, idle] == 0).all())
+    repeat = (all(torch.equal(a, b) for a, b in zip(got, again)),
+              all(torch.equal(a, b) for a, b in zip(got_b, again_b)))
+    abs_err = {"fwd": e["fwd_abs"], "bwd": e["bwd_abs"]}
+    replay = (graph_replays(lambda *a: TK.lstm_train_fwd(*a, mode), list(fwd_args),
+                            {0: torch.randn_like(fwd_args[0]) * 0.5,
+                             3: torch.randn_like(h0) * 0.5}),
+              graph_replays(lambda *a: TK.lstm_train_bwd(*a, mode), list(bwd_args),
+                            {0: torch.randn_like(bwd_args[0]), 2: bwd_args[2] * 0.5}))
+    tol = TOL_PAIR_MODE[mode]
+    gap = "" if mode != "high" else (f" (vs them at highest {e['fwd_gap']:.3e}, "
+                                     f"{e['bwd_gap']:.3e})")
+    print(f"mode {mode} training pair {shape}: max abs error / max abs value vs the plain "
+          f"sweeps at {mode}: forward {e['fwd']:.3e}, reverse {e['bwd']:.3e}{gap} (tolerance "
+          f"{tol:g}); max abs error {abs_err['fwd']:.3e}, {abs_err['bwd']:.3e}"
+          + ("" if mode != "high" else f" (vs them at highest {e['fwd_abs_gap']:.3e}, "
+                                       f"{e['bwd_abs_gap']:.3e})")
+          + f"; 0-length rows "
+          f"({int(idle.sum())}) frozen / zero bit for bit: {frozen}; second launch bit for bit: "
+          f"{repeat}; CUDA-graph replay bit for bit: {replay}; launches {launched} for 2 calls "
+          f"each (before the replays)", flush=True)
+    for sweep in ("fwd", "bwd"):
+        check(e[sweep] <= tol, f"training {sweep} sweep at {mode} disagrees with its plain version "
+                               f"at {shape}: {e[sweep]} > {tol}")
+        check(mode != "high" or e[f"{sweep}_abs"] < e[f"{sweep}_abs_gap"],
+              f"training {sweep} sweep at high lies no closer to its plain version at high than "
+              f"at highest at {shape}")
+    check(launched == {"lstm_train_fwd": 2, "lstm_train_bwd": 2},
+          f"training pair at {mode} {shape}: launches {launched} for 2 calls of each sweep")
+    check(frozen, f"training pair at {mode} changed 0-length rows at {shape}")
+    check(all(repeat), f"two training sweeps at {mode} on the same inputs differ at {shape}")
+    check(all(replay), f"training pair at {mode}: a CUDA-graph replay differs at {shape}")
+    rows = {k: dict(max_abs_err=abs_err[k]) for k in ("fwd", "bwd")}
+    if not timed:
+        return rows
+    lstm = torch.nn.LSTM(h, h, 1).cuda()
+    with torch.no_grad():
+        lstm.weight_hh_l0.copy_(fwd_args[2].t())
+    lstm = lstm.bfloat16()
+    g = torch.Generator().manual_seed(seed + 1)
+    x = torch.randn(f, n, h, generator=g).cuda().bfloat16().requires_grad_()
+    state = (h0[None].bfloat16(), c0[None].bfloat16())
+    out_lib, _ = lstm(x, state)
+    grad_lib = torch.ones_like(out_lib)
+    lib_params = [x, *lstm.parameters()]
+    reps = 7 if f > 64 else 15
+    times = {
+        "fwd": cuda_ms(lambda: TK.lstm_train_fwd(*fwd_args, mode)),
+        "bwd": cuda_ms(lambda: TK.lstm_train_bwd(*bwd_args, mode)),
+        "fwd_plain": cuda_ms(lambda: TK.lstm_train_fwd_plain(*fwd_args, mode), reps=reps),
+        "bwd_plain": cuda_ms(lambda: TK.lstm_train_bwd_plain(*bwd_args, mode), reps=reps),
+        "fwd_lib": cuda_ms(lambda: lstm(x, state)),
+        "bwd_lib": cuda_ms(lambda: torch.autograd.grad(out_lib, lib_params, grad_lib,
+                                                       retain_graph=True)),
+    }
+    bounds = pair_mode_bounds(f, n, mode, h)
+    for k, name in (("fwd", "forward"), ("bwd", "reverse")):
+        rows[k].update(ms=times[k], plain_ms=times[f"{k}_plain"], bound_ms=bounds[k][0],
+                       bound_by=bounds[k][1], library_ms=times[f"{k}_lib"],
+                       us_per_step=times[k] * 1e3 / f)
+        print(f"mode {mode} training pair times {shape}: {name} kernel {times[k]:.4f} ms "
+              f"({times[k] * 1e3 / f:.2f} us per step), plain at {mode} "
+              f"{times[f'{k}_plain']:.4f} ms, cuDNN in bf16 {times[f'{k}_lib']:.4f} ms, bound "
+              f"{bounds[k][0]:.4f} ms by {bounds[k][1]} (bf16 tensor cores)", flush=True)
+    return rows
+
+
+def pair_seed(f: int, n: int, h: int, seed: int = 0) -> int:
+    """The seed of the pair's mode phase at (F, N, H) (seed 0), and of the
+    other seeds of ``--mode-rounding``."""
+    return 1000 * seed + SEED + f + n + (h != HIDDEN) * 1024
+
+
+PAIR_MODE_SHAPES = (*((f, n, HIDDEN) for f, n in (*PAIR_TIMED, (33, 7), (1, 1), (3, 1300))),
+                    (TRAIN_WINDOW, 32, 2 * HIDDEN))
+
+
+def pair_modes() -> dict:
+    """The training pair at each mode (``pair_mode_phase``) at every shape
+    of phase 4, timed at PAIR_TIMED. Returns the flagship (64, 16) rows per
+    mode."""
+    rows = {}
+    for mode in MODES:
+        for f, n, h in PAIR_MODE_SHAPES:
+            row = pair_mode_phase(f, n, mode, seed=pair_seed(f, n, h),
+                                  timed=(f, n) in PAIR_TIMED and h == HIDDEN, h=h)
+            if (f, n, h) == (TRAIN_WINDOW, TRAIN_BATCH, HIDDEN):
+                rows[mode] = row
+    return rows
+
+
 def bf16_product_check() -> None:
     """The bf16 products outside the kernels (``ops/precision.mm_bf16``:
     cuBLAS's bf16 GEMM with an f32 output) at a layer-0 projection's shape,
@@ -2060,23 +2365,34 @@ def kernel_modes() -> dict:
     return rows
 
 
-def hmma_counts(name: str) -> dict:
-    """HMMA instructions per kernel instantiation of a built library
-    (``cuobjdump -sass``), by (U, [wavefront,] mode)."""
+def sass_functions(name: str) -> dict:
+    """The SASS of each LSTM kernel instantiation of a built library
+    (``cuobjdump -sass``) by (kernel, U, wavefront, mode), each a list of
+    instructions without addresses and with the kernel parameters'
+    constant-bank offsets masked (a tree whose kernels lack the mode
+    argument: highest)."""
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     sass = subprocess.run([tool, "-sass", cuda_build.library_path(name)], capture_output=True,
                           text=True, check=True).stdout
-    counts, fn = {}, None
+    funcs, fn = {}, None
     for line in sass.splitlines():
         if "Function :" in line:
-            m = re.search(r"kernelILi(\d)E(?:Lb(\d)E)?Li(\d)EE", line)
-            fn = None if m is None else (int(m.group(1)), m.group(2) == "1",
-                                         {0: "highest", 1: "high", 2: "default"}[int(m.group(3))])
+            m = re.search(r"(lstm_[a-z_]+?_kernel)ILi(\d)E(?:Lb(\d)E)?(?:Li(\d)E)?E", line)
+            fn = None if m is None else (m.group(1), int(m.group(2)), m.group(3) == "1",
+                                         ("highest", "high", "default")[int(m.group(4) or 0)])
             if fn is not None:
-                counts[fn] = 0
-        elif fn is not None and "HMMA" in line:
-            counts[fn] += 1
-    return counts
+                funcs[fn] = []
+        elif fn is not None:
+            ins = re.sub(r"/\*[^*]*\*/", "", line).strip().rstrip(";").strip()
+            if ins:
+                funcs[fn].append(re.sub(r"c\[0x0\]\[0x[0-9a-f]+\]", "c[0x0][param]", ins))
+    return funcs
+
+
+def hmma_counts(name: str) -> dict:
+    """HMMA instructions per kernel instantiation of a built library, by
+    (kernel, U, wavefront, mode)."""
+    return {k: sum("HMMA" in ins for ins in v) for k, v in sass_functions(name).items()}
 
 
 def served_joints(sensor: SensorSMPL, out: dict) -> torch.Tensor:
@@ -2201,11 +2517,12 @@ def eval_mode_path(label: str, model_id: str, kernel: str, window, base: dict,
 
 
 def mode_cases():
-    """Every (kind, F, N, H, L) that kernel_modes checks."""
+    """Every (kind, F, N, H, L) that kernel_modes and pair_modes check."""
     return ([("stack", f, n, HIDDEN, LAYERS) for f, n in (*STACK_TIMED, (33, 7), (3, 1300))]
             + [("stack", CHUNK, STREAMS, 2 * HIDDEN, 1)]
             + [("bidi", f, n, HIDDEN, 1) for f, n in BIDI_TIMED]
-            + [("bidi", CHUNK, 32, 2 * HIDDEN, 1), ("bidi", *BIDI_LONG, HIDDEN, 1)])
+            + [("bidi", CHUNK, 32, 2 * HIDDEN, 1), ("bidi", *BIDI_LONG, HIDDEN, 1)]
+            + [("pair", f, n, h, 1) for f, n, h in PAIR_MODE_SHAPES])
 
 
 def mode_rounding_study(seeds=range(8)) -> int:
@@ -2220,9 +2537,25 @@ def mode_rounding_study(seeds=range(8)) -> int:
         return 2
     set_precision("highest")
     for mode in MODES:
-        worst, gap = {}, {}
+        worst, gap, pair_worst, pair_gap, pair_margin = {}, {}, {}, {}, {}
         for seed in seeds:
             for kind, f, n, h, layers in mode_cases():
+                if kind == "pair":
+                    e = pair_mode_errors(f, n, mode, pair_seed(f, n, h, seed), h)
+                    line = f"mode-rounding {mode} seed {seed} training pair F={f} N={n} H={h}:"
+                    for sweep in ("fwd", "bwd"):
+                        key = f"train_{sweep} F={f} N={n} H={h}"
+                        pair_worst[key] = max(pair_worst.get(key, 0.0), e[sweep])
+                        line += f" {sweep} {e[sweep]:.3e}"
+                        if mode == "high":
+                            g = e[f"{sweep}_gap"]
+                            pair_gap[key] = min(pair_gap.get(key, g), g)
+                            margin = e[f"{sweep}_abs_gap"] / max(e[f"{sweep}_abs"], 1e-30)
+                            pair_margin[key] = min(pair_margin.get(key, margin), margin)
+                            line += (f" (gap to highest {g:.3e}; max abs error {e[sweep + '_abs']:.3e}"
+                                     f", to highest {e[sweep + '_abs_gap']:.3e})")
+                    print(line + " (max abs error / max abs value)", flush=True)
+                    continue
                 if kind == "stack":
                     cells, x, mask, h0, c0 = stack_case(f, n, 1000 * seed + f + n, h, layers)
                     ops = K.stack_operands(cells, x, mode)
@@ -2250,6 +2583,14 @@ def mode_rounding_study(seeds=range(8)) -> int:
         if gap:
             print(f"mode-rounding {mode}: smallest gap to highest over {len(seeds)} seeds {gap}; "
                   f"overall {min(gap.values()):.3e}", flush=True)
+        print(f"mode-rounding {mode}: training pair, largest max abs error / max abs value over "
+              f"{len(seeds)} seeds {pair_worst}; overall {max(pair_worst.values()):.3e}",
+              flush=True)
+        if pair_gap:
+            print(f"mode-rounding {mode}: training pair, smallest gap to highest {pair_gap}; "
+                  f"overall {min(pair_gap.values()):.3e}; smallest ratio of the max abs errors "
+                  f"to highest and to high {pair_margin}; overall "
+                  f"{min(pair_margin.values()):.2f}", flush=True)
     return 0
 
 
@@ -2274,8 +2615,9 @@ def main() -> int:
         print(f"build {TK.NAME} {fn}: {'; '.join(lines)}", flush=True)
     spills = [line for lines in pair.values() for line in lines
               if "spill" in line and "0 bytes spill stores, 0 bytes spill loads" not in line]
-    check(len(pair) == 8 and not spills, f"the training pair's instantiations {sorted(pair)} "
-                                         f"do not all build without spills: {spills}")
+    # U = 1, 2, 4, 8 at highest; U = 2, 4, 8 at high and default: 10 per sweep.
+    check(len(pair) == 20 and not spills, f"the training pair's instantiations {sorted(pair)} "
+                                          f"do not all build without spills: {spills}")
     bidi_fns = {fn: lines for fn, lines in ptxas_report(logs[K.BIDI_NAME]).items()
                 if "lstm_bidi_kernel" in fn}
     for fn, lines in sorted(bidi_fns.items()):
@@ -2297,12 +2639,12 @@ def main() -> int:
     print(f"build: nvcc {time.perf_counter() - t0:.2f} s for {len(logs)} sources in parallel",
           flush=True)
     # The tensor cores: HMMA in every HIGH and DEFAULT instantiation of the
-    # stack and bidi kernels, in none of the HIGHEST ones.
-    for name in (K.NAME, K.BIDI_NAME):
+    # stack, bidi and training kernels, in none of the HIGHEST ones.
+    for name, n_fns in ((K.NAME, 9), (K.BIDI_NAME, 6), (TK.NAME, 20)):
         hmma = hmma_counts(name)
-        print(f"build {name}: HMMA instructions per instantiation (U, [wavefront,] mode) "
+        print(f"build {name}: HMMA instructions per instantiation (kernel, U, wavefront, mode) "
               f"{ {k: v for k, v in sorted(hmma.items())} }", flush=True)
-        check(len(hmma) == (9 if name == K.NAME else 6)
+        check(len(hmma) == n_fns
               and all((v > 0) == (k[-1] != "highest") for k, v in hmma.items()),
               f"{name}: HMMA not in exactly the high and default instantiations: {hmma}")
 
@@ -2349,8 +2691,9 @@ def main() -> int:
     # and the bench tool at each mode.
     bf16_product_check()
     modes = kernel_modes()
-    mode_launches = {(k, m): 0 for k in ("lstm_stack", "lstm_wavefront", "lstm_bidi")
-                     for m in MODES}
+    pair_rows = pair_modes()
+    mode_launches = {(k, m): 0 for k in ("lstm_stack", "lstm_wavefront", "lstm_bidi",
+                                         "lstm_train_fwd", "lstm_train_bwd") for m in MODES}
     for mode in MODES:
         mode_launches[("lstm_wavefront", mode)] = bench_path(mode)
 
@@ -2425,6 +2768,7 @@ def main() -> int:
         training_times("LGD-RNN-6", trained["trainer"])
         trained_fwd, trained_bwd = trained["fwd"], trained["bwd"]
         launches += trained["lstm_stack"]
+        lgd_losses = train_losses(trained["model_dir"])
         del trained
 
         per_step = 2 * BIRNN_6["m_num_layers"]
@@ -2434,7 +2778,23 @@ def main() -> int:
         training_step_vs_plain("BiRNN-6", birnn["trainer"], per_step, TOL_GRAD_REL)
         training_times("BiRNN-6", birnn["trainer"])
         bidi_launches += birnn["lstm_bidi"]
+        birnn_losses = train_losses(birnn["model_dir"])
         del birnn
+
+        # Training at the modes: `--matmul_precision high` and `--bf16`
+        # (default), from the seed of the highest runs above.
+        for mode, flags, ids in (("high", ["--matmul_precision", "high"], ("900012", "900014")),
+                                 ("default", ["--bf16"], ("900013", "900015"))):
+            for label, cfg, model, experiment_id, per, kernel, per_forward, base in (
+                    ("LGD-RNN-6", LGD_RNN_6, "lgd", ids[0], n_layers, "lstm_stack",
+                     stack_forward_launches(LAYERS, HIDDEN, mode), lgd_losses),
+                    ("BiRNN-6", BIRNN_6, "birnn", ids[1], per_step, "lstm_bidi",
+                     BIRNN_6["m_num_layers"] * bidi_layer_launches(1, HIDDEN, mode),
+                     birnn_losses)):
+                run = training_mode_path(label, cfg, model, experiment_id, mode, flags, per,
+                                         kernel, per_forward, base)
+                for k, v in run.items():
+                    mode_launches[(k, mode)] += v
 
         # Real-data evaluation: LGD-RNN-6 in windows of 256 frames (the
         # stack kernel), BiRNN-6 over whole sequences (the bidirectional
@@ -2477,17 +2837,25 @@ def main() -> int:
              replaces="empose_tpu/ops/lstm_kernel.py:377", launches=wavefront_launches,
              **stack[(CHUNK, STREAMS)]["wavefront"]),
     ]
-    # A row per (kernel, mode): the (16, 64) readings of the mode phases.
+    # A row per (kernel, mode): the (16, 64) readings of the mode phases,
+    # the training pair's at (64, 16).
     for mode in MODES:
         for kernel, source, replaces, row in (
-                ("lstm_stack", "lstm_stack.cu", 150, modes[mode]["stack"]["lstm_stack"]),
-                ("lstm_wavefront", "lstm_stack.cu", 377, modes[mode]["stack"]["lstm_wavefront"]),
-                ("lstm_bidi", "lstm_bidi.cu", 589, modes[mode]["bidi"])):
+                ("lstm_stack", "lstm_stack.cu", "lstm_kernel.py:150",
+                 modes[mode]["stack"]["lstm_stack"]),
+                ("lstm_wavefront", "lstm_stack.cu", "lstm_kernel.py:377",
+                 modes[mode]["stack"]["lstm_wavefront"]),
+                ("lstm_bidi", "lstm_bidi.cu", "lstm_kernel.py:589", modes[mode]["bidi"]),
+                ("lstm_train_fwd", "lstm_train.cu", "lstm_train_kernel.py:136",
+                 pair_rows[mode]["fwd"]),
+                ("lstm_train_bwd", "lstm_train.cu", "lstm_train_kernel.py:244",
+                 pair_rows[mode]["bwd"])):
             check(mode_launches[(kernel, mode)] > 0, f"{kernel} never launched at {mode}")
             kernels.append(dict(name=f"{kernel}@{mode}", route="cuda",
                                 source=f"empose_tpu_torch/csrc/{source}",
-                                replaces=f"empose_tpu/ops/lstm_kernel.py:{replaces}",
-                                launches=mode_launches[(kernel, mode)], **row))
+                                replaces=f"empose_tpu/ops/{replaces}",
+                                launches=mode_launches[(kernel, mode)],
+                                **{k: v for k, v in row.items() if k in KERNEL_KEYS}))
     print(f"total {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
@@ -2498,7 +2866,9 @@ def main() -> int:
 
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--step-rounding"]:
-        sys.exit(step_rounding_study(seeds=range(int(sys.argv[2]) if sys.argv[2:] else 4)))
+        sys.exit(step_rounding_study(seeds=range(int(sys.argv[2]) if sys.argv[2:] else 4),
+                                     mode=sys.argv[3] if sys.argv[3:] else "highest",
+                                     model=sys.argv[4] if sys.argv[4:] else "lgd"))
     if sys.argv[1:2] == ["--step-probe"]:
         sys.exit(step_probe())
     if sys.argv[1:2] == ["--time-pair"]:

@@ -92,7 +92,7 @@ namespace cg = cooperative_groups;
 namespace {
 
 using lstm::component;
-using lstm::cp_async16;
+using lstm::cp_async;
 using lstm::cp_async_commit;
 using lstm::cp_async_wait_upto;
 using lstm::kDefault;
@@ -432,7 +432,7 @@ __device__ __forceinline__ void fp32_body(const float* __restrict__ x_proj,
       const int cr = min(kPassRows, N - r0);
       float* dst = h_s + (size_t)(c % slots) * kPassRows * H;
       const float* src = h_prev + (size_t)r0 * H;
-      for (int i = 4 * tid; i < cr * H; i += 4 * kThreads) cp_async16(dst + i, src + i);
+      for (int i = 4 * tid; i < cr * H; i += 4 * kThreads) cp_async<16>(dst + i, src + i);
       cp_async_commit();
     };
     for (int c = 0; c < first; ++c) issue(c);

@@ -1,10 +1,10 @@
-// Device helpers of the LSTM inference kernels: 16-byte cp.async staging
-// through L2, the fixed-order warp reduce-scatter of a register tile's
-// partial sums, and the bf16 tensor-core pieces of the HIGH and DEFAULT
-// precision modes (bf16 hi/lo split, ldmatrix, mma.sync m16n8k16).
+// Device helpers of the LSTM kernels: cp.async staging, the fixed-order
+// warp reduce-scatter of a register tile's partial sums, and the bf16
+// tensor-core pieces of the HIGH and DEFAULT precision modes (bf16 hi/lo
+// split, ldmatrix, mma.sync m16n8k16).
 //
-// Included by lstm_stack.cu and lstm_bidi.cu.  lstm_train.cu still carries
-// its own copies of the fp32 helpers.
+// Included by lstm_stack.cu, lstm_bidi.cu and lstm_train.cu; none of them
+// keeps a copy of a helper here.
 
 #pragma once
 
@@ -34,12 +34,18 @@ __device__ __forceinline__ float component(const float4& v, int q) {
   return q == 0 ? v.x : q == 1 ? v.y : q == 2 ? v.z : v.w;
 }
 
-// A 16-byte copy from device memory into shared memory through L2 (.cg: never
-// a stale L1 line, so rows written by other blocks before a grid barrier are
-// read as written).  Both addresses on a 16-byte boundary.
-__device__ __forceinline__ void cp_async16(float* dst, const float* src) {
+// A kBytes (4, 8 or 16) copy from device memory into shared memory, both
+// addresses on a kBytes boundary.  16 bytes go through L2 (.cg: never a
+// stale L1 line, so rows written by other blocks before a grid barrier are
+// read as written); fewer (.ca, the only form for them) only for data no
+// block writes during the launch.
+template <int kBytes>
+__device__ __forceinline__ void cp_async(float* dst, const float* src) {
   const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d), "l"(src));
+  if constexpr (kBytes == 16)
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d), "l"(src));
+  else
+    asm volatile("cp.async.ca.shared.global [%0], [%1], %2;\n" ::"r"(d), "l"(src), "n"(kBytes));
 }
 __device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
 template <int kPending>
@@ -105,13 +111,13 @@ constexpr int kMmaRows = 16;
 __host__ __device__ constexpr int kpad16(int H) { return (H + 15) / 16 * 16; }
 
 // Bytes of a block's resident columns of one matrix (uint2 B fragments,
-// `parts` planes) and of one staged bf16 plane of a chunk (row stride Kp + 8:
-// ldmatrix's eight row addresses fall in distinct banks).
+// `parts` planes) and of one staged bf16 plane of a chunk of K columns (row
+// stride Kp + 8: ldmatrix's eight row addresses fall in distinct banks).
 __host__ __device__ constexpr size_t mma_matrix_bytes(int U, int H, int parts) {
   return (size_t)parts * 8 * U * kpad16(H);
 }
-__host__ __device__ constexpr size_t mma_plane_bytes(int H) {
-  return (size_t)kMmaRows * (kpad16(H) + 8) * 2;
+__host__ __device__ constexpr size_t mma_plane_bytes(int K) {
+  return (size_t)kMmaRows * (kpad16(K) + 8) * 2;
 }
 __host__ __device__ constexpr size_t mma_partial_bytes(int U) {
   return (size_t)kMmaWarps * kMmaRows * 4 * U * 4;
@@ -169,20 +175,22 @@ __device__ void stage_b_fragments(uint2* dst, const unsigned short* w_hi,
   }
 }
 
-// Rows r0 .. r0 + 15 of the f32 state src (N rows of H, read through L2:
-// other blocks wrote them before the grid barrier) as bf16 planes of row
-// stride Kp + 8: hi at dst, lo at dst + lo_off at HIGH; rows past N and
-// columns past H zero.  Threads ttid of nthreads, 4 columns each.
+// Rows r0 .. r0 + 15 of an f32 matrix src (N rows, row stride ld floats,
+// read through L2: other blocks wrote them before the grid barrier), its
+// columns 0 .. K - 1 (K % 4 == 0, src and ld on a 16-byte boundary), as bf16
+// planes of row stride Kp + 8 (Kp = kpad16(K)): hi at dst, lo at dst +
+// lo_off at HIGH; rows past N and columns past K zero.  Threads ttid of
+// nthreads, 4 columns each.
 template <int P>
-__device__ __forceinline__ void stage_rows_bf16(__nv_bfloat16* dst, size_t lo_off,
-                                                const float* src, int r0, int N, int H,
-                                                int ttid, int nthreads) {
-  const int Kp = kpad16(H), C4 = Kp / 4, stride = Kp + 8;
+__device__ __forceinline__ void stage_cols_bf16(__nv_bfloat16* dst, size_t lo_off,
+                                                const float* src, size_t ld, int r0, int N,
+                                                int K, int ttid, int nthreads) {
+  const int Kp = kpad16(K), C4 = Kp / 4, stride = Kp + 8;
   for (int e = ttid; e < kMmaRows * C4; e += nthreads) {
     const int r = e / C4, c = e % C4 * 4;
     float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (r0 + r < N && c < H)
-      v = __ldcg(reinterpret_cast<const float4*>(src + (size_t)(r0 + r) * H + c));
+    if (r0 + r < N && c < K)
+      v = __ldcg(reinterpret_cast<const float4*>(src + (size_t)(r0 + r) * ld + c));
     uint2 hi, lo;
     split_bf16x2(v.x, v.y, hi.x, lo.x);
     split_bf16x2(v.z, v.w, hi.y, lo.y);
@@ -191,16 +199,26 @@ __device__ __forceinline__ void stage_rows_bf16(__nv_bfloat16* dst, size_t lo_of
   }
 }
 
-// acc[nt] += the staged chunk (planes a, a + lo_off) times the resident
-// fragments b of one matrix, over this warp's k-steps.  HIGH adds ah*bh,
-// al*bh, ah*bl per k-step (al*bl dropped, as in JAX's dot3).
-template <int U, int P>
-__device__ __forceinline__ void mma_rows(float (&acc)[U / 2][4], const __nv_bfloat16* a,
-                                         size_t lo_off, const uint2* b, int H, int warp,
-                                         int lane) {
-  constexpr int NT = U / 2;
-  const int KS = kpad16(H) / 16;
-  const __nv_bfloat16* row = a + (size_t)(lane % 16) * (kpad16(H) + 8) + (lane / 16) * 8;
+// Rows r0 .. r0 + 15 of the f32 state src (N rows of H) as bf16 planes
+// (stage_cols_bf16 over all H columns).
+template <int P>
+__device__ __forceinline__ void stage_rows_bf16(__nv_bfloat16* dst, size_t lo_off,
+                                                const float* src, int r0, int N, int H,
+                                                int ttid, int nthreads) {
+  stage_cols_bf16<P>(dst, lo_off, src, H, r0, N, H, ttid, nthreads);
+}
+
+// acc[nt] += a staged chunk of K columns (planes a, a + lo_off; row stride
+// kpad16(K) + 8) times NT n-tiles of resident B fragments b (k-step ks,
+// n-tile nt at (ks NT + nt) 32 + lane; the lo parts b_lo uint2 further on
+// at HIGH), over this warp's k-steps warp, warp + kMmaWarps, ...  HIGH adds
+// ah*bh, al*bh, ah*bl per k-step (al*bl dropped, as in JAX's dot3).
+template <int NT, int P>
+__device__ __forceinline__ void mma_tile(float (&acc)[NT][4], const __nv_bfloat16* a,
+                                         size_t lo_off, int K, const uint2* b, size_t b_lo,
+                                         int warp, int lane) {
+  const int KS = kpad16(K) / 16;
+  const __nv_bfloat16* row = a + (size_t)(lane % 16) * (kpad16(K) + 8) + (lane / 16) * 8;
   for (int ks = warp; ks < KS; ks += kMmaWarps) {
     unsigned ah[4], al[4];
     ldmatrix_x4(ah, row + ks * 16);
@@ -211,10 +229,19 @@ __device__ __forceinline__ void mma_rows(float (&acc)[U / 2][4], const __nv_bflo
       mma_bf16(acc[nt], ah, bh);
       if constexpr (P == kHigh) {
         mma_bf16(acc[nt], al, bh);
-        mma_bf16(acc[nt], ah, b[((KS + ks) * NT + nt) * 32 + lane]);
+        mma_bf16(acc[nt], ah, b[b_lo + (ks * NT + nt) * 32 + lane]);
       }
     }
   }
+}
+
+// acc[nt] += the staged chunk of a state (H columns) times the resident
+// columns b of one matrix (stage_b_fragments).
+template <int U, int P>
+__device__ __forceinline__ void mma_rows(float (&acc)[U / 2][4], const __nv_bfloat16* a,
+                                         size_t lo_off, const uint2* b, int H, int warp,
+                                         int lane) {
+  mma_tile<U / 2, P>(acc, a, lo_off, H, b, (size_t)kpad16(H) / 16 * (U / 2) * 32, warp, lane);
 }
 
 // The warp's partial tile into part[warp][16][4U] (f32): lane l holds rows

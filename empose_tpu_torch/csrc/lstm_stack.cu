@@ -112,7 +112,7 @@ namespace cg = cooperative_groups;
 namespace {
 
 using lstm::component;
-using lstm::cp_async16;
+using lstm::cp_async;
 using lstm::cp_async_commit;
 using lstm::cp_async_wait_upto;
 using lstm::kDefault;
@@ -397,7 +397,7 @@ __device__ __forceinline__ void fp32_body(const StackArgs& a, float* smem) {
             (tau < 0 ? a.h0 + k * NH : a.hbuf + ((size_t)((tau + 1) & 1) * L + k) * NH) +
             (size_t)r0 * H;
         float* dst = h_s + ((size_t)o * stage_rows + (size_t)(c % slots) * kPassRows) * H;
-        for (int e = 4 * ttid; e < cr * H; e += 4 * kTeamThreads) cp_async16(dst + e, src + e);
+        for (int e = 4 * ttid; e < cr * H; e += 4 * kTeamThreads) cp_async<16>(dst + e, src + e);
       }
       cp_async_commit();
     };

@@ -107,9 +107,45 @@
 // the carry.  No atomics, so two launches on the same inputs give the same
 // bits.
 //
-// fp32 FMAs on the CUDA cores (the fp32 parity mode).  Reads of buffers
-// written by other blocks before the last grid barrier (h_all[t-1],
-// dgates[t]) go through L2 (cp.async.cg), never through a stale L1.
+// That is the HIGHEST instance of each sweep (template argument P =
+// kHighest, lstm_common.cuh): fp32 FMAs on the CUDA cores (the fp32 parity
+// mode).  Reads of buffers written by other blocks before the last grid
+// barrier (h_all[t-1], dgates[t]) go through L2 (cp.async.cg, __ldcg), never
+// through a stale L1.
+//
+// HIGH and DEFAULT (P = kHigh, kDefault): the step's product runs on the
+// tensor cores, mma.sync m16n8k16 bf16 with f32 sums, with W_hh rounded to
+// bf16 (DEFAULT) or split into a bf16 hi/lo pair (HIGH) once by the wrapper,
+// as JAX splits it outside its kernels; at HIGH each product is ah*bh +
+// al*bh + ah*bl (JAX's dot3).  The gate nonlinearities, the cell, the frozen
+// steps and every output stay f32, as at HIGHEST.  The grid is HIGHEST's,
+// with U >= 2 (an n8 tile holds two units' four gates).  Simple first:
+//   * Forward: the design of the inference kernels' mode bodies
+//     (csrc/lstm_bidi.cu, one direction).  The block's 4U gate columns of
+//     W_hh stay resident as B fragments (a unit's gates in one lane quad);
+//     each 16-row chunk of h_all[t-1] goes straight from L2 into bf16 planes
+//     (rows past N zero; no f32 staging, so H=1024 fits at HIGH: 128 KB of
+//     hi/lo columns, 66 KB of planes), the 8 warps multiply over disjoint
+//     k-steps, the partial tiles meet in shared memory and one thread per
+//     (row, unit, gate) sums them in warp order, then runs the HIGHEST
+//     epilogue.
+//   * Reverse: dh += dgates[t] (N x 4H) @ W_hh[j0:j0+U, :]^T, with K = 4H and
+//     only U outputs per row.  The A operand is 16 rows of dgates[t] as bf16
+//     planes (k contiguous, so ldmatrix reads them as the forward reads h),
+//     and the B operand is one n8 tile whose column n is W_hh's row j0 + n
+//     (n < U; zero beyond): the pairs (k, k + 1) a B fragment holds lie next
+//     to each other in that row, and the N x U result is half of one tile at
+//     U=4.  With W's rows as A instead, M = U would pad to 16 (3/4 of each
+//     tile wasted at U=4) and dgates would need a transposed fragment load.
+//     A chunk of dgates[t] (16 x 2048 f32 at H=512: 131 KB, 132 KB as two
+//     bf16 planes) does not fit beside the hi/lo rows at every H, so it is
+//     staged in k-slices of k_cols columns (the plan's: all 4H where they
+//     fit, as at H=512; three slices at H=1024 HIGH), each warp keeping its
+//     tile across the slices.  Phase (A) is HIGHEST's with the step
+//     operands read from device memory and the carries in the block's
+//     columns of dh0, dc0, so the shared memory does not grow with N.
+// No atomics at any mode: two launches on the same inputs give the same
+// bits.
 // The grid must be co-resident for the barrier: lstm_train_prepare sets the
 // kernels' shared memory and checks their occupancy once per device, the
 // wrapper keeps the grid within the SMs, and the C entries only launch
@@ -118,9 +154,25 @@
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
+#include "lstm_common.cuh"
+
 namespace cg = cooperative_groups;
 
 namespace {
+
+using lstm::component;
+using lstm::cp_async;
+using lstm::cp_async_commit;
+using lstm::cp_async_wait;
+using lstm::cp_async_wait_upto;
+using lstm::kDefault;
+using lstm::kHigh;
+using lstm::kHighest;
+using lstm::kMmaRows;
+using lstm::kParts;
+using lstm::round32;
+using lstm::sigmoid_f;
+using lstm::warp_reduce_scatter;
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
@@ -132,48 +184,7 @@ constexpr int kErrGridTooLarge = -1;
 constexpr int kErrNoCooperative = -3;
 constexpr int kErrBadShape = -4;
 
-__device__ __forceinline__ float sigmoid_f(float x) { return 1.0f / (1.0f + expf(-x)); }
-
-__device__ __forceinline__ float component(const float4& v, int q) {
-  return q == 0 ? v.x : q == 1 ? v.y : q == 2 ? v.z : v.w;
-}
-
 __host__ __device__ constexpr size_t round4(size_t x) { return (x + 3) / 4 * 4; }
-__host__ __device__ constexpr size_t round32(size_t x) { return (x + 31) / 32 * 32; }
-
-__device__ __forceinline__ unsigned smem_u32(const void* p) {
-  return static_cast<unsigned>(__cvta_generic_to_shared(p));
-}
-
-template <int kBytes>
-__device__ __forceinline__ void cp_async(float* dst, const float* src) {
-  const unsigned d = smem_u32(dst);
-  if constexpr (kBytes == 16)
-    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d), "l"(src));
-  else
-    asm volatile("cp.async.ca.shared.global [%0], [%1], %2;\n" ::"r"(d), "l"(src), "n"(kBytes));
-}
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-template <int kPending>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(kPending) : "memory");
-}
-
-// Waits until at most `pending` of this thread's newest copy groups are in
-// flight (exactly for up to 7; for more it waits until 7 are, which is safe).
-__device__ __forceinline__ void cp_async_wait_upto(int pending) {
-  switch (pending) {
-    case 0: cp_async_wait<0>(); break;
-    case 1: cp_async_wait<1>(); break;
-    case 2: cp_async_wait<2>(); break;
-    case 3: cp_async_wait<3>(); break;
-    case 4: cp_async_wait<4>(); break;
-    case 5: cp_async_wait<5>(); break;
-    case 6: cp_async_wait<6>(); break;
-    default: cp_async_wait<7>(); break;
-  }
-}
-
 
 // ---------------------------------------------------------------------------
 // Forward sweep.
@@ -190,32 +201,6 @@ constexpr int kRegCols = 4;    // float4 columns per lane whose W_hh lives in re
 // The same formula as ops/lstm_train_kernel.py::fwd_smem_bytes.
 __host__ __device__ constexpr size_t fwd_smem_floats(int U, int H, int stage_rows) {
   return round32((size_t)4 * U * H) + (size_t)stage_rows * H;
-}
-
-// The sums over the warp's 32 lanes of the CNT <= 32 values v[0..CNT-1],
-// scattered over the lanes: each stage at lane offset O hands half of the
-// values a lane still holds to lane ^ O and adds the other half's, so after
-// log2(CNT) stages lane l holds in v[0] the sum of value l / (32 / CNT); the
-// offsets left add whole values.  The same lanes add in the same order every
-// launch.
-template <int CNT, int O>
-__device__ __forceinline__ void warp_reduce_scatter(float* v, int lane) {
-  if constexpr (O > 0) {
-    if constexpr (CNT > 1) {
-      constexpr int kHalf = CNT / 2;
-      const bool up = (lane & O) != 0;
-#pragma unroll
-      for (int i = 0; i < kHalf; ++i) {
-        const float send = up ? v[i] : v[i + kHalf];
-        const float keep = up ? v[i + kHalf] : v[i];
-        v[i] = keep + __shfl_xor_sync(0xffffffffu, send, O);
-      }
-      warp_reduce_scatter<kHalf, O / 2>(v, lane);
-    } else {
-      v[0] += __shfl_xor_sync(0xffffffffu, v[0], O);
-      warp_reduce_scatter<1, O / 2>(v, lane);
-    }
-  }
 }
 
 // What the pieces of a forward step share.
@@ -337,21 +322,17 @@ __device__ __forceinline__ void fwd_piece(const FwdStep& p, const float* rows, i
 // carry c from device memory (c from the block's own columns of c_all[t-1],
 // written by the same lane a step before).
 template <int U>
-__global__ void __launch_bounds__(kThreads, 1)
-lstm_train_fwd_kernel(const float* __restrict__ x_proj,  // (F, N, 4H)
-                      const float* __restrict__ mask,    // (F, N)
-                      const float* __restrict__ w_hh,    // (H, 4H)
-                      const float* __restrict__ h0,      // (N, H)
-                      const float* __restrict__ c0,      // (N, H)
-                      float* __restrict__ gates,         // (F, N, 4H) or null
-                      float* h_all,                      // (F, N, H)
-                      float* c_all,                      // (F, N, H)
-                      int F, int N, int H, int stage_rows) {
+__device__ __forceinline__ void fwd_fp32(const float* __restrict__ x_proj,
+                                         const float* __restrict__ mask,
+                                         const float* __restrict__ w_hh,
+                                         const float* __restrict__ h0,
+                                         const float* __restrict__ c0,
+                                         float* __restrict__ gates, float* h_all, float* c_all,
+                                         int F, int N, int H, int stage_rows, float* smem) {
   constexpr int UP = fwd_pair<U>();
   constexpr int kRowsW = kPassRows * U / UP / kWarps;  // rows of a chunk per warp
   constexpr int kMaxNP = 8 / UP;                        // rows of a piece at most
   static_assert(kWarps % (U / UP) == 0, "whole row groups of warps");
-  extern __shared__ __align__(16) float smem[];
   const int j0 = blockIdx.x * U;
   const size_t NH = (size_t)N * H;
   float* w_s = smem;
@@ -444,6 +425,134 @@ lstm_train_fwd_kernel(const float* __restrict__ x_proj,  // (F, N, 4H)
 
     if (t + 1 < F) grid.sync();  // every block's rows of h_all[t] are written
   }
+}
+
+// Shared memory of the forward sweep at HIGH and DEFAULT (bytes): the B
+// fragments of the block's gate columns of W_hh (`parts` planes), one staged
+// 16-row bf16 chunk of h_all[t-1] (`parts` planes) and the partial tiles.
+// The same formula as ops/lstm_train_kernel.py::fwd_smem_bytes.
+__host__ __device__ constexpr size_t fwd_mma_smem_bytes(int U, int H, int parts) {
+  return lstm::mma_matrix_bytes(U, H, parts) + (size_t)parts * lstm::mma_plane_bytes(H) +
+         lstm::mma_partial_bytes(U);
+}
+
+// The forward sweep at HIGH and DEFAULT (see the head note): step t takes
+// the chunks of h_all[t-1] (h0 at step 0, in place) one at a time; thread
+// (row r, column n = 4u + g) of a chunk reads its step operands before the
+// staging and the product, so that their latency hides behind them, and
+// afterwards sums its gate's partials, adds x_proj and writes its gate; the
+// first of each four writes h and c.
+template <int U, int P>
+__device__ __forceinline__ void fwd_mma(const float* __restrict__ x_proj,
+                                        const float* __restrict__ mask,
+                                        const unsigned short* w_hi, const unsigned short* w_lo,
+                                        const float* __restrict__ h0,
+                                        const float* __restrict__ c0,
+                                        float* __restrict__ gates, float* h_all, float* c_all,
+                                        int F, int N, int H, float* smem) {
+  constexpr int C = 4 * U;                               // the block's gate columns
+  constexpr int kOuts = kMmaRows * C;                    // a chunk's (row, column) outputs
+  constexpr int kEpi = (kOuts + kThreads - 1) / kThreads;  // ... of a thread
+  constexpr int kP = kParts<P>;
+  static_assert(U % 2 == 0 && kOuts % 32 == 0, "whole n8 tiles and whole warps of outputs");
+  const int j0 = blockIdx.x * U;
+  const size_t NH = (size_t)N * H;
+  const size_t plane = lstm::mma_plane_bytes(H) / 2;  // bf16 per plane
+  uint2* w_b = reinterpret_cast<uint2*>(smem);
+  __nv_bfloat16* a_s = reinterpret_cast<__nv_bfloat16*>(
+      reinterpret_cast<char*>(smem) + lstm::mma_matrix_bytes(U, H, kP));
+  float* part = reinterpret_cast<float*>(reinterpret_cast<char*>(a_s) +
+                                         kP * lstm::mma_plane_bytes(H));
+  const int tid = threadIdx.x;
+  const int lane = tid % 32;
+  const int warp = tid / 32;
+  cg::grid_group grid = cg::this_grid();
+
+  lstm::stage_b_fragments<U, P>(w_b, w_hi, w_lo, H, j0, tid, kThreads);
+  __syncthreads();
+
+  const int n_chunks = (N + kMmaRows - 1) / kMmaRows;
+  for (int t = 0; t < F; ++t) {
+    const float* h_prev = t == 0 ? h0 : h_all + (size_t)(t - 1) * NH;
+    const float* c_prev = t == 0 ? c0 : c_all + (size_t)(t - 1) * NH;
+    const float* x_t = x_proj + (size_t)t * N * 4 * H;
+    float* g_t = gates == nullptr ? nullptr : gates + (size_t)t * N * 4 * H;
+    float* h_next = h_all + (size_t)t * NH;
+    float* c_next = c_all + (size_t)t * NH;
+    for (int c = 0; c < n_chunks; ++c) {
+      const int r0 = c * kMmaRows;
+      float x_in[kEpi], m[kEpi], c_old[kEpi], h_old[kEpi];
+#pragma unroll
+      for (int e = 0; e < kEpi; ++e) {
+        const int idx = tid + kThreads * e;
+        const int nn = idx % C, g = nn % 4, n = r0 + idx / C;
+        const size_t o = (size_t)n * H + j0 + nn / 4;
+        x_in[e] = m[e] = c_old[e] = h_old[e] = 0.0f;
+        if (idx < kOuts && n < N) {
+          x_in[e] = __ldg(x_t + (size_t)n * 4 * H + g * H + j0 + nn / 4);
+          if (g == 0) {
+            m[e] = __ldg(mask + (size_t)t * N + n);
+            c_old[e] = c_prev[o];
+            h_old[e] = __ldcg(h_prev + o);
+          }
+        }
+      }
+      lstm::stage_rows_bf16<P>(a_s, plane, h_prev, r0, N, H, tid, kThreads);
+      __syncthreads();  // the chunk's planes are staged, and the partials of the chunk before read
+      float acc[U / 2][4];
+#pragma unroll
+      for (int nt = 0; nt < U / 2; ++nt) acc[nt][0] = acc[nt][1] = acc[nt][2] = acc[nt][3] = 0.f;
+      lstm::mma_rows<U, P>(acc, a_s, plane, w_b, H, warp, lane);
+      lstm::store_partials<U>(part, acc, warp, lane);
+      __syncthreads();  // the partials are there, and every warp is done with the planes
+
+#pragma unroll
+      for (int e = 0; e < kEpi; ++e) {
+        const int idx = tid + kThreads * e;
+        if (idx >= kOuts) break;  // whole warps: kOuts % 32 == 0
+        const int r = idx / C, nn = idx % C, g = nn % 4;
+        const int n = r0 + r;
+        const float pre = lstm::sum_partials<U>(part, r, nn) + x_in[e];
+        const float act = g == 2 ? tanhf(pre) : sigmoid_f(pre);
+        float gate[4];
+#pragma unroll
+        for (int q = 0; q < 4; ++q) gate[q] = __shfl_sync(0xffffffffu, act, (lane & ~3) + q);
+        if (n < N) {
+          if (g_t != nullptr) g_t[(size_t)n * 4 * H + g * H + j0 + nn / 4] = pre;
+          if (g == 0) {
+            const size_t o = (size_t)n * H + j0 + nn / 4;
+            const float c_new = gate[1] * c_old[e] + gate[0] * gate[2];
+            const float h_new = gate[3] * tanhf(c_new);
+            h_next[o] = m[e] > 0.0f ? h_new : h_old[e];
+            c_next[o] = m[e] > 0.0f ? c_new : c_old[e];
+          }
+        }
+      }
+    }
+    if (t + 1 < F) grid.sync();  // every block's rows of h_all[t] are written
+  }
+}
+
+template <int U, int P>
+__global__ void __launch_bounds__(kThreads, 1)
+lstm_train_fwd_kernel(const float* __restrict__ x_proj,  // (F, N, 4H)
+                      const float* __restrict__ mask,    // (F, N)
+                      const void* __restrict__ w_hh,     // (H, 4H): f32 at HIGHEST, else bf16 (hi)
+                      const void* __restrict__ w_lo,     // HIGH: the bf16 lo parts, else null
+                      const float* __restrict__ h0,      // (N, H)
+                      const float* __restrict__ c0,      // (N, H)
+                      float* __restrict__ gates,         // (F, N, 4H) or null
+                      float* h_all,                      // (F, N, H)
+                      float* c_all,                      // (F, N, H)
+                      int F, int N, int H, int stage_rows) {
+  extern __shared__ __align__(16) float smem[];
+  if constexpr (P == kHighest)
+    fwd_fp32<U>(x_proj, mask, static_cast<const float*>(w_hh), h0, c0, gates, h_all, c_all, F, N,
+                H, stage_rows, smem);
+  else
+    fwd_mma<U, P>(x_proj, mask, static_cast<const unsigned short*>(w_hh),
+                  static_cast<const unsigned short*>(w_lo), h0, c0, gates, h_all, c_all, F, N, H,
+                  smem);
 }
 
 // ---------------------------------------------------------------------------
@@ -545,27 +654,173 @@ __device__ __forceinline__ void pass_tile(const float* rows, const float* wt_s, 
   }
 }
 
-// Threads: row group grp = tid / S of `groups`, k-split s = tid % S with S =
-// kThreads / groups (whole warps per group).  A pass covers 4 * groups rows
+// Shared memory of the reverse sweep at HIGH and DEFAULT (bytes): the B
+// fragments of the block's rows of W_hh (one n8 tile per k-step of 4H,
+// `parts` planes), one staged 16-row k-slice of dgates[t] of k_cols columns
+// as bf16 (`parts` planes) and the partial tiles of one n8 tile.  The same
+// formula as ops/lstm_train_kernel.py::bwd_smem_bytes.
+__host__ __device__ constexpr size_t bwd_mma_smem_bytes(int H, int k_cols, int parts) {
+  return (size_t)parts * (H / 4) * 32 * 8 + (size_t)parts * lstm::mma_plane_bytes(k_cols) +
+         lstm::mma_partial_bytes(2);
+}
+
+// The block's rows j0 .. j0 + U - 1 of W (bf16 hi, and lo at HIGH, each
+// (H, 4H) row-major) as the B fragments of one n8 tile per k-step of 4H:
+// uint2 (part H / 4 + ks) 32 + lane holds W[j0 + n][k], W[j0 + n][k + 1] and
+// W[j0 + n][k + 8], W[j0 + n][k + 9] for k = 16 ks + 2 (lane % 4), n = lane
+// / 4 (zero for n >= U).
+template <int P>
+__device__ void stage_bt_fragments(uint2* dst, const unsigned short* w_hi,
+                                   const unsigned short* w_lo, int H, int j0, int U, int tid) {
+  const int per_part = H / 4 * 32;
+  for (int idx = tid; idx < kParts<P> * per_part; idx += kThreads) {
+    const unsigned short* w = idx < per_part ? w_hi : w_lo;
+    const int lane = idx % 32, ks = idx % per_part / 32, n = lane / 4;
+    uint2 v = make_uint2(0u, 0u);
+    if (n < U) {
+      const unsigned short* row = w + (size_t)(j0 + n) * 4 * H + ks * 16 + (lane % 4) * 2;
+      v = make_uint2((unsigned)__ldg(row) | (unsigned)__ldg(row + 1) << 16,
+                     (unsigned)__ldg(row + 8) | (unsigned)__ldg(row + 9) << 16);
+    }
+    dst[idx] = v;
+  }
+}
+
+// The reverse sweep at HIGH and DEFAULT (see the head note).  (A) is the
+// HIGHEST body's with resident = 0: the step operands from device memory, the
+// carries of (row n, unit u) in dh0, dc0 at n H + j0 + u.  (C) takes the
+// 16-row chunks of dgates[t] one at a time, each in k-slices of k_cols
+// columns: the slice's bf16 planes, then the warps' k-steps of it into
+// their tiles; after the last slice the tiles meet in shared memory and one
+// thread per (row, unit) adds their sum, in warp order, to the carry dh.
+template <int U, int P>
+__device__ __forceinline__ void bwd_mma(const float* __restrict__ dh_all,
+                                        const float* __restrict__ dc_all,
+                                        const float* __restrict__ gates,
+                                        const float* __restrict__ c_prev,
+                                        const float* __restrict__ mask,
+                                        const unsigned short* w_hi, const unsigned short* w_lo,
+                                        float* dgates, float* dh0, float* dc0, int F, int N,
+                                        int H, int k_cols, float* smem) {
+  constexpr int kP = kParts<P>;
+  static_assert(U <= 8, "the block's units fit one n8 tile");
+  const int H4 = 4 * H;
+  const int j0 = blockIdx.x * U;
+  const size_t b_part = (size_t)(H / 4) * 32;  // fragments of one part
+  const size_t plane = lstm::mma_plane_bytes(k_cols) / 2;  // bf16 per plane
+  uint2* w_b = reinterpret_cast<uint2*>(smem);
+  __nv_bfloat16* a_s = reinterpret_cast<__nv_bfloat16*>(w_b + kP * b_part);
+  float* part = reinterpret_cast<float*>(reinterpret_cast<char*>(a_s) +
+                                         kP * lstm::mma_plane_bytes(k_cols));
+  float* dh_c = dh0 + j0;
+  float* dc_c = dc0 + j0;
+  const int tid = threadIdx.x;
+  const int lane = tid % 32;
+  const int warp = tid / 32;
+  const int n_chunks = (N + kMmaRows - 1) / kMmaRows;
+  cg::grid_group grid = cg::this_grid();
+
+  stage_bt_fragments<P>(w_b, w_hi, w_lo, H, j0, U, tid);
+  for (int i = tid; i < U * N; i += kThreads) {
+    const size_t c = (size_t)(i / U) * H + i % U;
+    dh_c[c] = dc_c[c] = 0.0f;
+  }
+  __syncthreads();
+
+  for (int t = F - 1; t >= 0; --t) {
+    float* dg_t = dgates + (size_t)t * N * H4;
+
+    // (A) The block's columns of dgates[t] and the carries.
+    for (int idx = tid; idx < N * U; idx += kThreads) {
+      const int n = idx / U;
+      const int u = idx % U;
+      const size_t c = (size_t)n * H + u;
+      const size_t row = (size_t)t * N + n;
+      const float* gp = gates + row * H4 + j0 + u;
+      const float m = __ldg(mask + row);
+      const float dh_in = __ldg(dh_all + row * H + j0 + u);
+      const float dc_in = __ldg(dc_all + row * H + j0 + u);
+      const float cp = __ldg(c_prev + row * H + j0 + u);
+      const float i_g = sigmoid_f(__ldg(gp));
+      const float f_g = sigmoid_f(__ldg(gp + H));
+      const float g_g = tanhf(__ldg(gp + 2 * H));
+      const float o_g = sigmoid_f(__ldg(gp + 3 * H));
+      const float Dh = dh_c[c] + dh_in;
+      const float Dc = dc_c[c] + dc_in;
+      const float c_new = f_g * cp + i_g * g_g;
+      const float tc = tanhf(c_new);
+      const float dh_new = Dh * m;
+      const float dc_new = Dc * m + dh_new * o_g * (1.0f - tc * tc);
+      float* dgp = dg_t + (size_t)n * H4 + j0 + u;
+      dgp[0] = dc_new * g_g * i_g * (1.0f - i_g);
+      dgp[H] = dc_new * cp * f_g * (1.0f - f_g);
+      dgp[2 * H] = dc_new * i_g * (1.0f - g_g * g_g);
+      dgp[3 * H] = dh_new * tc * o_g * (1.0f - o_g);
+      dh_c[c] = Dh * (1.0f - m);
+      dc_c[c] = dc_new * f_g + Dc * (1.0f - m);
+    }
+
+    // (B) Every block's columns of dgates[t] are written.
+    grid.sync();
+
+    // (C) dh += dgates[t] @ W_hh[j0:j0+U, :]^T, a 16-row chunk at a time.
+    for (int ch = 0; ch < n_chunks; ++ch) {
+      const int r0 = ch * kMmaRows;
+      float acc[1][4] = {{0.f, 0.f, 0.f, 0.f}};
+      for (int k0 = 0; k0 < H4; k0 += k_cols) {
+        const int kw = min(k_cols, H4 - k0);
+        lstm::stage_cols_bf16<P>(a_s, plane, dg_t + k0, H4, r0, N, kw, tid, kThreads);
+        __syncthreads();  // the slice's planes are staged
+        lstm::mma_tile<1, P>(acc, a_s, plane, kw, w_b + (size_t)k0 / 16 * 32, b_part,
+                             warp, lane);
+        __syncthreads();  // every warp is done with the planes
+      }
+      lstm::store_partials<2>(part, acc, warp, lane);  // one n8 tile: store_partials' U = 2
+      __syncthreads();
+      if (tid < kMmaRows * U) {
+        const int r = tid / U, u = tid % U;
+        if (r0 + r < N) dh_c[(size_t)(r0 + r) * H + u] += lstm::sum_partials<2>(part, r, u);
+      }
+      __syncthreads();  // the carries are complete, and the partials read
+    }
+  }
+}
+
+// The reverse sweep; its HIGHEST body: threads of row group grp = tid / S
+// of `groups`, k-split s = tid % S with S = kThreads / groups (whole warps
+// per group).  A pass covers 4 * groups rows
 // of a stage; stages of stage_rows rows each (1 stage: all N rows).
 // resident = 1: the step operands are prefetched into shared memory and the
 // carries live there; resident = 0: (A) reads the operands of step t from
 // device memory and the carries live in the block's columns of dh0, dc0 (only
 // this block reads or writes them, ordered by its __syncthreads).
-template <int U>
+template <int U, int P>
 __global__ void __launch_bounds__(kThreads, 1)
 lstm_train_bwd_kernel(const float* __restrict__ dh_all,  // (F, N, H)
                       const float* __restrict__ dc_all,  // (F, N, H)
                       const float* __restrict__ gates,   // (F, N, 4H)
                       const float* __restrict__ c_prev,  // (F, N, H): c before step t
                       const float* __restrict__ mask,    // (F, N)
-                      const float* __restrict__ w_hh,    // (H, 4H)
+                      const float* __restrict__ w_hh,    // (H, 4H): f32 at HIGHEST, else the
+                                                         // bf16 (hi) parts
                       float* dgates,                     // (F, N, 4H)
                       float* dh0,                        // (N, H)
                       float* dc0,                        // (N, H)
                       int F, int N, int H, int groups, int stage_rows, int stages,
-                      int resident) {
+                      int resident,
+                      const void* __restrict__ w_lo,     // HIGH: the bf16 lo parts, else null
+                      int k_cols) {
   extern __shared__ __align__(16) float smem[];
+  if constexpr (P != kHighest) {
+    bwd_mma<U, P>(dh_all, dc_all, gates, c_prev, mask,
+                  reinterpret_cast<const unsigned short*>(w_hh),
+                  static_cast<const unsigned short*>(w_lo), dgates, dh0, dc0, F, N, H, k_cols,
+                  smem);
+    return;
+  }
+  // The HIGHEST body stays in the kernel, with W_hh a float parameter: as a
+  // function taking W_hh through a void pointer it compiles to other SASS
+  // (8 fewer instructions, about 1% slower at F=256 N=64 on an H100).
   const int H4 = 4 * H;
   const int j0 = blockIdx.x * U;
   float* wt_s = smem;
@@ -727,10 +982,23 @@ cudaError_t prepare_kernel(const void* kernel, int max_smem, bool* fits) {
   return err;
 }
 
-template <int U>
+template <int U, int P>
 cudaError_t prepare_units(int max_smem, bool* fits) {
-  cudaError_t err = prepare_kernel((const void*)lstm_train_fwd_kernel<U>, max_smem, fits);
-  if (err == cudaSuccess) err = prepare_kernel((const void*)lstm_train_bwd_kernel<U>, max_smem, fits);
+  cudaError_t err = prepare_kernel((const void*)lstm_train_fwd_kernel<U, P>, max_smem, fits);
+  if (err == cudaSuccess)
+    err = prepare_kernel((const void*)lstm_train_bwd_kernel<U, P>, max_smem, fits);
+  return err;
+}
+
+// U = 1, 2, 4, 8 at HIGHEST; U = 2, 4, 8 at HIGH and DEFAULT (an n8 tile
+// holds two units' gates).
+template <int P>
+cudaError_t prepare_mode(int max_smem, bool* fits) {
+  cudaError_t err = cudaSuccess;
+  if constexpr (P == kHighest) err = prepare_units<1, P>(max_smem, fits);
+  if (err == cudaSuccess) err = prepare_units<2, P>(max_smem, fits);
+  if (err == cudaSuccess) err = prepare_units<4, P>(max_smem, fits);
+  if (err == cudaSuccess) err = prepare_units<8, P>(max_smem, fits);
   return err;
 }
 
@@ -741,28 +1009,77 @@ int launch(const void* kernel, int blocks, size_t smem, void** args, cudaStream_
   return (int)(err != cudaSuccess ? err : last);
 }
 
-template <int U>
-int launch_fwd(const float* x_proj, const float* mask, const float* w_hh, const float* h0,
-               const float* c0, float* gates, float* h_all, float* c_all, int F, int N, int H,
-               int stage_rows, cudaStream_t stream) {
-  void* args[] = {(void*)&x_proj, (void*)&mask,  (void*)&w_hh,  (void*)&h0,
-                  (void*)&c0,     (void*)&gates, (void*)&h_all, (void*)&c_all,
-                  (void*)&F,      (void*)&N,     (void*)&H,     (void*)&stage_rows};
-  const size_t smem = sizeof(float) * fwd_smem_floats(U, H, stage_rows);
-  return launch((const void*)lstm_train_fwd_kernel<U>, H / U, smem, args, stream);
+struct FwdArgs {
+  const float* x_proj;
+  const float* mask;
+  const void* w_hh;
+  const void* w_lo;
+  const float* h0;
+  const float* c0;
+  float* gates;
+  float* h_all;
+  float* c_all;
+  int F, N, H, stage_rows;
+};
+
+template <int U, int P>
+int launch_fwd(FwdArgs a, size_t smem, cudaStream_t stream) {
+  void* args[] = {(void*)&a.x_proj, (void*)&a.mask,  (void*)&a.w_hh,  (void*)&a.w_lo,
+                  (void*)&a.h0,     (void*)&a.c0,    (void*)&a.gates, (void*)&a.h_all,
+                  (void*)&a.c_all,  (void*)&a.F,     (void*)&a.N,     (void*)&a.H,
+                  (void*)&a.stage_rows};
+  return launch((const void*)lstm_train_fwd_kernel<U, P>, a.H / U, smem, args, stream);
 }
 
-template <int U>
-int launch_bwd(const float* dh_all, const float* dc_all, const float* gates, const float* c_prev,
-               const float* mask, const float* w_hh, float* dgates, float* dh0, float* dc0,
-               int F, int N, int H, int groups, int stage_rows, int stages, int resident,
-               cudaStream_t stream) {
-  void* args[] = {(void*)&dh_all, (void*)&dc_all, (void*)&gates,  (void*)&c_prev,
-                  (void*)&mask,   (void*)&w_hh,   (void*)&dgates, (void*)&dh0,
-                  (void*)&dc0,    (void*)&F,      (void*)&N,      (void*)&H,
-                  (void*)&groups, (void*)&stage_rows, (void*)&stages, (void*)&resident};
-  const size_t smem = sizeof(float) * bwd_smem_floats(U, N, H, stages, stage_rows, resident);
-  return launch((const void*)lstm_train_bwd_kernel<U>, H / U, smem, args, stream);
+struct BwdArgs {
+  const float* dh_all;
+  const float* dc_all;
+  const float* gates;
+  const float* c_prev;
+  const float* mask;
+  const void* w_hh;
+  const void* w_lo;
+  float* dgates;
+  float* dh0;
+  float* dc0;
+  int F, N, H, groups, stage_rows, stages, resident, k_cols;
+};
+
+template <int U, int P>
+int launch_bwd(BwdArgs a, size_t smem, cudaStream_t stream) {
+  void* args[] = {(void*)&a.dh_all, (void*)&a.dc_all, (void*)&a.gates,      (void*)&a.c_prev,
+                  (void*)&a.mask,   (void*)&a.w_hh,   (void*)&a.dgates,     (void*)&a.dh0,
+                  (void*)&a.dc0,    (void*)&a.F,      (void*)&a.N,          (void*)&a.H,
+                  (void*)&a.groups, (void*)&a.stage_rows, (void*)&a.stages, (void*)&a.resident,
+                  (void*)&a.w_lo,   (void*)&a.k_cols};
+  return launch((const void*)lstm_train_bwd_kernel<U, P>, a.H / U, smem, args, stream);
+}
+
+// The instance of `units` at mode P (kErrBadShape for U = 1 but at HIGHEST).
+template <int P>
+int forward_at(FwdArgs a, int units, size_t smem, cudaStream_t s) {
+  switch (units) {
+    case 1:
+      if constexpr (P == kHighest) return launch_fwd<1, P>(a, smem, s);
+      return kErrBadShape;
+    case 2: return launch_fwd<2, P>(a, smem, s);
+    case 4: return launch_fwd<4, P>(a, smem, s);
+    case 8: return launch_fwd<8, P>(a, smem, s);
+    default: return kErrBadShape;
+  }
+}
+
+template <int P>
+int backward_at(BwdArgs a, int units, size_t smem, cudaStream_t s) {
+  switch (units) {
+    case 1:
+      if constexpr (P == kHighest) return launch_bwd<1, P>(a, smem, s);
+      return kErrBadShape;
+    case 2: return launch_bwd<2, P>(a, smem, s);
+    case 4: return launch_bwd<4, P>(a, smem, s);
+    case 8: return launch_bwd<8, P>(a, smem, s);
+    default: return kErrBadShape;
+  }
 }
 
 }  // namespace
@@ -771,10 +1088,11 @@ extern "C" {
 
 // Once per device, before the first launch there (and outside any CUDA graph
 // capture): checks that the card launches cooperative grids, lets every
-// instance of both sweeps use the card's opt-in shared memory per block, and
-// checks that an SM holds one block of each with that much.  Writes the SM
-// count and the opt-in limit in bytes to info[0], info[1].  Returns 0, a
-// cudaError_t value, or a negative code above.
+// instance of both sweeps (U = 1, 2, 4, 8 at HIGHEST, U = 2, 4, 8 at HIGH and
+// DEFAULT) use the card's opt-in shared memory per block, and checks that an
+// SM holds one block of each with that much.  Writes the SM count and the
+// opt-in limit in bytes to info[0], info[1].  Returns 0, a cudaError_t
+// value, or a negative code above.
 int lstm_train_prepare(int device, int* info) {
   int prev = 0, coop = 0;
   cudaError_t err = cudaGetDevice(&prev);
@@ -786,10 +1104,9 @@ int lstm_train_prepare(int device, int* info) {
   if (err == cudaSuccess)
     err = cudaDeviceGetAttribute(&info[1], cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
   bool fits = true;
-  if (err == cudaSuccess) err = prepare_units<1>(info[1], &fits);
-  if (err == cudaSuccess) err = prepare_units<2>(info[1], &fits);
-  if (err == cudaSuccess) err = prepare_units<4>(info[1], &fits);
-  if (err == cudaSuccess) err = prepare_units<8>(info[1], &fits);
+  if (err == cudaSuccess) err = prepare_mode<kHighest>(info[1], &fits);
+  if (err == cudaSuccess) err = prepare_mode<kHigh>(info[1], &fits);
+  if (err == cudaSuccess) err = prepare_mode<kDefault>(info[1], &fits);
   cudaSetDevice(prev);
   if (err != cudaSuccess) return (int)err;
   if (!coop) return kErrNoCooperative;
@@ -798,60 +1115,66 @@ int lstm_train_prepare(int device, int* info) {
 
 // Forward sweep over all F steps in one cooperative launch of H / units
 // blocks on `stream`.  gates may be null (the undifferentiated primal).
-// units, stage_rows (N: all rows staged at once; else a multiple of 16 below
-// N, a ring of 16-row slots) and smem_bytes are the launch plan's;
-// smem_bytes must equal the layout's size.  x_proj and h0 start on a 16-byte boundary.  Launches
-// only: lstm_train_prepare must have run on the current device.  Returns 0, a
+// mode (0 HIGHEST, 1 HIGH, 2 DEFAULT): w_hh is f32 at HIGHEST (w_lo null),
+// W_hh rounded to bf16 at DEFAULT, its bf16 hi parts at HIGH with w_lo the
+// lo parts.  units, stage_rows (HIGHEST: N, all rows staged at once, or a
+// multiple of 16 below N, a ring of 16-row slots; else 16, one bf16 chunk)
+// and smem_bytes are the launch plan's; smem_bytes must equal the layout's
+// size.  x_proj and h0 start on a 16-byte boundary.  Launches only:
+// lstm_train_prepare must have run on the current device.  Returns 0, a
 // cudaError_t value, or a negative code above.
-int lstm_train_forward(const float* x_proj, const float* mask, const float* w_hh,
+int lstm_train_forward(const float* x_proj, const float* mask, const void* w_hh,
                        const float* h0, const float* c0, float* gates, float* h_all,
                        float* c_all, int F, int N, int H, int units, int stage_rows,
-                       int smem_bytes, void* stream) {
+                       int smem_bytes, int mode, const void* w_lo, void* stream) {
+  if (mode < kHighest || mode > kDefault || units <= 0) return kErrBadShape;
+  const size_t layout = mode == kHighest ? sizeof(float) * fwd_smem_floats(units, H, stage_rows)
+                                         : fwd_mma_smem_bytes(units, H, mode == kHigh ? 2 : 1);
   if (F <= 0 || N <= 0 || H <= 0 || H % 4 != 0 || H % units != 0 || stage_rows <= 0 ||
-      stage_rows > N || (stage_rows != N && stage_rows % kPassRows != 0) ||
-      (size_t)smem_bytes != sizeof(float) * fwd_smem_floats(units, H, stage_rows))
+      (mode == kHighest &&
+       (stage_rows > N || (stage_rows != N && stage_rows % kPassRows != 0))) ||
+      (mode != kHighest && stage_rows != kMmaRows) || (mode == kHigh && w_lo == nullptr) ||
+      (size_t)smem_bytes != layout)
     return kErrBadShape;
+  const FwdArgs a{x_proj, mask, w_hh, w_lo, h0, c0, gates, h_all, c_all, F, N, H, stage_rows};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define LSTM_TRAIN_FWD(U) \
-  launch_fwd<U>(x_proj, mask, w_hh, h0, c0, gates, h_all, c_all, F, N, H, stage_rows, s)
-  switch (units) {
-    case 1: return LSTM_TRAIN_FWD(1);
-    case 2: return LSTM_TRAIN_FWD(2);
-    case 4: return LSTM_TRAIN_FWD(4);
-    case 8: return LSTM_TRAIN_FWD(8);
-    default: return kErrBadShape;
-  }
-#undef LSTM_TRAIN_FWD
+  if (mode == kHigh) return forward_at<kHigh>(a, units, layout, s);
+  if (mode == kDefault) return forward_at<kDefault>(a, units, layout, s);
+  return forward_at<kHighest>(a, units, layout, s);
 }
 
 // Reverse sweep over all F steps in one cooperative launch on `stream`;
-// writes dgates (F, N, 4H) and dh0, dc0 (N, H).  units, groups, stage_rows,
-// stages, resident (1: step operands and carries in shared memory) and
-// smem_bytes are the launch plan's; smem_bytes must equal the layout's size.
+// writes dgates (F, N, 4H) and dh0, dc0 (N, H).  mode, w_hh and w_lo as
+// above.  units, groups, stage_rows, stages, resident (1: step operands and
+// carries in shared memory), k_cols and smem_bytes are the launch plan's
+// (HIGHEST: k_cols = 4H; HIGH and DEFAULT: groups 1, stage_rows 16, stages
+// 1, resident 0, and k_cols, a multiple of 16 up to 4H, the columns of
+// dgates[t] staged at once); smem_bytes must equal the layout's size.
 // Launches only, as above.  Returns as above.
 int lstm_train_backward(const float* dh_all, const float* dc_all, const float* gates,
-                        const float* c_prev, const float* mask, const float* w_hh,
+                        const float* c_prev, const float* mask, const void* w_hh,
                         float* dgates, float* dh0, float* dc0, int F, int N, int H, int units,
-                        int groups, int stage_rows, int stages, int resident, int smem_bytes,
-                        void* stream) {
-  if (F <= 0 || N <= 0 || H <= 0 || H % 4 != 0 || H % units != 0 || stage_rows <= 0 ||
-      stages < 1 || stages > 2 || (groups != 1 && groups != 2 && groups != 4) ||
-      (resident != 0 && resident != 1) ||
-      (size_t)smem_bytes !=
-          sizeof(float) * bwd_smem_floats(units, N, H, stages, stage_rows, resident))
+                        int groups, int stage_rows, int stages, int resident, int k_cols,
+                        int smem_bytes, int mode, const void* w_lo, void* stream) {
+  if (mode < kHighest || mode > kDefault || units <= 0 || H <= 0 || k_cols <= 0)
     return kErrBadShape;
+  const size_t layout =
+      mode == kHighest ? sizeof(float) * bwd_smem_floats(units, N, H, stages, stage_rows, resident)
+                       : bwd_mma_smem_bytes(H, k_cols, mode == kHigh ? 2 : 1);
+  if (F <= 0 || N <= 0 || H % 4 != 0 || H % units != 0 || stage_rows <= 0 ||
+      (mode == kHighest &&
+       (stages < 1 || stages > 2 || (groups != 1 && groups != 2 && groups != 4) ||
+        (resident != 0 && resident != 1) || k_cols != 4 * H)) ||
+      (mode != kHighest && (stage_rows != kMmaRows || stages != 1 || groups != 1 ||
+                            resident != 0 || k_cols % 16 != 0 || k_cols > 4 * H)) ||
+      (mode == kHigh && w_lo == nullptr) || (size_t)smem_bytes != layout)
+    return kErrBadShape;
+  const BwdArgs a{dh_all, dc_all, gates, c_prev, mask,  w_hh,     w_lo,     dgates, dh0,
+                  dc0,    F,      N,     H,      groups, stage_rows, stages, resident, k_cols};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define LSTM_TRAIN_BWD(U)                                                                        \
-  launch_bwd<U>(dh_all, dc_all, gates, c_prev, mask, w_hh, dgates, dh0, dc0, F, N, H, groups, \
-                stage_rows, stages, resident, s)
-  switch (units) {
-    case 1: return LSTM_TRAIN_BWD(1);
-    case 2: return LSTM_TRAIN_BWD(2);
-    case 4: return LSTM_TRAIN_BWD(4);
-    case 8: return LSTM_TRAIN_BWD(8);
-    default: return kErrBadShape;
-  }
-#undef LSTM_TRAIN_BWD
+  if (mode == kHigh) return backward_at<kHigh>(a, units, layout, s);
+  if (mode == kDefault) return backward_at<kDefault>(a, units, layout, s);
+  return backward_at<kHighest>(a, units, layout, s);
 }
 
 }  // extern "C"

@@ -293,8 +293,8 @@ def lstm_apply(lstm: LSTM, x: torch.Tensor, lengths: torch.Tensor,
     bidirectional layer kernel (``bidi_fn``), both directions in one call;
     both, and the input projections, at the NN knob's precision
     (:func:`set_nn_precision`). Training: every direction-layer runs through
-    ``train_cell``, the differentiable kernel pair on CUDA, which has only
-    the ``highest`` mode (another raises).
+    ``train_cell``, the differentiable kernel pair on CUDA, at the same
+    precision.
 
     :param x: (N, F, I) batch-first; :param lengths: (N,) int.
     :param init_state: (h0, c0), each (num_layers * dirs, N, H), torch layout.
@@ -312,10 +312,6 @@ def lstm_apply(lstm: LSTM, x: torch.Tensor, lengths: torch.Tensor,
         h0, c0 = init_state
 
     precision = _NN_PRECISION
-    if not inference and precision != HIGHEST:
-        raise NotImplementedError(
-            f"LSTM training at precision {precision!r} is not ported yet: the training pair "
-            "runs only 'highest' (ROADMAP.md, queue 2, 'Training precision branches')")
     if inference and not lstm.bidirectional:
         cells = [lstm.cell(l) for l in range(lstm.num_layers)]
         outs, (hF, cF) = lstm_stack(cells, xt, mask, h0, c0, stack_fn=stack_fn,
@@ -333,13 +329,15 @@ def lstm_apply(lstm: LSTM, x: torch.Tensor, lengths: torch.Tensor,
             h_finals += [hF[0], hF[1]]
             c_finals += [cF[0], cF[1]]
         else:
-            outs_f, (hF, cF) = train_cell(lstm.cell(l), xt, mask, h0[l * dirs], c0[l * dirs])
+            outs_f, (hF, cF) = train_cell(lstm.cell(l), xt, mask, h0[l * dirs], c0[l * dirs],
+                                          precision=precision)
             h_finals.append(hF)
             c_finals.append(cF)
             if lstm.bidirectional:
                 outs_b, (hF, cF) = train_cell(lstm.cell(l, "_reverse"),
                                               _reverse_by_length(xt, lengths), mask,
-                                              h0[l * dirs + 1], c0[l * dirs + 1])
+                                              h0[l * dirs + 1], c0[l * dirs + 1],
+                                              precision=precision)
                 outs_f = torch.cat([outs_f, _reverse_by_length(outs_b, lengths)], dim=-1)
                 h_finals.append(hF)
                 c_finals.append(cF)

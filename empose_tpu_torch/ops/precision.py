@@ -71,7 +71,10 @@ def split_bf16(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     return hi, lo
 
 
-def _parts(x: torch.Tensor, mode: str) -> Tuple[torch.Tensor, ...]:
+def bf16_parts(x: torch.Tensor, mode: str) -> Tuple[torch.Tensor, ...]:
+    """An operand as the products at DEFAULT or HIGH take it, made anew
+    (an activation's): ``(bf16(x),)`` at DEFAULT, its ``split_bf16`` pair at
+    HIGH."""
     return (x.to(torch.bfloat16),) if mode == DEFAULT else split_bf16(x)
 
 
@@ -79,7 +82,7 @@ def weight_parts(w: torch.Tensor, mode: str) -> Tuple[torch.Tensor, ...]:
     """A weight as the products at DEFAULT or HIGH take it: ``(bf16(w),)``
     at DEFAULT, its ``split_bf16`` pair at HIGH; made once per weight
     (:func:`derived`)."""
-    return derived(mode, (w,), lambda: _parts(w, mode))
+    return derived(mode, (w,), lambda: bf16_parts(w, mode))
 
 
 def mm_bf16(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -97,7 +100,10 @@ def dot3(a: torch.Tensor, w_hi: torch.Tensor, w_lo: torch.Tensor) -> torch.Tenso
     return mm_bf16(a_hi, w_hi) + mm_bf16(a_lo, w_hi) + mm_bf16(a_hi, w_lo)
 
 
-def _product(a: torch.Tensor, b_parts: Tuple[torch.Tensor, ...], mode: str) -> torch.Tensor:
+def product_at(a: torch.Tensor, b_parts: Tuple[torch.Tensor, ...], mode: str) -> torch.Tensor:
+    """``a @ b`` of a 2-D ``a`` at DEFAULT or HIGH, ``b`` given by its
+    :func:`bf16_parts` (or :func:`weight_parts`); ``a`` is rounded or split
+    per call."""
     if mode == DEFAULT:
         return mm_bf16(a.to(torch.bfloat16), b_parts[0])
     return dot3(a, *b_parts)
@@ -110,7 +116,7 @@ class _MatmulAt(torch.autograd.Function):
     def forward(ctx, a, b, mode):
         ctx.save_for_backward(a, b)
         ctx.mode = mode
-        return _product(a.reshape(-1, a.shape[-1]), weight_parts(b, mode),
+        return product_at(a.reshape(-1, a.shape[-1]), weight_parts(b, mode),
                         mode).reshape(*a.shape[:-1], b.shape[1])
 
     @staticmethod
@@ -119,9 +125,9 @@ class _MatmulAt(torch.autograd.Function):
         g2 = grad.reshape(-1, grad.shape[-1])
         ga = gb = None
         if ctx.needs_input_grad[0]:
-            ga = _product(g2, weight_parts(b.t(), ctx.mode), ctx.mode).reshape(a.shape)
+            ga = product_at(g2, weight_parts(b.t(), ctx.mode), ctx.mode).reshape(a.shape)
         if ctx.needs_input_grad[1]:
-            gb = _product(a.reshape(-1, a.shape[-1]).t(), _parts(g2, ctx.mode), ctx.mode)
+            gb = product_at(a.reshape(-1, a.shape[-1]).t(), bf16_parts(g2, ctx.mode), ctx.mode)
         return ga, gb, None
 
 

@@ -5,7 +5,13 @@ One step: root normalization -> FK + sensor synthesis with mounting offsets
 -> the model's train forward -> ``compute_loss`` -> rescaled to the real
 samples of the batch -> ``+ reference_grad_extra_loss`` (LGD models) ->
 backward -> Adam. Every LSTM direction-layer (the LGD init RNN, a (Bi)RNN's
-LSTM) runs through the CUDA training pair on the card. Every random draw
+LSTM) runs through the CUDA training pair on the card. ``--matmul_precision
+high|default`` (``--bf16`` means ``default``; with another explicit mode it
+raises, as in JAX) binds both precision knobs for the run, the NN GEMMs'
+and the kinematics' (``device.set_precision``, as the JAX trainer binds
+``set_nn_precision`` and ``set_fk_precision``): the training pair, the
+input projections, the deferred ``dW_hh`` and the final validation and test
+passes then run at that mode. Every random draw
 (offsets, dropout) comes from one ``torch.Generator`` on the device, seeded
 from the run's seed and saved with the train state, so a resumed run
 continues bit for bit.
@@ -49,19 +55,6 @@ def _precision(config) -> str:
     return prec
 
 
-def _training_precision(config) -> str:
-    """The run's matmul precision (``--matmul_precision``/``--bf16``, as JAX
-    resolves them); only ``highest`` trains in the port."""
-    prec = _precision(config)
-    if prec != "highest":
-        raise ValueError(
-            f"training at matmul precision {prec!r} is not ported yet: the LSTM training "
-            "pair has only its 'highest' branch; its 'high' and 'default' branches are "
-            "ROADMAP.md, queue 2, 'Training precision branches' (serving and evaluation run "
-            "every mode)")
-    return prec
-
-
 def _refuse_unported(config) -> None:
     if max(1, int(getattr(config, "dp_devices", 1))) > 1:
         raise NotImplementedError("--dp_devices > 1 is not ported yet: ROADMAP.md, queue 1, "
@@ -82,7 +75,7 @@ class Trainer:
                  device=None):
         self.config = config
         self.device = resolve_device(device)
-        set_precision(_training_precision(config))
+        set_precision(_precision(config))
         _refuse_unported(config)
         # Seed 0 is a seed: the JAX trainer's ``config.seed or time.time()``
         # turns it into the clock.

@@ -17,7 +17,7 @@ gradient input is scaled by n*f); the LBS kernel atol 2e-5 (coordinates of a
 metre, 52 joints). The stack, wavefront and bidi kernels also run at the
 high and default precision modes (their bf16 tensor-core branches) against
 their plain versions at the same mode, captured in CUDA graphs, and served
-(MODE_ATOL below).
+(MODE_ATOL below); so do both training sweeps (PAIR_MODE_REL).
 """
 
 import copy
@@ -584,6 +584,80 @@ def test_kernels_at_mode_cuda_graph_capture(cuda, mode, kernel):
     graph.replay()
     torch.cuda.synchronize()
     for a, b in zip(out, fused(*args, mode)):
+        assert torch.equal(a, b)
+
+
+# The training pair at the modes, each output against the plain version at
+# the same mode relative to its largest entry: at least chip_smoke.py's
+# TOL_PAIR_MODE (set by its --mode-rounding study on the smoke's inputs;
+# these draw W_hh from N(0, 1/H), larger than the smoke's uniform ones).
+PAIR_MODE_REL = {"high": 1e-5, "default": 5e-3}
+
+
+@pytest.mark.parametrize("mode", ["high", "default"])
+@pytest.mark.parametrize("f, n, h", [(64, 16, 512), (33, 7, 512), (3, 1300, 512), (64, 32, 1024)])
+def test_training_pair_at_mode_matches_plain(cuda, mode, f, n, h):
+    """Both sweeps at the mode (their bf16 tensor-core branches) at the
+    released shape, a ragged batch, more rows than any staging and H=1024
+    against their plain versions at the same mode (PAIR_MODE_REL), at high
+    closer to them than to the plain versions at highest; one launch per
+    call counted under the mode, 0-length rows frozen (state) or zero
+    (dgates) bit for bit, a second launch bit for bit."""
+    x_proj, mask, w_hh, h0, c0, dh, dc, idle = _pair_case(f, n, cuda, h)
+    fwd_args = (x_proj, mask, w_hh, h0, c0, True)
+    before = dict(K.MODE_LAUNCHES)
+    got, again = TK.lstm_train_fwd(*fwd_args, mode), TK.lstm_train_fwd(*fwd_args, mode)
+    want = TK.lstm_train_fwd_plain(*fwd_args, mode)
+    c_prev = torch.cat([c0[None], want[2][:-1]])
+    bwd_args = (dh, dc, want[0], c_prev, mask, w_hh)
+    got_b, again_b = TK.lstm_train_bwd(*bwd_args, mode), TK.lstm_train_bwd(*bwd_args, mode)
+    want_b = TK.lstm_train_bwd_plain(*bwd_args, mode)
+    for sweep in ("lstm_train_fwd", "lstm_train_bwd"):
+        assert K.MODE_LAUNCHES[(sweep, mode)] == before.get((sweep, mode), 0) + 2
+    for outs, plain, args, rerun in ((got, TK.lstm_train_fwd_plain, fwd_args, again),
+                                     (got_b, TK.lstm_train_bwd_plain, bwd_args, again_b)):
+        ref = plain(*args, mode)
+        for a, b, c in zip(outs, ref, rerun):
+            torch.testing.assert_close(a, b, atol=PAIR_MODE_REL[mode] * float(b.abs().max()),
+                                       rtol=0)
+            assert torch.equal(a, c)
+        if mode == "high":
+            err = lambda w: max(float((a - b).abs().max()) for a, b in zip(outs, w))
+            assert err(ref) < err(plain(*args, "highest"))
+    assert torch.equal(got[1][:, idle], h0[idle].expand(f, -1, -1))
+    assert torch.equal(got[2][:, idle], c0[idle].expand(f, -1, -1))
+    assert torch.equal(got_b[0][:, idle], torch.zeros_like(got_b[0][:, idle]))
+
+
+@pytest.mark.parametrize("mode", ["high", "default"])
+@pytest.mark.parametrize("sweep", ["forward", "reverse"])
+def test_training_pair_at_mode_cuda_graph_capture(cuda, mode, sweep):
+    """Each sweep at the mode (W_hh's bf16 form made inside the capture)
+    captured once in a CUDA graph and replayed on new inputs copied into
+    the captured buffers: equal to the eager call, bit for bit."""
+    x_proj, mask, w_hh, h0, c0, dh, dc, _ = _pair_case(64, 16, cuda)
+    new = _pair_case(64, 17, cuda)
+    if sweep == "forward":
+        fn, args = TK.lstm_train_fwd, [x_proj, mask, w_hh, h0, c0, True, mode]
+        fresh = {0: new[0][:, :16], 3: new[3][:16], 4: new[4][:16]}
+    else:
+        gates, _, c_all = TK.lstm_train_fwd_plain(x_proj, mask, w_hh, h0, c0, True, mode)
+        c_prev = torch.cat([c0[None], c_all[:-1]])
+        fn, args = TK.lstm_train_bwd, [dh, dc, gates, c_prev, mask, w_hh, mode]
+        fresh = {0: new[5][:, :16], 1: new[6][:, :16], 2: gates * 0.5}
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn(*args)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = fn(*args)
+    for i, t in fresh.items():
+        args[i].copy_(t)
+    graph.replay()
+    torch.cuda.synchronize()
+    for a, b in zip(out, fn(*args)):
         assert torch.equal(a, b)
 
 

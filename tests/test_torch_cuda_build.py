@@ -10,14 +10,13 @@ from empose_tpu_torch.ops import cuda_build
 
 
 def test_stack_source_includes_common_header():
-    """The stack and bidirectional kernels' libraries depend on their source
-    and the shared device helpers; the sources that keep their own copies
-    depend on themselves alone."""
-    for name in ("lstm_stack", "lstm_bidi"):
+    """The three LSTM kernels' libraries (stack, bidirectional layer,
+    training pair) depend on their source and the shared device helpers;
+    the LBS kernel, which shares none, depends on its source alone."""
+    for name in ("lstm_stack", "lstm_bidi", "lstm_train"):
         files = [os.path.basename(f) for f in cuda_build.source_files(name)]
         assert files == [f"{name}.cu", "lstm_common.cuh"]
-    for name in ("lstm_train", "lbs"):
-        assert [os.path.basename(f) for f in cuda_build.source_files(name)] == [f"{name}.cu"]
+    assert [os.path.basename(f) for f in cuda_build.source_files("lbs")] == ["lbs.cu"]
 
 
 @pytest.fixture

@@ -574,17 +574,20 @@ def test_bench_tool_runs_each_mode_on_the_cpu(capsys):
         assert nn_precision() == "highest"
 
 
-def test_lstm_training_refuses_other_modes():
-    """The training pair has only its ``highest`` branch: lstm_apply in
-    training mode raises at another mode, naming the ROADMAP item."""
+@pytest.mark.parametrize("mode", ["high", "default"])
+def test_lstm_training_runs_at_each_mode(mode):
+    """lstm_apply in training mode runs at the NN knob's mode (the training
+    pair's HIGH and DEFAULT branches; ``tests/test_torch_train_precision.py``
+    holds them against JAX): differentiable, moved from ``highest``, and
+    the knob left as it was."""
     lstm = TL.LSTM(4, 8, 1)
     TL.init_parameters(lstm, torch.Generator().manual_seed(0))
-    x, lengths = torch.zeros(2, 3, 4), torch.tensor([3, 2])
-    try:
-        TL.set_nn_precision("default")
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            TL.lstm_apply(lstm, x, lengths, inference=False)
-        out, _ = TL.lstm_apply(lstm, x, lengths, inference=True)
-        assert out.shape == (2, 3, 8)
-    finally:
-        TL.set_nn_precision("highest")
+    x, lengths = torch.randn(2, 3, 4, generator=torch.Generator().manual_seed(1)), \
+        torch.tensor([3, 2])
+    base, _ = TL.lstm_apply(lstm, x, lengths, inference=False)
+    with precision_scope(mode):
+        out, _ = TL.lstm_apply(lstm, x, lengths, inference=False)
+    assert nn_precision() == "highest"
+    out.sum().backward()
+    assert out.shape == (2, 3, 8) and 0 < float((out - base).abs().max()) < 1e-2
+    assert all(p.grad is not None and torch.isfinite(p.grad).all() for p in lstm.parameters())

@@ -162,14 +162,15 @@ def test_existing_id_without_load_raises(assets_env, tmp_path, monkeypatch):
 
 @pytest.mark.parametrize("flags, error", [
     (["--remat"], NotImplementedError),
-    (["--matmul_precision", "high"], ValueError),
-    (["--bf16"], ValueError),
+    (["--bf16", "--matmul_precision", "high"], ValueError),
     (["--dp_devices", "2"], NotImplementedError),
     (["--suppression_noise_length", "0.5"], NotImplementedError),
-], ids=["remat", "precision", "bf16", "data_parallel", "noise"])
+], ids=["remat", "bf16_conflict", "data_parallel", "noise"])
 def test_unported_paths_raise(assets_env, tmp_path, monkeypatch, flags, error):
-    """Rematerialization, other precisions, data parallelism and noise raise
-    before any step, naming what is missing."""
+    """Rematerialization, data parallelism and noise raise before any step,
+    naming what is missing; so does ``--bf16`` beside another explicit
+    precision (as in JAX). Training at ``high`` and ``default`` runs
+    (``tests/test_torch_train_precision.py``)."""
     monkeypatch.setenv("EM_EXPERIMENTS", str(tmp_path))
     with pytest.raises(error, match="ROADMAP|bf16|precision"):
         main(TINY_LGD + ["--max_steps", "4"] + flags)

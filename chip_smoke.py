@@ -164,12 +164,12 @@ the default) or BiRNN-6 (``birnn``) train step at MODE (default
 trained states, beside the kernel pair: it sets TOL_GRAD_LGD and
 TOL_STEP_MODE.
 
-    python3 chip_smoke.py --step-probe
+    python3 chip_smoke.py --step-probe [MODE, default highest]
 
 reads the time per step of the forward and the reverse sweep, of the
 bidirectional layer and of the stack (2x512 in both schedules, and one
-layer of 1024) at F=64 for N = 1, 4, 16, 32 and 64 (``step_probe``): what a
-step is made of beyond its grid barriers.
+layer of 1024) at F=64 for N = 1, 4, 16, 32 and 64 at MODE (``step_probe``):
+what a step is made of beyond its grid barriers.
 
     python3 chip_smoke.py --mode-rounding [N_SEEDS, default 8]
 
@@ -182,10 +182,11 @@ readings set TOL_MODE and TOL_PAIR_MODE.
 
 times both training sweeps at phase 4's timed shapes on its inputs, the
 bidirectional layer at phase 4b's and the stack and its wavefront schedule
-at phase 3's (``time_pair``; each inference wrapper as an event pair around
-one call, as device time alone and as host time alone), for the package under
-TREE (``-P``: not the one beside the script); runs of two trees in turns
-within one call compare them.
+at phase 3's, and the reverse sweep at high and default at phase 4f's
+(``time_pair``; each wrapper as an event pair around one call, as device
+time alone and as host time alone, with an output digest), for the package
+under TREE (``-P``: not the one beside the script); runs of two trees in
+turns within one call compare them.
 
 Exits non-zero on any failure, and when no CUDA device is present.
 Imports torch, numpy and the port only.
@@ -975,10 +976,12 @@ def time_pair() -> int:
     PAIR_TIMED on phase 4's inputs, the bidirectional layer's
     (``lstm_bidi_fused``) at BIDI_TIMED on phase 4b's, and the stack's and
     its wavefront schedule's at STACK_TIMED (2x512) and of the stack at one
-    layer of 1024 (16, 64) on phase 3's, all at highest; each wrapper timed
-    three ways (an event pair around one call; the device alone,
-    ``graph_ms``; the host alone, ``host_us``) and with a digest of its
-    outputs (equal digests: the same bits), and nothing else. It
+    layer of 1024 (16, 64) on phase 3's, all at highest; the reverse sweep
+    at high and default at PAIR_TIMED and at H=1024 (64, 32) on phase 4f's
+    inputs (W_hh's bf16 form made once, outside the timed calls); each
+    wrapper timed three ways (an event pair around one call; the device
+    alone, ``graph_ms``; the host alone, ``host_us``) and with a digest of
+    its outputs (equal digests: the same bits), and nothing else. It
     times the package that ``import empose_tpu_torch`` finds:
     ``PYTHONPATH=TREE python3 -P chip_smoke.py --time-pair`` (``-P``: not the
     script's own directory) times the source tree TREE, so runs of two trees
@@ -989,16 +992,16 @@ def time_pair() -> int:
         return 2
     print(f"package: {os.path.dirname(TK.__file__)}", flush=True)
     logs = cuda_build.build([TK.NAME, K.BIDI_NAME, K.NAME], force=True, verbose=True)
-    # The training pair's highest instantiations: registers, and a digest
-    # of their SASS (equal digests: the same instructions).
+    # The training pair's instantiations at every mode: registers, and a
+    # digest of their SASS (equal digests: the same instructions).
     regs = {fn: lines for fn, lines in ptxas_report(logs[TK.NAME]).items() if "lstm_train" in fn}
     for (kernel, units, _, mode), ins in sorted(sass_functions(TK.NAME).items()):
-        if mode == "highest":
-            reg = next((l for fn, ls in regs.items()
-                        if re.search(rf"{kernel}ILi{units}E(?:Li0E)?E", fn)
-                        for l in ls if "registers" in l), "")
-            print(f"highest {kernel} U={units}: {reg}; {len(ins)} instructions, SASS digest "
-                  f"{hashlib.sha256(chr(10).join(ins).encode()).hexdigest()[:16]}", flush=True)
+        code = {"highest": 0, "high": 1, "default": 2}[mode]
+        reg = next((l for fn, ls in regs.items()
+                    if re.search(rf"{kernel}ILi{units}E(?:Li{code}E)?E", fn)
+                    for l in ls if "registers" in l), "")
+        print(f"{mode} {kernel} U={units}: {reg}; {len(ins)} instructions, SASS digest "
+              f"{hashlib.sha256(chr(10).join(ins).encode()).hexdigest()[:16]}", flush=True)
     out = {}
 
     def timings(key: str, fn) -> dict:
@@ -1017,6 +1020,18 @@ def time_pair() -> int:
                                                            w_hh)))
         print(f"training pair times F={f} N={n}: {row}", flush=True)
         out[f"{f}x{n}"] = row
+    from empose_tpu_torch.ops.precision import weight_parts
+
+    for mode in MODES:
+        for f, n, h in (*((f, n, HIDDEN) for f, n in PAIR_TIMED), (TRAIN_WINDOW, 32, 2 * HIDDEN)):
+            g = torch.Generator().manual_seed(pair_seed(f, n, h))
+            x_proj, mask, w_hh, h0, c0, _, dh_all, dc_all = pair_inputs(g, f, n, h)
+            gates, _, c_all = TK.lstm_train_fwd_plain(x_proj, mask, w_hh, h0, c0, True, mode)
+            args = (dh_all, dc_all, gates, torch.cat([c0[None], c_all[:-1]]), mask, w_hh, mode,
+                    weight_parts(w_hh, mode))
+            key = f"bwd@{mode} {f}x{n}" + ("" if h == HIDDEN else f" H={h}")
+            out[key] = timings("bwd", lambda: TK.lstm_train_bwd(*args))
+            print(f"reverse sweep at {mode} times F={f} N={n} H={h}: {out[key]}", flush=True)
     for f, n in BIDI_TIMED:
         args = bidi_inputs(f, n, seed=SEED + f + n + 1)[-1]
         out[f"bidi {f}x{n}"] = timings("bidi", lambda: K.lstm_bidi_fused(*args))
@@ -1036,16 +1051,20 @@ def time_pair() -> int:
     return 0
 
 
-def step_probe(f: int = TRAIN_WINDOW, ns=(1, 4, 16, 32, 64)) -> int:
-    """``python3 chip_smoke.py --step-probe``: what a step of each training
-    sweep, of the bidirectional layer and of the stack (2x512 in both
-    schedules, and one layer of 1024) is made of: its time per step at F
-    steps for growing N (median event time of the wrapper over F). At N=1
-    the staged rows and the FMAs are nearly nothing, so the step is the grid
-    barriers, the elementwise work and the launch; each row adds its FMAs
-    and, per block at H=512, its 2 KB of h_all[t-1] (forward, bidi) or 8 KB
-    of dgates[t] (reverse), or 2 KB per staged state (stack: 3 per step,
-    wavefront: 2)."""
+def step_probe(mode: str = "highest", f: int = TRAIN_WINDOW, ns=(1, 4, 16, 32, 64)) -> int:
+    """``python3 chip_smoke.py --step-probe [MODE]``: what a step of each
+    training sweep, of the bidirectional layer and of the stack (2x512 in
+    both schedules, and one layer of 1024) is made of at MODE (default
+    highest): its time per step at F steps for growing N (median event time
+    of the wrapper over F; at high and default with the weights' bf16 form
+    made once, outside the timed calls). At N=1 the staged rows and the
+    products are nearly nothing, so the step is the grid barriers, the
+    elementwise work and the launch; each row adds its products and, per
+    block at H=512, its 2 KB of h_all[t-1] (forward, bidi) or 8 KB of
+    dgates[t] (reverse; 4 KB at default, 8 KB at high as bf16), or 2 KB per
+    staged state (stack: 3 per step, wavefront: 2)."""
+    from empose_tpu_torch.ops.precision import weight_parts
+
     if not print_card():
         return 2
     cuda_build.build([TK.NAME, K.BIDI_NAME, K.NAME], force=True)
@@ -1053,25 +1072,30 @@ def step_probe(f: int = TRAIN_WINDOW, ns=(1, 4, 16, 32, 64)) -> int:
     fwd_us, us = {}, {}
     for n in ns:
         r = lambda *s: torch.randn(*s, generator=g).cuda()
+        w_hh = r(HIDDEN, 4 * HIDDEN) * HIDDEN ** -0.5
+        parts = None if mode == "highest" else weight_parts(w_hh, mode)
         args = (r(f, n, HIDDEN), r(f, n, HIDDEN), r(f, n, 4 * HIDDEN), r(f, n, HIDDEN),
-                torch.ones(f, n, device="cuda"), r(HIDDEN, 4 * HIDDEN) * HIDDEN ** -0.5)
-        fwd_args = (r(f, n, 4 * HIDDEN) * 0.5, args[4], args[5], r(n, HIDDEN) * 0.5,
-                    r(n, HIDDEN) * 0.5)
+                torch.ones(f, n, device="cuda"), w_hh, mode, parts)
+        fwd_args = (r(f, n, 4 * HIDDEN) * 0.5, args[4], w_hh, r(n, HIDDEN) * 0.5,
+                    r(n, HIDDEN) * 0.5, True, mode, parts)
         fwd_us[n] = cuda_ms(lambda: TK.lstm_train_fwd(*fwd_args)) * 1e3 / f
         us[n] = cuda_ms(lambda: TK.lstm_train_bwd(*args)) * 1e3 / f
     for name, plan, times in (("forward", TK.lstm_train_fwd_plan, fwd_us),
                               ("reverse", TK.lstm_train_bwd_plan, us)):
-        print(f"{name} sweep per step at F={f}, us by N (plans: "
-              f"{ {n: plan(n, HIDDEN).stage_rows for n in ns} } rows staged at once): "
-              + ", ".join(f"N={n} {v:.2f}" for n, v in times.items()), flush=True)
+        plans = {n: plan(n, HIDDEN, precision=mode) for n in ns}
+        shown = {n: p.stage_rows if mode == "highest" or name == "forward"
+                 else f"{p.stages} stages of {p.k_cols} columns" for n, p in plans.items()}
+        print(f"{name} sweep at {mode} per step at F={f}, us by N (plans: {shown}; rows staged "
+              f"at once at highest): " + ", ".join(f"N={n} {v:.2f}" for n, v in times.items()),
+              flush=True)
     bidi_us = {}
     for n in ns:
-        args = bidi_inputs(f, n, seed=SEED + n)[-1]
-        bidi_us[n] = cuda_ms(lambda: K.lstm_bidi_fused(*args)) * 1e3 / f
+        args = bidi_mode_inputs(f, n, mode, seed=SEED + n)[1]
+        bidi_us[n] = cuda_ms(lambda: K.lstm_bidi_fused(*args, mode)) * 1e3 / f
     lim = K.bidi_limits(torch.device("cuda"))
-    print(f"bidi layer per step at F={f}, U={K.lstm_bidi_plan(1, HIDDEN, *lim).units}, us by N "
-          f"(plans: { {n: K.lstm_bidi_plan(n, HIDDEN, *lim).stage_rows for n in ns} } rows "
-          f"staged at once): "
+    plans = {n: K.lstm_bidi_plan(n, HIDDEN, *lim, precision=mode) for n in ns}
+    print(f"bidi layer at {mode} per step at F={f}, U={plans[ns[0]].units}, us by N (plans: "
+          f"{ {n: p.stage_rows for n, p in plans.items()} } rows staged at once): "
           + ", ".join(f"N={n} {v:.2f}" for n, v in bidi_us.items()), flush=True)
     stack_us = {}
     for name, h, layers, fn in (("stack", HIDDEN, LAYERS, K.lstm_stack_fused),
@@ -1080,16 +1104,17 @@ def step_probe(f: int = TRAIN_WINDOW, ns=(1, 4, 16, 32, 64)) -> int:
         times = {}
         for n in ns:
             cells, x, mask, h0, c0 = stack_case(f, n, SEED + n, h, layers)
-            ops = K.stack_operands(cells, x)
-            args = (ops[0], mask, ops[1], ops[2], ops[3], h0, c0)
+            ops = K.stack_operands(cells, x, mode)
+            args = (ops[0], mask, ops[1], ops[2], ops[3], h0, c0, mode)
             times[n] = cuda_ms(lambda: fn(*args)) * 1e3 / f
         stack_us[name] = times
         wave, lim = name == "wavefront", K.stack_limits(x.device)
-        print(f"{name} per step at F={f}, us by N (plans: "
-              f"{ {n: K.lstm_stack_plan(layers, n, h, *lim, wavefront=wave).stage_rows for n in ns} } "
-              f"rows staged at once): " + ", ".join(f"N={n} {v:.2f}" for n, v in times.items()),
-              flush=True)
-    print(json.dumps({"fwd_us_per_step": fwd_us, "bwd_us_per_step": us,
+        plans = {n: K.lstm_stack_plan(layers, n, h, *lim, wavefront=wave, precision=mode)
+                 for n in ns}
+        print(f"{name} at {mode} per step at F={f}, us by N (plans: "
+              f"{ {n: p.stage_rows for n, p in plans.items()} } rows staged at once): "
+              + ", ".join(f"N={n} {v:.2f}" for n, v in times.items()), flush=True)
+    print(json.dumps({"mode": mode, "fwd_us_per_step": fwd_us, "bwd_us_per_step": us,
                       "bidi_us_per_step": bidi_us, "stack_us_per_step": stack_us}), flush=True)
     return 0
 
@@ -2870,7 +2895,7 @@ if __name__ == "__main__":
                                      mode=sys.argv[3] if sys.argv[3:] else "highest",
                                      model=sys.argv[4] if sys.argv[4:] else "lgd"))
     if sys.argv[1:2] == ["--step-probe"]:
-        sys.exit(step_probe())
+        sys.exit(step_probe(*sys.argv[2:3]))
     if sys.argv[1:2] == ["--time-pair"]:
         sys.exit(time_pair())
     if sys.argv[1:2] == ["--mode-rounding"]:

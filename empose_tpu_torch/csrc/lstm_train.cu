@@ -130,20 +130,24 @@
 //     (row, unit, gate) sums them in warp order, then runs the HIGHEST
 //     epilogue.
 //   * Reverse: dh += dgates[t] (N x 4H) @ W_hh[j0:j0+U, :]^T, with K = 4H and
-//     only U outputs per row.  The A operand is 16 rows of dgates[t] as bf16
-//     planes (k contiguous, so ldmatrix reads them as the forward reads h),
-//     and the B operand is one n8 tile whose column n is W_hh's row j0 + n
-//     (n < U; zero beyond): the pairs (k, k + 1) a B fragment holds lie next
-//     to each other in that row, and the N x U result is half of one tile at
-//     U=4.  With W's rows as A instead, M = U would pad to 16 (3/4 of each
-//     tile wasted at U=4) and dgates would need a transposed fragment load.
-//     A chunk of dgates[t] (16 x 2048 f32 at H=512: 131 KB, 132 KB as two
-//     bf16 planes) does not fit beside the hi/lo rows at every H, so it is
-//     staged in k-slices of k_cols columns (the plan's: all 4H where they
-//     fit, as at H=512; three slices at H=1024 HIGH), each warp keeping its
-//     tile across the slices.  Phase (A) is HIGHEST's with the step
-//     operands read from device memory and the carries in the block's
-//     columns of dh0, dc0, so the shared memory does not grow with N.
+//     only U outputs per row.  The A operand is 16 rows of dgates[t] in bf16
+//     (k contiguous, so ldmatrix reads them as the forward reads h), and the
+//     B operand is one n8 tile whose column n is W_hh's row j0 + n (n < U;
+//     zero beyond): the pairs (k, k + 1) a B fragment holds lie next to each
+//     other in that row, and the N x U result is half of one tile at U=4.
+//     With W's rows as A instead, M = U would pad to 16 (3/4 of each tile
+//     wasted at U=4) and dgates would need a transposed fragment load.
+//     Every block needs all of dgates[t] each step, so the bf16 form is made
+//     once, by the block that owns the columns, in phase (A): it writes them
+//     into a two-slot exchange buffer laid out as the A operand's tiles, and
+//     after the barrier each block streams the step's 16-row chunks, in
+//     k-slices of k_cols columns (all 4H where two fit, as at H=512
+//     DEFAULT), through a ring of shared-memory stages by bulk copies (the
+//     Tensor Memory Accelerator) on mbarriers, so the warps multiply as the
+//     bytes land and never issue copies themselves.  Phase (A)
+//     reads its step operands from shared memory where they fit beside the
+//     ring (prefetched during the step before), as HIGHEST does.  The
+//     details: bwd_mma.
 // No atomics at any mode: two launches on the same inputs give the same
 // bits.
 // The grid must be co-resident for the barrier: lstm_train_prepare sets the
@@ -654,14 +658,93 @@ __device__ __forceinline__ void pass_tile(const float* rows, const float* wt_s, 
   }
 }
 
-// Shared memory of the reverse sweep at HIGH and DEFAULT (bytes): the B
-// fragments of the block's rows of W_hh (one n8 tile per k-step of 4H,
-// `parts` planes), one staged 16-row k-slice of dgates[t] of k_cols columns
-// as bf16 (`parts` planes) and the partial tiles of one n8 tile.  The same
-// formula as ops/lstm_train_kernel.py::bwd_smem_bytes.
-__host__ __device__ constexpr size_t bwd_mma_smem_bytes(int H, int k_cols, int parts) {
-  return (size_t)parts * (H / 4) * 32 * 8 + (size_t)parts * lstm::mma_plane_bytes(k_cols) +
-         lstm::mma_partial_bytes(2);
+// The reverse sweep's exchange at HIGH and DEFAULT is laid out in k-step
+// tiles, in the exchange buffer and in shared memory alike: a tile is one
+// 16-row chunk's 16 columns 16 ks .. 16 ks + 15 of one bf16 part (hi, or
+// lo at HIGH), 512 contiguous bytes, its row r at 16 r elements and the
+// row's two 8-column halves h at (h ^ (r / 4 % 2)) 8, so that the eight rows
+// an ldmatrix reads fall in distinct banks.  A chunk's tiles lie in k
+// order, so a k-slice of a chunk is one contiguous run per part: one bulk
+// copy, to the same layout.
+constexpr int kTile = kMmaRows * 16;  // bf16 of a tile
+
+__host__ __device__ constexpr int tile_offset(int r, int c) {
+  return r * 16 + ((c / 8) ^ (r / 4 % 2)) * 8 + c % 8;
+}
+
+// Shared memory of the reverse sweep at HIGH and DEFAULT (bytes), in this
+// order: the B fragments of the block's rows of W_hh (one n8 tile per
+// k-step of 4H, `parts` planes); a ring of `stages` stages, each one 16-row
+// chunk's k-slice of k_cols columns in k-step tiles (`parts` planes); the
+// ring's mbarriers (128 bytes); two buffers of the partial tiles of one n8
+// tile; and where `resident` the step operands and carries of the HIGHEST
+// layout (ops, car).  The same formula as
+// ops/lstm_train_kernel.py::bwd_mma_smem_bytes.
+__host__ __device__ constexpr size_t bwd_mma_smem_bytes(int U, int N, int H, int k_cols,
+                                                        int stages, bool resident, int parts) {
+  return (size_t)parts * (H / 4) * 32 * 8 + (size_t)stages * parts * kMmaRows * k_cols * 2 + 128 +
+         2 * lstm::mma_partial_bytes(2) +
+         (resident ? sizeof(float) * (round4((size_t)7 * U * N) + round4((size_t)N) +
+                                      (size_t)2 * U * N)
+                   : 0);
+}
+
+// acc += one k-step tile (planes `tile`, and tile + lo_off at HIGH) times
+// the block's n8 tile of B fragments of that k-step (b[lane]; the lo parts
+// b_lo uint2 further on at HIGH): lstm::mma_tile's products of one k-step,
+// in its order (ah*bh, al*bh, ah*bl at HIGH).
+template <int P>
+__device__ __forceinline__ void mma_ktile(float (&acc)[4], const __nv_bfloat16* tile,
+                                          size_t lo_off, const uint2* b, size_t b_lo, int lane) {
+  const __nv_bfloat16* p = tile + tile_offset(lane % 16, lane / 16 * 8);
+  unsigned ah[4], al[4];
+  lstm::ldmatrix_x4(ah, p);
+  if constexpr (P == kHigh) lstm::ldmatrix_x4(al, p + lo_off);
+  const uint2 bh = b[lane];
+  lstm::mma_bf16(acc, ah, bh);
+  if constexpr (P == kHigh) {
+    lstm::mma_bf16(acc, al, bh);
+    lstm::mma_bf16(acc, ah, b[b_lo + lane]);
+  }
+}
+
+// The ring's bulk copies (the Tensor Memory Accelerator) and mbarriers.
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+__device__ __forceinline__ void mbar_init(unsigned long long* bar, unsigned count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_addr(bar)), "r"(count));
+}
+__device__ __forceinline__ void mbar_arrive(unsigned long long* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_addr(bar)) : "memory");
+}
+__device__ __forceinline__ void mbar_expect_tx(unsigned long long* bar, unsigned bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_addr(bar)),
+               "r"(bytes)
+               : "memory");
+}
+// Waits until the phase of parity `parity` of the mbarrier has completed.
+__device__ __forceinline__ void mbar_wait(unsigned long long* bar, unsigned parity) {
+  asm volatile(
+      "{\n.reg .pred done;\nWAIT_%=:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 done, [%0], %1;\n"
+      "@!done bra WAIT_%=;\n}\n" ::"r"(smem_addr(bar)),
+      "r"(parity)
+      : "memory");
+}
+// `bytes` (a multiple of 16, both addresses on a 16-byte boundary) from
+// device memory into shared memory, completing on `bar`.
+__device__ __forceinline__ void bulk_copy(void* dst, const void* src, unsigned bytes,
+                                          unsigned long long* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n"
+      ::"r"(smem_addr(dst)), "l"(src), "r"(bytes), "r"(smem_addr(bar))
+      : "memory");
+}
+// Orders this thread's generic-proxy accesses of device memory before the
+// bulk copies' (async-proxy) accesses that follow a barrier.
+__device__ __forceinline__ void fence_proxy_async_global() {
+  asm volatile("fence.proxy.async.global;\n" ::: "memory");
 }
 
 // The block's rows j0 .. j0 + U - 1 of W (bf16 hi, and lo at HIGH, each
@@ -686,13 +769,33 @@ __device__ void stage_bt_fragments(uint2* dst, const unsigned short* w_hi,
   }
 }
 
-// The reverse sweep at HIGH and DEFAULT (see the head note).  (A) is the
-// HIGHEST body's with resident = 0: the step operands from device memory, the
-// carries of (row n, unit u) in dh0, dc0 at n H + j0 + u.  (C) takes the
-// 16-row chunks of dgates[t] one at a time, each in k-slices of k_cols
-// columns: the slice's bf16 planes, then the warps' k-steps of it into
-// their tiles; after the last slice the tiles meet in shared memory and one
-// thread per (row, unit) adds their sum, in warp order, to the carry dh.
+// The reverse sweep at HIGH and DEFAULT (see the head note).  The carries
+// of (row n, unit u) at n cs + u: in shared memory where `resident` (cs =
+// U), else in the block's columns of dh0, dc0 (cs = H).
+//   (A) as HIGHEST's, with the step operands prefetched into shared memory
+//       during step t + 1 where `resident`, else read from device memory;
+//       besides its columns of dgates[t] in f32 the block writes their bf16
+//       form (hi, and lo at HIGH; split_bf16x2, the rounding the staging
+//       used to do) into slot t % 2 of the exchange buffer xbuf, in k-step
+//       tiles (tile_offset): 2 slots x parts x ceil(N / 16) chunks x H / 4
+//       k-steps, the rows past N zero (written once, at the start).  Slot t
+//       % 2 is next written in step t - 2, after the grid barrier of step t
+//       - 1, which no block passes before every block is done with its step
+//       t: two slots suffice.
+//   (C) the step's stages, stage i = (16-row chunk i / n_slices, k-slice i
+//       % n_slices of k_cols columns), each a contiguous run of tiles per
+//       part, stream through a ring of `stages` slots by bulk copies that
+//       one thread issues (one per part), each slot with a `full` mbarrier
+//       (the copies' bytes landed) and an `empty` one (every warp is done
+//       with it).  The warps multiply as their stages land and never wait
+//       for a copy to be issued: warp w takes the k-steps w, w + 8, ... of
+//       a slice into its tile, and after a chunk's last slice the warps'
+//       tiles meet in shared memory (two buffers, one block barrier a
+//       chunk) and one thread per (row, unit) adds their sum, in warp
+//       order, to the carry dh.
+// With k_cols a multiple of 128 (the plan's), each slice starts at a
+// multiple of kMmaWarps k-steps, so warp w sums the k-steps w, w + 8, ...
+// of 4H in order whatever the slicing: the same bits as one slice.
 template <int U, int P>
 __device__ __forceinline__ void bwd_mma(const float* __restrict__ dh_all,
                                         const float* __restrict__ dc_all,
@@ -700,88 +803,190 @@ __device__ __forceinline__ void bwd_mma(const float* __restrict__ dh_all,
                                         const float* __restrict__ c_prev,
                                         const float* __restrict__ mask,
                                         const unsigned short* w_hi, const unsigned short* w_lo,
-                                        float* dgates, float* dh0, float* dc0, int F, int N,
-                                        int H, int k_cols, float* smem) {
+                                        float* dgates, float* dh0, float* dc0,
+                                        unsigned short* xbuf, int F, int N, int H, int k_cols,
+                                        int stages, bool resident, float* smem) {
   constexpr int kP = kParts<P>;
   static_assert(U <= 8, "the block's units fit one n8 tile");
   const int H4 = 4 * H;
+  const int KS = H4 / 16;  // k-steps of 4H
   const int j0 = blockIdx.x * U;
-  const size_t b_part = (size_t)(H / 4) * 32;  // fragments of one part
-  const size_t plane = lstm::mma_plane_bytes(k_cols) / 2;  // bf16 per plane
-  uint2* w_b = reinterpret_cast<uint2*>(smem);
-  __nv_bfloat16* a_s = reinterpret_cast<__nv_bfloat16*>(w_b + kP * b_part);
-  float* part = reinterpret_cast<float*>(reinterpret_cast<char*>(a_s) +
-                                         kP * lstm::mma_plane_bytes(k_cols));
-  float* dh_c = dh0 + j0;
-  float* dc_c = dc0 + j0;
+  const int n_chunks = (N + kMmaRows - 1) / kMmaRows;
+  const int n_slices = (H4 + k_cols - 1) / k_cols;
+  const int n_stages = n_chunks * n_slices;              // per step
+  const size_t b_part = (size_t)(H / 4) * 32;           // fragments of one part
+  const size_t x_part = (size_t)n_chunks * KS * kTile;  // bf16 per part of an xbuf slot
+  const size_t plane = (size_t)k_cols / 16 * kTile;     // bf16 per part of a ring slot
   const int tid = threadIdx.x;
   const int lane = tid % 32;
   const int warp = tid / 32;
-  const int n_chunks = (N + kMmaRows - 1) / kMmaRows;
+  uint2* w_b = reinterpret_cast<uint2*>(smem);
+  __nv_bfloat16* ring = reinterpret_cast<__nv_bfloat16*>(w_b + kP * b_part);
+  unsigned long long* full =
+      reinterpret_cast<unsigned long long*>(ring + (size_t)stages * kP * plane);
+  unsigned long long* empty = full + 8;
+  float* part = reinterpret_cast<float*>(full + 16);
+  constexpr int kPart = lstm::mma_partial_bytes(2) / sizeof(float);
+  float* ops = part + 2 * kPart;
+  const float* op_dh = ops;
+  const float* op_dc = ops + U * N;
+  const float* op_cp = ops + 2 * U * N;
+  const float* op_g = ops + 3 * U * N;
+  const float* m_s = ops + round4((size_t)7 * U * N);
+  float* dh_s = ops + round4((size_t)7 * U * N) + round4((size_t)N);
+  float* dh_c = resident ? dh_s : dh0 + j0;
+  float* dc_c = resident ? dh_s + U * N : dc0 + j0;
+  const int cs = resident ? U : H;
   cg::grid_group grid = cg::this_grid();
 
   stage_bt_fragments<P>(w_b, w_hi, w_lo, H, j0, U, tid);
+  if (resident)
+    copy_step_operands<U>(ops, dh_all, dc_all, c_prev, gates, mask, F - 1, N, H, j0, tid);
+  cp_async_commit();
   for (int i = tid; i < U * N; i += kThreads) {
-    const size_t c = (size_t)(i / U) * H + i % U;
+    const int c = i / U * cs + i % U;
     dh_c[c] = dc_c[c] = 0.0f;
   }
+  if (tid < stages) {
+    mbar_init(full + tid, 1);
+    mbar_init(empty + tid, lstm::kMmaWarps);
+  }
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  // The rows past N of the last chunk's tiles in both slots: zero for the
+  // whole sweep (no block writes them), spread over the grid.
+  const int pad = n_chunks * kMmaRows - N;
+  for (size_t e = (size_t)blockIdx.x * kThreads + tid; e < (size_t)2 * kP * KS * pad * 16;
+       e += (size_t)gridDim.x * kThreads) {
+    const size_t tile = e / (pad * 16);  // (slot and part, k-step)
+    const int r = kMmaRows - pad + (int)(e / 16 % pad), c = (int)(e % 16);
+    xbuf[((tile / KS * n_chunks + n_chunks - 1) * KS + tile % KS) * kTile + tile_offset(r, c)] = 0;
+  }
+  cp_async_wait<0>();
   __syncthreads();
 
-  for (int t = F - 1; t >= 0; --t) {
+  int base = 0;  // stages of the sweep before this step's
+  for (int t = F - 1; t >= 0; --t, base += n_stages) {
     float* dg_t = dgates + (size_t)t * N * H4;
+    unsigned short* xb_t = xbuf + (size_t)(t & 1) * kP * x_part;
 
-    // (A) The block's columns of dgates[t] and the carries.
+    // (A) The block's columns of dgates[t], in f32 and into xbuf, and the
+    // carries.
     for (int idx = tid; idx < N * U; idx += kThreads) {
       const int n = idx / U;
       const int u = idx % U;
-      const size_t c = (size_t)n * H + u;
-      const size_t row = (size_t)t * N + n;
-      const float* gp = gates + row * H4 + j0 + u;
-      const float m = __ldg(mask + row);
-      const float dh_in = __ldg(dh_all + row * H + j0 + u);
-      const float dc_in = __ldg(dc_all + row * H + j0 + u);
-      const float cp = __ldg(c_prev + row * H + j0 + u);
-      const float i_g = sigmoid_f(__ldg(gp));
-      const float f_g = sigmoid_f(__ldg(gp + H));
-      const float g_g = tanhf(__ldg(gp + 2 * H));
-      const float o_g = sigmoid_f(__ldg(gp + 3 * H));
+      const int c = n * cs + u;
+      float m, dh_in, dc_in, cp, gi, gf, gg, go;
+      if (resident) {
+        const float* gp = op_g + n * 4 * U + u;
+        m = m_s[n];
+        dh_in = op_dh[idx];
+        dc_in = op_dc[idx];
+        cp = op_cp[idx];
+        gi = gp[0];
+        gf = gp[U];
+        gg = gp[2 * U];
+        go = gp[3 * U];
+      } else {
+        const size_t row = (size_t)t * N + n;
+        const float* gp = gates + row * H4 + j0 + u;
+        m = __ldg(mask + row);
+        dh_in = __ldg(dh_all + row * H + j0 + u);
+        dc_in = __ldg(dc_all + row * H + j0 + u);
+        cp = __ldg(c_prev + row * H + j0 + u);
+        gi = __ldg(gp);
+        gf = __ldg(gp + H);
+        gg = __ldg(gp + 2 * H);
+        go = __ldg(gp + 3 * H);
+      }
       const float Dh = dh_c[c] + dh_in;
       const float Dc = dc_c[c] + dc_in;
+      const float i_g = sigmoid_f(gi);
+      const float f_g = sigmoid_f(gf);
+      const float g_g = tanhf(gg);
+      const float o_g = sigmoid_f(go);
       const float c_new = f_g * cp + i_g * g_g;
       const float tc = tanhf(c_new);
       const float dh_new = Dh * m;
       const float dc_new = Dc * m + dh_new * o_g * (1.0f - tc * tc);
-      float* dgp = dg_t + (size_t)n * H4 + j0 + u;
-      dgp[0] = dc_new * g_g * i_g * (1.0f - i_g);
-      dgp[H] = dc_new * cp * f_g * (1.0f - f_g);
-      dgp[2 * H] = dc_new * i_g * (1.0f - g_g * g_g);
-      dgp[3 * H] = dh_new * tc * o_g * (1.0f - o_g);
+      const float d[4] = {dc_new * g_g * i_g * (1.0f - i_g), dc_new * cp * f_g * (1.0f - f_g),
+                          dc_new * i_g * (1.0f - g_g * g_g), dh_new * tc * o_g * (1.0f - o_g)};
+      const size_t o = (size_t)n * H4 + j0 + u;
+      const size_t xo = (size_t)(n / kMmaRows) * KS * kTile;
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        const int col = q * H + j0 + u;
+        const size_t x = xo + (size_t)(col / 16) * kTile + tile_offset(n % kMmaRows, col % 16);
+        unsigned hi, lo;
+        lstm::split_bf16x2(d[q], 0.0f, hi, lo);
+        dg_t[o + q * H] = d[q];
+        xb_t[x] = (unsigned short)hi;
+        if constexpr (kP == 2) xb_t[x_part + x] = (unsigned short)lo;
+      }
       dh_c[c] = Dh * (1.0f - m);
       dc_c[c] = dc_new * f_g + Dc * (1.0f - m);
     }
+    fence_proxy_async_global();  // xbuf's stores, before the other blocks' bulk copies
 
-    // (B) Every block's columns of dgates[t] are written.
+    // (B) Every block's columns of dgates[t] (and of xbuf) are written, and
+    // every thread of this block is done with the step's operands.
     grid.sync();
 
-    // (C) dh += dgates[t] @ W_hh[j0:j0+U, :]^T, a 16-row chunk at a time.
-    for (int ch = 0; ch < n_chunks; ++ch) {
-      const int r0 = ch * kMmaRows;
-      float acc[1][4] = {{0.f, 0.f, 0.f, 0.f}};
-      for (int k0 = 0; k0 < H4; k0 += k_cols) {
-        const int kw = min(k_cols, H4 - k0);
-        lstm::stage_cols_bf16<P>(a_s, plane, dg_t + k0, H4, r0, N, kw, tid, kThreads);
-        __syncthreads();  // the slice's planes are staged
-        lstm::mma_tile<1, P>(acc, a_s, plane, kw, w_b + (size_t)k0 / 16 * 32, b_part,
-                             warp, lane);
-        __syncthreads();  // every warp is done with the planes
+    // (C) dh += dgates[t] @ W_hh[j0:j0+U, :]^T over the ring.  Step t-1's
+    // operands go into a copy group of their own.
+    if (resident && t > 0)
+      copy_step_operands<U>(ops, dh_all, dc_all, c_prev, gates, mask, t - 1, N, H, j0, tid);
+    cp_async_commit();
+    // Stage i (of this step) into its slot: one bulk copy a part, issued by
+    // thread 0 once every warp is done with the slot's previous stage.
+    auto issue = [&](int i) {
+      const int gi = base + i, slot = gi % stages, use = gi / stages;
+      const int ch = i / n_slices, k0 = i % n_slices * k_cols;
+      const unsigned bytes = (unsigned)min(k_cols, H4 - k0) * kMmaRows * 2;
+      if (use > 0) mbar_wait(empty + slot, (use - 1) & 1);
+      mbar_expect_tx(full + slot, kP * bytes);
+      const unsigned short* src = xb_t + ((size_t)ch * KS + k0 / 16) * kTile;
+#pragma unroll
+      for (int p = 0; p < kP; ++p)
+        bulk_copy(ring + ((size_t)slot * kP + p) * plane, src + p * x_part, bytes, full + slot);
+    };
+    if (tid == 0) {
+      fence_proxy_async_global();
+      for (int i = 0; i < min(stages, n_stages); ++i) issue(i);
+    }
+    float acc[1][4];
+    for (int i = 0; i < n_stages; ++i) {
+      const int gi = base + i, slot = gi % stages;
+      const int slice = i % n_slices, k0 = slice * k_cols, steps = min(k_cols, H4 - k0) / 16;
+      mbar_wait(full + slot, (gi / stages) & 1);  // stage i has landed
+      __syncwarp();                               // the warp's lanes together again
+      if (slice == 0) acc[0][0] = acc[0][1] = acc[0][2] = acc[0][3] = 0.0f;
+      const __nv_bfloat16* a = ring + (size_t)slot * kP * plane;
+      for (int ks = warp; ks < steps; ks += lstm::kMmaWarps)
+        mma_ktile<P>(acc[0], a + (size_t)ks * kTile, plane, w_b + (size_t)(k0 / 16 + ks) * 32,
+                     b_part, lane);
+      __syncwarp();
+      if (lane == 0) mbar_arrive(empty + slot);  // this warp is done with the slot
+      if (tid == 0 && i + stages < n_stages) issue(i + stages);
+      if (slice == n_slices - 1) {
+        const int ch = i / n_slices;
+        float* pb = part + (ch % 2) * kPart;
+        lstm::store_partials<2>(pb, acc, warp, lane);  // one n8 tile: store_partials' U = 2
+        __syncthreads();  // the chunk's partial tiles are stored (those of chunk ch - 2 read)
+        if (tid < kMmaRows * U) {
+          const int r = tid / U, u = tid % U, n = ch * kMmaRows + r;
+          if (n < N) dh_c[n * cs + u] += lstm::sum_partials<2>(pb, r, u);
+        }
       }
-      lstm::store_partials<2>(part, acc, warp, lane);  // one n8 tile: store_partials' U = 2
-      __syncthreads();
-      if (tid < kMmaRows * U) {
-        const int r = tid / U, u = tid % U;
-        if (r0 + r < N) dh_c[(size_t)(r0 + r) * H + u] += lstm::sum_partials<2>(part, r, u);
-      }
-      __syncthreads();  // the carries are complete, and the partials read
+    }
+    cp_async_wait<0>();  // the next step's operands have landed
+    __syncthreads();     // ... for every thread, and the carries are complete
+  }
+
+  if (resident) {
+    for (int idx = tid; idx < N * U; idx += kThreads) {
+      const size_t off = (size_t)(idx / U) * H + j0 + idx % U;
+      dh0[off] = dh_c[idx];
+      dc0[off] = dc_c[idx];
     }
   }
 }
@@ -809,12 +1014,15 @@ lstm_train_bwd_kernel(const float* __restrict__ dh_all,  // (F, N, H)
                       int F, int N, int H, int groups, int stage_rows, int stages,
                       int resident,
                       const void* __restrict__ w_lo,     // HIGH: the bf16 lo parts, else null
-                      int k_cols) {
+                      int k_cols,
+                      void* xbuf) {                      // HIGH, DEFAULT: the bf16 exchange
+                                                         // buffer in k-step tiles, else null
   extern __shared__ __align__(16) float smem[];
   if constexpr (P != kHighest) {
     bwd_mma<U, P>(dh_all, dc_all, gates, c_prev, mask,
                   reinterpret_cast<const unsigned short*>(w_hh),
-                  static_cast<const unsigned short*>(w_lo), dgates, dh0, dc0, F, N, H, k_cols,
+                  static_cast<const unsigned short*>(w_lo), dgates, dh0, dc0,
+                  static_cast<unsigned short*>(xbuf), F, N, H, k_cols, stages, resident != 0,
                   smem);
     return;
   }
@@ -1043,6 +1251,7 @@ struct BwdArgs {
   float* dh0;
   float* dc0;
   int F, N, H, groups, stage_rows, stages, resident, k_cols;
+  void* xbuf;
 };
 
 template <int U, int P>
@@ -1051,7 +1260,7 @@ int launch_bwd(BwdArgs a, size_t smem, cudaStream_t stream) {
                   (void*)&a.mask,   (void*)&a.w_hh,   (void*)&a.dgates,     (void*)&a.dh0,
                   (void*)&a.dc0,    (void*)&a.F,      (void*)&a.N,          (void*)&a.H,
                   (void*)&a.groups, (void*)&a.stage_rows, (void*)&a.stages, (void*)&a.resident,
-                  (void*)&a.w_lo,   (void*)&a.k_cols};
+                  (void*)&a.w_lo,   (void*)&a.k_cols, (void*)&a.xbuf};
   return launch((const void*)lstm_train_bwd_kernel<U, P>, a.H / U, smem, args, stream);
 }
 
@@ -1147,30 +1356,36 @@ int lstm_train_forward(const float* x_proj, const float* mask, const void* w_hh,
 // writes dgates (F, N, 4H) and dh0, dc0 (N, H).  mode, w_hh and w_lo as
 // above.  units, groups, stage_rows, stages, resident (1: step operands and
 // carries in shared memory), k_cols and smem_bytes are the launch plan's
-// (HIGHEST: k_cols = 4H; HIGH and DEFAULT: groups 1, stage_rows 16, stages
-// 1, resident 0, and k_cols, a multiple of 16 up to 4H, the columns of
-// dgates[t] staged at once); smem_bytes must equal the layout's size.
-// Launches only, as above.  Returns as above.
+// (HIGHEST: k_cols = 4H, 1 or 2 stages; HIGH and DEFAULT: groups 1,
+// stage_rows 16, a ring of 2 to 8 stages of k_cols columns, 4H or a
+// multiple of 128 below it); smem_bytes must equal the layout's size.  xbuf
+// (HIGH and DEFAULT; null at HIGHEST): scratch of 2 x parts x ceil(N / 16)
+// x 16 x 4H bf16, on a 16-byte boundary.  Launches only, as above.  Returns as above.
 int lstm_train_backward(const float* dh_all, const float* dc_all, const float* gates,
                         const float* c_prev, const float* mask, const void* w_hh,
                         float* dgates, float* dh0, float* dc0, int F, int N, int H, int units,
                         int groups, int stage_rows, int stages, int resident, int k_cols,
-                        int smem_bytes, int mode, const void* w_lo, void* stream) {
+                        int smem_bytes, int mode, const void* w_lo, void* xbuf, void* stream) {
   if (mode < kHighest || mode > kDefault || units <= 0 || H <= 0 || k_cols <= 0)
     return kErrBadShape;
   const size_t layout =
-      mode == kHighest ? sizeof(float) * bwd_smem_floats(units, N, H, stages, stage_rows, resident)
-                       : bwd_mma_smem_bytes(H, k_cols, mode == kHigh ? 2 : 1);
+      mode == kHighest
+          ? sizeof(float) * bwd_smem_floats(units, N, H, stages, stage_rows, resident)
+          : bwd_mma_smem_bytes(units, N, H, k_cols, stages, resident != 0, mode == kHigh ? 2 : 1);
   if (F <= 0 || N <= 0 || H % 4 != 0 || H % units != 0 || stage_rows <= 0 ||
-      (mode == kHighest &&
-       (stages < 1 || stages > 2 || (groups != 1 && groups != 2 && groups != 4) ||
-        (resident != 0 && resident != 1) || k_cols != 4 * H)) ||
-      (mode != kHighest && (stage_rows != kMmaRows || stages != 1 || groups != 1 ||
-                            resident != 0 || k_cols % 16 != 0 || k_cols > 4 * H)) ||
+      (resident != 0 && resident != 1) ||
+      (mode == kHighest && (stages < 1 || stages > 2 ||
+                            (groups != 1 && groups != 2 && groups != 4) || k_cols != 4 * H)) ||
+      (mode != kHighest &&
+       (stage_rows != kMmaRows || stages < 2 || stages > 8 || groups != 1 ||
+        (k_cols % (16 * lstm::kMmaWarps) != 0 && k_cols != 4 * H) || k_cols > 4 * H ||
+        xbuf == nullptr ||
+        reinterpret_cast<size_t>(xbuf) % 16 != 0)) ||
       (mode == kHigh && w_lo == nullptr) || (size_t)smem_bytes != layout)
     return kErrBadShape;
-  const BwdArgs a{dh_all, dc_all, gates, c_prev, mask,  w_hh,     w_lo,     dgates, dh0,
-                  dc0,    F,      N,     H,      groups, stage_rows, stages, resident, k_cols};
+  const BwdArgs a{dh_all, dc_all, gates,  c_prev,     mask,   w_hh,     w_lo,   dgates, dh0,
+                  dc0,    F,      N,      H,          groups, stage_rows, stages, resident,
+                  k_cols, xbuf};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (mode == kHigh) return backward_at<kHigh>(a, units, layout, s);
   if (mode == kDefault) return backward_at<kDefault>(a, units, layout, s);

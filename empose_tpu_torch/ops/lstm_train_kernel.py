@@ -94,11 +94,12 @@ class BwdPlan(NamedTuple):
     row_groups: int  # thread row groups of a pass (THREADS / row_groups k-splits each)
     rows_per_pass: int  # rows a pass multiplies (at most TILE_ROWS per group)
     stage_rows: int  # rows of dgates[t] per staged chunk
-    stages: int      # 1: all N rows staged at once; 2: a ring of two row chunks
+    stages: int      # highest: 1, all N rows staged at once, or 2, a ring of two row
+                     # chunks; high and default: the ring's stages (2 to MAX_SLOTS), each
+                     # a 16-row k-slice of k_cols columns
     resident: bool   # step operands and carries in shared memory (else in device memory)
     k_cols: int      # columns of dgates[t] staged at once: 4H at highest; at high and
-                     # default the k-slice of a 16-row bf16 chunk (one row group and stage,
-                     # not resident)
+                     # default the k-slice of a 16-row bf16 stage (one row group)
     smem_bytes: int  # dynamic shared memory per block
 
 
@@ -158,28 +159,38 @@ def lstm_train_fwd_plan(n: int, h: int, sms: int = SMS, smem_limit: int = SMEM_L
     return FwdPlan(units, h // units, rows, fwd_smem_bytes(units, h, rows))
 
 
+def bwd_operand_bytes(units: int, n: int) -> int:
+    """Shared memory of the reverse sweep's resident step operands (dh_all,
+    dc_all, c_prev, four gate columns per unit, and the mask, each to 16
+    bytes) and carries dh and dc."""
+    r4 = lambda x: -(-x // 4) * 4
+    return 4 * (r4(7 * units * n) + r4(n) + 2 * units * n)
+
+
 def bwd_smem_bytes(units: int, n: int, h: int, stages: int, stage_rows: int,
                    resident: bool = True) -> int:
     """Shared memory of one reverse-sweep block (``csrc/lstm_train.cu``
     ``bwd_smem_floats``): the resident rows of W_hh (to 128 bytes), the
-    stages of dgates[t], where ``resident`` the next step's operands
-    (dh_all, dc_all, c_prev, four gate columns per unit, and the mask) and
-    the carries dh and dc, and the warps' partial sums."""
-    r4 = lambda x: -(-x // 4) * 4
-    rows = r4(7 * units * n) + r4(n) + 2 * units * n if resident else 0
-    return 4 * (-(-units * 4 * h // 32) * 32 + stages * stage_rows * 4 * h + rows
-                + THREADS // 32 * TILE_ROWS * units)
+    stages of dgates[t], where ``resident`` the next step's operands and
+    the carries (:func:`bwd_operand_bytes`), and the warps' partial sums."""
+    rows = bwd_operand_bytes(units, n) if resident else 0
+    return 4 * (-(-units * 4 * h // 32) * 32 + stages * stage_rows * 4 * h
+                + THREADS // 32 * TILE_ROWS * units) + rows
 
 
-def bwd_mma_smem_bytes(h: int, k_cols: int, precision: str) -> int:
+def bwd_mma_smem_bytes(units: int, n: int, h: int, k_cols: int, stages: int, resident: bool,
+                       precision: str) -> int:
     """Shared memory of one reverse-sweep block at high or default
     (``csrc/lstm_train.cu`` ``bwd_mma_smem_bytes``): the block's rows of
     W_hh as the B fragments of one n8 tile per k-step of 4H (hi, and lo at
-    high), one staged 16-row k-slice of dgates[t] of ``k_cols`` columns as
-    bf16, and the partial tiles of one n8 tile."""
+    high); a ring of ``stages`` stages, each a 16-row k-slice of dgates[t]
+    of ``k_cols`` columns in bf16 k-step tiles (hi, and lo at high); the
+    ring's mbarriers (128 bytes); two buffers of the partial tiles of one
+    n8 tile; where ``resident``, the step operands and carries
+    (:func:`bwd_operand_bytes`)."""
     parts = _bf16_parts(precision)
-    plane = PASS_ROWS * (-(-k_cols // 16) * 16 + 8) * 2
-    return parts * (h // 4) * 32 * 8 + parts * plane + MMA_WARPS * PASS_ROWS * 8 * 4
+    return (parts * (h // 4) * 32 * 8 + stages * parts * PASS_ROWS * k_cols * 2 + 128
+            + 2 * MMA_WARPS * PASS_ROWS * 8 * 4 + (bwd_operand_bytes(units, n) if resident else 0))
 
 
 @functools.lru_cache(maxsize=256)
@@ -200,25 +211,35 @@ def lstm_train_bwd_plan(n: int, h: int, sms: int = SMS, smem_limit: int = SMEM_L
     ValueError only where not one row of dgates fits in each of two
     stages.
 
-    At high and default the grid is the same (U >= 2); each 16-row chunk of
-    dgates[t] is staged as bf16 in k-slices of ``k_cols`` columns, the
-    widest of equal slices (to 16 columns) that fit beside the block's
-    fragments of W_hh (all 4H at H=512 at both modes and at H=1024 at
-    default; three slices at H=1024 at high), and the step operands and
-    carries stay in device memory, so the plan does not depend on N."""
+    At high and default the grid is the same (U >= 2). The step's bf16
+    dgates[t] streams through a ring of stages, each a 16-row chunk's
+    k-slice of ``k_cols`` columns: 4H in the fewest slices, each a multiple
+    of 128 columns (or all 4H), of which two stages fit beside the block's
+    fragments of W_hh (H=512: 2048 at default, 1024 at high; H=1024: 2048,
+    640): a step has the fewest stages, each of which costs a wait, and
+    every slice starts at a multiple of MMA_WARPS k-steps, so the sums do
+    not depend on the slicing. The ring takes as many stages as fit, up to
+    MAX_SLOTS and the step's stages (at least 2). The step operands and
+    carries go into shared memory (``resident``) where they fit beside that
+    ring, else they stay in device memory, so any N runs."""
     if n <= 0 or h <= 0 or h % 4:
         raise ValueError(f"the reverse sweep needs N > 0 and H a positive multiple of 4, got "
                          f"N={n}, H={h}")
     units = lstm_train_units(h, sms, precision)
     if resolve(precision) != HIGHEST:
-        steps = h // 4  # k-steps of 16 over 4H
-        k_cols = next((16 * -(-steps // s) for s in range(1, steps + 1)
-                       if bwd_mma_smem_bytes(h, 16 * -(-steps // s), precision) <= smem_limit), 0)
+        smem = functools.partial(bwd_mma_smem_bytes, units, n, h, precision=precision)
+        k_cols = next((k for k in (min(4 * h, 128 * -(-4 * h // (128 * s)))
+                                   for s in range(1, h // 32 + 2))
+                       if smem(k, 2, False) <= smem_limit), 0)
         if not k_cols:
             raise ValueError(f"the reverse sweep at N={n}, H={h}, precision {precision} does "
                              f"not fit in {smem_limit} bytes of shared memory")
-        return BwdPlan(units, h // units, 1, PASS_ROWS, PASS_ROWS, 1, False, k_cols,
-                       bwd_mma_smem_bytes(h, k_cols, precision))
+        per_step = -(-n // PASS_ROWS) * -(-4 * h // k_cols)
+        stage = smem(k_cols, 1, False) - smem(k_cols, 0, False)
+        stages = max(2, min(MAX_SLOTS, per_step, (smem_limit - smem(k_cols, 0, False)) // stage))
+        resident = smem(k_cols, stages, True) <= smem_limit
+        return BwdPlan(units, h // units, 1, PASS_ROWS, PASS_ROWS, stages, resident, k_cols,
+                       smem(k_cols, stages, resident))
     if bwd_smem_bytes(units, n, h, 1, n) <= smem_limit:
         stages, rows, resident = 1, n, True
     else:
@@ -240,7 +261,7 @@ def _library():
     return cuda_build.load(NAME, {
         "lstm_train_prepare": ([i, ctypes.POINTER(i)], i),
         "lstm_train_forward": ([p] * 8 + [i] * 7 + [p, p], i),
-        "lstm_train_backward": ([p] * 9 + [i] * 11 + [p, p], i),
+        "lstm_train_backward": ([p] * 9 + [i] * 11 + [p, p, p], i),
     })
 
 
@@ -400,11 +421,17 @@ def lstm_train_bwd(dh_all, dc_all, gates, c_prev, mask, w_hh, precision: str = H
     dgates = torch.empty_like(gates)
     dh0 = torch.empty(n, hidden, device=dev)
     dc0 = torch.empty(n, hidden, device=dev)
+    # At high and default the kernel's bf16 exchange buffer: two slots of
+    # dgates[t]'s bf16 parts (its rows to 16), written by their owners and
+    # read by every block.
+    xbuf = None if mode == HIGHEST else torch.empty(
+        2, _bf16_parts(mode), -(-n // PASS_ROWS) * PASS_ROWS, 4 * hidden, dtype=torch.bfloat16,
+        device=dev)
     code = _launch(_lib.lstm_train_backward, index, dh_all.data_ptr(), dc_all.data_ptr(),
                    gates.data_ptr(), c_prev.data_ptr(), mask.data_ptr(), w.data_ptr(),
                    dgates.data_ptr(), dh0.data_ptr(), dc0.data_ptr(), f, n, hidden, plan.units,
                    plan.row_groups, plan.stage_rows, plan.stages, int(plan.resident),
-                   plan.k_cols, plan.smem_bytes, MODE_CODES[mode], _ptr(w_lo))
+                   plan.k_cols, plan.smem_bytes, MODE_CODES[mode], _ptr(w_lo), _ptr(xbuf))
     cuda_build.check(code, "LSTM training backward kernel")
     BWD_LAUNCHES += 1
     _count("lstm_train_bwd", mode)

@@ -595,10 +595,14 @@ PAIR_MODE_REL = {"high": 1e-5, "default": 5e-3}
 
 
 @pytest.mark.parametrize("mode", ["high", "default"])
-@pytest.mark.parametrize("f, n, h", [(64, 16, 512), (33, 7, 512), (3, 1300, 512), (64, 32, 1024)])
+@pytest.mark.parametrize("f, n, h", [(64, 16, 512), (33, 7, 512), (3, 1300, 512), (64, 32, 1024),
+                                     (16, 17, 512), (16, 33, 512), (16, 113, 512),
+                                     (16, 17, 1024)])
 def test_training_pair_at_mode_matches_plain(cuda, mode, f, n, h):
     """Both sweeps at the mode (their bf16 tensor-core branches) at the
-    released shape, a ragged batch, more rows than any staging and H=1024
+    released shape, a ragged batch, more rows than any staging, H=1024 and
+    row counts one past a 16-row chunk of the reverse sweep's ring (17, 33,
+    113: the last chunk's tiles mostly zero rows)
     against their plain versions at the same mode (PAIR_MODE_REL), at high
     closer to them than to the plain versions at highest; one launch per
     call counted under the mode, 0-length rows frozen (state) or zero
@@ -659,6 +663,35 @@ def test_training_pair_at_mode_cuda_graph_capture(cuda, mode, sweep):
     torch.cuda.synchronize()
     for a, b in zip(out, fn(*args)):
         assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("mode", ["high", "default"])
+@pytest.mark.parametrize("f, n, h", [(16, 33, 512), (16, 17, 1024)])
+def test_reverse_sweep_at_mode_graph_capture_scratch(cuda, mode, f, n, h):
+    """The reverse sweep at the mode captured in a CUDA graph where its
+    exchange buffer (the bf16 scratch, allocated by the wrapper inside the
+    capture from the graph's pool) has zero pad rows past N: replays on new
+    inputs equal the eager call bit for bit, twice in a row (the scratch's
+    pad rows and slots are set anew by every launch)."""
+    x_proj, mask, w_hh, h0, c0, dh, dc, _ = _pair_case(f, n, cuda, h)
+    gates, _, c_all = TK.lstm_train_fwd_plain(x_proj, mask, w_hh, h0, c0, True, mode)
+    c_prev = torch.cat([c0[None], c_all[:-1]])
+    args = [dh, dc, gates, c_prev, mask, w_hh, mode]
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        TK.lstm_train_bwd(*args)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = TK.lstm_train_bwd(*args)
+    for scale in (0.5, -1.5):
+        args[0].copy_(dh * scale)
+        args[2].copy_(gates * scale)
+        graph.replay()
+        torch.cuda.synchronize()
+        for a, b in zip(out, TK.lstm_train_bwd(*args)):
+            assert torch.equal(a, b)
 
 
 @pytest.mark.parametrize("mode", ["high", "default"])

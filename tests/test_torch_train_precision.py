@@ -144,6 +144,98 @@ def test_plain_reverse_sweep_high_matches_jax_kernel():
     assert (got[0][:, 3] == 0).all()  # the 0-length row: zero dgates
 
 
+def _reverse_sweep_split_once(dh_all, dc_all, gates, c_prev, mask, w_hh, mode):
+    """The reverse sweep with the data flow of the kernel's mode body: each
+    step's dgates formed in f32 (``_make_bwd_kernel``'s formulas) and split
+    once into bf16 (hi, lo) by ``ops/precision.split_bf16``, as phase (A)
+    writes the exchange buffer, then multiplied with W_hh^T's bf16 form:
+    ``hi@Wh + lo@Wh + hi@Wl`` at high (dot3's order), ``hi@Wh`` at default."""
+    w_t = [w.t() for w in P.bf16_parts(w_hh, mode)]
+    dh, dc = torch.zeros_like(dh_all[0]), torch.zeros_like(dc_all[0])
+    dgates = torch.empty_like(gates)
+    for t in range(gates.shape[0] - 1, -1, -1):
+        m = mask[t][:, None]
+        Dh, Dc = dh + dh_all[t], dc + dc_all[t]
+        gi, gf, gg, go = gates[t].chunk(4, dim=-1)
+        i, f, o, g = torch.sigmoid(gi), torch.sigmoid(gf), torch.sigmoid(go), torch.tanh(gg)
+        cp = c_prev[t]
+        tc = torch.tanh(f * cp + i * g)
+        dh_new = Dh * m
+        dc_new = Dc * m + dh_new * o * (1.0 - tc * tc)
+        dgates[t] = torch.cat([dc_new * g * i * (1.0 - i), dc_new * cp * f * (1.0 - f),
+                               dc_new * i * (1.0 - g * g), dh_new * tc * o * (1.0 - o)], dim=-1)
+        hi, lo = P.split_bf16(dgates[t])
+        back = P.mm_bf16(hi, w_t[0])
+        if mode == "high":
+            back = back + P.mm_bf16(lo, w_t[0]) + P.mm_bf16(hi, w_t[1])
+        dh = back + Dh * (1.0 - m)
+        dc = dc_new * f + Dc * (1.0 - m)
+    return dgates, dh, dc
+
+
+def _bwd_scan_bf16(dh_all, dc_all, gates, c_prev, mask, w_hh):
+    """``_make_bwd_kernel``'s reverse sweep as a JAX scan with its product
+    at DEFAULT (``_bf16_mm``): (dgates, dh0, dc0)."""
+    def step(carry, inp):
+        dh, dc = carry
+        dh_t, dc_t, g4, cp, m = inp
+        m1 = m[:, None]
+        Dh, Dc = dh + dh_t, dc + dc_t
+        i, f = jax.nn.sigmoid(g4[:, :H]), jax.nn.sigmoid(g4[:, H:2 * H])
+        g, o = jnp.tanh(g4[:, 2 * H:3 * H]), jax.nn.sigmoid(g4[:, 3 * H:])
+        tc = jnp.tanh(f * cp + i * g)
+        dh_new = Dh * m1
+        dc_new = Dc * m1 + dh_new * o * (1.0 - tc * tc)
+        dg = jnp.concatenate([dc_new * g * i * (1.0 - i), dc_new * cp * f * (1.0 - f),
+                              dc_new * i * (1.0 - g * g), dh_new * tc * o * (1.0 - o)], axis=-1)
+        back = _bf16_mm(dg, w_hh.T)
+        return (back + Dh * (1.0 - m1), dc_new * f + Dc * (1.0 - m1)), dg
+
+    zeros = jnp.zeros_like(dh_all[0])
+    (dh0, dc0), dgates = lax.scan(step, (zeros, zeros), (dh_all, dc_all, gates, c_prev, mask),
+                                  reverse=True)
+    return dgates, dh0, dc0
+
+
+@pytest.mark.parametrize("mode", MODES)
+def test_plain_reverse_sweep_is_the_split_once_data_flow(mode):
+    """The plain reverse sweep at each mode equals, bit for bit, the mode
+    body's data flow (dgates split once, then multiplied), and lies within
+    its tolerance of the JAX reverse sweep at the mode: at HIGH the JAX
+    ``_pallas_bwd`` in interpret mode (BWD_HIGH_TOL, closer than the port
+    at HIGHEST); at DEFAULT, whose Pallas dot runs in f32 on this CPU, the
+    kernel's formulas as a JAX scan with bf16 products (DEFAULT_EMUL_TOL),
+    both fed JAX's gates and c_prev."""
+    x_proj, mask, w_hh, h0, c0, dh, dc = _pair_inputs(4)
+    m3 = jnp.asarray(mask)[:, :, None]
+    if mode == "high":
+        whi, wlo = JK.split_bf16(jnp.asarray(w_hh))
+        gates, _, c_all = JT._pallas_fwd(jnp.asarray(x_proj), m3, whi, wlo, jnp.asarray(h0),
+                                         jnp.asarray(c0), hidden=H, interpret=True,
+                                         precision=HIGH)
+    else:
+        gates, _, c_all = _core_scan_bf16(*(jnp.asarray(a) for a in (x_proj, mask, w_hh, h0,
+                                                                     c0)))
+    c_prev = jnp.concatenate([jnp.asarray(c0)[None], c_all[:-1]])
+    if mode == "high":
+        want = JT._pallas_bwd(jnp.asarray(dh), jnp.asarray(dc), gates, c_prev, m3, whi, wlo,
+                              hidden=H, interpret=True, precision=HIGH)
+    else:
+        want = _bwd_scan_bf16(jnp.asarray(dh), jnp.asarray(dc), gates, c_prev,
+                              jnp.asarray(mask), jnp.asarray(w_hh))
+    args = _t(dh, dc, gates, c_prev, mask, w_hh)
+    got = TK.lstm_train_bwd_plain(*args, mode)
+    flow = _reverse_sweep_split_once(*args, mode)
+    assert all(torch.equal(a, b) for a, b in zip(got, flow))
+    assert all(torch.equal(a, b) for a, b in zip(TK.lstm_train_bwd(*args, mode), flow))
+    if mode == "high":
+        _close(flow, want, BWD_HIGH_TOL)
+        assert _max_diff(flow, want) < _max_diff(TK.lstm_train_bwd_plain(*args, "highest"), want)
+    else:
+        _close(flow, want, DEFAULT_EMUL_TOL)
+    assert (flow[0][:, 3] == 0).all()  # the 0-length row: zero dgates
+
+
 # ---------------------------------------------------------------------------
 # DEFAULT against a bf16 JAX scan and its VJP
 
@@ -509,31 +601,48 @@ def test_bf16_with_another_precision_raises(assets_env):
 
 
 def test_lstm_train_plans_read_the_mode_bytes():
-    """The pair's plans at high and default: HIGHEST's grid with U >= 2, one
-    16-row bf16 chunk, bytes by the kernel's layouts; the reverse sweep's
-    k-slice the widest of equal slices that fits (all 4H at H=512; three at
-    H=1024 HIGH); plans for every (N, H) that HIGHEST plans, independent of
-    N, and raising only where HIGHEST's do."""
-    for mode, fwd512, bwd512, fwd1024, bwd1024, k1024 in (
-            ("default", 41216, 102656, 114944, 200960, 4096),
-            ("high", 74240, 201216, 213504, 223744, 1376)):
-        for n in (1, 7, 16, 64, 100, 1300):
+    """The pair's plans at high and default: HIGHEST's grid with U >= 2;
+    the forward sweep one 16-row bf16 chunk; the reverse sweep a ring of
+    16-row k-slices, 4H in the fewest slices of a multiple of 128 columns
+    (or all 4H) of which two stages fit (H=512: 2048 default, 1024 high;
+    H=1024: 2048, 640), as many stages as fit up to 8 and the step's stages
+    (at least 2), the step operands resident where they fit beside that
+    ring; bytes by the kernels' layouts; plans for every (N, H) that
+    HIGHEST plans, raising only where HIGHEST's do."""
+    frags = lambda h, mode: (2 if mode == "high" else 1) * h // 4 * 32 * 8
+    for mode, fwd512, fwd1024 in (("default", 41216, 114944), ("high", 74240, 213504)):
+        parts = 2 if mode == "high" else 1
+        for n in (1, 7, 16, 17, 33, 64, 100, 113, 1300):
             assert TK.lstm_train_fwd_plan(n, 512, precision=mode) == TK.FwdPlan(
                 4, 128, 16, fwd512)
-            assert TK.lstm_train_bwd_plan(n, 512, precision=mode) == TK.BwdPlan(
-                4, 128, 1, 16, 16, 1, False, 2048, bwd512)
             assert TK.lstm_train_fwd_plan(n, 1024, precision=mode).smem_bytes == fwd1024
-            bwd = TK.lstm_train_bwd_plan(n, 1024, precision=mode)
-            assert (bwd.units, bwd.k_cols, bwd.smem_bytes) == (8, k1024, bwd1024)
+            for h, units, k_cols in ((512, 4, 2048 // parts),
+                                     (1024, 8, 2048 if parts == 1 else 640)):
+                plan = TK.lstm_train_bwd_plan(n, h, precision=mode)
+                fixed = frags(h, mode) + 128 + 2 * 8 * 16 * 8 * 4
+                stage = parts * 16 * k_cols * 2
+                fit = (232448 - fixed) // stage
+                stages = max(2, min(8, -(-n // 16) * -(-4 * h // k_cols), fit))
+                resident = fixed + stages * stage + TK.bwd_operand_bytes(units, n) <= 232448
+                assert plan == TK.BwdPlan(units, h // units, 1, 16, 16, stages, resident, k_cols,
+                                          TK.bwd_mma_smem_bytes(units, n, h, k_cols, stages,
+                                                                resident, mode)), (mode, n, h)
+        # H=512: two stages at both modes; the operands resident up to N=113, not at N=1300.
+        assert [TK.lstm_train_bwd_plan(n, 512, precision=mode)[5:7] for n in (16, 113, 1300)] \
+            == [(2, True), (2, True), (2, False)]
+        assert TK.bwd_mma_smem_bytes(4, 64, 512, 1024, 2, True, mode) == (
+            parts * (512 // 4 * 32 * 8 + 2 * 16 * 1024 * 2) + 128 + 8 * 16 * 8 * 4 * 2
+            + 4 * (7 * 4 * 64 + 64 + 2 * 4 * 64))
         assert TK.lstm_train_fwd_plan(4, 64, precision=mode).units == 2  # HIGHEST: 1
         assert TK.lstm_train_fwd_plan(4, 64).units == 1
-        assert TK.bwd_mma_smem_bytes(512, 2048, mode) == \
-            (2 if mode == "high" else 1) * (512 // 4 * 32 * 8 + 16 * 2056 * 2) + 8 * 16 * 8 * 4
         for h in (4, 100, 260, 516, 1000, 1056):
-            TK.lstm_train_fwd_plan(16, h)
-            TK.lstm_train_bwd_plan(16, h)
-            assert TK.lstm_train_fwd_plan(16, h, precision=mode).smem_bytes <= 232448
-            assert TK.lstm_train_bwd_plan(16, h, precision=mode).smem_bytes <= 232448
+            for n in (1, 16, 300):
+                TK.lstm_train_fwd_plan(n, h)
+                TK.lstm_train_bwd_plan(n, h)
+                assert TK.lstm_train_fwd_plan(n, h, precision=mode).smem_bytes <= 232448
+                plan = TK.lstm_train_bwd_plan(n, h, precision=mode)
+                assert plan.smem_bytes <= 232448 and 2 <= plan.stages <= 8
+                assert plan.k_cols == 4 * h or plan.k_cols % 128 == 0
         for plan in (TK.lstm_train_fwd_plan, TK.lstm_train_bwd_plan):
             with pytest.raises(ValueError):
                 plan(16, 2048, precision=mode)

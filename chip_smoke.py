@@ -164,12 +164,13 @@ the default) or BiRNN-6 (``birnn``) train step at MODE (default
 trained states, beside the kernel pair: it sets TOL_GRAD_LGD and
 TOL_STEP_MODE.
 
-    python3 chip_smoke.py --step-probe [MODE, default highest]
+    python3 chip_smoke.py --step-probe [MODE, default highest] [F, default 64]
 
 reads the time per step of the forward and the reverse sweep, of the
-bidirectional layer and of the stack (2x512 in both schedules, and one
-layer of 1024) at F=64 for N = 1, 4, 16, 32 and 64 at MODE (``step_probe``):
-what a step is made of beyond its grid barriers.
+bidirectional layer (also as device time alone) and of the stack (2x512 in
+both schedules, and one layer of 1024) at F steps for N = 1, 4, 16, 17, 32
+and 64 at MODE (``step_probe``): what a step is made of beyond its grid
+barriers.
 
     python3 chip_smoke.py --mode-rounding [N_SEEDS, default 8]
 
@@ -181,12 +182,14 @@ readings set TOL_MODE and TOL_PAIR_MODE.
     PYTHONPATH=TREE python3 -P chip_smoke.py --time-pair
 
 times both training sweeps at phase 4's timed shapes on its inputs, the
-bidirectional layer at phase 4b's and the stack and its wavefront schedule
-at phase 3's, and the reverse sweep at high and default at phase 4f's
-(``time_pair``; each wrapper as an event pair around one call, as device
-time alone and as host time alone, with an output digest), for the package
-under TREE (``-P``: not the one beside the script); runs of two trees in
-turns within one call compare them.
+bidirectional layer at phase 4b's, and at high and default at phase 4e's
+(BIDI_MODE_SHAPES), the stack and its wavefront schedule at phase 3's, and
+the reverse sweep at high and default at phase 4f's (``time_pair``; each
+wrapper as an event pair around one call, as device time alone and as host
+time alone, with an output digest), and prints the registers and a SASS
+digest of every LSTM kernel instantiation, for the package under TREE
+(``-P``: not the one beside the script); runs of two trees in turns within
+one call compare them.
 
 Exits non-zero on any failure, and when no CUDA device is present.
 Imports torch, numpy and the port only.
@@ -265,6 +268,10 @@ REAL_RECORDINGS, HOLD_OUT_FRAMES, VALID_SEQUENCES = 16, 2000, 24
 EVAL_BATCH = 16      # bs_eval: the config's default, which train_flags keeps
 TOL_EVAL = 1e-3      # metric tables against each other: |a - b| <= 1e-3 * max(|b|, 1)
 BIDI_LONG = (4096, REAL_RECORDINGS + 1)  # the longest whole-sequence forward, beyond it
+# The bidi layer at the modes: BIDI_TIMED, one direction per launch at
+# H=1024 (16, 32), and the eval's longest forward.
+BIDI_MODE_SHAPES = (*((f, n, HIDDEN) for f, n in BIDI_TIMED), (CHUNK, 32, 2 * HIDDEN),
+                    (*BIDI_LONG, HIDDEN))
 FP32_PEAK = 67e12    # H100 SXM fp32 FLOP/s outside the tensor cores
 HBM_BYTES_S = 3.35e12  # H100 SXM HBM3 bytes/s
 BF16_PEAK = 989e12     # H100 SXM bf16 tensor-core FLOP/s, dense
@@ -974,7 +981,8 @@ def digest(tensors) -> str:
 def time_pair() -> int:
     """``python3 chip_smoke.py --time-pair``: both training sweeps' times at
     PAIR_TIMED on phase 4's inputs, the bidirectional layer's
-    (``lstm_bidi_fused``) at BIDI_TIMED on phase 4b's, and the stack's and
+    (``lstm_bidi_fused``) at BIDI_TIMED on phase 4b's and at high and
+    default at BIDI_MODE_SHAPES on phase 4e's, and the stack's and
     its wavefront schedule's at STACK_TIMED (2x512) and of the stack at one
     layer of 1024 (16, 64) on phase 3's, all at highest; the reverse sweep
     at high and default at PAIR_TIMED and at H=1024 (64, 32) on phase 4f's
@@ -992,16 +1000,19 @@ def time_pair() -> int:
         return 2
     print(f"package: {os.path.dirname(TK.__file__)}", flush=True)
     logs = cuda_build.build([TK.NAME, K.BIDI_NAME, K.NAME], force=True, verbose=True)
-    # The training pair's instantiations at every mode: registers, and a
-    # digest of their SASS (equal digests: the same instructions).
-    regs = {fn: lines for fn, lines in ptxas_report(logs[TK.NAME]).items() if "lstm_train" in fn}
-    for (kernel, units, _, mode), ins in sorted(sass_functions(TK.NAME).items()):
-        code = {"highest": 0, "high": 1, "default": 2}[mode]
-        reg = next((l for fn, ls in regs.items()
-                    if re.search(rf"{kernel}ILi{units}E(?:Li{code}E)?E", fn)
-                    for l in ls if "registers" in l), "")
-        print(f"{mode} {kernel} U={units}: {reg}; {len(ins)} instructions, SASS digest "
-              f"{hashlib.sha256(chr(10).join(ins).encode()).hexdigest()[:16]}", flush=True)
+    # Every LSTM kernel instantiation (the training pair, the bidi layer, the
+    # stack and its wavefront schedule, at every mode): registers, and a
+    # digest of its SASS (equal digests: the same instructions).
+    for name in (TK.NAME, K.BIDI_NAME, K.NAME):
+        regs = ptxas_report(logs[name])
+        for (kernel, units, wave, mode), ins in sorted(sass_functions(name).items()):
+            code = {"highest": 0, "high": 1, "default": 2}[mode]
+            pattern = rf"{kernel}ILi{units}E(?:Lb{int(wave)}E)?(?:Li{code}E)?E"
+            reg = next((l for fn, ls in regs.items() if re.search(pattern, fn)
+                        for l in ls if "registers" in l), "")
+            print(f"{mode} {kernel} U={units}" + (" wavefront" if wave else "") + f": {reg}; "
+                  f"{len(ins)} instructions, SASS digest "
+                  f"{hashlib.sha256(chr(10).join(ins).encode()).hexdigest()[:16]}", flush=True)
     out = {}
 
     def timings(key: str, fn) -> dict:
@@ -1036,6 +1047,15 @@ def time_pair() -> int:
         args = bidi_inputs(f, n, seed=SEED + f + n + 1)[-1]
         out[f"bidi {f}x{n}"] = timings("bidi", lambda: K.lstm_bidi_fused(*args))
         print(f"bidi times F={f} N={n}: {out[f'bidi {f}x{n}']}", flush=True)
+    for mode in MODES:  # the mode phases' inputs (W_hh's bf16 form made at the first call)
+        for f, n, h in BIDI_MODE_SHAPES:
+            args = bidi_mode_inputs(f, n, mode, seed=SEED + f + n + 1, h=h)[1]
+            key = f"bidi@{mode} {f}x{n}" + ("" if h == HIDDEN else f" H={h}")
+            out[key] = timings("bidi", lambda: K.lstm_bidi_fused(*args, mode))
+            # A captured call makes W_hh's bf16 form anew (ops/precision.derived
+            # keeps nothing during a capture): its device time, inside bidi_graph_ms.
+            out[key]["weights_graph_ms"] = graph_ms(lambda: K.kernel_weights(args[2], mode))
+            print(f"bidi at {mode} times F={f} N={n} H={h}: {out[key]}", flush=True)
     for f, n, h, layers in (*((f, n, HIDDEN, LAYERS) for f, n in STACK_TIMED),
                             (CHUNK, STREAMS, 2 * HIDDEN, 1)):
         cells, x, mask, h0, c0 = stack_case(f, n, SEED + f + n, h, layers)
@@ -1051,12 +1071,14 @@ def time_pair() -> int:
     return 0
 
 
-def step_probe(mode: str = "highest", f: int = TRAIN_WINDOW, ns=(1, 4, 16, 32, 64)) -> int:
-    """``python3 chip_smoke.py --step-probe [MODE]``: what a step of each
+def step_probe(mode: str = "highest", f: int = TRAIN_WINDOW, ns=(1, 4, 16, 17, 32, 64)) -> int:
+    """``python3 chip_smoke.py --step-probe [MODE [F]]``: what a step of each
     training sweep, of the bidirectional layer and of the stack (2x512 in
     both schedules, and one layer of 1024) is made of at MODE (default
-    highest): its time per step at F steps for growing N (median event time
-    of the wrapper over F; at high and default with the weights' bf16 form
+    highest): its time per step at F steps (default 64) for growing N
+    (median event time of the wrapper over F; the bidi layer also as device
+    time alone, from graph replays less the weights' bf16 form that a
+    captured call makes; at high and default with the weights' bf16 form
     made once, outside the timed calls). At N=1 the staged rows and the
     products are nearly nothing, so the step is the grid barriers, the
     elementwise work and the launch; each row adds its products and, per
@@ -1088,15 +1110,20 @@ def step_probe(mode: str = "highest", f: int = TRAIN_WINDOW, ns=(1, 4, 16, 32, 6
         print(f"{name} sweep at {mode} per step at F={f}, us by N (plans: {shown}; rows staged "
               f"at once at highest): " + ", ".join(f"N={n} {v:.2f}" for n, v in times.items()),
               flush=True)
-    bidi_us = {}
+    bidi_us, bidi_graph_us = {}, {}
     for n in ns:
         args = bidi_mode_inputs(f, n, mode, seed=SEED + n)[1]
         bidi_us[n] = cuda_ms(lambda: K.lstm_bidi_fused(*args, mode)) * 1e3 / f
+        # Device alone, less W_hh's bf16 form that a captured call makes anew.
+        weights_ms = 0.0 if mode == "highest" else graph_ms(lambda: K.kernel_weights(args[2], mode))
+        bidi_graph_us[n] = (graph_ms(lambda: K.lstm_bidi_fused(*args, mode)) - weights_ms) * 1e3 / f
     lim = K.bidi_limits(torch.device("cuda"))
     plans = {n: K.lstm_bidi_plan(n, HIDDEN, *lim, precision=mode) for n in ns}
     print(f"bidi layer at {mode} per step at F={f}, U={plans[ns[0]].units}, us by N (plans: "
-          f"{ {n: p.stage_rows for n, p in plans.items()} } rows staged at once): "
-          + ", ".join(f"N={n} {v:.2f}" for n, v in bidi_us.items()), flush=True)
+          f"{ {n: p.stage_rows for n, p in plans.items()} } rows staged at once; at high and "
+          "default a ring of 16-row slots): "
+          + ", ".join(f"N={n} {v:.2f} (device alone {bidi_graph_us[n]:.2f})"
+                      for n, v in bidi_us.items()), flush=True)
     stack_us = {}
     for name, h, layers, fn in (("stack", HIDDEN, LAYERS, K.lstm_stack_fused),
                                 ("wavefront", HIDDEN, LAYERS, K.lstm_stack_wavefront_fused),
@@ -1114,8 +1141,9 @@ def step_probe(mode: str = "highest", f: int = TRAIN_WINDOW, ns=(1, 4, 16, 32, 6
         print(f"{name} at {mode} per step at F={f}, us by N (plans: "
               f"{ {n: p.stage_rows for n, p in plans.items()} } rows staged at once): "
               + ", ".join(f"N={n} {v:.2f}" for n, v in times.items()), flush=True)
-    print(json.dumps({"mode": mode, "fwd_us_per_step": fwd_us, "bwd_us_per_step": us,
-                      "bidi_us_per_step": bidi_us, "stack_us_per_step": stack_us}), flush=True)
+    print(json.dumps({"mode": mode, "f": f, "fwd_us_per_step": fwd_us, "bwd_us_per_step": us,
+                      "bidi_us_per_step": bidi_us, "bidi_device_us_per_step": bidi_graph_us,
+                      "stack_us_per_step": stack_us}), flush=True)
     return 0
 
 
@@ -2383,8 +2411,7 @@ def kernel_modes() -> dict:
                                              timed=(f, n) in STACK_TIMED)
         stack_mode_phase(CHUNK, STREAMS, mode, seed=SEED + 1024, h=2 * HIDDEN, layers=1)
         bidi = {}
-        for f, n, h in (*((f, n, HIDDEN) for f, n in BIDI_TIMED), (CHUNK, 32, 2 * HIDDEN),
-                        (*BIDI_LONG, HIDDEN)):
+        for f, n, h in BIDI_MODE_SHAPES:
             bidi[(f, n, h)] = bidi_mode_phase(f, n, mode, seed=SEED + f + n + 1, h=h)
         rows[mode] = dict(stack=stack[(CHUNK, STREAMS)], bidi=bidi[(CHUNK, STREAMS, HIDDEN)])
     return rows
@@ -2504,7 +2531,8 @@ def eval_mode_path(label: str, model_id: str, kernel: str, window, base: dict,
     ``kernel`` launches as at ``highest``, all at the mode, and no other
     kernel; the table's MPJPE, PA-MPJPE and MPJAE shift from the ``highest``
     table ``base`` (overall row; within TOL_EVAL_MODE relative), then one
-    batched pass at the mode timed on the host clock. Returns the launches."""
+    batched pass at the mode timed on the host clock and one profiled (its
+    device busy time and the kernel's). Returns the launches."""
     from empose_tpu_torch.device import precision_scope
 
     argv = ["--model_id", model_id]
@@ -2529,11 +2557,14 @@ def eval_mode_path(label: str, model_id: str, kernel: str, window, base: dict,
         EH.evaluate_real_sequences(session, loader, window)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
+        dev = device_ms(lambda: EH.evaluate_real_sequences(session, loader, window), reps=1)
+    kernel_ms = sum(v for k, v in dev.items() if f"{kernel}_kernel" in k)
     print(f"{label} eval at {mode}: launches {launched}; overall row {rows[-1][1:]}; shift from "
           f"highest (mm, mm, deg) {shift}; largest relative difference to the highest table "
           f"{rel:.3e} (tolerance {TOL_EVAL_MODE:g}); batched pass wall {wall:.3f} s, "
           f"{frames / wall:.0f} frames/s (highest: {base['wall_s']:.3f} s, "
-          f"{base['frames_per_s']:.0f} frames/s)", flush=True)
+          f"{base['frames_per_s']:.0f} frames/s); profiled pass: device busy "
+          f"{sum(dev.values()):.1f} ms, the {kernel} kernel {kernel_ms:.1f} ms", flush=True)
     check(all(np.isfinite(r[1:]).all() for r in rows) and len(rows) == len(base["rows"]),
           f"{label} eval at {mode}: the table is not finite or has other rows")
     check(rel <= TOL_EVAL_MODE, f"{label} eval at {mode}: the table moved {rel} > "
@@ -2545,8 +2576,7 @@ def mode_cases():
     """Every (kind, F, N, H, L) that kernel_modes and pair_modes check."""
     return ([("stack", f, n, HIDDEN, LAYERS) for f, n in (*STACK_TIMED, (33, 7), (3, 1300))]
             + [("stack", CHUNK, STREAMS, 2 * HIDDEN, 1)]
-            + [("bidi", f, n, HIDDEN, 1) for f, n in BIDI_TIMED]
-            + [("bidi", CHUNK, 32, 2 * HIDDEN, 1), ("bidi", *BIDI_LONG, HIDDEN, 1)]
+            + [("bidi", f, n, h, 1) for f, n, h in BIDI_MODE_SHAPES]
             + [("pair", f, n, h, 1) for f, n, h in PAIR_MODE_SHAPES])
 
 
@@ -2895,7 +2925,7 @@ if __name__ == "__main__":
                                      mode=sys.argv[3] if sys.argv[3:] else "highest",
                                      model=sys.argv[4] if sys.argv[4:] else "lgd"))
     if sys.argv[1:2] == ["--step-probe"]:
-        sys.exit(step_probe(*sys.argv[2:3]))
+        sys.exit(step_probe(*sys.argv[2:3], *map(int, sys.argv[3:4])))
     if sys.argv[1:2] == ["--time-pair"]:
         sys.exit(time_pair())
     if sys.argv[1:2] == ["--mode-rounding"]:

@@ -71,11 +71,19 @@
 // recurrent product runs on the tensor cores, mma.sync m16n8k16 bf16 with
 // f32 accumulation, as in the stack kernel (csrc/lstm_stack.cu): W_hh comes
 // in rounded (DEFAULT) or split into a bf16 hi/lo pair (HIGH) by the wrapper
-// and stays resident in B-fragment order; each 16-row chunk of h[t-1] is
-// converted once into bf16 planes (hi; hi and lo at HIGH), the 8 warps
-// multiply over disjoint k-steps, and the partial tiles meet in shared
-// memory, summed in warp order by one thread per (row, unit, gate).  The
-// cell, masking and writes are the HIGHEST code's, in f32; no atomics.
+// and stays resident in B-fragment order.  Every block needs all of its
+// direction's h[t-1] each step, so its bf16 form (hi; hi and lo at HIGH) is
+// made once, by the thread that writes the f32 value, into a two-slot
+// exchange buffer laid out as the A operand's k-step tiles; after the
+// barrier one thread streams the step's 16-row chunks into a ring of
+// shared-memory slots by bulk copies (the Tensor Memory Accelerator) on
+// mbarriers, and the warps multiply each chunk as it lands, over 8 disjoint
+// k-step sets; where a step has two chunks or more, two teams of 4 warps
+// take them in turns, one team's epilogue beside the other's products.
+// The sets' partial tiles meet in shared memory, summed in set order by one
+// thread per (row, unit).  The cell's operands are read a chunk ahead, the
+// first chunk's before the grid barrier.  The cell, masking and writes are
+// the HIGHEST code's, in f32; no atomics.  The details: mma_body.
 // The grid must be co-resident for the barrier: lstm_bidi_prepare sets the
 // kernel's shared memory and checks its occupancy once per device, the
 // wrapper keeps the grid within the SMs, and lstm_bidi_forward only launches
@@ -91,17 +99,27 @@ namespace cg = cooperative_groups;
 
 namespace {
 
+using lstm::bulk_copy;
 using lstm::component;
 using lstm::cp_async;
 using lstm::cp_async_commit;
 using lstm::cp_async_wait_upto;
+using lstm::fence_mbarrier_init;
+using lstm::fence_proxy_async_global;
 using lstm::kDefault;
 using lstm::kHigh;
 using lstm::kHighest;
 using lstm::kMmaRows;
 using lstm::kParts;
+using lstm::kTile;
+using lstm::mbar_arrive;
+using lstm::mbar_expect_tx;
+using lstm::mbar_init;
+using lstm::mbar_wait;
+using lstm::mma_ktile;
 using lstm::round32;
 using lstm::sigmoid_f;
+using lstm::tile_offset;
 using lstm::warp_reduce_scatter;
 
 constexpr int kThreads = 256;
@@ -126,13 +144,16 @@ __host__ __device__ constexpr size_t smem_floats(int U, int H, int stage_rows) {
   return round32((size_t)4 * U * H) + (size_t)stage_rows * H;
 }
 
-// Shared memory of a block at HIGH and DEFAULT (bytes): the B fragments of
-// the block's columns of W_hh[d] (lstm_common.cuh, `parts` planes), one
-// staged bf16 chunk of h[t-1] (`parts` planes) and the partial tiles.  The
-// same formula as ops/lstm_kernel.py::bidi_smem_bytes.
-__host__ __device__ constexpr size_t mma_smem_bytes(int U, int H, int parts) {
-  return lstm::mma_matrix_bytes(U, H, parts) + (size_t)parts * lstm::mma_plane_bytes(H) +
-         lstm::mma_partial_bytes(U);
+// Shared memory of a block at HIGH and DEFAULT (bytes), in this order: the
+// B fragments of the block's columns of W_hh[d] (lstm_common.cuh, `parts`
+// planes); a ring of stage_rows / 16 slots, each one 16-row chunk of h[t-1]
+// in bf16 k-step tiles (`parts` planes); the ring's mbarriers (128 bytes:
+// at most kMaxStages slots); two buffers of the partial tiles.  The same
+// formula as ops/lstm_kernel.py::bidi_smem_bytes.
+constexpr int kMaxStages = 8;
+__host__ __device__ constexpr size_t mma_smem_bytes(int U, int H, int parts, int stage_rows) {
+  return lstm::mma_matrix_bytes(U, H, parts) + (size_t)stage_rows * parts * lstm::kpad16(H) * 2 +
+         128 + 2 * lstm::mma_partial_bytes(U);
 }
 
 // Units a warp multiplies at once (a staged h value read from shared memory
@@ -259,6 +280,288 @@ __device__ __forceinline__ void step_piece(const Step& p, const float* rows, int
   }
 }
 
+// Where row n, column j of a state lies in one part of the exchange buffer:
+// chunks of 16 rows, each KS k-step tiles.
+__device__ __forceinline__ size_t exchange_index(int n, int j, int KS) {
+  return ((size_t)(n / kMmaRows) * KS + j / 16) * kTile + tile_offset(n % kMmaRows, j % 16);
+}
+
+// h's bf16 form (hi, and lo at HIGH: split_bf16x2, the rounding of
+// stage_cols_bf16) at row n, column j of one slot of a direction of the
+// exchange buffer (x_part bf16 per part).
+template <int P>
+__device__ __forceinline__ void put_state(unsigned short* x, size_t x_part, int n, int j, int KS,
+                                          float h) {
+  const size_t o = exchange_index(n, j, KS);
+  unsigned hi, lo;
+  lstm::split_bf16x2(h, 0.0f, hi, lo);
+  x[o] = (unsigned short)hi;
+  if constexpr (P == kHigh) x[x_part + o] = (unsigned short)lo;
+}
+
+// What the steps of the HIGH and DEFAULT body share: the operands at the
+// block's direction d and units j0 .., the exchange, and the block's shared
+// memory (mma_body).
+struct Sweep {
+  const float* x_proj;  // (F, 2, N, 4H)
+  const float* mask;    // (F, N)
+  const float* h0;      // (2, N, H)
+  const float* c0;      // (2, N, H)
+  float* outs;          // (F, 2, N, H)
+  float* hbuf;          // (2, 2, N, H)
+  float* c_out;         // (2, N, H)
+  unsigned short* x_d;  // direction d's two slots of the exchange (slot stride 2 kP x_part)
+  int F, N, H, d, j0, KS, n_chunks, stages;
+  size_t plane;   // bf16 of one part of a chunk
+  size_t x_part;  // bf16 of one part of a state
+  const uint2* w_b;                          // the B fragments
+  __nv_bfloat16* ring;                       // the ring's slots
+  unsigned long long *full, *empty;          // the ring's mbarriers
+  float* part;                               // the two buffers of partial tiles
+};
+
+// The cell operands of a thread's (row, unit) of a chunk: x_proj's four
+// gate columns, the mask, the old c and the old h.
+struct CellOps {
+  float x[4], m, c, h;
+};
+
+// The steps of the HIGH and DEFAULT body (see mma_body) with TEAMS teams of
+// 8 / TEAMS warps, team g taking the chunks g, g + TEAMS, ...
+template <int U, int P, int TEAMS>
+__device__ __forceinline__ void mma_steps(const Sweep& s, int tid) {
+  constexpr int C = 4 * U;      // the block's gate columns
+  constexpr int NT = U / 2;     // their n8 tiles
+  constexpr int kP = kParts<P>;
+  constexpr int kPart = lstm::mma_partial_bytes(U) / sizeof(float);
+  constexpr int kTeamWarps = kWarps / TEAMS;
+  constexpr int kTeamThreads = kThreads / TEAMS;
+  static_assert(kWarps == lstm::kMmaWarps, "one k-step set per warp, two per warp of a team of 4");
+  static_assert(kMmaRows * U <= kTeamThreads, "a thread per (row, unit) of a chunk");
+  const int lane = tid % 32, warp = tid / 32;
+  const int team = warp / kTeamWarps, tw = warp % kTeamWarps, ttid = tid % kTeamThreads;
+  // Epilogue thread ttid < 16 U: row r = ttid / U, unit u = ttid % U.
+  const bool cell = ttid < kMmaRows * U;
+  const int r = ttid / U, u = ttid % U, j = s.j0 + u;
+  const int N = s.N, H = s.H, KS = s.KS, n_chunks = s.n_chunks, stages = s.stages, d = s.d;
+  const size_t NH = (size_t)N * H;
+  const unsigned chunk_bytes = (unsigned)s.plane * 2;
+  cg::grid_group grid = cg::this_grid();
+  // The team's threads meet (named barrier 1 + team; one team: the block).
+  auto team_sync = [&]() {
+    if constexpr (TEAMS == 1)
+      __syncthreads();
+    else
+      asm volatile("bar.sync %0, %1;\n" ::"r"(1 + team), "n"(kTeamThreads) : "memory");
+  };
+  // Chunk c's cell operands at step t into o (row c 16 + r, unit u).
+  auto load = [&](CellOps& o, int t, int c) {
+    const int n = c * kMmaRows + r;
+    o.x[0] = o.x[1] = o.x[2] = o.x[3] = o.m = o.c = o.h = 0.0f;
+    if (cell && n < N) {
+      const float* x_n = s.x_proj + (((size_t)t * 2 + d) * N + n) * 4 * H + j;
+#pragma unroll
+      for (int q = 0; q < 4; ++q) o.x[q] = __ldg(x_n + q * H);
+      const size_t o_ = d * NH + (size_t)n * H + j;
+      o.m = __ldg(s.mask + (size_t)t * N + n);
+      o.c = (t == 0 ? s.c0 : s.c_out)[o_];
+      o.h = t == 0 ? s.h0[o_] : s.hbuf[(size_t)(t & 1) * 2 * NH + o_];
+    }
+  };
+  CellOps cur, nxt;
+  load(nxt, 0, team);
+
+  for (int t = 0; t < s.F; ++t) {
+    const unsigned short* x_read = s.x_d + (size_t)(t & 1) * 2 * kP * s.x_part;
+    unsigned short* x_write = s.x_d + (size_t)((t + 1) & 1) * 2 * kP * s.x_part;
+    float* h_next = s.hbuf + ((size_t)((t + 1) & 1) * 2 + d) * NH;
+    float* out_t = s.outs + ((size_t)t * 2 + d) * NH;
+    const int base = t * n_chunks;  // chunks of the sweep before this step's
+    // Chunk c into its slot: one bulk copy a part, issued by thread 0 once
+    // the warps are done with the slot's previous chunk.
+    auto issue = [&](int c) {
+      const int slot = (base + c) % stages, use = (base + c) / stages;
+      if (use > 0) mbar_wait(s.empty + slot, (use - 1) & 1);
+      mbar_expect_tx(s.full + slot, kP * chunk_bytes);
+#pragma unroll
+      for (int p = 0; p < kP; ++p)
+        bulk_copy(s.ring + ((size_t)slot * kP + p) * s.plane, x_read + p * s.x_part + c * s.plane,
+                  chunk_bytes, s.full + slot);
+    };
+    int issued = 0;  // thread 0: the step's chunks issued
+    if (tid == 0) {
+      fence_proxy_async_global();
+      for (; issued < min(stages, n_chunks); ++issued) issue(issued);
+    }
+    for (int c = team; c < n_chunks; c += TEAMS) {
+      cur = nxt;
+      if (c + TEAMS < n_chunks) load(nxt, t, c + TEAMS);
+      const int slot = (base + c) % stages;
+      mbar_wait(s.full + slot, ((base + c) / stages) & 1);  // chunk c has landed
+      __syncwarp();  // the warp's lanes together again
+      // The k-step sets tw (and tw + 4 in a team of 4 warps).
+      float acc[TEAMS][NT][4];
+#pragma unroll
+      for (int v = 0; v < TEAMS; ++v)
+#pragma unroll
+        for (int nt = 0; nt < NT; ++nt)
+          acc[v][nt][0] = acc[v][nt][1] = acc[v][nt][2] = acc[v][nt][3] = 0.f;
+      const __nv_bfloat16* a = s.ring + (size_t)slot * kP * s.plane;
+      for (int ks = tw; ks < KS; ks += lstm::kMmaWarps) {
+#pragma unroll
+        for (int v = 0; v < TEAMS; ++v) {
+          const int k = ks + v * kTeamWarps;
+          if (k < KS)
+            mma_ktile<NT, P>(acc[v], a + (size_t)k * kTile, s.plane, s.w_b + (size_t)k * NT * 32,
+                             (size_t)KS * NT * 32, lane);
+        }
+      }
+      __syncwarp();
+      if (lane == 0) mbar_arrive(s.empty + slot);  // this warp is done with the slot
+      if (tid == 0)  // every chunk whose slot's previous chunk is this one or older
+        for (; issued < min(n_chunks, c + stages + 1); ++issued) issue(issued);
+      // One team: a buffer per chunk in turn; two: a buffer per team.
+      float* pb = s.part + (TEAMS == 1 ? c % 2 : team) * kPart;
+      if constexpr (TEAMS > 1) team_sync();  // the team's epilogue of its chunk before is done
+#pragma unroll
+      for (int v = 0; v < TEAMS; ++v)
+        lstm::store_partials<U>(pb, acc[v], tw + v * kTeamWarps, lane);
+      team_sync();  // the chunk's partial tiles are stored (one team: those of c - 2 read)
+
+      // Thread (r, u): its four gates' sums in set order, inputs,
+      // nonlinearities, and the cell.
+      const int n = c * kMmaRows + r;
+      if (cell && n < N) {
+        float pre[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+#pragma unroll
+        for (int w = 0; w < lstm::kMmaWarps; ++w) {
+          const float4 p4 = *reinterpret_cast<const float4*>(pb + (w * kMmaRows + r) * C + 4 * u);
+          pre[0] += p4.x;
+          pre[1] += p4.y;
+          pre[2] += p4.z;
+          pre[3] += p4.w;
+        }
+        const float i_g = sigmoid_f(pre[0] + cur.x[0]);
+        const float f_g = sigmoid_f(pre[1] + cur.x[1]);
+        const float g_g = tanhf(pre[2] + cur.x[2]);
+        const float o_g = sigmoid_f(pre[3] + cur.x[3]);
+        const size_t o = (size_t)n * H + j;
+        const float c_new = f_g * cur.c + i_g * g_g;
+        const float h_new = o_g * tanhf(c_new);
+        const float h_sel = cur.m > 0.0f ? h_new : cur.h;
+        h_next[o] = h_sel;
+        s.c_out[d * NH + o] = cur.m > 0.0f ? c_new : cur.c;
+        out_t[o] = h_new * cur.m;
+        if (t + 1 < s.F) put_state<P>(x_write, s.x_part, n, j, KS, h_sel);
+      }
+      if (c + TEAMS >= n_chunks && t + 1 < s.F)
+        load(nxt, t + 1, team);  // this thread's c and h of that chunk are written
+    }
+    if (t + 1 < s.F) {
+      fence_proxy_async_global();  // the exchange's stores, before the other blocks' bulk copies
+      grid.sync();                 // every block's rows of h[t] are written
+    }
+  }
+}
+
+// The HIGH and DEFAULT body (see the head note).
+//   * The exchange.  xbuf holds 2 slots x 2 directions x parts x n_chunks
+//     chunks x KS k-steps of 16x16 bf16 tiles (lstm_common.cuh): h of step
+//     t, selected by the mask, goes in bf16 to slot (t + 1) & 1 from the
+//     thread that writes its f32 value, and step t reads slot t & 1.  A
+//     prologue writes h0's bf16 form into slot 0 (each block its own
+//     columns) and the zeros of rows past N and of columns past H in both
+//     slots, once per launch, and ends with a grid barrier.  Slot (t + 1) &
+//     1 is next written in step t + 2, after the grid barrier of step t + 1,
+//     which no block passes before its copies of step t + 1 have landed:
+//     two slots suffice.
+//   * The ring.  After the barrier, thread 0 issues one bulk copy per chunk
+//     and part into a ring of `stages` slots (full / empty mbarriers per
+//     slot, as the training reverse sweep's), as many chunks as there are
+//     slots, and each later chunk into its slot once the warps are done
+//     with the slot's chunk before.
+//   * Teams.  Where a step has two chunks or more and the ring two slots,
+//     warps 0-3 and 4-7 are two teams that take the chunks in turns, so one
+//     team's epilogue runs beside the other's products; else one team of 8
+//     warps takes every chunk.  The products of a chunk are split over 8
+//     k-step sets, set w the k-steps w, w + 8, ... (mma_tile's order), a
+//     warp of a team of 4 taking two of them; each set's partial tile goes
+//     to shared memory (two buffers: one per team, or for one team one per
+//     chunk in turn), and the epilogue sums the 8 in set order: the same
+//     products in the same order as one staged chunk, so the same bits.
+//   * The cell.  Thread (row r, unit u) of a team (16 U of its threads)
+//     sums its unit's four gate columns, applies their nonlinearities and
+//     writes its h, c and output; it reads the cell operands of its team's
+//     next chunk while the current one is multiplied, the next step's first
+//     chunk's before the grid barrier (none depends on another block's h).
+template <int U, int P>
+__device__ __forceinline__ void mma_body(const float* __restrict__ x_proj,
+                                         const float* __restrict__ mask,
+                                         const unsigned short* w_hi, const unsigned short* w_lo,
+                                         const float* __restrict__ h0,
+                                         const float* __restrict__ c0, float* __restrict__ outs,
+                                         float* hbuf, float* c_out, unsigned short* xbuf, int F,
+                                         int N, int H, int d0, int stages, float* smem) {
+  constexpr int kP = kParts<P>;
+  const int blocks_per_dir = H / U;
+  const int dirs = gridDim.x / blocks_per_dir;
+  const int d = d0 + blockIdx.x / blocks_per_dir;
+  const int j0 = (blockIdx.x % blocks_per_dir) * U;
+  const size_t NH = (size_t)N * H;
+  const int KS = lstm::kpad16(H) / 16;  // k-steps of H
+  const int n_chunks = (N + kMmaRows - 1) / kMmaRows;
+  const size_t plane = (size_t)KS * kTile;         // bf16 of one part of a chunk
+  const size_t x_part = (size_t)n_chunks * plane;  // bf16 of one part of a state
+  auto slot_of = [&](int sl, int dd) { return xbuf + ((size_t)sl * 2 + dd) * kP * x_part; };
+  const bool two_teams = n_chunks > 1 && stages > 1;
+  uint2* w_b = reinterpret_cast<uint2*>(smem);
+  __nv_bfloat16* ring = reinterpret_cast<__nv_bfloat16*>(reinterpret_cast<char*>(smem) +
+                                                         lstm::mma_matrix_bytes(U, H, kP));
+  unsigned long long* full =
+      reinterpret_cast<unsigned long long*>(ring + (size_t)stages * kP * plane);
+  unsigned long long* empty = full + kMaxStages;
+  const int tid = threadIdx.x;
+  cg::grid_group grid = cg::this_grid();
+
+  // The prologue: the B fragments, the mbarriers, h0's bf16 form and the
+  // zeros of the exchange.
+  const size_t off = (size_t)d * H * 4 * H;
+  lstm::stage_b_fragments_vec<U, P>(w_b, w_hi + off, w_lo ? w_lo + off : nullptr, H, j0, tid,
+                                    kThreads);
+  if (tid < stages) {
+    mbar_init(full + tid, 1);
+    mbar_init(empty + tid, two_teams ? kWarps / 2 : kWarps);  // the warps of a team
+  }
+  fence_mbarrier_init();
+  for (int i = tid; i < N * U; i += kThreads) {
+    const int n = i / U, j = j0 + i % U;
+    put_state<P>(slot_of(0, d), x_part, n, j, KS, __ldg(h0 + d * NH + (size_t)n * H + j));
+  }
+  // The zeros: per (slot, direction, part) the rows past N of the last chunk
+  // (all Kp columns), then the columns past H of rows 0 .. N - 1.
+  const int pad_rows = n_chunks * kMmaRows - N, Kp = KS * 16, pad_cols = Kp - H;
+  const size_t row_pads = (size_t)pad_rows * Kp, pads = row_pads + (size_t)N * pad_cols;
+  for (size_t e = (size_t)blockIdx.x * kThreads + tid; e < 2 * dirs * kP * pads;
+       e += (size_t)gridDim.x * kThreads) {
+    const size_t region = e / pads, q = e % pads;
+    const int n = q < row_pads ? N + (int)(q / Kp) : (int)((q - row_pads) / pad_cols);
+    const int j = q < row_pads ? (int)(q % Kp) : H + (int)((q - row_pads) % pad_cols);
+    unsigned short* x = slot_of((int)(region / kP / dirs), d0 + (int)(region / kP % dirs)) +
+                        region % kP * x_part;
+    x[exchange_index(n, j, KS)] = 0;
+  }
+  fence_proxy_async_global();  // the exchange's stores, before the bulk copies
+  grid.sync();
+
+  const Sweep sw{x_proj, mask, h0, c0, outs, hbuf, c_out, slot_of(0, d), F, N, H, d, j0, KS,
+                 n_chunks, stages, plane, x_part, w_b, ring, full, empty,
+                 reinterpret_cast<float*>(full + 2 * kMaxStages)};
+  if (two_teams)
+    mma_steps<U, P, 2>(sw, tid);
+  else
+    mma_steps<U, P, 1>(sw, tid);
+}
+
 // Block b serves direction d0 + b / (H / U) and its units j0 = (b % (H / U))
 // * U, ...  Warps: unit pair warp % (U / 2) (units u0, u0 + 1), row group
 // warp / (U / 2); the rows of a 16-row chunk are split over the row groups,
@@ -268,104 +571,6 @@ __device__ __forceinline__ void step_piece(const Step& p, const float* rows, int
 // h of step t goes to hbuf[(t + 1) & 1], read at step t + 1 (h0 in place at
 // step 0); c is kept in c_out, each element read and written by the same
 // lane (c0 in place at step 0).
-// The HIGH and DEFAULT body (see the head note): step t takes the chunks of
-// h[t-1] one at a time through one slot of staged bf16 planes and one set of
-// partial tiles; h[t-1] is read through L2 (other blocks wrote it before the
-// grid barrier; h0 in place at step 0).
-template <int U, int P>
-__device__ __forceinline__ void mma_body(const float* __restrict__ x_proj,
-                                         const float* __restrict__ mask,
-                                         const unsigned short* w_hi, const unsigned short* w_lo,
-                                         const float* __restrict__ h0,
-                                         const float* __restrict__ c0, float* __restrict__ outs,
-                                         float* hbuf, float* c_out, int F, int N, int H, int d0,
-                                         float* smem) {
-  constexpr int C = 4 * U;                       // the block's gate columns of W_hh[d]
-  constexpr int kEpi = kMmaRows * C / kThreads;  // (row, column) outputs of a thread
-  constexpr int kP = kParts<P>;
-  const int blocks_per_dir = H / U;
-  const int d = d0 + blockIdx.x / blocks_per_dir;
-  const int j0 = (blockIdx.x % blocks_per_dir) * U;
-  const size_t NH = (size_t)N * H;
-  const size_t plane = lstm::mma_plane_bytes(H) / 2;  // bf16 per plane
-  uint2* w_b = reinterpret_cast<uint2*>(smem);
-  __nv_bfloat16* a_s = reinterpret_cast<__nv_bfloat16*>(
-      reinterpret_cast<char*>(smem) + lstm::mma_matrix_bytes(U, H, kP));
-  float* part = reinterpret_cast<float*>(reinterpret_cast<char*>(a_s) +
-                                         kP * lstm::mma_plane_bytes(H));
-  const int tid = threadIdx.x;
-  const int lane = tid % 32;
-  const int warp = tid / 32;
-  cg::grid_group grid = cg::this_grid();
-
-  const size_t off = (size_t)d * H * 4 * H;
-  lstm::stage_b_fragments<U, P>(w_b, w_hi + off, w_lo ? w_lo + off : nullptr, H, j0, tid,
-                                kThreads);
-  __syncthreads();
-
-  const int n_chunks = (N + kMmaRows - 1) / kMmaRows;
-  for (int t = 0; t < F; ++t) {
-    const float* h_prev = t == 0 ? h0 + d * NH : hbuf + ((size_t)(t & 1) * 2 + d) * NH;
-    const float* x_t = x_proj + ((size_t)t * 2 + d) * N * 4 * H;
-    const float* c_prev = (t == 0 ? c0 : c_out) + d * NH;
-    float* h_next = hbuf + ((size_t)((t + 1) & 1) * 2 + d) * NH;
-    float* out_t = outs + ((size_t)t * 2 + d) * NH;
-    for (int c = 0; c < n_chunks; ++c) {
-      const int r0 = c * kMmaRows;
-      // The cell's operands of thread (row r, column n = 4u + g), read
-      // before the staging and the product so that their latency hides
-      // behind them: x_proj's gate column, and for the first of each four
-      // the mask, the old c and the old h.
-      float x_in[kEpi], m[kEpi], c_old[kEpi], h_old[kEpi];
-#pragma unroll
-      for (int e = 0; e < kEpi; ++e) {
-        const int idx = tid + kThreads * e;
-        const int nn = idx % C, g = nn % 4, n = r0 + idx / C;
-        const size_t o = (size_t)n * H + j0 + nn / 4;
-        x_in[e] = m[e] = c_old[e] = h_old[e] = 0.0f;
-        if (n < N) {
-          x_in[e] = __ldg(x_t + (size_t)n * 4 * H + g * H + j0 + nn / 4);
-          if (g == 0) {
-            m[e] = __ldg(mask + (size_t)t * N + n);
-            c_old[e] = c_prev[o];
-            h_old[e] = __ldcg(h_prev + o);
-          }
-        }
-      }
-      lstm::stage_rows_bf16<P>(a_s, plane, h_prev, r0, N, H, tid, kThreads);
-      __syncthreads();  // the chunk's planes are staged, and the partials of the chunk before read
-      float acc[U / 2][4];
-#pragma unroll
-      for (int nt = 0; nt < U / 2; ++nt) acc[nt][0] = acc[nt][1] = acc[nt][2] = acc[nt][3] = 0.f;
-      lstm::mma_rows<U, P>(acc, a_s, plane, w_b, H, warp, lane);
-      lstm::store_partials<U>(part, acc, warp, lane);
-      __syncthreads();  // the partials are there, and every warp is done with the planes
-
-      // Thread (row r, column n = 4u + g): the gate's sum, input, nonlinearity.
-#pragma unroll
-      for (int e = 0; e < kEpi; ++e) {
-        const int idx = tid + kThreads * e;
-        const int r = idx / C, nn = idx % C, g = nn % 4;
-        const int n = r0 + r;
-        const float pre = lstm::sum_partials<U>(part, r, nn) + x_in[e];
-        const float act = g == 2 ? tanhf(pre) : sigmoid_f(pre);
-        float gate[4];
-#pragma unroll
-        for (int q = 0; q < 4; ++q) gate[q] = __shfl_sync(0xffffffffu, act, (lane & ~3) + q);
-        if (g == 0 && n < N) {
-          const size_t o = (size_t)n * H + j0 + nn / 4;
-          const float c_new = gate[1] * c_old[e] + gate[0] * gate[2];
-          const float h_new = gate[3] * tanhf(c_new);
-          h_next[o] = m[e] > 0.0f ? h_new : h_old[e];
-          c_out[d * NH + o] = m[e] > 0.0f ? c_new : c_old[e];
-          out_t[o] = h_new * m[e];
-        }
-      }
-    }
-    if (t + 1 < F) grid.sync();  // every block's rows of h[t] are written
-  }
-}
-
 template <int U>
 __device__ __forceinline__ void fp32_body(const float* __restrict__ x_proj,
                                           const float* __restrict__ mask,
@@ -486,15 +691,17 @@ lstm_bidi_kernel(const float* __restrict__ x_proj,  // (F, 2, N, 4H)
                  float* __restrict__ outs,          // (F, 2, N, H)
                  float* hbuf,                       // (2, 2, N, H)
                  float* c_out,                      // (2, N, H): cF at the end
-                 int F, int N, int H, int d0, int stage_rows) {
+                 int F, int N, int H, int d0, int stage_rows,
+                 void* xbuf) {                      // HIGH, DEFAULT: the bf16 exchange buffer in
+                                                    // k-step tiles, else null
   extern __shared__ __align__(16) float smem[];
   if constexpr (P == kHighest)
     fp32_body<U>(x_proj, mask, static_cast<const float*>(w_hh), h0, c0, outs, hbuf, c_out, F, N,
                  H, d0, stage_rows, smem);
   else
     mma_body<U, P>(x_proj, mask, static_cast<const unsigned short*>(w_hh),
-                   static_cast<const unsigned short*>(w_lo), h0, c0, outs, hbuf, c_out, F, N, H,
-                   d0, smem);
+                   static_cast<const unsigned short*>(w_lo), h0, c0, outs, hbuf, c_out,
+                   static_cast<unsigned short*>(xbuf), F, N, H, d0, stage_rows / kMmaRows, smem);
 }
 
 // Lets lstm_bidi_kernel<U, P> use up to max_smem bytes of dynamic shared
@@ -521,11 +728,12 @@ cudaError_t prepare_mode(int max_smem, bool* fits) {
 template <int U, int P>
 int launch(const float* x_proj, const float* mask, const void* w_hh, const void* w_lo,
            const float* h0, const float* c0, float* outs, float* hbuf, float* c_out, int F,
-           int N, int H, int d0, int dirs, int stage_rows, size_t smem, cudaStream_t stream) {
+           int N, int H, int d0, int dirs, int stage_rows, void* xbuf, size_t smem,
+           cudaStream_t stream) {
   void* args[] = {(void*)&x_proj, (void*)&mask, (void*)&w_hh, (void*)&w_lo,
                   (void*)&h0,     (void*)&c0,   (void*)&outs, (void*)&hbuf,
                   (void*)&c_out,  (void*)&F,    (void*)&N,    (void*)&H,
-                  (void*)&d0,     (void*)&stage_rows};
+                  (void*)&d0,     (void*)&stage_rows, (void*)&xbuf};
   const cudaError_t err =
       cudaLaunchCooperativeKernel((const void*)lstm_bidi_kernel<U, P>, dim3(dirs * H / U),
                                   dim3(kThreads), args, smem, stream);
@@ -536,12 +744,18 @@ int launch(const float* x_proj, const float* mask, const void* w_hh, const void*
 template <int P>
 int launch_units(const float* x_proj, const float* mask, const void* w_hh, const void* w_lo,
                  const float* h0, const float* c0, float* outs, float* hbuf, float* c_out,
-                 int F, int N, int H, int units, int d0, int dirs, int stage_rows, size_t smem,
-                 cudaStream_t s) {
+                 int F, int N, int H, int units, int d0, int dirs, int stage_rows, void* xbuf,
+                 size_t smem, cudaStream_t s) {
   return units == 8 ? launch<8, P>(x_proj, mask, w_hh, w_lo, h0, c0, outs, hbuf, c_out, F, N, H,
-                                   d0, dirs, stage_rows, smem, s)
+                                   d0, dirs, stage_rows, xbuf, smem, s)
                     : launch<4, P>(x_proj, mask, w_hh, w_lo, h0, c0, outs, hbuf, c_out, F, N, H,
-                                   d0, dirs, stage_rows, smem, s);
+                                   d0, dirs, stage_rows, xbuf, smem, s);
+}
+
+// Shared memory of a block of the launch plan's layout (bytes).
+size_t layout_bytes(int units, int H, int stage_rows, int mode) {
+  return mode == kHighest ? sizeof(float) * smem_floats(units, H, stage_rows)
+                          : mma_smem_bytes(units, H, mode == kHigh ? 2 : 1, stage_rows);
 }
 
 }  // namespace
@@ -574,16 +788,26 @@ int lstm_bidi_prepare(int device, int* info) {
   return fits ? 0 : kErrGridTooLarge;
 }
 
+// Bytes of shared memory a block of the kernel takes at mode (0 HIGHEST, 1
+// HIGH, 2 DEFAULT) with `units` units and stage_rows staged rows: the
+// layout that lstm_bidi_forward holds smem_bytes to.
+long long lstm_bidi_smem_bytes(int units, int H, int stage_rows, int mode) {
+  return (long long)layout_bytes(units, H, stage_rows, mode);
+}
+
 // Runs `dirs` directions (2: both, block b / (H / units) serving direction
 // b / (H / units); 1: direction d0 alone) of one bidirectional layer over all
 // F steps in one cooperative launch of dirs * H / units blocks on `stream`.
 // h0, c0 (2, N, H) are read in place; outs (F, 2, N, H), hbuf (2, 2, N, H)
 // and c_out (2, N, H) are written for the launch's directions: h after the
 // last step in hbuf[F & 1], c in c_out.  mode (0 HIGHEST, 1 HIGH, 2
-// DEFAULT): w_hh is f32 at HIGHEST (w_lo null), W_hh rounded to bf16 at
-// DEFAULT, its bf16 hi parts at HIGH with w_lo the lo parts.  units (8, or 4
-// where H % 8 == 4), stage_rows (HIGHEST: N, all rows staged at once, or a
-// multiple of 16 below N, a ring of 16-row slots; else 16) and smem_bytes
+// DEFAULT): w_hh is f32 at HIGHEST (w_lo and xbuf null), W_hh rounded to
+// bf16 at DEFAULT, its bf16 hi parts at HIGH with w_lo the lo parts; at HIGH
+// and DEFAULT xbuf is the exchange buffer, 2 x 2 x parts x ceil(N / 16) x
+// kpad16(H) x 16 bf16 on a 16-byte boundary, whose contents the launch sets
+// (no zeroing before it).  units (8, or 4 where H % 8 == 4), stage_rows
+// (HIGHEST: N, all rows staged at once, or a multiple of 16 below N, a ring
+// of 16-row slots; else 16 times the ring's slots, 1 to 8) and smem_bytes
 // are the launch plan's; smem_bytes must equal the layout's size.  h0 and
 // hbuf start on a 16-byte boundary.  Launches only: lstm_bidi_prepare must
 // have run on the current device.  Returns 0, a cudaError_t value, or a
@@ -591,27 +815,27 @@ int lstm_bidi_prepare(int device, int* info) {
 int lstm_bidi_forward(const float* x_proj, const float* mask, const void* w_hh,
                       const float* h0, const float* c0, float* outs, float* hbuf, float* c_out,
                       int F, int N, int H, int units, int d0, int dirs, int stage_rows,
-                      int smem_bytes, int mode, const void* w_lo, void* stream) {
-  const size_t layout = mode == kHighest ? sizeof(float) * smem_floats(units, H, stage_rows)
-                                         : mma_smem_bytes(units, H, mode == kHigh ? 2 : 1);
+                      int smem_bytes, int mode, const void* w_lo, void* xbuf, void* stream) {
   if (F <= 0 || N <= 0 || H <= 0 || H % 4 != 0 || (units != 4 && units != 8) ||
       H % units != 0 || (dirs != 1 && dirs != 2) || d0 < 0 || d0 + dirs > 2 ||
       mode < kHighest || mode > kDefault || stage_rows <= 0 ||
       (mode == kHighest &&
        (stage_rows > N || (stage_rows != N && stage_rows % kPassRows != 0))) ||
-      (mode != kHighest && stage_rows != kMmaRows) || (mode == kHigh && w_lo == nullptr) ||
-      (size_t)smem_bytes != layout)
+      (mode != kHighest && (stage_rows % kMmaRows != 0 ||
+                            stage_rows > kMaxStages * kMmaRows || xbuf == nullptr)) ||
+      (mode == kHigh && w_lo == nullptr) ||
+      (size_t)smem_bytes != layout_bytes(units, H, stage_rows, mode))
     return kErrBadShape;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const size_t smem = (size_t)smem_bytes;
   if (mode == kHigh)
     return launch_units<kHigh>(x_proj, mask, w_hh, w_lo, h0, c0, outs, hbuf, c_out, F, N, H,
-                               units, d0, dirs, stage_rows, smem, s);
+                               units, d0, dirs, stage_rows, xbuf, smem, s);
   if (mode == kDefault)
     return launch_units<kDefault>(x_proj, mask, w_hh, w_lo, h0, c0, outs, hbuf, c_out, F, N, H,
-                                  units, d0, dirs, stage_rows, smem, s);
+                                  units, d0, dirs, stage_rows, xbuf, smem, s);
   return launch_units<kHighest>(x_proj, mask, w_hh, w_lo, h0, c0, outs, hbuf, c_out, F, N, H,
-                                units, d0, dirs, stage_rows, smem, s);
+                                units, d0, dirs, stage_rows, xbuf, smem, s);
 }
 
 }  // extern "C"

@@ -1,7 +1,9 @@
 // Device helpers of the LSTM kernels: cp.async staging, the fixed-order
-// warp reduce-scatter of a register tile's partial sums, and the bf16
+// warp reduce-scatter of a register tile's partial sums, the bf16
 // tensor-core pieces of the HIGH and DEFAULT precision modes (bf16 hi/lo
-// split, ldmatrix, mma.sync m16n8k16).
+// split, ldmatrix, mma.sync m16n8k16), and the exchange of a state's bf16
+// form in k-step tiles through bulk copies (the Tensor Memory Accelerator)
+// on mbarriers.
 //
 // Included by lstm_stack.cu, lstm_bidi.cu and lstm_train.cu; none of them
 // keeps a copy of a helper here.
@@ -175,6 +177,50 @@ __device__ void stage_b_fragments(uint2* dst, const unsigned short* w_hi,
   }
 }
 
+// stage_b_fragments' layout from wide loads: thread item (part, k, gate g)
+// reads the block's U units of gate g at row k (U bf16: 16 bytes at U=8, 8
+// at U=4, aligned since U divides H and j0), four items' loads in flight
+// before their 2-byte stores into the fragments.  U / 4 loads an item where
+// stage_b_fragments takes 4 U scattered 2-byte ones, so a block stages its
+// columns in a few load round trips (the bidirectional kernel's prologue).
+template <int U, int P>
+__device__ void stage_b_fragments_vec(uint2* dst, const unsigned short* w_hi,
+                                      const unsigned short* w_lo, int H, int j0, int tid,
+                                      int nthreads) {
+  constexpr int NT = U / 2, kBatch = 4;
+  const int Kp = kpad16(H), KS = Kp / 16;
+  const int items = kParts<P> * Kp * 4;
+  unsigned short* d16 = reinterpret_cast<unsigned short*>(dst);
+  for (int first = tid; first < items; first += kBatch * nthreads) {
+    uint2 q[kBatch][U / 4];
+#pragma unroll
+    for (int b = 0; b < kBatch; ++b) {
+      const int idx = first + b * nthreads, g = idx % 4, k = idx / 4 % Kp;
+      const unsigned short* w = idx / (4 * Kp) == 0 ? w_hi : w_lo;
+      const uint2* src =
+          reinterpret_cast<const uint2*>(w + (size_t)k * 4 * H + (size_t)g * H + j0);
+#pragma unroll
+      for (int i = 0; i < U / 4; ++i)
+        q[b][i] = idx < items && k < H ? __ldg(src + i) : make_uint2(0u, 0u);
+    }
+#pragma unroll
+    for (int b = 0; b < kBatch; ++b) {
+      const int idx = first + b * nthreads, g = idx % 4, k = idx / 4 % Kp, part = idx / (4 * Kp);
+      if (idx >= items) break;
+      const int ks = k / 16, kk = k % 16;
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        const int n = 4 * u + g;
+        const unsigned word = u % 4 < 2 ? q[b][u / 4].x : q[b][u / 4].y;
+        const size_t frag =
+            (((size_t)part * KS + ks) * NT + n / 8) * 32 + n % 8 * 4 + kk % 8 / 2;
+        d16[4 * frag + kk / 8 * 2 + kk % 2] =
+            (unsigned short)(u % 2 ? word >> 16 : word & 0xffffu);
+      }
+    }
+  }
+}
+
 // Rows r0 .. r0 + 15 of an f32 matrix src (N rows, row stride ld floats,
 // read through L2: other blocks wrote them before the grid barrier), its
 // columns 0 .. K - 1 (K % 4 == 0, src and ld on a 16-byte boundary), as bf16
@@ -266,6 +312,89 @@ __device__ __forceinline__ float sum_partials(const float* part, int r, int n) {
 #pragma unroll
   for (int w = 0; w < kMmaWarps; ++w) s += part[(size_t)(w * kMmaRows + r) * C + n];
   return s;
+}
+
+// ---------------------------------------------------------------------------
+// The exchange of a state's bf16 form between the blocks of a grid.
+//
+// The block that computes an element of the state writes its bf16 form (hi,
+// and lo at HIGH) once into an exchange buffer in device memory, laid out in
+// k-step tiles, and after the grid barrier every block streams the chunks it
+// multiplies into shared memory by bulk copies, to the same layout.  A tile
+// is one 16-row chunk's 16 columns 16 ks .. 16 ks + 15 of one bf16 part, 512
+// contiguous bytes, its row r at 16 r elements and the row's two 8-column
+// halves h at (h ^ (r / 4 % 2)) 8, so that the eight rows an ldmatrix reads
+// fall in distinct banks.  A chunk's tiles lie in k order, so a k-slice of a
+// chunk is one contiguous run per part: one bulk copy.
+constexpr int kTile = kMmaRows * 16;  // bf16 of a tile
+
+__host__ __device__ constexpr int tile_offset(int r, int c) {
+  return r * 16 + ((c / 8) ^ (r / 4 % 2)) * 8 + c % 8;
+}
+
+// acc[nt] += one k-step tile (planes `tile`, and tile + lo_off at HIGH)
+// times NT n-tiles of that k-step's B fragments (b[nt 32 + lane]; the lo
+// parts b_lo uint2 further on at HIGH): mma_tile's products of one k-step,
+// in its order (ah*bh, al*bh, ah*bl at HIGH).
+template <int NT, int P>
+__device__ __forceinline__ void mma_ktile(float (&acc)[NT][4], const __nv_bfloat16* tile,
+                                          size_t lo_off, const uint2* b, size_t b_lo, int lane) {
+  const __nv_bfloat16* p = tile + tile_offset(lane % 16, lane / 16 * 8);
+  unsigned ah[4], al[4];
+  ldmatrix_x4(ah, p);
+  if constexpr (P == kHigh) ldmatrix_x4(al, p + lo_off);
+#pragma unroll
+  for (int nt = 0; nt < NT; ++nt) {
+    const uint2 bh = b[nt * 32 + lane];
+    mma_bf16(acc[nt], ah, bh);
+    if constexpr (P == kHigh) {
+      mma_bf16(acc[nt], al, bh);
+      mma_bf16(acc[nt], ah, b[b_lo + nt * 32 + lane]);
+    }
+  }
+}
+
+// The bulk copies and their mbarriers.
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+__device__ __forceinline__ void mbar_init(unsigned long long* bar, unsigned count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_addr(bar)), "r"(count));
+}
+__device__ __forceinline__ void mbar_arrive(unsigned long long* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_addr(bar)) : "memory");
+}
+__device__ __forceinline__ void mbar_expect_tx(unsigned long long* bar, unsigned bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_addr(bar)),
+               "r"(bytes)
+               : "memory");
+}
+// Makes the mbarriers this thread initialised visible to the bulk copies.
+__device__ __forceinline__ void fence_mbarrier_init() {
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+// Waits until the phase of parity `parity` of the mbarrier has completed.
+__device__ __forceinline__ void mbar_wait(unsigned long long* bar, unsigned parity) {
+  asm volatile(
+      "{\n.reg .pred done;\nWAIT_%=:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 done, [%0], %1;\n"
+      "@!done bra WAIT_%=;\n}\n" ::"r"(smem_addr(bar)),
+      "r"(parity)
+      : "memory");
+}
+// `bytes` (a multiple of 16, both addresses on a 16-byte boundary) from
+// device memory into shared memory, completing on `bar`.
+__device__ __forceinline__ void bulk_copy(void* dst, const void* src, unsigned bytes,
+                                          unsigned long long* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n"
+      ::"r"(smem_addr(dst)), "l"(src), "r"(bytes), "r"(smem_addr(bar))
+      : "memory");
+}
+// Orders this thread's generic-proxy accesses of device memory before the
+// bulk copies' (async-proxy) accesses that follow a barrier.
+__device__ __forceinline__ void fence_proxy_async_global() {
+  asm volatile("fence.proxy.async.global;\n" ::: "memory");
 }
 
 }  // namespace lstm

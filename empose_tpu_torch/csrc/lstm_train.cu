@@ -164,18 +164,28 @@ namespace cg = cooperative_groups;
 
 namespace {
 
+using lstm::bulk_copy;
 using lstm::component;
 using lstm::cp_async;
 using lstm::cp_async_commit;
 using lstm::cp_async_wait;
 using lstm::cp_async_wait_upto;
+using lstm::fence_mbarrier_init;
+using lstm::fence_proxy_async_global;
 using lstm::kDefault;
 using lstm::kHigh;
 using lstm::kHighest;
 using lstm::kMmaRows;
 using lstm::kParts;
+using lstm::kTile;
+using lstm::mbar_arrive;
+using lstm::mbar_expect_tx;
+using lstm::mbar_init;
+using lstm::mbar_wait;
+using lstm::mma_ktile;
 using lstm::round32;
 using lstm::sigmoid_f;
+using lstm::tile_offset;
 using lstm::warp_reduce_scatter;
 
 constexpr int kThreads = 256;
@@ -658,20 +668,6 @@ __device__ __forceinline__ void pass_tile(const float* rows, const float* wt_s, 
   }
 }
 
-// The reverse sweep's exchange at HIGH and DEFAULT is laid out in k-step
-// tiles, in the exchange buffer and in shared memory alike: a tile is one
-// 16-row chunk's 16 columns 16 ks .. 16 ks + 15 of one bf16 part (hi, or
-// lo at HIGH), 512 contiguous bytes, its row r at 16 r elements and the
-// row's two 8-column halves h at (h ^ (r / 4 % 2)) 8, so that the eight rows
-// an ldmatrix reads fall in distinct banks.  A chunk's tiles lie in k
-// order, so a k-slice of a chunk is one contiguous run per part: one bulk
-// copy, to the same layout.
-constexpr int kTile = kMmaRows * 16;  // bf16 of a tile
-
-__host__ __device__ constexpr int tile_offset(int r, int c) {
-  return r * 16 + ((c / 8) ^ (r / 4 % 2)) * 8 + c % 8;
-}
-
 // Shared memory of the reverse sweep at HIGH and DEFAULT (bytes), in this
 // order: the B fragments of the block's rows of W_hh (one n8 tile per
 // k-step of 4H, `parts` planes); a ring of `stages` stages, each one 16-row
@@ -687,64 +683,6 @@ __host__ __device__ constexpr size_t bwd_mma_smem_bytes(int U, int N, int H, int
          (resident ? sizeof(float) * (round4((size_t)7 * U * N) + round4((size_t)N) +
                                       (size_t)2 * U * N)
                    : 0);
-}
-
-// acc += one k-step tile (planes `tile`, and tile + lo_off at HIGH) times
-// the block's n8 tile of B fragments of that k-step (b[lane]; the lo parts
-// b_lo uint2 further on at HIGH): lstm::mma_tile's products of one k-step,
-// in its order (ah*bh, al*bh, ah*bl at HIGH).
-template <int P>
-__device__ __forceinline__ void mma_ktile(float (&acc)[4], const __nv_bfloat16* tile,
-                                          size_t lo_off, const uint2* b, size_t b_lo, int lane) {
-  const __nv_bfloat16* p = tile + tile_offset(lane % 16, lane / 16 * 8);
-  unsigned ah[4], al[4];
-  lstm::ldmatrix_x4(ah, p);
-  if constexpr (P == kHigh) lstm::ldmatrix_x4(al, p + lo_off);
-  const uint2 bh = b[lane];
-  lstm::mma_bf16(acc, ah, bh);
-  if constexpr (P == kHigh) {
-    lstm::mma_bf16(acc, al, bh);
-    lstm::mma_bf16(acc, ah, b[b_lo + lane]);
-  }
-}
-
-// The ring's bulk copies (the Tensor Memory Accelerator) and mbarriers.
-__device__ __forceinline__ unsigned smem_addr(const void* p) {
-  return static_cast<unsigned>(__cvta_generic_to_shared(p));
-}
-__device__ __forceinline__ void mbar_init(unsigned long long* bar, unsigned count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_addr(bar)), "r"(count));
-}
-__device__ __forceinline__ void mbar_arrive(unsigned long long* bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_addr(bar)) : "memory");
-}
-__device__ __forceinline__ void mbar_expect_tx(unsigned long long* bar, unsigned bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_addr(bar)),
-               "r"(bytes)
-               : "memory");
-}
-// Waits until the phase of parity `parity` of the mbarrier has completed.
-__device__ __forceinline__ void mbar_wait(unsigned long long* bar, unsigned parity) {
-  asm volatile(
-      "{\n.reg .pred done;\nWAIT_%=:\n"
-      "mbarrier.try_wait.parity.shared::cta.b64 done, [%0], %1;\n"
-      "@!done bra WAIT_%=;\n}\n" ::"r"(smem_addr(bar)),
-      "r"(parity)
-      : "memory");
-}
-// `bytes` (a multiple of 16, both addresses on a 16-byte boundary) from
-// device memory into shared memory, completing on `bar`.
-__device__ __forceinline__ void bulk_copy(void* dst, const void* src, unsigned bytes,
-                                          unsigned long long* bar) {
-  asm volatile(
-      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n"
-      ::"r"(smem_addr(dst)), "l"(src), "r"(bytes), "r"(smem_addr(bar))
-      : "memory");
-}
-// Orders this thread's generic-proxy accesses of device memory before the
-// bulk copies' (async-proxy) accesses that follow a barrier.
-__device__ __forceinline__ void fence_proxy_async_global() {
-  asm volatile("fence.proxy.async.global;\n" ::: "memory");
 }
 
 // The block's rows j0 .. j0 + U - 1 of W (bf16 hi, and lo at HIGH, each
@@ -851,7 +789,7 @@ __device__ __forceinline__ void bwd_mma(const float* __restrict__ dh_all,
     mbar_init(full + tid, 1);
     mbar_init(empty + tid, lstm::kMmaWarps);
   }
-  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  fence_mbarrier_init();
   // The rows past N of the last chunk's tiles in both slots: zero for the
   // whole sweep (no block writes them), spread over the grid.
   const int pad = n_chunks * kMmaRows - N;
@@ -962,8 +900,8 @@ __device__ __forceinline__ void bwd_mma(const float* __restrict__ dh_all,
       if (slice == 0) acc[0][0] = acc[0][1] = acc[0][2] = acc[0][3] = 0.0f;
       const __nv_bfloat16* a = ring + (size_t)slot * kP * plane;
       for (int ks = warp; ks < steps; ks += lstm::kMmaWarps)
-        mma_ktile<P>(acc[0], a + (size_t)ks * kTile, plane, w_b + (size_t)(k0 / 16 + ks) * 32,
-                     b_part, lane);
+        mma_ktile<1, P>(acc, a + (size_t)ks * kTile, plane, w_b + (size_t)(k0 / 16 + ks) * 32,
+                        b_part, lane);
       __syncwarp();
       if (lane == 0) mbar_arrive(empty + slot);  // this warp is done with the slot
       if (tid == 0 && i + stages < n_stages) issue(i + stages);

@@ -137,7 +137,8 @@ def _bidi_library():
     p, i = ctypes.c_void_p, ctypes.c_int
     return cuda_build.load(BIDI_NAME, {
         "lstm_bidi_prepare": ([i, ctypes.POINTER(i)], i),
-        "lstm_bidi_forward": ([p, p, p, p, p, p, p, p, i, i, i, i, i, i, i, i, i, p, p], i),
+        "lstm_bidi_forward": ([p, p, p, p, p, p, p, p, i, i, i, i, i, i, i, i, i, p, p, p], i),
+        "lstm_bidi_smem_bytes": ([i, i, i, i], ctypes.c_longlong),
     })
 
 
@@ -591,9 +592,12 @@ class BidiPlan(NamedTuple):
     blocks: int      # the cooperative grid of one launch, dirs * H / U, one block per SM
     dirs: int        # directions per launch: 2 (both in one grid) or 1 (one launch each)
     launches: int    # launches per layer, 2 / dirs
-    stage_rows: int  # rows of h[t-1] in shared memory: N (all at once), or fewer: a ring
-                     # of stage_rows / PASS_ROWS slots that the PASS_ROWS-row chunks cycle
-                     # through; at high and default one PASS_ROWS-row bf16 slot
+    stage_rows: int  # rows of h[t-1] in shared memory: at highest N (all at once) or a ring
+                     # of PASS_ROWS-row slots that the chunks cycle through; at high and
+                     # default PASS_ROWS x stages
+    stages: int      # the PASS_ROWS-row slots of those rows (N's chunks where all N rows
+                     # fit); at high and default the ring of bf16 chunks that bulk copies
+                     # fill
     smem_bytes: int  # dynamic shared memory per block
 
 
@@ -602,11 +606,20 @@ def bidi_smem_bytes(units: int, h: int, stage_rows: int, precision: str = HIGHES
     at highest (``smem_floats``) the resident fp32 gate columns of W_hh (to
     128 bytes) and the staged rows of h[t-1]; at high and default
     (``mma_smem_bytes``) the columns as bf16 B fragments (hi, and lo at
-    high), one staged 16-row bf16 chunk and the partial tiles."""
+    high), a ring of ``stage_rows`` rows of h[t-1] in bf16 k-step tiles (16
+    rows a slot; hi, and lo at high), the ring's mbarriers (128 bytes) and
+    two buffers of the partial tiles."""
     if resolve(precision) == HIGHEST:
         return 4 * (-(-4 * units * h // 32) * 32 + stage_rows * h)
-    mat, plane, partial = _mma_bytes(units, h, precision)
-    return mat + _bf16_parts(precision) * plane + partial
+    mat, _, partial = _mma_bytes(units, h, precision)
+    return mat + stage_rows * _bf16_parts(precision) * -(-h // 16) * 16 * 2 + 128 + 2 * partial
+
+
+def bidi_exchange_shape(n: int, h: int, precision: str) -> Tuple[int, ...]:
+    """The bidirectional kernel's bf16 exchange buffer at high and default:
+    (slots 2, directions 2, parts (2 at high), 16-row chunks of N, k-steps of
+    H padded to 16, a 16x16 tile)."""
+    return (2, 2, _bf16_parts(precision), -(-n // PASS_ROWS), -(-h // 16), PASS_ROWS * 16)
 
 
 @functools.lru_cache(maxsize=256)
@@ -625,8 +638,10 @@ def lstm_bidi_plan(n: int, h: int, sms: int = SMS, smem_limit: int = SMEM_LIMIT,
     H=1024), so the shared memory stops growing with N and any N has a plan.
     Raises ValueError where H / U blocks do not fit on the SMs or not one
     slot fits beside the columns. At high and default the grid is the same,
-    and one 16-row bf16 chunk is staged at a time (``stage_rows`` =
-    PASS_ROWS)."""
+    and the step's 16-row bf16 chunks stream through a ring of as many slots
+    as fit beside the columns, up to MAX_SLOTS and the step's chunks (H=512:
+    8 at default, 4 at high; H=1024: 4 and 1), ``stage_rows`` = PASS_ROWS x
+    ``stages``."""
     if n <= 0 or h <= 0 or h % 4:
         raise ValueError(f"the bidirectional kernel needs N > 0 and H a positive multiple of "
                          f"4, got N={n}, H={h}")
@@ -634,14 +649,16 @@ def lstm_bidi_plan(n: int, h: int, sms: int = SMS, smem_limit: int = SMEM_LIMIT,
     dirs = 2 if 2 * h // units <= sms else 1
     rows = n
     if resolve(precision) != HIGHEST:
-        rows = PASS_ROWS if bidi_smem_bytes(units, h, PASS_ROWS, precision) <= smem_limit else 0
+        fixed = bidi_smem_bytes(units, h, 0, precision)
+        slot = bidi_smem_bytes(units, h, PASS_ROWS, precision) - fixed
+        rows = PASS_ROWS * min(MAX_SLOTS, -(-n // PASS_ROWS), max(0, smem_limit - fixed) // slot)
     elif bidi_smem_bytes(units, h, n) > smem_limit:
         rows = PASS_ROWS * min(MAX_SLOTS,
                                (smem_limit - bidi_smem_bytes(units, h, 0)) // (4 * PASS_ROWS * h))
     if h // units > sms or rows < 1:
         raise ValueError(f"the bidirectional kernel at N={n}, H={h} does not fit on {sms} SMs "
                          f"with {smem_limit} bytes of shared memory per block")
-    return BidiPlan(units, dirs * h // units, dirs, 2 // dirs, rows,
+    return BidiPlan(units, dirs * h // units, dirs, 2 // dirs, rows, -(-rows // PASS_ROWS),
                     bidi_smem_bytes(units, h, rows, precision))
 
 
@@ -691,14 +708,18 @@ def lstm_bidi_fused(x_proj, mask, w_hh2, h0, c0, precision: str = HIGHEST):
     outs = torch.empty(f, 2, n, hidden, device=dev)
     # The state apart from the outputs, so that a caller keeping only (hF, cF)
     # keeps no more: the h exchange buffer (2, 2) and cF (2), each plane on a
-    # 16-byte boundary (H % 4 == 0).
+    # 16-byte boundary (H % 4 == 0); at high and default the bf16 exchange
+    # buffer, which each launch fills itself.
     state = torch.empty(6, n, hidden, device=dev)
+    xbuf = None if mode == HIGHEST else torch.empty(
+        bidi_exchange_shape(n, hidden, mode), dtype=torch.bfloat16, device=dev)
     ptr = state.data_ptr()
     for d0 in range(0, 2, plan.dirs):
         code = _launch(_bidi_lib.lstm_bidi_forward, index, x_proj.data_ptr(), mask.data_ptr(),
                        w_hh2.data_ptr(), h0.data_ptr(), c0.data_ptr(), outs.data_ptr(), ptr,
                        ptr + 16 * n * hidden, f, n, hidden, plan.units, d0, plan.dirs,
-                       plan.stage_rows, plan.smem_bytes, MODE_CODES[mode], _ptr(w_lo))
+                       plan.stage_rows, plan.smem_bytes, MODE_CODES[mode], _ptr(w_lo),
+                       _ptr(xbuf))
         cuda_build.check(code, "bidirectional LSTM kernel")
         BIDI_LAUNCHES += 1
         _count("lstm_bidi", mode)

@@ -17,7 +17,8 @@ gradient input is scaled by n*f); the LBS kernel atol 2e-5 (coordinates of a
 metre, 52 joints). The stack, wavefront and bidi kernels also run at the
 high and default precision modes (their bf16 tensor-core branches) against
 their plain versions at the same mode, captured in CUDA graphs, and served
-(MODE_ATOL below); so do both training sweeps (PAIR_MODE_REL).
+(MODE_ATOL below; the bidi layer also on the smoke's inputs, BIDI_MODE_TOL);
+so do both training sweeps (PAIR_MODE_REL).
 """
 
 import copy
@@ -585,6 +586,108 @@ def test_kernels_at_mode_cuda_graph_capture(cuda, mode, kernel):
     torch.cuda.synchronize()
     for a, b in zip(out, fused(*args, mode)):
         assert torch.equal(a, b)
+
+
+# The bidirectional layer's HIGH and DEFAULT body (bf16 exchange written
+# once by its owner, chunks streamed by bulk copies) on chip_smoke.py's
+# inputs: layer 0 of a BiRNN (input 72, uniform weights of bound H^-0.5),
+# its input projections at the mode, so its tolerances (TOL_HIGH, TOL_DEFAULT
+# there, set by its --mode-rounding study) hold.
+BIDI_MODE_TOL = {"high": 7e-7, "default": 3e-4}
+
+
+def _bidi_projected_case(f, n, h, mode, seed, cuda):
+    """The kernel's operands (x_proj, mask, w_hh2, h0, c0) and its 0-length
+    rows: 0-length (one at least where N > 1), partial and full rows."""
+    from empose_tpu_torch.nn.layers import _reverse_by_length
+    from empose_tpu_torch.ops.precision import matmul_at
+
+    g = torch.Generator().manual_seed(seed)
+    u = lambda *s: ((torch.rand(*s, generator=g) * 2 - 1) * h ** -0.5).to(cuda)
+    cells = [dict(w_ih=u(72, 4 * h), w_hh=u(h, 4 * h), b_ih=u(4 * h), b_hh=u(4 * h))
+             for _ in range(2)]
+    x = torch.randn(f, n, 72, generator=g).to(cuda)
+    lengths = torch.randint(1, f, (n,), generator=g)
+    idle = max(n // 16, 1) if n > 1 else 0
+    lengths[:idle] = 0
+    lengths[idle: idle + n // 3] = f
+    lengths = lengths.to(cuda)
+    mask = (torch.arange(f, device=cuda)[:, None] < lengths[None]).float()
+    h0, c0 = (torch.randn(2, 2, n, h, generator=g) * 0.5).to(cuda)
+    x_rev = _reverse_by_length(x, lengths)
+    x_proj = torch.stack([matmul_at(xs, c["w_ih"], mode) + c["b_ih"] + c["b_hh"]
+                          for c, xs in zip(cells, (x, x_rev))], dim=1).contiguous()
+    w_hh2 = torch.stack([c["w_hh"] for c in cells])
+    return (x_proj, mask, w_hh2, h0, c0), lengths == 0
+
+
+@pytest.mark.parametrize("mode", ["high", "default"])
+@pytest.mark.parametrize("f, n, h", [(16, 64, 512), (16, 17, 512), (33, 1, 512), (16, 33, 1024),
+                                     (16, 20, 516)])
+def test_bidi_mode_body_matches_plain(cuda, mode, f, n, h):
+    """The bidirectional layer at the mode against its plain version at the
+    same mode within BIDI_MODE_TOL (at high also closer to it than to the
+    plain version at highest), the launches of its plan, 0-length rows
+    frozen bit for bit, a second call bit for bit. H=516 (U=4, one direction
+    per launch) has columns past H in its k-step tiles."""
+    args, idle = _bidi_projected_case(f, n, h, mode, f + n + h, cuda)
+    launches = K.MODE_LAUNCHES.get(("lstm_bidi", mode), 0)
+    got, again = K.lstm_bidi_fused(*args, mode), K.lstm_bidi_fused(*args, mode)
+    assert K.MODE_LAUNCHES[("lstm_bidi", mode)] == launches + 2 * K.lstm_bidi_plan(
+        n, h, precision=mode).launches
+    for a, b, c in zip(got, K.lstm_bidi_plain(*args, mode), again):
+        torch.testing.assert_close(a, b, atol=BIDI_MODE_TOL[mode], rtol=0)
+        assert torch.equal(a, c)
+    if mode == "high":
+        _closer_at_high(got, K.lstm_bidi_plain, args)
+    h0, c0 = args[3], args[4]
+    assert torch.equal(got[1][:, idle], h0[:, idle]) and torch.equal(got[2][:, idle], c0[:, idle])
+
+
+@pytest.mark.parametrize("mode", ["high", "default"])
+@pytest.mark.parametrize("f, n, h", [(16, 33, 512), (16, 17, 1024), (16, 20, 516)])
+def test_bidi_mode_graph_capture_scratch(cuda, mode, f, n, h):
+    """The bidirectional layer at the mode captured in a CUDA graph where
+    its exchange buffer (the bf16 scratch, allocated by the wrapper inside
+    the capture from the graph's pool, never zeroed by the host) has rows
+    past N (and at H=516 columns past H): replays on new inputs equal the
+    eager call bit for bit, twice in a row (every launch writes the
+    exchange's zeros and h0's bf16 form anew)."""
+    args, _ = _bidi_projected_case(f, n, h, mode, 3, cuda)
+    args = list(args)
+    x_proj, h0 = args[0].clone(), args[3].clone()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        K.lstm_bidi_fused(*args, mode)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = K.lstm_bidi_fused(*args, mode)
+    for scale in (0.5, -1.5):
+        args[0].copy_(x_proj * scale)
+        args[3].copy_(h0 * scale)
+        graph.replay()
+        torch.cuda.synchronize()
+        for a, b in zip(out, K.lstm_bidi_fused(*args, mode)):
+            assert torch.equal(a, b)
+
+
+def test_bidi_smem_formulas_agree(cuda):
+    """The C layout (``lstm_bidi_smem_bytes``, which the launch holds the
+    plan's bytes to) equals ``bidi_smem_bytes`` at every mode, and every
+    plan's bytes are the C layout's."""
+    K.lstm_bidi_prepare(cuda)
+    for mode, code in (("highest", 0), ("high", 1), ("default", 2)):
+        for h in (64, 260, 512, 516, 1024):
+            units = 8 if h % 8 == 0 else 4
+            for rows in (16, 32, 64, 128):
+                assert K._bidi_lib.lstm_bidi_smem_bytes(units, h, rows, code) == \
+                    K.bidi_smem_bytes(units, h, rows, mode)
+            for n in (1, 17, 64, 81, 1300):
+                plan = K.lstm_bidi_plan(n, h, *K.bidi_limits(cuda), precision=mode)
+                assert K._bidi_lib.lstm_bidi_smem_bytes(units, h, plan.stage_rows, code) == \
+                    plan.smem_bytes
 
 
 # The training pair at the modes, each output against the plain version at

@@ -66,8 +66,9 @@ Phases, each printed on its own line:
   4e. the high and default precision modes (the kernels' bf16 tensor-core
      branches, ``cuobjdump -sass``: HMMA in each of their instantiations and
      in none of the highest ones): the stack and the wavefront at 2x512 for
-     (F, N) = (16, 64), (256, 64), (16, 1) (timed), (33, 7), (3, 1300) and
-     at one layer of 1024 (16, 64) (timed), the bidi layer at (16, 64),
+     (F, N) = (16, 64), (256, 64), (16, 1) (timed), (33, 7), (3, 1300), at
+     one layer of 1024 (16, 64) (timed) and the stack at 3x448 (16, 48)
+     (two teams on two ring slots at high), the bidi layer at (16, 64),
      (256, 64), (16, 1), H=1024 (16, 32) and the eval's (4096, 17) (timed),
      each at both modes against its plain version at the same mode
      (TOL_MODE; at high also closer to it than to the plain version at
@@ -167,8 +168,8 @@ TOL_STEP_MODE.
     python3 chip_smoke.py --step-probe [MODE, default highest] [F, default 64]
 
 reads the time per step of the forward and the reverse sweep, of the
-bidirectional layer (also as device time alone) and of the stack (2x512 in
-both schedules, and one layer of 1024) at F steps for N = 1, 4, 16, 17, 32
+bidirectional layer and of the stack (2x512 in both schedules, and one layer
+of 1024; both also as device time alone) at F steps for N = 1, 4, 16, 17, 32
 and 64 at MODE (``step_probe``): what a step is made of beyond its grid
 barriers.
 
@@ -183,8 +184,9 @@ readings set TOL_MODE and TOL_PAIR_MODE.
 
 times both training sweeps at phase 4's timed shapes on its inputs, the
 bidirectional layer at phase 4b's, and at high and default at phase 4e's
-(BIDI_MODE_SHAPES), the stack and its wavefront schedule at phase 3's, and
-the reverse sweep at high and default at phase 4f's (``time_pair``; each
+(BIDI_MODE_SHAPES), the stack and its wavefront schedule at phase 3's and
+at high and default at phase 4e's, and the reverse sweep at high and
+default at phase 4f's (``time_pair``; each
 wrapper as an event pair around one call, as device time alone and as host
 time alone, with an output digest), and prints the registers and a SASS
 digest of every LSTM kernel instantiation, for the package under TREE
@@ -978,13 +980,23 @@ def digest(tensors) -> str:
                           ).hexdigest()[:16]
 
 
+def stack_weights_graph_ms(ops, mode: str) -> float:
+    """Device time of the bf16 form of a stack's weights (``stack_operands``'
+    W_hh and W_ih of layers >= 1) at ``mode``, which a call captured in a
+    CUDA graph makes anew (``ops/precision.derived`` keeps nothing during a
+    capture): inside the stack's and the wavefront's ``graph_ms``."""
+    return graph_ms(lambda: [K.kernel_weights(w, mode) for w in ops[1:3] if w is not None])
+
+
 def time_pair() -> int:
     """``python3 chip_smoke.py --time-pair``: both training sweeps' times at
     PAIR_TIMED on phase 4's inputs, the bidirectional layer's
     (``lstm_bidi_fused``) at BIDI_TIMED on phase 4b's and at high and
     default at BIDI_MODE_SHAPES on phase 4e's, and the stack's and
     its wavefront schedule's at STACK_TIMED (2x512) and of the stack at one
-    layer of 1024 (16, 64) on phase 3's, all at highest; the reverse sweep
+    layer of 1024 (16, 64) on phase 3's, all at highest, and at high and
+    default on the mode phases' inputs (keys ``stack@MODE FxN``, with the
+    weights' bf16 form that a captured call makes anew); the reverse sweep
     at high and default at PAIR_TIMED and at H=1024 (64, 32) on phase 4f's
     inputs (W_hh's bf16 form made once, outside the timed calls); each
     wrapper timed three ways (an event pair around one call; the device
@@ -1067,6 +1079,19 @@ def time_pair() -> int:
         key = f"stack {f}x{n}" + ("" if layers > 1 else f" 1x{h}")
         out[key] = row
         print(f"{key} times: {row}", flush=True)
+    for mode in MODES:  # the mode phases' inputs (the weights' bf16 form made at the first call)
+        for f, n, h, layers, seed in (*((f, n, HIDDEN, LAYERS, SEED + f + n) for f, n in STACK_TIMED),
+                                      (CHUNK, STREAMS, 2 * HIDDEN, 1, SEED + 1024)):
+            cells, x, mask, h0, c0 = stack_case(f, n, seed, h, layers)
+            ops = K.stack_operands(cells, x, mode)
+            args = (ops[0], mask, ops[1], ops[2], ops[3], h0, c0, mode)
+            row = timings("stack", lambda: K.lstm_stack_fused(*args))
+            if layers > 1:
+                row.update(timings("wavefront", lambda: K.lstm_stack_wavefront_fused(*args)))
+            row["weights_graph_ms"] = stack_weights_graph_ms(ops, mode)  # inside both graph_ms
+            key = f"stack@{mode} {f}x{n}" + ("" if layers > 1 else f" 1x{h}")
+            out[key] = row
+            print(f"{key} times: {row}", flush=True)
     print(json.dumps({"package": os.path.dirname(TK.__file__), "times": out}), flush=True)
     return 0
 
@@ -1076,9 +1101,9 @@ def step_probe(mode: str = "highest", f: int = TRAIN_WINDOW, ns=(1, 4, 16, 17, 3
     training sweep, of the bidirectional layer and of the stack (2x512 in
     both schedules, and one layer of 1024) is made of at MODE (default
     highest): its time per step at F steps (default 64) for growing N
-    (median event time of the wrapper over F; the bidi layer also as device
-    time alone, from graph replays less the weights' bf16 form that a
-    captured call makes; at high and default with the weights' bf16 form
+    (median event time of the wrapper over F; the bidi layer and the stack
+    also as device time alone, from graph replays less the weights' bf16
+    form that a captured call makes; at high and default with the weights' bf16 form
     made once, outside the timed calls). At N=1 the staged rows and the
     products are nearly nothing, so the step is the grid barriers, the
     elementwise work and the launch; each row adds its products and, per
@@ -1124,26 +1149,32 @@ def step_probe(mode: str = "highest", f: int = TRAIN_WINDOW, ns=(1, 4, 16, 17, 3
           "default a ring of 16-row slots): "
           + ", ".join(f"N={n} {v:.2f} (device alone {bidi_graph_us[n]:.2f})"
                       for n, v in bidi_us.items()), flush=True)
-    stack_us = {}
+    stack_us, stack_graph_us = {}, {}
     for name, h, layers, fn in (("stack", HIDDEN, LAYERS, K.lstm_stack_fused),
                                 ("wavefront", HIDDEN, LAYERS, K.lstm_stack_wavefront_fused),
                                 ("stack 1x1024", 2 * HIDDEN, 1, K.lstm_stack_fused)):
-        times = {}
+        times, graph_times = {}, {}
         for n in ns:
             cells, x, mask, h0, c0 = stack_case(f, n, SEED + n, h, layers)
             ops = K.stack_operands(cells, x, mode)
             args = (ops[0], mask, ops[1], ops[2], ops[3], h0, c0, mode)
             times[n] = cuda_ms(lambda: fn(*args)) * 1e3 / f
-        stack_us[name] = times
+            # Device alone, less the weights' bf16 form that a captured call makes anew.
+            weights_ms = 0.0 if mode == "highest" else stack_weights_graph_ms(ops, mode)
+            graph_times[n] = (graph_ms(lambda: fn(*args)) - weights_ms) * 1e3 / f
+        stack_us[name], stack_graph_us[name] = times, graph_times
         wave, lim = name == "wavefront", K.stack_limits(x.device)
         plans = {n: K.lstm_stack_plan(layers, n, h, *lim, wavefront=wave, precision=mode)
                  for n in ns}
         print(f"{name} at {mode} per step at F={f}, us by N (plans: "
-              f"{ {n: p.stage_rows for n, p in plans.items()} } rows staged at once): "
-              + ", ".join(f"N={n} {v:.2f}" for n, v in times.items()), flush=True)
+              f"{ {n: (p.stage_rows, p.teams) for n, p in plans.items()} } (rows staged at "
+              "once or the ring's rows, teams)): "
+              + ", ".join(f"N={n} {v:.2f} (device alone {graph_times[n]:.2f})"
+                          for n, v in times.items()), flush=True)
     print(json.dumps({"mode": mode, "f": f, "fwd_us_per_step": fwd_us, "bwd_us_per_step": us,
                       "bidi_us_per_step": bidi_us, "bidi_device_us_per_step": bidi_graph_us,
-                      "stack_us_per_step": stack_us}), flush=True)
+                      "stack_us_per_step": stack_us, "stack_device_us_per_step": stack_graph_us}),
+          flush=True)
     return 0
 
 
@@ -2132,12 +2163,12 @@ def mode_check(name: str, kernel: str, shape: str, mode: str, fused, plain, args
 
 
 def stack_mode_phase(f: int, n: int, mode: str, seed: int, h: int = HIDDEN,
-                     layers: int = LAYERS, timed: bool = True) -> dict:
-    """The stack kernel and (from 2 layers) its wavefront schedule at
-    ``mode`` (``mode_check``), each with its launch plan; when ``timed``,
-    median times beside the plain versions at the mode and cuDNN's LSTM in
-    bf16 (a yardstick: its outputs are bf16), and the bound at the bf16
-    tensor-core rate. Returns both rows."""
+                     layers: int = LAYERS, timed: bool = True, wavefront: bool = True) -> dict:
+    """The stack kernel and (from 2 layers, with ``wavefront``) its
+    wavefront schedule at ``mode`` (``mode_check``), each with its launch
+    plan; when ``timed``, median times beside the plain versions at the
+    mode and cuDNN's LSTM in bf16 (a yardstick: its outputs are bf16), and
+    the bound at the bf16 tensor-core rate. Returns both rows."""
     cells, x, mask, h0, c0 = stack_case(f, n, seed, h, layers)
     ops = K.stack_operands(cells, x, mode)
     args = (ops[0], mask, ops[1], ops[2], ops[3], h0, c0)
@@ -2150,7 +2181,7 @@ def stack_mode_phase(f: int, n: int, mode: str, seed: int, h: int = HIDDEN,
             ("stack kernel", "lstm_stack", K.lstm_stack_fused, K.lstm_stack_plain, False),
             ("wavefront kernel", "lstm_wavefront", K.lstm_stack_wavefront_fused,
              K.lstm_stack_wavefront_plain, True)):
-        if wave and layers < 2:
+        if wave and (layers < 2 or not wavefront):
             continue
         plan = K.lstm_stack_plan(layers, n, h, *lim, wavefront=wave, precision=mode)
         print(f"mode {mode} {name} launch plan {shape}: {plan._asdict()}", flush=True)
@@ -2400,9 +2431,12 @@ def bf16_product_check() -> None:
 
 def kernel_modes() -> dict:
     """Every mode phase of the kernels: the stack and the wavefront at
-    STACK_TIMED (timed), (33, 7) and (3, 1300) at 2x512 and one layer of
-    1024 at (16, 64) (timed); the bidi layer at BIDI_TIMED, H=1024 (16, 32)
-    and the eval's (4096, 17) (timed). Returns the (16, 64) rows per mode."""
+    STACK_TIMED (timed), (33, 7) and (3, 1300) at 2x512, one layer of 1024
+    at (16, 64) (timed) and the stack at 3x448 (16, 48) (at high two teams
+    of the stack order on two ring slots, two items a chunk, three chunks:
+    3x448 has no wavefront plan at high); the bidi
+    layer at BIDI_TIMED, H=1024 (16, 32) and the eval's (4096, 17) (timed).
+    Returns the (16, 64) rows per mode."""
     rows = {}
     for mode in MODES:
         stack = {}
@@ -2410,6 +2444,8 @@ def kernel_modes() -> dict:
             stack[(f, n)] = stack_mode_phase(f, n, mode, seed=SEED + f + n,
                                              timed=(f, n) in STACK_TIMED)
         stack_mode_phase(CHUNK, STREAMS, mode, seed=SEED + 1024, h=2 * HIDDEN, layers=1)
+        stack_mode_phase(CHUNK, 48, mode, seed=SEED + 448, h=448, layers=3, timed=False,
+                         wavefront=False)
         bidi = {}
         for f, n, h in BIDI_MODE_SHAPES:
             bidi[(f, n, h)] = bidi_mode_phase(f, n, mode, seed=SEED + f + n + 1, h=h)

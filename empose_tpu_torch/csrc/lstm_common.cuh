@@ -6,7 +6,8 @@
 // on mbarriers.
 //
 // Included by lstm_stack.cu, lstm_bidi.cu and lstm_train.cu; none of them
-// keeps a copy of a helper here.
+// keeps a copy of a helper here, but for lstm_bidi.cu's exchange_index and
+// put_state.
 
 #pragma once
 
@@ -330,6 +331,26 @@ constexpr int kTile = kMmaRows * 16;  // bf16 of a tile
 
 __host__ __device__ constexpr int tile_offset(int r, int c) {
   return r * 16 + ((c / 8) ^ (r / 4 % 2)) * 8 + c % 8;
+}
+
+// Where row n, column j of a state lies in one part of an exchange buffer:
+// chunks of 16 rows, each KS k-step tiles.  (lstm_bidi.cu keeps its own
+// copy of this and of put_state.)
+__device__ __forceinline__ size_t exchange_index(int n, int j, int KS) {
+  return ((size_t)(n / kMmaRows) * KS + j / 16) * kTile + tile_offset(n % kMmaRows, j % 16);
+}
+
+// h's bf16 form (hi, and lo at HIGH: split_bf16x2, the rounding of
+// stage_cols_bf16) at row n, column j of one state's parts in an exchange
+// buffer (x_part bf16 per part).
+template <int P>
+__device__ __forceinline__ void put_state(unsigned short* x, size_t x_part, int n, int j, int KS,
+                                          float h) {
+  const size_t o = exchange_index(n, j, KS);
+  unsigned hi, lo;
+  split_bf16x2(h, 0.0f, hi, lo);
+  x[o] = (unsigned short)hi;
+  if constexpr (P == kHigh) x[x_part + o] = (unsigned short)lo;
 }
 
 // acc[nt] += one k-step tile (planes `tile`, and tile + lo_off at HIGH)

@@ -87,15 +87,30 @@
 // hands in the weights already rounded (DEFAULT) or split into a bf16 hi/lo
 // pair (HIGH), as JAX pre-splits them outside its kernel; the block keeps its
 // columns in B-fragment order (half of HIGHEST's bytes at DEFAULT, the same
-// at HIGH).  A team takes its chunks of 16 rows one at a time: it converts
-// each staged state's rows once into bf16 (a hi plane; hi and lo at HIGH,
-// rows past N zero), its 8 warps multiply over disjoint k-steps, and the
-// partial tiles meet in shared memory, summed in warp order by one thread
-// per (row, unit, gate), which adds the gate input and applies the
-// nonlinearity; the first of each four writes h, c and the output.  Gates,
-// cell update and masking are the HIGHEST code's, in f32.  Same schedule,
-// grid barriers and teams (2 at U=4 where they fit), no atomics: two
-// launches give the same bits.
+// at HIGH).  Gates, cell update and masking are the HIGHEST code's, in f32;
+// the same schedule and grid barriers, no atomics: two launches give the
+// same bits.  The two orders have their own bodies:
+//   * The stack order (ring_body, the user paths' one).  Every block needs
+//     all N rows of the layer states it multiplies, so their bf16 form is
+//     made once, by the thread that writes the f32 value, into a two-slot
+//     exchange per layer laid out as the A operand's k-step tiles; after
+//     each grid barrier one thread streams the phase's 16-row chunks of each
+//     state into a ring of shared-memory slots by bulk copies (the Tensor
+//     Memory Accelerator) on mbarriers, and the warps multiply each chunk as
+//     it lands, over 8 disjoint k-step sets; where a phase has two chunks or
+//     more and the ring two slots, two teams of 4 warps take them in turns,
+//     one team's epilogue beside the other's products.  The sets' partial
+//     tiles meet in shared memory, summed in set order by one thread per
+//     (row, unit).  The block's columns come in by wide loads
+//     (stage_b_fragments_vec).  The details: ring_body.
+//   * The wavefront order (wave_mma_body, the bench tool's).  A team takes
+//     its chunks of 16 rows one at a time: it converts each staged state's
+//     rows once into bf16 (a hi plane; hi and lo at HIGH, rows past N zero)
+//     from L2, its 8 warps multiply over disjoint k-steps, and the partial
+//     tiles meet in shared memory, summed in warp order by one thread per
+//     (row, unit, gate), which adds the gate input and applies the
+//     nonlinearity; the first of each four writes h, c and the output.  Two
+//     teams of 8 warps at U=4 where they fit.
 // The grid must be co-resident for the barrier: lstm_stack_prepare sets the
 // kernel's shared memory and checks its occupancy once per device, the plan
 // keeps the grid within the SMs, and the C entries only launch
@@ -111,15 +126,25 @@ namespace cg = cooperative_groups;
 
 namespace {
 
+using lstm::bulk_copy;
 using lstm::component;
 using lstm::cp_async;
 using lstm::cp_async_commit;
 using lstm::cp_async_wait_upto;
+using lstm::fence_mbarrier_init;
+using lstm::fence_proxy_async_global;
 using lstm::kDefault;
 using lstm::kHigh;
 using lstm::kHighest;
 using lstm::kMmaRows;
 using lstm::kParts;
+using lstm::kTile;
+using lstm::mbar_arrive;
+using lstm::mbar_expect_tx;
+using lstm::mbar_init;
+using lstm::mbar_wait;
+using lstm::mma_ktile;
+using lstm::put_state;
 using lstm::round32;
 using lstm::sigmoid_f;
 using lstm::warp_reduce_scatter;
@@ -129,11 +154,22 @@ constexpr int kTeamWarps = kTeamThreads / 32;
 constexpr int kPassRows = 16;  // rows of a staged chunk
 constexpr int kUnitPair = 2;   // units a warp multiplies at once
 
-// Teams of a block, at most (see the head note): U=4 runs two, U=8 one.
+// Teams of 256 threads of a block of the HIGHEST and the wavefront bodies,
+// at most (see the head note): U=4 runs two, U=8 one.
 template <int U>
 constexpr int kTeams = U == 4 ? 2 : 1;
 template <int U>
 constexpr int kBlockThreads = kTeamThreads * kTeams<U>;
+
+// The stack order's HIGH and DEFAULT body (ring_body) runs blocks of 8 warps
+// (one team of 8, or two of 4) at every U, and a ring of at most kMaxStages
+// slots (its mbarriers and the count of the items issued: 144 bytes).
+constexpr int kRingThreads = 256;
+constexpr int kRingWarps = kRingThreads / 32;
+constexpr int kMaxStages = 8;
+constexpr int kRingSyncBytes = 2 * kMaxStages * 8 + 16;
+template <int U, bool kWave, int P>
+constexpr int kKernelThreads = P != kHighest && !kWave ? kRingThreads : kBlockThreads<U>;
 
 // Error codes beside cudaError_t values (which are >= 0); the same values
 // as lstm_bidi.cu and lstm_train.cu.
@@ -166,16 +202,28 @@ __host__ __device__ constexpr size_t smem_floats(int U, int H, int L, int planes
   return (size_t)(2 * L - 1) * round32((size_t)4 * U * H) + (size_t)planes * stage_rows * H;
 }
 
-// Shared memory of a block at HIGH and DEFAULT (bytes), in this order: the
-// B fragments of every W_hh and of W_ih of layers >= 1 (lstm_common.cuh,
-// `parts` planes each), then per team `planes` staged bf16 chunks of
-// `parts` planes each and the team's partial tiles.  The same formula as
-// ops/lstm_kernel.py::stack_smem_bytes.
+// Shared memory of a block of the wavefront order at HIGH and DEFAULT
+// (bytes), in this order: the B fragments of every W_hh and of W_ih of
+// layers >= 1 (lstm_common.cuh, `parts` planes each), then per team
+// `planes` staged bf16 chunks of `parts` planes each and the team's partial
+// tiles.  The same formula as ops/lstm_kernel.py::stack_smem_bytes.
 __host__ __device__ constexpr size_t mma_smem_bytes(int U, int H, int L, int planes, int teams,
                                                     int parts) {
   return (size_t)(2 * L - 1) * lstm::mma_matrix_bytes(U, H, parts) +
          (size_t)teams * ((size_t)planes * parts * lstm::mma_plane_bytes(H) +
                           lstm::mma_partial_bytes(U));
+}
+
+// Shared memory of a block of the stack order at HIGH and DEFAULT (bytes),
+// in this order: the B fragments of the 2L - 1 matrices; a ring of
+// `stages` slots, each one state's 16-row chunk in bf16 k-step tiles
+// (`parts` planes); the ring's mbarriers and the count of its items issued
+// (kRingSyncBytes); two buffers of the partial tiles.  The same formula as
+// ops/lstm_kernel.py::stack_ring_smem_bytes.
+__host__ __device__ constexpr size_t ring_smem_bytes(int U, int H, int L, int parts, int stages) {
+  return (size_t)(2 * L - 1) * lstm::mma_matrix_bytes(U, H, parts) +
+         (size_t)stages * parts * lstm::kpad16(H) * kMmaRows * 2 + kRingSyncBytes +
+         2 * lstm::mma_partial_bytes(U);
 }
 
 // The kernel's arguments, passed as one struct in parameter space: a piece
@@ -195,6 +243,7 @@ struct StackArgs {
   float* hbuf;           // (2, L, N, H): layer l's h after step t in hbuf[(t + 1) & 1][l]
   float* c_out;          // (L, N, H): c, cF at the end
   int F, N, H, L, stage_rows, teams;
+  void* xbuf;  // the stack order at HIGH and DEFAULT: the bf16 exchange (ring_body), else null
 };
 
 // acc += the NP staged rows `rows` (stride H) times the eight gate columns
@@ -471,19 +520,20 @@ __device__ __forceinline__ void fp32_body(const StackArgs& a, float* smem) {
   }
 }
 
-// The HIGH and DEFAULT body (see the head note): the phases of fp32_body,
-// each team taking its chunks team, team + teams, ... one at a time through
-// one slot of staged bf16 planes and one set of partial tiles.  Layer l's
-// state after step tau is read through L2 (hbuf, h0 before the first step).
-template <int U, bool kWave, int P>
-__device__ __forceinline__ void mma_body(const StackArgs& a, float* smem) {
+// The wavefront order's HIGH and DEFAULT body (see the head note): the
+// phases of fp32_body, each team taking its chunks team, team + teams, ...
+// one at a time through one slot of staged bf16 planes and one set of
+// partial tiles.  Layer l's state after step tau is read through L2 (hbuf,
+// h0 before the first step).
+template <int U, int P>
+__device__ __forceinline__ void wave_mma_body(const StackArgs& a, float* smem) {
   constexpr int NT = U / 2;
   constexpr int C = 4 * U;                           // the block's gate columns of a matrix
   constexpr int kEpi = kMmaRows * C / kTeamThreads;  // (row, column) outputs of a thread
   constexpr int kP = kParts<P>;
   const int F = a.F, N = a.N, H = a.H, L = a.L, teams = a.teams;
   const size_t NH = (size_t)N * H;
-  const int planes = stage_planes(L, kWave);
+  const int planes = stage_planes(L, true);
   const size_t mat = lstm::mma_matrix_bytes(U, H, kP) / sizeof(uint2);  // fragments per matrix
   const size_t plane = lstm::mma_plane_bytes(H) / 2;                     // bf16 per plane
   uint2* w_b = reinterpret_cast<uint2*>(smem);
@@ -520,11 +570,11 @@ __device__ __forceinline__ void mma_body(const StackArgs& a, float* smem) {
   __syncthreads();
 
   const int n_chunks = (N + kMmaRows - 1) / kMmaRows;
-  const int n_phases = kWave ? F + L - 1 : F * L;
+  const int n_phases = F + L - 1;
   for (int ph = 0; ph < n_phases; ++ph) {
-    const int l_first = kWave ? max(0, ph - F + 1) : ph % L;
-    const int l_last = kWave ? min(L - 1, ph) : ph % L;
-    const int wave = kWave ? ph : ph / L + l_first;
+    const int l_first = max(0, ph - F + 1);
+    const int l_last = min(L - 1, ph);
+    const int wave = ph;
     const int lo = max(0, l_first - 1);
     // Layer k's state after step tau: h0 before the first step, else hbuf[(tau + 1) & 1].
     auto state = [&](int k, int tau) -> const float* {
@@ -613,14 +663,390 @@ __device__ __forceinline__ void mma_body(const StackArgs& a, float* smem) {
   }
 }
 
+// The cell operands of a thread's (row, unit) of a chunk at a phase: the
+// four gate inputs (x0_proj's columns for layer 0, the bias above), the
+// mask, the old c and the old h.
+struct CellOps {
+  float x[4], m, c, h;
+};
+
+// What the phases of the stack order's HIGH and DEFAULT body share: the
+// block's shared memory (ring_body).
+struct Ring {
+  int KS, n_chunks, stages;
+  size_t plane;   // bf16 of one part of a state's chunk
+  size_t x_part;  // bf16 of one part of a state in the exchange
+  size_t mat;     // B fragments (uint2) of one matrix
+  const uint2* w_b;                  // the B fragments of the 2L - 1 matrices
+  __nv_bfloat16* ring;               // the ring's slots
+  unsigned long long *full, *empty;  // the ring's mbarriers
+  unsigned* issued;                  // the items issued in the launch (thread 0 writes)
+  float* part;                       // the two buffers of partial tiles
+};
+
+// The count of the ring's items issued: thread 0 publishes it after each
+// copy, the other warps read it before waiting for an item.
+__device__ __forceinline__ void store_release(unsigned* p, unsigned v) {
+  asm volatile("st.release.cta.shared::cta.u32 [%0], %1;\n" ::"r"(lstm::smem_addr(p)), "r"(v)
+               : "memory");
+}
+__device__ __forceinline__ unsigned load_acquire(const unsigned* p) {
+  unsigned v;
+  asm volatile("ld.acquire.cta.shared::cta.u32 %0, [%1];\n"
+               : "=r"(v)
+               : "r"(lstm::smem_addr(p))
+               : "memory");
+  return v;
+}
+
+// The phases of the stack order's HIGH and DEFAULT body (see ring_body) with
+// TEAMS teams of 8 / TEAMS warps, team g taking the chunks g, g + TEAMS, ...
+// of every phase.  With kReuse (two layers, where the ring holds every item
+// of a phase at once) phase (t, 0) multiplies layer 0's state after t - 1
+// in place: phase (t - 1, 1) copied it as its chunks' input.  Then item i
+// of a phase (t, 1) sits in slot i, and phase (0, 0) copies chunk c into
+// slot 2c.
+template <int U, int P, int TEAMS, bool kReuse>
+__device__ __forceinline__ void ring_phases(const StackArgs& a, const Ring& s, int tid) {
+  constexpr int C = 4 * U;   // the block's gate columns of a matrix
+  constexpr int NT = U / 2;  // their n8 tiles
+  constexpr int kP = kParts<P>;
+  constexpr int kPart = lstm::mma_partial_bytes(U) / sizeof(float);
+  constexpr int kTW = kRingWarps / TEAMS;  // warps of a team
+  constexpr int kTT = kRingThreads / TEAMS;
+  static_assert(kRingWarps == lstm::kMmaWarps, "one k-step set per warp, two per warp of a team of 4");
+  static_assert(kMmaRows * U <= kTT, "a thread per (row, unit) of a chunk");
+  const int lane = tid % 32, warp = tid / 32;
+  const int team = warp / kTW, tw = warp % kTW, ttid = tid % kTT;
+  // Epilogue thread ttid < 16 U: row r = ttid / U, unit u = ttid % U.
+  const bool cell = ttid < kMmaRows * U;
+  const int r = ttid / U, u = ttid % U, j = blockIdx.x * U + u;
+  const int F = a.F, N = a.N, H = a.H, L = a.L, KS = s.KS, n_chunks = s.n_chunks;
+  const int stages = s.stages;
+  const size_t NH = (size_t)N * H;
+  const unsigned chunk_bytes = (unsigned)s.plane * 2;
+  unsigned short* xbuf = static_cast<unsigned short*>(a.xbuf);
+  // Slot sl of layer k's state in the exchange.
+  auto layer_slot = [&](int sl, int k) { return xbuf + ((size_t)sl * L + k) * kP * s.x_part; };
+  cg::grid_group grid = cg::this_grid();
+  // The team's threads meet (named barrier 1 + team; one team: the block).
+  auto team_sync = [&]() {
+    if constexpr (TEAMS == 1)
+      __syncthreads();
+    else
+      asm volatile("bar.sync %0, %1;\n" ::"r"(1 + team), "n"(kTT) : "memory");
+  };
+  // Chunk c's cell operands at phase (t, l) into o (row c 16 + r, unit u).
+  auto load = [&](CellOps& o, int t, int l, int c) {
+    const int n = c * kMmaRows + r;
+    o.x[0] = o.x[1] = o.x[2] = o.x[3] = o.m = o.c = o.h = 0.0f;
+    if (cell && n < N) {
+      const float* x_n = l == 0 ? a.x0_proj + ((size_t)t * N + n) * 4 * H + j
+                                : a.b_up + (size_t)(l - 1) * 4 * H + j;
+#pragma unroll
+      for (int q = 0; q < 4; ++q) o.x[q] = __ldg(x_n + q * H);
+      const size_t off = l * NH + (size_t)n * H + j;
+      o.m = __ldg(a.mask + (size_t)t * N + n);
+      o.c = (t == 0 ? a.c0 : a.c_out)[off];
+      o.h = t == 0 ? a.h0[off] : __ldcg(a.hbuf + (size_t)(t & 1) * L * NH + off);
+    }
+  };
+  CellOps cur, nxt;
+  load(nxt, 0, 0, team);
+
+  const int n_phases = F * L;
+  for (int ph = 0; ph < n_phases; ++ph) {
+    const int t = ph / L, l = ph % L;
+    // The phase's items, one state's chunk each: chunk c's input (layer l -
+    // 1's state after t; l >= 1) as item 2c and its recurrent operand
+    // (layer l's after t - 1) as item 2c + 1; at layer 0 the recurrent
+    // operand as item c.  Item i is the (base + i)-th of the launch.
+    const int ipc = kStacked<U> && l > 0 ? 2 : 1;
+    const int n_items = kReuse && l == 0 && t > 0 ? 0 : n_chunks * ipc;
+    const int base = t * n_chunks * (2 * L - 1) + (l > 0 ? n_chunks * (2 * l - 1) : 0);
+    const unsigned short* rec_src = layer_slot(t & 1, l);
+    const unsigned short* in_src = l > 0 ? layer_slot((t + 1) & 1, l - 1) : rec_src;
+    // Item i's slot and the count of the slot's copies before it (its full
+    // mbarrier's phase).  With reuse slot 2c is copied at phase (0, 0) and
+    // at every phase (t, 1), slot 2c + 1 at every phase (t, 1); phase (t >
+    // 0, 0) reads slot 2c's copy of phase (t - 1, 1).
+    auto slot_use = [&](int i, int& slot, int& use) {
+      if constexpr (!kReuse) {
+        slot = (base + i) % stages;
+        use = (base + i) / stages;
+      } else if (l == 0) {
+        slot = 2 * i;
+        use = t;
+      } else {
+        slot = i;
+        use = t + (i % 2 == 0);
+      }
+    };
+    // Item i into its slot: one bulk copy a part, issued by thread 0 once
+    // the warps are done with the slot's previous item (with reuse every
+    // item is issued after the grid barrier, when they are).
+    auto issue = [&](int i) {
+      int slot, use;
+      slot_use(i, slot, use);
+      if (!kReuse && use > 0) mbar_wait(s.empty + slot, (use - 1) & 1);
+      mbar_expect_tx(s.full + slot, kP * chunk_bytes);
+      const unsigned short* src = (ipc == 2 && i % 2 == 0 ? in_src : rec_src) +
+                                  (size_t)(i / ipc) * s.plane;
+#pragma unroll
+      for (int p = 0; p < kP; ++p)
+        bulk_copy(s.ring + ((size_t)slot * kP + p) * s.plane, src + p * s.x_part, chunk_bytes,
+                  s.full + slot);
+      if constexpr (TEAMS > 1 && !kReuse) store_release(s.issued, base + i + 1);
+    };
+    int issued = 0;  // thread 0: the phase's items issued
+    if (tid == 0) {
+      fence_proxy_async_global();
+      for (; issued < min(stages, n_items); ++issued) issue(issued);
+    }
+    // acc[v] += item i times matrix mi over the k-step sets tw (and tw + 4
+    // in a team of 4 warps): wait for the item, multiply, free its slot;
+    // then thread 0 issues every item whose slot's previous item is this
+    // one or older.  With two teams the ring has more slots than a chunk
+    // has items (the plan), so team 0's next item is issued by then too.
+    // Without reuse a slot's items alternate between the teams, and a warp
+    // other than thread 0's first waits until item i is issued: the slot's
+    // item before it has landed then (thread 0 waited for its readers), so
+    // the full mbarrier is one phase behind or done, never two behind,
+    // where the parity would pass early.  tests/test_torch_stack_modes.py
+    // models these waits.
+    auto product = [&](float(&acc)[TEAMS][NT][4], int i, int mi) {
+      int slot, use;
+      slot_use(i, slot, use);
+      if constexpr (TEAMS > 1 && !kReuse) {
+        if (warp > 0) {
+          if (lane == 0)
+            while (load_acquire(s.issued) <= (unsigned)(base + i)) {
+            }
+          __syncwarp();
+        }
+      }
+      mbar_wait(s.full + slot, use & 1);  // item i has landed
+      __syncwarp();                                  // the warp's lanes together again
+      const __nv_bfloat16* A = s.ring + (size_t)slot * kP * s.plane;
+      const uint2* B = s.w_b + (size_t)mi * s.mat;
+      for (int ks = tw; ks < KS; ks += lstm::kMmaWarps) {
+#pragma unroll
+        for (int v = 0; v < TEAMS; ++v) {
+          const int k = ks + v * kTW;
+          if (k < KS)
+            mma_ktile<NT, P>(acc[v], A + (size_t)k * kTile, s.plane, B + (size_t)k * NT * 32,
+                             (size_t)KS * NT * 32, lane);
+        }
+      }
+      __syncwarp();
+      if (lane == 0) mbar_arrive(s.empty + slot);  // this warp is done with the slot
+      if (tid == 0)
+        for (; issued < min(n_items, i + stages + 1); ++issued) issue(issued);
+    };
+    for (int c = team; c < n_chunks; c += TEAMS) {
+      cur = nxt;
+      if (c + TEAMS < n_chunks) load(nxt, t, l, c + TEAMS);
+      float acc[TEAMS][NT][4];
+#pragma unroll
+      for (int v = 0; v < TEAMS; ++v)
+#pragma unroll
+        for (int nt = 0; nt < NT; ++nt)
+          acc[v][nt][0] = acc[v][nt][1] = acc[v][nt][2] = acc[v][nt][3] = 0.f;
+      if (kStacked<U> && l > 0) {  // the input product, with W_ih[l] (matrix L + l - 1)
+        product(acc, 2 * c, L + l - 1);
+        // The input is layer l-1's output h_new * mask; the staged row is its state.
+        const int g = c * kMmaRows + lane / 4;
+        const float* mask_t = a.mask + (size_t)t * N;
+        const float m0 = g < N ? __ldg(mask_t + g) : 0.f;
+        const float m1 = g + 8 < N ? __ldg(mask_t + g + 8) : 0.f;
+#pragma unroll
+        for (int v = 0; v < TEAMS; ++v)
+#pragma unroll
+          for (int nt = 0; nt < NT; ++nt) {
+            acc[v][nt][0] *= m0;
+            acc[v][nt][1] *= m0;
+            acc[v][nt][2] *= m1;
+            acc[v][nt][3] *= m1;
+          }
+      }
+      product(acc, c * ipc + ipc - 1, l);  // the recurrent product, with W_hh[l]
+      // One team: a buffer per chunk in turn; two: a buffer per team.
+      float* pb = s.part + (TEAMS == 1 ? c % 2 : team) * kPart;
+      if constexpr (TEAMS > 1) team_sync();  // the team's epilogue of its chunk before is done
+#pragma unroll
+      for (int v = 0; v < TEAMS; ++v)
+        lstm::store_partials<U>(pb, acc[v], tw + v * kTW, lane);
+      team_sync();  // the chunk's partial tiles are stored (one team: those of c - 2 read)
+
+      // Thread (r, u): its four gates' sums in set order, inputs,
+      // nonlinearities, and the cell.
+      const int n = c * kMmaRows + r;
+      if (cell && n < N) {
+        float pre[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+#pragma unroll
+        for (int w = 0; w < lstm::kMmaWarps; ++w) {
+          const float4 p4 = *reinterpret_cast<const float4*>(pb + (w * kMmaRows + r) * C + 4 * u);
+          pre[0] += p4.x;
+          pre[1] += p4.y;
+          pre[2] += p4.z;
+          pre[3] += p4.w;
+        }
+        const float i_g = sigmoid_f(pre[0] + cur.x[0]);
+        const float f_g = sigmoid_f(pre[1] + cur.x[1]);
+        const float g_g = tanhf(pre[2] + cur.x[2]);
+        const float o_g = sigmoid_f(pre[3] + cur.x[3]);
+        const size_t o = (size_t)n * H + j;
+        const float c_new = f_g * cur.c + i_g * g_g;
+        const float h_new = o_g * tanhf(c_new);
+        const float h_sel = cur.m > 0.0f ? h_new : cur.h;
+        a.hbuf[((size_t)((t + 1) & 1) * L + l) * NH + o] = h_sel;
+        a.c_out[l * NH + o] = cur.m > 0.0f ? c_new : cur.c;
+        if (l == L - 1) a.outs[t * NH + o] = h_new * cur.m;
+        if (t + 1 < F || l + 1 < L)  // read at phase (t, l + 1) or (t + 1, l)
+          put_state<P>(layer_slot((t + 1) & 1, l), s.x_part, n, j, KS, h_sel);
+      }
+      if (c + TEAMS >= n_chunks && ph + 1 < n_phases) {
+        // The next phase's first chunk of the team: this thread's c and h of it are written.
+        const int l1 = l + 1 < L ? l + 1 : 0;
+        load(nxt, l1 ? t : t + 1, l1, team);
+      }
+    }
+    if (ph + 1 < n_phases) {
+      fence_proxy_async_global();  // the exchange's stores, before the other blocks' bulk copies
+      grid.sync();                 // every block's rows of this phase's state are written
+    }
+  }
+}
+
+// The stack order's HIGH and DEFAULT body (see the head note).
+//   * The exchange.  xbuf holds 2 slots x L layers x parts x n_chunks
+//     chunks x KS k-steps of 16x16 bf16 tiles (lstm_common.cuh): layer l's
+//     state after step t, selected by the mask, goes in bf16 to slot (t +
+//     1) & 1 of layer l from the thread that writes its f32 value to hbuf.
+//     A prologue writes each layer's h0 in bf16 into its slot 0 (each block
+//     its own columns) and the zeros of rows past N and of columns past H
+//     in every slot, once per launch, and ends with a grid barrier.  Two
+//     slots a layer suffice in the stack order: phase (t, l) writes slot
+//     (t + 1) & 1 of layer l, which phase (t, l + 1) reads as its input and
+//     phase (t + 1, l) as its recurrent operand; the slot is next written
+//     at phase (t + 2, l), after the grid barriers of those phases, which
+//     no block passes before its copies of them have landed.  Phase (t, l)
+//     itself reads layer l's other slot and layer l - 1's.
+//   * The ring.  After each grid barrier thread 0 issues bulk copies of the
+//     phase's items, one state's 16-row chunk each (a chunk's input and its
+//     recurrent operand at l >= 1, its recurrent operand at layer 0), into
+//     a ring of `stages` slots on full / empty mbarriers, as many as there
+//     are slots, and each later item into its slot once the warps are done
+//     with the slot's item before; it publishes the count of the items
+//     issued, which the other team waits for.  The item count runs on
+//     across phases, and with it each slot's mbarrier phases.  At two
+//     layers, where the ring holds all of a phase's items (2x512: N <= 64
+//     at DEFAULT, N <= 16 at HIGH), phase (t, 0) copies nothing: layer 0's
+//     state after t - 1 is still in the slots where phase (t - 1, 1) copied
+//     it as its input, and it is multiplied there (faster than copying it
+//     again: PERF.md).
+//   * Teams.  Where a phase has two chunks or more and the ring more slots
+//     than a chunk has items (the plan's teams), warps 0-3 and 4-7 are two
+//     teams that take the chunks in turns, so one team's epilogue runs
+//     beside the other's products; else one team of 8 warps takes every
+//     chunk.  A product is split over 8 k-step sets, set w the k-steps w, w
+//     + 8, ... (mma_tile's order), a warp of a team of 4 taking two of
+//     them; at l >= 1 each set's input product is scaled by its rows' mask
+//     before its recurrent product goes into the same accumulators.  Each set's partial tile
+//     goes to shared memory (two buffers: one per team, or for one team one
+//     per chunk in turn), and the epilogue sums the 8 in set order: the
+//     same products in the same order as the wavefront body's staged chunk,
+//     so the same bits.
+//   * The cell.  Thread (row r, unit u) of a team (16 U of its threads)
+//     sums its unit's four gate columns, applies their nonlinearities and
+//     writes its h, c and output; it reads the cell operands of its team's
+//     next chunk while the current one is multiplied, and the next phase's
+//     first chunk's before the grid barrier (each is written by this
+//     thread, or by no one during the launch).
+template <int U, int P>
+__device__ __forceinline__ void ring_body(const StackArgs& a, float* smem) {
+  constexpr int kP = kParts<P>;
+  const int N = a.N, H = a.H, L = a.L, stages = a.stage_rows / kMmaRows;
+  const int j0 = blockIdx.x * U;
+  const size_t NH = (size_t)N * H;
+  const int KS = lstm::kpad16(H) / 16;  // k-steps of H
+  const int n_chunks = (N + kMmaRows - 1) / kMmaRows;
+  const size_t plane = (size_t)KS * kTile;         // bf16 of one part of a chunk
+  const size_t x_part = (size_t)n_chunks * plane;  // bf16 of one part of a state
+  const size_t mat = lstm::mma_matrix_bytes(U, H, kP) / sizeof(uint2);  // fragments per matrix
+  unsigned short* xbuf = static_cast<unsigned short*>(a.xbuf);
+  auto layer_slot = [&](int sl, int k) { return xbuf + ((size_t)sl * L + k) * kP * x_part; };
+  uint2* w_b = reinterpret_cast<uint2*>(smem);
+  __nv_bfloat16* ring = reinterpret_cast<__nv_bfloat16*>(w_b + (2 * L - 1) * mat);
+  unsigned long long* full =
+      reinterpret_cast<unsigned long long*>(ring + (size_t)stages * kP * plane);
+  unsigned long long* empty = full + kMaxStages;
+  unsigned* issued = reinterpret_cast<unsigned*>(empty + kMaxStages);
+  const int tid = threadIdx.x;
+  cg::grid_group grid = cg::this_grid();
+
+  // The prologue: the B fragments, the mbarriers, h0's bf16 form and the
+  // zeros of the exchange.
+  const size_t HW = (size_t)H * 4 * H;
+  for (int mi = 0; mi < 2 * L - 1; ++mi) {
+    const bool up = mi >= L;
+    const size_t off = (up ? mi - L : mi) * HW;
+    const auto* hi = static_cast<const unsigned short*>(up ? a.w_ih_up : a.w_hh) + off;
+    const auto* lo = static_cast<const unsigned short*>(up ? a.w_ih_up_lo : a.w_hh_lo);
+    lstm::stage_b_fragments_vec<U, P>(w_b + mi * mat, hi, lo ? lo + off : nullptr, H, j0, tid,
+                                      kRingThreads);
+  }
+  if (tid == 0) *issued = 0;
+  if (tid < stages) {
+    mbar_init(full + tid, 1);
+    mbar_init(empty + tid, a.teams == 2 ? kRingWarps / 2 : kRingWarps);  // the warps of a team
+  }
+  fence_mbarrier_init();
+  for (int i = tid; i < L * N * U; i += kRingThreads) {
+    const int l = i / (N * U), n = i / U % N, j = j0 + i % U;
+    put_state<P>(layer_slot(0, l), x_part, n, j, KS, __ldg(a.h0 + l * NH + (size_t)n * H + j));
+  }
+  // The zeros: per (slot, layer, part) the rows past N of the last chunk
+  // (all Kp columns), then the columns past H of rows 0 .. N - 1.
+  const int pad_rows = n_chunks * kMmaRows - N, Kp = KS * 16, pad_cols = Kp - H;
+  const size_t row_pads = (size_t)pad_rows * Kp, pads = row_pads + (size_t)N * pad_cols;
+  for (size_t e = (size_t)blockIdx.x * kRingThreads + tid; e < 2 * L * kP * pads;
+       e += (size_t)gridDim.x * kRingThreads) {
+    const size_t region = e / pads, q = e % pads;
+    const int n = q < row_pads ? N + (int)(q / Kp) : (int)((q - row_pads) / pad_cols);
+    const int j = q < row_pads ? (int)(q % Kp) : H + (int)((q - row_pads) % pad_cols);
+    unsigned short* x =
+        layer_slot((int)(region / kP / L), (int)(region / kP % L)) + region % kP * x_part;
+    x[lstm::exchange_index(n, j, KS)] = 0;
+  }
+  fence_proxy_async_global();  // the exchange's stores, before the bulk copies
+  grid.sync();
+
+  const Ring s{KS,    n_chunks, stages, plane, x_part, mat,
+               w_b,   ring,     full,   empty, issued,
+               reinterpret_cast<float*>(reinterpret_cast<char*>(full) + kRingSyncBytes)};
+  if (kStacked<U> && L == 2 && stages >= 2 * n_chunks) {  // reuse (ring_phases)
+    if (a.teams == 2)
+      ring_phases<U, P, 2, kStacked<U>>(a, s, tid);
+    else
+      ring_phases<U, P, 1, kStacked<U>>(a, s, tid);
+  } else if (a.teams == 2) {
+    ring_phases<U, P, 2, false>(a, s, tid);
+  } else {
+    ring_phases<U, P, 1, false>(a, s, tid);
+  }
+}
+
 template <int U, bool kWave, int P>
-__global__ void __launch_bounds__(kBlockThreads<U>, 1)
+__global__ void __launch_bounds__(kKernelThreads<U, kWave, P>, 1)
 lstm_stack_kernel(const __grid_constant__ StackArgs a) {
   extern __shared__ __align__(16) float smem[];
   if constexpr (P == kHighest)
     fp32_body<U, kWave>(a, smem);
+  else if constexpr (kWave)
+    wave_mma_body<U, P>(a, smem);
   else
-    mma_body<U, kWave, P>(a, smem);
+    ring_body<U, P>(a, smem);
 }
 
 // Lets lstm_stack_kernel<U, kWave, P> use up to max_smem bytes of dynamic
@@ -632,8 +1058,8 @@ cudaError_t prepare_instance(int max_smem, bool* fits) {
                                          max_smem);
   int per_sm = 0;
   if (err == cudaSuccess)
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kBlockThreads<U>,
-                                                        max_smem);
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+                                                        kKernelThreads<U, kWave, P>, max_smem);
   if (per_sm < 1) *fits = false;
   return err;
 }
@@ -651,9 +1077,10 @@ cudaError_t prepare_mode(int max_smem, bool* fits) {
 template <int U, bool kWave, int P>
 int launch(const StackArgs& args, size_t smem, cudaStream_t stream) {
   void* params[] = {(void*)&args};
+  const int threads = P != kHighest && !kWave ? kRingThreads : kTeamThreads * args.teams;
   const cudaError_t err =
       cudaLaunchCooperativeKernel((const void*)lstm_stack_kernel<U, kWave, P>, dim3(args.H / U),
-                                  dim3(kTeamThreads * args.teams), params, smem, stream);
+                                  dim3(threads), params, smem, stream);
   const cudaError_t last = cudaGetLastError();
   return (int)(err != cudaSuccess ? err : last);
 }
@@ -671,24 +1098,35 @@ template <bool kWave>
 int forward(const float* x0_proj, const float* mask, const void* w_hh, const void* w_ih_up,
             const float* b_up, const float* h0, const float* c0, float* outs, float* hbuf,
             float* c_out, int F, int N, int H, int L, int units, int stage_rows, int teams,
-            int smem_bytes, int mode, const void* w_hh_lo, const void* w_ih_up_lo, void* stream) {
+            int smem_bytes, int mode, const void* w_hh_lo, const void* w_ih_up_lo, void* xbuf,
+            void* stream) {
   const int parts = mode == kHigh ? 2 : 1;
   const int planes = stage_planes(L, kWave);
+  // The stack order at HIGH and DEFAULT runs ring_body: a ring of stage_rows
+  // / 16 slots and the plan's teams (lstm_stack_plan decides: two where a
+  // phase has two chunks or more and the ring more slots than a chunk has
+  // items; with fewer, thread 0 would leave items of its team unissued).
+  const bool ring = mode != kHighest && !kWave;
+  const int stages = stage_rows / kMmaRows;
   const size_t layout =
       mode == kHighest ? sizeof(float) * smem_floats(units, H, L, planes, stage_rows)
+      : ring           ? ring_smem_bytes(units, H, L, parts, stages)
                        : mma_smem_bytes(units, H, L, planes, teams, parts);
   if (F <= 0 || N <= 0 || H <= 0 || L <= 0 || H % 4 != 0 || (units != 4 && units != 8) ||
       H % units != 0 || mode < kHighest || mode > kDefault || stage_rows <= 0 ||
       (mode == kHighest && (stage_rows > N || (stage_rows != N && stage_rows % kPassRows != 0) ||
                             (stage_rows != N && stage_rows / kPassRows % teams != 0))) ||
-      (mode != kHighest && stage_rows != kMmaRows) ||
-      teams < 1 || teams > (units == 4 ? kTeams<4> : kTeams<8>) ||
+      (ring && (stage_rows % kMmaRows != 0 || stages > kMaxStages || teams > 2 ||
+                (teams == 2 && stages <= (L > 1 ? 2 : 1)) || xbuf == nullptr)) ||
+      (mode != kHighest && !ring && stage_rows != kMmaRows) ||
+      teams < 1 || (!ring && teams > (units == 4 ? kTeams<4> : kTeams<8>)) ||
       (L > 1 && (w_ih_up == nullptr || b_up == nullptr || units != 4)) ||
       (mode == kHigh && (w_hh_lo == nullptr || (L > 1 && w_ih_up_lo == nullptr))) ||
       (size_t)smem_bytes != layout)
     return kErrBadShape;
   const StackArgs args{x0_proj, mask, w_hh, w_ih_up,    w_hh_lo,    w_ih_up_lo, b_up, h0, c0,
-                       outs,    hbuf, c_out, F,      N, H,          L,          stage_rows, teams};
+                       outs,    hbuf, c_out, F,      N, H,          L,          stage_rows, teams,
+                       ring ? xbuf : nullptr};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const size_t smem = (size_t)smem_bytes;
   if (mode == kHigh) return launch_units<kWave, kHigh>(args, units, smem, s);
@@ -734,38 +1172,44 @@ int lstm_stack_prepare(int device, int* info) {
 // 1], c in c_out.  mode (0 HIGHEST, 1 HIGH, 2 DEFAULT): at HIGHEST w_hh and
 // w_ih_up are f32 and w_hh_lo, w_ih_up_lo null; at DEFAULT they are the
 // weights rounded to bf16; at HIGH their bf16 hi parts, and w_hh_lo,
-// w_ih_up_lo the lo parts.  units (4 or 8), stage_rows (HIGHEST: N, all rows
-// staged at once, or a multiple of 16 below N, a ring of 16-row slots; else
-// 16), teams (the block is 256 * teams threads; U=4: 2, or 1 for one chunk,
-// a one-slot ring or where two teams' slots do not fit; U=8: 1; a ring's
-// slots a multiple of it) and smem_bytes are the launch plan's
-// (ops/lstm_kernel.py::lstm_stack_plan); smem_bytes must equal the layout's
-// size.  h0 and hbuf start on a 16-byte boundary.  Launches only:
+// w_ih_up_lo the lo parts; at HIGH and DEFAULT xbuf is the exchange buffer,
+// 2 x L x parts x ceil(N / 16) x kpad16(H) x 16 bf16 on a 16-byte boundary,
+// whose contents the launch sets (no zeroing before it).  units (4 or 8),
+// stage_rows (HIGHEST: N, all rows staged at once, or a multiple of 16 below
+// N, a ring of 16-row slots; else 16 times the ring's slots, 1 to 8), teams
+// (HIGHEST: the block is 256 * teams threads; U=4: 2, or 1 for one chunk, a
+// one-slot ring or where two teams' slots do not fit; U=8: 1; a ring's slots
+// a multiple of it; else the block is 256 threads, 2 teams of 4 warps where
+// N > 16 and the ring has two slots or more, else 1) and smem_bytes are the
+// launch plan's (ops/lstm_kernel.py::lstm_stack_plan); smem_bytes must equal
+// the layout's size.  h0 and hbuf start on a 16-byte boundary.  Launches only:
 // lstm_stack_prepare must have run on the current device.  Returns 0, a
 // cudaError_t value, or a negative code above.
 int lstm_stack_forward(const float* x0_proj, const float* mask, const void* w_hh,
                        const void* w_ih_up, const float* b_up, const float* h0,
                        const float* c0, float* outs, float* hbuf, float* c_out, int F, int N,
                        int H, int L, int units, int stage_rows, int teams, int smem_bytes,
-                       int mode, const void* w_hh_lo, const void* w_ih_up_lo, void* stream) {
+                       int mode, const void* w_hh_lo, const void* w_ih_up_lo, void* xbuf,
+                       void* stream) {
   return forward<false>(x0_proj, mask, w_hh, w_ih_up, b_up, h0, c0, outs, hbuf, c_out, F, N, H,
-                        L, units, stage_rows, teams, smem_bytes, mode, w_hh_lo, w_ih_up_lo,
+                        L, units, stage_rows, teams, smem_bytes, mode, w_hh_lo, w_ih_up_lo, xbuf,
                         stream);
 }
 
 // The same stack, the same operands and results, in the wavefront order:
 // F + L - 1 grid barriers, each phase staging every active layer's state
 // once.  Needs L >= 2 (at one layer the orders are one); its plan stages L
-// state planes.
+// state planes, at HIGH and DEFAULT 16 rows at a time (stage_rows 16, the
+// block 256 * teams threads, xbuf unused).
 int lstm_wavefront_forward(const float* x0_proj, const float* mask, const void* w_hh,
                            const void* w_ih_up, const float* b_up, const float* h0,
                            const float* c0, float* outs, float* hbuf, float* c_out, int F,
                            int N, int H, int L, int units, int stage_rows, int teams,
                            int smem_bytes, int mode, const void* w_hh_lo,
-                           const void* w_ih_up_lo, void* stream) {
+                           const void* w_ih_up_lo, void* xbuf, void* stream) {
   if (L < 2) return kErrBadShape;
   return forward<true>(x0_proj, mask, w_hh, w_ih_up, b_up, h0, c0, outs, hbuf, c_out, F, N, H,
-                       L, units, stage_rows, teams, smem_bytes, mode, w_hh_lo, w_ih_up_lo,
+                       L, units, stage_rows, teams, smem_bytes, mode, w_hh_lo, w_ih_up_lo, xbuf,
                        stream);
 }
 

@@ -125,7 +125,7 @@ _bidi_lib = None  # the bidirectional kernel's library, once lstm_bidi_prepare h
 
 def _stack_library():
     p, i = ctypes.c_void_p, ctypes.c_int
-    stack_args = [p, p, p, p, p, p, p, p, p, p, i, i, i, i, i, i, i, i, i, p, p, p]
+    stack_args = [p, p, p, p, p, p, p, p, p, p, i, i, i, i, i, i, i, i, i, p, p, p, p]
     return cuda_build.load(NAME, {
         "lstm_stack_prepare": ([i, ctypes.POINTER(i)], i),
         "lstm_stack_forward": (stack_args, i),
@@ -164,6 +164,11 @@ def units_per_block(h: int, max_blocks: int) -> int:
 
 
 class StackPlan(NamedTuple):
+    """The stack kernel's launch plan (:func:`lstm_stack_plan`). The kernel
+    takes every field as given and only checks that it is valid: the plan
+    alone decides. The stack order at high and default (``ring_body``) reads
+    ``units``, ``stage_rows`` (its ring's slots), ``teams`` (of 4 warps) and
+    ``smem_bytes``; its ``planes`` only records the states a phase reads."""
     units: int       # hidden units per block (U) of every layer: 4, or 8 where H / 4 blocks
                      # do not fit on the SMs
     blocks: int      # the cooperative grid, H / U, one block per SM
@@ -171,12 +176,16 @@ class StackPlan(NamedTuple):
                      # order, L in the wavefront order
     stage_rows: int  # rows of each staged state in shared memory: N (all at once), or
                      # fewer: a ring of stage_rows / PASS_ROWS slots that the PASS_ROWS-row
-                     # chunks cycle through; at high and default one PASS_ROWS-row bf16 slot
-                     # per team
-    teams: int       # teams of 256 threads (the block's size) that take the chunks in turns,
-                     # each with its share of the ring: 2 at U=4 (1 for one chunk, N <= 16,
-                     # where the ring has one slot, or where two teams' slots do not fit), 1
-                     # at U=8
+                     # chunks cycle through; at high and default in the wavefront order one
+                     # PASS_ROWS-row bf16 slot per team, in the stack order PASS_ROWS x the
+                     # ring's slots, each one state's bf16 chunk that bulk copies fill
+    teams: int       # teams that take the chunks in turns: at highest and in the wavefront
+                     # order teams of 256 threads (the block's size), each with its share of
+                     # the ring: 2 at U=4 (1 for one chunk, N <= 16, where the ring has one
+                     # slot, or where two teams' slots do not fit), 1 at U=8; in the stack
+                     # order at high and default teams of 4 warps in a block of 8 (2 where
+                     # N > 16 and the ring has more slots than a chunk has items, min(L,
+                     # 2), else 1 of 8 warps)
     smem_bytes: int  # dynamic shared memory per block
 
 
@@ -202,15 +211,34 @@ def stack_smem_bytes(units: int, h: int, layers: int, planes: int, stage_rows: i
     """Shared memory of one stack-kernel block (``csrc/lstm_stack.cu``). At
     highest (``smem_floats``): the resident fp32 gate columns of every W_hh
     and of W_ih of layers >= 1 (each to 128 bytes), and ``planes`` staged
-    states of ``stage_rows`` rows. At high and default
-    (``mma_smem_bytes``): those columns as bf16 B fragments (half the bytes
-    at default, a hi/lo pair at high), and for each of ``teams`` teams
+    states of ``stage_rows`` rows. At high and default in the wavefront
+    order (``mma_smem_bytes``): those columns as bf16 B fragments (half the
+    bytes at default, a hi/lo pair at high), and for each of ``teams`` teams
     ``planes`` staged 16-row bf16 chunks (hi, and lo at high) and its
-    partial tiles."""
+    partial tiles (the stack order: :func:`stack_ring_smem_bytes`)."""
     if resolve(precision) == HIGHEST:
         return 4 * ((2 * layers - 1) * (-(-4 * units * h // 32) * 32) + planes * stage_rows * h)
     mat, plane, partial = _mma_bytes(units, h, precision)
     return (2 * layers - 1) * mat + teams * (planes * _bf16_parts(precision) * plane + partial)
+
+
+def stack_ring_smem_bytes(units: int, h: int, layers: int, stages: int, precision: str) -> int:
+    """Shared memory of one stack-kernel block in the stack order at high
+    and default (``csrc/lstm_stack.cu`` ``ring_smem_bytes``): the bf16 B
+    fragments of the 2L - 1 matrices, a ring of ``stages`` slots of one
+    state's 16-row chunk in bf16 k-step tiles (hi, and lo at high), the
+    ring's mbarriers and the count of its items issued (144 bytes) and two
+    buffers of the partial tiles."""
+    mat, _, partial = _mma_bytes(units, h, precision)
+    return ((2 * layers - 1) * mat + stages * _bf16_parts(precision) * -(-h // 16) * 16
+            * PASS_ROWS * 2 + 144 + 2 * partial)
+
+
+def stack_exchange_shape(layers: int, n: int, h: int, precision: str) -> Tuple[int, ...]:
+    """The stack kernel's bf16 exchange buffer in the stack order at high
+    and default: (slots 2, layers, parts (2 at high), 16-row chunks of N,
+    k-steps of H padded to 16, a 16x16 tile)."""
+    return (2, layers, _bf16_parts(precision), -(-n // PASS_ROWS), -(-h // 16), PASS_ROWS * 16)
 
 
 @functools.lru_cache(maxsize=256)
@@ -234,10 +262,19 @@ def lstm_stack_plan(layers: int, n: int, h: int, sms: int = SMS, smem_limit: int
     puts the grid on the SMs or not one slot fits beside the columns
     (2x1024).
 
-    At high and default the grid is the same; each team stages one 16-row
-    chunk at a time as bf16, so ``stage_rows`` is PASS_ROWS, and two teams
-    run at U=4 where there are two chunks or more and both teams' slots fit
-    beside the columns (2x512: default yes, high no)."""
+    At high and default the grid is the same. In the stack order one state's
+    16-row bf16 chunk a slot streams through a ring of as many slots as fit
+    beside the B fragments, up to MAX_SLOTS and a phase's chunks (two states
+    a chunk from 2 layers on): 2x512 N=64 8 at default, 3 at high; one layer
+    of 1024 N=64 4 and 1; ``stage_rows`` is PASS_ROWS x the slots, and two
+    teams of 4 warps take the chunks in turns where a phase has two chunks
+    or more and the ring more slots than a chunk has items (3 from two
+    layers, 2 at one: with fewer, thread 0, which issues the copies after
+    its own products, would not reach its team's next chunk). In the
+    wavefront order each team stages one 16-row chunk at a time as bf16, so
+    ``stage_rows`` is PASS_ROWS, and two teams of 256 threads run at U=4
+    where there are two chunks or more and both teams' slots fit beside the
+    columns (2x512: default yes, high no)."""
     if layers <= 0 or n <= 0 or h <= 0 or h % 4:
         raise ValueError(f"the stack kernel needs L > 0, N > 0 and H a positive multiple of 4, "
                          f"got L={layers}, N={n}, H={h}")
@@ -249,6 +286,20 @@ def lstm_stack_plan(layers: int, n: int, h: int, sms: int = SMS, smem_limit: int
         units = 0  # U=8 runs one layer (at H > 4 SMs no slot fits beside two layers' columns)
     planes = layers if wavefront else min(layers, 2)
     rows, teams = n, 2 if units == 4 and n > PASS_ROWS else 1
+    if resolve(precision) != HIGHEST and not wavefront:
+        chunks = -(-n // PASS_ROWS)
+        stages = 0
+        if units:
+            fixed = stack_ring_smem_bytes(units, h, layers, 0, precision)
+            slot = stack_ring_smem_bytes(units, h, layers, 1, precision) - fixed
+            stages = min(MAX_SLOTS, chunks * min(layers, 2), max(0, smem_limit - fixed) // slot)
+        if not stages:
+            raise ValueError(f"the stack kernel at L={layers}, N={n}, H={h}, precision "
+                             f"{precision} does not fit on {sms} SMs with {smem_limit} bytes "
+                             "of shared memory per block")
+        return StackPlan(units, h // units, planes, PASS_ROWS * stages,
+                         2 if chunks > 1 and stages > min(layers, 2) else 1,
+                         stack_ring_smem_bytes(units, h, layers, stages, precision))
     if resolve(precision) != HIGHEST:
         while teams and stack_smem_bytes(units, h, layers, planes, PASS_ROWS, precision,
                                          teams) > smem_limit:
@@ -392,9 +443,11 @@ def _launch_stack(wavefront: bool, what: str, x0_proj, mask, w_hh, w_ih_up, b_up
     """Check the stack's operands and launch ``csrc/lstm_stack.cu`` in the
     stack or the wavefront order at ``mode`` (a resolved name), as
     :func:`lstm_stack_plan` says. At highest the weights go in as they are;
-    at high and default in their bf16 form (:func:`kernel_weights`). No setup after the first call on a device, no copy of h0/c0 (read
-    in place) and no synchronization, so the call can be captured in a CUDA
-    graph."""
+    at high and default in their bf16 form (:func:`kernel_weights`), and in
+    the stack order with a bf16 exchange buffer that each launch fills
+    itself (:func:`stack_exchange_shape`). No setup after the first call on
+    a device, no copy of h0/c0 (read in place) and no synchronization, so
+    the call can be captured in a CUDA graph."""
     if x0_proj.device.type != "cuda":
         raise ValueError(f"no {what} for device {x0_proj.device}")
     f, n, h4 = x0_proj.shape
@@ -423,13 +476,16 @@ def _launch_stack(wavefront: bool, what: str, x0_proj, mask, w_hh, w_ih_up, b_up
     # keeps no more: the h exchange buffer (2, L) and cF (L), each plane on a
     # 16-byte boundary (H % 4 == 0).
     state = torch.empty(3 * num_layers, n, hidden, device=dev)
+    xbuf = None if mode == HIGHEST or wavefront else torch.empty(
+        stack_exchange_shape(num_layers, n, hidden, mode), dtype=torch.bfloat16, device=dev)
     ptr = state.data_ptr()
     entry = _stack_lib.lstm_wavefront_forward if wavefront else _stack_lib.lstm_stack_forward
     code = _launch(entry, index, x0_proj.data_ptr(), mask.data_ptr(), w_hh.data_ptr(),
                    _ptr(w_ih_up), b_up.data_ptr() if num_layers > 1 else None, h0.data_ptr(),
                    c0.data_ptr(), outs.data_ptr(), ptr, ptr + 4 * 2 * num_layers * n * hidden, f,
                    n, hidden, num_layers, plan.units, plan.stage_rows, plan.teams,
-                   plan.smem_bytes, MODE_CODES[mode], _ptr(w_hh_lo), _ptr(w_ih_up_lo))
+                   plan.smem_bytes, MODE_CODES[mode], _ptr(w_hh_lo), _ptr(w_ih_up_lo),
+                   _ptr(xbuf))
     cuda_build.check(code, what)
     h_last = num_layers * (f & 1)  # h after the last step: hbuf[F & 1]
     return outs, state[h_last:h_last + num_layers], state[2 * num_layers:]

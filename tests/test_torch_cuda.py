@@ -17,8 +17,8 @@ gradient input is scaled by n*f); the LBS kernel atol 2e-5 (coordinates of a
 metre, 52 joints). The stack, wavefront and bidi kernels also run at the
 high and default precision modes (their bf16 tensor-core branches) against
 their plain versions at the same mode, captured in CUDA graphs, and served
-(MODE_ATOL below; the bidi layer also on the smoke's inputs, BIDI_MODE_TOL);
-so do both training sweeps (PAIR_MODE_REL).
+(MODE_ATOL below; the bidi layer and the stack also on the smoke's inputs,
+BIDI_MODE_TOL); so do both training sweeps (PAIR_MODE_REL).
 """
 
 import copy
@@ -688,6 +688,86 @@ def test_bidi_smem_formulas_agree(cuda):
                 plan = K.lstm_bidi_plan(n, h, *K.bidi_limits(cuda), precision=mode)
                 assert K._bidi_lib.lstm_bidi_smem_bytes(units, h, plan.stage_rows, code) == \
                     plan.smem_bytes
+
+
+# The stack order's HIGH and DEFAULT body (a bf16 exchange of each layer's
+# state written once by its owner, chunks streamed by bulk copies, two teams
+# of 4 warps) on chip_smoke.py's inputs: a stack of input 72, uniform weights
+# of bound H^-0.5, the layer-0 projection at the mode, so its tolerances
+# (BIDI_MODE_TOL: TOL_HIGH and TOL_DEFAULT there) hold.
+def _stack_projected_case(f, n, h, layers, mode, seed, cuda):
+    """The stack kernel's operands at the mode (x0_proj, mask, w_hh,
+    w_ih_up, b_up, h0, c0) and its 0-length rows: 0-length (one at least
+    where N > 1), partial and full rows."""
+    g = torch.Generator().manual_seed(seed)
+    u = lambda *s: ((torch.rand(*s, generator=g) * 2 - 1) * h ** -0.5).to(cuda)
+    cells = [dict(w_ih=u(72 if l == 0 else h, 4 * h), w_hh=u(h, 4 * h), b_ih=u(4 * h),
+                  b_hh=u(4 * h)) for l in range(layers)]
+    x = torch.randn(f, n, 72, generator=g).to(cuda)
+    lengths = torch.randint(1, f, (n,), generator=g)
+    idle = max(n // 16, 1) if n > 1 else 0
+    lengths[:idle] = 0
+    lengths[idle: idle + n // 3] = f
+    mask = (torch.arange(f)[:, None] < lengths[None]).float().to(cuda)
+    h0, c0 = (torch.randn(2, layers, n, h, generator=g) * 0.5).to(cuda)
+    x0_proj, w_hh, w_ih_up, b_up = K.stack_operands(cells, x, mode)
+    return (x0_proj, mask, w_hh, w_ih_up, b_up, h0, c0), (lengths == 0).to(cuda)
+
+
+@pytest.mark.parametrize("mode", ["high", "default"])
+@pytest.mark.parametrize("f, n, h, layers", [(16, 64, 512, 2), (16, 17, 512, 2), (33, 1, 512, 2),
+                                             (16, 33, 1024, 1), (16, 1, 1024, 1),
+                                             (16, 20, 260, 2), (16, 7, 64, 3), (16, 48, 448, 3)])
+def test_stack_ring_body_matches_plain(cuda, mode, f, n, h, layers):
+    """The stack kernel at the mode against its plain version at the same
+    mode within BIDI_MODE_TOL (at high also closer to it than to the plain
+    version at highest), one launch per call, 0-length rows frozen bit for
+    bit, a second call bit for bit. The plans cover two teams (N > 16) and
+    one (N <= 16; one layer of 1024 at high, one ring slot), three layers,
+    H=260 (columns past H in the k-step tiles), and at 3x448 N=48 at high
+    two teams on two slots with two items a chunk and three chunks (a
+    team's next item past what its own products issue)."""
+    args, idle = _stack_projected_case(f, n, h, layers, mode, f + n + h, cuda)
+    launches = K.MODE_LAUNCHES.get(("lstm_stack", mode), 0)
+    got, again = K.lstm_stack_fused(*args, mode), K.lstm_stack_fused(*args, mode)
+    assert K.MODE_LAUNCHES[("lstm_stack", mode)] == launches + 2
+    for a, b, c in zip(got, K.lstm_stack_plain(*args, mode), again):
+        torch.testing.assert_close(a, b, atol=BIDI_MODE_TOL[mode], rtol=0)
+        assert torch.equal(a, c)
+    if mode == "high":
+        _closer_at_high(got, K.lstm_stack_plain, args)
+    h0, c0 = args[5], args[6]
+    assert torch.equal(got[1][:, idle], h0[:, idle]) and torch.equal(got[2][:, idle], c0[:, idle])
+
+
+@pytest.mark.parametrize("mode", ["high", "default"])
+@pytest.mark.parametrize("f, n, h, layers", [(16, 33, 512, 2), (16, 17, 1024, 1),
+                                             (16, 20, 260, 2)])
+def test_stack_ring_body_graph_capture_scratch(cuda, mode, f, n, h, layers):
+    """The stack kernel at the mode captured in a CUDA graph where its
+    exchange buffer (the bf16 scratch, allocated by the wrapper inside the
+    capture from the graph's pool, never zeroed by the host) has rows past N
+    (and at H=260 columns past H): replays on new inputs equal the eager
+    call bit for bit, twice in a row (every launch writes the exchange's
+    zeros and h0's bf16 form anew)."""
+    args, _ = _stack_projected_case(f, n, h, layers, mode, 3, cuda)
+    args = list(args)
+    x0_proj, h0 = args[0].clone(), args[5].clone()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        K.lstm_stack_fused(*args, mode)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = K.lstm_stack_fused(*args, mode)
+    for scale in (0.5, -1.5):
+        args[0].copy_(x0_proj * scale)
+        args[5].copy_(h0 * scale)
+        graph.replay()
+        torch.cuda.synchronize()
+        for a, b in zip(out, K.lstm_stack_fused(*args, mode)):
+            assert torch.equal(a, b)
 
 
 # The training pair at the modes, each output against the plain version at

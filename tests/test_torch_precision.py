@@ -374,8 +374,10 @@ def test_fused_wrappers_on_the_cpu_take_the_mode():
 
 def test_plans_read_the_mode_bytes():
     """At DEFAULT the resident columns are bf16 (half of HIGHEST's bytes),
-    at HIGH the hi/lo pair (HIGHEST's bytes); each team stages one 16-row
-    bf16 chunk (row stride Kp + 8) beside 8 warps' 16 x 4U partial tiles."""
+    at HIGH the hi/lo pair (HIGHEST's bytes); in the wavefront order each
+    team stages one 16-row bf16 chunk (row stride Kp + 8) beside 8 warps'
+    16 x 4U partial tiles, in the stack order a ring of one state's 16-row
+    chunks in k-step tiles streams beside two buffers of them."""
     for layers, h, units in ((2, 512, 4), (1, 1024, 8), (3, 64, 4), (2, 260, 4)):
         kp = -(-h // 16) * 16
         cols32 = (2 * layers - 1) * 4 * units * h * 4
@@ -385,21 +387,26 @@ def test_plans_read_the_mode_bytes():
             cols32 * kp // h // 2 + team(1)
         assert K.stack_smem_bytes(units, h, layers, planes, 16, "high", 2) == \
             cols32 * kp // h + 2 * team(2)
-    # 2x512: two teams fit at DEFAULT, one at HIGH; one layer of 1024 runs
-    # U=8 at every mode; 2x1024 fits one launch at no mode.
-    for mode, teams, smem in (("default", 2, 132096), ("high", 1, 173056)):
-        for wave in (False, True):
-            plan = K.lstm_stack_plan(2, 64, 512, wavefront=wave, precision=mode)
-            assert plan == K.StackPlan(4, 128, 2, 16, teams, smem)
+    # 2x512, wavefront order: two teams fit at DEFAULT, one at HIGH; stack
+    # order: two teams of 4 warps beside a ring of 8 slots (DEFAULT) or 3
+    # (HIGH). One layer of 1024 runs U=8 at every mode; 2x1024 fits one
+    # launch at no mode.
+    for mode, teams, smem, ring in (("default", 2, 132096, (8, 196752)),
+                                    ("high", 1, 173056, (3, 213136))):
+        plan = K.lstm_stack_plan(2, 64, 512, wavefront=True, precision=mode)
+        assert plan == K.StackPlan(4, 128, 2, 16, teams, smem)
+        assert K.lstm_stack_plan(2, 64, 512, precision=mode) == K.StackPlan(
+            4, 128, 2, 16 * ring[0], 2, ring[1])
         assert K.lstm_stack_plan(2, 1, 512, precision=mode).teams == 1
         assert K.lstm_stack_plan(1, 64, 1024, precision=mode).units == 8
-        assert K.lstm_stack_plan(2, 1300, 512, precision=mode).stage_rows == 16
+        assert K.lstm_stack_plan(2, 1300, 512, wavefront=True, precision=mode).stage_rows == 16
+        assert K.lstm_stack_plan(2, 1300, 512, precision=mode).stage_rows == 16 * ring[0]
         assert K.lstm_stack_fits(2, 512, precision=mode)
         assert not K.lstm_stack_fits(2, 1024, precision=mode)
         with pytest.raises(ValueError, match="does not fit"):
             K.lstm_stack_plan(2, 64, 1024, precision=mode)
-    assert K.lstm_stack_plan(1, 64, 1024, precision="default").smem_bytes == 114944
-    assert K.lstm_stack_plan(1, 64, 1024, precision="high").smem_bytes == 213504
+    assert K.lstm_stack_plan(1, 64, 1024, precision="default").smem_bytes == 229520
+    assert K.lstm_stack_plan(1, 64, 1024, precision="high").smem_bytes == 229520
     # The bidirectional layer: the same grid, a ring of 16-row bf16 chunks
     # (all 4 of N=64 at H=512; at H=1024 2 at default, 1 at high).
     for mode, st512, smem512, st1024, smem1024 in (("default", 4, 131200, 2, 163968),

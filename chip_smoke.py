@@ -169,7 +169,7 @@ TOL_STEP_MODE.
 
 reads the time per step of the forward and the reverse sweep, of the
 bidirectional layer and of the stack (2x512 in both schedules, and one layer
-of 1024; both also as device time alone) at F steps for N = 1, 4, 16, 17, 32
+of 1024; each also as device time alone) at F steps for N = 1, 4, 16, 17, 32
 and 64 at MODE (``step_probe``): what a step is made of beyond its grid
 barriers.
 
@@ -185,7 +185,7 @@ readings set TOL_MODE and TOL_PAIR_MODE.
 times both training sweeps at phase 4's timed shapes on its inputs, the
 bidirectional layer at phase 4b's, and at high and default at phase 4e's
 (BIDI_MODE_SHAPES), the stack and its wavefront schedule at phase 3's and
-at high and default at phase 4e's, and the reverse sweep at high and
+at high and default at phase 4e's, and both training sweeps at high and
 default at phase 4f's (``time_pair``; each
 wrapper as an event pair around one call, as device time alone and as host
 time alone, with an output digest), and prints the registers and a SASS
@@ -996,9 +996,10 @@ def time_pair() -> int:
     its wavefront schedule's at STACK_TIMED (2x512) and of the stack at one
     layer of 1024 (16, 64) on phase 3's, all at highest, and at high and
     default on the mode phases' inputs (keys ``stack@MODE FxN``, with the
-    weights' bf16 form that a captured call makes anew); the reverse sweep
-    at high and default at PAIR_TIMED and at H=1024 (64, 32) on phase 4f's
-    inputs (W_hh's bf16 form made once, outside the timed calls); each
+    weights' bf16 form that a captured call makes anew); both training
+    sweeps at high and default at PAIR_TIMED and at H=1024 (64, 32) on phase
+    4f's inputs (keys ``fwd@MODE FxN`` and ``bwd@MODE FxN``; W_hh's bf16 form
+    made once, outside the timed calls); each
     wrapper timed three ways (an event pair around one call; the device
     alone, ``graph_ms``; the host alone, ``host_us``) and with a digest of
     its outputs (equal digests: the same bits), and nothing else. It
@@ -1050,11 +1051,17 @@ def time_pair() -> int:
             g = torch.Generator().manual_seed(pair_seed(f, n, h))
             x_proj, mask, w_hh, h0, c0, _, dh_all, dc_all = pair_inputs(g, f, n, h)
             gates, _, c_all = TK.lstm_train_fwd_plain(x_proj, mask, w_hh, h0, c0, True, mode)
+            parts = weight_parts(w_hh, mode)
+            fwd_args = (x_proj, mask, w_hh, h0, c0, True, mode, parts)
             args = (dh_all, dc_all, gates, torch.cat([c0[None], c_all[:-1]]), mask, w_hh, mode,
-                    weight_parts(w_hh, mode))
-            key = f"bwd@{mode} {f}x{n}" + ("" if h == HIDDEN else f" H={h}")
-            out[key] = timings("bwd", lambda: TK.lstm_train_bwd(*args))
-            print(f"reverse sweep at {mode} times F={f} N={n} H={h}: {out[key]}", flush=True)
+                    parts)
+            shape = f"{f}x{n}" + ("" if h == HIDDEN else f" H={h}")
+            out[f"fwd@{mode} {shape}"] = timings("fwd", lambda: TK.lstm_train_fwd(*fwd_args))
+            print(f"forward sweep at {mode} times F={f} N={n} H={h}: {out[f'fwd@{mode} {shape}']}",
+                  flush=True)
+            out[f"bwd@{mode} {shape}"] = timings("bwd", lambda: TK.lstm_train_bwd(*args))
+            print(f"reverse sweep at {mode} times F={f} N={n} H={h}: {out[f'bwd@{mode} {shape}']}",
+                  flush=True)
     for f, n in BIDI_TIMED:
         args = bidi_inputs(f, n, seed=SEED + f + n + 1)[-1]
         out[f"bidi {f}x{n}"] = timings("bidi", lambda: K.lstm_bidi_fused(*args))
@@ -1101,10 +1108,11 @@ def step_probe(mode: str = "highest", f: int = TRAIN_WINDOW, ns=(1, 4, 16, 17, 3
     training sweep, of the bidirectional layer and of the stack (2x512 in
     both schedules, and one layer of 1024) is made of at MODE (default
     highest): its time per step at F steps (default 64) for growing N
-    (median event time of the wrapper over F; the bidi layer and the stack
-    also as device time alone, from graph replays less the weights' bf16
-    form that a captured call makes; at high and default with the weights' bf16 form
-    made once, outside the timed calls). At N=1 the staged rows and the
+    (median event time of the wrapper over F; each also as device time
+    alone, from graph replays, for the bidi layer and the stack less the
+    weights' bf16 form that a captured call makes; the training sweeps at
+    high and default with W_hh's bf16 form made once, outside the timed
+    calls). At N=1 the staged rows and the
     products are nearly nothing, so the step is the grid barriers, the
     elementwise work and the launch; each row adds its products and, per
     block at H=512, its 2 KB of h_all[t-1] (forward, bidi) or 8 KB of
@@ -1116,7 +1124,7 @@ def step_probe(mode: str = "highest", f: int = TRAIN_WINDOW, ns=(1, 4, 16, 17, 3
         return 2
     cuda_build.build([TK.NAME, K.BIDI_NAME, K.NAME], force=True)
     g = torch.Generator().manual_seed(SEED)
-    fwd_us, us = {}, {}
+    fwd_us, us, fwd_graph_us, graph_us = {}, {}, {}, {}
     for n in ns:
         r = lambda *s: torch.randn(*s, generator=g).cuda()
         w_hh = r(HIDDEN, 4 * HIDDEN) * HIDDEN ** -0.5
@@ -1127,14 +1135,18 @@ def step_probe(mode: str = "highest", f: int = TRAIN_WINDOW, ns=(1, 4, 16, 17, 3
                     r(n, HIDDEN) * 0.5, True, mode, parts)
         fwd_us[n] = cuda_ms(lambda: TK.lstm_train_fwd(*fwd_args)) * 1e3 / f
         us[n] = cuda_ms(lambda: TK.lstm_train_bwd(*args)) * 1e3 / f
-    for name, plan, times in (("forward", TK.lstm_train_fwd_plan, fwd_us),
-                              ("reverse", TK.lstm_train_bwd_plan, us)):
+        fwd_graph_us[n] = graph_ms(lambda: TK.lstm_train_fwd(*fwd_args)) * 1e3 / f
+        graph_us[n] = graph_ms(lambda: TK.lstm_train_bwd(*args)) * 1e3 / f
+    for name, plan, times, graph_times in (
+            ("forward", TK.lstm_train_fwd_plan, fwd_us, fwd_graph_us),
+            ("reverse", TK.lstm_train_bwd_plan, us, graph_us)):
         plans = {n: plan(n, HIDDEN, precision=mode) for n in ns}
         shown = {n: p.stage_rows if mode == "highest" or name == "forward"
                  else f"{p.stages} stages of {p.k_cols} columns" for n, p in plans.items()}
         print(f"{name} sweep at {mode} per step at F={f}, us by N (plans: {shown}; rows staged "
-              f"at once at highest): " + ", ".join(f"N={n} {v:.2f}" for n, v in times.items()),
-              flush=True)
+              f"at once at highest, the ring's rows at high and default): "
+              + ", ".join(f"N={n} {v:.2f} (device alone {graph_times[n]:.2f})"
+                          for n, v in times.items()), flush=True)
     bidi_us, bidi_graph_us = {}, {}
     for n in ns:
         args = bidi_mode_inputs(f, n, mode, seed=SEED + n)[1]
@@ -1172,6 +1184,7 @@ def step_probe(mode: str = "highest", f: int = TRAIN_WINDOW, ns=(1, 4, 16, 17, 3
               + ", ".join(f"N={n} {v:.2f} (device alone {graph_times[n]:.2f})"
                           for n, v in times.items()), flush=True)
     print(json.dumps({"mode": mode, "f": f, "fwd_us_per_step": fwd_us, "bwd_us_per_step": us,
+                      "fwd_device_us_per_step": fwd_graph_us, "bwd_device_us_per_step": graph_us,
                       "bidi_us_per_step": bidi_us, "bidi_device_us_per_step": bidi_graph_us,
                       "stack_us_per_step": stack_us, "stack_device_us_per_step": stack_graph_us}),
           flush=True)

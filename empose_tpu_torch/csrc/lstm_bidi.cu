@@ -104,22 +104,27 @@ using lstm::component;
 using lstm::cp_async;
 using lstm::cp_async_commit;
 using lstm::cp_async_wait_upto;
+using lstm::exchange_index;
 using lstm::fence_mbarrier_init;
 using lstm::fence_proxy_async_global;
 using lstm::kDefault;
 using lstm::kHigh;
 using lstm::kHighest;
+using lstm::kMaxStages;
 using lstm::kMmaRows;
 using lstm::kParts;
+using lstm::kRingSyncBytes;
 using lstm::kTile;
 using lstm::mbar_arrive;
 using lstm::mbar_expect_tx;
 using lstm::mbar_init;
 using lstm::mbar_wait;
 using lstm::mma_ktile;
+using lstm::put_state;
 using lstm::round32;
 using lstm::sigmoid_f;
-using lstm::tile_offset;
+using lstm::store_release;
+using lstm::wait_issued;
 using lstm::warp_reduce_scatter;
 
 constexpr int kThreads = 256;
@@ -147,13 +152,13 @@ __host__ __device__ constexpr size_t smem_floats(int U, int H, int stage_rows) {
 // Shared memory of a block at HIGH and DEFAULT (bytes), in this order: the
 // B fragments of the block's columns of W_hh[d] (lstm_common.cuh, `parts`
 // planes); a ring of stage_rows / 16 slots, each one 16-row chunk of h[t-1]
-// in bf16 k-step tiles (`parts` planes); the ring's mbarriers (128 bytes:
-// at most kMaxStages slots); two buffers of the partial tiles.  The same
-// formula as ops/lstm_kernel.py::bidi_smem_bytes.
-constexpr int kMaxStages = 8;
+// in bf16 k-step tiles (`parts` planes); the ring's mbarriers and the count
+// of its chunks issued (kRingSyncBytes: at most kMaxStages slots); two
+// buffers of the partial tiles.  The same formula as
+// ops/lstm_kernel.py::bidi_smem_bytes.
 __host__ __device__ constexpr size_t mma_smem_bytes(int U, int H, int parts, int stage_rows) {
   return lstm::mma_matrix_bytes(U, H, parts) + (size_t)stage_rows * parts * lstm::kpad16(H) * 2 +
-         128 + 2 * lstm::mma_partial_bytes(U);
+         kRingSyncBytes + 2 * lstm::mma_partial_bytes(U);
 }
 
 // Units a warp multiplies at once (a staged h value read from shared memory
@@ -280,25 +285,6 @@ __device__ __forceinline__ void step_piece(const Step& p, const float* rows, int
   }
 }
 
-// Where row n, column j of a state lies in one part of the exchange buffer:
-// chunks of 16 rows, each KS k-step tiles.
-__device__ __forceinline__ size_t exchange_index(int n, int j, int KS) {
-  return ((size_t)(n / kMmaRows) * KS + j / 16) * kTile + tile_offset(n % kMmaRows, j % 16);
-}
-
-// h's bf16 form (hi, and lo at HIGH: split_bf16x2, the rounding of
-// stage_cols_bf16) at row n, column j of one slot of a direction of the
-// exchange buffer (x_part bf16 per part).
-template <int P>
-__device__ __forceinline__ void put_state(unsigned short* x, size_t x_part, int n, int j, int KS,
-                                          float h) {
-  const size_t o = exchange_index(n, j, KS);
-  unsigned hi, lo;
-  lstm::split_bf16x2(h, 0.0f, hi, lo);
-  x[o] = (unsigned short)hi;
-  if constexpr (P == kHigh) x[x_part + o] = (unsigned short)lo;
-}
-
 // What the steps of the HIGH and DEFAULT body share: the operands at the
 // block's direction d and units j0 .., the exchange, and the block's shared
 // memory (mma_body).
@@ -317,6 +303,7 @@ struct Sweep {
   const uint2* w_b;                          // the B fragments
   __nv_bfloat16* ring;                       // the ring's slots
   unsigned long long *full, *empty;          // the ring's mbarriers
+  unsigned* issued;                          // the chunks issued in the launch (thread 0 writes)
   float* part;                               // the two buffers of partial tiles
 };
 
@@ -327,7 +314,18 @@ struct CellOps {
 };
 
 // The steps of the HIGH and DEFAULT body (see mma_body) with TEAMS teams of
-// 8 / TEAMS warps, team g taking the chunks g, g + TEAMS, ...
+// 8 / TEAMS warps, team g taking the chunks g, g + TEAMS, ...  With two
+// teams and an odd slot count under the step's chunks, chunk c's slot held
+// chunk c - stages of the other team, which may not have landed when a
+// warp reaches chunk c: there a warp other than thread 0's first waits
+// until chunk c is issued (`count`), when the chunk before it has landed
+// (thread 0 waited for its readers), so the full mbarrier is one phase
+// behind or done, never two behind, where the parity would pass early.
+// Elsewhere the slot's chunk before is one the same warps read, or one of
+// the step before, read before the grid barrier, and no count is kept (it
+// cost 4-8% at N=64 on an H100).  (Thread 0's warp meets thread 0 at the
+// team barrier after each of its issues.)  tests/test_torch_bidi_modes.py
+// runs these waits in a model of the ring.
 template <int U, int P, int TEAMS>
 __device__ __forceinline__ void mma_steps(const Sweep& s, int tid) {
   constexpr int C = 4 * U;      // the block's gate columns
@@ -344,6 +342,7 @@ __device__ __forceinline__ void mma_steps(const Sweep& s, int tid) {
   const bool cell = ttid < kMmaRows * U;
   const int r = ttid / U, u = ttid % U, j = s.j0 + u;
   const int N = s.N, H = s.H, KS = s.KS, n_chunks = s.n_chunks, stages = s.stages, d = s.d;
+  const bool count = TEAMS > 1 && stages % 2 == 1 && stages < n_chunks;  // see above
   const size_t NH = (size_t)N * H;
   const unsigned chunk_bytes = (unsigned)s.plane * 2;
   cg::grid_group grid = cg::this_grid();
@@ -387,6 +386,7 @@ __device__ __forceinline__ void mma_steps(const Sweep& s, int tid) {
       for (int p = 0; p < kP; ++p)
         bulk_copy(s.ring + ((size_t)slot * kP + p) * s.plane, x_read + p * s.x_part + c * s.plane,
                   chunk_bytes, s.full + slot);
+      if (count) store_release(s.issued, base + c + 1);
     };
     int issued = 0;  // thread 0: the step's chunks issued
     if (tid == 0) {
@@ -397,6 +397,7 @@ __device__ __forceinline__ void mma_steps(const Sweep& s, int tid) {
       cur = nxt;
       if (c + TEAMS < n_chunks) load(nxt, t, c + TEAMS);
       const int slot = (base + c) % stages;
+      if (count && warp > 0) wait_issued(s.issued, base + c, lane);
       mbar_wait(s.full + slot, ((base + c) / stages) & 1);  // chunk c has landed
       __syncwarp();  // the warp's lanes together again
       // The k-step sets tw (and tw + 4 in a team of 4 warps).
@@ -483,7 +484,10 @@ __device__ __forceinline__ void mma_steps(const Sweep& s, int tid) {
 //   * Teams.  Where a step has two chunks or more and the ring two slots,
 //     warps 0-3 and 4-7 are two teams that take the chunks in turns, so one
 //     team's epilogue runs beside the other's products; else one team of 8
-//     warps takes every chunk.  The products of a chunk are split over 8
+//     warps takes every chunk.  With two teams on an odd slot count under
+//     the step's chunks, thread 0 publishes the count of the chunks issued
+//     after each issue, and the other warps wait for their chunk's count
+//     before its full mbarrier (mma_steps).  The products of a chunk are split over 8
 //     k-step sets, set w the k-steps w, w + 8, ... (mma_tile's order), a
 //     warp of a team of 4 taking two of them; each set's partial tile goes
 //     to shared memory (two buffers: one per team, or for one team one per
@@ -520,6 +524,7 @@ __device__ __forceinline__ void mma_body(const float* __restrict__ x_proj,
   unsigned long long* full =
       reinterpret_cast<unsigned long long*>(ring + (size_t)stages * kP * plane);
   unsigned long long* empty = full + kMaxStages;
+  unsigned* issued = reinterpret_cast<unsigned*>(empty + kMaxStages);
   const int tid = threadIdx.x;
   cg::grid_group grid = cg::this_grid();
 
@@ -532,6 +537,7 @@ __device__ __forceinline__ void mma_body(const float* __restrict__ x_proj,
     mbar_init(full + tid, 1);
     mbar_init(empty + tid, two_teams ? kWarps / 2 : kWarps);  // the warps of a team
   }
+  if (tid == 0) *issued = 0;
   fence_mbarrier_init();
   for (int i = tid; i < N * U; i += kThreads) {
     const int n = i / U, j = j0 + i % U;
@@ -554,8 +560,8 @@ __device__ __forceinline__ void mma_body(const float* __restrict__ x_proj,
   grid.sync();
 
   const Sweep sw{x_proj, mask, h0, c0, outs, hbuf, c_out, slot_of(0, d), F, N, H, d, j0, KS,
-                 n_chunks, stages, plane, x_part, w_b, ring, full, empty,
-                 reinterpret_cast<float*>(full + 2 * kMaxStages)};
+                 n_chunks, stages, plane, x_part, w_b, ring, full, empty, issued,
+                 reinterpret_cast<float*>(reinterpret_cast<char*>(full) + kRingSyncBytes)};
   if (two_teams)
     mma_steps<U, P, 2>(sw, tid);
   else

@@ -6,8 +6,7 @@
 // on mbarriers.
 //
 // Included by lstm_stack.cu, lstm_bidi.cu and lstm_train.cu; none of them
-// keeps a copy of a helper here, but for lstm_bidi.cu's exchange_index and
-// put_state.
+// keeps a copy of a helper here.
 
 #pragma once
 
@@ -334,8 +333,7 @@ __host__ __device__ constexpr int tile_offset(int r, int c) {
 }
 
 // Where row n, column j of a state lies in one part of an exchange buffer:
-// chunks of 16 rows, each KS k-step tiles.  (lstm_bidi.cu keeps its own
-// copy of this and of put_state.)
+// chunks of 16 rows, each KS k-step tiles.
 __device__ __forceinline__ size_t exchange_index(int n, int j, int KS) {
   return ((size_t)(n / kMmaRows) * KS + j / 16) * kTile + tile_offset(n % kMmaRows, j % 16);
 }
@@ -416,6 +414,40 @@ __device__ __forceinline__ void bulk_copy(void* dst, const void* src, unsigned b
 // bulk copies' (async-proxy) accesses that follow a barrier.
 __device__ __forceinline__ void fence_proxy_async_global() {
   asm volatile("fence.proxy.async.global;\n" ::: "memory");
+}
+
+// The ring of the mode bodies (the bidirectional layer, the stack order, the
+// training forward sweep): at most kMaxStages slots, each with a full and an
+// empty mbarrier, and the count of the ring's chunks (or items) issued in
+// the launch, kRingSyncBytes in all (what follows stays on a 16-byte
+// boundary).  Thread 0 issues every bulk copy; where two teams share the
+// ring and a slot's consecutive items may belong to different teams, it
+// publishes the count after each, and a warp other than thread 0's waits
+// for its item's issue before its wait on the slot's full mbarrier, so that
+// the mbarrier is at most one phase behind (never two, where the parity
+// alone would pass a phase early).
+constexpr int kMaxStages = 8;
+constexpr int kRingSyncBytes = 2 * kMaxStages * 8 + 16;
+
+__device__ __forceinline__ void store_release(unsigned* p, unsigned v) {
+  asm volatile("st.release.cta.shared::cta.u32 [%0], %1;\n" ::"r"(smem_addr(p)), "r"(v)
+               : "memory");
+}
+__device__ __forceinline__ unsigned load_acquire(const unsigned* p) {
+  unsigned v;
+  asm volatile("ld.acquire.cta.shared::cta.u32 %0, [%1];\n"
+               : "=r"(v)
+               : "r"(smem_addr(p))
+               : "memory");
+  return v;
+}
+// Waits (one lane of the warp, then the whole warp) until the count at p
+// exceeds i: the (i + 1)-th chunk of the launch is issued.
+__device__ __forceinline__ void wait_issued(const unsigned* p, unsigned i, int lane) {
+  if (lane == 0)
+    while (load_acquire(p) <= i) {
+    }
+  __syncwarp();
 }
 
 }  // namespace lstm

@@ -136,8 +136,10 @@ using lstm::fence_proxy_async_global;
 using lstm::kDefault;
 using lstm::kHigh;
 using lstm::kHighest;
+using lstm::kMaxStages;
 using lstm::kMmaRows;
 using lstm::kParts;
+using lstm::kRingSyncBytes;
 using lstm::kTile;
 using lstm::mbar_arrive;
 using lstm::mbar_expect_tx;
@@ -147,6 +149,8 @@ using lstm::mma_ktile;
 using lstm::put_state;
 using lstm::round32;
 using lstm::sigmoid_f;
+using lstm::store_release;
+using lstm::wait_issued;
 using lstm::warp_reduce_scatter;
 
 constexpr int kTeamThreads = 256;  // threads of a team: 8 warps
@@ -163,11 +167,10 @@ constexpr int kBlockThreads = kTeamThreads * kTeams<U>;
 
 // The stack order's HIGH and DEFAULT body (ring_body) runs blocks of 8 warps
 // (one team of 8, or two of 4) at every U, and a ring of at most kMaxStages
-// slots (its mbarriers and the count of the items issued: 144 bytes).
+// slots (its mbarriers and the count of the items issued: kRingSyncBytes,
+// lstm_common.cuh).
 constexpr int kRingThreads = 256;
 constexpr int kRingWarps = kRingThreads / 32;
-constexpr int kMaxStages = 8;
-constexpr int kRingSyncBytes = 2 * kMaxStages * 8 + 16;
 template <int U, bool kWave, int P>
 constexpr int kKernelThreads = P != kHighest && !kWave ? kRingThreads : kBlockThreads<U>;
 
@@ -684,21 +687,6 @@ struct Ring {
   float* part;                       // the two buffers of partial tiles
 };
 
-// The count of the ring's items issued: thread 0 publishes it after each
-// copy, the other warps read it before waiting for an item.
-__device__ __forceinline__ void store_release(unsigned* p, unsigned v) {
-  asm volatile("st.release.cta.shared::cta.u32 [%0], %1;\n" ::"r"(lstm::smem_addr(p)), "r"(v)
-               : "memory");
-}
-__device__ __forceinline__ unsigned load_acquire(const unsigned* p) {
-  unsigned v;
-  asm volatile("ld.acquire.cta.shared::cta.u32 %0, [%1];\n"
-               : "=r"(v)
-               : "r"(lstm::smem_addr(p))
-               : "memory");
-  return v;
-}
-
 // The phases of the stack order's HIGH and DEFAULT body (see ring_body) with
 // TEAMS teams of 8 / TEAMS warps, team g taking the chunks g, g + TEAMS, ...
 // of every phase.  With kReuse (two layers, where the ring holds every item
@@ -818,12 +806,7 @@ __device__ __forceinline__ void ring_phases(const StackArgs& a, const Ring& s, i
       int slot, use;
       slot_use(i, slot, use);
       if constexpr (TEAMS > 1 && !kReuse) {
-        if (warp > 0) {
-          if (lane == 0)
-            while (load_acquire(s.issued) <= (unsigned)(base + i)) {
-            }
-          __syncwarp();
-        }
+        if (warp > 0) wait_issued(s.issued, base + i, lane);
       }
       mbar_wait(s.full + slot, use & 1);  // item i has landed
       __syncwarp();                                  // the warp's lanes together again

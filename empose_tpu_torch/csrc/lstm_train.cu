@@ -119,16 +119,23 @@
 // as JAX splits it outside its kernels; at HIGH each product is ah*bh +
 // al*bh + ah*bl (JAX's dot3).  The gate nonlinearities, the cell, the frozen
 // steps and every output stay f32, as at HIGHEST.  The grid is HIGHEST's,
-// with U >= 2 (an n8 tile holds two units' four gates).  Simple first:
-//   * Forward: the design of the inference kernels' mode bodies
-//     (csrc/lstm_bidi.cu, one direction).  The block's 4U gate columns of
-//     W_hh stay resident as B fragments (a unit's gates in one lane quad);
-//     each 16-row chunk of h_all[t-1] goes straight from L2 into bf16 planes
-//     (rows past N zero; no f32 staging, so H=1024 fits at HIGH: 128 KB of
-//     hi/lo columns, 66 KB of planes), the 8 warps multiply over disjoint
-//     k-steps, the partial tiles meet in shared memory and one thread per
-//     (row, unit, gate) sums them in warp order, then runs the HIGHEST
-//     epilogue.
+// with U >= 2 (an n8 tile holds two units' four gates).
+//   * Forward: the design of the bidirectional layer's mode body
+//     (csrc/lstm_bidi.cu mma_body, one direction).  The block's 4U gate
+//     columns of W_hh stay resident as B fragments (a unit's gates in one
+//     lane quad).  Every block needs all of h_all[t-1] each step, so its
+//     bf16 form (hi; hi and lo at HIGH) is made once, by the thread that
+//     writes the f32 value, into a two-slot exchange buffer laid out as the
+//     A operand's k-step tiles, not by each of the 128 blocks for the whole
+//     state.  After the barrier one thread streams the step's
+//     16-row chunks into a ring of shared-memory slots by bulk copies on
+//     mbarriers, and the warps multiply each chunk as it lands, over 8
+//     disjoint k-step sets; where a step has two chunks or more and the ring
+//     two slots, two teams of 4 warps take them in turns, one team's
+//     epilogue beside the other's products.  The sets' partial tiles meet in
+//     shared memory, summed in set order by one thread per (row, unit),
+//     which adds x_proj, keeps the gates and runs the cell; it reads its
+//     cell operands a chunk ahead.  The details: fwd_mma.
 //   * Reverse: dh += dgates[t] (N x 4H) @ W_hh[j0:j0+U, :]^T, with K = 4H and
 //     only U outputs per row.  The A operand is 16 rows of dgates[t] in bf16
 //     (k contiguous, so ldmatrix reads them as the forward reads h), and the
@@ -170,22 +177,28 @@ using lstm::cp_async;
 using lstm::cp_async_commit;
 using lstm::cp_async_wait;
 using lstm::cp_async_wait_upto;
+using lstm::exchange_index;
 using lstm::fence_mbarrier_init;
 using lstm::fence_proxy_async_global;
 using lstm::kDefault;
 using lstm::kHigh;
 using lstm::kHighest;
+using lstm::kMaxStages;
 using lstm::kMmaRows;
 using lstm::kParts;
+using lstm::kRingSyncBytes;
 using lstm::kTile;
 using lstm::mbar_arrive;
 using lstm::mbar_expect_tx;
 using lstm::mbar_init;
 using lstm::mbar_wait;
 using lstm::mma_ktile;
+using lstm::put_state;
 using lstm::round32;
 using lstm::sigmoid_f;
+using lstm::store_release;
 using lstm::tile_offset;
+using lstm::wait_issued;
 using lstm::warp_reduce_scatter;
 
 constexpr int kThreads = 256;
@@ -441,21 +454,239 @@ __device__ __forceinline__ void fwd_fp32(const float* __restrict__ x_proj,
   }
 }
 
-// Shared memory of the forward sweep at HIGH and DEFAULT (bytes): the B
-// fragments of the block's gate columns of W_hh (`parts` planes), one staged
-// 16-row bf16 chunk of h_all[t-1] (`parts` planes) and the partial tiles.
-// The same formula as ops/lstm_train_kernel.py::fwd_smem_bytes.
-__host__ __device__ constexpr size_t fwd_mma_smem_bytes(int U, int H, int parts) {
-  return lstm::mma_matrix_bytes(U, H, parts) + (size_t)parts * lstm::mma_plane_bytes(H) +
-         lstm::mma_partial_bytes(U);
+// Shared memory of the forward sweep at HIGH and DEFAULT (bytes), in this
+// order: the B fragments of the block's gate columns of W_hh (`parts`
+// planes); a ring of `stages` slots, each one 16-row chunk of h_all[t-1] in
+// bf16 k-step tiles (`parts` planes); the ring's mbarriers and the count of
+// its chunks issued (kRingSyncBytes); a buffer of the partial tiles for each
+// of `teams` teams.  The same formula as
+// ops/lstm_train_kernel.py::fwd_smem_bytes.
+__host__ __device__ constexpr size_t fwd_mma_smem_bytes(int U, int H, int parts, int stages,
+                                                        int teams) {
+  return lstm::mma_matrix_bytes(U, H, parts) +
+         (size_t)stages * parts * lstm::kpad16(H) * kMmaRows * 2 + kRingSyncBytes +
+         (size_t)teams * lstm::mma_partial_bytes(U);
 }
 
-// The forward sweep at HIGH and DEFAULT (see the head note): step t takes
-// the chunks of h_all[t-1] (h0 at step 0, in place) one at a time; thread
-// (row r, column n = 4u + g) of a chunk reads its step operands before the
-// staging and the product, so that their latency hides behind them, and
-// afterwards sums its gate's partials, adds x_proj and writes its gate; the
-// first of each four writes h and c.
+// What the steps of the forward sweep's HIGH and DEFAULT body share: the
+// operands at the block's units j0 .., the exchange, and the block's shared
+// memory (fwd_mma).
+struct FwdSweep {
+  const float* x_proj;  // (F, N, 4H)
+  const float* mask;    // (F, N)
+  const float* h0;      // (N, H)
+  const float* c0;      // (N, H)
+  float* gates;         // (F, N, 4H), or null: the gates are not kept
+  float* h_all;         // (F, N, H)
+  float* c_all;         // (F, N, H)
+  unsigned short* xbuf;  // the exchange's two slots (slot stride kP x_part)
+  int F, N, H, j0, KS, n_chunks, stages;
+  size_t plane;   // bf16 of one part of a chunk
+  size_t x_part;  // bf16 of one part of a state
+  const uint2* w_b;                  // the B fragments
+  __nv_bfloat16* ring;               // the ring's slots
+  unsigned long long *full, *empty;  // the ring's mbarriers
+  unsigned* issued;                  // the chunks issued in the launch (thread 0 writes)
+  float* part;                       // a buffer of partial tiles per team
+};
+
+// The cell operands of a thread's (row, unit) of a chunk: x_proj's four
+// gate columns, the mask, the carried c and h before the step.
+struct CellOps {
+  float x[4], m, c, h;
+};
+
+// The steps of the forward sweep's HIGH and DEFAULT body (see fwd_mma) with
+// TEAMS teams of 8 / TEAMS warps, team g taking the chunks g, g + TEAMS, ...
+// of every step.  With two teams and an odd slot count under the step's
+// chunks (H=512 at HIGH from N=81: 5 slots), a warp other than thread 0's
+// waits until its chunk is issued before its wait on the slot's full
+// mbarrier (`count`, lstm_common.cuh), as the bidirectional layer's ring
+// does (lstm_bidi.cu mma_steps says why only there).
+template <int U, int P, int TEAMS>
+__device__ __forceinline__ void fwd_steps(const FwdSweep& s, int tid) {
+  constexpr int C = 4 * U;      // the block's gate columns
+  constexpr int NT = U / 2;     // their n8 tiles
+  constexpr int kP = kParts<P>;
+  constexpr int kPart = lstm::mma_partial_bytes(U) / sizeof(float);
+  constexpr int kTeamWarps = kWarps / TEAMS;
+  constexpr int kTeamThreads = kThreads / TEAMS;
+  static_assert(kWarps == lstm::kMmaWarps, "one k-step set per warp, two per warp of a team of 4");
+  static_assert(kMmaRows * U <= kTeamThreads, "a thread per (row, unit) of a chunk");
+  const int lane = tid % 32, warp = tid / 32;
+  const int team = warp / kTeamWarps, tw = warp % kTeamWarps, ttid = tid % kTeamThreads;
+  // Epilogue thread ttid < 16 U: row r = ttid / U, unit u = ttid % U.
+  const bool cell = ttid < kMmaRows * U;
+  const int r = ttid / U, u = ttid % U, j = s.j0 + u;
+  const int N = s.N, H = s.H, KS = s.KS, n_chunks = s.n_chunks, stages = s.stages;
+  const bool count = TEAMS > 1 && stages % 2 == 1 && stages < n_chunks;  // see above
+  const size_t NH = (size_t)N * H;
+  const unsigned chunk_bytes = (unsigned)s.plane * 2;
+  cg::grid_group grid = cg::this_grid();
+  // The team's threads meet (named barrier 1 + team; one team: the block).
+  auto team_sync = [&]() {
+    if constexpr (TEAMS == 1)
+      __syncthreads();
+    else
+      asm volatile("bar.sync %0, %1;\n" ::"r"(1 + team), "n"(kTeamThreads) : "memory");
+  };
+  // Chunk c's cell operands at step t into o (row c 16 + r, unit u); c and h
+  // before step t are h0, c0 or what this thread wrote at step t - 1.
+  auto load = [&](CellOps& o, int t, int c) {
+    const int n = c * kMmaRows + r;
+    o.x[0] = o.x[1] = o.x[2] = o.x[3] = o.m = o.c = o.h = 0.0f;
+    if (cell && n < N) {
+      const float* x_n = s.x_proj + ((size_t)t * N + n) * 4 * H + j;
+#pragma unroll
+      for (int q = 0; q < 4; ++q) o.x[q] = __ldg(x_n + q * H);
+      const size_t o_ = (size_t)n * H + j;
+      o.m = __ldg(s.mask + (size_t)t * N + n);
+      o.c = t == 0 ? s.c0[o_] : s.c_all[(size_t)(t - 1) * NH + o_];
+      o.h = t == 0 ? s.h0[o_] : s.h_all[(size_t)(t - 1) * NH + o_];
+    }
+  };
+  CellOps cur, nxt;
+  load(nxt, 0, team);
+
+  for (int t = 0; t < s.F; ++t) {
+    const unsigned short* x_read = s.xbuf + (size_t)(t & 1) * kP * s.x_part;
+    unsigned short* x_write = s.xbuf + (size_t)((t + 1) & 1) * kP * s.x_part;
+    float* g_t = s.gates == nullptr ? nullptr : s.gates + (size_t)t * N * 4 * H;
+    float* h_t = s.h_all + (size_t)t * NH;
+    float* c_t = s.c_all + (size_t)t * NH;
+    const int base = t * n_chunks;  // chunks of the sweep before this step's
+    // Chunk c into its slot: one bulk copy a part, issued by thread 0 once
+    // the warps are done with the slot's previous chunk.
+    auto issue = [&](int c) {
+      const int slot = (base + c) % stages, use = (base + c) / stages;
+      if (use > 0) mbar_wait(s.empty + slot, (use - 1) & 1);
+      mbar_expect_tx(s.full + slot, kP * chunk_bytes);
+#pragma unroll
+      for (int p = 0; p < kP; ++p)
+        bulk_copy(s.ring + ((size_t)slot * kP + p) * s.plane, x_read + p * s.x_part + c * s.plane,
+                  chunk_bytes, s.full + slot);
+      if (count) store_release(s.issued, base + c + 1);
+    };
+    int issued = 0;  // thread 0: the step's chunks issued
+    if (tid == 0) {
+      fence_proxy_async_global();
+      for (; issued < min(stages, n_chunks); ++issued) issue(issued);
+    }
+    for (int c = team; c < n_chunks; c += TEAMS) {
+      cur = nxt;
+      if (c + TEAMS < n_chunks) load(nxt, t, c + TEAMS);
+      const int slot = (base + c) % stages;
+      if (count && warp > 0) wait_issued(s.issued, base + c, lane);
+      mbar_wait(s.full + slot, ((base + c) / stages) & 1);  // chunk c has landed
+      __syncwarp();  // the warp's lanes together again
+      // The k-step sets tw (and tw + 4 in a team of 4 warps).
+      float acc[TEAMS][NT][4];
+#pragma unroll
+      for (int v = 0; v < TEAMS; ++v)
+#pragma unroll
+        for (int nt = 0; nt < NT; ++nt)
+          acc[v][nt][0] = acc[v][nt][1] = acc[v][nt][2] = acc[v][nt][3] = 0.f;
+      const __nv_bfloat16* a = s.ring + (size_t)slot * kP * s.plane;
+      for (int ks = tw; ks < KS; ks += lstm::kMmaWarps) {
+#pragma unroll
+        for (int v = 0; v < TEAMS; ++v) {
+          const int k = ks + v * kTeamWarps;
+          if (k < KS)
+            mma_ktile<NT, P>(acc[v], a + (size_t)k * kTile, s.plane, s.w_b + (size_t)k * NT * 32,
+                             (size_t)KS * NT * 32, lane);
+        }
+      }
+      __syncwarp();
+      if (lane == 0) mbar_arrive(s.empty + slot);  // this warp is done with the slot
+      if (tid == 0)  // every chunk whose slot's previous chunk is this one or older
+        for (; issued < min(n_chunks, c + stages + 1); ++issued) issue(issued);
+      // The team's buffer, once the team's epilogue of its chunk before is
+      // done (with one team, the last chunk of a step is followed by the
+      // grid barrier).
+      float* pb = s.part + team * kPart;
+      if (TEAMS > 1 || c > 0) team_sync();
+#pragma unroll
+      for (int v = 0; v < TEAMS; ++v)
+        lstm::store_partials<U>(pb, acc[v], tw + v * kTeamWarps, lane);
+      team_sync();  // the chunk's partial tiles are stored
+
+      // Thread (r, u): its four gates' sums in set order, x_proj, the gates
+      // kept, the nonlinearities and the cell; h[t] in f32 and, for the
+      // next step's product, in bf16 into the exchange.
+      const int n = c * kMmaRows + r;
+      if (cell && n < N) {
+        float pre[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+#pragma unroll
+        for (int w = 0; w < lstm::kMmaWarps; ++w) {
+          const float4 p4 = *reinterpret_cast<const float4*>(pb + (w * kMmaRows + r) * C + 4 * u);
+          pre[0] += p4.x;
+          pre[1] += p4.y;
+          pre[2] += p4.z;
+          pre[3] += p4.w;
+        }
+#pragma unroll
+        for (int q = 0; q < 4; ++q) pre[q] += cur.x[q];
+        if (g_t != nullptr) {
+#pragma unroll
+          for (int q = 0; q < 4; ++q) g_t[(size_t)n * 4 * H + q * H + j] = pre[q];
+        }
+        const float i_g = sigmoid_f(pre[0]);
+        const float f_g = sigmoid_f(pre[1]);
+        const float g_g = tanhf(pre[2]);
+        const float o_g = sigmoid_f(pre[3]);
+        const size_t o = (size_t)n * H + j;
+        // f c + i g with f c in the FMA, fixed: left to the compiler, which
+        // product the contraction takes moves with the code around it, and
+        // the two orders can differ by an ulp in c.
+        const float c_new = __fmaf_rn(f_g, cur.c, __fmul_rn(i_g, g_g));
+        const float h_new = o_g * tanhf(c_new);
+        const float h_sel = cur.m > 0.0f ? h_new : cur.h;
+        h_t[o] = h_sel;
+        c_t[o] = cur.m > 0.0f ? c_new : cur.c;
+        if (t + 1 < s.F) put_state<P>(x_write, s.x_part, n, j, KS, h_sel);
+      }
+      if (c + TEAMS >= n_chunks && t + 1 < s.F)
+        load(nxt, t + 1, team);  // this thread's c and h of that chunk are written
+    }
+    if (t + 1 < s.F) {
+      fence_proxy_async_global();  // the exchange's stores, before the other blocks' bulk copies
+      grid.sync();                 // every block's rows of h_all[t] are written
+    }
+  }
+}
+
+// The forward sweep at HIGH and DEFAULT (see the head note).
+//   * The exchange.  xbuf holds 2 slots x parts x n_chunks chunks x KS
+//     k-steps of 16x16 bf16 tiles (lstm_common.cuh): h_all[t] goes in bf16
+//     to slot (t + 1) & 1 from the thread that writes its f32 value, and
+//     step t reads slot t & 1.  A prologue writes h0's bf16 form into slot
+//     0 (each block its own columns) and the zeros of rows past N and of
+//     columns past H in both slots, once per launch, and ends with a grid
+//     barrier.  Slot (t + 1) & 1 is next written in step t + 2, after the
+//     grid barrier of step t + 1, which no block passes before its copies of
+//     step t + 1 have landed: two slots suffice.
+//   * The ring.  After the barrier, thread 0 issues one bulk copy per chunk
+//     and part into a ring of `stages` slots (full / empty mbarriers per
+//     slot), as many chunks as there are slots, and each later chunk into
+//     its slot once the warps are done with the slot's chunk before.
+//   * Teams (`teams`, the plan's: 2 only where a step has two chunks or more
+//     and the ring two slots or more).  Warps 0-3 and 4-7 are two teams that
+//     take the chunks in turns, so one team's epilogue runs beside the
+//     other's products (on an odd slot count under the step's chunks with
+//     the count of the chunks issued, fwd_steps); else one team of 8 warps
+//     takes every chunk through
+//     one slot (the plan's: where two slots and two buffers of partials do
+//     not fit, as at H=1024 HIGH, one slot and one buffer still do).  The
+//     products of a chunk are split over 8 k-step sets, set w the k-steps
+//     w, w + 8, ... (mma_tile's order), a warp of a team of 4 taking two of
+//     them; each set's partial tile goes to the team's buffer in shared
+//     memory, and the epilogue sums the 8 in set order: the same products
+//     in the same order as one staged chunk, so the same bits.
+//   * The cell.  Thread (row r, unit u) of a team (16 U of its threads)
+//     sums its unit's four gate columns, writes them to gates when they are
+//     kept, applies their nonlinearities and writes h and c; it reads the
+//     cell operands of its team's next chunk while the current one is
+//     multiplied, the next step's first chunk's before the grid barrier.
 template <int U, int P>
 __device__ __forceinline__ void fwd_mma(const float* __restrict__ x_proj,
                                         const float* __restrict__ mask,
@@ -463,88 +694,62 @@ __device__ __forceinline__ void fwd_mma(const float* __restrict__ x_proj,
                                         const float* __restrict__ h0,
                                         const float* __restrict__ c0,
                                         float* __restrict__ gates, float* h_all, float* c_all,
-                                        int F, int N, int H, float* smem) {
-  constexpr int C = 4 * U;                               // the block's gate columns
-  constexpr int kOuts = kMmaRows * C;                    // a chunk's (row, column) outputs
-  constexpr int kEpi = (kOuts + kThreads - 1) / kThreads;  // ... of a thread
+                                        unsigned short* xbuf, int F, int N, int H, int stages,
+                                        int teams, float* smem) {
   constexpr int kP = kParts<P>;
-  static_assert(U % 2 == 0 && kOuts % 32 == 0, "whole n8 tiles and whole warps of outputs");
+  static_assert(U % 2 == 0, "whole n8 tiles: two units' four gates each");
   const int j0 = blockIdx.x * U;
-  const size_t NH = (size_t)N * H;
-  const size_t plane = lstm::mma_plane_bytes(H) / 2;  // bf16 per plane
+  const int KS = lstm::kpad16(H) / 16;  // k-steps of H
+  const int n_chunks = (N + kMmaRows - 1) / kMmaRows;
+  const size_t plane = (size_t)KS * kTile;         // bf16 of one part of a chunk
+  const size_t x_part = (size_t)n_chunks * plane;  // bf16 of one part of a state
   uint2* w_b = reinterpret_cast<uint2*>(smem);
-  __nv_bfloat16* a_s = reinterpret_cast<__nv_bfloat16*>(
-      reinterpret_cast<char*>(smem) + lstm::mma_matrix_bytes(U, H, kP));
-  float* part = reinterpret_cast<float*>(reinterpret_cast<char*>(a_s) +
-                                         kP * lstm::mma_plane_bytes(H));
+  __nv_bfloat16* ring = reinterpret_cast<__nv_bfloat16*>(reinterpret_cast<char*>(smem) +
+                                                         lstm::mma_matrix_bytes(U, H, kP));
+  unsigned long long* full =
+      reinterpret_cast<unsigned long long*>(ring + (size_t)stages * kP * plane);
+  unsigned long long* empty = full + kMaxStages;
+  unsigned* issued = reinterpret_cast<unsigned*>(empty + kMaxStages);
   const int tid = threadIdx.x;
-  const int lane = tid % 32;
-  const int warp = tid / 32;
   cg::grid_group grid = cg::this_grid();
 
-  lstm::stage_b_fragments<U, P>(w_b, w_hi, w_lo, H, j0, tid, kThreads);
-  __syncthreads();
-
-  const int n_chunks = (N + kMmaRows - 1) / kMmaRows;
-  for (int t = 0; t < F; ++t) {
-    const float* h_prev = t == 0 ? h0 : h_all + (size_t)(t - 1) * NH;
-    const float* c_prev = t == 0 ? c0 : c_all + (size_t)(t - 1) * NH;
-    const float* x_t = x_proj + (size_t)t * N * 4 * H;
-    float* g_t = gates == nullptr ? nullptr : gates + (size_t)t * N * 4 * H;
-    float* h_next = h_all + (size_t)t * NH;
-    float* c_next = c_all + (size_t)t * NH;
-    for (int c = 0; c < n_chunks; ++c) {
-      const int r0 = c * kMmaRows;
-      float x_in[kEpi], m[kEpi], c_old[kEpi], h_old[kEpi];
-#pragma unroll
-      for (int e = 0; e < kEpi; ++e) {
-        const int idx = tid + kThreads * e;
-        const int nn = idx % C, g = nn % 4, n = r0 + idx / C;
-        const size_t o = (size_t)n * H + j0 + nn / 4;
-        x_in[e] = m[e] = c_old[e] = h_old[e] = 0.0f;
-        if (idx < kOuts && n < N) {
-          x_in[e] = __ldg(x_t + (size_t)n * 4 * H + g * H + j0 + nn / 4);
-          if (g == 0) {
-            m[e] = __ldg(mask + (size_t)t * N + n);
-            c_old[e] = c_prev[o];
-            h_old[e] = __ldcg(h_prev + o);
-          }
-        }
-      }
-      lstm::stage_rows_bf16<P>(a_s, plane, h_prev, r0, N, H, tid, kThreads);
-      __syncthreads();  // the chunk's planes are staged, and the partials of the chunk before read
-      float acc[U / 2][4];
-#pragma unroll
-      for (int nt = 0; nt < U / 2; ++nt) acc[nt][0] = acc[nt][1] = acc[nt][2] = acc[nt][3] = 0.f;
-      lstm::mma_rows<U, P>(acc, a_s, plane, w_b, H, warp, lane);
-      lstm::store_partials<U>(part, acc, warp, lane);
-      __syncthreads();  // the partials are there, and every warp is done with the planes
-
-#pragma unroll
-      for (int e = 0; e < kEpi; ++e) {
-        const int idx = tid + kThreads * e;
-        if (idx >= kOuts) break;  // whole warps: kOuts % 32 == 0
-        const int r = idx / C, nn = idx % C, g = nn % 4;
-        const int n = r0 + r;
-        const float pre = lstm::sum_partials<U>(part, r, nn) + x_in[e];
-        const float act = g == 2 ? tanhf(pre) : sigmoid_f(pre);
-        float gate[4];
-#pragma unroll
-        for (int q = 0; q < 4; ++q) gate[q] = __shfl_sync(0xffffffffu, act, (lane & ~3) + q);
-        if (n < N) {
-          if (g_t != nullptr) g_t[(size_t)n * 4 * H + g * H + j0 + nn / 4] = pre;
-          if (g == 0) {
-            const size_t o = (size_t)n * H + j0 + nn / 4;
-            const float c_new = gate[1] * c_old[e] + gate[0] * gate[2];
-            const float h_new = gate[3] * tanhf(c_new);
-            h_next[o] = m[e] > 0.0f ? h_new : h_old[e];
-            c_next[o] = m[e] > 0.0f ? c_new : c_old[e];
-          }
-        }
-      }
-    }
-    if (t + 1 < F) grid.sync();  // every block's rows of h_all[t] are written
+  // The prologue: the B fragments (8-byte loads of a row's U columns from U
+  // = 4 on), the mbarriers, h0's bf16 form and the zeros of the exchange.
+  if constexpr (U >= 4)
+    lstm::stage_b_fragments_vec<U, P>(w_b, w_hi, w_lo, H, j0, tid, kThreads);
+  else
+    lstm::stage_b_fragments<U, P>(w_b, w_hi, w_lo, H, j0, tid, kThreads);
+  if (tid < stages) {
+    mbar_init(full + tid, 1);
+    mbar_init(empty + tid, teams == 2 ? kWarps / 2 : kWarps);  // the warps of a team
   }
+  if (tid == 0) *issued = 0;
+  fence_mbarrier_init();
+  for (int i = tid; i < N * U; i += kThreads) {
+    const int n = i / U, j = j0 + i % U;
+    put_state<P>(xbuf, x_part, n, j, KS, __ldg(h0 + (size_t)n * H + j));
+  }
+  // The zeros: per (slot, part) the rows past N of the last chunk (all Kp
+  // columns), then the columns past H of rows 0 .. N - 1.
+  const int pad_rows = n_chunks * kMmaRows - N, Kp = KS * 16, pad_cols = Kp - H;
+  const size_t row_pads = (size_t)pad_rows * Kp, pads = row_pads + (size_t)N * pad_cols;
+  for (size_t e = (size_t)blockIdx.x * kThreads + tid; e < 2 * kP * pads;
+       e += (size_t)gridDim.x * kThreads) {
+    const size_t region = e / pads, q = e % pads;  // region: slot * kP + part
+    const int n = q < row_pads ? N + (int)(q / Kp) : (int)((q - row_pads) / pad_cols);
+    const int j = q < row_pads ? (int)(q % Kp) : H + (int)((q - row_pads) % pad_cols);
+    xbuf[region * x_part + exchange_index(n, j, KS)] = 0;
+  }
+  fence_proxy_async_global();  // the exchange's stores, before the bulk copies
+  grid.sync();
+
+  const FwdSweep sw{x_proj, mask, h0, c0, gates, h_all, c_all, xbuf, F, N, H, j0, KS, n_chunks,
+                    stages, plane, x_part, w_b, ring, full, empty, issued,
+                    reinterpret_cast<float*>(reinterpret_cast<char*>(full) + kRingSyncBytes)};
+  if (teams == 2)
+    fwd_steps<U, P, 2>(sw, tid);
+  else
+    fwd_steps<U, P, 1>(sw, tid);
 }
 
 template <int U, int P>
@@ -558,14 +763,18 @@ lstm_train_fwd_kernel(const float* __restrict__ x_proj,  // (F, N, 4H)
                       float* __restrict__ gates,         // (F, N, 4H) or null
                       float* h_all,                      // (F, N, H)
                       float* c_all,                      // (F, N, H)
-                      int F, int N, int H, int stage_rows) {
+                      int F, int N, int H, int stage_rows,
+                      int teams,                         // HIGH, DEFAULT: 1 or 2 (the plan's)
+                      void* xbuf) {                      // HIGH, DEFAULT: the bf16 exchange buffer
+                                                         // in k-step tiles, else null
   extern __shared__ __align__(16) float smem[];
   if constexpr (P == kHighest)
     fwd_fp32<U>(x_proj, mask, static_cast<const float*>(w_hh), h0, c0, gates, h_all, c_all, F, N,
                 H, stage_rows, smem);
   else
     fwd_mma<U, P>(x_proj, mask, static_cast<const unsigned short*>(w_hh),
-                  static_cast<const unsigned short*>(w_lo), h0, c0, gates, h_all, c_all, F, N, H,
+                  static_cast<const unsigned short*>(w_lo), h0, c0, gates, h_all, c_all,
+                  static_cast<unsigned short*>(xbuf), F, N, H, stage_rows / kMmaRows, teams,
                   smem);
 }
 
@@ -1165,7 +1374,8 @@ struct FwdArgs {
   float* gates;
   float* h_all;
   float* c_all;
-  int F, N, H, stage_rows;
+  int F, N, H, stage_rows, teams;
+  void* xbuf;
 };
 
 template <int U, int P>
@@ -1173,7 +1383,7 @@ int launch_fwd(FwdArgs a, size_t smem, cudaStream_t stream) {
   void* args[] = {(void*)&a.x_proj, (void*)&a.mask,  (void*)&a.w_hh,  (void*)&a.w_lo,
                   (void*)&a.h0,     (void*)&a.c0,    (void*)&a.gates, (void*)&a.h_all,
                   (void*)&a.c_all,  (void*)&a.F,     (void*)&a.N,     (void*)&a.H,
-                  (void*)&a.stage_rows};
+                  (void*)&a.stage_rows, (void*)&a.teams, (void*)&a.xbuf};
   return launch((const void*)lstm_train_fwd_kernel<U, P>, a.H / U, smem, args, stream);
 }
 
@@ -1260,30 +1470,49 @@ int lstm_train_prepare(int device, int* info) {
   return fits ? 0 : kErrGridTooLarge;
 }
 
+// Bytes of shared memory a forward-sweep block takes at mode (0 HIGHEST, 1
+// HIGH, 2 DEFAULT) with `units` units, stage_rows staged rows and `teams`
+// teams (read at HIGH and DEFAULT): the layout that lstm_train_forward holds
+// smem_bytes to.
+long long lstm_train_fwd_smem_bytes(int units, int H, int stage_rows, int mode, int teams) {
+  return (long long)(mode == kHighest ? sizeof(float) * fwd_smem_floats(units, H, stage_rows)
+                                      : fwd_mma_smem_bytes(units, H, mode == kHigh ? 2 : 1,
+                                                           stage_rows / kMmaRows, teams));
+}
+
 // Forward sweep over all F steps in one cooperative launch of H / units
 // blocks on `stream`.  gates may be null (the undifferentiated primal).
-// mode (0 HIGHEST, 1 HIGH, 2 DEFAULT): w_hh is f32 at HIGHEST (w_lo null),
-// W_hh rounded to bf16 at DEFAULT, its bf16 hi parts at HIGH with w_lo the
-// lo parts.  units, stage_rows (HIGHEST: N, all rows staged at once, or a
-// multiple of 16 below N, a ring of 16-row slots; else 16, one bf16 chunk)
-// and smem_bytes are the launch plan's; smem_bytes must equal the layout's
+// mode (0 HIGHEST, 1 HIGH, 2 DEFAULT): w_hh is f32 at HIGHEST (w_lo and xbuf
+// null), W_hh rounded to bf16 at DEFAULT, its bf16 hi parts at HIGH with
+// w_lo the lo parts; at HIGH and DEFAULT xbuf is the exchange buffer, 2 x
+// parts x ceil(N / 16) x kpad16(H) x 16 bf16 on a 16-byte boundary, whose
+// contents the launch sets (no zeroing before it).  units, stage_rows
+// (HIGHEST: N, all rows staged at once, or a multiple of 16 below N, a ring
+// of 16-row slots; else 16 times the ring's slots, 1 to 8), teams (HIGHEST:
+// 1; else 1, or 2 where N > 16 and the ring has two slots or more) and
+// smem_bytes are the launch plan's; smem_bytes must equal the layout's
 // size.  x_proj and h0 start on a 16-byte boundary.  Launches only:
 // lstm_train_prepare must have run on the current device.  Returns 0, a
 // cudaError_t value, or a negative code above.
 int lstm_train_forward(const float* x_proj, const float* mask, const void* w_hh,
                        const float* h0, const float* c0, float* gates, float* h_all,
                        float* c_all, int F, int N, int H, int units, int stage_rows,
-                       int smem_bytes, int mode, const void* w_lo, void* stream) {
-  if (mode < kHighest || mode > kDefault || units <= 0) return kErrBadShape;
-  const size_t layout = mode == kHighest ? sizeof(float) * fwd_smem_floats(units, H, stage_rows)
-                                         : fwd_mma_smem_bytes(units, H, mode == kHigh ? 2 : 1);
-  if (F <= 0 || N <= 0 || H <= 0 || H % 4 != 0 || H % units != 0 || stage_rows <= 0 ||
+                       int smem_bytes, int mode, int teams, const void* w_lo, void* xbuf,
+                       void* stream) {
+  if (mode < kHighest || mode > kDefault || units <= 0 || H <= 0) return kErrBadShape;
+  const size_t layout = (size_t)lstm_train_fwd_smem_bytes(units, H, stage_rows, mode, teams);
+  const int n_chunks = (N + kMmaRows - 1) / kMmaRows, stages = stage_rows / kMmaRows;
+  if (F <= 0 || N <= 0 || H % 4 != 0 || H % units != 0 || stage_rows <= 0 ||
       (mode == kHighest &&
-       (stage_rows > N || (stage_rows != N && stage_rows % kPassRows != 0))) ||
-      (mode != kHighest && stage_rows != kMmaRows) || (mode == kHigh && w_lo == nullptr) ||
-      (size_t)smem_bytes != layout)
+       (teams != 1 || stage_rows > N || (stage_rows != N && stage_rows % kPassRows != 0))) ||
+      (mode != kHighest &&
+       (stage_rows % kMmaRows != 0 || stages > kMaxStages || xbuf == nullptr ||
+        reinterpret_cast<size_t>(xbuf) % 16 != 0 ||
+        (teams != 1 && (teams != 2 || n_chunks < 2 || stages < 2)))) ||
+      (mode == kHigh && w_lo == nullptr) || (size_t)smem_bytes != layout)
     return kErrBadShape;
-  const FwdArgs a{x_proj, mask, w_hh, w_lo, h0, c0, gates, h_all, c_all, F, N, H, stage_rows};
+  const FwdArgs a{x_proj, mask, w_hh, w_lo, h0, c0, gates, h_all, c_all,
+                  F,      N,    H,    stage_rows, teams, xbuf};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (mode == kHigh) return forward_at<kHigh>(a, units, layout, s);
   if (mode == kDefault) return forward_at<kDefault>(a, units, layout, s);

@@ -190,6 +190,10 @@ class StackPlan(NamedTuple):
 
 
 MMA_WARPS = 8  # warps of a team that split a product's k-steps at high and default
+# Bytes of a mode body's ring sync block (csrc/lstm_common.cuh kRingSyncBytes):
+# a full and an empty mbarrier for each of MAX_SLOTS slots and the count of
+# the chunks issued, to 16 bytes.
+RING_SYNC_BYTES = 2 * MAX_SLOTS * 8 + 16
 
 
 def _bf16_parts(precision: str) -> int:
@@ -227,11 +231,11 @@ def stack_ring_smem_bytes(units: int, h: int, layers: int, stages: int, precisio
     and default (``csrc/lstm_stack.cu`` ``ring_smem_bytes``): the bf16 B
     fragments of the 2L - 1 matrices, a ring of ``stages`` slots of one
     state's 16-row chunk in bf16 k-step tiles (hi, and lo at high), the
-    ring's mbarriers and the count of its items issued (144 bytes) and two
-    buffers of the partial tiles."""
+    ring's mbarriers and the count of its items issued (RING_SYNC_BYTES)
+    and two buffers of the partial tiles."""
     mat, _, partial = _mma_bytes(units, h, precision)
     return ((2 * layers - 1) * mat + stages * _bf16_parts(precision) * -(-h // 16) * 16
-            * PASS_ROWS * 2 + 144 + 2 * partial)
+            * PASS_ROWS * 2 + RING_SYNC_BYTES + 2 * partial)
 
 
 def stack_exchange_shape(layers: int, n: int, h: int, precision: str) -> Tuple[int, ...]:
@@ -663,12 +667,14 @@ def bidi_smem_bytes(units: int, h: int, stage_rows: int, precision: str = HIGHES
     128 bytes) and the staged rows of h[t-1]; at high and default
     (``mma_smem_bytes``) the columns as bf16 B fragments (hi, and lo at
     high), a ring of ``stage_rows`` rows of h[t-1] in bf16 k-step tiles (16
-    rows a slot; hi, and lo at high), the ring's mbarriers (128 bytes) and
-    two buffers of the partial tiles."""
+    rows a slot; hi, and lo at high), the ring's mbarriers and the count of
+    its chunks issued (RING_SYNC_BYTES) and two buffers of the partial
+    tiles."""
     if resolve(precision) == HIGHEST:
         return 4 * (-(-4 * units * h // 32) * 32 + stage_rows * h)
     mat, _, partial = _mma_bytes(units, h, precision)
-    return mat + stage_rows * _bf16_parts(precision) * -(-h // 16) * 16 * 2 + 128 + 2 * partial
+    return (mat + stage_rows * _bf16_parts(precision) * -(-h // 16) * 16 * 2 + RING_SYNC_BYTES
+            + 2 * partial)
 
 
 def bidi_exchange_shape(n: int, h: int, precision: str) -> Tuple[int, ...]:

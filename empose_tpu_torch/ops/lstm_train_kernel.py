@@ -60,10 +60,10 @@ from empose_tpu_torch.ops import cuda_build
 # per block, rows of a staged chunk and pass in the forward sweep, the
 # forward sweep's most ring slots, the warps of a tensor-core product) and
 # the H100 SXM's SMs and opt-in shared memory per block.
-from empose_tpu_torch.ops.lstm_kernel import (MAX_SLOTS, MMA_WARPS, PASS_ROWS, SMEM_LIMIT, SMS,
-                                              THREADS, _bf16_parts, _check, _count, _launch,
-                                              _mma_bytes, _ptr, _sigmoid_tanh_cell,
-                                              units_per_block)
+from empose_tpu_torch.ops.lstm_kernel import (MAX_SLOTS, MMA_WARPS, PASS_ROWS, RING_SYNC_BYTES,
+                                              SMEM_LIMIT, SMS, THREADS, _bf16_parts, _check,
+                                              _count, _launch, _mma_bytes, _ptr,
+                                              _sigmoid_tanh_cell, units_per_block)
 from empose_tpu_torch.ops.precision import (MODE_CODES, bf16_parts, matmul_at, product_at,
                                             weight_parts)
 from empose_tpu_torch.utils.precision import HIGHEST, resolve
@@ -82,9 +82,13 @@ _lib = None  # the kernels' library, once lstm_train_prepare has loaded it
 class FwdPlan(NamedTuple):
     units: int       # hidden units per block (U)
     blocks: int      # the cooperative grid, H / U
-    stage_rows: int  # rows of h_all[t-1] in shared memory: N (all at once), or fewer: a ring
-                     # of stage_rows / PASS_ROWS slots that the PASS_ROWS-row chunks cycle
-                     # through; at high and default one PASS_ROWS-row bf16 chunk
+    stage_rows: int  # rows of h_all[t-1] in shared memory: at highest N (all at once), or
+                     # fewer: a ring of stage_rows / PASS_ROWS slots that the PASS_ROWS-row
+                     # chunks cycle through; at high and default PASS_ROWS x the slots of the
+                     # ring of bf16 chunks that bulk copies fill
+    teams: int       # read at high and default only (highest: 1): teams of 4 warps in a
+                     # block of 8, 2 where a step has two chunks or more and the ring two
+                     # slots or more, else 1 of 8 warps
     smem_bytes: int  # dynamic shared memory per block
 
 
@@ -114,16 +118,29 @@ def lstm_train_units(h: int, sms: int = SMS, precision: str = HIGHEST) -> int:
     return units if resolve(precision) == HIGHEST else max(units, 2)
 
 
-def fwd_smem_bytes(units: int, h: int, stage_rows: int, precision: str = HIGHEST) -> int:
-    """Shared memory of one forward-sweep block (``csrc/lstm_train.cu``): at
-    highest (``fwd_smem_floats``) the resident gate columns of W_hh (to 128
-    bytes) and the staged rows of h_all[t-1]; at high and default
-    (``fwd_mma_smem_bytes``) the columns as bf16 B fragments (hi, and lo at
-    high), one staged 16-row bf16 chunk and the partial tiles."""
+def fwd_smem_bytes(units: int, h: int, stage_rows: int, precision: str = HIGHEST,
+                   teams: int = 1) -> int:
+    """Shared memory of one forward-sweep block (``csrc/lstm_train.cu``
+    ``lstm_train_fwd_smem_bytes``): at highest (``fwd_smem_floats``) the
+    resident gate columns of W_hh (to 128 bytes) and the staged rows of
+    h_all[t-1]; at high and default (``fwd_mma_smem_bytes``) the columns as
+    bf16 B fragments (hi, and lo at high), a ring of ``stage_rows`` rows of
+    h_all[t-1] in bf16 k-step tiles (16 rows a slot; hi, and lo at high),
+    the ring's mbarriers and the count of its chunks issued
+    (RING_SYNC_BYTES) and a buffer of the partial tiles for each of
+    ``teams`` teams."""
     if resolve(precision) == HIGHEST:
         return 4 * (-(-4 * units * h // 32) * 32 + stage_rows * h)
-    mat, plane, partial = _mma_bytes(units, h, precision)
-    return mat + _bf16_parts(precision) * plane + partial
+    mat, _, partial = _mma_bytes(units, h, precision)
+    return (mat + stage_rows * _bf16_parts(precision) * -(-h // 16) * 16 * 2 + RING_SYNC_BYTES
+            + teams * partial)
+
+
+def fwd_exchange_shape(n: int, h: int, precision: str) -> Tuple[int, ...]:
+    """The forward sweep's bf16 exchange buffer at high and default: (slots
+    2, parts (2 at high), 16-row chunks of N, k-steps of H padded to 16, a
+    16x16 tile)."""
+    return (2, _bf16_parts(precision), -(-n // PASS_ROWS), -(-h // 16), PASS_ROWS * 16)
 
 
 @functools.lru_cache(maxsize=256)
@@ -136,19 +153,29 @@ def lstm_train_fwd_plan(n: int, h: int, sms: int = SMS, smem_limit: int = SMEM_L
     PASS_ROWS rows cycle through a ring of as many slots as fit (at most
     MAX_SLOTS; one at H=1024), so the shared memory stops growing with N and
     any N has a plan. Raises ValueError only where not one slot fits. At
-    high and default the grid is the same (U >= 2), and one 16-row bf16
-    chunk is staged at a time (``stage_rows`` = PASS_ROWS; H=1024 at high:
-    213,504 bytes)."""
+    high and default the grid is the same (U >= 2), and the step's 16-row
+    bf16 chunks stream through a ring of slots: where a step has two chunks
+    or more and two slots fit beside the columns and two buffers of partial
+    tiles, two teams of 4 warps take the chunks in turns through as many
+    slots as fit there, up to MAX_SLOTS and the step's chunks (H=512: 8 at
+    default, 5 at high; H=1024 at default: 4); else one team of 8 warps and
+    one slot (H=1024 at high), ``stage_rows`` = PASS_ROWS x the slots."""
     if n <= 0 or h <= 0 or h % 4:
         raise ValueError(f"the forward sweep needs N > 0 and H a positive multiple of 4, got "
                          f"N={n}, H={h}")
     units = lstm_train_units(h, sms, precision)
     if resolve(precision) != HIGHEST:
-        smem = fwd_smem_bytes(units, h, PASS_ROWS, precision)
-        if smem > smem_limit:
+        bytes_of = functools.partial(fwd_smem_bytes, units, h, precision=precision)
+        slot = bytes_of(PASS_ROWS) - bytes_of(0)
+        chunks = -(-n // PASS_ROWS)
+        teams, stages = 2, min(MAX_SLOTS, chunks, max(0, smem_limit - bytes_of(0, teams=2)) // slot)
+        if stages < 2:
+            teams, stages = 1, min(1, max(0, smem_limit - bytes_of(0)) // slot)
+        if stages < 1:
             raise ValueError(f"the forward sweep at N={n}, H={h}, precision {precision} does "
                              f"not fit in {smem_limit} bytes of shared memory")
-        return FwdPlan(units, h // units, PASS_ROWS, smem)
+        rows = PASS_ROWS * stages
+        return FwdPlan(units, h // units, rows, teams, bytes_of(rows, teams=teams))
     rows = n
     if fwd_smem_bytes(units, h, n) > smem_limit:
         slots = min(MAX_SLOTS, (smem_limit - fwd_smem_bytes(units, h, 0)) // (4 * PASS_ROWS * h))
@@ -156,7 +183,7 @@ def lstm_train_fwd_plan(n: int, h: int, sms: int = SMS, smem_limit: int = SMEM_L
             raise ValueError(f"the forward sweep at N={n}, H={h} does not fit in {smem_limit} "
                              "bytes of shared memory")
         rows = PASS_ROWS * slots
-    return FwdPlan(units, h // units, rows, fwd_smem_bytes(units, h, rows))
+    return FwdPlan(units, h // units, rows, 1, fwd_smem_bytes(units, h, rows))
 
 
 def bwd_operand_bytes(units: int, n: int) -> int:
@@ -260,7 +287,8 @@ def _library():
     p, i = ctypes.c_void_p, ctypes.c_int
     return cuda_build.load(NAME, {
         "lstm_train_prepare": ([i, ctypes.POINTER(i)], i),
-        "lstm_train_forward": ([p] * 8 + [i] * 7 + [p, p], i),
+        "lstm_train_forward": ([p] * 8 + [i] * 8 + [p, p, p], i),
+        "lstm_train_fwd_smem_bytes": ([i] * 5, ctypes.c_longlong),
         "lstm_train_backward": ([p] * 9 + [i] * 11 + [p, p, p], i),
     })
 
@@ -383,10 +411,15 @@ def lstm_train_fwd(x_proj, mask, w_hh, h0, c0, save_gates: bool = True,
     gates = torch.empty(f, n, 4 * hidden, device=dev) if save_gates else None
     h_all = torch.empty(f, n, hidden, device=dev)
     c_all = torch.empty(f, n, hidden, device=dev)
+    # At high and default the kernel's bf16 exchange buffer: two slots of
+    # h_all[t]'s bf16 parts in k-step tiles, written by their owners and read
+    # by every block; the launch sets all of it (no zeroing here).
+    xbuf = None if mode == HIGHEST else torch.empty(
+        fwd_exchange_shape(n, hidden, mode), dtype=torch.bfloat16, device=dev)
     code = _launch(_lib.lstm_train_forward, index, x_proj.data_ptr(), mask.data_ptr(),
                    w.data_ptr(), h0.data_ptr(), c0.data_ptr(), _ptr(gates), h_all.data_ptr(),
                    c_all.data_ptr(), f, n, hidden, plan.units, plan.stage_rows, plan.smem_bytes,
-                   MODE_CODES[mode], _ptr(w_lo))
+                   MODE_CODES[mode], plan.teams, _ptr(w_lo), _ptr(xbuf))
     cuda_build.check(code, "LSTM training forward kernel")
     FWD_LAUNCHES += 1
     _count("lstm_train_fwd", mode)

@@ -34,6 +34,8 @@ from empose_tpu.ops import lstm_kernel as JK
 
 from empose_tpu_torch.ops import lstm_kernel as K
 from empose_tpu_torch.ops import precision as P
+from tests.torch_ring_model import (Exchange, count_needed, ends_clean, ring_run, ring_schedules,
+                                     tile_offset)
 
 torch.set_num_threads(1)
 
@@ -48,11 +50,11 @@ def _kp(h):
 def _expected_plan(n, h, mode):
     """(units, stages, shared bytes) by the layout of ``mma_smem_bytes``: B
     fragments (parts x 8 U Kp bytes), the ring (16 rows x Kp bf16 a part a
-    slot), the mbarriers (128 bytes), two buffers of 8 warps' 16 x 4U f32
-    partial tiles."""
+    slot), the mbarriers and the count of chunks issued (144 bytes), two
+    buffers of 8 warps' 16 x 4U f32 partial tiles."""
     parts = 2 if mode == "high" else 1
     units = 8 if h % 8 == 0 else 4
-    fixed = parts * 8 * units * _kp(h) + 128 + 2 * 8 * 16 * 4 * units * 4
+    fixed = parts * 8 * units * _kp(h) + 144 + 2 * 8 * 16 * 4 * units * 4
     slot = 16 * parts * _kp(h) * 2
     stages = min(K.MAX_SLOTS, -(-n // 16), (LIMIT - fixed) // slot)
     return units, stages, fixed + stages * slot
@@ -88,7 +90,7 @@ def test_bidi_mode_plan_stages():
     assert [stages(n, 1024, "default") for n in (1, 32, 1300)] == [1, 2, 4]
     assert [stages(n, 1024, "high") for n in (1, 32, 1300)] == [1, 1, 1]
     assert stages(300, 516, "default") == 8
-    assert K.lstm_bidi_plan(32, 1024, precision="high").smem_bytes == 229504
+    assert K.lstm_bidi_plan(32, 1024, precision="high").smem_bytes == 229520
     # HIGHEST keeps its own: all N rows at once where they fit.
     assert K.lstm_bidi_plan(64, 512) == K.BidiPlan(8, 128, 2, 1, 64, 4, 4 * (4 * 8 * 512
                                                                              + 64 * 512))
@@ -103,27 +105,16 @@ def test_bidi_mode_plan_refusals(mode, n, h):
 
 
 def test_bidi_mode_plan_needs_one_slot():
-    """H=1024 at HIGH takes 229,504 bytes with one slot: one byte less and
+    """H=1024 at HIGH takes 229,520 bytes with one slot: one byte less and
     no plan; at DEFAULT a smaller limit takes fewer slots."""
-    K.lstm_bidi_plan(32, 1024, smem_limit=229504, precision="high")
+    K.lstm_bidi_plan(32, 1024, smem_limit=229520, precision="high")
     with pytest.raises(ValueError, match="does not fit"):
-        K.lstm_bidi_plan(32, 1024, smem_limit=229503, precision="high")
+        K.lstm_bidi_plan(32, 1024, smem_limit=229519, precision="high")
     assert K.lstm_bidi_plan(64, 512, smem_limit=120000, precision="default").stages == 3
 
 
 # ---------------------------------------------------------------------------
-# A numpy model of the exchange buffer
-
-
-def tile_offset(r, c):
-    """``lstm_common.cuh`` ``tile_offset``: row r at 16 r, its 8-column half
-    c // 8 swizzled by r // 4 % 2."""
-    return r * 16 + ((c // 8) ^ (r // 4 % 2)) * 8 + c % 8
-
-
-def exchange_index(n, j, ks):
-    """``lstm_bidi.cu`` ``exchange_index``: (16-row chunk, k-step) tiles."""
-    return ((n // 16) * ks + j // 16) * 256 + tile_offset(n % 16, j % 16)
+# A numpy model of the exchange buffer (tests/torch_ring_model.py)
 
 
 def test_exchange_tile_layout():
@@ -141,48 +132,6 @@ def test_exchange_tile_layout():
     for m in range(4):  # a0 rows 0-7 k 0-7, a1 rows 8-15, a2 and a3 k 8-15
         groups = [2 * tile_offset((m % 2) * 8 + i, (m // 2) * 8) % 128 // 16 for i in range(8)]
         assert sorted(groups) == list(range(8))
-
-
-class Exchange:
-    """One slot of one direction of the exchange, one part: the launch's
-    prologue writes the zeros past N and past H, each block writes its U
-    columns of every row (each element once), and every block reads a
-    chunk's k-step tiles as ldmatrix does."""
-
-    def __init__(self, n, h, units):
-        self.n, self.h, self.units = n, h, units
-        self.ks, self.chunks = _kp(h) // 16, -(-n // 16)
-        self.x = np.full(self.chunks * self.ks * 256, np.nan, np.float32)
-        self.writes = np.zeros(self.x.shape, np.int64)
-        for n_ in range(n, self.chunks * 16):
-            self._put(n_, range(_kp(h)), 0.0)
-        for n_ in range(n):
-            self._put(n_, range(h, _kp(h)), 0.0)
-
-    def _put(self, n, cols, values):
-        idx = [exchange_index(n, j, self.ks) for j in cols]
-        self.x[idx] = values
-        np.add.at(self.writes, idx, 1)
-
-    def write(self, state):
-        """The owners' writes: block b's columns b U .. b U + U - 1."""
-        for j0 in range(0, self.h, self.units):
-            for n_ in range(self.n):
-                self._put(n_, range(j0, j0 + self.units), state[n_, j0:j0 + self.units])
-
-    def read(self):
-        """The (chunks x 16, Kp) matrix the blocks' ldmatrix reads assemble:
-        lane l of k-step ks reads row l % 16's 8 elements at tile_offset(l %
-        16, 8 (l // 16))."""
-        out = np.zeros((self.chunks * 16, _kp(self.h)), np.float32)
-        for c in range(self.chunks):
-            for ks in range(self.ks):
-                tile = self.x[(c * self.ks + ks) * 256:][:256]
-                for lane in range(32):
-                    r, half = lane % 16, lane // 16
-                    at = tile_offset(r, 8 * half)
-                    out[c * 16 + r, 16 * ks + 8 * half:][:8] = tile[at:at + 8]
-        return out
 
 
 @pytest.mark.parametrize("n, h, units", [(17, 64, 8), (7, 36, 4), (33, 516, 4), (1, 48, 8)])
@@ -327,3 +276,39 @@ def test_plain_bidi_is_the_write_once_data_flow(mode, seed):
         gap = max(float(np.abs(np.asarray(a) - np.asarray(b)).max())
                   for a, b in zip(highest, want))
         assert err < gap
+
+
+# ---------------------------------------------------------------------------
+# The ring's waits (tests/torch_ring_model.py, one item a chunk)
+
+
+def test_bidi_ring_waits_for_the_issue():
+    """The bidirectional layer's ring at the fault's order, three slots
+    under four chunks with two teams and the copies landing newest first:
+    without the wait for a chunk's issue a full mbarrier passes by parity a
+    phase early (team 1 takes chunk 3 while chunk 0, before it in the slot,
+    is in flight); with the wait every schedule here ends clean."""
+    assert count_needed(4, 3)
+    assert not ends_clean(1, 4, 3, 2, order="late", wait_issued=False)
+    for order in ring_schedules(4) + [np.random.RandomState(s) for s in range(10, 15)]:
+        assert ring_run(1, 4, 3, 2, order=order)
+
+
+@pytest.mark.parametrize("mode", MODES)
+@pytest.mark.parametrize("n, h", [(96, 516), (81, 516), (1300, 516), (64, 512), (100, 512),
+                                  (1300, 512), (32, 1024), (1300, 1024), (17, 260)])
+def test_bidi_ring_runs_the_plans(mode, n, h):
+    """The ring under the plan of each shape (two teams where a step has two
+    chunks or more and the ring two slots, ``mma_body``'s rule; at H=516 and
+    high from N=81 five slots under more chunks, a slot's chunks
+    alternating between the teams, where the count is kept) ends under
+    several schedules, every copy in its slot when it is read and never
+    over a slot still being read."""
+    plan = K.lstm_bidi_plan(n, h, precision=mode)
+    chunks = -(-n // 16)
+    teams = 2 if chunks > 1 and plan.stages > 1 else 1
+    assert (teams == 2 and count_needed(chunks, plan.stages)) == (
+        h == 516 and mode == "high" and n > 80)
+    for order in ring_schedules(n + h):
+        assert ring_run(1, chunks, plan.stages, teams, plan.units, order=order,
+                        wait_issued=count_needed(chunks, plan.stages))

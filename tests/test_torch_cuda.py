@@ -877,6 +877,114 @@ def test_reverse_sweep_at_mode_graph_capture_scratch(cuda, mode, f, n, h):
             assert torch.equal(a, b)
 
 
+# The forward sweep's HIGH and DEFAULT body (a bf16 exchange of h_all[t]
+# written once by its owner, chunks streamed by bulk copies into a ring, two
+# teams of 4 warps where a step has two chunks and the ring two slots).
+@pytest.mark.parametrize("mode", ["high", "default"])
+@pytest.mark.parametrize("f, n, h", [(64, 16, 512), (256, 64, 512), (64, 100, 512),
+                                     (64, 32, 1024), (16, 17, 512), (16, 33, 512),
+                                     (16, 33, 516), (16, 20, 260)])
+def test_forward_ring_body_matches_plain(cuda, mode, f, n, h):
+    """The forward sweep at the mode against its plain version at the same
+    mode (PAIR_MODE_REL), a second call bit for bit, the undifferentiated
+    primal (no gates kept) with the same states bit for bit, 0-length rows
+    frozen. The plans: one team (N=16; H=1024 at high, one slot and two
+    chunks), two teams on 2 to 8 slots, at high N=100 five slots under seven
+    chunks (a slot's chunks alternate between the teams), H=516 and H=260
+    (U=2) with columns past H in the k-step tiles."""
+    x_proj, mask, w_hh, h0, c0, _, _, idle = _pair_case(f, n, cuda, h)
+    args = (x_proj, mask, w_hh, h0, c0, True, mode)
+    before = K.MODE_LAUNCHES.get(("lstm_train_fwd", mode), 0)
+    got, again = TK.lstm_train_fwd(*args), TK.lstm_train_fwd(*args)
+    primal = TK.lstm_train_fwd(x_proj, mask, w_hh, h0, c0, False, mode)
+    assert K.MODE_LAUNCHES[("lstm_train_fwd", mode)] == before + 3
+    for a, b, c in zip(got, TK.lstm_train_fwd_plain(*args), again):
+        torch.testing.assert_close(a, b, atol=PAIR_MODE_REL[mode] * float(b.abs().max()), rtol=0)
+        assert torch.equal(a, c)
+    assert primal[0] is None
+    assert torch.equal(primal[1], got[1]) and torch.equal(primal[2], got[2])
+    assert torch.equal(got[1][:, idle], h0[idle].expand(f, -1, -1))
+    assert torch.equal(got[2][:, idle], c0[idle].expand(f, -1, -1))
+
+
+@pytest.mark.parametrize("mode", ["high", "default"])
+@pytest.mark.parametrize("f, n, h", [(16, 33, 512), (16, 17, 1024), (16, 20, 260)])
+def test_forward_ring_body_graph_capture_scratch(cuda, mode, f, n, h):
+    """The forward sweep at the mode captured in a CUDA graph whose pool was
+    filled with NaN first (its exchange buffer, allocated by the wrapper
+    inside the capture, is never set by the host, and has rows past N and at
+    H=260 columns past H): replays on new inputs equal the eager call bit
+    for bit, twice in a row (every launch writes the exchange's zeros and
+    h0's bf16 form anew)."""
+    from empose_tpu_torch.ops.precision import weight_parts
+
+    x_proj, mask, w_hh, h0, c0, _, _, _ = _pair_case(f, n, cuda, h)
+    args = [x_proj.clone(), mask, w_hh, h0.clone(), c0, True, mode, weight_parts(w_hh, mode)]
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        TK.lstm_train_fwd(*args)
+    torch.cuda.current_stream().wait_stream(side)
+    # A graph of the same pool that fills as many bytes as the sweep's
+    # outputs and exchange take with NaN; its block is freed for the next.
+    pool = torch.cuda.graph_pool_handle()
+    poison = torch.cuda.CUDAGraph()
+    words = f * n * 6 * h + 2 * 2 * -(-n // 16) * 16 * -(-h // 16) * 16
+    with torch.cuda.graph(poison, pool=pool):
+        torch.full((words,), float("nan"), device=cuda)
+    graph = torch.cuda.CUDAGraph()
+    poison.replay()
+    torch.cuda.synchronize()
+    with torch.cuda.graph(graph, pool=pool):
+        out = TK.lstm_train_fwd(*args)
+    for scale in (0.5, -1.5):
+        args[0].copy_(x_proj * scale)
+        args[3].copy_(h0 * scale)
+        poison.replay()
+        graph.replay()
+        torch.cuda.synchronize()
+        for a, b in zip(out, TK.lstm_train_fwd(*args)):
+            assert torch.equal(a, b)
+
+
+def test_forward_smem_formulas_agree(cuda):
+    """The C layout of the forward sweep (``lstm_train_fwd_smem_bytes``,
+    which the launch holds the plan's bytes to) equals ``fwd_smem_bytes``
+    at every mode, and every plan's bytes are the C layout's."""
+    TK.lstm_train_prepare(cuda)
+    sms, limit = TK._prepared[torch.cuda.current_device()]
+    for mode, code in (("highest", 0), ("high", 1), ("default", 2)):
+        for h in (20, 260, 512, 516, 1024):
+            units = TK.lstm_train_units(h, sms, mode)
+            for rows in (16, 32, 64, 128):
+                for teams in (1, 2):
+                    assert TK._lib.lstm_train_fwd_smem_bytes(units, h, rows, code, teams) == \
+                        TK.fwd_smem_bytes(units, h, rows, mode, teams)
+            for n in (1, 16, 17, 64, 100, 1300):
+                plan = TK.lstm_train_fwd_plan(n, h, sms, limit, mode)
+                assert TK._lib.lstm_train_fwd_smem_bytes(units, h, plan.stage_rows, code,
+                                                         plan.teams) == plan.smem_bytes
+
+
+@pytest.mark.parametrize("mode", ["high", "default"])
+def test_bidi_ring_odd_slots_matches_plain(cuda, mode):
+    """The bidirectional layer on the plan whose ring has an odd slot count
+    under the step's chunks: H=516 (U=4, one direction per launch) at N=96,
+    five slots under six chunks at high (a slot's chunks alternate between
+    the two teams: the count of the chunks issued orders their waits), six
+    at default: against the plain version at the mode, a second call bit
+    for bit."""
+    plan = K.lstm_bidi_plan(96, 516, precision=mode)
+    assert (plan.stages, plan.units) == ((5, 4) if mode == "high" else (6, 4))
+    args, idle = _bidi_projected_case(16, 96, 516, mode, 96, cuda)
+    got, again = K.lstm_bidi_fused(*args, mode), K.lstm_bidi_fused(*args, mode)
+    for a, b, c in zip(got, K.lstm_bidi_plain(*args, mode), again):
+        torch.testing.assert_close(a, b, atol=BIDI_MODE_TOL[mode], rtol=0)
+        assert torch.equal(a, c)
+    h0, c0 = args[3], args[4]
+    assert torch.equal(got[1][:, idle], h0[:, idle]) and torch.equal(got[2][:, idle], c0[:, idle])
+
+
 @pytest.mark.parametrize("mode", ["high", "default"])
 @pytest.mark.parametrize("bidirectional", [False, True], ids=["rnn", "birnn"])
 def test_served_step_at_mode_matches_plain_lstm(cuda, mode, bidirectional):

@@ -409,17 +409,17 @@ def test_plans_read_the_mode_bytes():
     assert K.lstm_stack_plan(1, 64, 1024, precision="high").smem_bytes == 229520
     # The bidirectional layer: the same grid, a ring of 16-row bf16 chunks
     # (all 4 of N=64 at H=512; at H=1024 2 at default, 1 at high).
-    for mode, st512, smem512, st1024, smem1024 in (("default", 4, 131200, 2, 163968),
-                                                   ("high", 4, 229504, 1, 229504)):
+    for mode, st512, smem512, st1024, smem1024 in (("default", 4, 131216, 2, 163984),
+                                                   ("high", 4, 229520, 1, 229520)):
         p512, p1024 = K.lstm_bidi_plan(64, 512, precision=mode), K.lstm_bidi_plan(
             32, 1024, precision=mode)
         assert p512 == K.BidiPlan(8, 128, 2, 1, 16 * st512, st512, smem512)
         assert p1024 == K.BidiPlan(8, 128, 1, 2, 16 * st1024, st1024, smem1024)
         assert K.lstm_bidi_plan(17, 516, precision=mode).units == 4
     # The columns and the ring double; the two buffers of partials and the
-    # mbarriers do not.
+    # ring's sync block (mbarriers and the count of chunks issued) do not.
     assert K.bidi_smem_bytes(8, 512, 16, "default") * 2 - K.bidi_smem_bytes(8, 512, 16, "high") \
-        == 2 * 8 * 16 * 4 * 8 * 4 + 128
+        == 2 * 8 * 16 * 4 * 8 * 4 + 144
     with pytest.raises(ValueError, match="unknown precision"):
         K.lstm_stack_plan(2, 64, 512, precision="bf16")
 

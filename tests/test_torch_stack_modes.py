@@ -41,7 +41,8 @@ from empose_tpu.ops import lstm_kernel as JK
 
 from empose_tpu_torch.ops import lstm_kernel as K
 from empose_tpu_torch.ops import precision as P
-from tests.test_torch_bidi_modes import exchange_index, tile_offset
+from tests.torch_ring_model import (ends_clean, exchange_index, ring_run,
+                                     ring_schedules, tile_offset)
 
 torch.set_num_threads(1)
 
@@ -245,145 +246,7 @@ def test_two_slots_a_layer_suffice(layers):
 
 
 # ---------------------------------------------------------------------------
-# A model of the ring's copies and waits
-
-
-class _MBarrier:
-    """An mbarrier: ``count`` arrivals complete a phase; ``try_wait.parity
-    p`` succeeds once the phase of parity p has completed, i.e. while the
-    completed count's parity differs from p."""
-
-    def __init__(self, count):
-        self.count, self.pending, self.done = count, 0, 0
-
-    def arrive(self):
-        self.pending += 1
-        if self.pending == self.count:
-            self.pending, self.done = 0, self.done + 1
-
-    def ready(self, parity):
-        return (self.done & 1) != parity
-
-
-class _Sync:
-    """bar.sync / grid.sync: ``count`` actors meet."""
-
-    def __init__(self, count):
-        self.count, self.pending, self.generation = count, 0, 0
-
-    def meet(self):
-        gen = self.generation
-        self.pending += 1
-        if self.pending == self.count:
-            self.pending, self.generation = 0, gen + 1
-        yield lambda: self.generation != gen
-
-
-def _ring_run(layers, n_chunks, stages, teams, units=4, steps=3, order=None, wait_issued=True):
-    """``ring_phases`` (``csrc/lstm_stack.cu``) for one block, one actor a
-    warp (warp 0 holds thread 0, which issues the copies), under the
-    schedule ``order``: a numpy RandomState picks among the actors that can
-    go on, the copies in flight landing in any order; None and "late" take
-    the lowest warp that can go on, and land a copy only where none can, the
-    oldest (None) or the newest ("late") first. Each item's
-    slot holds what the item names (layer, step of its state, chunk),
-    checked when a warp's product starts and again when it ends, so a read
-    of a copy not yet landed, or a copy landing over a slot still being
-    read, fails; so does a full mbarrier passed by parity more than one
-    phase early. With two teams (and no reuse), as the kernel does,
-    ``wait_issued`` has every warp but thread 0's wait until its item is
-    issued (thread 0 publishes the count after each copy).
-    Returns True where every warp ends, False on a deadlock."""
-    warps, stacked = 8, units == 4
-    team_warps = warps // teams
-    reuse = stacked and layers == 2 and stages >= 2 * n_chunks
-    full = [_MBarrier(1) for _ in range(stages)]
-    empty = [_MBarrier(team_warps) for _ in range(stages)]
-    held = [None] * stages
-    in_flight = []  # (slot, what the copy holds)
-    count = [0]  # the items issued in the launch
-    team_syncs = [_Sync(team_warps) for _ in range(teams)]
-    grid = _Sync(warps)
-    both = teams > 1 and not reuse
-
-    def warp(w):
-        team, thread0 = w // team_warps, w == 0
-        for ph in range(steps * layers):
-            t, l = divmod(ph, layers)
-            ipc = 2 if stacked and l > 0 else 1
-            n_items = 0 if reuse and l == 0 and t > 0 else n_chunks * ipc
-            base = t * n_chunks * (2 * layers - 1) + (n_chunks * (2 * l - 1) if l else 0)
-
-            def slot_use(i):
-                if not reuse:
-                    return (base + i) % stages, (base + i) // stages
-                if l == 0:
-                    return 2 * i, t
-                return i, t + (i % 2 == 0)
-
-            def names(i):  # (layer, step of its state, chunk); reuse at (t > 0, 0): slot 2c
-                if ipc == 2 and i % 2 == 0:
-                    return l - 1, t, i // 2
-                return l, t - 1, i // ipc
-
-            def issue(i):
-                slot, use = slot_use(i)
-                if not reuse and use > 0:
-                    yield lambda: empty[slot].ready((use - 1) & 1)
-                    assert empty[slot].done == use
-                in_flight.append((slot, names(i)))
-                count[0] = base + i + 1
-
-            issued = [0]
-
-            def issue_to(end):
-                for k in range(issued[0], end):
-                    yield from issue(k)
-                issued[0] = max(issued[0], end)
-
-            if thread0:
-                yield from issue_to(min(stages, n_items))
-            for c in range(team, n_chunks, teams):
-                for i in ([2 * c, 2 * c + 1] if ipc == 2 else [c]):
-                    slot, use = slot_use(i)
-                    want = (0, t - 1, c) if n_items == 0 else names(i)
-                    if both and wait_issued and w > 0:
-                        yield lambda: count[0] > base + i
-                    yield lambda: full[slot].ready(use & 1)
-                    assert full[slot].done == use + 1 and held[slot] == want
-                    yield lambda: True  # the products
-                    assert held[slot] == want
-                    empty[slot].arrive()
-                    if thread0:
-                        yield from issue_to(min(n_items, i + stages + 1))
-                if teams > 1:
-                    yield from team_syncs[team].meet()
-                yield from team_syncs[team].meet()
-            yield from grid.meet()
-
-    actors = [warp(w) for w in range(warps)]
-    waits = [lambda: True] * warps
-    while actors or in_flight:
-        ready = [k for k, wait in enumerate(waits) if wait()] + ([len(actors)] if in_flight else [])
-        if not ready:
-            return False
-        pick = isinstance(order, np.random.RandomState)
-        k = ready[order.randint(len(ready))] if pick else ready[0]
-        if k == len(actors):  # a copy lands
-            slot, what = in_flight.pop(order.randint(len(in_flight)) if pick else
-                                       0 if order is None else -1)
-            held[slot] = what
-            full[slot].arrive()
-            continue
-        try:
-            waits[k] = next(actors[k])
-        except StopIteration:
-            del actors[k], waits[k]
-    return True
-
-
-def _ring_schedules(seed):
-    return [None, "late"] + [np.random.RandomState(seed + s) for s in range(3)]
+# A model of the ring's copies and waits (tests/torch_ring_model.py)
 
 
 @pytest.mark.parametrize("layers, n, h, mode", [
@@ -398,8 +261,8 @@ def test_ring_issue_order_runs_the_plans(layers, n, h, mode):
     when it is read and never over a slot still being read."""
     plan = K.lstm_stack_plan(layers, n, h, precision=mode)
     n_chunks, stages = -(-n // 16), plan.stage_rows // 16
-    for order in _ring_schedules(layers + n + h):
-        assert _ring_run(layers, n_chunks, stages, plan.teams, plan.units, order=order)
+    for order in ring_schedules(layers + n + h):
+        assert ring_run(layers, n_chunks, stages, plan.teams, plan.units, order=order)
 
 
 @pytest.mark.parametrize("teams", [1, 2])
@@ -412,17 +275,9 @@ def test_ring_issue_order_every_slot_count(layers, units, teams):
     first = 1 if teams == 1 else min(layers, 2) + 1
     for n_chunks in range(1, 7):
         for stages in range(first, K.MAX_SLOTS + 1):
-            for order in _ring_schedules(n_chunks * 10 + stages):
-                assert _ring_run(layers, n_chunks, stages, teams, units, order=order), \
+            for order in ring_schedules(n_chunks * 10 + stages):
+                assert ring_run(layers, n_chunks, stages, teams, units, order=order), \
                     (n_chunks, stages)
-
-
-def _ends_clean(*args, **kwargs):
-    """_ring_run, a read too early counted as a failure like a deadlock."""
-    try:
-        return _ring_run(*args, **kwargs)
-    except AssertionError:
-        return False
 
 
 def test_ring_two_teams_need_more_slots_than_items_a_chunk():
@@ -435,9 +290,9 @@ def test_ring_two_teams_need_more_slots_than_items_a_chunk():
     teams end; at one layer (one item a chunk) two slots take two teams."""
     plan = K.lstm_stack_plan(3, 48, 448, precision="high")
     assert (plan.stage_rows // 16, plan.teams) == (2, 1)
-    for order in _ring_schedules(0):
-        assert not _ends_clean(3, 3, 2, 2, order=order)
-    assert _ring_run(3, 3, 2, 1) and _ring_run(3, 3, 3, 2)
+    for order in ring_schedules(0):
+        assert not ends_clean(3, 3, 2, 2, order=order)
+    assert ring_run(3, 3, 2, 1) and ring_run(3, 3, 3, 2)
     assert K.lstm_stack_plan(1, 17, 1024, precision="default")[3:5] == (32, 2)  # two slots
 
 
@@ -450,9 +305,9 @@ def test_ring_model_finds_an_early_parity():
     plan = K.lstm_stack_plan(2, 64, 512, precision="high")
     assert (plan.stage_rows // 16, plan.teams) == (3, 2)
     with pytest.raises(AssertionError):
-        _ring_run(2, 4, 3, 2, order="late", wait_issued=False)
+        ring_run(2, 4, 3, 2, order="late", wait_issued=False)
     for order in ["late", None] + [np.random.RandomState(seed) for seed in range(8)]:
-        assert _ring_run(2, 4, 3, 2, order=order)
+        assert ring_run(2, 4, 3, 2, order=order)
 
 
 # ---------------------------------------------------------------------------

@@ -602,7 +602,11 @@ def test_bf16_with_another_precision_raises(assets_env):
 
 def test_lstm_train_plans_read_the_mode_bytes():
     """The pair's plans at high and default: HIGHEST's grid with U >= 2;
-    the forward sweep one 16-row bf16 chunk; the reverse sweep a ring of
+    the forward sweep a ring of 16-row bf16 chunks: where a step has two
+    chunks or more and two slots fit beside the fragments and two buffers
+    of partial tiles, two teams of 4 warps on as many slots as fit there
+    (H=512: 12 default, 5 high; H=1024 default: 4) up to 8 and the step's
+    chunks, else one team, one slot and one buffer; the reverse sweep a ring of
     16-row k-slices, 4H in the fewest slices of a multiple of 128 columns
     (or all 4H) of which two stages fit (H=512: 2048 default, 1024 high;
     H=1024: 2048, 640), as many stages as fit up to 8 and the step's stages
@@ -610,12 +614,17 @@ def test_lstm_train_plans_read_the_mode_bytes():
     ring; bytes by the kernels' layouts; plans for every (N, H) that
     HIGHEST plans, raising only where HIGHEST's do."""
     frags = lambda h, mode: (2 if mode == "high" else 1) * h // 4 * 32 * 8
-    for mode, fwd512, fwd1024 in (("default", 41216, 114944), ("high", 74240, 213504)):
+    for mode, fit512, fit1024 in (("default", 12, 4), ("high", 5, 1)):
         parts = 2 if mode == "high" else 1
         for n in (1, 7, 16, 17, 33, 64, 100, 113, 1300):
-            assert TK.lstm_train_fwd_plan(n, 512, precision=mode) == TK.FwdPlan(
-                4, 128, 16, fwd512)
-            assert TK.lstm_train_fwd_plan(n, 1024, precision=mode).smem_bytes == fwd1024
+            chunks = -(-n // 16)
+            for h, units, fit in ((512, 4, fit512), (1024, 8, fit1024)):
+                teams = 2 if chunks > 1 and fit > 1 else 1
+                stages = min(8, chunks, fit) if teams == 2 else 1
+                smem = (parts * 8 * units * h + stages * parts * 16 * h * 2 + 144
+                        + teams * 8 * 16 * 4 * units * 4)
+                assert TK.lstm_train_fwd_plan(n, h, precision=mode) == TK.FwdPlan(
+                    units, h // units, 16 * stages, teams, smem), (mode, n, h)
             for h, units, k_cols in ((512, 4, 2048 // parts),
                                      (1024, 8, 2048 if parts == 1 else 640)):
                 plan = TK.lstm_train_bwd_plan(n, h, precision=mode)

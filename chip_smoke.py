@@ -67,8 +67,9 @@ Phases, each printed on its own line:
      branches, ``cuobjdump -sass``: HMMA in each of their instantiations and
      in none of the highest ones): the stack and the wavefront at 2x512 for
      (F, N) = (16, 64), (256, 64), (16, 1) (timed), (33, 7), (3, 1300), at
-     one layer of 1024 (16, 64) (timed) and the stack at 3x448 (16, 48)
-     (two teams on two ring slots at high), the bidi layer at (16, 64),
+     one layer of 1024 (16, 64) (timed), both at 3x448 (16, 48) and 4x352
+     (16, 48) (L states a chunk in the wavefront's ring; one team on two
+     ring slots at high), the bidi layer at (16, 64),
      (256, 64), (16, 1), H=1024 (16, 32) and the eval's (4096, 17) (timed),
      each at both modes against its plain version at the same mode
      (TOL_MODE; at high also closer to it than to the plain version at
@@ -191,7 +192,15 @@ wrapper as an event pair around one call, as device time alone and as host
 time alone, with an output digest), and prints the registers and a SASS
 digest of every LSTM kernel instantiation, for the package under TREE
 (``-P``: not the one beside the script); runs of two trees in turns within
-one call compare them.
+one call compare them:
+
+    python3 chip_smoke.py --compare-pairs LOG...
+
+reads the logs of such runs (``compare_pairs``, no card needed) and prints,
+for every timed key and wrapper, each tree's device time alone and event
+time (means over its runs) with the change, whether every output digest
+equals the first tree's (exits 1 where one differs), and the instantiations
+whose registers or SASS differ between the two trees.
 
 Exits non-zero on any failure, and when no CUDA device is present.
 Imports torch, numpy and the port only.
@@ -1101,6 +1110,56 @@ def time_pair() -> int:
             print(f"{key} times: {row}", flush=True)
     print(json.dumps({"package": os.path.dirname(TK.__file__), "times": out}), flush=True)
     return 0
+
+
+def compare_pairs(paths) -> int:
+    """``python3 chip_smoke.py --compare-pairs LOG...``: the output of
+    ``--time-pair`` runs of two trees (one log a run, the trees in turns
+    within one call; the first run's tree is the first tree). Prints, per
+    timed key and wrapper, each tree's device time alone (graph replays) and
+    event time (medians of event pairs), each the mean over the tree's runs,
+    and the second tree's change from the first; whether every run's output
+    digest equals the first run's; and the kernel instantiations whose
+    registers or SASS digest differ between the trees. Returns 1 where an
+    output digest differs, else 0. Needs no card."""
+    code_line = re.compile(r"^(highest|high|default) (\w+) U=(\d+)( wavefront)?: (.*); "
+                           r"\d+ instructions, SASS digest ([0-9a-f]+)$")
+    runs = []  # (package, times, {instantiation: (registers, SASS digest)})
+    for path in paths:
+        result, code = None, {}
+        with open(path) as fh:
+            for line in fh:
+                m = code_line.match(line.strip())
+                if m:
+                    code[" ".join(filter(None, m.group(1, 2, 3, 4)))] = m.group(5, 6)
+                elif line.startswith("{") and '"times"' in line:
+                    result = json.loads(line)
+        check(result is not None, f"{path} holds no --time-pair result")
+        runs.append((result["package"], result["times"], code))
+    trees = list(dict.fromkeys(tree for tree, _, _ in runs))
+    check(len(trees) == 2, f"--compare-pairs needs the runs of two trees, got {trees}")
+    print(f"first tree {trees[0]} ({sum(t == trees[0] for t, _, _ in runs)} runs), second "
+          f"{trees[1]} ({sum(t == trees[1] for t, _, _ in runs)} runs)", flush=True)
+    mean = lambda tree, key, field: float(np.mean([times[key][field] for t, times, _ in runs
+                                                   if t == tree]))
+    differ = 0
+    for key, row in runs[0][1].items():
+        for wrapper in (f[:-len("_digest")] for f in row if f.endswith("_digest")):
+            dev = [mean(tree, key, f"{wrapper}_graph_ms") for tree in trees]
+            ev = [mean(tree, key, f"{wrapper}_ms") for tree in trees]
+            same = all(times[key][f"{wrapper}_digest"] == row[f"{wrapper}_digest"]
+                       for _, times, _ in runs)
+            differ += not same
+            print(f"{key} {wrapper}: device alone {dev[0]:.4f} -> {dev[1]:.4f} ms "
+                  f"({(dev[1] / dev[0] - 1) * 100:+.1f}%), event pair {ev[0]:.4f} -> "
+                  f"{ev[1]:.4f} ms; outputs {'equal' if same else 'DIFFER'}", flush=True)
+    for inst in sorted(set().union(*(code for _, _, code in runs))):
+        seen = [{code.get(inst) for t, _, code in runs if t == tree} for tree in trees]
+        if seen[0] != seen[1]:
+            print(f"{inst}: registers and SASS digest {sorted(map(str, seen[0]))} -> "
+                  f"{sorted(map(str, seen[1]))}", flush=True)
+    print(json.dumps({"trees": trees, "outputs_differ": differ}), flush=True)
+    return 1 if differ else 0
 
 
 def step_probe(mode: str = "highest", f: int = TRAIN_WINDOW, ns=(1, 4, 16, 17, 32, 64)) -> int:
@@ -2444,12 +2503,13 @@ def bf16_product_check() -> None:
 
 def kernel_modes() -> dict:
     """Every mode phase of the kernels: the stack and the wavefront at
-    STACK_TIMED (timed), (33, 7) and (3, 1300) at 2x512, one layer of 1024
-    at (16, 64) (timed) and the stack at 3x448 (16, 48) (at high two teams
-    of the stack order on two ring slots, two items a chunk, three chunks:
-    3x448 has no wavefront plan at high); the bidi
-    layer at BIDI_TIMED, H=1024 (16, 32) and the eval's (4096, 17) (timed).
-    Returns the (16, 64) rows per mode."""
+    STACK_TIMED (timed), (33, 7) and (3, 1300) at 2x512, the stack at one
+    layer of 1024 (16, 64) (timed), both at 3x448 and 4x352 (16, 48) (three
+    and four states a chunk in the wavefront's ring: two teams on eight
+    slots at default, one team on two slots at high; the stack order at
+    3x448 high: one team on two slots, two items a chunk, three chunks);
+    the bidi layer at BIDI_TIMED, H=1024 (16, 32) and the eval's (4096, 17)
+    (timed). Returns the (16, 64) rows per mode."""
     rows = {}
     for mode in MODES:
         stack = {}
@@ -2457,8 +2517,8 @@ def kernel_modes() -> dict:
             stack[(f, n)] = stack_mode_phase(f, n, mode, seed=SEED + f + n,
                                              timed=(f, n) in STACK_TIMED)
         stack_mode_phase(CHUNK, STREAMS, mode, seed=SEED + 1024, h=2 * HIDDEN, layers=1)
-        stack_mode_phase(CHUNK, 48, mode, seed=SEED + 448, h=448, layers=3, timed=False,
-                         wavefront=False)
+        for h, layers in ((448, 3), (352, 4)):
+            stack_mode_phase(CHUNK, 48, mode, seed=SEED + h, h=h, layers=layers, timed=False)
         bidi = {}
         for f, n, h in BIDI_MODE_SHAPES:
             bidi[(f, n, h)] = bidi_mode_phase(f, n, mode, seed=SEED + f + n + 1, h=h)
@@ -2975,6 +3035,8 @@ if __name__ == "__main__":
                                      model=sys.argv[4] if sys.argv[4:] else "lgd"))
     if sys.argv[1:2] == ["--step-probe"]:
         sys.exit(step_probe(*sys.argv[2:3], *map(int, sys.argv[3:4])))
+    if sys.argv[1:2] == ["--compare-pairs"]:
+        sys.exit(compare_pairs(sys.argv[2:]))
     if sys.argv[1:2] == ["--time-pair"]:
         sys.exit(time_pair())
     if sys.argv[1:2] == ["--mode-rounding"]:

@@ -488,7 +488,7 @@ __device__ __forceinline__ void mma_steps(const Sweep& s, int tid) {
 //     the step's chunks, thread 0 publishes the count of the chunks issued
 //     after each issue, and the other warps wait for their chunk's count
 //     before its full mbarrier (mma_steps).  The products of a chunk are split over 8
-//     k-step sets, set w the k-steps w, w + 8, ... (mma_tile's order), a
+//     k-step sets, set w the k-steps w, w + 8, ..., a
 //     warp of a team of 4 taking two of them; each set's partial tile goes
 //     to shared memory (two buffers: one per team, or for one team one per
 //     chunk in turn), and the epilogue sums the 8 in set order: the same

@@ -113,13 +113,9 @@ constexpr int kMmaRows = 16;
 __host__ __device__ constexpr int kpad16(int H) { return (H + 15) / 16 * 16; }
 
 // Bytes of a block's resident columns of one matrix (uint2 B fragments,
-// `parts` planes) and of one staged bf16 plane of a chunk of K columns (row
-// stride Kp + 8: ldmatrix's eight row addresses fall in distinct banks).
+// `parts` planes) and of a team's partial tiles.
 __host__ __device__ constexpr size_t mma_matrix_bytes(int U, int H, int parts) {
   return (size_t)parts * 8 * U * kpad16(H);
-}
-__host__ __device__ constexpr size_t mma_plane_bytes(int K) {
-  return (size_t)kMmaRows * (kpad16(K) + 8) * 2;
 }
 __host__ __device__ constexpr size_t mma_partial_bytes(int U) {
   return (size_t)kMmaWarps * kMmaRows * 4 * U * 4;
@@ -157,51 +153,37 @@ __device__ __forceinline__ void mma_bf16(float (&d)[4], const unsigned (&a)[4], 
 // in B-fragment order: uint2 ((part KS + ks) NT + nt) 32 + lane holds
 // W[k][n], W[k + 1][n] and W[k + 8][n], W[k + 9][n] for k = 16 ks + 2 (lane %
 // 4), n = 8 nt + lane / 4 (k >= H zero), so a lane fetches its fragment with
-// one 8-byte load and a warp's loads are contiguous.
-template <int U, int P>
-__device__ void stage_b_fragments(uint2* dst, const unsigned short* w_hi,
-                                  const unsigned short* w_lo, int H, int j0, int tid,
-                                  int nthreads) {
-  constexpr int NT = U / 2;
-  const int KS = kpad16(H) / 16;
-  const int per_part = KS * NT * 32;
-  for (int idx = tid; idx < kParts<P> * per_part; idx += nthreads) {
-    const unsigned short* w = idx < per_part ? w_hi : w_lo;
-    const int rem = idx % per_part;
-    const int lane = rem % 32, nt = rem / 32 % NT, ks = rem / 32 / NT;
-    const int n = nt * 8 + lane / 4;
-    const size_t col = (size_t)(n % 4) * H + j0 + n / 4;
-    const int k0 = ks * 16 + (lane % 4) * 2;
-    auto at = [&](int k) -> unsigned { return k < H ? (unsigned)__ldg(w + (size_t)k * 4 * H + col) : 0u; };
-    dst[idx] = make_uint2(at(k0) | at(k0 + 1) << 16, at(k0 + 8) | at(k0 + 9) << 16);
-  }
-}
-
-// stage_b_fragments' layout from wide loads: thread item (part, k, gate g)
-// reads the block's U units of gate g at row k (U bf16: 16 bytes at U=8, 8
-// at U=4, aligned since U divides H and j0), four items' loads in flight
-// before their 2-byte stores into the fragments.  U / 4 loads an item where
-// stage_b_fragments takes 4 U scattered 2-byte ones, so a block stages its
-// columns in a few load round trips (the bidirectional kernel's prologue).
+// one 8-byte load and a warp's loads are contiguous.  From wide loads: thread
+// item (part, k, gate g) reads the block's U units of gate g at row k (U
+// bf16: 16 bytes at U=8, 8 at U=4, 4 at U=2, aligned since U divides H and
+// j0), four items' loads in flight before their 2-byte stores into the
+// fragments, so a block stages its columns in a few load round trips.
 template <int U, int P>
 __device__ void stage_b_fragments_vec(uint2* dst, const unsigned short* w_hi,
                                       const unsigned short* w_lo, int H, int j0, int tid,
                                       int nthreads) {
+  static_assert(U == 2 || U % 4 == 0, "an item is one 4-byte load or U / 4 8-byte ones");
   constexpr int NT = U / 2, kBatch = 4;
   const int Kp = kpad16(H), KS = Kp / 16;
   const int items = kParts<P> * Kp * 4;
   unsigned short* d16 = reinterpret_cast<unsigned short*>(dst);
   for (int first = tid; first < items; first += kBatch * nthreads) {
-    uint2 q[kBatch][U / 4];
+    uint2 q[kBatch][(U + 3) / 4];
 #pragma unroll
     for (int b = 0; b < kBatch; ++b) {
       const int idx = first + b * nthreads, g = idx % 4, k = idx / 4 % Kp;
       const unsigned short* w = idx / (4 * Kp) == 0 ? w_hi : w_lo;
-      const uint2* src =
-          reinterpret_cast<const uint2*>(w + (size_t)k * 4 * H + (size_t)g * H + j0);
+      if constexpr (U == 2) {
+        const unsigned* src =
+            reinterpret_cast<const unsigned*>(w + (size_t)k * 4 * H + (size_t)g * H + j0);
+        q[b][0].x = idx < items && k < H ? __ldg(src) : 0u;
+      } else {
+        const uint2* src =
+            reinterpret_cast<const uint2*>(w + (size_t)k * 4 * H + (size_t)g * H + j0);
 #pragma unroll
-      for (int i = 0; i < U / 4; ++i)
-        q[b][i] = idx < items && k < H ? __ldg(src + i) : make_uint2(0u, 0u);
+        for (int i = 0; i < U / 4; ++i)
+          q[b][i] = idx < items && k < H ? __ldg(src + i) : make_uint2(0u, 0u);
+      }
     }
 #pragma unroll
     for (int b = 0; b < kBatch; ++b) {
@@ -219,75 +201,6 @@ __device__ void stage_b_fragments_vec(uint2* dst, const unsigned short* w_hi,
       }
     }
   }
-}
-
-// Rows r0 .. r0 + 15 of an f32 matrix src (N rows, row stride ld floats,
-// read through L2: other blocks wrote them before the grid barrier), its
-// columns 0 .. K - 1 (K % 4 == 0, src and ld on a 16-byte boundary), as bf16
-// planes of row stride Kp + 8 (Kp = kpad16(K)): hi at dst, lo at dst +
-// lo_off at HIGH; rows past N and columns past K zero.  Threads ttid of
-// nthreads, 4 columns each.
-template <int P>
-__device__ __forceinline__ void stage_cols_bf16(__nv_bfloat16* dst, size_t lo_off,
-                                                const float* src, size_t ld, int r0, int N,
-                                                int K, int ttid, int nthreads) {
-  const int Kp = kpad16(K), C4 = Kp / 4, stride = Kp + 8;
-  for (int e = ttid; e < kMmaRows * C4; e += nthreads) {
-    const int r = e / C4, c = e % C4 * 4;
-    float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (r0 + r < N && c < K)
-      v = __ldcg(reinterpret_cast<const float4*>(src + (size_t)(r0 + r) * ld + c));
-    uint2 hi, lo;
-    split_bf16x2(v.x, v.y, hi.x, lo.x);
-    split_bf16x2(v.z, v.w, hi.y, lo.y);
-    *reinterpret_cast<uint2*>(dst + (size_t)r * stride + c) = hi;
-    if constexpr (P == kHigh) *reinterpret_cast<uint2*>(dst + lo_off + (size_t)r * stride + c) = lo;
-  }
-}
-
-// Rows r0 .. r0 + 15 of the f32 state src (N rows of H) as bf16 planes
-// (stage_cols_bf16 over all H columns).
-template <int P>
-__device__ __forceinline__ void stage_rows_bf16(__nv_bfloat16* dst, size_t lo_off,
-                                                const float* src, int r0, int N, int H,
-                                                int ttid, int nthreads) {
-  stage_cols_bf16<P>(dst, lo_off, src, H, r0, N, H, ttid, nthreads);
-}
-
-// acc[nt] += a staged chunk of K columns (planes a, a + lo_off; row stride
-// kpad16(K) + 8) times NT n-tiles of resident B fragments b (k-step ks,
-// n-tile nt at (ks NT + nt) 32 + lane; the lo parts b_lo uint2 further on
-// at HIGH), over this warp's k-steps warp, warp + kMmaWarps, ...  HIGH adds
-// ah*bh, al*bh, ah*bl per k-step (al*bl dropped, as in JAX's dot3).
-template <int NT, int P>
-__device__ __forceinline__ void mma_tile(float (&acc)[NT][4], const __nv_bfloat16* a,
-                                         size_t lo_off, int K, const uint2* b, size_t b_lo,
-                                         int warp, int lane) {
-  const int KS = kpad16(K) / 16;
-  const __nv_bfloat16* row = a + (size_t)(lane % 16) * (kpad16(K) + 8) + (lane / 16) * 8;
-  for (int ks = warp; ks < KS; ks += kMmaWarps) {
-    unsigned ah[4], al[4];
-    ldmatrix_x4(ah, row + ks * 16);
-    if constexpr (P == kHigh) ldmatrix_x4(al, row + lo_off + ks * 16);
-#pragma unroll
-    for (int nt = 0; nt < NT; ++nt) {
-      const uint2 bh = b[(ks * NT + nt) * 32 + lane];
-      mma_bf16(acc[nt], ah, bh);
-      if constexpr (P == kHigh) {
-        mma_bf16(acc[nt], al, bh);
-        mma_bf16(acc[nt], ah, b[b_lo + (ks * NT + nt) * 32 + lane]);
-      }
-    }
-  }
-}
-
-// acc[nt] += the staged chunk of a state (H columns) times the resident
-// columns b of one matrix (stage_b_fragments).
-template <int U, int P>
-__device__ __forceinline__ void mma_rows(float (&acc)[U / 2][4], const __nv_bfloat16* a,
-                                         size_t lo_off, const uint2* b, int H, int warp,
-                                         int lane) {
-  mma_tile<U / 2, P>(acc, a, lo_off, H, b, (size_t)kpad16(H) / 16 * (U / 2) * 32, warp, lane);
 }
 
 // The warp's partial tile into part[warp][16][4U] (f32): lane l holds rows
@@ -338,9 +251,8 @@ __device__ __forceinline__ size_t exchange_index(int n, int j, int KS) {
   return ((size_t)(n / kMmaRows) * KS + j / 16) * kTile + tile_offset(n % kMmaRows, j % 16);
 }
 
-// h's bf16 form (hi, and lo at HIGH: split_bf16x2, the rounding of
-// stage_cols_bf16) at row n, column j of one state's parts in an exchange
-// buffer (x_part bf16 per part).
+// h's bf16 form (hi, and lo at HIGH: split_bf16x2) at row n, column j of
+// one state's parts in an exchange buffer (x_part bf16 per part).
 template <int P>
 __device__ __forceinline__ void put_state(unsigned short* x, size_t x_part, int n, int j, int KS,
                                           float h) {
@@ -353,8 +265,8 @@ __device__ __forceinline__ void put_state(unsigned short* x, size_t x_part, int 
 
 // acc[nt] += one k-step tile (planes `tile`, and tile + lo_off at HIGH)
 // times NT n-tiles of that k-step's B fragments (b[nt 32 + lane]; the lo
-// parts b_lo uint2 further on at HIGH): mma_tile's products of one k-step,
-// in its order (ah*bh, al*bh, ah*bl at HIGH).
+// parts b_lo uint2 further on at HIGH): ah*bh, and al*bh, ah*bl at HIGH,
+// in this order (al*bl dropped, as in JAX's dot3).
 template <int NT, int P>
 __device__ __forceinline__ void mma_ktile(float (&acc)[NT][4], const __nv_bfloat16* tile,
                                           size_t lo_off, const uint2* b, size_t b_lo, int lane) {

@@ -89,28 +89,20 @@
 // columns in B-fragment order (half of HIGHEST's bytes at DEFAULT, the same
 // at HIGH).  Gates, cell update and masking are the HIGHEST code's, in f32;
 // the same schedule and grid barriers, no atomics: two launches give the
-// same bits.  The two orders have their own bodies:
-//   * The stack order (ring_body, the user paths' one).  Every block needs
-//     all N rows of the layer states it multiplies, so their bf16 form is
-//     made once, by the thread that writes the f32 value, into a two-slot
-//     exchange per layer laid out as the A operand's k-step tiles; after
-//     each grid barrier one thread streams the phase's 16-row chunks of each
-//     state into a ring of shared-memory slots by bulk copies (the Tensor
-//     Memory Accelerator) on mbarriers, and the warps multiply each chunk as
-//     it lands, over 8 disjoint k-step sets; where a phase has two chunks or
-//     more and the ring two slots, two teams of 4 warps take them in turns,
-//     one team's epilogue beside the other's products.  The sets' partial
-//     tiles meet in shared memory, summed in set order by one thread per
-//     (row, unit).  The block's columns come in by wide loads
-//     (stage_b_fragments_vec).  The details: ring_body.
-//   * The wavefront order (wave_mma_body, the bench tool's).  A team takes
-//     its chunks of 16 rows one at a time: it converts each staged state's
-//     rows once into bf16 (a hi plane; hi and lo at HIGH, rows past N zero)
-//     from L2, its 8 warps multiply over disjoint k-steps, and the partial
-//     tiles meet in shared memory, summed in warp order by one thread per
-//     (row, unit, gate), which adds the gate input and applies the
-//     nonlinearity; the first of each four writes h, c and the output.  Two
-//     teams of 8 warps at U=4 where they fit.
+// same bits.  Both orders run one body (ring_body): every block needs all N
+// rows of the layer states it multiplies, so their bf16 form is made once,
+// by the thread that writes the f32 value, into a two-slot exchange per
+// layer laid out as the A operand's k-step tiles; after each grid barrier
+// one thread streams the phase's 16-row chunks of each staged state (once
+// each, in the wavefront order too) into a ring of shared-memory slots by
+// bulk copies (the Tensor Memory Accelerator) on mbarriers, and the warps
+// multiply each chunk as it lands, over 8 disjoint k-step sets; where a
+// phase has two chunks or more and the ring more slots than a chunk has
+// items, two teams of 4 warps take them in turns, one team's epilogue
+// beside the other's products.  The sets' partial tiles meet in shared
+// memory, summed in set order by one thread per (row, unit).  The block's
+// columns come in by wide loads (stage_b_fragments_vec).  The details:
+// ring_body.
 // The grid must be co-resident for the barrier: lstm_stack_prepare sets the
 // kernel's shared memory and checks its occupancy once per device, the plan
 // keeps the grid within the SMs, and the C entries only launch
@@ -158,21 +150,21 @@ constexpr int kTeamWarps = kTeamThreads / 32;
 constexpr int kPassRows = 16;  // rows of a staged chunk
 constexpr int kUnitPair = 2;   // units a warp multiplies at once
 
-// Teams of 256 threads of a block of the HIGHEST and the wavefront bodies,
-// at most (see the head note): U=4 runs two, U=8 one.
+// Teams of 256 threads of a block of the HIGHEST body, at most (see the head
+// note): U=4 runs two, U=8 one.
 template <int U>
 constexpr int kTeams = U == 4 ? 2 : 1;
 template <int U>
 constexpr int kBlockThreads = kTeamThreads * kTeams<U>;
 
-// The stack order's HIGH and DEFAULT body (ring_body) runs blocks of 8 warps
-// (one team of 8, or two of 4) at every U, and a ring of at most kMaxStages
-// slots (its mbarriers and the count of the items issued: kRingSyncBytes,
-// lstm_common.cuh).
+// The HIGH and DEFAULT body (ring_body) runs blocks of 8 warps (one team of
+// 8, or two of 4) at every U, in both orders, and a ring of at most
+// kMaxStages slots (its mbarriers and the count of the items issued:
+// kRingSyncBytes, lstm_common.cuh).
 constexpr int kRingThreads = 256;
 constexpr int kRingWarps = kRingThreads / 32;
-template <int U, bool kWave, int P>
-constexpr int kKernelThreads = P != kHighest && !kWave ? kRingThreads : kBlockThreads<U>;
+template <int U, int P>
+constexpr int kKernelThreads = P != kHighest ? kRingThreads : kBlockThreads<U>;
 
 // Error codes beside cudaError_t values (which are >= 0); the same values
 // as lstm_bidi.cu and lstm_train.cu.
@@ -205,20 +197,8 @@ __host__ __device__ constexpr size_t smem_floats(int U, int H, int L, int planes
   return (size_t)(2 * L - 1) * round32((size_t)4 * U * H) + (size_t)planes * stage_rows * H;
 }
 
-// Shared memory of a block of the wavefront order at HIGH and DEFAULT
-// (bytes), in this order: the B fragments of every W_hh and of W_ih of
-// layers >= 1 (lstm_common.cuh, `parts` planes each), then per team
-// `planes` staged bf16 chunks of `parts` planes each and the team's partial
-// tiles.  The same formula as ops/lstm_kernel.py::stack_smem_bytes.
-__host__ __device__ constexpr size_t mma_smem_bytes(int U, int H, int L, int planes, int teams,
-                                                    int parts) {
-  return (size_t)(2 * L - 1) * lstm::mma_matrix_bytes(U, H, parts) +
-         (size_t)teams * ((size_t)planes * parts * lstm::mma_plane_bytes(H) +
-                          lstm::mma_partial_bytes(U));
-}
-
-// Shared memory of a block of the stack order at HIGH and DEFAULT (bytes),
-// in this order: the B fragments of the 2L - 1 matrices; a ring of
+// Shared memory of a block at HIGH and DEFAULT, in both orders (bytes), in
+// this order: the B fragments of the 2L - 1 matrices; a ring of
 // `stages` slots, each one state's 16-row chunk in bf16 k-step tiles
 // (`parts` planes); the ring's mbarriers and the count of its items issued
 // (kRingSyncBytes); two buffers of the partial tiles.  The same formula as
@@ -246,7 +226,7 @@ struct StackArgs {
   float* hbuf;           // (2, L, N, H): layer l's h after step t in hbuf[(t + 1) & 1][l]
   float* c_out;          // (L, N, H): c, cF at the end
   int F, N, H, L, stage_rows, teams;
-  void* xbuf;  // the stack order at HIGH and DEFAULT: the bf16 exchange (ring_body), else null
+  void* xbuf;  // at HIGH and DEFAULT: the bf16 exchange (ring_body), else null
 };
 
 // acc += the NP staged rows `rows` (stride H) times the eight gate columns
@@ -523,149 +503,6 @@ __device__ __forceinline__ void fp32_body(const StackArgs& a, float* smem) {
   }
 }
 
-// The wavefront order's HIGH and DEFAULT body (see the head note): the
-// phases of fp32_body, each team taking its chunks team, team + teams, ...
-// one at a time through one slot of staged bf16 planes and one set of
-// partial tiles.  Layer l's state after step tau is read through L2 (hbuf,
-// h0 before the first step).
-template <int U, int P>
-__device__ __forceinline__ void wave_mma_body(const StackArgs& a, float* smem) {
-  constexpr int NT = U / 2;
-  constexpr int C = 4 * U;                           // the block's gate columns of a matrix
-  constexpr int kEpi = kMmaRows * C / kTeamThreads;  // (row, column) outputs of a thread
-  constexpr int kP = kParts<P>;
-  const int F = a.F, N = a.N, H = a.H, L = a.L, teams = a.teams;
-  const size_t NH = (size_t)N * H;
-  const int planes = stage_planes(L, true);
-  const size_t mat = lstm::mma_matrix_bytes(U, H, kP) / sizeof(uint2);  // fragments per matrix
-  const size_t plane = lstm::mma_plane_bytes(H) / 2;                     // bf16 per plane
-  uint2* w_b = reinterpret_cast<uint2*>(smem);
-  char* teams_base = reinterpret_cast<char*>(w_b + (2 * L - 1) * mat);
-  const size_t team_bytes = (size_t)planes * kP * lstm::mma_plane_bytes(H) +
-                            lstm::mma_partial_bytes(U);
-
-  const int tid = threadIdx.x;
-  const int team = tid / kTeamThreads;
-  const int ttid = tid % kTeamThreads;
-  const int lane = tid % 32;
-  const int warp = ttid / 32;
-  const int j0 = blockIdx.x * U;
-  __nv_bfloat16* a_s = reinterpret_cast<__nv_bfloat16*>(teams_base + team * team_bytes);
-  float* part = reinterpret_cast<float*>(teams_base + team * team_bytes +
-                                         (size_t)planes * kP * lstm::mma_plane_bytes(H));
-  auto team_sync = [&]() {
-    if (team == 0)
-      asm volatile("bar.sync 1, %0;\n" ::"n"(kTeamThreads) : "memory");
-    else
-      asm volatile("bar.sync 2, %0;\n" ::"n"(kTeamThreads) : "memory");
-  };
-  cg::grid_group grid = cg::this_grid();
-
-  const size_t HW = (size_t)H * 4 * H;
-  for (int mi = 0; mi < 2 * L - 1; ++mi) {
-    const bool up = mi >= L;
-    const size_t off = (up ? mi - L : mi) * HW;
-    const auto* hi = static_cast<const unsigned short*>(up ? a.w_ih_up : a.w_hh) + off;
-    const auto* lo = static_cast<const unsigned short*>(up ? a.w_ih_up_lo : a.w_hh_lo);
-    lstm::stage_b_fragments<U, P>(w_b + mi * mat, hi, lo ? lo + off : nullptr, H, j0, tid,
-                                  teams * kTeamThreads);
-  }
-  __syncthreads();
-
-  const int n_chunks = (N + kMmaRows - 1) / kMmaRows;
-  const int n_phases = F + L - 1;
-  for (int ph = 0; ph < n_phases; ++ph) {
-    const int l_first = max(0, ph - F + 1);
-    const int l_last = min(L - 1, ph);
-    const int wave = ph;
-    const int lo = max(0, l_first - 1);
-    // Layer k's state after step tau: h0 before the first step, else hbuf[(tau + 1) & 1].
-    auto state = [&](int k, int tau) -> const float* {
-      return tau < 0 ? a.h0 + k * NH : a.hbuf + ((size_t)((tau + 1) & 1) * L + k) * NH;
-    };
-    for (int c = team; c < n_chunks; c += teams) {
-      const int r0 = c * kMmaRows;
-      for (int l = l_first; l <= l_last; ++l) {
-        const int t = wave - l;
-        const float* mask_t = a.mask + (size_t)t * N;
-        // The cell's operands of thread (row r, column n = 4u + g), read
-        // before the staging and the products so that their latency hides
-        // behind them: the gate input (x0_proj for layer 0, the bias
-        // above), and for the first of each four the mask, the old c and
-        // the old h (layer l's state after t - 1).
-        float x_in[kEpi], m[kEpi], c_old[kEpi], h_old[kEpi];
-#pragma unroll
-        for (int e = 0; e < kEpi; ++e) {
-          const int idx = ttid + kTeamThreads * e;
-          const int nn = idx % C, g = nn % 4, n = r0 + idx / C;
-          const size_t off = (size_t)n * H + j0 + nn / 4;
-          x_in[e] = m[e] = c_old[e] = h_old[e] = 0.0f;
-          if (n < N) {
-            x_in[e] = __ldg(l == 0 ? a.x0_proj + ((size_t)t * N + n) * 4 * H + g * H + j0 + nn / 4
-                                   : a.b_up + (size_t)(l - 1) * 4 * H + g * H + j0 + nn / 4);
-            if (g == 0) {
-              m[e] = __ldg(mask_t + n);
-              c_old[e] = (t == 0 ? a.c0 : a.c_out)[l * NH + off];
-              h_old[e] = __ldcg(state(l, t - 1) + off);
-            }
-          }
-        }
-        if (l == l_first) {
-          for (int k = lo; k <= l_last; ++k)
-            lstm::stage_rows_bf16<P>(a_s + (size_t)(k - lo) * kP * plane, plane,
-                                     state(k, wave - k - 1), r0, N, H, ttid, kTeamThreads);
-          team_sync();  // the chunk's planes are staged, and the partials of the chunk before read
-        }
-        float acc[NT][4];
-#pragma unroll
-        for (int nt = 0; nt < NT; ++nt) acc[nt][0] = acc[nt][1] = acc[nt][2] = acc[nt][3] = 0.f;
-        if (kStacked<U> && l > 0) {  // the input product, with W_ih[l] (matrix L + l - 1)
-          lstm::mma_rows<U, P>(acc, a_s + (size_t)(l - 1 - lo) * kP * plane, plane,
-                               w_b + (L + l - 1) * mat, H, warp, lane);
-          // The input is layer l-1's output h_new * mask; the staged row is its state.
-          const int g = r0 + lane / 4;
-          const float m0 = g < N ? __ldg(mask_t + g) : 0.f;
-          const float m1 = g + 8 < N ? __ldg(mask_t + g + 8) : 0.f;
-#pragma unroll
-          for (int nt = 0; nt < NT; ++nt) {
-            acc[nt][0] *= m0;
-            acc[nt][1] *= m0;
-            acc[nt][2] *= m1;
-            acc[nt][3] *= m1;
-          }
-        }
-        lstm::mma_rows<U, P>(acc, a_s + (size_t)(l - lo) * kP * plane, plane, w_b + l * mat, H,
-                             warp, lane);
-        lstm::store_partials<U>(part, acc, warp, lane);
-        team_sync();  // the partials are there, and every warp is done with the planes
-
-        // Thread (row r, column n = 4u + g): the gate's sum, input, nonlinearity.
-#pragma unroll
-        for (int e = 0; e < kEpi; ++e) {
-          const int idx = ttid + kTeamThreads * e;
-          const int r = idx / C, nn = idx % C, g = nn % 4;
-          const int n = r0 + r;
-          const float pre = lstm::sum_partials<U>(part, r, nn) + x_in[e];
-          const float act = g == 2 ? tanhf(pre) : sigmoid_f(pre);
-          float gate[4];
-#pragma unroll
-          for (int q = 0; q < 4; ++q) gate[q] = __shfl_sync(0xffffffffu, act, (lane & ~3) + q);
-          if (g == 0 && n < N) {
-            const size_t off = (size_t)n * H + j0 + nn / 4;
-            const float c_new = gate[1] * c_old[e] + gate[0] * gate[2];
-            const float h_new = gate[3] * tanhf(c_new);
-            a.hbuf[((size_t)((t + 1) & 1) * L + l) * NH + off] = m[e] > 0.0f ? h_new : h_old[e];
-            a.c_out[l * NH + off] = m[e] > 0.0f ? c_new : c_old[e];
-            if (l == L - 1) a.outs[t * NH + off] = h_new * m[e];
-          }
-        }
-        if (l < l_last) team_sync();  // every thread has read the partials
-      }
-    }
-    if (ph + 1 < n_phases) grid.sync();  // every block's rows of this phase's states are written
-  }
-}
-
 // The cell operands of a thread's (row, unit) of a chunk at a phase: the
 // four gate inputs (x0_proj's columns for layer 0, the bias above), the
 // mask, the old c and the old h.
@@ -673,8 +510,8 @@ struct CellOps {
   float x[4], m, c, h;
 };
 
-// What the phases of the stack order's HIGH and DEFAULT body share: the
-// block's shared memory (ring_body).
+// What the phases of the HIGH and DEFAULT body share: the block's shared
+// memory (ring_body).
 struct Ring {
   int KS, n_chunks, stages;
   size_t plane;   // bf16 of one part of a state's chunk
@@ -687,14 +524,48 @@ struct Ring {
   float* part;                       // the two buffers of partial tiles
 };
 
-// The phases of the stack order's HIGH and DEFAULT body (see ring_body) with
-// TEAMS teams of 8 / TEAMS warps, team g taking the chunks g, g + TEAMS, ...
-// of every phase.  With kReuse (two layers, where the ring holds every item
-// of a phase at once) phase (t, 0) multiplies layer 0's state after t - 1
-// in place: phase (t - 1, 1) copied it as its chunks' input.  Then item i
-// of a phase (t, 1) sits in slot i, and phase (0, 0) copies chunk c into
-// slot 2c.
-template <int U, int P, int TEAMS, bool kReuse>
+// A phase of either order (fp32_body's phases): its wave index and its run
+// of active layers [l_first, l_last].  It stages the states of layers lo =
+// max(0, l_first - 1) ... l_last, layer k's after step wave - k - 1.  Both
+// orders start at phase {0, 0, 0}; the stack order runs phase (t, l) as
+// {t + l, l, l}, the wavefront order phase p as {p, max(0, p - F + 1),
+// min(L - 1, p)}.
+struct Phase {
+  int wave, l_first, l_last;
+};
+template <bool kWave>
+__device__ __forceinline__ Phase next_phase(const Phase& q, int F, int L) {
+  if constexpr (kWave)
+    return Phase{q.wave + 1, max(0, q.wave + 2 - F), min(L - 1, q.wave + 1)};
+  else if (q.l_first + 1 < L)
+    return Phase{q.wave + 1, q.l_first + 1, q.l_first + 1};
+  else
+    return Phase{q.wave + 2 - L, 0, 0};
+}
+
+// Whether a phase of n_chunks chunks of ipc items each, taken in turns by
+// two teams (chunk c by team c % 2), keeps the count of the items issued on
+// a ring of `stages` slots: where some item i >= stages finds its slot's
+// item before, i - stages, in a chunk of the other team, which may still be
+// in flight when a warp of this team waits for item i.  A slot's other
+// items before are this team's, read before, or an earlier phase's, landed
+// before its grid barrier.  The chunks' difference repeats with period ipc
+// in i.  The same rule as tests/torch_ring_model.py count_needed.
+__device__ __forceinline__ bool count_needed(int n_chunks, int stages, int ipc) {
+  for (int i = stages; i < n_chunks * ipc && i < stages + ipc; ++i)
+    if ((i / ipc - (i - stages) / ipc) % 2 != 0) return true;
+  return false;
+}
+
+// The phases of the HIGH and DEFAULT body (see ring_body) in the stack order
+// or (kWave) the wavefront order, with TEAMS teams of 8 / TEAMS warps, team g
+// taking the chunks g, g + TEAMS, ... of every phase and, in each chunk, the
+// phase's active layers in order.  With kReuse (the stack order at two
+// layers, where the ring holds every item of a phase at once) phase (t, 0)
+// multiplies layer 0's state after t - 1 in place: phase (t - 1, 1) copied
+// it as its chunks' input.  Then item i of a phase (t, 1) sits in slot i,
+// and phase (0, 0) copies chunk c into slot 2c.
+template <int U, int P, int TEAMS, bool kReuse, bool kWave>
 __device__ __forceinline__ void ring_phases(const StackArgs& a, const Ring& s, int tid) {
   constexpr int C = 4 * U;   // the block's gate columns of a matrix
   constexpr int NT = U / 2;  // their n8 tiles
@@ -704,6 +575,7 @@ __device__ __forceinline__ void ring_phases(const StackArgs& a, const Ring& s, i
   constexpr int kTT = kRingThreads / TEAMS;
   static_assert(kRingWarps == lstm::kMmaWarps, "one k-step set per warp, two per warp of a team of 4");
   static_assert(kMmaRows * U <= kTT, "a thread per (row, unit) of a chunk");
+  static_assert(!(kReuse && kWave), "the wavefront order stages each state once a phase");
   const int lane = tid % 32, warp = tid / 32;
   const int team = warp / kTW, tw = warp % kTW, ttid = tid % kTT;
   // Epilogue thread ttid < 16 U: row r = ttid / U, unit u = ttid % U.
@@ -724,7 +596,7 @@ __device__ __forceinline__ void ring_phases(const StackArgs& a, const Ring& s, i
     else
       asm volatile("bar.sync %0, %1;\n" ::"r"(1 + team), "n"(kTT) : "memory");
   };
-  // Chunk c's cell operands at phase (t, l) into o (row c 16 + r, unit u).
+  // Chunk c's cell operands of layer l at step t into o (row c 16 + r, unit u).
   auto load = [&](CellOps& o, int t, int l, int c) {
     const int n = c * kMmaRows + r;
     o.x[0] = o.x[1] = o.x[2] = o.x[3] = o.m = o.c = o.h = 0.0f;
@@ -740,29 +612,44 @@ __device__ __forceinline__ void ring_phases(const StackArgs& a, const Ring& s, i
     }
   };
   CellOps cur, nxt;
-  load(nxt, 0, 0, team);
+  load(nxt, 0, 0, team);  // phase 0: layer 0 at step 0
+  // Where a slot's item before may be the other team's and in flight
+  // (count_needed), thread 0 publishes the count of the items issued after
+  // each, and a warp other than thread 0's first waits until its item is
+  // issued: the slot's item before has landed then (thread 0 waited for its
+  // readers), so the full mbarrier is one phase behind or done, never two
+  // behind, where the parity would pass early.  tests/torch_ring_model.py
+  // models these waits.  Bit k: the phases of k items a chunk keep the count.
+  unsigned counted = 0;
+  if constexpr (TEAMS > 1 && !kReuse)
+    for (int k = 1; k <= (kWave ? min(L, 31) : 2); ++k)
+      if (count_needed(n_chunks, stages, k)) counted |= 1u << k;
 
-  const int n_phases = F * L;
-  for (int ph = 0; ph < n_phases; ++ph) {
-    const int t = ph / L, l = ph % L;
-    // The phase's items, one state's chunk each: chunk c's input (layer l -
-    // 1's state after t; l >= 1) as item 2c and its recurrent operand
-    // (layer l's after t - 1) as item 2c + 1; at layer 0 the recurrent
-    // operand as item c.  Item i is the (base + i)-th of the launch.
-    const int ipc = kStacked<U> && l > 0 ? 2 : 1;
-    const int n_items = kReuse && l == 0 && t > 0 ? 0 : n_chunks * ipc;
-    const int base = t * n_chunks * (2 * L - 1) + (l > 0 ? n_chunks * (2 * l - 1) : 0);
-    const unsigned short* rec_src = layer_slot(t & 1, l);
-    const unsigned short* in_src = l > 0 ? layer_slot((t + 1) & 1, l - 1) : rec_src;
+  const int n_phases = kWave ? F + L - 1 : F * L;
+  int base = 0;  // the items of the launch before the phase's
+  Phase q{0, 0, 0};
+  for (int ph = 0; ph < n_phases; ++ph, q = next_phase<kWave>(q, F, L)) {
+    // The phase's items, one state's chunk each: chunk c's state of layer k
+    // (lo <= k <= l_last) as item c ipc + k - lo; so in the stack order at l
+    // >= 1 chunk c's input as item 2c and its recurrent operand as item 2c +
+    // 1, at layer 0 its recurrent operand as item c.  Item i is the (base +
+    // i)-th of the launch.
+    const int lo = max(0, q.l_first - 1);
+    const int ipc = kWave ? q.l_last - lo + 1 : (kStacked<U> && q.l_first > 0 ? 2 : 1);
+    const int l_last = kWave ? q.l_last : q.l_first;
+    const int n_items = kReuse && q.l_first == 0 && q.wave > 0 ? 0 : n_chunks * ipc;
+    const bool count = ipc < 32 ? (counted >> ipc) & 1u
+                                : TEAMS > 1 && !kReuse && count_needed(n_chunks, stages, ipc);
     // Item i's slot and the count of the slot's copies before it (its full
     // mbarrier's phase).  With reuse slot 2c is copied at phase (0, 0) and
     // at every phase (t, 1), slot 2c + 1 at every phase (t, 1); phase (t >
     // 0, 0) reads slot 2c's copy of phase (t - 1, 1).
     auto slot_use = [&](int i, int& slot, int& use) {
+      const int t = q.wave - q.l_first;
       if constexpr (!kReuse) {
         slot = (base + i) % stages;
         use = (base + i) / stages;
-      } else if (l == 0) {
+      } else if (q.l_first == 0) {
         slot = 2 * i;
         use = t;
       } else {
@@ -770,46 +657,50 @@ __device__ __forceinline__ void ring_phases(const StackArgs& a, const Ring& s, i
         use = t + (i % 2 == 0);
       }
     };
-    // Item i into its slot: one bulk copy a part, issued by thread 0 once
-    // the warps are done with the slot's previous item (with reuse every
-    // item is issued after the grid barrier, when they are).
-    auto issue = [&](int i) {
+    // The phase's next item into its slot: one bulk copy a part, issued by
+    // thread 0 once the warps are done with the slot's previous item (with
+    // reuse every item is issued after the grid barrier, when they are).
+    // Layer k's state after step wave - k - 1 lies in slot (wave - k) & 1 of
+    // layer k.  Thread 0 counts the phase's items issued and keeps the next
+    // one's chunk and layer.
+    int issued = 0, next_c = 0, next_k = lo;
+    auto issue_next = [&]() {
+      const int i = issued++;
       int slot, use;
       slot_use(i, slot, use);
       if (!kReuse && use > 0) mbar_wait(s.empty + slot, (use - 1) & 1);
       mbar_expect_tx(s.full + slot, kP * chunk_bytes);
-      const unsigned short* src = (ipc == 2 && i % 2 == 0 ? in_src : rec_src) +
-                                  (size_t)(i / ipc) * s.plane;
+      const unsigned short* src =
+          layer_slot((q.wave - next_k) & 1, next_k) + (size_t)next_c * s.plane;
 #pragma unroll
       for (int p = 0; p < kP; ++p)
         bulk_copy(s.ring + ((size_t)slot * kP + p) * s.plane, src + p * s.x_part, chunk_bytes,
                   s.full + slot);
-      if constexpr (TEAMS > 1 && !kReuse) store_release(s.issued, base + i + 1);
+      if (count) store_release(s.issued, base + i + 1);
+      if (next_k++ == l_last) {
+        next_k = lo;
+        ++next_c;
+      }
     };
-    int issued = 0;  // thread 0: the phase's items issued
     if (tid == 0) {
       fence_proxy_async_global();
-      for (; issued < min(stages, n_items); ++issued) issue(issued);
+      while (issued < min(stages, n_items)) issue_next();
     }
     // acc[v] += item i times matrix mi over the k-step sets tw (and tw + 4
-    // in a team of 4 warps): wait for the item, multiply, free its slot;
-    // then thread 0 issues every item whose slot's previous item is this
-    // one or older.  With two teams the ring has more slots than a chunk
-    // has items (the plan), so team 0's next item is issued by then too.
-    // Without reuse a slot's items alternate between the teams, and a warp
-    // other than thread 0's first waits until item i is issued: the slot's
-    // item before it has landed then (thread 0 waited for its readers), so
-    // the full mbarrier is one phase behind or done, never two behind,
-    // where the parity would pass early.  tests/test_torch_stack_modes.py
-    // models these waits.
-    auto product = [&](float(&acc)[TEAMS][NT][4], int i, int mi) {
+    // in a team of 4 warps).  The warp waits for the item at its first use
+    // and frees its slot after its last (in the wavefront order layer k's
+    // state is multiplied by W_hh[k], then as layer k + 1's input by W_ih[k
+    // + 1]); then thread 0 issues every item whose slot's previous item is
+    // this one or older.  With two teams the ring has more slots than a
+    // chunk has items (the plan), so team 0's next chunk is issued by then.
+    auto product = [&](float(&acc)[TEAMS][NT][4], int i, int mi, bool first, bool last) {
       int slot, use;
       slot_use(i, slot, use);
-      if constexpr (TEAMS > 1 && !kReuse) {
-        if (warp > 0) wait_issued(s.issued, base + i, lane);
+      if (first) {
+        if (count && warp > 0) wait_issued(s.issued, base + i, lane);
+        mbar_wait(s.full + slot, use & 1);  // item i has landed
+        __syncwarp();                       // the warp's lanes together again
       }
-      mbar_wait(s.full + slot, use & 1);  // item i has landed
-      __syncwarp();                                  // the warp's lanes together again
       const __nv_bfloat16* A = s.ring + (size_t)slot * kP * s.plane;
       const uint2* B = s.w_b + (size_t)mi * s.mat;
       for (int ks = tw; ks < KS; ks += lstm::kMmaWarps) {
@@ -821,14 +712,24 @@ __device__ __forceinline__ void ring_phases(const StackArgs& a, const Ring& s, i
                              (size_t)KS * NT * 32, lane);
         }
       }
-      __syncwarp();
-      if (lane == 0) mbar_arrive(s.empty + slot);  // this warp is done with the slot
-      if (tid == 0)
-        for (; issued < min(n_items, i + stages + 1); ++issued) issue(issued);
+      if (last) {
+        __syncwarp();
+        if (lane == 0) mbar_arrive(s.empty + slot);  // this warp is done with the slot
+        if (tid == 0)
+          while (issued < min(n_items, i + stages + 1)) issue_next();
+      }
     };
-    for (int c = team; c < n_chunks; c += TEAMS) {
+    int e = 0;  // the team's epilogues of the phase
+    // Layer l of chunk c: its products, then its epilogue.
+    auto item = [&](int c, int l) {
+      const int t = q.wave - l;
       cur = nxt;
-      if (c + TEAMS < n_chunks) load(nxt, t, l, c + TEAMS);
+      // The team's next (chunk, layer) of the phase: its cell operands
+      // were written before the phase.
+      if (kWave && l < l_last)
+        load(nxt, t - 1, l + 1, c);
+      else if (c + TEAMS < n_chunks)
+        load(nxt, q.wave - q.l_first, q.l_first, c + TEAMS);
       float acc[TEAMS][NT][4];
 #pragma unroll
       for (int v = 0; v < TEAMS; ++v)
@@ -836,7 +737,7 @@ __device__ __forceinline__ void ring_phases(const StackArgs& a, const Ring& s, i
         for (int nt = 0; nt < NT; ++nt)
           acc[v][nt][0] = acc[v][nt][1] = acc[v][nt][2] = acc[v][nt][3] = 0.f;
       if (kStacked<U> && l > 0) {  // the input product, with W_ih[l] (matrix L + l - 1)
-        product(acc, 2 * c, L + l - 1);
+        product(acc, c * ipc + l - 1 - lo, L + l - 1, !kWave || l == q.l_first, true);
         // The input is layer l-1's output h_new * mask; the staged row is its state.
         const int g = c * kMmaRows + lane / 4;
         const float* mask_t = a.mask + (size_t)t * N;
@@ -852,14 +753,15 @@ __device__ __forceinline__ void ring_phases(const StackArgs& a, const Ring& s, i
             acc[v][nt][3] *= m1;
           }
       }
-      product(acc, c * ipc + ipc - 1, l);  // the recurrent product, with W_hh[l]
-      // One team: a buffer per chunk in turn; two: a buffer per team.
-      float* pb = s.part + (TEAMS == 1 ? c % 2 : team) * kPart;
-      if constexpr (TEAMS > 1) team_sync();  // the team's epilogue of its chunk before is done
+      // The recurrent product, with W_hh[l].
+      product(acc, c * ipc + l - lo, l, true, !kWave || l == l_last);
+      // One team: a buffer per epilogue in turn; two: a buffer per team.
+      float* pb = s.part + (TEAMS == 1 ? e % 2 : team) * kPart;
+      if constexpr (TEAMS > 1) team_sync();  // the team's epilogue before is done
 #pragma unroll
       for (int v = 0; v < TEAMS; ++v)
         lstm::store_partials<U>(pb, acc[v], tw + v * kTW, lane);
-      team_sync();  // the chunk's partial tiles are stored (one team: those of c - 2 read)
+      team_sync();  // the partial tiles are stored (one team: those of the epilogue before read)
 
       // Thread (r, u): its four gates' sums in set order, inputs,
       // nonlinearities, and the cell.
@@ -885,23 +787,33 @@ __device__ __forceinline__ void ring_phases(const StackArgs& a, const Ring& s, i
         a.hbuf[((size_t)((t + 1) & 1) * L + l) * NH + o] = h_sel;
         a.c_out[l * NH + o] = cur.m > 0.0f ? c_new : cur.c;
         if (l == L - 1) a.outs[t * NH + o] = h_new * cur.m;
-        if (t + 1 < F || l + 1 < L)  // read at phase (t, l + 1) or (t + 1, l)
+        if (t + 1 < F || l + 1 < L)  // read at the next phase of layer l or l + 1
           put_state<P>(layer_slot((t + 1) & 1, l), s.x_part, n, j, KS, h_sel);
       }
-      if (c + TEAMS >= n_chunks && ph + 1 < n_phases) {
-        // The next phase's first chunk of the team: this thread's c and h of it are written.
-        const int l1 = l + 1 < L ? l + 1 : 0;
-        load(nxt, l1 ? t : t + 1, l1, team);
+      if (c + TEAMS >= n_chunks && l == l_last && ph + 1 < n_phases) {
+        // The next phase's first (chunk, layer) of the team: this thread's c and h of it are
+        // written.
+        const Phase q1 = next_phase<kWave>(q, F, L);
+        load(nxt, q1.wave - q1.l_first, q1.l_first, team);
+      }
+      ++e;
+    };
+    for (int c = team; c < n_chunks; c += TEAMS) {
+      if constexpr (kWave) {
+        for (int l = q.l_first; l <= l_last; ++l) item(c, l);
+      } else {
+        item(c, q.l_first);
       }
     }
     if (ph + 1 < n_phases) {
       fence_proxy_async_global();  // the exchange's stores, before the other blocks' bulk copies
-      grid.sync();                 // every block's rows of this phase's state are written
+      grid.sync();                 // every block's rows of this phase's states are written
     }
+    base += n_chunks * ipc;
   }
 }
 
-// The stack order's HIGH and DEFAULT body (see the head note).
+// The HIGH and DEFAULT body of both orders (see the head note).
 //   * The exchange.  xbuf holds 2 slots x L layers x parts x n_chunks
 //     chunks x KS k-steps of 16x16 bf16 tiles (lstm_common.cuh): layer l's
 //     state after step t, selected by the mask, goes in bf16 to slot (t +
@@ -909,44 +821,51 @@ __device__ __forceinline__ void ring_phases(const StackArgs& a, const Ring& s, i
 //     A prologue writes each layer's h0 in bf16 into its slot 0 (each block
 //     its own columns) and the zeros of rows past N and of columns past H
 //     in every slot, once per launch, and ends with a grid barrier.  Two
-//     slots a layer suffice in the stack order: phase (t, l) writes slot
-//     (t + 1) & 1 of layer l, which phase (t, l + 1) reads as its input and
-//     phase (t + 1, l) as its recurrent operand; the slot is next written
-//     at phase (t + 2, l), after the grid barriers of those phases, which
-//     no block passes before its copies of them have landed.  Phase (t, l)
-//     itself reads layer l's other slot and layer l - 1's.
+//     slots a layer suffice in either order: layer l's state after step t
+//     is written at phase (t, l) of the stack order, phase t + l of the
+//     wavefront order, and read only by the next phase that multiplies
+//     layer l or l + 1: phases (t, l + 1) (its input) and (t + 1, l) (its
+//     recurrent operand), or phase t + l + 1 (both).  The slot is next
+//     written with the state after t + 2, at phase (t + 2, l) or t + l + 2,
+//     after the grid barriers of those reads, which no block passes before
+//     its copies of them have landed.  A phase reads the other slot of each
+//     layer it writes.
 //   * The ring.  After each grid barrier thread 0 issues bulk copies of the
-//     phase's items, one state's 16-row chunk each (a chunk's input and its
-//     recurrent operand at l >= 1, its recurrent operand at layer 0), into
-//     a ring of `stages` slots on full / empty mbarriers, as many as there
-//     are slots, and each later item into its slot once the warps are done
-//     with the slot's item before; it publishes the count of the items
-//     issued, which the other team waits for.  The item count runs on
-//     across phases, and with it each slot's mbarrier phases.  At two
-//     layers, where the ring holds all of a phase's items (2x512: N <= 64
-//     at DEFAULT, N <= 16 at HIGH), phase (t, 0) copies nothing: layer 0's
-//     state after t - 1 is still in the slots where phase (t - 1, 1) copied
-//     it as its input, and it is multiplied there (faster than copying it
-//     again: PERF.md).
+//     phase's items, one state's 16-row chunk each (per chunk the phase's
+//     staged states, each once: the stack order's input and recurrent
+//     operand at l >= 1 and recurrent operand at layer 0, the wavefront's
+//     layers max(0, l_first - 1) ... l_last), into a ring of `stages` slots
+//     on full / empty mbarriers, as many as there are slots, and each later
+//     item into its slot once the warps are done with the slot's item
+//     before.  In the wavefront order an item stays in its slot until both
+//     of its products are done, so a chunk holds its items one after the
+//     other and takes up to L of them.  The item count runs on across
+//     phases, and with it each slot's mbarrier phases; where a slot's item
+//     before may be the other team's and still in flight (count_needed),
+//     thread 0 publishes the count of the items issued, which the other
+//     team waits for.  In the stack order at two layers, where the ring
+//     holds all of a phase's items (2x512: N <= 64 at DEFAULT, N <= 16 at
+//     HIGH), phase (t, 0) copies nothing: layer 0's state after t - 1 is
+//     still in the slots where phase (t - 1, 1) copied it as its input, and
+//     it is multiplied there (faster than copying it again: PERF.md).
 //   * Teams.  Where a phase has two chunks or more and the ring more slots
-//     than a chunk has items (the plan's teams), warps 0-3 and 4-7 are two
+//     than a chunk has items (the plan's teams: 2 items from two layers in
+//     the stack order, L in the wavefront order), warps 0-3 and 4-7 are two
 //     teams that take the chunks in turns, so one team's epilogue runs
 //     beside the other's products; else one team of 8 warps takes every
 //     chunk.  A product is split over 8 k-step sets, set w the k-steps w, w
-//     + 8, ... (mma_tile's order), a warp of a team of 4 taking two of
-//     them; at l >= 1 each set's input product is scaled by its rows' mask
-//     before its recurrent product goes into the same accumulators.  Each set's partial tile
-//     goes to shared memory (two buffers: one per team, or for one team one
-//     per chunk in turn), and the epilogue sums the 8 in set order: the
-//     same products in the same order as the wavefront body's staged chunk,
-//     so the same bits.
+//     + 8, ..., a warp of a team of 4 taking two of them; at l >= 1 each
+//     set's input product is scaled by its rows' mask before its recurrent
+//     product goes into the same accumulators.  Each set's partial tile goes
+//     to shared memory (two buffers: one per team, or for one team one per
+//     epilogue in turn), and the epilogue sums the 8 in set order.
 //   * The cell.  Thread (row r, unit u) of a team (16 U of its threads)
-//     sums its unit's four gate columns, applies their nonlinearities and
-//     writes its h, c and output; it reads the cell operands of its team's
-//     next chunk while the current one is multiplied, and the next phase's
-//     first chunk's before the grid barrier (each is written by this
-//     thread, or by no one during the launch).
-template <int U, int P>
+//     sums its unit's four gate columns of a layer, applies their
+//     nonlinearities and writes its h, c and output; it reads the cell
+//     operands of its team's next (chunk, layer) while the current one is
+//     multiplied, and the next phase's first one's before the grid barrier
+//     (each is written by this thread, or by no one during the launch).
+template <int U, int P, bool kWave>
 __device__ __forceinline__ void ring_body(const StackArgs& a, float* smem) {
   constexpr int kP = kParts<P>;
   const int N = a.N, H = a.H, L = a.L, stages = a.stage_rows / kMmaRows;
@@ -1008,28 +927,29 @@ __device__ __forceinline__ void ring_body(const StackArgs& a, float* smem) {
   const Ring s{KS,    n_chunks, stages, plane, x_part, mat,
                w_b,   ring,     full,   empty, issued,
                reinterpret_cast<float*>(reinterpret_cast<char*>(full) + kRingSyncBytes)};
-  if (kStacked<U> && L == 2 && stages >= 2 * n_chunks) {  // reuse (ring_phases)
-    if (a.teams == 2)
-      ring_phases<U, P, 2, kStacked<U>>(a, s, tid);
-    else
-      ring_phases<U, P, 1, kStacked<U>>(a, s, tid);
-  } else if (a.teams == 2) {
-    ring_phases<U, P, 2, false>(a, s, tid);
-  } else {
-    ring_phases<U, P, 1, false>(a, s, tid);
+  if constexpr (!kWave && kStacked<U>) {
+    if (L == 2 && stages >= 2 * n_chunks) {  // reuse (ring_phases)
+      if (a.teams == 2)
+        ring_phases<U, P, 2, true, false>(a, s, tid);
+      else
+        ring_phases<U, P, 1, true, false>(a, s, tid);
+      return;
+    }
   }
+  if (a.teams == 2)
+    ring_phases<U, P, 2, false, kWave>(a, s, tid);
+  else
+    ring_phases<U, P, 1, false, kWave>(a, s, tid);
 }
 
 template <int U, bool kWave, int P>
-__global__ void __launch_bounds__(kKernelThreads<U, kWave, P>, 1)
+__global__ void __launch_bounds__(kKernelThreads<U, P>, 1)
 lstm_stack_kernel(const __grid_constant__ StackArgs a) {
   extern __shared__ __align__(16) float smem[];
   if constexpr (P == kHighest)
     fp32_body<U, kWave>(a, smem);
-  else if constexpr (kWave)
-    wave_mma_body<U, P>(a, smem);
   else
-    ring_body<U, P>(a, smem);
+    ring_body<U, P, kWave>(a, smem);
 }
 
 // Lets lstm_stack_kernel<U, kWave, P> use up to max_smem bytes of dynamic
@@ -1042,7 +962,7 @@ cudaError_t prepare_instance(int max_smem, bool* fits) {
   int per_sm = 0;
   if (err == cudaSuccess)
     err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
-                                                        kKernelThreads<U, kWave, P>, max_smem);
+                                                        kKernelThreads<U, P>, max_smem);
   if (per_sm < 1) *fits = false;
   return err;
 }
@@ -1060,7 +980,7 @@ cudaError_t prepare_mode(int max_smem, bool* fits) {
 template <int U, bool kWave, int P>
 int launch(const StackArgs& args, size_t smem, cudaStream_t stream) {
   void* params[] = {(void*)&args};
-  const int threads = P != kHighest && !kWave ? kRingThreads : kTeamThreads * args.teams;
+  const int threads = P != kHighest ? kRingThreads : kTeamThreads * args.teams;
   const cudaError_t err =
       cudaLaunchCooperativeKernel((const void*)lstm_stack_kernel<U, kWave, P>, dim3(args.H / U),
                                   dim3(threads), params, smem, stream);
@@ -1085,23 +1005,20 @@ int forward(const float* x0_proj, const float* mask, const void* w_hh, const voi
             void* stream) {
   const int parts = mode == kHigh ? 2 : 1;
   const int planes = stage_planes(L, kWave);
-  // The stack order at HIGH and DEFAULT runs ring_body: a ring of stage_rows
-  // / 16 slots and the plan's teams (lstm_stack_plan decides: two where a
-  // phase has two chunks or more and the ring more slots than a chunk has
-  // items; with fewer, thread 0 would leave items of its team unissued).
-  const bool ring = mode != kHighest && !kWave;
+  // HIGH and DEFAULT run ring_body: a ring of stage_rows / 16 slots and the
+  // plan's teams (lstm_stack_plan decides: two where a phase has two chunks
+  // or more and the ring more slots than a chunk has items, `planes` at
+  // most; with fewer, thread 0 would leave items of its team unissued).
+  const bool ring = mode != kHighest;
   const int stages = stage_rows / kMmaRows;
-  const size_t layout =
-      mode == kHighest ? sizeof(float) * smem_floats(units, H, L, planes, stage_rows)
-      : ring           ? ring_smem_bytes(units, H, L, parts, stages)
-                       : mma_smem_bytes(units, H, L, planes, teams, parts);
+  const size_t layout = ring ? ring_smem_bytes(units, H, L, parts, stages)
+                             : sizeof(float) * smem_floats(units, H, L, planes, stage_rows);
   if (F <= 0 || N <= 0 || H <= 0 || L <= 0 || H % 4 != 0 || (units != 4 && units != 8) ||
       H % units != 0 || mode < kHighest || mode > kDefault || stage_rows <= 0 ||
       (mode == kHighest && (stage_rows > N || (stage_rows != N && stage_rows % kPassRows != 0) ||
                             (stage_rows != N && stage_rows / kPassRows % teams != 0))) ||
       (ring && (stage_rows % kMmaRows != 0 || stages > kMaxStages || teams > 2 ||
-                (teams == 2 && stages <= (L > 1 ? 2 : 1)) || xbuf == nullptr)) ||
-      (mode != kHighest && !ring && stage_rows != kMmaRows) ||
+                (teams == 2 && stages <= planes) || xbuf == nullptr)) ||
       teams < 1 || (!ring && teams > (units == 4 ? kTeams<4> : kTeams<8>)) ||
       (L > 1 && (w_ih_up == nullptr || b_up == nullptr || units != 4)) ||
       (mode == kHigh && (w_hh_lo == nullptr || (L > 1 && w_ih_up_lo == nullptr))) ||
@@ -1163,11 +1080,11 @@ int lstm_stack_prepare(int device, int* info) {
 // (HIGHEST: the block is 256 * teams threads; U=4: 2, or 1 for one chunk, a
 // one-slot ring or where two teams' slots do not fit; U=8: 1; a ring's slots
 // a multiple of it; else the block is 256 threads, 2 teams of 4 warps where
-// N > 16 and the ring has two slots or more, else 1) and smem_bytes are the
-// launch plan's (ops/lstm_kernel.py::lstm_stack_plan); smem_bytes must equal
-// the layout's size.  h0 and hbuf start on a 16-byte boundary.  Launches only:
-// lstm_stack_prepare must have run on the current device.  Returns 0, a
-// cudaError_t value, or a negative code above.
+// N > 16 and the ring has more slots than a chunk has items, else 1) and
+// smem_bytes are the launch plan's (ops/lstm_kernel.py::lstm_stack_plan);
+// smem_bytes must equal the layout's size.  h0 and hbuf start on a 16-byte
+// boundary.  Launches only: lstm_stack_prepare must have run on the current
+// device.  Returns 0, a cudaError_t value, or a negative code above.
 int lstm_stack_forward(const float* x0_proj, const float* mask, const void* w_hh,
                        const void* w_ih_up, const float* b_up, const float* h0,
                        const float* c0, float* outs, float* hbuf, float* c_out, int F, int N,
@@ -1182,8 +1099,8 @@ int lstm_stack_forward(const float* x0_proj, const float* mask, const void* w_hh
 // The same stack, the same operands and results, in the wavefront order:
 // F + L - 1 grid barriers, each phase staging every active layer's state
 // once.  Needs L >= 2 (at one layer the orders are one); its plan stages L
-// state planes, at HIGH and DEFAULT 16 rows at a time (stage_rows 16, the
-// block 256 * teams threads, xbuf unused).
+// state planes (at HIGH and DEFAULT a chunk's L items in the ring, and
+// two teams only where the ring has more than L slots).
 int lstm_wavefront_forward(const float* x0_proj, const float* mask, const void* w_hh,
                            const void* w_ih_up, const float* b_up, const float* h0,
                            const float* c0, float* outs, float* hbuf, float* c_out, int F,

@@ -678,7 +678,7 @@ __device__ __forceinline__ void fwd_steps(const FwdSweep& s, int tid) {
 //     one slot (the plan's: where two slots and two buffers of partials do
 //     not fit, as at H=1024 HIGH, one slot and one buffer still do).  The
 //     products of a chunk are split over 8 k-step sets, set w the k-steps
-//     w, w + 8, ... (mma_tile's order), a warp of a team of 4 taking two of
+//     w, w + 8, ..., a warp of a team of 4 taking two of
 //     them; each set's partial tile goes to the team's buffer in shared
 //     memory, and the epilogue sums the 8 in set order: the same products
 //     in the same order as one staged chunk, so the same bits.
@@ -713,12 +713,9 @@ __device__ __forceinline__ void fwd_mma(const float* __restrict__ x_proj,
   const int tid = threadIdx.x;
   cg::grid_group grid = cg::this_grid();
 
-  // The prologue: the B fragments (8-byte loads of a row's U columns from U
-  // = 4 on), the mbarriers, h0's bf16 form and the zeros of the exchange.
-  if constexpr (U >= 4)
-    lstm::stage_b_fragments_vec<U, P>(w_b, w_hi, w_lo, H, j0, tid, kThreads);
-  else
-    lstm::stage_b_fragments<U, P>(w_b, w_hi, w_lo, H, j0, tid, kThreads);
+  // The prologue: the B fragments (wide loads of a row's U columns), the
+  // mbarriers, h0's bf16 form and the zeros of the exchange.
+  lstm::stage_b_fragments_vec<U, P>(w_b, w_hi, w_lo, H, j0, tid, kThreads);
   if (tid < stages) {
     mbar_init(full + tid, 1);
     mbar_init(empty + tid, teams == 2 ? kWarps / 2 : kWarps);  // the warps of a team

@@ -166,9 +166,10 @@ def units_per_block(h: int, max_blocks: int) -> int:
 class StackPlan(NamedTuple):
     """The stack kernel's launch plan (:func:`lstm_stack_plan`). The kernel
     takes every field as given and only checks that it is valid: the plan
-    alone decides. The stack order at high and default (``ring_body``) reads
-    ``units``, ``stage_rows`` (its ring's slots), ``teams`` (of 4 warps) and
-    ``smem_bytes``; its ``planes`` only records the states a phase reads."""
+    alone decides. At high and default (``ring_body``, both orders) the
+    kernel reads ``units``, ``stage_rows`` (its ring's slots), ``teams`` (of
+    4 warps), ``planes`` (the most items a chunk of a phase has, which two
+    teams need more slots than) and ``smem_bytes``."""
     units: int       # hidden units per block (U) of every layer: 4, or 8 where H / 4 blocks
                      # do not fit on the SMs
     blocks: int      # the cooperative grid, H / U, one block per SM
@@ -176,16 +177,14 @@ class StackPlan(NamedTuple):
                      # order, L in the wavefront order
     stage_rows: int  # rows of each staged state in shared memory: N (all at once), or
                      # fewer: a ring of stage_rows / PASS_ROWS slots that the PASS_ROWS-row
-                     # chunks cycle through; at high and default in the wavefront order one
-                     # PASS_ROWS-row bf16 slot per team, in the stack order PASS_ROWS x the
-                     # ring's slots, each one state's bf16 chunk that bulk copies fill
-    teams: int       # teams that take the chunks in turns: at highest and in the wavefront
-                     # order teams of 256 threads (the block's size), each with its share of
-                     # the ring: 2 at U=4 (1 for one chunk, N <= 16, where the ring has one
-                     # slot, or where two teams' slots do not fit), 1 at U=8; in the stack
-                     # order at high and default teams of 4 warps in a block of 8 (2 where
-                     # N > 16 and the ring has more slots than a chunk has items, min(L,
-                     # 2), else 1 of 8 warps)
+                     # chunks cycle through; at high and default PASS_ROWS x the ring's
+                     # slots, each one state's bf16 chunk that bulk copies fill
+    teams: int       # teams that take the chunks in turns: at highest teams of 256 threads
+                     # (the block's size), each with its share of the ring: 2 at U=4 (1 for
+                     # one chunk, N <= 16, where the ring has one slot, or where two teams'
+                     # slots do not fit), 1 at U=8; at high and default teams of 4 warps in
+                     # a block of 8 (2 where N > 16 and the ring has more slots than a
+                     # chunk has items, ``planes``, else 1 of 8 warps)
     smem_bytes: int  # dynamic shared memory per block
 
 
@@ -202,46 +201,37 @@ def _bf16_parts(precision: str) -> int:
 
 
 def _mma_bytes(units: int, h: int, precision: str):
-    """(one matrix's resident B fragments, one staged bf16 plane, the partial
-    tiles) in bytes at high or default (``csrc/lstm_common.cuh``)."""
-    kp = -(-h // 16) * 16
-    parts = _bf16_parts(precision)
-    return (parts * 8 * units * kp, PASS_ROWS * (kp + 8) * 2,
+    """(one matrix's resident B fragments, the partial tiles of 8 warps) in
+    bytes at high or default (``csrc/lstm_common.cuh``)."""
+    return (_bf16_parts(precision) * 8 * units * (-(-h // 16) * 16),
             MMA_WARPS * PASS_ROWS * 4 * units * 4)
 
 
-def stack_smem_bytes(units: int, h: int, layers: int, planes: int, stage_rows: int,
-                     precision: str = HIGHEST, teams: int = 1) -> int:
-    """Shared memory of one stack-kernel block (``csrc/lstm_stack.cu``). At
-    highest (``smem_floats``): the resident fp32 gate columns of every W_hh
-    and of W_ih of layers >= 1 (each to 128 bytes), and ``planes`` staged
-    states of ``stage_rows`` rows. At high and default in the wavefront
-    order (``mma_smem_bytes``): those columns as bf16 B fragments (half the
-    bytes at default, a hi/lo pair at high), and for each of ``teams`` teams
-    ``planes`` staged 16-row bf16 chunks (hi, and lo at high) and its
-    partial tiles (the stack order: :func:`stack_ring_smem_bytes`)."""
-    if resolve(precision) == HIGHEST:
-        return 4 * ((2 * layers - 1) * (-(-4 * units * h // 32) * 32) + planes * stage_rows * h)
-    mat, plane, partial = _mma_bytes(units, h, precision)
-    return (2 * layers - 1) * mat + teams * (planes * _bf16_parts(precision) * plane + partial)
+def stack_smem_bytes(units: int, h: int, layers: int, planes: int, stage_rows: int) -> int:
+    """Shared memory of one stack-kernel block at highest
+    (``csrc/lstm_stack.cu`` ``smem_floats``): the resident fp32 gate columns
+    of every W_hh and of W_ih of layers >= 1 (each to 128 bytes), and
+    ``planes`` staged states of ``stage_rows`` rows (at high and default:
+    :func:`stack_ring_smem_bytes`)."""
+    return 4 * ((2 * layers - 1) * (-(-4 * units * h // 32) * 32) + planes * stage_rows * h)
 
 
 def stack_ring_smem_bytes(units: int, h: int, layers: int, stages: int, precision: str) -> int:
-    """Shared memory of one stack-kernel block in the stack order at high
-    and default (``csrc/lstm_stack.cu`` ``ring_smem_bytes``): the bf16 B
+    """Shared memory of one stack-kernel block at high and default, in both
+    orders (``csrc/lstm_stack.cu`` ``ring_smem_bytes``): the bf16 B
     fragments of the 2L - 1 matrices, a ring of ``stages`` slots of one
     state's 16-row chunk in bf16 k-step tiles (hi, and lo at high), the
     ring's mbarriers and the count of its items issued (RING_SYNC_BYTES)
     and two buffers of the partial tiles."""
-    mat, _, partial = _mma_bytes(units, h, precision)
+    mat, partial = _mma_bytes(units, h, precision)
     return ((2 * layers - 1) * mat + stages * _bf16_parts(precision) * -(-h // 16) * 16
             * PASS_ROWS * 2 + RING_SYNC_BYTES + 2 * partial)
 
 
 def stack_exchange_shape(layers: int, n: int, h: int, precision: str) -> Tuple[int, ...]:
-    """The stack kernel's bf16 exchange buffer in the stack order at high
-    and default: (slots 2, layers, parts (2 at high), 16-row chunks of N,
-    k-steps of H padded to 16, a 16x16 tile)."""
+    """The stack kernel's bf16 exchange buffer at high and default, in both
+    orders: (slots 2, layers, parts (2 at high), 16-row chunks of N, k-steps
+    of H padded to 16, a 16x16 tile)."""
     return (2, layers, _bf16_parts(precision), -(-n // PASS_ROWS), -(-h // 16), PASS_ROWS * 16)
 
 
@@ -266,19 +256,17 @@ def lstm_stack_plan(layers: int, n: int, h: int, sms: int = SMS, smem_limit: int
     puts the grid on the SMs or not one slot fits beside the columns
     (2x1024).
 
-    At high and default the grid is the same. In the stack order one state's
+    At high and default the grid is the same, in both orders. One state's
     16-row bf16 chunk a slot streams through a ring of as many slots as fit
-    beside the B fragments, up to MAX_SLOTS and a phase's chunks (two states
-    a chunk from 2 layers on): 2x512 N=64 8 at default, 3 at high; one layer
-    of 1024 N=64 4 and 1; ``stage_rows`` is PASS_ROWS x the slots, and two
-    teams of 4 warps take the chunks in turns where a phase has two chunks
-    or more and the ring more slots than a chunk has items (3 from two
-    layers, 2 at one: with fewer, thread 0, which issues the copies after
-    its own products, would not reach its team's next chunk). In the
-    wavefront order each team stages one 16-row chunk at a time as bf16, so
-    ``stage_rows`` is PASS_ROWS, and two teams of 256 threads run at U=4
-    where there are two chunks or more and both teams' slots fit beside the
-    columns (2x512: default yes, high no)."""
+    beside the B fragments, up to MAX_SLOTS and a phase's items: ``planes``
+    a chunk at most (two states from 2 layers on in the stack order, L in
+    the wavefront order, each staged once); 2x512 N=64 8 at default, 3 at
+    high; one layer of 1024 N=64 4 and 1; ``stage_rows`` is PASS_ROWS x the
+    slots, and two teams of 4 warps take the chunks in turns where a phase
+    has two chunks or more and the ring more slots than a chunk has items
+    (from two layers 3 in the stack order, L + 1 in the wavefront order; 2
+    at one layer: with fewer, thread 0, which issues the copies after its
+    own products, would not reach its team's next chunk)."""
     if layers <= 0 or n <= 0 or h <= 0 or h % 4:
         raise ValueError(f"the stack kernel needs L > 0, N > 0 and H a positive multiple of 4, "
                          f"got L={layers}, N={n}, H={h}")
@@ -290,30 +278,20 @@ def lstm_stack_plan(layers: int, n: int, h: int, sms: int = SMS, smem_limit: int
         units = 0  # U=8 runs one layer (at H > 4 SMs no slot fits beside two layers' columns)
     planes = layers if wavefront else min(layers, 2)
     rows, teams = n, 2 if units == 4 and n > PASS_ROWS else 1
-    if resolve(precision) != HIGHEST and not wavefront:
+    if resolve(precision) != HIGHEST:
         chunks = -(-n // PASS_ROWS)
         stages = 0
         if units:
             fixed = stack_ring_smem_bytes(units, h, layers, 0, precision)
             slot = stack_ring_smem_bytes(units, h, layers, 1, precision) - fixed
-            stages = min(MAX_SLOTS, chunks * min(layers, 2), max(0, smem_limit - fixed) // slot)
+            stages = min(MAX_SLOTS, chunks * planes, max(0, smem_limit - fixed) // slot)
         if not stages:
             raise ValueError(f"the stack kernel at L={layers}, N={n}, H={h}, precision "
                              f"{precision} does not fit on {sms} SMs with {smem_limit} bytes "
                              "of shared memory per block")
         return StackPlan(units, h // units, planes, PASS_ROWS * stages,
-                         2 if chunks > 1 and stages > min(layers, 2) else 1,
+                         2 if chunks > 1 and stages > planes else 1,
                          stack_ring_smem_bytes(units, h, layers, stages, precision))
-    if resolve(precision) != HIGHEST:
-        while teams and stack_smem_bytes(units, h, layers, planes, PASS_ROWS, precision,
-                                         teams) > smem_limit:
-            teams -= 1
-        if not units or not teams:
-            raise ValueError(f"the stack kernel at L={layers}, N={n}, H={h}, precision "
-                             f"{precision} does not fit on {sms} SMs with {smem_limit} bytes "
-                             "of shared memory per block")
-        return StackPlan(units, h // units, planes, PASS_ROWS, teams,
-                         stack_smem_bytes(units, h, layers, planes, PASS_ROWS, precision, teams))
     if units and stack_smem_bytes(units, h, layers, planes, n) > smem_limit:
         free = smem_limit - stack_smem_bytes(units, h, layers, planes, 0)
         slots = min(MAX_SLOTS, max(0, free) // (4 * PASS_ROWS * planes * h))
@@ -447,9 +425,9 @@ def _launch_stack(wavefront: bool, what: str, x0_proj, mask, w_hh, w_ih_up, b_up
     """Check the stack's operands and launch ``csrc/lstm_stack.cu`` in the
     stack or the wavefront order at ``mode`` (a resolved name), as
     :func:`lstm_stack_plan` says. At highest the weights go in as they are;
-    at high and default in their bf16 form (:func:`kernel_weights`), and in
-    the stack order with a bf16 exchange buffer that each launch fills
-    itself (:func:`stack_exchange_shape`). No setup after the first call on
+    at high and default in their bf16 form (:func:`kernel_weights`), with a
+    bf16 exchange buffer that each launch fills itself
+    (:func:`stack_exchange_shape`). No setup after the first call on
     a device, no copy of h0/c0 (read in place) and no synchronization, so
     the call can be captured in a CUDA graph."""
     if x0_proj.device.type != "cuda":
@@ -480,7 +458,7 @@ def _launch_stack(wavefront: bool, what: str, x0_proj, mask, w_hh, w_ih_up, b_up
     # keeps no more: the h exchange buffer (2, L) and cF (L), each plane on a
     # 16-byte boundary (H % 4 == 0).
     state = torch.empty(3 * num_layers, n, hidden, device=dev)
-    xbuf = None if mode == HIGHEST or wavefront else torch.empty(
+    xbuf = None if mode == HIGHEST else torch.empty(
         stack_exchange_shape(num_layers, n, hidden, mode), dtype=torch.bfloat16, device=dev)
     ptr = state.data_ptr()
     entry = _stack_lib.lstm_wavefront_forward if wavefront else _stack_lib.lstm_stack_forward
@@ -672,7 +650,7 @@ def bidi_smem_bytes(units: int, h: int, stage_rows: int, precision: str = HIGHES
     tiles."""
     if resolve(precision) == HIGHEST:
         return 4 * (-(-4 * units * h // 32) * 32 + stage_rows * h)
-    mat, _, partial = _mma_bytes(units, h, precision)
+    mat, partial = _mma_bytes(units, h, precision)
     return (mat + stage_rows * _bf16_parts(precision) * -(-h // 16) * 16 * 2 + RING_SYNC_BYTES
             + 2 * partial)
 

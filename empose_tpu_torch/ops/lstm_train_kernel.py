@@ -131,7 +131,7 @@ def fwd_smem_bytes(units: int, h: int, stage_rows: int, precision: str = HIGHEST
     ``teams`` teams."""
     if resolve(precision) == HIGHEST:
         return 4 * (-(-4 * units * h // 32) * 32 + stage_rows * h)
-    mat, _, partial = _mma_bytes(units, h, precision)
+    mat, partial = _mma_bytes(units, h, precision)
     return (mat + stage_rows * _bf16_parts(precision) * -(-h // 16) * 16 * 2 + RING_SYNC_BYTES
             + teams * partial)
 

@@ -717,16 +717,19 @@ def _stack_projected_case(f, n, h, layers, mode, seed, cuda):
 @pytest.mark.parametrize("mode", ["high", "default"])
 @pytest.mark.parametrize("f, n, h, layers", [(16, 64, 512, 2), (16, 17, 512, 2), (33, 1, 512, 2),
                                              (16, 33, 1024, 1), (16, 1, 1024, 1),
-                                             (16, 20, 260, 2), (16, 7, 64, 3), (16, 48, 448, 3)])
+                                             (16, 20, 260, 2), (16, 7, 64, 3), (16, 48, 448, 3),
+                                             (16, 64, 1024, 1)])
 def test_stack_ring_body_matches_plain(cuda, mode, f, n, h, layers):
     """The stack kernel at the mode against its plain version at the same
     mode within BIDI_MODE_TOL (at high also closer to it than to the plain
     version at highest), one launch per call, 0-length rows frozen bit for
     bit, a second call bit for bit. The plans cover two teams (N > 16) and
     one (N <= 16; one layer of 1024 at high, one ring slot), three layers,
-    H=260 (columns past H in the k-step tiles), and at 3x448 N=48 at high
+    H=260 (columns past H in the k-step tiles), at 3x448 N=48 at high
     two teams on two slots with two items a chunk and three chunks (a
-    team's next item past what its own products issue)."""
+    team's next item past what its own products issue), and one layer of
+    1024 at N=64 at default (two teams on four slots: no count of the items
+    issued, a slot's items staying with one team)."""
     args, idle = _stack_projected_case(f, n, h, layers, mode, f + n + h, cuda)
     launches = K.MODE_LAUNCHES.get(("lstm_stack", mode), 0)
     got, again = K.lstm_stack_fused(*args, mode), K.lstm_stack_fused(*args, mode)
@@ -767,6 +770,69 @@ def test_stack_ring_body_graph_capture_scratch(cuda, mode, f, n, h, layers):
         graph.replay()
         torch.cuda.synchronize()
         for a, b in zip(out, K.lstm_stack_fused(*args, mode)):
+            assert torch.equal(a, b)
+
+
+# The wavefront order's HIGH and DEFAULT body: the stack order's write-once
+# exchange and ring, each staged state copied once a phase and held in its
+# slot until both of its products are done; on chip_smoke.py's inputs, so
+# BIDI_MODE_TOL (its TOL_HIGH and TOL_DEFAULT) holds, as for the stack order.
+@pytest.mark.parametrize("mode", ["high", "default"])
+@pytest.mark.parametrize("f, n, h, layers", [(16, 64, 512, 2), (16, 17, 512, 2), (33, 1, 512, 2),
+                                             (3, 1300, 512, 2), (16, 48, 448, 3),
+                                             (16, 64, 448, 3), (16, 48, 352, 4), (16, 7, 64, 3),
+                                             (16, 20, 260, 2)])
+def test_wavefront_ring_body_matches_plain(cuda, mode, f, n, h, layers):
+    """The wavefront at the mode against its plain version at the same mode
+    within BIDI_MODE_TOL (at high also closer to it than to the plain
+    version at highest), one launch per call, 0-length rows frozen bit for
+    bit, a second call bit for bit. The plans: 2x512 N=64 two teams on three
+    slots keeping the count of the items issued (high) and on eight without
+    it (default); N=17 two teams; N=1 and 1300 (one team; 82 chunks); three
+    items a chunk at 3x448 (two teams on eight slots at default, the count
+    kept from N=49; one team on two slots at high) and four at 4x352; one
+    chunk at 3x64; columns past H at 2x260."""
+    plan = K.lstm_stack_plan(layers, n, h, wavefront=True, precision=mode)
+    assert plan.teams == (2 if n > 16 and plan.stage_rows // 16 > layers else 1)
+    args, idle = _stack_projected_case(f, n, h, layers, mode, f + n + h, cuda)
+    launches = K.MODE_LAUNCHES.get(("lstm_wavefront", mode), 0)
+    got = K.lstm_stack_wavefront_fused(*args, mode)
+    again = K.lstm_stack_wavefront_fused(*args, mode)
+    assert K.MODE_LAUNCHES[("lstm_wavefront", mode)] == launches + 2
+    for a, b, c in zip(got, K.lstm_stack_wavefront_plain(*args, mode), again):
+        torch.testing.assert_close(a, b, atol=BIDI_MODE_TOL[mode], rtol=0)
+        assert torch.equal(a, c)
+    if mode == "high":
+        _closer_at_high(got, K.lstm_stack_wavefront_plain, args)
+    h0, c0 = args[5], args[6]
+    assert torch.equal(got[1][:, idle], h0[:, idle]) and torch.equal(got[2][:, idle], c0[:, idle])
+
+
+@pytest.mark.parametrize("mode", ["high", "default"])
+@pytest.mark.parametrize("f, n, h, layers", [(16, 33, 512, 2), (16, 48, 352, 4),
+                                             (16, 20, 260, 2)])
+def test_wavefront_ring_body_graph_capture_scratch(cuda, mode, f, n, h, layers):
+    """The wavefront at the mode captured in a CUDA graph where its exchange
+    buffer (allocated by the wrapper inside the capture, never zeroed by the
+    host) has rows past N (and at H=260 columns past H): replays on new
+    inputs equal the eager call bit for bit, twice in a row."""
+    args, _ = _stack_projected_case(f, n, h, layers, mode, 3, cuda)
+    args = list(args)
+    x0_proj, h0 = args[0].clone(), args[5].clone()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        K.lstm_stack_wavefront_fused(*args, mode)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = K.lstm_stack_wavefront_fused(*args, mode)
+    for scale in (0.5, -1.5):
+        args[0].copy_(x0_proj * scale)
+        args[5].copy_(h0 * scale)
+        graph.replay()
+        torch.cuda.synchronize()
+        for a, b in zip(out, K.lstm_stack_wavefront_fused(*args, mode)):
             assert torch.equal(a, b)
 
 

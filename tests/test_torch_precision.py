@@ -374,32 +374,31 @@ def test_fused_wrappers_on_the_cpu_take_the_mode():
 
 def test_plans_read_the_mode_bytes():
     """At DEFAULT the resident columns are bf16 (half of HIGHEST's bytes),
-    at HIGH the hi/lo pair (HIGHEST's bytes); in the wavefront order each
-    team stages one 16-row bf16 chunk (row stride Kp + 8) beside 8 warps'
-    16 x 4U partial tiles, in the stack order a ring of one state's 16-row
-    chunks in k-step tiles streams beside two buffers of them."""
+    at HIGH the hi/lo pair (HIGHEST's bytes); in both orders a ring of one
+    state's 16-row chunks in k-step tiles (16 x Kp bf16 a part a slot)
+    streams beside the ring's sync block and two buffers of 8 warps' 16 x
+    4U partial tiles."""
     for layers, h, units in ((2, 512, 4), (1, 1024, 8), (3, 64, 4), (2, 260, 4)):
         kp = -(-h // 16) * 16
         cols32 = (2 * layers - 1) * 4 * units * h * 4
-        planes = min(layers, 2)
-        team = lambda parts: planes * parts * 16 * (kp + 8) * 2 + 8 * 16 * 4 * units * 4
-        assert K.stack_smem_bytes(units, h, layers, planes, 16, "default", 1) == \
-            cols32 * kp // h // 2 + team(1)
-        assert K.stack_smem_bytes(units, h, layers, planes, 16, "high", 2) == \
-            cols32 * kp // h + 2 * team(2)
-    # 2x512, wavefront order: two teams fit at DEFAULT, one at HIGH; stack
-    # order: two teams of 4 warps beside a ring of 8 slots (DEFAULT) or 3
-    # (HIGH). One layer of 1024 runs U=8 at every mode; 2x1024 fits one
-    # launch at no mode.
-    for mode, teams, smem, ring in (("default", 2, 132096, (8, 196752)),
-                                    ("high", 1, 173056, (3, 213136))):
+        rest = lambda stages, parts: stages * parts * 16 * kp * 2 + 144 + 2 * 8 * 16 * 4 * units * 4
+        for stages in (1, 3):
+            assert K.stack_ring_smem_bytes(units, h, layers, stages, "default") == \
+                cols32 * kp // h // 2 + rest(stages, 1)
+            assert K.stack_ring_smem_bytes(units, h, layers, stages, "high") == \
+                cols32 * kp // h + rest(stages, 2)
+    # 2x512, both orders (two items a chunk at two layers): two teams of 4
+    # warps beside a ring of 8 slots (DEFAULT) or 3 (HIGH). One layer of
+    # 1024 runs U=8 at every mode; 2x1024 fits one launch at no mode.
+    for mode, ring in (("default", (8, 196752)), ("high", (3, 213136))):
         plan = K.lstm_stack_plan(2, 64, 512, wavefront=True, precision=mode)
-        assert plan == K.StackPlan(4, 128, 2, 16, teams, smem)
+        assert plan == K.StackPlan(4, 128, 2, 16 * ring[0], 2, ring[1])
         assert K.lstm_stack_plan(2, 64, 512, precision=mode) == K.StackPlan(
             4, 128, 2, 16 * ring[0], 2, ring[1])
         assert K.lstm_stack_plan(2, 1, 512, precision=mode).teams == 1
         assert K.lstm_stack_plan(1, 64, 1024, precision=mode).units == 8
-        assert K.lstm_stack_plan(2, 1300, 512, wavefront=True, precision=mode).stage_rows == 16
+        assert K.lstm_stack_plan(2, 1300, 512, wavefront=True, precision=mode).stage_rows == \
+            16 * ring[0]
         assert K.lstm_stack_plan(2, 1300, 512, precision=mode).stage_rows == 16 * ring[0]
         assert K.lstm_stack_fits(2, 512, precision=mode)
         assert not K.lstm_stack_fits(2, 1024, precision=mode)

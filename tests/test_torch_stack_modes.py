@@ -18,6 +18,8 @@ file holds what surrounds it against what it must be:
   read before it lands or lands over a slot being read, and no full
   mbarrier passes by parity a phase early; with two teams on too few
   slots, or without the wait for the issue, it deadlocks or reads early;
+  the count of the items issued is needed exactly where ``count_needed``
+  keeps it (a slot's items change team), and which plans keep it;
 * the write-once data flow at both modes: each layer's selected state (h_new
   where the mask is 1, the old h where it is 0) rounded once into bf16 (hi,
   and lo at high) through that exchange, read back by every block, then
@@ -41,8 +43,8 @@ from empose_tpu.ops import lstm_kernel as JK
 
 from empose_tpu_torch.ops import lstm_kernel as K
 from empose_tpu_torch.ops import precision as P
-from tests.torch_ring_model import (ends_clean, exchange_index, ring_run,
-                                     ring_schedules, tile_offset)
+from tests.torch_ring_model import (StackExchange, count_needed, count_rule_check, ends_clean,
+                                     ring_run, ring_schedules)
 
 torch.set_num_threads(1)
 
@@ -95,7 +97,7 @@ def test_stack_mode_plan_slots_and_teams():
     """The ring by shape: at 2x512 DEFAULT the fragments take 48 KB and a
     slot 16 KB, so every item of a phase up to 8 is in flight (N=64: 4
     chunks of two states); HIGH's fragments and slots are twice as large: 3
-    slots, and two teams (the wavefront's mode body fits one team there);
+    slots, and two teams (so has the wavefront order at two layers);
     one layer of 1024: 4 slots at DEFAULT, 1 at HIGH (128 KB of fragments),
     one team."""
     plan = lambda layers, n, h, mode: K.lstm_stack_plan(layers, n, h, precision=mode)
@@ -105,7 +107,7 @@ def test_stack_mode_plan_slots_and_teams():
     assert [stages(1, n, 1024, "default") for n in (1, 17, 64, 1300)] == [1, 2, 4, 4]
     assert [stages(1, n, 1024, "high") for n in (1, 17, 64, 1300)] == [1, 1, 1, 1]
     assert plan(2, 64, 512, "high").teams == 2
-    assert K.lstm_stack_plan(2, 64, 512, wavefront=True, precision="high").teams == 1
+    assert K.lstm_stack_plan(2, 64, 512, wavefront=True, precision="high").teams == 2
     assert [plan(2, n, 512, "default").teams for n in (1, 16, 17)] == [1, 1, 2]
     assert plan(1, 64, 1024, "default").teams == 2 and plan(1, 64, 1024, "high").teams == 1
     assert plan(2, 64, 512, "high").smem_bytes == 213136
@@ -139,57 +141,6 @@ def test_stack_mode_plan_needs_one_slot():
 
 # ---------------------------------------------------------------------------
 # A numpy model of the exchange buffer
-
-
-class StackExchange:
-    """One part of the exchange of an L-layer stack, as ``ring_body`` fills
-    it: (slot 2, layer L) regions of 16-row chunks of KS k-step tiles. The
-    launch's prologue writes the zeros past N and past H of every region
-    and each layer's h0 into its slot 0; the owners (block b: columns b U ..
-    b U + U - 1) write each state; every block reads a chunk's k-step tiles
-    as ldmatrix does."""
-
-    def __init__(self, layers, n, h, units, h0):
-        self.layers, self.n, self.h, self.units = layers, n, h, units
-        self.ks, self.chunks = _kp(h) // 16, -(-n // 16)
-        self.region = self.chunks * self.ks * 256
-        self.x = np.full(2 * layers * self.region, np.nan, np.float32)
-        self.writes = np.zeros(self.x.shape, np.int64)
-        for sl in range(2):
-            for l in range(layers):
-                for n_ in range(n, self.chunks * 16):
-                    self._put(sl, l, n_, range(_kp(h)), 0.0)
-                for n_ in range(n):
-                    self._put(sl, l, n_, range(h, _kp(h)), 0.0)
-        for l in range(layers):
-            self.write(0, l, h0[l])
-
-    def _index(self, sl, l, n, j):
-        return (sl * self.layers + l) * self.region + exchange_index(n, j, self.ks)
-
-    def _put(self, sl, l, n, cols, values):
-        idx = [self._index(sl, l, n, j) for j in cols]
-        self.x[idx] = values
-        np.add.at(self.writes, idx, 1)
-
-    def write(self, sl, l, state):
-        for j0 in range(0, self.h, self.units):
-            for n_ in range(self.n):
-                self._put(sl, l, n_, range(j0, j0 + self.units), state[n_, j0:j0 + self.units])
-
-    def read(self, sl, l):
-        """The (chunks x 16, Kp) matrix of slot sl of layer l that the
-        blocks' ldmatrix reads assemble."""
-        out = np.zeros((self.chunks * 16, _kp(self.h)), np.float32)
-        base = (sl * self.layers + l) * self.region
-        for c in range(self.chunks):
-            for ks in range(self.ks):
-                tile = self.x[base + (c * self.ks + ks) * 256:][:256]
-                for lane in range(32):
-                    r, half = lane % 16, lane // 16
-                    at = tile_offset(r, 8 * half)
-                    out[c * 16 + r, 16 * ks + 8 * half:][:8] = tile[at:at + 8]
-        return out
 
 
 @pytest.mark.parametrize("layers, n, h, units", [(1, 17, 40, 4), (2, 17, 40, 4), (2, 1, 40, 4),
@@ -308,6 +259,48 @@ def test_ring_model_finds_an_early_parity():
         ring_run(2, 4, 3, 2, order="late", wait_issued=False)
     for order in ["late", None] + [np.random.RandomState(seed) for seed in range(8)]:
         assert ring_run(2, 4, 3, 2, order=order)
+
+
+@pytest.mark.parametrize("stages", range(1, K.MAX_SLOTS + 1))
+@pytest.mark.parametrize("layers", [1, 2])
+def test_count_rule_matches_the_ring_model(layers, stages):
+    """The count of the items issued, kept per phase where ``count_needed``
+    says (the kernel's rule): on the plan's teams the ring ends clean under
+    every schedule for 1 to 9 chunks; with the count dropped at the phases
+    of one item count a chunk alone, a schedule fails exactly where the rule
+    keeps it there, and none elsewhere. One layer: one item a chunk; two:
+    two at layer 1, one at layer 0."""
+    for n_chunks in range(1, 10):
+        for ipc, (kept, fails) in count_rule_check(layers, n_chunks, stages).items():
+            assert fails == kept, (n_chunks, ipc, kept, fails)
+
+
+@pytest.mark.parametrize("layers, n_chunks, stages, ipc", [(1, 4, 3, 1), (2, 4, 3, 1),
+                                                           (2, 4, 3, 2), (2, 5, 6, 2)])
+def test_ring_model_finds_the_fault_without_the_count(layers, n_chunks, stages, ipc):
+    """A case for each item count a chunk where the rule keeps the count
+    (three slots: odd; six at two items a chunk: 2 mod 4): without it at
+    those phases a full mbarrier two phases behind passes by parity."""
+    assert count_rule_check(layers, n_chunks, stages)[ipc] == (True, True)
+
+
+@pytest.mark.parametrize("mode, layers, n, h, keeps", [
+    ("high", 2, 64, 512, {1, 2}), ("high", 2, 17, 512, {2}), ("high", 2, 1300, 512, {1, 2}),
+    ("default", 2, 100, 512, set()), ("default", 2, 1300, 512, set()),
+    ("default", 1, 64, 1024, set()), ("default", 1, 1300, 1024, set()),
+    ("high", 1, 64, 1024, set()), ("default", 2, 300, 260, set()), ("high", 2, 300, 260, set())])
+def test_stack_plans_keep_the_count_where_a_slot_changes_team(mode, layers, n, h, keeps):
+    """The item counts a chunk (1 at layer 0, 2 above) whose phases keep the
+    count on the plan: 2x512 at HIGH (three slots, two teams) keeps it; two
+    teams on an even slot count (2x512 at DEFAULT past N=64, 8 slots; one
+    layer of 1024 at DEFAULT, 4; 2x260, 8) drop it; one team (1x1024 at
+    HIGH) and the reuse of two layers have none."""
+    plan = K.lstm_stack_plan(layers, n, h, precision=mode)
+    stages, chunks = plan.stage_rows // 16, -(-n // 16)
+    reuse = layers == 2 and stages >= 2 * chunks
+    counted = {k for k in ({1, 2} if layers > 1 else {1})
+               if plan.teams == 2 and not reuse and count_needed(chunks, stages, k)}
+    assert counted == keeps
 
 
 # ---------------------------------------------------------------------------

@@ -1,14 +1,17 @@
 """CPU models of what the LSTM kernels' HIGH and DEFAULT bodies share
 (``csrc/lstm_common.cuh``), for the tests of the bidirectional layer
-(``tests/test_torch_bidi_modes.py``), the stack
-(``tests/test_torch_stack_modes.py``) and the training forward sweep
+(``tests/test_torch_bidi_modes.py``), the stack in its two orders
+(``tests/test_torch_stack_modes.py``, ``tests/test_torch_wave_modes.py``)
+and the training forward sweep
 (``tests/test_torch_fwd_modes.py``):
 
 * the exchange of a state's bf16 form in 16x16 k-step tiles
-  (``tile_offset``, ``exchange_index``, :class:`Exchange`);
+  (``tile_offset``, ``exchange_index``, :class:`Exchange`; the stack
+  kernel's two slots a layer, :class:`StackExchange`);
 * the ring of bulk copies on full and empty mbarriers, one actor a warp,
-  copies landing in any order (:func:`ring_run`), and where the ring of one
-  item a chunk keeps the count of its chunks issued (:func:`count_needed`).
+  copies landing in any order, in the stack kernel's two orders
+  (:func:`ring_run`), and where a ring keeps the count of its items issued
+  (:func:`count_needed`).
 """
 
 import numpy as np
@@ -73,6 +76,57 @@ class Exchange:
         return out
 
 
+class StackExchange:
+    """One part of the exchange of an L-layer stack, as ``ring_body`` fills
+    it: (slot 2, layer L) regions of 16-row chunks of KS k-step tiles. The
+    launch's prologue writes the zeros past N and past H of every region
+    and each layer's h0 into its slot 0; the owners (block b: columns b U ..
+    b U + U - 1) write each state; every block reads a chunk's k-step tiles
+    as ldmatrix does."""
+
+    def __init__(self, layers, n, h, units, h0):
+        self.layers, self.n, self.h, self.units = layers, n, h, units
+        self.ks, self.chunks = kp16(h) // 16, -(-n // 16)
+        self.region = self.chunks * self.ks * 256
+        self.x = np.full(2 * layers * self.region, np.nan, np.float32)
+        self.writes = np.zeros(self.x.shape, np.int64)
+        for sl in range(2):
+            for l in range(layers):
+                for n_ in range(n, self.chunks * 16):
+                    self._put(sl, l, n_, range(kp16(h)), 0.0)
+                for n_ in range(n):
+                    self._put(sl, l, n_, range(h, kp16(h)), 0.0)
+        for l in range(layers):
+            self.write(0, l, h0[l])
+
+    def _index(self, sl, l, n, j):
+        return (sl * self.layers + l) * self.region + exchange_index(n, j, self.ks)
+
+    def _put(self, sl, l, n, cols, values):
+        idx = [self._index(sl, l, n, j) for j in cols]
+        self.x[idx] = values
+        np.add.at(self.writes, idx, 1)
+
+    def write(self, sl, l, state):
+        for j0 in range(0, self.h, self.units):
+            for n_ in range(self.n):
+                self._put(sl, l, n_, range(j0, j0 + self.units), state[n_, j0:j0 + self.units])
+
+    def read(self, sl, l):
+        """The (chunks x 16, Kp) matrix of slot sl of layer l that the
+        blocks' ldmatrix reads assemble."""
+        out = np.zeros((self.chunks * 16, kp16(self.h)), np.float32)
+        base = (sl * self.layers + l) * self.region
+        for c in range(self.chunks):
+            for ks in range(self.ks):
+                tile = self.x[base + (c * self.ks + ks) * 256:][:256]
+                for lane in range(32):
+                    r, half = lane % 16, lane // 16
+                    at = tile_offset(r, 8 * half)
+                    out[c * 16 + r, 16 * ks + 8 * half:][:8] = tile[at:at + 8]
+        return out
+
+
 # ---------------------------------------------------------------------------
 # The ring's copies and waits
 
@@ -108,26 +162,45 @@ class Sync:
         yield lambda: self.generation != gen
 
 
-def ring_run(layers, n_chunks, stages, teams, units=4, steps=3, order=None, wait_issued=True):
+def stack_phases(layers, steps, wavefront=False):
+    """The phases of the stack kernel (``phase_at`` in ``csrc/lstm_stack.cu``)
+    over ``steps`` steps, as (wave, l_first, l_last): the stack order runs
+    phase (t, l) as (t + l, l, l), the wavefront order phase p every layer l
+    with 0 <= p - l < steps."""
+    if wavefront:
+        return [(p, max(0, p - steps + 1), min(layers - 1, p))
+                for p in range(steps + layers - 1)]
+    return [(t + l, l, l) for t in range(steps) for l in range(layers)]
+
+
+def ring_run(layers, n_chunks, stages, teams, units=4, steps=3, order=None, wait_issued=True,
+             wavefront=False):
     """``ring_phases`` (``csrc/lstm_stack.cu``) for one block, one actor a
-    warp (warp 0 holds thread 0, which issues the copies); at one layer (one
-    item a chunk) the ring of ``mma_steps`` (``csrc/lstm_bidi.cu``) and of
-    ``fwd_steps`` (``csrc/lstm_train.cu``). It runs under the
-    schedule ``order``: a numpy RandomState picks among the actors that can
-    go on, the copies in flight landing in any order; None and "late" take
-    the lowest warp that can go on, and land a copy only where none can, the
-    oldest (None) or the newest ("late") first. Each item's
-    slot holds what the item names (layer, step of its state, chunk),
-    checked when a warp's product starts and again when it ends, so a read
-    of a copy not yet landed, or a copy landing over a slot still being
+    warp (warp 0 holds thread 0, which issues the copies), in the stack
+    order or (``wavefront``) the wavefront order; at one layer (one item a
+    chunk) the ring of ``mma_steps`` (``csrc/lstm_bidi.cu``) and of
+    ``fwd_steps`` (``csrc/lstm_train.cu``). A phase's chunk holds one item
+    per staged state (layers max(0, l_first - 1) ... l_last); a warp waits
+    for an item at its first use and frees its slot after its last (in the
+    wavefront order layer k's state is multiplied by W_hh[k], then as layer
+    k + 1's input). It runs under the schedule ``order``: a numpy
+    RandomState picks among the actors that can go on, the copies in flight
+    landing in any order; None and "late" take the lowest warp that can go
+    on, and land a copy only where none can, the oldest (None) or the newest
+    ("late") first. Each item's slot holds what the item names (layer, step
+    of its state, chunk), checked at each use when it starts and ends, so a
+    read of a copy not yet landed, or a copy landing over a slot still being
     read, fails; so does a full mbarrier passed by parity more than one
-    phase early. With two teams (and no reuse), as the kernel does,
-    ``wait_issued`` has every warp but thread 0's wait until its item is
-    issued (thread 0 publishes the count after each copy).
+    phase early. With two teams (and no reuse) a phase keeps the count of
+    the items issued where ``wait_issued(n_chunks, stages, items a chunk)``
+    says (True: :func:`count_needed`, the kernel's rule; False: in no
+    phase): there every warp but thread 0's waits until its item is issued
+    (thread 0 publishes the count after each copy).
     Returns True where every warp ends, False on a deadlock."""
+    keeps = count_needed if wait_issued is True else wait_issued or (lambda *_: False)
     warps, stacked = 8, units == 4
     team_warps = warps // teams
-    reuse = stacked and layers == 2 and stages >= 2 * n_chunks
+    reuse = stacked and layers == 2 and stages >= 2 * n_chunks and not wavefront
     full = [MBarrier(1) for _ in range(stages)]
     empty = [MBarrier(team_warps) for _ in range(stages)]
     held = [None] * stages
@@ -139,23 +212,23 @@ def ring_run(layers, n_chunks, stages, teams, units=4, steps=3, order=None, wait
 
     def warp(w):
         team, thread0 = w // team_warps, w == 0
-        for ph in range(steps * layers):
-            t, l = divmod(ph, layers)
-            ipc = 2 if stacked and l > 0 else 1
-            n_items = 0 if reuse and l == 0 and t > 0 else n_chunks * ipc
-            base = t * n_chunks * (2 * layers - 1) + (n_chunks * (2 * l - 1) if l else 0)
+        base = 0
+        for wave, l_first, l_last in stack_phases(layers, steps, wavefront):
+            lo = max(0, l_first - 1)
+            ipc = l_last - lo + 1
+            n_items = 0 if reuse and l_first == 0 and wave > 0 else n_chunks * ipc
+            counted = both and keeps(n_chunks, stages, ipc)
 
             def slot_use(i):
                 if not reuse:
                     return (base + i) % stages, (base + i) // stages
-                if l == 0:
-                    return 2 * i, t
-                return i, t + (i % 2 == 0)
+                if l_first == 0:
+                    return 2 * i, wave
+                return i, wave - l_first + (i % 2 == 0)
 
-            def names(i):  # (layer, step of its state, chunk); reuse at (t > 0, 0): slot 2c
-                if ipc == 2 and i % 2 == 0:
-                    return l - 1, t, i // 2
-                return l, t - 1, i // ipc
+            def names(i):  # (layer, step of its state, chunk)
+                k = lo + i % ipc
+                return k, wave - k - 1, i // ipc
 
             def issue(i):
                 slot, use = slot_use(i)
@@ -163,7 +236,8 @@ def ring_run(layers, n_chunks, stages, teams, units=4, steps=3, order=None, wait
                     yield lambda: empty[slot].ready((use - 1) & 1)
                     assert empty[slot].done == use
                 in_flight.append((slot, names(i)))
-                count[0] = base + i + 1
+                if counted:
+                    count[0] = base + i + 1
 
             issued = [0]
 
@@ -175,22 +249,31 @@ def ring_run(layers, n_chunks, stages, teams, units=4, steps=3, order=None, wait
             if thread0:
                 yield from issue_to(min(stages, n_items))
             for c in range(team, n_chunks, teams):
-                for i in ([2 * c, 2 * c + 1] if ipc == 2 else [c]):
-                    slot, use = slot_use(i)
-                    want = (0, t - 1, c) if n_items == 0 else names(i)
-                    if both and wait_issued and w > 0:
-                        yield lambda: count[0] > base + i
-                    yield lambda: full[slot].ready(use & 1)
-                    assert full[slot].done == use + 1 and held[slot] == want
-                    yield lambda: True  # the products
-                    assert held[slot] == want
-                    empty[slot].arrive()
-                    if thread0:
-                        yield from issue_to(min(n_items, i + stages + 1))
-                if teams > 1:
+                for l in range(l_first, l_last + 1):
+                    uses = []  # (item, its first use, its last)
+                    if stacked and l > 0:  # the input product
+                        uses.append((c * ipc + l - 1 - lo, not wavefront or l == l_first, True))
+                    uses.append((c * ipc + l - lo, True, not wavefront or l == l_last))
+                    for i, first, last in uses:
+                        slot, use = slot_use(i)
+                        want = (0, wave - 1, c) if n_items == 0 else names(i)
+                        if first:
+                            if counted and w > 0:
+                                yield lambda: count[0] > base + i
+                            yield lambda: full[slot].ready(use & 1)
+                            assert full[slot].done == use + 1
+                        assert held[slot] == want
+                        yield lambda: True  # the products
+                        assert held[slot] == want
+                        if last:
+                            empty[slot].arrive()
+                            if thread0:
+                                yield from issue_to(min(n_items, i + stages + 1))
+                    if teams > 1:
+                        yield from team_syncs[team].meet()
                     yield from team_syncs[team].meet()
-                yield from team_syncs[team].meet()
             yield from grid.meet()
+            base += n_chunks * ipc
 
     actors = [warp(w) for w in range(warps)]
     waits = [lambda: True] * warps
@@ -213,13 +296,51 @@ def ring_run(layers, n_chunks, stages, teams, units=4, steps=3, order=None, wait
     return True
 
 
-def count_needed(n_chunks, stages):
-    """Whether the ring of one item a chunk with two teams keeps the count
-    of the chunks issued (``count`` in ``csrc/lstm_bidi.cu`` ``mma_steps``
-    and ``csrc/lstm_train.cu`` ``fwd_steps``): only where a slot's
-    consecutive chunks of a step go to different teams, an odd slot count
-    under the step's chunks."""
-    return stages % 2 == 1 and stages < n_chunks
+def count_needed(n_chunks, stages, items_per_chunk=1):
+    """Whether a phase of ``n_chunks`` chunks of ``items_per_chunk`` items,
+    the chunks taken in turns by two teams, keeps the count of the items
+    issued on a ring of ``stages`` slots (``count_needed`` in
+    ``csrc/lstm_stack.cu``; at one item a chunk ``count`` in
+    ``csrc/lstm_bidi.cu`` ``mma_steps`` and ``csrc/lstm_train.cu``
+    ``fwd_steps``): only where some item i >= stages finds its slot's item
+    before, i - stages, in a chunk of the other team, so that it may still
+    be in flight when a warp waits for item i (a slot's other items before
+    are the same team's, read before, or an earlier phase's, landed before
+    its grid barrier). At one item a chunk that is an odd slot count under
+    the phase's chunks; at two, a slot count odd or 2 mod 4 under the
+    phase's items (with edge cases at the last chunk)."""
+    ipc = items_per_chunk
+    return any((i // ipc - (i - stages) // ipc) % 2
+               for i in range(stages, min(n_chunks * ipc, stages + ipc)))
+
+
+def count_rule_check(layers, n_chunks, stages, wavefront=False, units=4, steps=3):
+    """The count rule against :func:`ring_run` on the plan's teams (two
+    where a phase has two chunks or more and the ring more slots than a
+    chunk has items, as ``lstm_stack_plan`` gives them): with the count kept
+    where :func:`count_needed` says, every schedule of
+    :func:`ring_schedules` must end clean (else AssertionError). Returns,
+    for each item count a chunk that the run's phases have, (the rule keeps
+    the count there, a schedule fails with the count dropped at those phases
+    alone); at one team (nothing to count) an empty dict."""
+    planes = layers if wavefront else min(layers, 2)
+    teams = 2 if n_chunks > 1 and stages > planes else 1
+    run = lambda order, keeps=True: ends_clean(layers, n_chunks, stages, teams, units, steps,
+                                               order, keeps, wavefront)
+    orders = lambda: ring_schedules(n_chunks * 10 + stages)
+    assert all(run(order) for order in orders()), (layers, n_chunks, stages, wavefront)
+    reuse = not wavefront and units == 4 and layers == 2 and stages >= 2 * n_chunks
+    if teams == 1 or reuse:
+        return {}
+    out = {}
+    for _, l_first, l_last in stack_phases(layers, steps, wavefront):
+        ipc = l_last - max(0, l_first - 1) + 1
+        if ipc in out:
+            continue
+        drop = lambda nc, st, k, ipc=ipc: k != ipc and count_needed(nc, st, k)
+        out[ipc] = (count_needed(n_chunks, stages, ipc),
+                    not all(run(order, drop) for order in orders()))
+    return out
 
 
 def ring_schedules(seed):

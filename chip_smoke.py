@@ -116,6 +116,23 @@ Phases, each printed on its own line:
      a limit set by ``--step-rounding``) and of the step with the kernel
      forward and the plain reverse sweep; then step times and one profiled
      window;
+  6h. (run right after 6) sensor-fault noise: the noise functions on the
+     card at the flagship batch (16 x 64), drawn and applied under
+     ``torch.cuda.set_sync_debug_mode("error")``, each apply equal to its
+     CPU apply on the same draws (suppression bit for bit at 6 and 12
+     sensors, spherical within TOL_SPHERICAL), and the moments of 4096
+     entries' draws on the card (window starts, candidate and permutation
+     frequencies, the radius bound); LGD-RNN-6 trained with
+     ``--suppression_noise_length 0.5 --noise_num_markers 2`` and with
+     ``--spherical_noise_strength 0.5 --spherical_noise_length 0.5``, 3
+     steps then 2 resumed, equal bit for bit to 5 steps at once (losses and
+     weights), the first loss other than the clean run's; ``--remat``: one
+     LGD-RNN-6 step from the same state and batch with and without it, the
+     loss and every gradient equal bit for bit, the memory the graph holds
+     after the forward, the step's peak and its p50, at window 64 and at
+     windows of up to REMAT_WINDOW frames; ``--profile_dir``: two steps
+     through the train CLI, the Chrome trace parses and holds both
+     training kernels by name, as often as they launched;
   6b. the same for full-width BiRNN-6, 4 steps then 2 resumed: each
      training kernel launches four times per step (2 layers x 2 directions);
   6c. SMPLLayer.fk at the full mesh for a 600-frame sequence in one call:
@@ -145,7 +162,15 @@ Phases, each printed on its own line:
      forward; phase 4b also checks the bidirectional layer at F=4096, N=17;
      then the eval CLI at --precision default for both: the same launches
      at the mode, the table's shift from highest (TOL_EVAL_MODE), the
-     batched pass's wall time and frames/s;
+     batched pass's wall time and frames/s; LGD-RNN-6 under
+     ``--suppression_length 0.5 --suppression_markers 2`` (the serial loop,
+     one stack launch a window): rows other than the clean ones, and on the
+     hold-out recording the same rows on a second run and the host
+     oracle's within TOL_EVAL; the
+     suppression study (``python -m empose_tpu_torch.tools.suppression_study``)
+     on the hold-out recording at lengths 0, 0.5 and markers 1, 2: three
+     rows, the clean one equal to the clean CLI's overall row, its
+     monotonicity verdict printed (untrained weights: not held);
   6g. (run right after 6b) training at the modes: LGD-RNN-6 (4 steps) and
      BiRNN-6 (2 steps) through ``python -m empose_tpu_torch.train``'s main
      at ``--matmul_precision high`` and at ``--bf16`` from the seed of the
@@ -227,17 +252,20 @@ import time
 import numpy as np
 import torch
 
+from empose_tpu_torch import constants as C
 from empose_tpu_torch import preprocess
 from empose_tpu_torch.bodymodel.smplh import SMPLLayer, create_default_smpl_model, load_smplh
 from empose_tpu_torch.bodymodel.synthetic import (make_offset_data, make_synthetic_smplh,
                                                   smooth_random_poses)
 from empose_tpu_torch.config import Configuration
+from empose_tpu_torch.data import noise as NZ
 from empose_tpu_torch.data.datasets import EMRBatchLoader, make_real_loader
 from empose_tpu_torch.data.emr import EMRReader, EMRWriter
 from empose_tpu_torch.device import set_precision
 from empose_tpu_torch.eval import cli as eval_cli
 from empose_tpu_torch.eval import harness as EH
 from empose_tpu_torch.eval.harness import export_visualization
+from empose_tpu_torch.eval.metrics import METRIC_NAMES
 from empose_tpu_torch.nn.layers import _reverse_by_length, init_parameters, nn_precision
 from empose_tpu_torch.nn.models import SensorSMPL, create_model
 from empose_tpu_torch.ops import cuda_build
@@ -245,8 +273,9 @@ from empose_tpu_torch.ops import lstm_kernel as K
 from empose_tpu_torch.ops import lstm_train_kernel as TK
 from empose_tpu_torch.ops import skinning as SK
 from empose_tpu_torch.serve import MultiStreamPredictor, StreamingPredictor
-from empose_tpu_torch.tools import bench_lstm_kernels
+from empose_tpu_torch.tools import bench_lstm_kernels, suppression_study
 from empose_tpu_torch.train import cli as train_cli
+from empose_tpu_torch.train.loop import Trainer
 from empose_tpu_torch.utils.experiments import count_parameters
 
 SEED = 0
@@ -261,6 +290,10 @@ TRAIN_WINDOW, TRAIN_BATCH, TRAIN_STEPS, RESUME_STEPS = 64, 16, 8, 4
 # The flagship step, a large one, and one past the reverse sweep's shared step operands.
 PAIR_TIMED = ((TRAIN_WINDOW, TRAIN_BATCH), (256, 64), (64, 100))
 BIRNN_TRAIN_STEPS, BIRNN_RESUME_STEPS = 4, 2
+NOISY_STEPS, NOISY_RESUME_STEPS = 3, 2  # LGD-RNN-6 with each noise type, then all 5 at once
+REMAT_WINDOW = 512   # the longer window of the --remat readings
+TOL_SPHERICAL = 1e-6  # spherical noise, card against CPU on the same draws (the trigonometry)
+NOISE_MOMENTS_N = 4096
 STREAMS, CHUNK, CHUNKS = 64, 16, 4
 # The bidirectional layer's timed shapes: the batched serving chunk, the eval
 # window, one stream's chunk.
@@ -1555,16 +1588,20 @@ def final_eval_forwards() -> int:
 
 def training_path(label: str, model_cfg: dict, experiment_id: str, steps: int,
                   resume_steps: int, per_step: int, eval_kernel: str,
-                  eval_per_forward: int) -> dict:
-    """Train ``steps`` steps through the CLI's main, resume for
-    ``resume_steps``; each training kernel must launch ``per_step`` times per
-    step (once per direction-layer), the inference kernel ``eval_kernel``
-    ``eval_per_forward`` times per forward of each run's final validation
-    and test passes, and no other kernel. Returns the trainer and the
-    kernels' launch counts of that run."""
+                  eval_per_forward: int, flags: tuple = (),
+                  uninterrupted_id: str = None) -> dict:
+    """Train ``steps`` steps through the CLI's main with ``flags``, resume
+    for ``resume_steps``; each training kernel must launch ``per_step``
+    times per step (once per direction-layer), the inference kernel
+    ``eval_kernel`` ``eval_per_forward`` times per forward of each run's
+    final validation and test passes, and no other kernel. With
+    ``uninterrupted_id`` a third run takes all the steps at once, and its
+    losses and weights must equal the resumed run's bit for bit. Returns the
+    trainer and the kernels' launch counts of those runs."""
+    flags = list(flags)
     torch.cuda.synchronize()
     reset_counts()
-    model_dir, trainer = train_cli.main(train_flags(model_cfg, experiment_id, steps))
+    model_dir, trainer = train_cli.main(train_flags(model_cfg, experiment_id, steps) + flags)
     torch.cuda.synchronize()
     first = counts()
     check(trainer.global_step == steps, f"trained {trainer.global_step} steps")
@@ -1572,28 +1609,44 @@ def training_path(label: str, model_cfg: dict, experiment_id: str, steps: int,
           and os.path.exists(os.path.join(model_dir, "model.pth")), "no checkpoint written")
     reset_counts()
     _, trainer = train_cli.main(train_flags(model_cfg, experiment_id, steps + resume_steps,
-                                            resume=True))
+                                            resume=True) + flags)
     torch.cuda.synchronize()
-    second = counts()
+    runs = [(steps, first), (resume_steps, counts())]
     losses = train_losses(model_dir)
     print(f"{label} training main path: {steps} steps then {resume_steps} resumed, launches "
-          f"{first} then {second}; losses by step "
+          f"{runs[0][1]} then {runs[1][1]}; losses by step "
           f"{ {k: round(v, 6) for k, v in sorted(losses.items())} }", flush=True)
     check(trainer.global_step == steps + resume_steps,
           f"the resumed run did not reach step {steps + resume_steps}")
     check(sorted(losses) == list(range(1, steps + resume_steps + 1)),
           f"the resumed run did not continue from step {steps}")
     check(all(np.isfinite(v) for v in losses.values()), "a training loss is not finite")
+    if uninterrupted_id is not None:
+        reset_counts()
+        whole_dir, whole = train_cli.main(train_flags(model_cfg, uninterrupted_id,
+                                                      steps + resume_steps) + flags)
+        torch.cuda.synchronize()
+        runs.append((steps + resume_steps, counts()))
+        # The final passes load the best checkpoint and then restore the weights the run
+        # ended with: both trainers hold their last step's weights.
+        same_weights = all(torch.equal(whole.model.state_dict()[k], v)
+                           for k, v in trainer.model.state_dict().items())
+        print(f"{label} training: {steps} + {resume_steps} resumed against "
+              f"{steps + resume_steps} at once: losses equal bit for bit "
+              f"{train_losses(whole_dir) == losses}, weights {same_weights}", flush=True)
+        check(train_losses(whole_dir) == losses and same_weights,
+              f"{label}: the resumed run does not continue the uninterrupted one bit for bit")
+        del whole
     evals = {eval_kernel: eval_per_forward * final_eval_forwards()}
-    for n, got in ((steps, first), (resume_steps, second)):
+    for n, got in runs:
         check(got == expected(lstm_train_fwd=per_step * n, lstm_train_bwd=per_step * n, **evals),
               f"{label}: each training kernel must launch {per_step} times per step, "
               f"{eval_kernel} {evals[eval_kernel]} times in the final passes, and no other "
               f"kernel; got {got} over {n} steps")
     return {"trainer": trainer, "model_dir": model_dir,
-            "fwd": first["lstm_train_fwd"] + second["lstm_train_fwd"],
-            "bwd": first["lstm_train_bwd"] + second["lstm_train_bwd"],
-            eval_kernel: first[eval_kernel] + second[eval_kernel]}
+            "fwd": sum(got["lstm_train_fwd"] for _, got in runs),
+            "bwd": sum(got["lstm_train_bwd"] for _, got in runs),
+            eval_kernel: sum(got[eval_kernel] for _, got in runs)}
 
 
 def fwd_in_fp64(x_proj, mask, w_hh, h0, c0, save_gates: bool = True,
@@ -2126,6 +2179,293 @@ def eval_fit_path(label: str, model_cfg: dict, experiment_id: str, per_step: int
           f"{label}: expected {3 * per_step} launches of each training kernel and {evals} "
           f"{eval_kernel} launches, got {launched}")
     return launched[eval_kernel]
+
+
+def noise_batch(rng, n: int, f: int, lengths) -> dict:
+    """Sensor inputs of ``n`` entries of ``f`` frames (12 markers) on the CPU."""
+    return {"marker_pos": torch.from_numpy(rng.randn(n, f, 36).astype(np.float32)),
+            "marker_ori": torch.from_numpy(rng.randn(n, f, 108).astype(np.float32)),
+            "marker_nor": torch.from_numpy(rng.randn(n, f, 36).astype(np.float32)),
+            "seq_lengths": torch.as_tensor(lengths, dtype=torch.int64)}
+
+
+@contextlib.contextmanager
+def no_sync():
+    """Raise on any host-device synchronization inside the block."""
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        yield
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+
+
+def within_5_se(x: torch.Tensor, mean: float, var: float) -> bool:
+    return abs(float(x.double().mean()) - mean) <= 5 * (var / x.numel()) ** 0.5
+
+
+def noise_phase() -> None:
+    """The noise functions on the card at the flagship training batch (16
+    entries of 64 frames; valid lengths 64, 0, 3 and seeded ones), each made
+    and applied under ``torch.cuda.set_sync_debug_mode("error")``: each
+    apply equals its CPU apply on the same draws (suppression bit for bit at
+    6 and 12 sensors, spherical within TOL_SPHERICAL); then the moments of
+    4096 entries' draws on the card: window starts uniform, each candidate
+    sensor and each permutation's first K at their frequency (5 standard
+    errors), the masked frames exactly the window, every displacement
+    within the radius bound."""
+    rng = np.random.RandomState(SEED + 19)
+    n, f, k = TRAIN_BATCH, TRAIN_WINDOW, 2
+    lengths = rng.randint(1, f + 1, n)
+    lengths[:3] = (f, 0, 3)
+    cpu = noise_batch(rng, n, f, lengths)
+    dev = {key: v.cuda() for key, v in cpu.items()}
+    g = torch.Generator(device="cuda").manual_seed(SEED)
+    readings = {}
+    for n_markers in (6, 12):
+        fn = NZ.marker_suppression_noise_fn(0.5, k, 0.0, n_markers)
+        with no_sync():
+            choice, u = NZ.draw_suppression_noise(n, k, n_markers, g, "cuda")
+            got = NZ.marker_suppression_noise(dev, choice, u, 0.5, 0.0, n_markers)
+            fn(dev, g)
+        want = NZ.marker_suppression_noise(cpu, choice.cpu(), u.cpu(), 0.5, 0.0, n_markers)
+        equal = all(torch.equal(got[key].cpu(), want[key]) for key in cpu)
+        readings[f"suppression n{n_markers}"] = (equal, int((got["marker_pos"] == 0).sum()))
+        check(equal, f"suppression noise ({n_markers} sensors): the card's apply differs from "
+                     "the CPU's on the same draws")
+    fn = NZ.spherical_marker_noise_fn(0.5, 0.5, k)
+    with no_sync():
+        draws = NZ.draw_spherical_noise(n, f, 12, k, g, "cuda")
+        got = NZ.spherical_marker_noise(dev, draws, 0.5, 0.5)
+        fn(dev, g)
+    want = NZ.spherical_marker_noise(cpu, {key: v.cpu() for key, v in draws.items()}, 0.5, 0.5)
+    err = float((got["marker_pos"].cpu() - want["marker_pos"]).abs().max())
+    same_gate = torch.equal(got["marker_pos"].cpu() != cpu["marker_pos"],
+                            want["marker_pos"] != cpu["marker_pos"])
+    readings["spherical"] = (err, same_gate)
+    print(f"noise on the card (batch {n} x {f}, K={k}, no synchronization): suppression equal "
+          f"bit for bit to the CPU's at 6 and 12 sensors "
+          f"{ {key: v for key, v in readings.items() if key != 'spherical'} } (equal, masked "
+          f"values); spherical max |card - CPU| {err:.3e}, same gate {same_gate}", flush=True)
+    check(err <= TOL_SPHERICAL and same_gate, f"spherical noise: the card's apply is "
+                                             f"{err} > {TOL_SPHERICAL} from the CPU's")
+
+    n, f, ws = NOISE_MOMENTS_N, 20, 0.25  # windows of 5 frames, starts 0..15
+    batch = noise_batch(np.random.RandomState(SEED + 20), n, f, np.full(n, f))
+    batch = {key: v.cuda() for key, v in batch.items()}
+    with no_sync():
+        choice, u = NZ.draw_suppression_noise(n, k, 6, g, "cuda")
+        out = NZ.marker_suppression_noise(batch, choice, u, ws, 0.0, 6)
+    masked = (out["marker_pos"].reshape(n, f, 12, 3) == 0).all(-1).cpu()
+    frames = masked.any(-1)
+    starts = frames.float().argmax(1)
+    freqs = [float((choice == c).double().mean()) for c in range(6)]
+    supp_ok = (bool((frames.sum(1) == 5).all()) and within_5_se(starts, 7.5, (16 ** 2 - 1) / 12)
+               and all(within_5_se((choice == c).cpu(), 1 / 6, 5 / 36) for c in range(6))
+               and set(torch.nonzero(masked.any(1))[:, 1].tolist()) <= set(C.S_CONFIG_6))
+    pos = torch.zeros(n, f, 12, 3, device="cuda")
+    pos[0, f // 2, C.T_TO_IDX_WO_ROOT[C.T_RUL]] = torch.tensor([0.0, 2.0, 0.0])
+    sph = {"marker_pos": pos.reshape(n, f, -1), "seq_lengths": batch["seq_lengths"]}
+    with no_sync():
+        draws = NZ.draw_spherical_noise(n, f, 12, 3, g, "cuda")
+        out = NZ.spherical_marker_noise(sph, draws, 0.8, ws)
+    disp = (out["marker_pos"] - sph["marker_pos"]).reshape(n, f, 12, 3).cpu()
+    chosen = draws["perm"][:3].cpu()
+    gate = (disp != 0).any(-1)
+    sph_frames = gate.any(-1)
+    d = disp[:, :, chosen][sph_frames]
+    big_r = 0.8 * 2.0 / 2
+    firsts = torch.stack([NZ.draw_spherical_noise(1, 1, 12, 3, g, "cuda")["perm"][:3]
+                          for _ in range(2000)]).cpu()
+    sph_ok = (float(d.abs().max()) <= big_r and bool((sph_frames.sum(1) == 5).all())
+              and within_5_se(sph_frames.float().argmax(1), 7.5, (16 ** 2 - 1) / 12)
+              and all(within_5_se(d[..., a].double() ** 2, big_r ** 2 / 3 * w,
+                                  float((d[..., a].double() ** 2).var()))
+                      for a, w in ((0, 0.25), (1, 0.25), (2, 0.5)))
+              and all(within_5_se((firsts == i).any(1), 3 / 12, 0.25 * 0.75)
+                      for i in range(12)))
+    print(f"noise moments on the card ({n} entries of {f} frames, windows of 5): suppression "
+          f"starts mean {float(starts.double().mean()):.4f} (7.5), candidate frequencies "
+          f"{[round(x, 4) for x in freqs]} (1/6) {supp_ok}; spherical starts mean "
+          f"{float(sph_frames.float().argmax(1).double().mean()):.4f}, largest |component| "
+          f"{float(d.abs().max()):.4f} <= R {big_r}, mean z^2 {float((d[..., 2] ** 2).mean()):.5f} "
+          f"({big_r ** 2 / 6:.5f}), first-3 frequencies over 2000 permutations "
+          f"{[round(float((firsts == i).any(1).double().mean()), 3) for i in range(12)]} (0.25) "
+          f"{sph_ok}", flush=True)
+    check(supp_ok and sph_ok, "the noise draws on the card are off their moments")
+
+
+def real_windows(window, data_dir: str = None) -> int:
+    """Windows of the serial loop over the recordings of ``data_dir``."""
+    return sum(-(-b["poses"].shape[1] // window) for b in make_real_loader(data_dir))
+
+
+def suppression_eval_path(label: str, model_id: str, clean_rows: list, per_forward: int,
+                          window: int) -> int:
+    """The eval CLI's main at ``--suppression_length 0.5 --suppression_markers
+    2`` with the counts at 0 (the serial loop: ``per_forward`` stack launches
+    a window, no other kernel): rows other than the clean ones; then, on the
+    hold-out recording (``--cross_subject``, to keep the smoke short), the
+    same rows on a second run and the host oracle's within TOL_EVAL.
+    Returns the launches of the first run."""
+    argv = ["--model_id", model_id, "--suppression_length", "0.5", "--suppression_markers", "2"]
+    want = per_forward * real_windows(window)
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    rows, _ = quiet_eval(argv)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launched = counts()
+    cross, again = (quiet_eval(argv + ["--cross_subject"])[0] for _ in range(2))
+    host = quiet_eval(argv + ["--cross_subject", "--host_metrics"])[0]
+    shift, host_diff = table_diff(rows, clean_rows), table_diff(host, cross)
+    print(f"{label} eval under suppression (length 0.5, 2 sensors; serial): launches "
+          f"{launched}, wall {wall:.3f} s; overall {[round(v, 4) for v in rows[-1][1:]]} "
+          f"against clean {[round(v, 4) for v in clean_rows[-1][1:]]} (largest relative "
+          f"shift {shift:.4f}); hold-out: second run equal {again == cross}, host oracle "
+          f"relative difference {host_diff:.3e}", flush=True)
+    check(launched == expected(lstm_stack=want),
+          f"{label} suppression eval: expected {want} stack launches, got {launched}")
+    check(len(rows) == REAL_RECORDINGS + 1 and all(np.isfinite(r[1:]).all() for r in rows),
+          f"{label} suppression eval: not {REAL_RECORDINGS} finite rows and the overall")
+    check(shift > 0, f"{label} suppression eval: the rows equal the clean rows")
+    check(again == cross and len(cross) == 2,
+          f"{label} suppression eval: a second hold-out run gave other rows")
+    check(host_diff <= TOL_EVAL, f"{label} suppression eval: the host oracle differs by "
+                                 f"{host_diff} > {TOL_EVAL}")
+    return launched["lstm_stack"]
+
+
+def study_path(label: str, model_id: str, per_forward: int, window: int, out_dir: str) -> int:
+    """``python -m empose_tpu_torch.tools.suppression_study``'s main on the
+    hold-out recording at lengths 0, 0.5 and markers 1, 2 with the counts at
+    0: three rows, three passes of ``per_forward`` stack launches a window;
+    the clean row equals the clean eval CLI's overall row (rounded as the
+    study rounds). The weights are untrained, so its monotonicity check is
+    printed and not held. Returns the launches."""
+    clean = quiet_eval(["--model_id", model_id, "--cross_subject"])[0][-1]
+    out = os.path.join(out_dir, "study.json")
+    want = 3 * per_forward * real_windows(window, os.path.join(os.environ["EM_DATA_REAL"],
+                                                               "hold_out"))
+    torch.cuda.synchronize()
+    reset_counts()
+    with contextlib.redirect_stdout(io.StringIO()) as text:
+        rc = suppression_study.main(["--model_id", model_id, "--lengths", "0,0.5",
+                                     "--markers", "1,2", "--cross_subject", "--out", out])
+    torch.cuda.synchronize()
+    launched = counts()
+    with open(out) as fh:
+        result = json.load(fh)
+    rows = result["rows"]
+    table = text.getvalue()
+    print(table[table.index("dropped markers"):].rstrip(), flush=True)
+    print(f"{label} suppression study (hold-out, lengths 0, 0.5 x markers 1, 2): exit {rc}, "
+          f"launches {launched}; violations (not held: untrained weights) "
+          f"{result['violations']}", flush=True)
+    check([(r["suppression_markers"], r["suppression_length"]) for r in rows]
+          == [(0, 0.0), (1, 0.5), (2, 0.5)], f"{label} study: the grid is {rows}")
+    check([rows[0][k] for k in METRIC_NAMES] == [round(float(v), 3) for v in clean[1:]],
+          f"{label} study: the clean row {rows[0]} is not the eval CLI's overall {clean}")
+    check(launched == expected(lstm_stack=want),
+          f"{label} study: expected {want} stack launches, got {launched}")
+    return launched["lstm_stack"]
+
+
+def remat_path(per_step: int) -> tuple:
+    """One LGD-RNN-6 training step with and without ``--remat`` from the same
+    state and batch: the loss and every gradient equal bit for bit; the
+    memory the graph holds after the forward and the loss, the peak over
+    the step, and the step's p50, at batch 16 x window 64 and at windows of
+    up to 512 frames (the 3DPW-style corpus). Returns the training pair's
+    launches (each must launch ``per_step`` times a step)."""
+    fwd = bwd = 0
+    flags = train_flags(LGD_RNN_6, "900040", 1)[:-2]  # without --max_steps
+    for corpus, window, reps in (("amass_emr", TRAIN_WINDOW, 5), ("3dpw_emr", REMAT_WINDOW, 3)):
+        loader = EMRBatchLoader(os.path.join(os.environ["EM_DATA_SYNTH"], corpus), TRAIN_BATCH,
+                                window, seed=SEED + 5)
+        host_batch = next(iter(loader))
+        read = {}
+        for remat in (False, True):
+            trainer = Trainer(Configuration(vars(Configuration.parser().parse_args(
+                flags + (["--remat"] if remat else [])))))
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            reset_counts()
+            batch = trainer.pre_train(trainer.upload(host_batch), trainer.generator, mode="all")
+            loss, _ = trainer.loss(batch)
+            torch.cuda.synchronize()
+            held = torch.cuda.memory_allocated() - base
+            loss.backward()
+            torch.cuda.synchronize()
+            peak = torch.cuda.max_memory_allocated() - base
+            grads = {k: p.grad.clone() for k, p in trainer.model.named_parameters()
+                     if p.grad is not None}
+            del batch
+            times = []
+            for _ in range(reps):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                trainer.train_step(host_batch)
+                torch.cuda.synchronize()
+                times.append((time.perf_counter() - t0) * 1e3)
+            launched = counts()
+            check(launched == expected(lstm_train_fwd=per_step * (1 + reps),
+                                       lstm_train_bwd=per_step * (1 + reps)),
+                  f"remat={remat}: expected {per_step * (1 + reps)} launches of each training "
+                  f"kernel, got {launched}")
+            fwd, bwd = fwd + launched["lstm_train_fwd"], bwd + launched["lstm_train_bwd"]
+            read[remat] = dict(loss=loss.detach(), grads=grads, held=held, peak=peak,
+                               p50=float(np.median(times)), total=torch.cuda.max_memory_allocated())
+            del trainer, loss
+            torch.cuda.empty_cache()
+        a, b = read[False], read[True]
+        same = torch.equal(a["loss"], b["loss"]) and sorted(a["grads"]) == sorted(b["grads"]) \
+            and all(torch.equal(b["grads"][k], g) for k, g in a["grads"].items())
+        f = host_batch["poses"].shape[1]
+        print(f"--remat, LGD-RNN-6 batch {TRAIN_BATCH} x window {f}: loss and {len(a['grads'])} "
+              f"gradients equal bit for bit {same}; held after forward+loss "
+              f"{a['held'] / 2 ** 20:.1f} MiB without, {b['held'] / 2 ** 20:.1f} MiB with; "
+              f"peak over the step {a['peak'] / 2 ** 20:.1f} MiB without, "
+              f"{b['peak'] / 2 ** 20:.1f} MiB with (above the weights; "
+              f"max_memory_allocated {a['total'] / 2 ** 20:.1f}, {b['total'] / 2 ** 20:.1f} "
+              f"MiB); step p50 {a['p50']:.3f} ms without, {b['p50']:.3f} ms with "
+              f"({reps} steps)", flush=True)
+        check(same, f"--remat at window {f}: the loss or a gradient differs from the step "
+                    "without it")
+    return fwd, bwd
+
+
+def profile_path(per_step: int, eval_per_forward: int, out_dir: str) -> tuple:
+    """Two LGD-RNN-6 steps through the train CLI's main with
+    ``--profile_dir``: the trace parses as JSON and holds both training
+    kernels by name, each launched ``per_step`` times a step (the final
+    passes, outside the trace, launch the stack kernel). Returns the
+    launches."""
+    trace_dir = os.path.join(out_dir, "trace")
+    torch.cuda.synchronize()
+    reset_counts()
+    with contextlib.redirect_stdout(io.StringIO()):
+        train_cli.main(train_flags(LGD_RNN_6, "900041", 2) + ["--profile_dir", trace_dir])
+    torch.cuda.synchronize()
+    launched = counts()
+    files = os.listdir(trace_dir)
+    with open(os.path.join(trace_dir, files[0])) as fh:
+        events = json.load(fh)["traceEvents"]
+    kernels = [e["name"] for e in events if e.get("cat") == "kernel"]
+    found = {name: sum(name in k for k in kernels)
+             for name in ("lstm_train_fwd_kernel", "lstm_train_bwd_kernel")}
+    size = os.path.getsize(os.path.join(trace_dir, files[0]))
+    print(f"--profile_dir: {len(files)} trace of {size / 2 ** 20:.1f} MiB, {len(events)} events, "
+          f"{len(kernels)} kernel events, training kernels by name {found}; launches {launched}",
+          flush=True)
+    check(len(files) == 1 and all(v == 2 * per_step for v in found.values()),
+          f"--profile_dir: the trace does not hold each training kernel {2 * per_step} times")
+    check(launched == expected(lstm_train_fwd=2 * per_step, lstm_train_bwd=2 * per_step,
+                               lstm_stack=eval_per_forward * final_eval_forwards()),
+          f"--profile_dir run: unexpected launches {launched}")
+    return launched["lstm_train_fwd"], launched["lstm_train_bwd"], launched["lstm_stack"]
 
 
 def bench_path(mode: str = "highest") -> int:
@@ -2935,6 +3275,30 @@ def main() -> int:
         lgd_losses = train_losses(trained["model_dir"])
         del trained
 
+        # Sensor-fault noise: on the card alone, then LGD-RNN-6 trained with
+        # each noise type, resumed, and held against an uninterrupted run.
+        noise_phase()
+        for kind, flags, ids in (
+                ("suppression", ["--suppression_noise_length", "0.5", "--noise_num_markers", "2"],
+                 ("900030", "900031")),
+                ("spherical", ["--spherical_noise_strength", "0.5",
+                               "--spherical_noise_length", "0.5"], ("900032", "900033"))):
+            noisy = training_path(f"LGD-RNN-6 with {kind} noise", LGD_RNN_6, ids[0], NOISY_STEPS,
+                                  NOISY_RESUME_STEPS, n_layers, "lstm_stack", stack_per_forward,
+                                  flags, uninterrupted_id=ids[1])
+            noisy_losses = train_losses(noisy["model_dir"])
+            check(noisy_losses[1] != lgd_losses[1], f"{kind} noise did not change the first "
+                                                    "step's loss")
+            trained_fwd, trained_bwd = trained_fwd + noisy["fwd"], trained_bwd + noisy["bwd"]
+            launches += noisy["lstm_stack"]
+            del noisy
+        # --remat (same step, bit for bit; memory and p50) and --profile_dir.
+        fwd, bwd = remat_path(n_layers)
+        trained_fwd, trained_bwd = trained_fwd + fwd, trained_bwd + bwd
+        fwd, bwd, stack_launches = profile_path(n_layers, stack_per_forward, root)
+        trained_fwd, trained_bwd = trained_fwd + fwd, trained_bwd + bwd
+        launches += stack_launches
+
         per_step = 2 * BIRNN_6["m_num_layers"]
         bidi_per_forward = BIRNN_6["m_num_layers"] * bidi_layer_launches(1, HIDDEN)
         birnn = training_path("BiRNN-6", BIRNN_6, "900004", BIRNN_TRAIN_STEPS,
@@ -2969,6 +3333,10 @@ def main() -> int:
                                lambda n: BIRNN_6["m_num_layers"] * bidi_layer_launches(n, HIDDEN),
                                None)
         launches += lgd_eval["launches"]
+        # Evaluation under suppression, and the suppression study.
+        launches += suppression_eval_path("LGD-RNN-6", "900001", lgd_eval["rows"],
+                                          stack_per_forward, 256)
+        launches += study_path("LGD-RNN-6", "900001", stack_per_forward, 256, root)
         bidi_launches += birnn_eval["launches"] + eval_fit_path(
             "BiRNN-6", BIRNN_6, "900007", per_step, "lstm_bidi", bidi_per_forward)
         # The eval CLI at --precision default: the same launches, at the mode.

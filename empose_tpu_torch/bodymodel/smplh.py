@@ -27,6 +27,7 @@ import torch
 from empose_tpu_torch import constants as C
 from empose_tpu_torch.device import resolve_device
 from empose_tpu_torch.ops import mesh as mesh_ops
+from empose_tpu_torch.ops.indexing import take
 from empose_tpu_torch.ops.precision import matmul_at
 from empose_tpu_torch.ops.skinning import FusedLBS, lbs_apply_plain
 from empose_tpu_torch.ops.so3 import aa2rot, rodrigues, rot2aa
@@ -191,13 +192,15 @@ def _tree_levels(parents: Tuple[int, ...]) -> Tuple[Tuple[Tuple[int, ...], Tuple
 @lru_cache(maxsize=None)
 def _level_index(parents: Tuple[int, ...], device: torch.device):
     """Index tensors on ``device`` (built once per device) for the level
-    schedule: each non-root joint's parent; per level, its joints and its
-    parents' positions in level order; each joint's position in level order."""
+    schedule: each non-root joint's parent; per level, its joints, its
+    parents' positions in level order and whether a parent repeats; each
+    joint's position in level order."""
     levels = _tree_levels(parents)
     order = [0] + [j for ids, _ in levels for j in ids]
     pos = {j: i for i, j in enumerate(order)}
     as_t = lambda xs: torch.tensor(xs, dtype=torch.long, device=device)
-    level_t = tuple((as_t(ids), as_t([pos[p] for p in par])) for ids, par in levels)
+    level_t = tuple((as_t(ids), as_t([pos[p] for p in par]), len(set(par)) < len(par))
+                    for ids, par in levels)
     return as_t(parents[1:]), level_t, as_t([pos[j] for j in range(len(parents))])
 
 
@@ -205,19 +208,23 @@ def _rigid_transform_chain(rot_mats: torch.Tensor, joints: torch.Tensor, parents
     """Global joint transforms over the tree, one batched product per depth.
 
     Joints are composed level by level into a level-ordered list and put back
-    in joint order once at the end; gathers use ``index_select``, whose
-    gradient is a cheap scatter-add (the LGD loop differentiates this).
+    in joint order once at the end. The LGD loop differentiates this: a
+    gather whose indices repeat (the parents of all joints, of a level where
+    siblings share a parent) goes through ``ops/indexing.take``, a gradient
+    that is the same on every run; one of distinct indices through
+    ``index_select``, whose gradient then has one term a row.
 
     :param rot_mats: (N, J, 3, 3); :param joints: (N, J, 3) rest joints.
     :return: posed joints (N, J, 3), global rotations (N, J, 3, 3),
              skinning translations (N, J, 3).
     """
     par_all, levels, inv = _level_index(parents, joints.device)
-    rel_joints = torch.cat([joints[:, :1], joints[:, 1:] - joints.index_select(1, par_all)], dim=1)
+    rel_joints = torch.cat([joints[:, :1], joints[:, 1:] - take(joints, 1, par_all)], dim=1)
     Rs, ts = [rot_mats[:, :1]], [rel_joints[:, :1]]
-    for ids, ppos in levels:
-        R_par = torch.cat(Rs, dim=1).index_select(1, ppos)
-        t_par = torch.cat(ts, dim=1).index_select(1, ppos)
+    for ids, ppos, shared in levels:
+        parents_of = take if shared else torch.index_select
+        R_par = parents_of(torch.cat(Rs, dim=1), 1, ppos)
+        t_par = parents_of(torch.cat(ts, dim=1), 1, ppos)
         Rs.append(R_par @ rot_mats.index_select(1, ids))
         ts.append((R_par @ rel_joints.index_select(1, ids)[..., None])[..., 0] + t_par)
     R = torch.cat(Rs, dim=1).index_select(1, inv)

@@ -85,7 +85,7 @@ _FLAG_SPECS = [
                                               "validated battery); 'default' = bf16-input "
                                               "fast mode.")),
     ("resume", False, dict(action="store_true", help="Resume full training state from the latest checkpoint.")),
-    ("profile_dir", None, dict(help="If set, capture a jax.profiler trace into this directory.")),
+    ("profile_dir", None, dict(help="If set, capture a torch.profiler trace into this directory.")),
     ("remat", False, dict(action="store_true", help="Rematerialize FK inside the LGD loop "
                                                     "(trades FLOPs for training memory).")),
     ("steps_per_call", 8, dict(type=int, help="Host-loop unrolling: run up to K training "

@@ -16,6 +16,7 @@ import numpy as np
 import torch
 
 from empose_tpu_torch.ops import mesh as mesh_ops
+from empose_tpu_torch.ops.indexing import take
 
 INDEX_FIELDS = ("marker_rows", "helper_rows", "sub_faces_rows", "vertex_faces")
 
@@ -89,8 +90,8 @@ def virtual_pos_and_rot(vertices: torch.Tensor, tables: VirtualSensorTables):
     """
     normals_raw, _ = mesh_ops.compute_vertex_and_face_normals(vertices, tables.sub_faces_rows,
                                                               tables.vertex_faces)
-    markers = vertices.index_select(1, tables.marker_rows)
-    helpers = vertices.index_select(1, tables.helper_rows)
+    markers = take(vertices, 1, tables.marker_rows)
+    helpers = take(vertices, 1, tables.helper_rows)
     ns = _unit(normals_raw)
     on_surface = _unit(helpers - markers)
     third_axis = _unit(torch.linalg.cross(ns, on_surface))

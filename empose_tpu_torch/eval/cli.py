@@ -2,7 +2,7 @@
 
     python -m empose_tpu_torch.eval --model_id <id> [--cross_subject] [--window_size W]
         [--serial | --host_metrics] [--visualize I] [--precision highest|high|default]
-        [--device cpu]
+        [--suppression_length L [--suppression_markers K]] [--device cpu]
 
 Port of ``scripts/evaluate_real.py``: the per-sequence metric rows and the
 'Overall average' row (MPJPE, PA-MPJPE, MPJAE and their stds) of the
@@ -13,7 +13,11 @@ sequences otherwise. ``--device`` defaults to CUDA and raises without it.
 ``--precision`` runs every pass (batched, serial, host oracle) with the NN
 and kinematics GEMMs at that mode, as ``scripts/evaluate_real.py`` does
 (``device.set_precision``); the metrics stay fp32. The knobs are restored
-when the run ends.
+when the run ends. ``--suppression_length L`` (> 0) sets K random sensors
+(``--suppression_markers``) of each window to 0 over a fraction L of its
+valid frames (``data/noise.marker_suppression_noise_fn`` with the model's
+sensor count), the same draws on every run; it runs the serial loop, or the
+host oracle with ``--host_metrics``.
 """
 
 from __future__ import annotations
@@ -22,6 +26,7 @@ import argparse
 import os
 
 from empose_tpu_torch import constants as C
+from empose_tpu_torch.data.noise import marker_suppression_noise_fn
 from empose_tpu_torch.device import precision_scope
 from empose_tpu_torch.eval.harness import (evaluate_real_sequences, load_model_and_eval_data,
                                            print_metric_table)
@@ -36,7 +41,8 @@ def parser() -> argparse.ArgumentParser:
                    help="Evaluate on the hold-out subject 0715.")
     p.add_argument("--window_size", type=int, default=None, help="Override the eval window size.")
     p.add_argument("--suppression_length", type=float, default=0.0,
-                   help="Eval-time sensor dropout (not ported yet: values > 0 raise).")
+                   help="Eval-time sensor dropout: the fraction of each window over which "
+                        "random markers are suppressed (robustness study; runs serially).")
     p.add_argument("--suppression_markers", type=int, default=1,
                    help="How many markers are suppressed at a time.")
     p.add_argument("--precision", choices=("highest", "high", "default"), default="highest",
@@ -58,17 +64,17 @@ def parser() -> argparse.ArgumentParser:
 
 def run(args: argparse.Namespace):
     """Evaluate and print the table; returns (rows, overall metrics)."""
-    if args.suppression_length > 0.0:
-        raise NotImplementedError("--suppression_length needs marker-suppression noise, which is "
-                                  "not ported yet: ROADMAP.md, queue 1, item 2 ('Noise functions')")
     with precision_scope(args.precision):
         return _run(args)
 
 
 def _run(args: argparse.Namespace):
-    session, loader, _ = load_model_and_eval_data(
+    session, loader, config = load_model_and_eval_data(
         args.model_id, "test_real_0715" if args.cross_subject else "test_real",
         device=args.device)
+    if args.suppression_length > 0.0:
+        session.noise_fn = marker_suppression_noise_fn(
+            args.suppression_length, args.suppression_markers, 0.0, config.n_markers)
     if args.window_size:
         window_size = args.window_size
     else:

@@ -21,6 +21,13 @@ Three passes give the per-sequence rows and the 'Overall average' row of
 * host oracle: the same window loop with the errors copied to the host
   and aggregated by ``MetricsEngine`` (``--host_metrics``).
 
+An eval session may carry a noise function (sensor faults for robustness
+studies, ``--suppression_length``): it applies to each window's sensor
+inputs after root normalization and before the forward, drawing from a
+generator seeded from ``NOISE_SEED`` and the window's index in the session,
+so a fresh session sees the same draws window by window in the serial loop
+and the host oracle. A session with noise always runs the serial loop.
+
 Every pass normalizes the root per sequence before cutting windows, freezes
 the shape estimate of a model that has one at its first window, and counts
 a frame as valid when it lies inside the sequence and no marker of it is
@@ -57,6 +64,9 @@ EVAL_CORPUS_BYTES = 256 << 20
 # Keys of a real batch that the forward reads per window; the rest is per sequence.
 INPUT_KEYS = ("marker_pos", "marker_ori", "marker_nor", "marker_masks")
 STATIC_KEYS = ("shapes", "offset_t", "offset_r")
+# The noise draws of window i of a session come from a generator seeded
+# NOISE_SEED + i (JAX folds PRNGKey(8004) with its window counter).
+NOISE_SEED = 8004
 
 
 def _round_up(n: int, m: int) -> int:
@@ -108,14 +118,28 @@ class EvalSession:
     :param model: a port model in eval mode (``utils.experiments.load_model``).
     :param smplh: the SMPL-H model (host arrays): the metrics' and the
       ground truth's FK, and the mesh of the visualization export.
+    :param noise_fn: optional ``noise(window, generator) -> window``
+      applied to each window's sensor inputs (``data/noise.py``).
     """
 
-    def __init__(self, model, smplh: SMPLHModel):
+    def __init__(self, model, smplh: SMPLHModel, noise_fn=None):
         self.model = model
         self.device = next(model.parameters()).device
         self.smplh = smplh
         self.body = body_model(smplh, self.device)
+        self.noise_fn = noise_fn
+        self._window_index = 0
         self._layer = None
+
+    def _inputs(self, chunk: Dict) -> Dict:
+        """A window on the device, through the noise function if there is
+        one; every window advances the session's window index."""
+        batch = to_device(chunk, self.device)
+        if self.noise_fn is not None:
+            g = torch.Generator(device=self.device).manual_seed(NOISE_SEED + self._window_index)
+            batch = self.noise_fn(batch, g)
+        self._window_index += 1
+        return batch
 
     def layer(self) -> SMPLLayer:
         """The full-mesh layer of the visualization export, built at first use."""
@@ -137,7 +161,7 @@ class EvalSession:
         values, carry), tensors on the device."""
         self.model.eval()
         with torch.no_grad():
-            batch = preprocess_real_chunk(self.body, to_device(chunk, self.device))
+            batch = preprocess_real_chunk(self.body, self._inputs(chunk))
             out, new_carry = self.model(batch, carry)
             _, vals = self.model.compute_loss(batch, out)
         slim = {k: out[k] for k in ("root_ori_hat", "pose_hat", "shape_hat")
@@ -152,7 +176,7 @@ class EvalSession:
         (``with_losses``) cost one FK more, of the ground-truth joints."""
         self.model.eval()
         with torch.no_grad():
-            batch = to_device(chunk, self.device)
+            batch = self._inputs(chunk)
             if with_losses:
                 batch = preprocess_real_chunk(self.body, batch)
             out, new_carry = self.model(batch, carry)
@@ -173,7 +197,11 @@ class EvalSession:
         with the carry threaded from window to window (no carry at the
         first: a zero state for every model), then one metric update over
         all N*F rows. :return: (per-sequence stats on the device, frozen
-        shape or None)."""
+        shape or None). A session with a noise function runs the serial
+        loop instead, and raises here."""
+        if self.noise_fn is not None:
+            raise ValueError("the batched pass applies no noise: evaluate a session with a "
+                             "noise function serially")
         self.model.eval()
         with torch.no_grad():
             b = normalize_root(to_device(batch, self.device))
@@ -217,14 +245,15 @@ def evaluate_real_sequences(session: EvalSession, loader, window_size: Optional[
     :param window_size: frames per window, or None: each sequence in one
       window, padded to a multiple of ``pad_multiple``.
     :param visualize_index: >= 0: export the predicted and ground-truth
-      meshes of that sequence (:func:`export_visualization`); runs serially.
+      meshes of that sequence (:func:`export_visualization`); runs serially,
+      as a session with a noise function does.
     :return: (rows [[id, MPJPE, MPJPE STD, PA-MPJPE, PA-MPJPE STD, MPJAE,
       MPJAE STD], ..., ["Overall average", ...]], overall metric dict)
     """
     if host_metrics:
         return _evaluate_host(session, loader, window_size, pad_multiple, visualize_index,
                               visualize_dir)
-    if serial or visualize_index >= 0:
+    if serial or visualize_index >= 0 or session.noise_fn is not None:
         return _evaluate_serial(session, loader, window_size, pad_multiple, visualize_index,
                                 visualize_dir)
     return _evaluate_batched(session, loader, window_size, pad_multiple)

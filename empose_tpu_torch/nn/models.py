@@ -22,6 +22,7 @@ from typing import Dict, Optional
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from empose_tpu_torch import constants as C
 from empose_tpu_torch.bodymodel.smplh import ARRAY_FIELDS, SMPLHModel, fold_zero_pose_joints, smplh_fk
@@ -396,6 +397,12 @@ class IterativeErrorFeedback(BaseModel):
           marker_ori stacked on a leading (N+1) axis. In training mode the
           history keeps its graph and ``_recon_for_grad`` holds each
           refinement step's reconstruction error.
+
+        The eval forward takes each step's learned-gradient input from an FK
+        graph of its own, detaches the history and drops the graph after its
+        ``autograd.grad``, so at most one FK graph is alive at a time:
+        ``config.remat`` would save nothing here and applies to the train
+        forward only.
         """
         if self.training:
             return self._forward_train(window, carry, generator)
@@ -478,7 +485,18 @@ class IterativeErrorFeedback(BaseModel):
         the history keeps its graph; only the nets' inputs of each refinement
         step and the learned-gradient input are detached. BatchNorm takes its
         statistics over the valid frames; the iter nets, applied N times,
-        update their running statistics N times."""
+        update their running statistics N times.
+
+        With ``config.remat`` each FK + sensor block runs under
+        ``torch.utils.checkpoint`` (non-reentrant): the graph keeps its
+        inputs only, and each backward through it (a step's
+        ``autograd.grad``, the final one) recomputes its activations, the
+        same ops on the same inputs, so the loss and the gradients equal
+        those without it bit for bit. The recomputed tensors that a step's
+        ``autograd.grad`` does not read (the joints, the operands of the
+        fixed offsets) stay until the final backward; taking that gradient
+        from an FK of its own instead held no less memory on the card
+        (``PERF.md``, Findings)."""
         x = self.prepare_inputs(window)
         n, f, dof = x.shape
         seq_lengths = window["seq_lengths"]
@@ -505,7 +523,12 @@ class IterativeErrorFeedback(BaseModel):
         hist = {"pose": [], "shape": [], "joints": [], "marker_pos": [], "marker_ori": []}
 
         def fk_and_record(pose, shape):
-            mp, mo, joints = self.smpl.estimated_markers(pose, shape, offset_r, offset_t)
+            if getattr(self.config, "remat", False):
+                mp, mo, joints = checkpoint(self.smpl.estimated_markers, pose, shape, offset_r,
+                                            offset_t, use_reentrant=False,
+                                            preserve_rng_state=False)
+            else:
+                mp, mo, joints = self.smpl.estimated_markers(pose, shape, offset_r, offset_t)
             hist["pose"].append(pose)
             hist["shape"].append(shape)
             hist["joints"].append(joints.reshape(n * f, -1))

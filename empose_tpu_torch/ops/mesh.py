@@ -11,6 +11,8 @@ from typing import Sequence, Tuple
 import numpy as np
 import torch
 
+from empose_tpu_torch.ops.indexing import take
+
 
 def vertex_face_indices(n_vertices: int, faces: np.ndarray) -> np.ndarray:
     """For each vertex, the ids of its incident faces, padded with -1.
@@ -73,10 +75,10 @@ def compute_vertex_and_face_normals(vertices: torch.Tensor, faces: torch.Tensor,
     :return: vertex normals (N, Q, 3) and face normals (N, F, 3).
     """
     n = vertices.shape[0]
-    vs = vertices.index_select(1, faces.reshape(-1)).reshape(n, -1, 3, 3)  # (N, F, 3, 3)
+    vs = take(vertices, 1, faces.reshape(-1)).reshape(n, -1, 3, 3)  # (N, F, 3, 3)
     face_normals = torch.linalg.cross(vs[:, :, 1] - vs[:, :, 0], vs[:, :, 2] - vs[:, :, 0])
     valid = vertex_faces >= 0
-    gathered = face_normals.index_select(1, vertex_faces.clamp(min=0).reshape(-1))
+    gathered = take(face_normals, 1, vertex_faces.clamp(min=0).reshape(-1))
     gathered = gathered.reshape(n, *vertex_faces.shape, 3) * valid[None, :, :, None]
     degrees = valid.sum(-1).to(vertices.dtype)
     return gathered.sum(-2) / degrees[None, :, None], face_normals

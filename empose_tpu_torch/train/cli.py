@@ -11,7 +11,9 @@ the same experiment directory (``<id>-<model name>`` with ``config.json``,
 either. Validation runs on the 3DPW-style corpus of $EM_DATA_SYNTH (middle
 windows), the test on the real recordings of $EM_DATA_REAL; after training,
 the best checkpoint (the last where no eval fired) goes through both passes
-once more, with their metric tables.
+once more, with their metric tables. ``--profile_dir DIR`` records the
+training (``fit``, not the final passes) as a ``torch.profiler`` Chrome
+trace in DIR (``utils/profiling.trace``).
 """
 
 from __future__ import annotations
@@ -31,6 +33,7 @@ from empose_tpu_torch.eval.metrics import MetricsEngine
 from empose_tpu_torch.train.loop import Trainer, fit
 from empose_tpu_torch.utils import experiments as U
 from empose_tpu_torch.utils.logging import ScalarWriter
+from empose_tpu_torch.utils.profiling import trace
 
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -95,8 +98,9 @@ def run(config, max_steps=None, device=None):
 
     writer = ScalarWriter(os.path.join(model_dir, "logs"))
     try:
-        fit(trainer, train_loader, valid_loader, test_loader, model_dir, writer,
-            max_steps=max_steps)
+        with trace(config.profile_dir):
+            fit(trainer, train_loader, valid_loader, test_loader, model_dir, writer,
+                max_steps=max_steps)
     finally:
         writer.close()
 

@@ -2,19 +2,20 @@
 save, restore) and ``fit`` (port of ``empose_tpu/train/loop.py``).
 
 One step: root normalization -> FK + sensor synthesis with mounting offsets
--> the model's train forward -> ``compute_loss`` -> rescaled to the real
-samples of the batch -> ``+ reference_grad_extra_loss`` (LGD models) ->
-backward -> Adam. Every LSTM direction-layer (the LGD init RNN, a (Bi)RNN's
+-> the configured sensor noise (``data/noise.py``) -> the model's train
+forward -> ``compute_loss`` -> rescaled to the real samples of the batch ->
+``+ reference_grad_extra_loss`` (LGD models) -> backward -> Adam. Every LSTM direction-layer (the LGD init RNN, a (Bi)RNN's
 LSTM) runs through the CUDA training pair on the card. ``--matmul_precision
 high|default`` (``--bf16`` means ``default``; with another explicit mode it
 raises, as in JAX) binds both precision knobs for the run, the NN GEMMs'
 and the kinematics' (``device.set_precision``, as the JAX trainer binds
 ``set_nn_precision`` and ``set_fk_precision``): the training pair, the
 input projections, the deferred ``dW_hh`` and the final validation and test
-passes then run at that mode. Every random draw
-(offsets, dropout) comes from one ``torch.Generator`` on the device, seeded
-from the run's seed and saved with the train state, so a resumed run
-continues bit for bit.
+passes then run at that mode. ``--remat`` recomputes the LGD model's FK
+blocks in the backward (``IterativeErrorFeedback._forward_train``). Every
+random draw (offsets, noise, dropout) comes from one ``torch.Generator`` on
+the device, seeded from the run's seed and saved with the train state, so a
+resumed run continues bit for bit.
 
 Torch's Adam is optax's: the same bias correction, eps outside the square
 root. ``steps_per_call`` (the JAX package's K steps per XLA program) is
@@ -59,10 +60,6 @@ def _refuse_unported(config) -> None:
     if max(1, int(getattr(config, "dp_devices", 1))) > 1:
         raise NotImplementedError("--dp_devices > 1 is not ported yet: ROADMAP.md, queue 1, "
                                   "'Data parallelism'")
-    for flag in ("remat", "profile_dir"):
-        if getattr(config, flag, None):
-            raise NotImplementedError(f"--{flag} is not ported yet: ROADMAP.md, queue 1, "
-                                      "'Trainer options'")
 
 
 class Trainer:

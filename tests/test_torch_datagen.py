@@ -190,8 +190,17 @@ def test_preprocess_modes_match_jax(row_major_sensors, offset_files, mode):
 
 
 def test_noise_branches_not_ported_raise():
+    """The two noise branches, which raised until the noise functions were
+    ported, now run: each changes the sensors of a batch (their parity with
+    the JAX package: ``tests/test_torch_noise.py``); no noise is the
+    identity."""
     base = dict(spherical_noise_length=0.0, suppression_noise_length=0.0)
     assert TN.make_noise_fn(Configuration.from_dict(base), True)({"x": 1}, None) == {"x": 1}
+    rng = np.random.RandomState(0)
+    batch = {k: torch.from_numpy(rng.randn(N, F, 12 * w).astype(np.float32))
+             for k, w in (("marker_pos", 3), ("marker_ori", 9), ("marker_nor", 3))}
     for flag in ("spherical_noise_length", "suppression_noise_length"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            TN.make_noise_fn(Configuration.from_dict(dict(base, **{flag: 0.5})), True)
+        cfg = dict(base, spherical_noise_strength=0.5, **{flag: 0.5})
+        out = TN.make_noise_fn(Configuration.from_dict(cfg), True)(
+            batch, torch.Generator().manual_seed(0))
+        assert not torch.equal(out["marker_pos"], batch["marker_pos"]), flag

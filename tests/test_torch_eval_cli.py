@@ -144,9 +144,15 @@ def test_cli_window_size(experiments, capsys):
 
 
 def test_cli_refusals(experiments):
+    """An unknown model id raises FileNotFoundError. ``--suppression_length``,
+    refused until the noise functions were ported, now runs: the same rows
+    on a second run, other rows than the clean run's."""
     write_experiment(experiments, "9300", variant_config("resnet", 6), seed=1)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        cli.main(["--model_id", "9300", "--device", "cpu", "--suppression_length", "0.5"])
+    argv = ["--model_id", "9300", "--device", "cpu"]
+    noisy = [cli.main(argv + ["--suppression_length", "0.5"])[0] for _ in range(2)]
+    assert noisy[0] == noisy[1] and len(noisy[0]) == 3
+    assert all(np.isfinite(r[1:]).all() for r in noisy[0])
+    assert noisy[0] != cli.main(argv)[0]
     with pytest.raises(FileNotFoundError, match="experiment"):
         cli.main(["--model_id", "9399", "--device", "cpu"])
 

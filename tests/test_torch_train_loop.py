@@ -161,17 +161,24 @@ def test_existing_id_without_load_raises(assets_env, tmp_path, monkeypatch):
 
 
 @pytest.mark.parametrize("flags, error", [
-    (["--remat"], NotImplementedError),
+    (["--remat"], None),
     (["--bf16", "--matmul_precision", "high"], ValueError),
     (["--dp_devices", "2"], NotImplementedError),
-    (["--suppression_noise_length", "0.5"], NotImplementedError),
+    (["--suppression_noise_length", "0.5"], None),
 ], ids=["remat", "bf16_conflict", "data_parallel", "noise"])
 def test_unported_paths_raise(assets_env, tmp_path, monkeypatch, flags, error):
-    """Rematerialization, data parallelism and noise raise before any step,
-    naming what is missing; so does ``--bf16`` beside another explicit
-    precision (as in JAX). Training at ``high`` and ``default`` runs
-    (``tests/test_torch_train_precision.py``)."""
+    """Data parallelism raises before any step, naming what is missing; so
+    does ``--bf16`` beside another explicit precision (as in JAX).
+    Rematerialization and noise, which raised until they were ported, now
+    train and checkpoint (their checks: ``tests/test_torch_remat.py``,
+    ``tests/test_torch_robustness.py``). Training at ``high`` and
+    ``default`` runs (``tests/test_torch_train_precision.py``)."""
     monkeypatch.setenv("EM_EXPERIMENTS", str(tmp_path))
+    if error is None:
+        _, trainer = main(TINY_LGD + ["--max_steps", "4"] + flags)
+        assert trainer.global_step == 4
+        assert len(glob.glob(os.path.join(tmp_path, "*", "checkpoint"))) == 1
+        return
     with pytest.raises(error, match="ROADMAP|bf16|precision"):
         main(TINY_LGD + ["--max_steps", "4"] + flags)
     assert not glob.glob(os.path.join(tmp_path, "*", "checkpoint"))

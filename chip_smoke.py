@@ -179,6 +179,20 @@ Phases, each printed on its own line:
      mode, and nothing else; the loss after the steps beside the highest
      run's; one step against the same step with the plain pair at the mode
      (TOL_STEP_MODE); the step's p50, device ops and busy share;
+  6i. (run after the eval phases) data parallelism: two gloo ranks on
+     cuda:0 (``parallel.mesh.spawn``) take 3 LGD-RNN-6 steps of a global
+     batch of 15 (padded to 16) x window 64, held against the same steps in
+     this process (the first step's losses rtol 2e-5, the later steps' 2e-4,
+     parameters and BatchNorm statistics 2e-3), the ranks bit for bit
+     equal; a one-rank NCCL group's steps equal this process's bit for bit;
+     ``--dp_devices`` beyond the card count raises ValueError; the train CLI
+     at ``--steps_per_call 8`` and 1 (17 steps, chunks of 1, 8, 8): losses
+     and checkpoint bit for bit, p50 per step of each; LGD-RNN-6 served to
+     64 streams over [cuda:0, cuda:0] against the unsharded outputs (1e-4),
+     the stack kernel once per shard and forward; ``bulk_synthesize`` of the
+     training corpus at level -1 on the card against the CPU, frames/s; the
+     serving bench at ``--chunk 16 --n 200`` and ``--streams 64 --n 100``
+     (p50/p95/p99, frames/s), the stack kernel once per forward;
   7. a "kernels" JSON line (a row per kernel, and per kernel and mode,
      "<kernel>@high" and "<kernel>@default"); 8. a last JSON line with the
      device.
@@ -236,6 +250,7 @@ from __future__ import annotations
 import contextlib
 import copy
 import functools
+import glob
 import hashlib
 import io
 import itertools
@@ -272,8 +287,11 @@ from empose_tpu_torch.ops import cuda_build
 from empose_tpu_torch.ops import lstm_kernel as K
 from empose_tpu_torch.ops import lstm_train_kernel as TK
 from empose_tpu_torch.ops import skinning as SK
+from empose_tpu_torch.parallel.mesh import init_distributed, spawn
 from empose_tpu_torch.serve import MultiStreamPredictor, StreamingPredictor
-from empose_tpu_torch.tools import bench_lstm_kernels, suppression_study
+from empose_tpu_torch.tools import (bench_lstm_kernels, bench_serve, bulk_synthesize,
+                                    suppression_study)
+from empose_tpu_torch.tools.multihost_worker import run_steps
 from empose_tpu_torch.train import cli as train_cli
 from empose_tpu_torch.train.loop import Trainer
 from empose_tpu_torch.utils.experiments import count_parameters
@@ -294,6 +312,9 @@ NOISY_STEPS, NOISY_RESUME_STEPS = 3, 2  # LGD-RNN-6 with each noise type, then a
 REMAT_WINDOW = 512   # the longer window of the --remat readings
 TOL_SPHERICAL = 1e-6  # spherical noise, card against CPU on the same draws (the trigonometry)
 NOISE_MOMENTS_N = 4096
+# Data parallelism: a global batch of 15 (padded to 16 over 2 ranks), 3 steps;
+# --steps_per_call: 17 steps at batch 8 (8 batches an epoch: chunks of 1, 8, 8).
+DP_BATCH, DP_STEPS, SPC_STEPS, SPC_BATCH = 15, 3, 17, 8
 STREAMS, CHUNK, CHUNKS = 64, 16, 4
 # The bidirectional layer's timed shapes: the batched serving chunk, the eval
 # window, one stream's chunk.
@@ -2493,6 +2514,287 @@ def bench_path(mode: str = "highest") -> int:
 
 
 # ---------------------------------------------------------------------------
+# Data parallelism, --steps_per_call, sharded serving, bulk datagen and the
+# serving bench.
+
+def dp_config() -> Configuration:
+    """LGD-RNN-6 at the flagship window with a global batch of DP_BATCH."""
+    return Configuration.from_dict(dict(LGD_RNN_6, window_size=TRAIN_WINDOW, bs_train=DP_BATCH,
+                                        seed=SEED))
+
+
+def dp_rank(rank: int, device, config, seed: int, batches: list, out: str) -> None:
+    """One rank of the data-parallel phase (``parallel.mesh.spawn``): its
+    steps (``multihost_worker.run_steps``) and its kernels' launches, to
+    ``out % rank``."""
+    trainer = Trainer(config, seed=seed, device=device)
+    torch.cuda.synchronize()
+    reset_counts()
+    result = run_steps(trainer, batches)
+    torch.cuda.synchronize()
+    result["counts"] = counts()
+    torch.save(result, out % rank)
+
+
+def same_state(a: dict, b: dict) -> bool:
+    return sorted(a) == sorted(b) and all(torch.equal(a[k], b[k]) for k in a)
+
+
+def dp_training_path(root: str, per_step: int) -> tuple:
+    """Two gloo ranks on cuda:0 take DP_STEPS LGD-RNN-6 steps on global
+    batches of DP_BATCH (padded to a multiple of 2), held against the same
+    steps in this process alone at the CPU test's tolerances (the first
+    step's loss values rtol 2e-5, the later steps', after Adam's first
+    updates, 2e-4 as in the JAX test; parameters and BatchNorm statistics
+    atol 2e-3), the ranks'
+    parameters, statistics and generators bit for bit equal; a one-rank
+    NCCL group in this process takes the same steps bit for bit equal to
+    the single process's; ``--dp_devices`` beyond the card count raises
+    ValueError before any step. Returns the training pair's launches, the
+    ranks' added up."""
+    config = dp_config()
+    loader = EMRBatchLoader(os.path.join(os.environ["EM_DATA_SYNTH"], "amass_emr"), DP_BATCH,
+                            TRAIN_WINDOW, seed=SEED + 7)
+    batches = list(itertools.islice(iter(loader), DP_STEPS))
+    for b in batches:
+        b.pop("ids")
+    check(all(b["poses"].shape[0] == DP_BATCH for b in batches), "short DP batch")
+    torch.cuda.synchronize()
+    reset_counts()
+    single = run_steps(Trainer(config, seed=SEED), batches)
+    torch.cuda.synchronize()
+    single_counts = counts()
+
+    out = os.path.join(root, "dp_rank%d.pt")
+    t0 = time.perf_counter()
+    spawn(dp_rank, [torch.device("cuda", 0)] * 2, config, SEED, batches, out, backend="gloo")
+    ranks = [torch.load(out % r, weights_only=False) for r in range(2)]
+    spawn_s = time.perf_counter() - t0
+    same_ranks = all(same_state(r["state"], ranks[0]["state"])
+                     and torch.equal(r["generator"], ranks[0]["generator"])
+                     and r["vals"] == ranks[0]["vals"] for r in ranks[1:])
+    loss_err = [max(abs(g[k] - w[k]) / max(abs(w[k]), 1e-12) for k in w)
+                for g, w in zip(ranks[0]["vals"], single["vals"])]
+    state_err = max(float((ranks[0]["state"][k].float() - v.float()).abs().max())
+                    for k, v in single["state"].items() if v.is_floating_point())
+    print(f"DP training: 2 gloo ranks on cuda:0, LGD-RNN-6, {DP_STEPS} steps of a global batch "
+          f"of {DP_BATCH} x window {TRAIN_WINDOW} (padded to {-(-DP_BATCH // 2) * 2}) in "
+          f"{spawn_s:.1f} s with the ranks' start; ranks bit for bit equal {same_ranks}; against "
+          f"one process: largest relative loss difference by step "
+          f"{', '.join(f'{e:.3e}' for e in loss_err)} (the first <= 2e-5, the others <= 2e-4), "
+          f"largest parameter or statistic difference {state_err:.3e} (<= 2e-3); launches per rank "
+          f"{[r['counts'] for r in ranks]}, single process {single_counts}", flush=True)
+    check(same_ranks, "DP ranks differ in parameters, BatchNorm statistics or generator")
+    check(loss_err[0] <= 2e-5 and max(loss_err) <= 2e-4 and state_err <= 2e-3,
+          f"DP steps differ from the single-process steps: {loss_err}, {state_err}")
+    for r in ranks:
+        check(r["counts"] == expected(lstm_train_fwd=per_step * DP_STEPS,
+                                      lstm_train_bwd=per_step * DP_STEPS),
+              f"a DP rank's launches: {r['counts']}")
+
+    reset_counts()
+    init_distributed("file://" + os.path.join(root, "nccl_rendezvous"), 1, 0, "nccl",
+                     torch.device("cuda", 0))
+    try:
+        one = run_steps(Trainer(config, seed=SEED), batches)
+    finally:
+        torch.distributed.destroy_process_group()
+    torch.cuda.synchronize()
+    one_counts = counts()
+    exact = one["vals"] == single["vals"] and same_state(one["state"], single["state"]) \
+        and torch.equal(one["generator"], single["generator"])
+    print(f"DP training: a one-rank NCCL group's {DP_STEPS} steps equal the single process's bit "
+          f"for bit {exact}; launches {one_counts}", flush=True)
+    check(exact, "the one-rank NCCL group's steps differ from the single-process steps")
+
+    n = torch.cuda.device_count() + 1
+    try:
+        train_cli.main(train_flags(LGD_RNN_6, "900050", 1) + ["--dp_devices", str(n)])
+        raised = None
+    except ValueError as e:
+        raised = str(e)
+    print(f"--dp_devices {n} on this machine: ValueError {raised!r}", flush=True)
+    check(raised is not None and raised.startswith(f"need {n} devices")
+          and not glob.glob(os.path.join(os.environ["EM_EXPERIMENTS"], "900050-*")),
+          "--dp_devices beyond the card count did not raise ValueError before any step")
+    fwd = sum(r["counts"]["lstm_train_fwd"] for r in ranks) + one_counts["lstm_train_fwd"]
+    bwd = sum(r["counts"]["lstm_train_bwd"] for r in ranks) + one_counts["lstm_train_bwd"]
+    return fwd, bwd
+
+
+def steps_per_call_path(per_step: int, eval_per_forward: int) -> tuple:
+    """The train CLI at ``--steps_per_call`` 8 and 1, SPC_STEPS LGD-RNN-6
+    steps at batch SPC_BATCH (8 batches an epoch; the print at each epoch's
+    first batch cuts the chunks to 1, 8, 8): the logged losses and the
+    checkpoint (weights, Adam, generator) bit for bit equal; each chunk
+    timed (synchronized), and the p50 per step of each. Returns the
+    kernels' launches."""
+    chunk_ms = {}
+    step_chunk = Trainer.train_step_chunk
+
+    def timed(self, batches):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        vals = step_chunk(self, batches)
+        torch.cuda.synchronize()
+        chunk_ms[k].append(((time.perf_counter() - t0) * 1e3, len(batches)))
+        return vals
+
+    runs, launched = {}, []
+    Trainer.train_step_chunk = timed
+    try:
+        for k, eid in ((8, "900051"), (1, "900052")):
+            chunk_ms[k] = []
+            torch.cuda.synchronize()
+            reset_counts()
+            with contextlib.redirect_stdout(io.StringIO()):
+                model_dir, _ = train_cli.main(
+                    train_flags(LGD_RNN_6, eid, SPC_STEPS)
+                    + ["--bs_train", str(SPC_BATCH), "--print_every", "9", "--steps_per_call",
+                       str(k)])
+            torch.cuda.synchronize()
+            launched.append(counts())
+            runs[k] = (train_losses(model_dir), torch.load(
+                os.path.join(model_dir, "checkpoint", "train_state.pt"), weights_only=True))
+    finally:
+        Trainer.train_step_chunk = step_chunk
+    (l8, s8), (l1, s1) = runs[8], runs[1]
+    same = l8 == l1 and sorted(l8) == list(range(1, SPC_STEPS + 1)) \
+        and same_state(s8["model"], s1["model"]) and torch.equal(s8["generator"], s1["generator"]) \
+        and all(same_state(s8["optimizer"]["state"][i], v)
+                for i, v in s1["optimizer"]["state"].items())
+    step_ms = {k: [ms / n for ms, n in v[1:]] for k, v in chunk_ms.items()}
+    print(f"--steps_per_call: LGD-RNN-6 batch {SPC_BATCH} x window {TRAIN_WINDOW}, {SPC_STEPS} "
+          f"steps, chunks { {k: [n for _, n in v] for k, v in chunk_ms.items()} }; losses and "
+          f"checkpoint at 8 equal those at 1 bit for bit {same}; p50 per step (after the first "
+          f"chunk) {float(np.median(step_ms[8])):.3f} ms at 8, "
+          f"{float(np.median(step_ms[1])):.3f} ms at 1; launches {launched}", flush=True)
+    check(same, "--steps_per_call 8 does not train as 1 bit for bit")
+    check(sorted(n for _, n in chunk_ms[8]) == [1, 8, 8], f"chunks at 8: {chunk_ms[8]}")
+    for got in launched:
+        check(got == expected(lstm_train_fwd=per_step * SPC_STEPS,
+                              lstm_train_bwd=per_step * SPC_STEPS,
+                              lstm_stack=eval_per_forward * final_eval_forwards()),
+              f"--steps_per_call run: unexpected launches {got}")
+    return (sum(g["lstm_train_fwd"] for g in launched), sum(g["lstm_train_bwd"] for g in launched),
+            sum(g["lstm_stack"] for g in launched))
+
+
+def sharded_serving_path(feeds, offsets, served, per_forward: int) -> int:
+    """LGD-RNN-6 served to STREAMS streams split over [cuda:0, cuda:0]
+    (``MultiStreamPredictor(mesh=...)``, ``serve_rounds``): the stack kernel
+    once per shard and forward, the outputs within TOL of the unsharded
+    ones; then the batched step's p50. Returns the launches."""
+    mesh = [torch.device("cuda", 0)] * 2
+    multi = MultiStreamPredictor.from_experiment("900001", n_streams=STREAMS, chunk_size=CHUNK,
+                                                 mesh=mesh)
+    torch.cuda.synchronize()
+    reset_counts()
+    got = serve_rounds(multi, feeds, offsets)
+    torch.cuda.synchronize()
+    launched = counts()
+    err = max(max_diff(a, b) for a, b in zip(got, served))
+    pos, ori = feeds
+    times = []
+    for _ in range(20):
+        for s in range(STREAMS):
+            multi.push(s, pos[s, :CHUNK], ori[s, :CHUNK])
+        t0 = time.perf_counter()
+        multi.step()
+        times.append((time.perf_counter() - t0) * 1e3)
+    print(f"sharded serving: LGD-RNN-6, {STREAMS} streams over {len(mesh)} shards on cuda:0, "
+          f"{len(got)} steps: launches {launched}, max |sharded - unsharded| {err:.3e}; batched "
+          f"step p50 {float(np.median(times)):.3f} ms", flush=True)
+    check(launched == expected(lstm_stack=2 * per_forward * len(got)),
+          f"sharded serving: expected {2 * per_forward * len(got)} stack launches, got {launched}")
+    check(err <= TOL, f"sharded serving differs from unsharded: {err} > {TOL}")
+    return launched["lstm_stack"]
+
+
+def bulk_datagen_path(root: str) -> None:
+    """``bulk_synthesize`` of the training corpus (windows of 64, batch 32,
+    level -1) on the card and on the CPU: the same records (positions,
+    joints, poses and the rest within TOL; the sensor orientations and
+    normals no farther from float64 frames of the same poses than twice
+    the CPU's), no kernel launched; frames/s of each."""
+    corpus = os.path.join(os.environ["EM_DATA_SYNTH"], "amass_emr")
+    rates, paths = {}, {}
+    for device in ("cuda", "cpu"):
+        paths[device] = os.path.join(root, f"bulk_{device}.emr")
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()):
+            n = bulk_synthesize.synthesize_corpus(corpus, paths[device], window=TRAIN_WINDOW,
+                                                  batch=32, noise_level=-1, seed=SEED,
+                                                  device=device)
+        torch.cuda.synchronize()
+        rates[device] = n * TRAIN_WINDOW / (time.perf_counter() - t0)
+        check(counts() == expected(), f"bulk datagen launched a kernel: {counts()}")
+    got, want = EMRReader(paths["cuda"]), EMRReader(paths["cpu"])
+    check(len(got) == len(want) == 64, f"bulk datagen wrote {len(got)} and {len(want)} records")
+    # The sensor frames against float64 frames of the same poses, shapes and
+    # offset rotations: a frame from a thin triangle of the synthetic mesh is
+    # ill-conditioned, so the card's float32 frames are held to the CPU's
+    # own distance from float64, not to the CPU's frames.
+    sensor64 = SensorSMPL(load_smplh(dtype=np.float64)).double()
+    frames = ("marker_ori", "marker_nor")
+    worst, off64 = {}, {"cuda": {}, "cpu": {}}
+    for i in range(len(want)):
+        check(got.meta(i) == want.meta(i), f"bulk record {i}: metas differ")
+        n_frames = want.meta(i)["n_frames"]
+        with torch.no_grad():
+            ori = sensor64.markers_and_joints(
+                torch.tensor(want.read(i, "poses"), dtype=torch.float64),
+                torch.tensor(np.repeat(want.read(i, "betas")[None], n_frames, 0),
+                             dtype=torch.float64)
+            )[1].reshape(n_frames, -1, 3, 3)
+        ori = (ori @ torch.tensor(want.read(i, "offset_r"), dtype=torch.float64)).numpy()
+        ref = {"marker_ori": ori.reshape(n_frames, -1),
+               "marker_nor": ori[..., 2].reshape(n_frames, -1)}
+        for f in want.fields(i):
+            a, b = got.read(i, f), want.read(i, f)
+            check(np.isfinite(a).all(), f"bulk record {i}: {f} not finite")
+            if f in frames:
+                for dev, x in (("cuda", a), ("cpu", b)):
+                    off64[dev][f] = max(off64[dev].get(f, 0.0), float(np.abs(x - ref[f]).max()))
+            else:
+                worst[f] = max(worst.get(f, 0.0), float(np.abs(a - b).max()))
+    print(f"bulk datagen: {len(want)} windows x {TRAIN_WINDOW} frames at level -1, card against "
+          f"CPU max abs by field { {f: float(f'{v:.3e}') for f, v in worst.items()} } (<= {TOL}); "
+          f"sensor frames against float64, card "
+          f"{ {f: float(f'{v:.3e}') for f, v in off64['cuda'].items()} }, CPU "
+          f"{ {f: float(f'{v:.3e}') for f, v in off64['cpu'].items()} } (the card's <= twice the "
+          f"CPU's, or {TOL}); {rates['cuda']:.1f} frames/s on the card, {rates['cpu']:.1f} on the "
+          "CPU (wall time, the EMR writing included)", flush=True)
+    check(all(v <= TOL for v in worst.values()),
+          f"bulk datagen on the card differs from the CPU: {worst}")
+    check(all(off64["cuda"][f] <= max(2 * off64["cpu"][f], TOL) for f in frames),
+          f"bulk datagen's sensor frames on the card lie farther from float64 than the CPU's: "
+          f"{off64}")
+
+
+def bench_serve_path(per_forward: int) -> int:
+    """The serving bench (``python -m empose_tpu_torch.tools.bench_serve``'s
+    main) at ``--chunk 16 --n 200`` and ``--streams 64 --n 100``: the stack
+    kernel once per forward (warm-up included). Returns the launches."""
+    total = 0
+    for flags in (["--chunk", "16", "--n", "200"], ["--streams", "64", "--n", "100"]):
+        torch.cuda.synchronize()
+        reset_counts()
+        r = bench_serve.main(flags)
+        torch.cuda.synchronize()
+        launched = counts()
+        print(f"bench_serve {' '.join(flags)}: p50 {r['p50']:.3f} ms, p95 {r['p95']:.3f} ms, "
+              f"p99 {r['p99']:.3f} ms, max {r['max']:.3f} ms, {r['frames_per_s']:.1f} frames/s; "
+              f"launches {launched}", flush=True)
+        check(launched == expected(lstm_stack=per_forward * r["forwards"]),
+              f"bench_serve: expected {per_forward * r['forwards']} stack launches, got {launched}")
+        total += launched["lstm_stack"]
+    return total
+
+
+# ---------------------------------------------------------------------------
 # The high and default precision modes: the stack, wavefront and bidi
 # kernels' tensor-core branches against their plain versions at the same
 # mode, the served models and the eval CLI at each mode.
@@ -3344,6 +3646,17 @@ def main() -> int:
             "LGD-RNN-6", "900001", "lstm_stack", 256, lgd_eval)
         mode_launches[("lstm_bidi", "default")] += eval_mode_path(
             "BiRNN-6", "900003", "lstm_bidi", None, birnn_eval)
+
+        # Data parallelism, --steps_per_call, sharded serving, bulk datagen
+        # and the serving bench.
+        fwd, bwd = dp_training_path(root, n_layers)
+        trained_fwd, trained_bwd = trained_fwd + fwd, trained_bwd + bwd
+        fwd, bwd, stack_launches = steps_per_call_path(n_layers, stack_per_forward)
+        trained_fwd, trained_bwd = trained_fwd + fwd, trained_bwd + bwd
+        launches += stack_launches
+        launches += sharded_serving_path(feeds, offsets, lgd_served, stack_per_forward)
+        bulk_datagen_path(root)
+        launches += bench_serve_path(stack_per_forward)
 
         layer, lbs_launches = smpl_layer_path(rng)
         datagen_path(root, rng)

@@ -74,7 +74,10 @@ _FLAG_SPECS = [
     ("window_size", 120, dict(type=int, help="Number of frames to extract per sequence.")),
     ("load", False, dict(action="store_true", help="Whether to load the model with the given ID.")),
     # TPU-native additions (absent from reference configs; defaults keep parity).
-    ("dp_devices", 1, dict(type=int, help="Data-parallel device count (shard_map over a 1D mesh).")),
+    ("dp_devices", 1, dict(type=int, help="Data-parallel ranks: N processes, rank r on CUDA card "
+                                          "r (NCCL), or N gloo ranks with --device cpu; each "
+                                          "global batch padded and split over them, gradients "
+                                          "averaged.")),
     ("bf16", False, dict(action="store_true", help="Run matmuls in bfloat16 where safe "
                                                    "(alias for --matmul_precision default).")),
     ("matmul_precision", "highest", dict(choices=("highest", "high", "default"),
@@ -88,12 +91,9 @@ _FLAG_SPECS = [
     ("profile_dir", None, dict(help="If set, capture a torch.profiler trace into this directory.")),
     ("remat", False, dict(action="store_true", help="Rematerialize FK inside the LGD loop "
                                                     "(trades FLOPs for training memory).")),
-    ("steps_per_call", 8, dict(type=int, help="Host-loop unrolling: run up to K training "
-                                              "steps as one device program (lax.scan), "
-                                              "amortizing per-step host/dispatch cost. "
-                                              "Same per-step math and PRNG chain as K=1 "
-                                              "(bit-identical on CPU; on TPU equal up to "
-                                              "XLA fusion-order rounding). Print/eval "
+    ("steps_per_call", 8, dict(type=int, help="Hand up to K training steps to the trainer "
+                                              "at a time (Trainer.train_step_chunk), the "
+                                              "same steps bit for bit as K=1. Print/eval "
                                               "cadence is preserved exactly.")),
 ]
 

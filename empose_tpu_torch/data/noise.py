@@ -7,7 +7,9 @@ the offsets of ``data/transforms.py`` are: a function that draws from the
 ``torch.Generator`` on the batch's device, and a function that takes the
 draws as arguments, so that a test can hand it the JAX package's draws.
 Nothing is copied to the host: the window arithmetic, the gates and the
-thigh length stay on the device, and the early exits read shapes only.
+thigh length stay on the device, and the early exits read shapes only. In a
+data-parallel step the draws are those of the global batch
+(``parallel/mesh.batch_draw``) and the thigh length is the global entry 0's.
 """
 
 from __future__ import annotations
@@ -18,6 +20,7 @@ import numpy as np
 import torch
 
 from empose_tpu_torch import constants as C
+from empose_tpu_torch.parallel.mesh import batch_draw, from_first_rank
 
 
 def make_noise_fn(config, randomize_if_configured: bool, is_valid: bool = False):
@@ -97,10 +100,11 @@ def draw_spherical_noise(n: int, f: int, m: int, num_markers: int, generator: to
     ``m`` markers (m,), the window start's uniform (N,), and the radius',
     azimuth's and polar angle's uniforms (N, F, K)."""
     kw = dict(generator=generator, device=device)
-    return {"perm": torch.randperm(m, **kw), "u": torch.rand((n,), **kw),
-            "r": torch.rand((n, f, num_markers), **kw),
-            "theta": torch.rand((n, f, num_markers), **kw),
-            "phi": torch.rand((n, f, num_markers), **kw)}
+    perm = torch.randperm(m, **kw)
+    u = batch_draw(lambda k: torch.rand((k,), **kw), n)
+    r, theta, phi = (batch_draw(lambda k: torch.rand((k, f, num_markers), **kw), n)
+                     for _ in range(3))
+    return {"perm": perm, "u": u, "r": r, "theta": theta, "phi": phi}
 
 
 def spherical_marker_noise(batch: Dict, draws: Dict[str, torch.Tensor], max_r: float,
@@ -122,7 +126,8 @@ def spherical_marker_noise(batch: Dict, draws: Dict[str, torch.Tensor], max_r: f
     # A 6-sensor batch has no marker RLL: JAX clamps the index to the last.
     rul = min(C.T_TO_IDX_WO_ROOT[C.T_RUL], m - 1)
     rll = min(C.T_TO_IDX_WO_ROOT[C.T_RLL], m - 1)
-    thigh_len = torch.linalg.vector_norm(ms[0, f // 2, rul] - ms[0, 0, rll])
+    # Entry 0 of the global batch: rank 0's in a data-parallel step.
+    thigh_len = from_first_rank(torch.linalg.vector_norm(ms[0, f // 2, rul] - ms[0, 0, rll]))
     r = draws["r"] * max_r * thigh_len / 2
     thetas = draws["theta"] * np.pi * 2
     phis = draws["phi"] * np.pi
@@ -166,7 +171,8 @@ def draw_suppression_noise(n: int, num_markers: int, n_candidates: int,
     """The draws of :func:`marker_suppression_noise`: candidate indices
     (N, K) and the window start's uniform (N,)."""
     kw = dict(generator=generator, device=device)
-    return (torch.randint(0, n_candidates, (n, num_markers), **kw), torch.rand((n,), **kw))
+    choice = batch_draw(lambda k: torch.randint(0, n_candidates, (k, num_markers), **kw), n)
+    return choice, batch_draw(lambda k: torch.rand((k,), **kw), n)
 
 
 def marker_suppression_noise(batch: Dict, choice: torch.Tensor, u: torch.Tensor, ws: float,

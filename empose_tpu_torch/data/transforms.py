@@ -20,6 +20,7 @@ import torch
 from empose_tpu_torch.data.noise import make_noise_fn
 from empose_tpu_torch.ops.quaternions import np_quat_from_aa
 from empose_tpu_torch.ops.so3 import aa2rot, rot2aa
+from empose_tpu_torch.parallel.mesh import batch_draw
 
 NOISE_LEVELS = (-1, 0, 1, 2, 3)
 
@@ -91,13 +92,15 @@ def draw_offset_noise(bank: OffsetBank, n: int, f: int, generator: torch.Generat
                       noise_level: int, randomize: bool):
     """The draws of :func:`sample_markers_with_offsets`: a subject index per
     sequence (N,), and standard normals (N, M, 3) at noise level 0, (N, F, M, 3)
-    at level 1, else None."""
+    at level 1, else None; those of the global batch in a data-parallel step
+    (``parallel/mesh.batch_draw``)."""
     dev = bank.means.device
-    s_idx = torch.randint(0, bank.n_subjects, (n,), generator=generator, device=dev)
+    s_idx = batch_draw(lambda k: torch.randint(0, bank.n_subjects, (k,), generator=generator,
+                                               device=dev), n)
     z = None
     if randomize and noise_level in (0, 1):
-        shape = (n, bank.n_markers, 3) if noise_level == 0 else (n, f, bank.n_markers, 3)
-        z = torch.randn(shape, generator=generator, device=dev)
+        rest = (bank.n_markers, 3) if noise_level == 0 else (f, bank.n_markers, 3)
+        z = batch_draw(lambda k: torch.randn((k, *rest), generator=generator, device=dev), n)
     return s_idx, z
 
 

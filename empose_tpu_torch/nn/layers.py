@@ -30,6 +30,7 @@ from empose_tpu_torch.ops.lstm_kernel import (lstm_bidi_fused, lstm_bidi_layer, 
                                               lstm_stack_fused)
 from empose_tpu_torch.ops.lstm_train_kernel import lstm_cell_train
 from empose_tpu_torch.ops.precision import matmul_at
+from empose_tpu_torch.parallel.mesh import all_reduce_sum, batch_draw, current_shard
 from empose_tpu_torch.utils.precision import HIGHEST, resolve
 
 BN_EPS = 1e-5
@@ -94,7 +95,10 @@ class BatchNorm1d(nn.Module):
     (all rows without a mask), in the JAX package's one-pass form shifted by
     the running mean; the biased variance normalizes, the unbiased one goes
     into the running statistic with momentum 0.1, and
-    ``num_batches_tracked`` counts the updates."""
+    ``num_batches_tracked`` counts the updates. In a data-parallel step the
+    statistics are the global batch's: the count and both sums are summed
+    over the ranks (``parallel/mesh.all_reduce_sum``, differentiable), so
+    every rank normalizes alike and keeps the same running statistics."""
 
     def __init__(self, num_features: int):
         super().__init__()
@@ -123,8 +127,17 @@ class BatchNorm1d(nn.Module):
         count = m.sum().clamp(min=1.0)
         m0 = self.running_mean.detach()
         xc = rows - m0
-        d = (xc * m).sum(0) / count
-        d_sq = (xc * xc * m).sum(0) / count
+        if current_shard() is None:
+            d = (xc * m).sum(0) / count
+            d_sq = (xc * xc * m).sum(0) / count
+        else:
+            # The global batch's sums, over every rank's valid rows; each
+            # rank shifts by the same running mean, so the sums add exactly.
+            c = self.num_features
+            sums = all_reduce_sum(torch.cat([(xc * m).sum(0), (xc * xc * m).sum(0),
+                                             m.sum().reshape(1)]))
+            count = sums[2 * c].clamp(min=1.0)
+            d, d_sq = sums[:c] / count, sums[c:2 * c] / count
         var = (d_sq - d * d).clamp(min=0.0)
         mean = m0 + d
         y = (x - mean) * torch.rsqrt(var + BN_EPS) * self.weight + self.bias
@@ -140,11 +153,14 @@ def dropout(x: torch.Tensor, p: float, training: bool,
             generator: Optional[torch.Generator]) -> torch.Tensor:
     """Inverted dropout with the keep mask drawn from ``generator``
     (``nn/layers.py::dropout_apply``); the identity at eval, at ``p <= 0`` and
-    without a generator."""
+    without a generator. ``x``'s leading axis holds the samples (or their
+    frames, sample by sample); in a data-parallel step the mask is the
+    global batch's (``parallel/mesh.batch_draw``)."""
     if not training or p <= 0.0 or generator is None:
         return x
     keep = 1.0 - p
-    kept = torch.rand(x.shape, generator=generator, device=x.device) < keep
+    kept = batch_draw(lambda k: torch.rand((k, *x.shape[1:]), generator=generator,
+                                           device=x.device), x.shape[0]) < keep
     return torch.where(kept, x / keep, torch.zeros_like(x))
 
 

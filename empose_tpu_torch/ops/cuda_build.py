@@ -32,6 +32,9 @@ ERRORS = {
         "kernel's layout, or the grid exceeds the launch limits)",
 }
 
+# Every source of csrc/: the libraries a run may load.
+SOURCES = ("lbs", "lstm_bidi", "lstm_stack", "lstm_train")
+
 _INCLUDE = re.compile(r'\s*#\s*include\s+"([^"]+)"')
 
 _libs: Dict[str, ctypes.CDLL] = {}

@@ -12,7 +12,11 @@ the kernel's mask freeze.
 CLI (JSON lines over stdin/stdout, the protocol of ``scripts/serve.py``)::
 
     python -m empose_tpu_torch.serve --model_id <id> [--chunk 16] [--streams N]
-        [--precision highest|high|default] [--device cuda|cpu] < frames.jsonl
+        [--dp_devices D] [--precision highest|high|default] [--device cuda|cpu] < frames.jsonl
+
+``--dp_devices D`` (with ``--streams`` > 1, divisible by D) splits the
+streams over D devices, a replica of the model on each
+(``MultiStreamPredictor(mesh=...)``), as ``scripts/serve.py`` does.
 
 ``--precision`` binds the NN and the kinematics matmul precision together,
 as ``scripts/serve.py`` does (``device.set_precision``): ``highest`` is the
@@ -24,6 +28,7 @@ predictors run at the knobs' mode.
 from __future__ import annotations
 
 import argparse
+import copy
 import json
 import sys
 from typing import Dict, Optional
@@ -32,11 +37,14 @@ import numpy as np
 import torch
 
 from empose_tpu_torch.device import set_precision
+from empose_tpu_torch.parallel.mesh import make_mesh
 from empose_tpu_torch.utils.precision import PRECISIONS
 
 
-def _run(model, pos_d: int, pos_ori: np.ndarray, lengths: np.ndarray, offset_t, offset_r, carry):
-    """One batched forward: ONE upload (pos|ori), ONE download (root|pose[|shape])."""
+def _forward(model, pos_d: int, pos_ori: np.ndarray, lengths: np.ndarray, offset_t, offset_r,
+             carry):
+    """One batched forward, issued: ONE upload (pos|ori); returns the packed
+    outputs (root|pose[|shape]) on the device, their widths and the carry."""
     dev = offset_t.device
     x = torch.from_numpy(pos_ori).to(dev)
     window = {
@@ -51,9 +59,16 @@ def _run(model, pos_d: int, pos_ori: np.ndarray, lengths: np.ndarray, offset_t, 
         parts = [out["root_ori_hat"], out["pose_hat"]]
         if out.get("shape_hat") is not None:
             parts.append(out["shape_hat"])
-        packed = torch.cat(parts, dim=-1).cpu().numpy()
+        packed = torch.cat(parts, dim=-1)
     widths = (out["root_ori_hat"].shape[-1], out["pose_hat"].shape[-1])
     return packed, widths, new_carry
+
+
+def _run(model, pos_d: int, pos_ori: np.ndarray, lengths: np.ndarray, offset_t, offset_r, carry):
+    """One batched forward: ONE upload (pos|ori), ONE download (root|pose[|shape])."""
+    packed, widths, new_carry = _forward(model, pos_d, pos_ori, lengths, offset_t, offset_r,
+                                         carry)
+    return packed.cpu().numpy(), widths, new_carry
 
 
 def _unpack_rows(widths, rows: np.ndarray) -> Dict[str, np.ndarray]:
@@ -162,21 +177,51 @@ class MultiStreamPredictor:
 
     Streams with a full chunk buffered (or listed for flushing) contribute
     it; all others run with ``seq_lengths=0`` and keep their state.
+
+    With ``mesh`` (a list of devices, ``parallel.mesh.make_mesh``) the
+    stream axis is split into one contiguous shard per device, each served
+    by a replica of the model on its device (the model itself where the
+    device is its own) with its own carry and offsets: a step issues every
+    shard's upload and forward before the first download. ``n_streams``
+    must be divisible by the number of devices (streams are live sessions
+    and are not padded). Every shard runs the LSTM kernels, whatever its
+    row count (the port has no per-device batch gate).
     """
 
-    def __init__(self, model, n_streams: int, chunk_size: int = 16, n_raw_markers: int = 12):
+    def __init__(self, model, n_streams: int, chunk_size: int = 16, n_raw_markers: int = 12,
+                 mesh=None):
         self.model = model
         self.S = n_streams
         self.chunk = chunk_size
         self.m = n_raw_markers
         self.device = _model_device(model)
+        devices = [self.device] if mesh is None else [torch.device(d) for d in mesh]
+        if n_streams % len(devices):
+            raise ValueError(f"n_streams={n_streams} must be divisible by the mesh size "
+                             f"{len(devices)} (streams are live sessions and cannot be "
+                             "wrap-around padded)")
+        self.per_shard = n_streams // len(devices)
+        self.replicas = [model if d == self.device else copy.deepcopy(model).to(d)
+                         for d in devices]
         self._offset_t = np.zeros((n_streams, self.m, 3), np.float32)
         self._offset_r = np.broadcast_to(np.eye(3, dtype=np.float32),
                                          (n_streams, self.m, 3, 3)).copy()
         self._offsets_dirty = True
-        self.carry = model.initial_carry()
+        self._carries = [r.initial_carry() for r in self.replicas]
         self._bufs = [([], []) for _ in range(n_streams)]
         self._first_shape: list = [None] * n_streams
+
+    @property
+    def carry(self):
+        """The LSTM carry of every stream ((L, S, H) pairs; None where the
+        model keeps none), the shards' joined on the first device."""
+        if len(self._carries) == 1 or self._carries[0] is None:
+            return self._carries[0]
+        dev = self._carries[0][0].device
+        return tuple(torch.cat([c[k].to(dev) for c in self._carries], dim=1) for k in range(2))
+
+    def _shard(self, i: int) -> tuple:
+        return divmod(i, self.per_shard)
 
     @classmethod
     def from_experiment(cls, model_id, n_streams: int, chunk_size: int = 16, device=None,
@@ -192,14 +237,16 @@ class MultiStreamPredictor:
         self._offsets_dirty = True
 
     def reset(self, i: int) -> None:
-        """Start a new sequence on stream ``i``; zeroes its column of the carry."""
+        """Start a new sequence on stream ``i``; zeroes its column of its
+        shard's carry."""
         self._bufs[i] = ([], [])
         self._first_shape[i] = None
-        if self.carry is not None:
-            h, c = (a.clone() for a in self.carry)
-            h[:, i] = 0.0
-            c[:, i] = 0.0
-            self.carry = (h, c)
+        s, row = self._shard(i)
+        if self._carries[s] is not None:
+            h, c = (a.clone() for a in self._carries[s])
+            h[:, row] = 0.0
+            c[:, row] = 0.0
+            self._carries[s] = (h, c)
 
     def push(self, i: int, marker_pos: np.ndarray, marker_ori: np.ndarray) -> None:
         """Buffer frames for stream ``i`` ((K, M*3), (K, M*9)); no device work."""
@@ -211,7 +258,8 @@ class MultiStreamPredictor:
         return len(self._bufs[i][0])
 
     def step(self, flush_ids=()) -> Dict[int, Dict[str, np.ndarray]]:
-        """ONE batched forward serving every ready stream.
+        """ONE batched forward serving every ready stream (one per shard
+        with a ready stream, all issued before the first download).
 
         :return: {stream_id: {"root_ori", "pose_body"[, "shape"]}} for every
           stream that contributed frames.
@@ -233,11 +281,22 @@ class MultiStreamPredictor:
         if not lengths.any():
             return {}
         if self._offsets_dirty:
-            self._offset_t_dev = torch.from_numpy(self._offset_t.copy()).to(self.device)
-            self._offset_r_dev = torch.from_numpy(self._offset_r.copy()).to(self.device)
+            self._offsets_dev = [
+                (torch.from_numpy(self._offset_t[rows].copy()).to(d),
+                 torch.from_numpy(self._offset_r[rows].copy()).to(d))
+                for rows, d in self._shard_rows()]
             self._offsets_dirty = False
-        packed, widths, self.carry = _run(self.model, self.m * 3, packed_in, lengths,
-                                          self._offset_t_dev, self._offset_r_dev, self.carry)
+        issued = []
+        for s, (rows, _) in enumerate(self._shard_rows()):
+            if not lengths[rows].any():
+                continue  # every stream of the shard idle: its state stays as it is
+            packed, widths, self._carries[s] = _forward(
+                self.replicas[s], self.m * 3, packed_in[rows], lengths[rows],
+                *self._offsets_dev[s], self._carries[s])
+            issued.append((rows, packed))
+        packed = np.zeros((self.S, self.chunk, issued[0][1].shape[-1]), np.float32)
+        for rows, dev_packed in issued:
+            packed[rows] = dev_packed.cpu().numpy()
         outs: Dict[int, Dict[str, np.ndarray]] = {}
         for i in np.nonzero(lengths)[0]:
             out = _unpack_rows(widths, packed[i, : lengths[i]])
@@ -247,6 +306,11 @@ class MultiStreamPredictor:
                 out["shape"] = np.broadcast_to(self._first_shape[i], out["shape"].shape)
             outs[int(i)] = out
         return outs
+
+    def _shard_rows(self):
+        """(row slice, device) of each shard."""
+        return [(slice(s * self.per_shard, (s + 1) * self.per_shard),
+                 _model_device(r)) for s, r in enumerate(self.replicas)]
 
     def flush(self, ids) -> Dict[int, Dict[str, np.ndarray]]:
         """Fully drain the listed streams' buffers (any number of frames),
@@ -273,6 +337,9 @@ def main(args) -> None:
     set_precision(args.precision)
     if args.streams > 1:
         return main_multi(args)
+    if getattr(args, "dp_devices", 1) > 1:
+        raise SystemExit("--dp_devices shards the STREAM axis and requires --streams > 1 "
+                         "(single-session serving is one row; there is nothing to shard).")
     predictor = StreamingPredictor.from_experiment(args.model_id, chunk_size=args.chunk,
                                                    device=args.device)
     frame_idx = 0
@@ -306,8 +373,11 @@ def main(args) -> None:
 def main_multi(args) -> None:
     """Multi-session server: input records carry a "stream" id (0-based);
     output records echo it with a per-stream frame index."""
+    n_dp = getattr(args, "dp_devices", 1)
+    mesh = make_mesh(n_dp, args.device) if n_dp > 1 else None
     predictor = MultiStreamPredictor.from_experiment(
-        args.model_id, n_streams=args.streams, chunk_size=args.chunk, device=args.device)
+        args.model_id, n_streams=args.streams, chunk_size=args.chunk, device=args.device,
+        mesh=mesh)
     frame_idx = [0] * args.streams
 
     def emit(outs):
@@ -347,6 +417,10 @@ def parser() -> argparse.ArgumentParser:
     p.add_argument("--chunk", type=int, default=16)
     p.add_argument("--streams", type=int, default=1,
                    help="Serve N independent sessions batched into one forward.")
+    p.add_argument("--dp_devices", type=int, default=1,
+                   help="Split the stream axis over this many devices, a replica of the "
+                        "model on each (the CUDA cards 0..N-1; with --device cpu, the CPU "
+                        "N times); --streams must be divisible by it.")
     p.add_argument("--device", choices=("cuda", "cpu"), default="cuda")
     p.add_argument("--precision", choices=tuple(PRECISIONS), default="highest",
                    help="Matmul precision of the NN and kinematics GEMMs: 'highest' = fp32 "

@@ -18,9 +18,21 @@ the device, seeded from the run's seed and saved with the train state, so a
 resumed run continues bit for bit.
 
 Torch's Adam is optax's: the same bias correction, eps outside the square
-root. ``steps_per_call`` (the JAX package's K steps per XLA program) is
-parsed and the port runs one step per call; CUDA-graph capture of K steps
-is open work (ROADMAP.md).
+root. ``steps_per_call`` K: ``fit`` hands up to K batches at a time to
+:meth:`Trainer.train_step_chunk`, cut where K=1 would print, evaluate or
+stop, and where the batch shape changes, as the JAX ``fit`` cuts them. A
+chunk runs its K steps one after another, so its losses and weights equal
+K single steps bit for bit; the JAX package's one program per chunk
+(``lax.scan``) has no counterpart yet (capturing a chunk as one CUDA graph
+is speed work, ROADMAP.md).
+
+Data parallelism (``--dp_devices N``, ``parallel/mesh.py``): in a process
+group every rank reads the same global batch, pads it to a multiple of the
+world, keeps its rows and draws at the global batch; BatchNorm takes the
+global batch's statistics, the gradients and the loss values are averaged
+over the ranks (the batch mean rescaled by the global lengths), and Adam
+moves the same parameters on every rank. Rank 0 alone prints, evaluates,
+writes the checkpoint and the scalars; the others wait at a barrier.
 """
 
 from __future__ import annotations
@@ -29,7 +41,9 @@ import os
 import time
 from typing import Dict, Optional
 
+import numpy as np
 import torch
+import torch.distributed as dist
 
 from empose_tpu_torch.bodymodel.smplh import load_smplh
 from empose_tpu_torch.data import transforms as T
@@ -41,6 +55,7 @@ from empose_tpu_torch.eval.metrics import (MetricsEngine, metric_stats_init, met
                                            stats_to_host)
 from empose_tpu_torch.nn.layers import init_parameters
 from empose_tpu_torch.nn.models import IterativeErrorFeedback, SensorSMPL, create_model
+from empose_tpu_torch.parallel import mesh as M
 from empose_tpu_torch.utils.logging import ScalarWriter, StepTimer
 
 EVAL_SEED = 8004  # the validation pass's draws: batch b from EVAL_SEED + b, every pass alike
@@ -56,16 +71,44 @@ def _precision(config) -> str:
     return prec
 
 
-def _refuse_unported(config) -> None:
-    if max(1, int(getattr(config, "dp_devices", 1))) > 1:
-        raise NotImplementedError("--dp_devices > 1 is not ported yet: ROADMAP.md, queue 1, "
-                                  "'Data parallelism'")
+def train_loss(model, batch: Dict[str, torch.Tensor], generator: Optional[torch.Generator],
+               pad_scale: Optional[torch.Tensor] = None, match_reference_grads: bool = True):
+    """``model``'s train loss on a synthesized batch: ``(loss_for_grad, vals)``.
+    Zero-length samples contribute 0 to every masked loss, and the batch
+    mean is rescaled to the real samples (``pad_scale``: rows over real
+    samples, by default this batch's); LGD models add
+    ``reference_grad_extra_loss``."""
+    if pad_scale is None:
+        lengths = batch["seq_lengths"]
+        pad_scale = lengths.shape[0] / (lengths > 0).sum().clamp(min=1).to(torch.float32)
+    out, _ = model(batch, None, generator)
+    total, vals = model.compute_loss(batch, out)
+    vals = {k: v * pad_scale for k, v in vals.items()}
+    loss = total * pad_scale
+    if isinstance(model, IterativeErrorFeedback) and match_reference_grads:
+        loss = loss + model.reference_grad_extra_loss(out) * pad_scale
+    return loss, vals
+
+
+def data_parallel_batch(host_batch: Dict, rank: int, world: int, device):
+    """Rank ``rank``'s part of a data-parallel step on the global
+    ``host_batch``: its rows of the batch padded to a multiple of ``world``,
+    the :class:`parallel.mesh.Shard` its draws and BatchNorm statistics take,
+    and the global batch's ``pad_scale`` (padded rows over real samples)."""
+    padded = M.pad_batch_to_devices(host_batch, world)
+    n_padded = padded["poses"].shape[0]
+    n_valid = int((np.asarray(padded["seq_lengths"]) > 0).sum())
+    pad_scale = n_padded / torch.tensor(float(max(n_valid, 1)), device=device)
+    shard = M.Shard(rank, world, host_batch["poses"].shape[0], n_padded)
+    return M.shard_batch(padded, rank, world), shard, pad_scale
 
 
 class Trainer:
     """Model, optimizer, data synthesis and the random stream of one run.
 
     :param device: None = CUDA (raises without it); ``"cpu"`` for tests.
+      In a process group (``parallel/mesh.init_distributed``) the trainer is
+      this rank's, and ``config.dp_devices`` > 1 must equal the world size.
     """
 
     def __init__(self, config, seed: Optional[int] = None, match_reference_grads: bool = True,
@@ -73,7 +116,15 @@ class Trainer:
         self.config = config
         self.device = resolve_device(device)
         set_precision(_precision(config))
-        _refuse_unported(config)
+        self.data_parallel = M.distributed()
+        self.rank = dist.get_rank() if self.data_parallel else 0
+        self.world = dist.get_world_size() if self.data_parallel else 1
+        n_dp = max(1, int(getattr(config, "dp_devices", 1)))
+        if n_dp > 1 and n_dp != self.world:
+            raise ValueError(f"--dp_devices {n_dp} trains in {n_dp} processes: start them with "
+                             "python -m empose_tpu_torch.train, or join this process to a "
+                             f"group of {n_dp} (parallel.mesh.init_distributed); this process "
+                             f"is one of {self.world}")
         # Seed 0 is a seed: the JAX trainer's ``config.seed or time.time()``
         # turns it into the clock.
         if seed is None:
@@ -100,30 +151,48 @@ class Trainer:
         """Host batch (numpy) -> tensors on the device; lengths as int64."""
         return to_device(host_batch, self.device)
 
-    def loss(self, batch: Dict[str, torch.Tensor]):
-        """The train loss of a synthesized batch: ``(loss_for_grad, vals)``.
-        Zero-length samples contribute 0 to every masked loss, and the batch
-        mean is rescaled to the real samples."""
-        lengths = batch["seq_lengths"]
-        pad_scale = lengths.shape[0] / (lengths > 0).sum().clamp(min=1).to(torch.float32)
-        out, _ = self.model(batch, None, self.generator)
-        total, vals = self.model.compute_loss(batch, out)
-        vals = {k: v * pad_scale for k, v in vals.items()}
-        loss = total * pad_scale
-        if isinstance(self.model, IterativeErrorFeedback) and self.match_reference_grads:
-            loss = loss + self.model.reference_grad_extra_loss(out) * pad_scale
-        return loss, vals
+    def loss(self, batch: Dict[str, torch.Tensor], pad_scale: Optional[torch.Tensor] = None):
+        """:func:`train_loss` of this trainer's model, with its generator's
+        dropout (a data-parallel step passes the global ``pad_scale``)."""
+        return train_loss(self.model, batch, self.generator, pad_scale,
+                          self.match_reference_grads)
 
     def train_step(self, host_batch: Dict) -> Dict[str, torch.Tensor]:
-        """One optimizer step; returns the loss values as device scalars."""
+        """One optimizer step on ``host_batch`` (in a process group: the
+        global batch, of which this rank keeps its rows); returns the loss
+        values as device scalars (in a group, their means over the ranks)."""
         self.model.train()
-        batch = self.pre_train(self.upload(host_batch), self.generator, mode="all")
-        loss, vals = self.loss(batch)
-        self.opt.zero_grad(set_to_none=True)
-        loss.backward()
+        shard = pad_scale = None
+        if self.data_parallel:
+            host_batch, shard, pad_scale = data_parallel_batch(host_batch, self.rank,
+                                                               self.world, self.device)
+        with M.shard_scope(shard):
+            batch = self.pre_train(self.upload(host_batch), self.generator, mode="all")
+            loss, vals = self.loss(batch, pad_scale)
+            self.opt.zero_grad(set_to_none=True)
+            loss.backward()
+        vals = {k: v.detach() for k, v in vals.items()}
+        if shard is not None:
+            M.average_gradients(self.model.parameters(), self.world)
+            vals = M.mean_over_ranks(vals, self.world)
         self.opt.step()
         self.global_step += 1
-        return {k: v.detach() for k, v in vals.items()}
+        return vals
+
+    def train_step_chunk(self, host_batches) -> Dict[str, torch.Tensor]:
+        """K training steps, one :meth:`train_step` per batch, so the losses
+        and weights equal K single steps bit for bit; returns the loss
+        values with a leading K axis (scalars for K = 1, as the JAX
+        ``train_step_chunk``)."""
+        if len(host_batches) == 1:
+            return self.train_step(host_batches[0])
+        vals = [self.train_step(b) for b in host_batches]
+        return {k: torch.stack([v[k] for v in vals]) for k in vals[0]}
+
+    def barrier(self) -> None:
+        """Wait for every rank (nothing without a group)."""
+        if self.data_parallel:
+            dist.barrier()
 
     def session(self) -> EvalSession:
         """The eval session of the trained model, built at first use."""
@@ -232,12 +301,18 @@ def fit(trainer: Trainer, train_loader, valid_loader, test_loader, model_dir: st
     with their metrics, and a checkpoint where the test loss is the best so
     far; stop after ``max_steps``; always leave a checkpoint.
 
-    Loss values stay on the device until a print, an eval, ``max_steps`` or
-    the end. A run that has steps already (``--resume``) fast-forwards the
+    Up to ``steps_per_call`` batches go to ``trainer.train_step_chunk`` at a
+    time; a chunk ends where a step prints, evaluates or reaches
+    ``max_steps``, and before a batch of another shape, so those fire at the
+    steps of ``steps_per_call`` 1 (as the JAX ``fit`` cuts its chunks). Loss
+    values stay on the device until a print, an eval, ``max_steps`` or the
+    end. A run that has steps already (``--resume``) fast-forwards the
     loader's random streams past them, so it sees the batches an
-    uninterrupted run would.
+    uninterrupted run would. In a process group rank 0 alone prints,
+    evaluates and saves, and the others wait for it.
     """
     config = trainer.config
+    lead = trainer.rank == 0
     n_batches = len(train_loader)
     me = MetricsEngine(trainer.smplh, trainer.device)
     checkpoint_dir = os.path.join(model_dir, "checkpoint")
@@ -245,10 +320,12 @@ def fit(trainer: Trainer, train_loader, valid_loader, test_loader, model_dir: st
     if trainer.global_step:
         train_loader.fast_forward(trainer.global_step)
     timer = StepTimer()
+    unroll = max(int(getattr(config, "steps_per_call", 1) or 1), 1)
     print_mod = max(config.print_every - 1, 1)
     eval_mod = max(config.eval_every - 1, 1)
     last_vals: Dict[str, float] = {}
-    pending = []  # (global step, device loss dict) since the last flush
+    pending = []  # (global step after the chunk, device loss dict, K) since the last flush
+    chunk = []
     steps_in_window = 0
 
     def flush():
@@ -256,13 +333,30 @@ def fit(trainer: Trainer, train_loader, valid_loader, test_loader, model_dir: st
         if not pending:
             return
         names = list(pending[0][1])
-        host = torch.stack([torch.stack([v[k] for k in names]) for _, v in pending]).tolist()
-        for (gs, _), row in zip(pending, host):
-            last_vals = dict(zip(names, row))
-            if writer:
-                writer.add_scalars(last_vals, gs, prefix="train/")
-                writer.add_scalar("lr", config.lr, gs)
+        rows = torch.cat([torch.stack([v[k].reshape(-1) for k in names], dim=-1)
+                          for _, v, _ in pending]).tolist()
+        pos = 0
+        for gs_last, _, k_steps in pending:
+            for j in range(k_steps):
+                last_vals = dict(zip(names, rows[pos + j]))
+                if writer:
+                    gs = gs_last - (k_steps - 1 - j)
+                    writer.add_scalars(last_vals, gs, prefix="train/")
+                    writer.add_scalar("lr", config.lr, gs)
+            pos += k_steps
         pending.clear()
+
+    def run_chunk():
+        nonlocal steps_in_window
+        if not chunk:
+            return
+        vals = trainer.train_step_chunk(list(chunk))
+        pending.append((trainer.global_step, vals, len(chunk)))
+        steps_in_window += len(chunk)
+        chunk.clear()
+
+    def shapes(b):
+        return {k: np.shape(v) for k, v in b.items() if k != "ids"}
 
     def evaluate(i: int, epoch: int) -> None:
         valid_losses = trainer.evaluate_valid(valid_loader, me)
@@ -289,30 +383,42 @@ def fit(trainer: Trainer, train_loader, valid_loader, test_loader, model_dir: st
             writer.add_scalars(MetricsEngine.to_log_dict(valid_metrics, "valid"), gs)
             writer.add_scalars(MetricsEngine.to_log_dict(test_metrics, "test"), gs)
 
+    def finish() -> Dict[str, float]:
+        flush()
+        if lead and not os.path.isdir(checkpoint_dir):
+            trainer.save(model_dir)
+        trainer.barrier()
+        return last_vals
+
     for epoch in range(start_epoch, config.n_epochs):
         trainer.epoch = epoch
         for i, batch in enumerate(train_loader, start=start_i if epoch == start_epoch else 0):
-            pending.append((trainer.global_step + 1, trainer.train_step(batch)))
-            steps_in_window += 1
-            if i % print_mod == 0:
+            if chunk and shapes(batch) != shapes(chunk[0]):
+                run_chunk()
+            chunk.append(batch)
+            gs_after = trainer.global_step + len(chunk)
+            at_print = i % print_mod == 0
+            at_eval = gs_after % eval_mod == 0
+            at_max = max_steps is not None and gs_after >= max_steps
+            if len(chunk) >= unroll or at_print or at_eval or at_max:
+                run_chunk()
+            if at_print:
                 flush()
                 per_step = timer.reset() / max(steps_in_window, 1)
                 steps_in_window = 0
-                loss_string = " ".join(f"{k}: {v:.6f}" for k, v in last_vals.items())
-                print(f"[TRAIN {i + 1:05d} | {epoch + 1:03d}] {loss_string} "
-                      f"elapsed: {per_step:.3f} secs", flush=True)
-            if trainer.global_step % eval_mod == 0:
+                if lead:
+                    loss_string = " ".join(f"{k}: {v:.6f}" for k, v in last_vals.items())
+                    print(f"[TRAIN {i + 1:05d} | {epoch + 1:03d}] {loss_string} "
+                          f"elapsed: {per_step:.3f} secs", flush=True)
+            if at_eval:
                 flush()
-                evaluate(i, epoch)
+                if lead:
+                    evaluate(i, epoch)
+                trainer.barrier()
                 # Eval time is not billed to the next print window's steps.
                 timer.reset()
                 steps_in_window = 0
             if max_steps is not None and trainer.global_step >= max_steps:
-                flush()
-                if not os.path.isdir(checkpoint_dir):
-                    trainer.save(model_dir)
-                return last_vals
-    flush()
-    if not os.path.isdir(checkpoint_dir):
-        trainer.save(model_dir)
-    return last_vals
+                return finish()
+    run_chunk()
+    return finish()

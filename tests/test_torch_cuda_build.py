@@ -55,3 +55,10 @@ def test_library_stale_when_any_included_header_is_newer(tree):
         assert cuda_build._stale("k"), f
         _touch(csrc / f, 1000)
     assert cuda_build.build(["k"]) == {}  # up to date: no nvcc started
+
+
+def test_sources_are_every_kernel_source():
+    """``SOURCES``, which the data-parallel train CLI builds before it
+    spawns its ranks, names every ``csrc/*.cu``."""
+    names = sorted(f[:-3] for f in os.listdir(cuda_build.CSRC) if f.endswith(".cu"))
+    assert list(cuda_build.SOURCES) == names

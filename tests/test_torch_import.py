@@ -103,3 +103,11 @@ def test_eval_modules_are_covered_and_import_no_jax_or_tabulate():
                          capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stderr
     assert "BAD []" in res.stdout, res.stdout
+
+
+def test_parallel_and_new_tool_modules_are_covered():
+    """Data parallelism and the serving, datagen and multi-process tools are
+    among the modules the no-jax checks above import."""
+    assert {"empose_tpu_torch.parallel.mesh", "empose_tpu_torch.tools.bench_serve",
+            "empose_tpu_torch.tools.bulk_synthesize",
+            "empose_tpu_torch.tools.multihost_worker"} <= set(_port_modules())

@@ -163,22 +163,31 @@ def test_existing_id_without_load_raises(assets_env, tmp_path, monkeypatch):
 @pytest.mark.parametrize("flags, error", [
     (["--remat"], None),
     (["--bf16", "--matmul_precision", "high"], ValueError),
-    (["--dp_devices", "2"], NotImplementedError),
+    (["--dp_devices", "2"], None),
+    (["--dp_devices", str(max(2, torch.cuda.device_count() + 1)), "--device", "cuda"],
+     ValueError),
     (["--suppression_noise_length", "0.5"], None),
-], ids=["remat", "bf16_conflict", "data_parallel", "noise"])
+], ids=["remat", "bf16_conflict", "data_parallel", "data_parallel_too_few_cards", "noise"])
 def test_unported_paths_raise(assets_env, tmp_path, monkeypatch, flags, error):
-    """Data parallelism raises before any step, naming what is missing; so
-    does ``--bf16`` beside another explicit precision (as in JAX).
-    Rematerialization and noise, which raised until they were ported, now
-    train and checkpoint (their checks: ``tests/test_torch_remat.py``,
-    ``tests/test_torch_robustness.py``). Training at ``high`` and
-    ``default`` runs (``tests/test_torch_train_precision.py``)."""
+    """Paths that raised until they were ported now train 4 steps and
+    checkpoint once: rematerialization, noise (their checks:
+    ``tests/test_torch_remat.py``, ``tests/test_torch_robustness.py``) and
+    ``--dp_devices 2``, two gloo ranks on the CPU (its checks:
+    ``tests/test_torch_parallel.py``; the trainers live in the ranks, so the
+    step count is read from the checkpoint). ``--bf16`` beside another
+    explicit precision raises (as in JAX), and so does ``--dp_devices N`` on
+    CUDA with fewer than N cards, before any step and without falling back
+    to fewer ranks or the CPU. Training at ``high`` and ``default`` runs
+    (``tests/test_torch_train_precision.py``)."""
     monkeypatch.setenv("EM_EXPERIMENTS", str(tmp_path))
     if error is None:
-        _, trainer = main(TINY_LGD + ["--max_steps", "4"] + flags)
-        assert trainer.global_step == 4
+        model_dir, trainer = main(TINY_LGD + ["--max_steps", "4"] + flags)
+        state = torch.load(os.path.join(model_dir, "checkpoint", "train_state.pt"),
+                           weights_only=True)
+        assert state["global_step"] == 4
+        assert trainer is None or trainer.global_step == 4
         assert len(glob.glob(os.path.join(tmp_path, "*", "checkpoint"))) == 1
         return
-    with pytest.raises(error, match="ROADMAP|bf16|precision"):
+    with pytest.raises(error, match="bf16|precision|need \\d+ devices"):
         main(TINY_LGD + ["--max_steps", "4"] + flags)
     assert not glob.glob(os.path.join(tmp_path, "*", "checkpoint"))

@@ -146,8 +146,9 @@ Phases, each printed on its own line:
   6e. export_visualization of one 1100-frame sequence: 6 LBS launches (3
      chunks each for GT and prediction), the npz and two OBJ files written;
   6f. real-data evaluation through ``python -m empose_tpu_torch.eval``'s
-     main on a seeded real tree (16 recordings of 1024-4096 frames over 4
-     subjects, 12 sensors from the port's FK and virtual sensors with
+     main on a seeded real tree (8 recordings over 4 subjects: one of
+     4096 frames, one of 1024, the others of 300-1536; 12 sensors from the
+     port's FK and virtual sensors with
      masked sensor-frames, and a hold-out recording): full-width LGD-RNN-6
      in windows of 256 frames (the stack kernel once per window of the
      batched pass) and BiRNN-6 over whole sequences (the bidirectional layer
@@ -185,14 +186,36 @@ Phases, each printed on its own line:
      this process (the first step's losses rtol 2e-5, the later steps' 2e-4,
      parameters and BatchNorm statistics 2e-3), the ranks bit for bit
      equal; a one-rank NCCL group's steps equal this process's bit for bit;
+     the first step's gradients (the ranks' average against this
+     process's: per tensor against the CPU test's bar, held at TOL_GRAD_LGD
+     of the largest gradient; the entries of opposite sign and the
+     parameters after step 1, Adam's sign flips);
      ``--dp_devices`` beyond the card count raises ValueError; the train CLI
      at ``--steps_per_call 8`` and 1 (17 steps, chunks of 1, 8, 8): losses
      and checkpoint bit for bit, p50 per step of each; LGD-RNN-6 served to
      64 streams over [cuda:0, cuda:0] against the unsharded outputs (1e-4),
      the stack kernel once per shard and forward; ``bulk_synthesize`` of the
      training corpus at level -1 on the card against the CPU, frames/s; the
-     serving bench at ``--chunk 16 --n 200`` and ``--streams 64 --n 100``
+     serving bench at ``--chunk 16 --n 100`` and ``--streams 64 --n 50``
      (p50/p95/p99, frames/s), the stack kernel once per forward;
+  6j. the asset writer and the training gates on a tree of their own
+     (``tools/gate_common.asset_env`` points the four environment variables
+     at it per tool and restores them; the smoke's own tree is read again
+     after): ``make_synthetic_assets`` of the gates' tree on the card and
+     on the CPU (draw-only arrays bit for bit, corpus joints 1e-5, sensor
+     fields against float64 sensors of the same draws, wall time of each);
+     ``convergence_gate``'s main at 600 steps at highest (untrained MPJPE >
+     150 mm, trained < 120 mm, the loss falls, the post-resume loss
+     difference 0.0, s/step with its median and quartiles); the
+     suppression study of its trained model 920000 on the hold-out
+     recording (monotone, held; the clean row equals the gate's own pass
+     there); ``demo_convergence`` at 600 steps (MPJPE falls) and
+     ``demo_resume`` at K=10 (both differences 0.0); each with the counts
+     at 0 and its exact launches of the training pair, the stack (windows
+     of 256) and the bidi layer (H=128, whole sequences); the kernels
+     against their plain versions at those shapes run with phases 3-4b;
+     a "wall time of" line closes every phase, and a "phases (s)" line
+     before the total gathers them;
   7. a "kernels" JSON line (a row per kernel, and per kernel and mode,
      "<kernel>@high" and "<kernel>@default"); 8. a last JSON line with the
      device.
@@ -280,7 +303,7 @@ from empose_tpu_torch.device import set_precision
 from empose_tpu_torch.eval import cli as eval_cli
 from empose_tpu_torch.eval import harness as EH
 from empose_tpu_torch.eval.harness import export_visualization
-from empose_tpu_torch.eval.metrics import METRIC_NAMES
+from empose_tpu_torch.eval.metrics import METRIC_NAMES, MetricsEngine
 from empose_tpu_torch.nn.layers import _reverse_by_length, init_parameters, nn_precision
 from empose_tpu_torch.nn.models import SensorSMPL, create_model
 from empose_tpu_torch.ops import cuda_build
@@ -290,7 +313,10 @@ from empose_tpu_torch.ops import skinning as SK
 from empose_tpu_torch.parallel.mesh import init_distributed, spawn
 from empose_tpu_torch.serve import MultiStreamPredictor, StreamingPredictor
 from empose_tpu_torch.tools import (bench_lstm_kernels, bench_serve, bulk_synthesize,
-                                    suppression_study)
+                                    convergence_gate, demo_convergence, demo_resume,
+                                    make_synthetic_assets, suppression_study)
+from empose_tpu_torch.tools.gate_common import (GATE_TREE, asset_env, held_out_mpjpe,
+                                                lgd_retrain_config)
 from empose_tpu_torch.tools.multihost_worker import run_steps
 from empose_tpu_torch.train import cli as train_cli
 from empose_tpu_torch.train.loop import Trainer
@@ -316,6 +342,10 @@ NOISE_MOMENTS_N = 4096
 # --steps_per_call: 17 steps at batch 8 (8 batches an epoch: chunks of 1, 8, 8).
 DP_BATCH, DP_STEPS, SPC_STEPS, SPC_BATCH = 15, 3, 17, 8
 STREAMS, CHUNK, CHUNKS = 64, 16, 4
+# The training gates: the convergence gate's steps and kill/resume phase
+# (its defaults), demo_convergence's steps, demo_resume's K.
+GATE_STEPS, GATE_RESUME_K, DEMO_STEPS, DEMO_RESUME_K = 600, 30, 600, 10
+DEMO_HIDDEN = 128    # demo_convergence's BiRNN: 2x128
 # The bidirectional layer's timed shapes: the batched serving chunk, the eval
 # window, one stream's chunk.
 BIDI_TIMED = ((CHUNK, STREAMS), (256, STREAMS), (CHUNK, 1))
@@ -323,16 +353,19 @@ BIDI_TIMED = ((CHUNK, STREAMS), (256, STREAMS), (CHUNK, 1))
 STACK_TIMED = BIDI_TIMED
 HIDDEN, LAYERS, N_IN = 512, 2, 6 * 12  # init RNN of LGD-RNN-6: 6 markers x (3 pos + 9 ori)
 TOL_LBS = 2e-5      # LBS kernel vs plain at metre-scale coordinates (the JAX test's)
+TOL_FK = 1e-5       # FK joints of the asset writer, card against CPU
 V_FULL, J_FULL = 6890, 52  # full SMPL-H mesh
 SMPL_FRAMES, EXPORT_FRAMES = 600, 1100
-# The real-data tree of the eval phase: 16 recordings over 4 subjects of
-# 1024-4096 frames and one hold-out recording; a 3DPW-style corpus of 24
-# sequences for the trainer's validation pass.
+# The real-data tree of the eval phase: 8 recordings over 4 subjects, one
+# of 4096 frames, one of 1024 and the others of 300-1536 (PRs 11-20 had 16
+# of 1024-4096; cut for the smoke's time limit), and one hold-out
+# recording; a 3DPW-style corpus of 24 sequences for the trainer's
+# validation pass.
 REAL_SUBJECTS = (402, 403, 404, 405)
-REAL_RECORDINGS, HOLD_OUT_FRAMES, VALID_SEQUENCES = 16, 2000, 24
+REAL_RECORDINGS, HOLD_OUT_FRAMES, VALID_SEQUENCES = 8, 2000, 24
 EVAL_BATCH = 16      # bs_eval: the config's default, which train_flags keeps
 TOL_EVAL = 1e-3      # metric tables against each other: |a - b| <= 1e-3 * max(|b|, 1)
-BIDI_LONG = (4096, REAL_RECORDINGS + 1)  # the longest whole-sequence forward, beyond it
+BIDI_LONG = (4096, 17)  # the longest whole-sequence forward, at more rows than the corpus holds
 # The bidi layer at the modes: BIDI_TIMED, one direction per launch at
 # H=1024 (16, 32), and the eval's longest forward.
 BIDI_MODE_SHAPES = (*((f, n, HIDDEN) for f, n in BIDI_TIMED), (CHUNK, 32, 2 * HIDDEN),
@@ -428,6 +461,23 @@ BIRNN_DEFAULT = dict(RNN_DEFAULT, m_bidirectional=True)
 def check(cond: bool, msg: str) -> None:
     if not cond:
         raise RuntimeError(f"chip_smoke: {msg}")
+
+
+class Laps:
+    """Wall time of the consecutive phases of main on the host clock, the card
+    synchronized at each end: ``lap(name)`` closes the phase that began at
+    the previous lap (or at construction) and prints its wall time."""
+
+    def __init__(self):
+        self.t = time.perf_counter()
+        self.seconds = {}
+
+    def lap(self, name: str) -> None:
+        torch.cuda.synchronize()
+        now = time.perf_counter()
+        self.seconds[name] = self.seconds.get(name, 0.0) + now - self.t
+        print(f"wall time of {name}: {now - self.t:.1f} s", flush=True)
+        self.t = now
 
 
 def print_card() -> bool:
@@ -779,7 +829,8 @@ def bidi_phase(f: int, n: int, seed: int, h: int = HIDDEN, timed: bool = True) -
         lib_err = (lstm(x, (h0, c0))[0] - plain_full).abs().max().item()
         ms = cuda_ms(lambda: K.lstm_bidi_fused(*args))
         layer_ms = cuda_ms(lambda: K.lstm_bidi_layer(cells[0], cells[1], x, x_rev, mask, h0, c0))
-        plain_ms = cuda_ms(lambda: K.lstm_bidi_plain(*args), reps=5 if f > 64 else 15)
+        plain_ms = cuda_ms(lambda: K.lstm_bidi_plain(*args), warmup=1 if f > 256 else 3,
+                           reps=5 if f > 64 else 15)
         library_ms = cuda_ms(lambda: lstm(x, (h0, c0)))
     b_ms, b_by = bidi_bound_ms(f, n, h)
     print(f"bidi times {shape}: kernel {ms:.4f} ms ({ms * 1e3 / f:.2f} us per step), kernel with "
@@ -1348,9 +1399,10 @@ def write_recording(path: str, seq_id: str, offsets: dict, n_frames: int, sensor
 
 
 def recording_lengths(rng) -> np.ndarray:
-    """REAL_RECORDINGS lengths in 1024-4096 frames: one of 4096 and one of
-    1024, the rest not a multiple of 256."""
-    lengths = rng.randint(1024, 4097, REAL_RECORDINGS)
+    """REAL_RECORDINGS lengths: one of 4096 frames, one of 1024, the rest in
+    300-1536 and not a multiple of 256 (every recording two windows of 256
+    or more, so the serial loop threads its carry)."""
+    lengths = rng.randint(300, 1537, REAL_RECORDINGS)
     lengths[0], lengths[1] = 4096, 1024
     lengths[2:] -= lengths[2:] % 256 == 0
     return lengths
@@ -1358,8 +1410,8 @@ def recording_lengths(rng) -> np.ndarray:
 
 def write_assets(root: str, rng) -> None:
     """The asset tree the entry points read: the synthetic SMPL-H; offsets
-    of 4 subjects and of the hold-out subject 0715; 16 real recordings of
-    1024-4096 frames over the 4 subjects and one of 2000 frames of 0715 in
+    of 4 subjects and of the hold-out subject 0715; REAL_RECORDINGS real recordings
+    (``recording_lengths``) over the 4 subjects and one of 2000 frames of 0715 in
     ``hold_out/``; an EMR corpus of 64 smooth seeded pose sequences of
     150-300 frames (training) and a 3DPW-style one of 24 of 300-900 frames
     (validation). Points $SMPL_MODELS, $EM_DATA_REAL, $EM_DATA_SYNTH and
@@ -2358,15 +2410,17 @@ def suppression_eval_path(label: str, model_id: str, clean_rows: list, per_forwa
     return launched["lstm_stack"]
 
 
-def study_path(label: str, model_id: str, per_forward: int, window: int, out_dir: str) -> int:
+def study_path(label: str, model_id: str, per_forward: int, window: int, out_dir: str,
+               held: bool = False) -> tuple:
     """``python -m empose_tpu_torch.tools.suppression_study``'s main on the
     hold-out recording at lengths 0, 0.5 and markers 1, 2 with the counts at
     0: three rows, three passes of ``per_forward`` stack launches a window;
     the clean row equals the clean eval CLI's overall row (rounded as the
-    study rounds). The weights are untrained, so its monotonicity check is
-    printed and not held. Returns the launches."""
+    study rounds). Its monotonicity check is held (exit 0, no violation)
+    where ``held`` (trained weights), else printed only (untrained weights
+    give no order). Returns the launches and the rows."""
     clean = quiet_eval(["--model_id", model_id, "--cross_subject"])[0][-1]
-    out = os.path.join(out_dir, "study.json")
+    out = os.path.join(out_dir, f"study_{model_id}.json")
     want = 3 * per_forward * real_windows(window, os.path.join(os.environ["EM_DATA_REAL"],
                                                                "hold_out"))
     torch.cuda.synchronize()
@@ -2382,7 +2436,7 @@ def study_path(label: str, model_id: str, per_forward: int, window: int, out_dir
     table = text.getvalue()
     print(table[table.index("dropped markers"):].rstrip(), flush=True)
     print(f"{label} suppression study (hold-out, lengths 0, 0.5 x markers 1, 2): exit {rc}, "
-          f"launches {launched}; violations (not held: untrained weights) "
+          f"launches {launched}; violations ({'held' if held else 'not held: untrained weights'}) "
           f"{result['violations']}", flush=True)
     check([(r["suppression_markers"], r["suppression_length"]) for r in rows]
           == [(0, 0.0), (1, 0.5), (2, 0.5)], f"{label} study: the grid is {rows}")
@@ -2390,7 +2444,10 @@ def study_path(label: str, model_id: str, per_forward: int, window: int, out_dir
           f"{label} study: the clean row {rows[0]} is not the eval CLI's overall {clean}")
     check(launched == expected(lstm_stack=want),
           f"{label} study: expected {want} stack launches, got {launched}")
-    return launched["lstm_stack"]
+    if held:
+        check(rc == 0 and not result["violations"],
+              f"{label} study: MPJPE is not monotone: {result['violations']}")
+    return launched["lstm_stack"], rows
 
 
 def remat_path(per_step: int) -> tuple:
@@ -2523,14 +2580,28 @@ def dp_config() -> Configuration:
                                         seed=SEED))
 
 
+def steps_with_first_grads(trainer: Trainer, batches: list) -> dict:
+    """``multihost_worker.run_steps`` of ``trainer`` on ``batches``, with the
+    gradients of the first step (averaged over the ranks in a group), read
+    before the second step clears them."""
+    first = run_steps(trainer, batches[:1])
+    grads = {k: p.grad.detach().cpu().clone() for k, p in trainer.model.named_parameters()
+             if p.grad is not None}
+    result = run_steps(trainer, batches[1:])
+    result["vals"] = first["vals"] + result["vals"]
+    result["grads"] = grads
+    result["first_state"] = first["state"]
+    return result
+
+
 def dp_rank(rank: int, device, config, seed: int, batches: list, out: str) -> None:
     """One rank of the data-parallel phase (``parallel.mesh.spawn``): its
-    steps (``multihost_worker.run_steps``) and its kernels' launches, to
+    steps (``steps_with_first_grads``) and its kernels' launches, to
     ``out % rank``."""
     trainer = Trainer(config, seed=seed, device=device)
     torch.cuda.synchronize()
     reset_counts()
-    result = run_steps(trainer, batches)
+    result = steps_with_first_grads(trainer, batches)
     torch.cuda.synchronize()
     result["counts"] = counts()
     torch.save(result, out % rank)
@@ -2561,7 +2632,7 @@ def dp_training_path(root: str, per_step: int) -> tuple:
     check(all(b["poses"].shape[0] == DP_BATCH for b in batches), "short DP batch")
     torch.cuda.synchronize()
     reset_counts()
-    single = run_steps(Trainer(config, seed=SEED), batches)
+    single = steps_with_first_grads(Trainer(config, seed=SEED), batches)
     torch.cuda.synchronize()
     single_counts = counts()
 
@@ -2584,6 +2655,38 @@ def dp_training_path(root: str, per_step: int) -> tuple:
           f"{', '.join(f'{e:.3e}' for e in loss_err)} (the first <= 2e-5, the others <= 2e-4), "
           f"largest parameter or statistic difference {state_err:.3e} (<= 2e-3); launches per rank "
           f"{[r['counts'] for r in ranks]}, single process {single_counts}", flush=True)
+    # The first step's gradients, the ranks' average against one process's on
+    # the same global batch: per tensor against the CPU test's bar
+    # (tests/test_torch_parallel.py: 1e-4 x (1 + max |g|), the tiny LGD-RNN),
+    # held at full width as the whole-step check holds LGD-RNN-6 (TOL_GRAD_LGD
+    # of the largest gradient: what rounding alone moves a step,
+    # ``--step-rounding``); the entries of opposite sign (Adam's first update
+    # moves each by about lr x sign(g)) and the parameters after step 1.
+    g_one, g_dp = single["grads"], ranks[0]["grads"]
+    grad_diff = {k: float((g_dp[k] - g).abs().max()) for k, g in g_one.items()}
+    cpu_bar = {k: 1e-4 * (1.0 + float(g.abs().max())) for k, g in g_one.items()}
+    g_max = max(float(g.abs().max()) for g in g_one.values())
+    worst = max(grad_diff, key=lambda k: grad_diff[k] / cpu_bar[k])
+    flips = {k: (g_dp[k] * g < 0) for k, g in g_one.items()}
+    n_flips = sum(int(f.sum()) for f in flips.values())
+    flip_max = max((float(g[flips[k]].abs().max()) for k, g in g_one.items() if flips[k].any()),
+                   default=0.0)
+    step1_diff = max(float((ranks[0]["first_state"][k].float() - v.float()).abs().max())
+                     for k, v in single["first_state"].items() if v.is_floating_point())
+    over_cpu_bar = sorted(k for k in grad_diff if grad_diff[k] > cpu_bar[k])
+    print(f"DP training, step 1 gradients (2 ranks averaged against one process, "
+          f"{len(grad_diff)} tensors): largest difference {max(grad_diff.values()):.3e}, "
+          f"{max(grad_diff.values()) / g_max:.3e} of the largest gradient {g_max:.3e} "
+          f"(<= {TOL_GRAD_LGD}); against the CPU test's bar 1e-4 x (1 + max |g|) per tensor: "
+          f"nearest {worst} {grad_diff[worst]:.3e} against {cpu_bar[worst]:.3e}, "
+          f"{len(over_cpu_bar)} tensors over it {over_cpu_bar}; {n_flips} gradient entries of "
+          f"opposite sign (largest |g| among them {flip_max:.3e}); parameters and statistics "
+          f"after step 1 {step1_diff:.3e} apart (lr {config.lr}); ranks' gradients bit for bit "
+          f"equal {all(same_state(r['grads'], g_dp) for r in ranks[1:])}", flush=True)
+    check(sorted(g_dp) == sorted(g_one)
+          and max(grad_diff.values()) <= TOL_GRAD_LGD * g_max,
+          f"DP step-1 gradients differ from one process's by "
+          f"{max(grad_diff.values()) / g_max} of the largest gradient > {TOL_GRAD_LGD}")
     check(same_ranks, "DP ranks differ in parameters, BatchNorm statistics or generator")
     check(loss_err[0] <= 2e-5 and max(loss_err) <= 2e-4 and state_err <= 2e-3,
           f"DP steps differ from the single-process steps: {loss_err}, {state_err}")
@@ -2776,10 +2879,11 @@ def bulk_datagen_path(root: str) -> None:
 
 def bench_serve_path(per_forward: int) -> int:
     """The serving bench (``python -m empose_tpu_torch.tools.bench_serve``'s
-    main) at ``--chunk 16 --n 200`` and ``--streams 64 --n 100``: the stack
+    main) at ``--chunk 16 --n 100`` and ``--streams 64 --n 50`` (the tool's
+    defaults are 200 and 100; halved for the smoke's time limit): the stack
     kernel once per forward (warm-up included). Returns the launches."""
     total = 0
-    for flags in (["--chunk", "16", "--n", "200"], ["--streams", "64", "--n", "100"]):
+    for flags in (["--chunk", "16", "--n", "100"], ["--streams", "64", "--n", "50"]):
         torch.cuda.synchronize()
         reset_counts()
         r = bench_serve.main(flags)
@@ -2791,6 +2895,254 @@ def bench_serve_path(per_forward: int) -> int:
         check(launched == expected(lstm_stack=per_forward * r["forwards"]),
               f"bench_serve: expected {per_forward * r['forwards']} stack launches, got {launched}")
         total += launched["lstm_stack"]
+    return total
+
+
+# ---------------------------------------------------------------------------
+# The asset writer and the training gates, on a tree of their own.
+
+def gate_tree_path(gate_root: str) -> str:
+    """``make_synthetic_assets.generate_all`` of the gates' tree (GATE_TREE)
+    on the card and on the CPU, each timed: the same files, npz keys, dtypes
+    and shapes; every array the draws alone decide (the model, poses,
+    shapes, translations, masks, offsets, the corpora's poses, betas, trans
+    and meta) bit for bit; the corpora's FK joints within TOL_FK; the
+    sensor fields, float32 frames from vertices a centimetre apart on a
+    metre-scale mesh, held against float64 sensors of the same poses: a
+    field's largest distance over a recording, the card's at most TOL_FK
+    plus twice the CPU's (per marker, the ratio is printed). The writer's FK
+    launches no kernel. Returns the card's tree."""
+    card, cpu = os.path.join(gate_root, "gate_assets"), os.path.join(gate_root, "gate_assets_cpu")
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):
+        make_synthetic_assets.generate_all(card, **GATE_TREE)
+    torch.cuda.synchronize()
+    card_s = time.perf_counter() - t0
+    launched = counts()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):
+        make_synthetic_assets.generate_all(cpu, device="cpu", **GATE_TREE)
+    cpu_s = time.perf_counter() - t0
+
+    def files(root):
+        return sorted(os.path.relpath(f, root) for f in glob.glob(os.path.join(root, "**"),
+                                                                  recursive=True))
+
+    check(files(card) == files(cpu), "the card's tree and the CPU's hold other files")
+    sensor_keys = ("sensor_pos", "sensor_oris")
+    n_exact, sensor_ratio, marker_ratio, sensor_far, joints_err = 0, 0.0, 0.0, 0.0, 0.0
+    for rel in files(cpu):
+        if rel.endswith(".npz"):
+            a, b = np.load(os.path.join(card, rel)), np.load(os.path.join(cpu, rel))
+            check(sorted(a.files) == sorted(b.files), f"{rel}: other npz keys")
+            for k in b.files:
+                check((a[k].dtype, a[k].shape) == (b[k].dtype, b[k].shape), f"{rel} {k}: dtype")
+                if k not in sensor_keys:
+                    check(np.array_equal(a[k], b[k]), f"{rel} {k}: not bit for bit the CPU's")
+                    n_exact += 1
+            if "sensor_pos" in b.files:
+                ref = make_synthetic_assets.sensors_in_float64(cpu, rel, GATE_TREE["seed"])
+                for k, r64 in zip(sensor_keys, ref):
+                    f = r64.shape[0]
+                    d_card, d_cpu = (np.abs(t[k].reshape(f, 12, -1) - r64).max(axis=(0, 2))
+                                     for t in (a, b))
+                    sensor_ratio = max(sensor_ratio, float(d_card.max()
+                                                           / (TOL_FK + 2 * d_cpu.max())))
+                    marker_ratio = max(marker_ratio, float((d_card / (TOL_FK + 2 * d_cpu)).max()))
+                    sensor_far = max(sensor_far, float(d_card.max()), float(d_cpu.max()))
+        elif rel.endswith(".emr"):
+            ra, rb = EMRReader(os.path.join(card, rel)), EMRReader(os.path.join(cpu, rel))
+            check([ra.meta(i) for i in range(len(ra))] == [rb.meta(i) for i in range(len(rb))],
+                  f"{rel}: other meta")
+            for i in range(len(rb)):
+                check(ra.fields(i) == rb.fields(i), f"{rel} {i}: other fields")
+                for fld in ("poses", "betas", "trans"):
+                    check(np.array_equal(ra.read(i, fld), rb.read(i, fld)),
+                          f"{rel} {i} {fld}: not bit for bit the CPU's")
+                    n_exact += 1
+                joints_err = max(joints_err, float(np.abs(ra.read(i, "joints")
+                                                          - rb.read(i, "joints")).max()))
+    print(f"asset writer (gates' tree: {GATE_TREE}): card {card_s:.3f} s, CPU {cpu_s:.3f} s; "
+          f"launches {launched}; {n_exact} draw-only arrays bit for bit; corpus joints card vs "
+          f"CPU {joints_err:.3e} (<= {TOL_FK}); sensor fields against float64 (largest distance "
+          f"{sensor_far:.3e}): a recording's card distance over ({TOL_FK} + 2 x the CPU's) at "
+          f"most {sensor_ratio:.3f} (<= 1), per marker {marker_ratio:.3f}", flush=True)
+    check(launched == expected(), f"the asset writer launched a kernel: {launched}")
+    check(joints_err <= TOL_FK, f"corpus joints card vs CPU {joints_err} > {TOL_FK}")
+    check(sensor_ratio <= 1.0, f"card sensor fields farther from float64 than the CPU's allow: "
+                               f"{sensor_ratio}")
+    return card
+
+
+def quiet_tool(main, argv: list) -> tuple:
+    """A tool's ``main(argv)`` with its printout kept and echoed: (return
+    value, printed text, its last line as JSON or None)."""
+    with contextlib.redirect_stdout(io.StringIO()) as out:
+        ret = main(argv)
+    text = out.getvalue()
+    print(text.rstrip(), flush=True)
+    last = text.strip().splitlines()[-1] if text.strip() else ""
+    return ret, text, json.loads(last) if last.startswith("{") else None
+
+
+def gate_path(tree: str, per_step: int, stack_per_forward: int) -> tuple:
+    """``python -m empose_tpu_torch.tools.convergence_gate``'s main at its
+    defaults (GATE_STEPS steps at highest, a kill/resume of GATE_RESUME_K +
+    GATE_RESUME_K against 2 x GATE_RESUME_K) on ``tree`` with the counts at
+    0: exit 0; untrained MPJPE above MPJPE_START_MIN, trained below
+    MPJPE_END_MAX, the loss falls (the gate's own checks); the post-resume
+    loss difference 0.0; the training pair ``per_step`` times a step, the
+    stack ``stack_per_forward`` times a window of the two MPJPE passes, no
+    other kernel. Returns the launches."""
+    steps = GATE_STEPS + 4 * GATE_RESUME_K
+    windows = 2 * real_windows(256, os.path.join(tree, "data_real"))
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    rc, text, result = quiet_tool(convergence_gate.main, ["--assets", tree])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launched = counts()
+    set_precision("highest")
+    stats = json.loads(next(line for line in text.splitlines() if line.startswith("step times"))
+                       .split(": ", 1)[1])
+    print(f"convergence gate (LGD-RNN-6 retrain, batch 12 x window 32, {GATE_STEPS} steps at "
+          f"highest): exit {rc}; MPJPE {result['mpjpe_before_mm']} -> {result['mpjpe_after_mm']} "
+          f"mm (> {convergence_gate.MPJPE_START_MIN}, < {convergence_gate.MPJPE_END_MAX}); "
+          f"post-resume loss difference {result['resume_max_loss_diff']}; s/step mean "
+          f"{stats['mean']:.4f}, p25 {stats['p25']:.4f}, median {stats['median']:.4f}, p75 "
+          f"{stats['p75']:.4f} ({stats['n']} steps); phase {wall:.1f} s; launches {launched}",
+          flush=True)
+    check(rc == 0 and result["ok"] and not result["failures"],
+          f"the convergence gate failed: {result['failures']}")
+    check(result["mpjpe_before_mm"] > convergence_gate.MPJPE_START_MIN
+          and result["mpjpe_after_mm"] < convergence_gate.MPJPE_END_MAX,
+          f"gate MPJPE {result['mpjpe_before_mm']} -> {result['mpjpe_after_mm']}")
+    check(result["resume_max_loss_diff"] == 0.0,
+          f"the gate's resume is not bit for bit: {result['resume_max_loss_diff']}")
+    want = expected(lstm_train_fwd=per_step * steps, lstm_train_bwd=per_step * steps,
+                    lstm_stack=stack_per_forward * windows)
+    check(launched == want, f"convergence gate: expected launches {want}, got {launched}")
+    return launched
+
+
+def trained_study_path(tree: str, gate_root: str, per_forward: int) -> int:
+    """The suppression study (``study_path``, its monotonicity held) of the
+    gate's trained model 920000 on ``tree``'s hold-out recording, and the
+    gate's own MPJPE pass (``Trainer.evaluate_test`` at windows of 256) of
+    the restored trainer on the same recording: the study's clean row
+    equals it (the study rounds to 3 decimals). Returns the stack's
+    launches of both."""
+    with asset_env(tree):
+        launches, rows = study_path("LGD-RNN-6 trained by the gate (920000)", "920000",
+                                    per_forward, 256, gate_root, held=True)
+        hold_out = os.path.join(os.environ["EM_DATA_REAL"], "hold_out")
+        trainer = Trainer(lgd_retrain_config())
+        trainer.restore(glob.glob(os.path.join(os.environ["EM_EXPERIMENTS"], "920000-*"))[0])
+        torch.cuda.synchronize()
+        reset_counts()
+        mpjpe = held_out_mpjpe(trainer, MetricsEngine(trainer.smplh, trainer.device),
+                               make_real_loader(hold_out), 256)
+        torch.cuda.synchronize()
+        launched = counts()
+        want = per_forward * real_windows(256, hold_out)
+    print(f"gate model 920000 on the hold-out recording: the gate's pass {mpjpe:.4f} mm, the "
+          f"study's clean row {rows[0]['MPJPE [mm]']} mm; launches {launched}", flush=True)
+    check(abs(rows[0]["MPJPE [mm]"] - mpjpe) <= 1e-3,
+          f"the study's clean row {rows[0]['MPJPE [mm]']} is not the gate's pass {mpjpe}")
+    check(launched == expected(lstm_stack=want), f"the gate's pass: launches {launched}")
+    return launches + launched["lstm_stack"]
+
+
+def demo_convergence_path(tree: str) -> dict:
+    """``python -m empose_tpu_torch.tools.demo_convergence``'s main at
+    DEMO_STEPS steps on ``tree`` with the counts at 0: the held-out MPJPE
+    falls; the training pair once per direction-layer and step, the
+    bidirectional layer kernel at H=128 per layer of each whole-sequence
+    forward of the two MPJPE passes, no other kernel. Returns the launches."""
+    cfg = demo_convergence.birnn_config()
+    per_step = 2 * cfg.m_num_layers
+    forwards = 2 * len(make_real_loader(os.path.join(tree, "data_real")))
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    r, _, _ = quiet_tool(demo_convergence.main, ["--assets", tree, "--steps", str(DEMO_STEPS)])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launched = counts()
+    print(f"demo_convergence (BiRNN 2x{cfg.m_hidden_size}, batch 16 x window 32, {r['steps']} "
+          f"steps): MPJPE {r['mpjpe_before_mm']:.2f} -> {r['mpjpe_after_mm']:.2f} mm; training "
+          f"{r['train_s']:.3f} s ({1e3 * r['train_s'] / r['steps']:.2f} ms per step); phase "
+          f"{wall:.1f} s; launches {launched}", flush=True)
+    check(r["mpjpe_after_mm"] < r["mpjpe_before_mm"],
+          f"demo_convergence: MPJPE did not fall: {r['mpjpe_before_mm']} -> {r['mpjpe_after_mm']}")
+    want = expected(lstm_train_fwd=per_step * r["steps"], lstm_train_bwd=per_step * r["steps"],
+                    lstm_bidi=forwards * cfg.m_num_layers * bidi_layer_launches(1, DEMO_HIDDEN))
+    check(launched == want, f"demo_convergence: expected launches {want}, got {launched}")
+    return launched
+
+
+def demo_resume_path(tree: str, per_step: int, stack_per_forward: int) -> dict:
+    """``python -m empose_tpu_torch.tools.demo_resume``'s main at K =
+    DEMO_RESUME_K on ``tree`` with the counts at 0: exit 0, the pre-checkpoint
+    and post-resume loss differences 0.0; the training pair ``per_step``
+    times a step of its 4K, the stack once per forward of the validation
+    pass and per window of the test pass, no other kernel. Returns the
+    launches."""
+    k = DEMO_RESUME_K
+    valid = -(-len(EMRReader(os.path.join(tree, "data_synth", "3dpw_emr", "corpus.emr"))) // 6)
+    forwards = valid + real_windows(256, os.path.join(tree, "data_real"))
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    rc, _, r = quiet_tool(demo_resume.main, ["--assets", tree, "--k", str(k)])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launched = counts()
+    print(f"demo_resume (K={k}): exit {rc}; pre-checkpoint {r['pre_checkpoint_max_loss_diff']}, "
+          f"post-resume {r['post_resume_max_loss_diff']}; step median {r['step_s']['median']:.4f}"
+          f" s, valid pass {r['valid_pass_s']:.3f} s, test pass {r['test_pass_s']:.3f} s; phase "
+          f"{wall:.1f} s; launches {launched}", flush=True)
+    check(rc == 0 and r["pre_checkpoint_max_loss_diff"] == 0.0
+          and r["post_resume_max_loss_diff"] == 0.0,
+          f"demo_resume: the resume is not bit for bit: {r}")
+    want = expected(lstm_train_fwd=per_step * 4 * k, lstm_train_bwd=per_step * 4 * k,
+                    lstm_stack=stack_per_forward * forwards)
+    check(launched == want, f"demo_resume: expected launches {want}, got {launched}")
+    return launched
+
+
+def gates_path(per_step: int, stack_per_forward: int, laps: Laps) -> dict:
+    """The asset writer and the three gates on a tree of their own (the tools
+    point the four environment variables at it while they run and restore
+    them after): the gates' launches added up. The smoke's own tree stays
+    behind the variables: checked after."""
+    env = {k: os.environ[k] for k in ("SMPL_MODELS", "EM_DATA_REAL", "EM_DATA_SYNTH",
+                                      "EM_EXPERIMENTS")}
+    total = dict.fromkeys(counts(), 0)
+    laps.lap("before the gates")
+    with tempfile.TemporaryDirectory(dir=cuda_build.BUILD_DIR) as gate_root:
+        tree = gate_tree_path(gate_root)
+        laps.lap("asset writer, card and CPU")
+        runs = [gate_path(tree, per_step, stack_per_forward)]
+        laps.lap("convergence gate")
+        total["lstm_stack"] += trained_study_path(tree, gate_root, stack_per_forward)
+        laps.lap("suppression study of the gate's model")
+        runs.append(demo_convergence_path(tree))
+        laps.lap("demo_convergence")
+        runs.append(demo_resume_path(tree, per_step, stack_per_forward))
+        laps.lap("demo_resume")
+    for run in runs:
+        for k, v in run.items():
+            total[k] += v
+    restored = {k: os.environ.get(k) for k in env} == env
+    n_real = len(make_real_loader())
+    print(f"after the gates: the smoke's own tree behind the environment {restored}, "
+          f"{n_real} real recordings read", flush=True)
+    check(restored and n_real == REAL_RECORDINGS,
+          "the gates left the environment pointing elsewhere than the smoke's tree")
     return total
 
 
@@ -2959,7 +3311,8 @@ def bidi_mode_phase(f: int, n: int, mode: str, seed: int, h: int = HIDDEN,
         lstm = lstm.bfloat16()
         xb, h0b, c0b = x.bfloat16(), h0.bfloat16(), c0.bfloat16()
         ms = cuda_ms(lambda: K.lstm_bidi_fused(*args, mode))
-        plain_ms = cuda_ms(lambda: K.lstm_bidi_plain(*args, mode), reps=3 if f > 256 else 7)
+        plain_ms = cuda_ms(lambda: K.lstm_bidi_plain(*args, mode), warmup=1 if f > 256 else 3,
+                           reps=3 if f > 256 else 7)
         library_ms = cuda_ms(lambda: lstm(xb, (h0b, c0b)))
     b_ms, b_by = bidi_mode_bound_ms(f, n, mode, h)
     print(f"mode {mode} bidi times {shape}: kernel {ms:.4f} ms ({ms * 1e3 / f:.2f} us per step), "
@@ -3404,6 +3757,7 @@ def main() -> int:
     if not print_card():
         return 2
     t_start = time.perf_counter()
+    laps = Laps()
     set_precision("highest")
 
     t0 = time.perf_counter()
@@ -3453,6 +3807,7 @@ def main() -> int:
         check(len(hmma) == n_fns
               and all((v > 0) == (k[-1] != "highest") for k, v in hmma.items()),
               f"{name}: HMMA not in exactly the high and default instantiations: {hmma}")
+    laps.lap("build")
 
     # Timed: STACK_TIMED at 2x512 (one stream's chunk also in rounds against
     # cuDNN) and one layer of the default width 1024 at the serving chunk,
@@ -3468,12 +3823,23 @@ def main() -> int:
     stack_default_width_times(CHUNK, STREAMS, seed=SEED + 1024)
     for f, n, h, layers in ((CHUNK, 7, 64, 3), (CHUNK, 300, 260, 2), (CHUNK, 20, 1000, 1)):
         stack_phase(f, n, seed=SEED + h, h=h, layers=layers, timed=False)
+    # The gate's LGD-RNN-6 eval window and validation batch (one 256-frame
+    # window of one recording; batches of 6 windows of 32).
+    for f, n in ((256, 1), (32, 6)):
+        stack_phase(f, n, seed=SEED + f + n, timed=False)
+    laps.lap("stack kernel against its plain version")
     # Timed: PAIR_TIMED; checked: a ragged batch, one step of one row, more
     # rows than either sweep could keep in shared memory.
     pair = {(f, n): train_pair_phase(f, n, seed=SEED + f + n, timed=(f, n) in PAIR_TIMED)
             for f, n in (*PAIR_TIMED, (33, 7), (1, 1), (3, 1300))}
     # H=1024, where the forward sweep's ring has one slot.
     train_pair_phase(TRAIN_WINDOW, 32, seed=SEED + 1024, timed=False, h=2 * HIDDEN)
+    # The gates' steps: LGD-RNN-6 at batch 12 x window 32 (4 at an epoch's
+    # end), demo_convergence's BiRNN at H=128, batch 16 (8 at an epoch's end).
+    for f, n, h in ((32, 12, HIDDEN), (32, 4, HIDDEN), (32, 16, DEMO_HIDDEN),
+                    (32, 8, DEMO_HIDDEN)):
+        train_pair_phase(f, n, seed=SEED + f + n + h, timed=False, h=h)
+    laps.lap("training pair against its plain versions")
     # Timed: BIDI_TIMED and, at H=1024 (one direction per launch), (16, 32);
     # checked: a ragged batch, more rows than one staging holds, and the
     # widths that take the plan's other instance and modes.
@@ -3486,22 +3852,29 @@ def main() -> int:
     # The longest whole-sequence forward of the eval phase (F=4096), at one
     # row more than the eval corpus holds.
     bidi_phase(*BIDI_LONG, seed=SEED + BIDI_LONG[0])
+    # demo_convergence's whole-sequence eval forward at H=128 (200 frames padded to 256).
+    bidi_phase(256, 1, seed=SEED + DEMO_HIDDEN, h=DEMO_HIDDEN, timed=False)
+    laps.lap("bidi kernel against its plain version")
     # Timed: an export chunk, a batch, one frame; checked: the SMPLLayer.fk
     # call, the export's last chunk, a ragged chunk.
     lbs = {n: lbs_phase(n, seed=SEED + n + 3, timed=n in (512, 64, 1))
            for n in (512, 64, 1, SMPL_FRAMES, 76, 7)}
     lbs_refuses_strided()
     wavefront_launches = bench_path()
+    laps.lap("LBS kernel and the bench tool")
 
     # The high and default modes of the stack, wavefront and bidi kernels,
     # and the bench tool at each mode.
     bf16_product_check()
     modes = kernel_modes()
+    laps.lap("stack, wavefront and bidi kernels at high and default")
     pair_rows = pair_modes()
+    laps.lap("training pair at high and default")
     mode_launches = {(k, m): 0 for k in ("lstm_stack", "lstm_wavefront", "lstm_bidi",
                                          "lstm_train_fwd", "lstm_train_bwd") for m in MODES}
     for mode in MODES:
         mode_launches[("lstm_wavefront", mode)] = bench_path(mode)
+    laps.lap("the bench tool at high and default")
 
     with tempfile.TemporaryDirectory(dir=cuda_build.BUILD_DIR) as root:
         rng = np.random.RandomState(SEED)
@@ -3511,6 +3884,7 @@ def main() -> int:
         n_params = write_experiment(root, "900003", BIRNN_6, "BiRNN-6")
         print(f"model: BiRNN-6, {n_params} parameters (seeded random weights)", flush=True)
         check(n_params == 9_295_697, "BiRNN-6 does not have the released parameter count")
+        laps.lap("the smoke's asset tree")
         feeds = sensor_feeds(SensorSMPL(load_smplh()).cuda(), STREAMS, CHUNK * CHUNKS, rng)
         offsets = [(o["means"], o["r"]) for o in (make_offset_data(rng) for _ in range(STREAMS))]
 
@@ -3543,6 +3917,7 @@ def main() -> int:
               f"(seeded random weights); {per_forward} bidi launches per forward", flush=True)
         birnn_default_served = serving_path("BiRNN-1024", "900006", feeds, offsets, "lstm_bidi",
                                             per_forward, plain_bidi)[1]
+        laps.lap("serving")
 
         # Serving at each mode: the four models, their kernels at the mode
         # (launches per forward by the plan at the mode), held against the
@@ -3566,6 +3941,7 @@ def main() -> int:
                     mode_launches[(kernel, mode)] += serving_mode_path(
                         label, model_id, feeds, offsets, kernel, per, use_plain, mode, base,
                         sensor)
+        laps.lap("serving at high and default")
 
         n_layers = LGD_RNN_6["m_rnn_num_layers"]
         trained = training_path("LGD-RNN-6", LGD_RNN_6, "900002", TRAIN_STEPS, RESUME_STEPS,
@@ -3576,6 +3952,7 @@ def main() -> int:
         launches += trained["lstm_stack"]
         lgd_losses = train_losses(trained["model_dir"])
         del trained
+        laps.lap("LGD-RNN-6 training")
 
         # Sensor-fault noise: on the card alone, then LGD-RNN-6 trained with
         # each noise type, resumed, and held against an uninterrupted run.
@@ -3594,12 +3971,14 @@ def main() -> int:
             trained_fwd, trained_bwd = trained_fwd + noisy["fwd"], trained_bwd + noisy["bwd"]
             launches += noisy["lstm_stack"]
             del noisy
+        laps.lap("noise and noisy training")
         # --remat (same step, bit for bit; memory and p50) and --profile_dir.
         fwd, bwd = remat_path(n_layers)
         trained_fwd, trained_bwd = trained_fwd + fwd, trained_bwd + bwd
         fwd, bwd, stack_launches = profile_path(n_layers, stack_per_forward, root)
         trained_fwd, trained_bwd = trained_fwd + fwd, trained_bwd + bwd
         launches += stack_launches
+        laps.lap("--remat and --profile_dir")
 
         per_step = 2 * BIRNN_6["m_num_layers"]
         bidi_per_forward = BIRNN_6["m_num_layers"] * bidi_layer_launches(1, HIDDEN)
@@ -3610,6 +3989,7 @@ def main() -> int:
         bidi_launches += birnn["lstm_bidi"]
         birnn_losses = train_losses(birnn["model_dir"])
         del birnn
+        laps.lap("BiRNN-6 training")
 
         # Training at the modes: `--matmul_precision high` and `--bf16`
         # (default), from the seed of the highest runs above.
@@ -3625,6 +4005,7 @@ def main() -> int:
                                          kernel, per_forward, base)
                 for k, v in run.items():
                     mode_launches[(k, mode)] += v
+        laps.lap("training at high and default")
 
         # Real-data evaluation: LGD-RNN-6 in windows of 256 frames (the
         # stack kernel), BiRNN-6 over whole sequences (the bidirectional
@@ -3635,10 +4016,12 @@ def main() -> int:
                                lambda n: BIRNN_6["m_num_layers"] * bidi_layer_launches(n, HIDDEN),
                                None)
         launches += lgd_eval["launches"]
+        laps.lap("evaluation")
         # Evaluation under suppression, and the suppression study.
         launches += suppression_eval_path("LGD-RNN-6", "900001", lgd_eval["rows"],
                                           stack_per_forward, 256)
-        launches += study_path("LGD-RNN-6", "900001", stack_per_forward, 256, root)
+        launches += study_path("LGD-RNN-6", "900001", stack_per_forward, 256, root)[0]
+        laps.lap("evaluation under suppression and the study")
         bidi_launches += birnn_eval["launches"] + eval_fit_path(
             "BiRNN-6", BIRNN_6, "900007", per_step, "lstm_bidi", bidi_per_forward)
         # The eval CLI at --precision default: the same launches, at the mode.
@@ -3646,21 +4029,33 @@ def main() -> int:
             "LGD-RNN-6", "900001", "lstm_stack", 256, lgd_eval)
         mode_launches[("lstm_bidi", "default")] += eval_mode_path(
             "BiRNN-6", "900003", "lstm_bidi", None, birnn_eval)
+        laps.lap("fit through an eval boundary, evaluation at default")
 
         # Data parallelism, --steps_per_call, sharded serving, bulk datagen
         # and the serving bench.
         fwd, bwd = dp_training_path(root, n_layers)
         trained_fwd, trained_bwd = trained_fwd + fwd, trained_bwd + bwd
+        laps.lap("data parallelism")
         fwd, bwd, stack_launches = steps_per_call_path(n_layers, stack_per_forward)
         trained_fwd, trained_bwd = trained_fwd + fwd, trained_bwd + bwd
         launches += stack_launches
         launches += sharded_serving_path(feeds, offsets, lgd_served, stack_per_forward)
         bulk_datagen_path(root)
         launches += bench_serve_path(stack_per_forward)
+        laps.lap("--steps_per_call, sharded serving, bulk datagen, bench_serve")
+
+        # The asset writer and the training gates, LGD-RNN-6 and a BiRNN
+        # trained to convergence, on a tree of their own.
+        gates = gates_path(n_layers, stack_per_forward, laps)
+        launches += gates["lstm_stack"]
+        bidi_launches += gates["lstm_bidi"]
+        trained_fwd += gates["lstm_train_fwd"]
+        trained_bwd += gates["lstm_train_bwd"]
 
         layer, lbs_launches = smpl_layer_path(rng)
         datagen_path(root, rng)
         lbs_launches += export_path(root, layer, rng)
+        laps.lap("SMPLLayer, datagen, export")
 
     f16 = stack[(CHUNK, STREAMS)]["stack"]
     flagship = pair[(TRAIN_WINDOW, TRAIN_BATCH)]
@@ -3701,6 +4096,8 @@ def main() -> int:
                                 replaces=f"empose_tpu/ops/{replaces}",
                                 launches=mode_launches[(kernel, mode)],
                                 **{k: v for k, v in row.items() if k in KERNEL_KEYS}))
+    print("phases (s): " + json.dumps({k: round(v, 1) for k, v in laps.seconds.items()}),
+          flush=True)
     print(f"total {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -111,3 +111,12 @@ def test_parallel_and_new_tool_modules_are_covered():
     assert {"empose_tpu_torch.parallel.mesh", "empose_tpu_torch.tools.bench_serve",
             "empose_tpu_torch.tools.bulk_synthesize",
             "empose_tpu_torch.tools.multihost_worker"} <= set(_port_modules())
+
+
+def test_asset_writer_and_gate_modules_are_covered():
+    """The asset writer, the three training gates and their shared helpers
+    are among the modules the no-jax checks above import."""
+    assert {"empose_tpu_torch.tools.make_synthetic_assets",
+            "empose_tpu_torch.tools.convergence_gate", "empose_tpu_torch.tools.demo_convergence",
+            "empose_tpu_torch.tools.demo_resume",
+            "empose_tpu_torch.tools.gate_common"} <= set(_port_modules())

@@ -198,6 +198,24 @@ Phases, each printed on its own line:
      training corpus at level -1 on the card against the CPU, frames/s; the
      serving bench at ``--chunk 16 --n 100`` and ``--streams 64 --n 50``
      (p50/p95/p99, frames/s), the stack kernel once per forward;
+  6k. (run after 6i) the profilers: the main functions of
+     ``empose_tpu_torch.tools``' ``profile_fk`` (2048 rows),
+     ``profile_forward`` (8 x 256, LGD-RNN-6 in eval mode), ``profile_train``
+     (64 x 256, with and without ``--remat``), ``profile_backward`` (64 x 256
+     at highest and default) and ``measure_remat`` (64x256, 128x256,
+     64x512), their widths and regimes as the tools have them and their
+     depth cut (PROFILE_DEPTH); each run with the counts at 0 launches
+     exactly what its stages' calls give (the stack once per eval forward
+     and init RNN call; the training sweeps once per LSTM layer and train
+     forward or gradient), at its mode; every time above the guard's floor
+     (the FLOPs at the bf16 peak, where counted); ``--remat`` holds no more
+     memory at any regime, and one step at 64 x 256 with and without it
+     gives the same loss and gradients bit for bit; the step's device busy
+     time in a profiled window against the same step on the same batch
+     unprofiled (the host's share); one ``EMRBatchLoader`` draw of 64 x 256
+     against the step; the stack (F=256, N=8) and the training pair
+     (F=256 N=128, F=512 N=64) against their plain versions at the shapes
+     the profilers give them (in phases 3 and 4);
   6j. the asset writer and the training gates on a tree of their own
      (``tools/gate_common.asset_env`` points the four environment variables
      at it per tool and restores them; the smoke's own tree is read again
@@ -235,6 +253,12 @@ bidirectional layer and of the stack (2x512 in both schedules, and one layer
 of 1024; each also as device time alone) at F steps for N = 1, 4, 16, 17, 32
 and 64 at MODE (``step_probe``): what a step is made of beyond its grid
 barriers.
+
+    python3 chip_smoke.py --profilers
+
+builds the stack and training kernels and runs phase 6k alone on the
+smoke's asset tree (``profilers_only``): its lines and checks, no kernels
+line.
 
     python3 chip_smoke.py --mode-rounding [N_SEEDS, default 8]
 
@@ -297,6 +321,7 @@ from empose_tpu_torch.bodymodel.synthetic import (make_offset_data, make_synthet
                                                   smooth_random_poses)
 from empose_tpu_torch.config import Configuration
 from empose_tpu_torch.data import noise as NZ
+from empose_tpu_torch.data.batches import to_device
 from empose_tpu_torch.data.datasets import EMRBatchLoader, make_real_loader
 from empose_tpu_torch.data.emr import EMRReader, EMRWriter
 from empose_tpu_torch.device import set_precision
@@ -314,13 +339,17 @@ from empose_tpu_torch.parallel.mesh import init_distributed, spawn
 from empose_tpu_torch.serve import MultiStreamPredictor, StreamingPredictor
 from empose_tpu_torch.tools import (bench_lstm_kernels, bench_serve, bulk_synthesize,
                                     convergence_gate, demo_convergence, demo_resume,
-                                    make_synthetic_assets, suppression_study)
+                                    make_synthetic_assets, measure_remat, profile_backward,
+                                    profile_fk, profile_forward, profile_train,
+                                    suppression_study)
+from empose_tpu_torch.tools import profile_common as PROFILE
 from empose_tpu_torch.tools.gate_common import (GATE_TREE, asset_env, held_out_mpjpe,
                                                 lgd_retrain_config)
 from empose_tpu_torch.tools.multihost_worker import run_steps
 from empose_tpu_torch.train import cli as train_cli
 from empose_tpu_torch.train.loop import Trainer
 from empose_tpu_torch.utils.experiments import count_parameters
+from empose_tpu_torch.utils.profiling import chain_calls, timeit_ms
 
 SEED = 0
 TOL = 1e-4
@@ -425,6 +454,20 @@ TOL_STEP_MODE = {
 # Steps of each training run at a mode (phase 6g), compared with the
 # highest run's loss at the same step.
 MODE_TRAIN_STEPS = {"LGD-RNN-6": 4, "BiRNN-6": 2}
+# The profilers (``empose_tpu_torch/tools``) at their full regimes: depth
+# cut from the tools' defaults (iters 20-30, warmup 3, repeats 3-4) for the
+# time limit; widths and regimes as the tools have them.
+PROFILE_DEPTH = dict(iters=5, warmup=1, repeats=3)
+PROFILE_FK_ROWS, PROFILE_FORWARD, PROFILE_TRAIN = 2048, (8, 256), (64, 256)
+PROFILE_MODES = ("highest", "default")
+REMAT_REGIMES = ("64x256", "128x256", "64x512")
+# The (F, N) the profilers give the kernels beyond the phases' own shapes,
+# each checked against the plain version: the stack at profile_forward's
+# window, the training pair at measure_remat's regimes.
+PROFILE_STACK_SHAPES = ((PROFILE_FORWARD[1], PROFILE_FORWARD[0]),)
+PROFILE_PAIR_SHAPES = tuple(fn for fn in ((int(w), int(b)) for b, w in
+                                          (r.split("x") for r in REMAT_REGIMES))
+                            if fn not in PAIR_TIMED)
 # The keys of a row of the `kernels` line besides name, route, source,
 # replaces and launches.
 KERNEL_KEYS = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
@@ -1533,10 +1576,11 @@ def serving_times(label: str, multi, single, feeds) -> None:
     profile_window(f"{label} serving", batched_step, 5)
 
 
-def profile_window(name: str, step, n_steps: int) -> None:
+def profile_window(name: str, step, n_steps: int) -> float:
     """One profiled window of ``n_steps`` calls of ``step``: wall time per
     step, device busy time (sum of device op times) and its share, device
-    ops per step, and the largest device-time entries."""
+    ops per step, and the largest device-time entries. Returns the busy ms
+    per step."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -1554,6 +1598,7 @@ def profile_window(name: str, step, n_steps: int) -> None:
     print(f"{name} profile ({n_steps} steps, profiler on): wall {wall_ms:.3f} ms per step, device "
           f"busy {total:.3f} ms ({100 * total / wall_ms:.1f}%), {launches:.0f} device ops per "
           "step; largest: " + "; ".join(f"{k[:48]} {v:.3f} ms" for k, v in top), flush=True)
+    return total
 
 
 def train_flags(model_cfg: dict, experiment_id: str, max_steps: int,
@@ -2899,6 +2944,227 @@ def bench_serve_path(per_forward: int) -> int:
 
 
 # ---------------------------------------------------------------------------
+# The profilers: the five tools' main functions at their full regimes.
+
+def profiler_stack_checks() -> None:
+    """The stack kernel against its plain version at the profilers' shapes
+    (PROFILE_STACK_SHAPES)."""
+    for f, n in PROFILE_STACK_SHAPES:
+        stack_phase(f, n, seed=SEED + f + n, timed=False)
+
+
+def profiler_pair_checks() -> None:
+    """The training pair against its plain versions at the profilers' shapes
+    (PROFILE_PAIR_SHAPES)."""
+    for f, n in PROFILE_PAIR_SHAPES:
+        train_pair_phase(f, n, seed=SEED + f + n + HIDDEN, timed=False)
+
+
+def tool_run(main, argv: list, **depth) -> tuple:
+    """``main(argv, **depth)`` with the counts at 0, its printout echoed:
+    (rows, launches by kernel, launches by (kernel, mode))."""
+    torch.cuda.synchronize()
+    reset_counts()
+    rows = quiet_tool(functools.partial(main, **depth), argv)[0]
+    torch.cuda.synchronize()
+    return rows, counts(), dict(K.MODE_LAUNCHES)
+
+
+def check_tool_launches(label: str, launched: dict, by_mode: dict, mode: str, **want) -> None:
+    """The run launched exactly ``want`` (kernel -> count), all at ``mode``."""
+    print(f"{label}: launches {launched}, by mode {by_mode}; expected {want}", flush=True)
+    check(launched == expected(**want)
+          and by_mode == {(k, mode): v for k, v in want.items() if v},
+          f"{label}: expected the launches {want} at {mode} and no other, got {launched}, "
+          f"{by_mode}")
+
+
+def check_floor(label: str, ms, gflop=None) -> None:
+    """A time is positive and, with a FLOP count, above the guard's floor
+    (the FLOPs at the H100's dense bf16 peak)."""
+    floor = gflop * 1e9 / PROFILE.PEAK_BF16_FLOPS * 1e3 if gflop else 0.0
+    check(ms is not None and np.isfinite(ms) and ms > floor,
+          f"{label}: {ms} ms is not above the floor of {floor:.6f} ms")
+
+
+def remat_step_bits(per_layer: int, batch: int, window: int) -> tuple:
+    """One ``profile_common.make_train_step`` step of LGD-RNN-6 at ``batch`` x
+    ``window`` with and without ``--remat``, from the same weights, batch and
+    generator: the loss and every gradient equal bit for bit. Then the host
+    share of the step without ``--remat``, on that batch: the step timed
+    without the profiler (``timeit_ms`` at PROFILE_DEPTH), then
+    ``profile_window`` over 3 steps, and its device busy time against the
+    unprofiled step. Returns the training pair's launches and the step's
+    unprofiled ms."""
+    host = PROFILE.tiny_batch(np.random.RandomState(SEED), n=batch, f=window)
+    read = {}
+    torch.cuda.synchronize()
+    reset_counts()
+    for remat in (True, False):
+        config = PROFILE.flagship_config()
+        config.bs_train, config.window_size, config.remat = batch, window, remat
+        model, sensor = PROFILE.build_model(config, "cuda")
+        step, _ = PROFILE.make_train_step(model, sensor, config)
+        data = to_device(host, "cuda")
+        generator = torch.Generator("cuda").manual_seed(SEED)
+        vals = step(data, generator)
+        read[remat] = (vals["total_loss"],
+                       {k: p.grad.clone() for k, p in model.named_parameters()})
+    (loss_r, grads_r), (loss, grads) = read[True], read[False]
+    same = torch.equal(loss, loss_r) and sorted(grads) == sorted(grads_r) \
+        and all(torch.equal(grads_r[k], g) for k, g in grads.items())
+    print(f"profilers, --remat at {batch} x {window}: loss {float(loss):.6f} and {len(grads)} "
+          f"gradients equal bit for bit {same}", flush=True)
+    check(same, f"--remat at {batch} x {window}: the loss or a gradient differs from the step "
+                "without it")
+    step_ms = timeit_ms(step, data, generator, **PROFILE_DEPTH)
+    busy = profile_window(f"LGD-RNN-6 train step {batch} x {window} "
+                          "(profile_common.make_train_step)", lambda: step(data, generator), 3)
+    print(f"host share, LGD-RNN-6 train step {batch} x {window}: device busy {busy:.3f} ms of the "
+          f"{step_ms:.3f} ms step without the profiler (the same step and batch, best of "
+          f"{PROFILE_DEPTH['repeats']} blocks of {PROFILE_DEPTH['iters']}): busy "
+          f"{100 * busy / step_ms:.1f}%, device idle {100 * (1 - busy / step_ms):.1f}%",
+          flush=True)
+    torch.cuda.synchronize()
+    steps = 2 + chain_calls(**PROFILE_DEPTH) + 3
+    launched = counts()
+    check(launched == expected(lstm_train_fwd=per_layer * steps,
+                               lstm_train_bwd=per_layer * steps),
+          f"--remat bits and host share: expected {per_layer * steps} launches of each training "
+          f"kernel, got {launched}")
+    return launched["lstm_train_fwd"], launched["lstm_train_bwd"], step_ms
+
+
+def loader_draw_ms(batch: int, window: int, draws: int = 5) -> float:
+    """Median wall ms of one ``EMRBatchLoader`` batch of ``batch`` windows of
+    ``window`` frames from the smoke's training corpus (64 sequences of
+    150-300 frames: a batch is one epoch, a shuffle and a crop each)."""
+    loader = EMRBatchLoader(os.path.join(os.environ["EM_DATA_SYNTH"], "amass_emr"), batch,
+                            window, seed=SEED)
+    times = []
+    for _ in range(draws + 1):
+        t0 = time.perf_counter()
+        b = next(iter(loader))
+        times.append((time.perf_counter() - t0) * 1e3)
+    check(b["poses"].shape[0] == batch, f"the loader drew {b['poses'].shape[0]} windows")
+    return float(np.median(times[1:]))
+
+
+def profilers_path(per_layer: int, stack_per_forward: int) -> dict:
+    """The five tools at their full regimes, depth cut (PROFILE_DEPTH): each
+    run with the counts at 0 and exactly the launches its stages' calls
+    give (a row's ``calls``): per call, the full eval forward and the init
+    RNN launch the stack ``stack_per_forward`` times; a train forward
+    launches the training forward sweep once per LSTM layer, a gradient
+    through it the reverse sweep once per layer; FK, MLPs, datagen and Adam
+    launch nothing. Every time above the guard's floor; the remat step bit
+    for bit and its memory no larger; the host share of the step; one
+    loader draw. Returns the launches: ``highest`` by kernel and ``default``
+    by kernel."""
+    b, w = PROFILE_TRAIN
+    d = dict(PROFILE_DEPTH)
+    total = dict.fromkeys(counts(), 0)
+    default = dict.fromkeys(("lstm_train_fwd", "lstm_train_bwd"), 0)
+
+    def add(launched):
+        for k, v in launched.items():
+            total[k] += v
+
+    rows, launched, by_mode = tool_run(profile_fk.main, ["--rows", str(PROFILE_FK_ROWS)],
+                                       iters=d["iters"], warmup=d["warmup"])
+    check_tool_launches("profile_fk", launched, by_mode, "highest")
+    for name, row in rows.items():
+        check_floor(f"profile_fk {name}", row["ms"])
+
+    n, f = PROFILE_FORWARD
+    rows, launched, by_mode = tool_run(profile_forward.main, ["--batch", str(n), "--window",
+                                                              str(f)],
+                                       iters=d["iters"], warmup=d["warmup"])
+    calls = rows["full forward"]["calls"] + rows["init RNN + heads"]["calls"]
+    check_tool_launches("profile_forward", launched, by_mode, "highest",
+                        lstm_stack=stack_per_forward * calls)
+    add(launched)
+    for name, row in rows.items():
+        if name != "iter-MLP unfused":
+            check_floor(f"profile_forward {name}", row["ms"])
+
+    step_ms = {}
+    for remat in (False, True):
+        argv = ["--batch", str(b), "--window", str(w)] + (["--remat"] if remat else [])
+        rows, launched, by_mode = tool_run(profile_train.main, argv, **d)
+        fwd_calls = sum(rows[s]["calls"] for s in ("forward + loss", "forward + backward (grad)",
+                                                   "FULL fused step"))
+        bwd_calls = sum(rows[s]["calls"] for s in ("forward + backward (grad)",
+                                                   "FULL fused step"))
+        extra = rows["adam update"]["grad_calls"]
+        check_tool_launches(f"profile_train remat={remat}", launched, by_mode, "highest",
+                            lstm_train_fwd=per_layer * (fwd_calls + extra),
+                            lstm_train_bwd=per_layer * (bwd_calls + extra))
+        add(launched)
+        for name, row in rows.items():
+            check_floor(f"profile_train {name}", row["ms"])
+        step_ms[remat] = rows["FULL fused step"]["ms"]
+
+    full_gflop = None
+    for mode in PROFILE_MODES:
+        rows, launched, by_mode = tool_run(profile_backward.main, ["--batch", str(b), "--window",
+                                                                   str(w), "--precision", mode],
+                                           **d)
+        fwd_calls = sum(rows[r]["calls"] for r in ("init LSTM fwd", "init LSTM fwd+grad",
+                                                   "FULL model fwd+loss", "FULL model fwd+grad"))
+        bwd_calls = sum(rows[r]["calls"] for r in ("init LSTM fwd+grad", "FULL model fwd+grad"))
+        check_tool_launches(f"profile_backward at {mode}", launched, by_mode, mode,
+                            lstm_train_fwd=per_layer * fwd_calls,
+                            lstm_train_bwd=per_layer * bwd_calls)
+        for name, row in rows.items():
+            check(row.get("gflop") is not None, f"profile_backward {name}: no FLOP count")
+            check_floor(f"profile_backward {name} at {mode}", row["ms"], row["gflop"])
+        if mode == "highest":
+            add(launched)
+            full_gflop = rows["FULL model fwd+grad"]["gflop"]
+        else:
+            for k in default:
+                default[k] += launched[k]
+    for remat, ms in step_ms.items():
+        check_floor(f"profile_train FULL fused step remat={remat}", ms, full_gflop)
+
+    rows, launched, by_mode = tool_run(measure_remat.main, ["--regimes", ",".join(REMAT_REGIMES),
+                                                            "--iters", str(d["iters"])],
+                                       warmup=d["warmup"], repeats=d["repeats"])
+    steps = sum(r["steps"] for r in rows)
+    check_tool_launches("measure_remat", launched, by_mode, "highest",
+                        lstm_train_fwd=per_layer * steps, lstm_train_bwd=per_layer * steps)
+    add(launched)
+    for spec in REMAT_REGIMES:
+        bs, win = (int(x) for x in spec.split("x"))
+        run = {r["remat"]: r for r in rows if (r["bs"], r["window"]) == (bs, win)}
+        mem = {k: r["memory"] for k, r in run.items()}
+        print(f"measure_remat {spec}: step {run[False]['step_ms']} -> {run[True]['step_ms']} ms "
+              f"(medians {run[False]['step_ms_median']} -> {run[True]['step_ms_median']}); "
+              f"temp {mem[False]['temp_mb']} -> {mem[True]['temp_mb']} MiB with --remat "
+              f"({100 * (mem[True]['temp_mb'] / mem[False]['temp_mb'] - 1):+.1f}%); "
+              f"argument {mem[False]['argument_mb']} MiB, output {mem[False]['output_mb']} MiB",
+              flush=True)
+        check(mem[True]["temp_mb"] <= mem[False]["temp_mb"],
+              f"measure_remat {spec}: --remat holds more ({mem[True]['temp_mb']} MiB) than "
+              f"without ({mem[False]['temp_mb']} MiB)")
+        for r in run.values():
+            check(r["flops_per_frame"] is not None and r["flops_per_frame"] > 0,
+                  f"measure_remat {spec} remat={r['remat']}: no FLOP count, so no guard floor")
+            check_floor(f"measure_remat {spec} remat={r['remat']}", r["step_ms"],
+                        r["flops_per_frame"] * bs * win / 1e9)
+
+    fwd, bwd, host_step_ms = remat_step_bits(per_layer, b, w)
+    total["lstm_train_fwd"] += fwd
+    total["lstm_train_bwd"] += bwd
+    draw = loader_draw_ms(b, w)
+    print(f"EMRBatchLoader, one draw of {b} x {w}: {draw:.3f} ms (median of 5) against the step's "
+          f"{host_step_ms:.3f} ms ({100 * draw / host_step_ms:.2f}%; profile_train's step "
+          f"{step_ms[False]:.3f} ms)", flush=True)
+    return {"highest": total, "default": default}
+
+
+# ---------------------------------------------------------------------------
 # The asset writer and the training gates, on a tree of their own.
 
 def gate_tree_path(gate_root: str) -> str:
@@ -3753,6 +4019,23 @@ def mode_rounding_study(seeds=range(8)) -> int:
     return 0
 
 
+def profilers_only() -> int:
+    """The profilers phase alone, on a fresh build of the stack and training
+    kernels and the smoke's asset tree: its checks and lines, no kernels line."""
+    if not print_card():
+        return 2
+    set_precision("highest")
+    cuda_build.build([K.NAME, TK.NAME], force=True)
+    profiler_stack_checks()
+    profiler_pair_checks()
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(dir=cuda_build.BUILD_DIR) as root:
+        write_assets(root, np.random.RandomState(SEED))
+        prof = profilers_path(LGD_RNN_6["m_rnn_num_layers"], stack_forward_launches(LAYERS, HIDDEN))
+    print(f"the profilers: launches {prof}; {time.perf_counter() - t0:.1f} s", flush=True)
+    return 0
+
+
 def main() -> int:
     if not print_card():
         return 2
@@ -3827,6 +4110,7 @@ def main() -> int:
     # window of one recording; batches of 6 windows of 32).
     for f, n in ((256, 1), (32, 6)):
         stack_phase(f, n, seed=SEED + f + n, timed=False)
+    profiler_stack_checks()
     laps.lap("stack kernel against its plain version")
     # Timed: PAIR_TIMED; checked: a ragged batch, one step of one row, more
     # rows than either sweep could keep in shared memory.
@@ -3839,6 +4123,7 @@ def main() -> int:
     for f, n, h in ((32, 12, HIDDEN), (32, 4, HIDDEN), (32, 16, DEMO_HIDDEN),
                     (32, 8, DEMO_HIDDEN)):
         train_pair_phase(f, n, seed=SEED + f + n + h, timed=False, h=h)
+    profiler_pair_checks()
     laps.lap("training pair against its plain versions")
     # Timed: BIDI_TIMED and, at H=1024 (one direction per launch), (16, 32);
     # checked: a ragged batch, more rows than one staging holds, and the
@@ -4044,6 +4329,15 @@ def main() -> int:
         launches += bench_serve_path(stack_per_forward)
         laps.lap("--steps_per_call, sharded serving, bulk datagen, bench_serve")
 
+        # The profilers and measure_remat at their full regimes.
+        prof = profilers_path(n_layers, stack_per_forward)
+        launches += prof["highest"]["lstm_stack"]
+        trained_fwd += prof["highest"]["lstm_train_fwd"]
+        trained_bwd += prof["highest"]["lstm_train_bwd"]
+        for k, v in prof["default"].items():
+            mode_launches[(k, "default")] += v
+        laps.lap("the profilers")
+
         # The asset writer and the training gates, LGD-RNN-6 and a BiRNN
         # trained to convergence, on a tree of their own.
         gates = gates_path(n_layers, stack_per_forward, laps)
@@ -4117,6 +4411,8 @@ if __name__ == "__main__":
         sys.exit(compare_pairs(sys.argv[2:]))
     if sys.argv[1:2] == ["--time-pair"]:
         sys.exit(time_pair())
+    if sys.argv[1:2] == ["--profilers"]:
+        sys.exit(profilers_only())
     if sys.argv[1:2] == ["--mode-rounding"]:
         sys.exit(mode_rounding_study(seeds=range(int(sys.argv[2]) if sys.argv[2:] else 8)))
     sys.exit(main())

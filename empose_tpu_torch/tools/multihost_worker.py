@@ -37,20 +37,13 @@ from empose_tpu_torch.config import Configuration
 from empose_tpu_torch.device import resolve_device
 from empose_tpu_torch.parallel import mesh as M
 from empose_tpu_torch.tools.bench_serve import FLAGSHIP, TINY
+from empose_tpu_torch.tools.profile_common import tiny_batch
 from empose_tpu_torch.train.loop import Trainer
 
 
 def tiny_config(**overrides) -> Configuration:
     """The JAX worker's tiny LGD-RNN (``_flagship_config(tiny=True)``)."""
     return Configuration.from_dict(dict(FLAGSHIP, **TINY, **overrides))
-
-
-def tiny_batch(rng: np.random.RandomState, n: int, f: int) -> Dict[str, np.ndarray]:
-    """A host batch of ``n`` windows of ``f`` frames (the JAX ``_tiny_batch``)."""
-    return {"poses": (rng.randn(n, f, 66) * 0.3).astype(np.float32),
-            "shapes": (rng.randn(n, 10) * 0.3).astype(np.float32),
-            "trans": (rng.randn(n, f, 3) * 0.1).astype(np.float32),
-            "seq_lengths": np.full(n, f, np.int32)}
 
 
 def run_steps(trainer: Trainer, batches: List[Dict], chunk: bool = False) -> Dict:

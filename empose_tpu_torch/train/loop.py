@@ -90,6 +90,27 @@ def train_loss(model, batch: Dict[str, torch.Tensor], generator: Optional[torch.
     return loss, vals
 
 
+def make_optimizer(model, config) -> torch.optim.Adam:
+    """Adam over ``model``'s parameters at ``config.lr`` (optax's ``adam``)."""
+    return torch.optim.Adam(model.parameters(), lr=config.lr, eps=1e-8)
+
+
+def backward_step(model, pre, opt, batch: Dict[str, torch.Tensor],
+                  generator: Optional[torch.Generator], pad_scale: Optional[torch.Tensor] = None,
+                  match_reference_grads: bool = True) -> Dict[str, torch.Tensor]:
+    """The gradient half of an optimizer step: ``pre`` synthesizes the
+    training batch from ``batch`` (``mode="all"``), then :func:`train_loss`
+    and its gradients into the parameters' ``.grad`` (``opt``'s cleared
+    first). Returns the loss values as device scalars; ``opt.step()``
+    completes the step."""
+    model.train()
+    loss, vals = train_loss(model, pre(batch, generator, mode="all"), generator, pad_scale,
+                            match_reference_grads)
+    opt.zero_grad(set_to_none=True)
+    loss.backward()
+    return {k: v.detach() for k, v in vals.items()}
+
+
 def data_parallel_batch(host_batch: Dict, rank: int, world: int, device):
     """Rank ``rank``'s part of a data-parallel step on the global
     ``host_batch``: its rows of the batch padded to a multiple of ``world``,
@@ -142,7 +163,7 @@ class Trainer:
         self.pre_eval = T.make_preprocess_fn(self.model.smpl, self.bank, config, False)
         self._session = None
         self.match_reference_grads = match_reference_grads
-        self.opt = torch.optim.Adam(self.model.parameters(), lr=config.lr, eps=1e-8)
+        self.opt = make_optimizer(self.model, config)
         self.global_step = 0
         self.epoch = 0
         self.best_test_loss = float("inf")
@@ -167,11 +188,8 @@ class Trainer:
             host_batch, shard, pad_scale = data_parallel_batch(host_batch, self.rank,
                                                                self.world, self.device)
         with M.shard_scope(shard):
-            batch = self.pre_train(self.upload(host_batch), self.generator, mode="all")
-            loss, vals = self.loss(batch, pad_scale)
-            self.opt.zero_grad(set_to_none=True)
-            loss.backward()
-        vals = {k: v.detach() for k, v in vals.items()}
+            vals = backward_step(self.model, self.pre_train, self.opt, self.upload(host_batch),
+                                 self.generator, pad_scale, self.match_reference_grads)
         if shard is not None:
             M.average_gradients(self.model.parameters(), self.world)
             vals = M.mean_over_ranks(vals, self.world)

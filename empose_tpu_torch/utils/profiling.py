@@ -37,20 +37,35 @@ def block_until_ready(tree) -> None:
         torch.cuda.synchronize(dev)
 
 
-def timeit_ms(fn, *args, iters: int = 20, warmup: int = 3) -> float:
-    """Mean wall-clock ms per call of ``fn(*args)``: one untimed call,
-    ``warmup`` warm calls, then ``iters`` timed calls, each block closed by
-    synchronizing the devices of the outputs."""
-    out = fn(*args)
-    block_until_ready(out)
+def chain_calls(iters: int, warmup: int, repeats: int = 1) -> int:
+    """Calls of the step function that :func:`timeit_chain` makes."""
+    return 1 + warmup + repeats * iters
+
+
+def timeit_chain(step_fn, carry, iters: int = 20, warmup: int = 3, repeats: int = 3) -> float:
+    """Best-of-``repeats`` mean wall-clock ms per call of ``carry =
+    step_fn(carry)``: one untimed call, ``warmup`` warm calls, then
+    ``repeats`` blocks of ``iters`` timed calls, each block closed by
+    synchronizing the devices of ``carry``."""
+    carry = step_fn(carry)
+    block_until_ready(carry)
     for _ in range(warmup):
-        out = fn(*args)
-    block_until_ready(out)
-    t0 = time.perf_counter()
-    for _ in range(iters):
-        out = fn(*args)
-    block_until_ready(out)
-    return (time.perf_counter() - t0) / iters * 1e3
+        carry = step_fn(carry)
+    block_until_ready(carry)
+    best = float("inf")
+    for _ in range(repeats):
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            carry = step_fn(carry)
+        block_until_ready(carry)
+        best = min(best, time.perf_counter() - t0)
+    return best / iters * 1e3
+
+
+def timeit_ms(fn, *args, iters: int = 20, warmup: int = 3, repeats: int = 1) -> float:
+    """:func:`timeit_chain` of ``fn(*args)``, each call's output the carry
+    (read only to synchronize its devices)."""
+    return timeit_chain(lambda _: fn(*args), None, iters, warmup, repeats)
 
 
 @contextlib.contextmanager

@@ -120,3 +120,26 @@ def test_asset_writer_and_gate_modules_are_covered():
             "empose_tpu_torch.tools.convergence_gate", "empose_tpu_torch.tools.demo_convergence",
             "empose_tpu_torch.tools.demo_resume",
             "empose_tpu_torch.tools.gate_common"} <= set(_port_modules())
+
+
+def test_profiler_modules_are_covered_and_import_no_jax_tool():
+    """The profilers, ``measure_remat`` and their helpers are among the
+    modules the no-jax checks above import, and importing them loads
+    neither ``bench``, ``__graft_entry__`` nor the JAX package's ``tools``."""
+    new = [f"empose_tpu_torch.tools.{m}" for m in (
+        "profile_common", "profile_fk", "profile_forward", "profile_train", "profile_backward",
+        "measure_remat")]
+    assert set(new) <= set(_port_modules())
+    code = (
+        "import importlib, sys\n"
+        f"for m in {new!r}:\n"
+        "    importlib.import_module(m)\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in\n"
+        "             ('jax', 'empose_tpu', 'bench', '__graft_entry__', 'tools'))\n"
+        "print('BAD', bad)\n"
+    )
+    env = dict(os.environ, PYTHONPATH=REPO)
+    res = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stderr
+    assert "BAD []" in res.stdout, res.stdout

@@ -153,3 +153,22 @@ def test_timeit_ms_counts_its_calls():
 
     ms = profiling.timeit_ms(fn, torch.ones(3), iters=5, warmup=2)
     assert ms >= 0 and len(calls) == 1 + 2 + 5
+
+
+def test_timeit_chain_carries_and_counts_its_calls():
+    """Each call takes the previous call's output; one untimed call,
+    ``warmup`` warm calls and ``repeats`` blocks of ``iters``, as
+    ``chain_calls`` counts them; ``timeit_ms`` is the same timer."""
+    seen = []
+
+    def step(carry):
+        seen.append(int(carry))
+        return carry + 1
+
+    ms = profiling.timeit_chain(step, torch.zeros(()), iters=3, warmup=1, repeats=2)
+    assert ms >= 0 and seen == list(range(profiling.chain_calls(iters=3, warmup=1, repeats=2)))
+    assert len(seen) == 1 + 1 + 2 * 3
+    calls = []
+    profiling.timeit_ms(lambda a: calls.append(1) or a, torch.ones(2), iters=2, warmup=0,
+                        repeats=3)
+    assert len(calls) == profiling.chain_calls(iters=2, warmup=0, repeats=3) == 7

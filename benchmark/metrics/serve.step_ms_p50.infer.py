@@ -1,0 +1,7 @@
+"""Median host time of one ``MultiStreamPredictor.step`` of bulk replay, ms."""
+
+from benchmark.metrics.common import step_ms_p50
+
+
+def read(run):
+    return step_ms_p50(run, "step")

@@ -1,0 +1,8 @@
+"""Device ms a training step spends on the operations launched in the
+program's ``train.optimizer`` span."""
+
+from benchmark.metrics.spans import device_ms_per_step
+
+
+def read(run):
+    return device_ms_per_step(run, ("train.optimizer",), "train.step")

@@ -30,6 +30,7 @@ from empose_tpu_torch.data import virtual_sensors as vsens
 from empose_tpu_torch.nn import layers as L
 from empose_tpu_torch.nn import losses as LS
 from empose_tpu_torch.utils.precision import HIGHEST, resolve
+from empose_tpu_torch.utils.profiling import span
 
 # Matmul precision of the kinematics GEMMs of ``SensorSMPL.markers_and_joints``
 # (``empose_tpu/ops/fk_lanes.py:_HI``, the lane-major FK whose counterpart in
@@ -307,7 +308,12 @@ class SimpleRNN(BaseModel):
 class IterativeErrorFeedback(BaseModel):
     """The LGD model: an initial estimate (init RNN or MLPs), then N
     refinement steps fed with the sensors, the current estimate and
-    (``m_use_gradient``) the scaled gradient of the reconstruction error."""
+    (``m_use_gradient``) the scaled gradient of the reconstruction error.
+
+    Spans (``utils/profiling.span``) in both forwards: ``lgd.init`` (the
+    init RNN or nets), ``lgd.fk`` (each of the N+1 FK + sensor blocks),
+    ``lgd.grad`` (each reconstruction error and its gradient) and
+    ``lgd.mlp`` (each step's iteration nets)."""
 
     def __init__(self, config, sensor_smpl: SensorSMPL):
         super().__init__(config, sensor_smpl)
@@ -413,20 +419,20 @@ class IterativeErrorFeedback(BaseModel):
         offset_r, offset_t = self._offsets_flat(window, n, f)
         inputs_flat = x.reshape(n * f, dof)
 
-        new_carry = None
-        if self.rnn_init:
-            lstm_out, new_carry = self.rnn(x, seq_lengths, carry)
-            pose_hat = self.pose_net_init(lstm_out).reshape(n * f, -1)
-            shape_hat = self.shape_net_init(lstm_out).reshape(n * f, -1)
-        else:
-            pose_hat = self.pose_net_init(inputs_flat)
-            shape_hat = self.shape_net_init(inputs_flat)
-
         def to_single_shape(s):
             return _average_over_frames(s.reshape(n, f, -1)).reshape(n * f, -1)
 
-        if self.shape_avg:
-            shape_hat = to_single_shape(shape_hat)
+        new_carry = None
+        with span("lgd.init"):
+            if self.rnn_init:
+                lstm_out, new_carry = self.rnn(x, seq_lengths, carry)
+                pose_hat = self.pose_net_init(lstm_out).reshape(n * f, -1)
+                shape_hat = self.shape_net_init(lstm_out).reshape(n * f, -1)
+            else:
+                pose_hat = self.pose_net_init(inputs_flat)
+                shape_hat = self.shape_net_init(inputs_flat)
+            if self.shape_avg:
+                shape_hat = to_single_shape(shape_hat)
 
         def fk(pose, shape, with_grad: bool):
             """One FK per iterate. With ``with_grad`` the pose/shape enter as
@@ -447,27 +453,32 @@ class IterativeErrorFeedback(BaseModel):
             hist["marker_pos"].append(mp.detach().reshape(n * f, -1))
             hist["marker_ori"].append(mo.detach().reshape(n * f, -1))
 
-        leaf_pose, leaf_shape, mp, mo, joints = fk(pose_hat, shape_hat,
-                                                   self.use_gradient and self.N > 0)
-        record(leaf_pose, leaf_shape, mp, mo, joints)
+        with span("lgd.fk"):
+            leaf_pose, leaf_shape, mp, mo, joints = fk(pose_hat, shape_hat,
+                                                       self.use_gradient and self.N > 0)
+            record(leaf_pose, leaf_shape, mp, mo, joints)
         scale = float(n * f)
         for i in range(self.N):
             inputs_step = [inputs_flat, hist["pose"][-1], hist["shape"][-1]]
             if self.use_gradient:
-                with torch.enable_grad():
-                    recon = self._recon_error(inputs_flat, mp, mo, n, f, seq_lengths, marker_masks)
-                    g_pose, g_shape = torch.autograd.grad(recon, (leaf_pose, leaf_shape))
-                inputs_step += [g_pose * scale, g_shape * scale]
-            iter_in = torch.cat(inputs_step, dim=-1)
-            pose_delta = self.pose_net_iter(iter_in)
-            shape_delta = self.shape_net_iter(iter_in)
-            if self.shape_avg:
-                shape_delta = to_single_shape(shape_delta)
-            pose_hat = hist["pose"][-1] + pose_delta * self.step_size
-            shape_hat = hist["shape"][-1] + shape_delta * self.step_size
-            leaf_pose, leaf_shape, mp, mo, joints = fk(
-                pose_hat, shape_hat, self.use_gradient and i + 1 < self.N)
-            record(leaf_pose, leaf_shape, mp, mo, joints)
+                with span("lgd.grad"):
+                    with torch.enable_grad():
+                        recon = self._recon_error(inputs_flat, mp, mo, n, f, seq_lengths,
+                                                  marker_masks)
+                        g_pose, g_shape = torch.autograd.grad(recon, (leaf_pose, leaf_shape))
+                    inputs_step += [g_pose * scale, g_shape * scale]
+            with span("lgd.mlp"):
+                iter_in = torch.cat(inputs_step, dim=-1)
+                pose_delta = self.pose_net_iter(iter_in)
+                shape_delta = self.shape_net_iter(iter_in)
+                if self.shape_avg:
+                    shape_delta = to_single_shape(shape_delta)
+                pose_hat = hist["pose"][-1] + pose_delta * self.step_size
+                shape_hat = hist["shape"][-1] + shape_delta * self.step_size
+            with span("lgd.fk"):
+                leaf_pose, leaf_shape, mp, mo, joints = fk(
+                    pose_hat, shape_hat, self.use_gradient and i + 1 < self.N)
+                record(leaf_pose, leaf_shape, mp, mo, joints)
 
         history = {k: torch.stack([h.reshape(n, f, -1) for h in v]) for k, v in hist.items()}
         pose_final = history["pose"][-1]
@@ -505,35 +516,36 @@ class IterativeErrorFeedback(BaseModel):
         inputs_flat = x.reshape(n * f, dof)
         bn_mask = LS.mask_from_seq_lengths(seq_lengths, f).reshape(n * f)
 
-        new_carry = None
-        if self.rnn_init:
-            lstm_out, new_carry = self.rnn(x, seq_lengths, carry, generator)
-            pose_hat = self.pose_net_init(lstm_out).reshape(n * f, -1)
-            shape_hat = self.shape_net_init(lstm_out).reshape(n * f, -1)
-        else:
-            pose_hat = self.pose_net_init(inputs_flat, bn_mask, generator)
-            shape_hat = self.shape_net_init(inputs_flat, bn_mask, generator)
-
         def to_single_shape(s):
             return _average_over_frames(s.reshape(n, f, -1)).reshape(n * f, -1)
 
-        if self.shape_avg:
-            shape_hat = to_single_shape(shape_hat)
+        new_carry = None
+        with span("lgd.init"):
+            if self.rnn_init:
+                lstm_out, new_carry = self.rnn(x, seq_lengths, carry, generator)
+                pose_hat = self.pose_net_init(lstm_out).reshape(n * f, -1)
+                shape_hat = self.shape_net_init(lstm_out).reshape(n * f, -1)
+            else:
+                pose_hat = self.pose_net_init(inputs_flat, bn_mask, generator)
+                shape_hat = self.shape_net_init(inputs_flat, bn_mask, generator)
+            if self.shape_avg:
+                shape_hat = to_single_shape(shape_hat)
 
         hist = {"pose": [], "shape": [], "joints": [], "marker_pos": [], "marker_ori": []}
 
         def fk_and_record(pose, shape):
-            if getattr(self.config, "remat", False):
-                mp, mo, joints = checkpoint(self.smpl.estimated_markers, pose, shape, offset_r,
-                                            offset_t, use_reentrant=False,
-                                            preserve_rng_state=False)
-            else:
-                mp, mo, joints = self.smpl.estimated_markers(pose, shape, offset_r, offset_t)
-            hist["pose"].append(pose)
-            hist["shape"].append(shape)
-            hist["joints"].append(joints.reshape(n * f, -1))
-            hist["marker_pos"].append(mp.reshape(n * f, -1))
-            hist["marker_ori"].append(mo.reshape(n * f, -1))
+            with span("lgd.fk"):
+                if getattr(self.config, "remat", False):
+                    mp, mo, joints = checkpoint(self.smpl.estimated_markers, pose, shape,
+                                                offset_r, offset_t, use_reentrant=False,
+                                                preserve_rng_state=False)
+                else:
+                    mp, mo, joints = self.smpl.estimated_markers(pose, shape, offset_r, offset_t)
+                hist["pose"].append(pose)
+                hist["shape"].append(shape)
+                hist["joints"].append(joints.reshape(n * f, -1))
+                hist["marker_pos"].append(mp.reshape(n * f, -1))
+                hist["marker_ori"].append(mo.reshape(n * f, -1))
             return mp, mo
 
         mp, mo = fk_and_record(pose_hat, shape_hat)
@@ -542,18 +554,21 @@ class IterativeErrorFeedback(BaseModel):
         for i in range(self.N):
             inputs_step = [inputs_flat, hist["pose"][-1].detach(), hist["shape"][-1].detach()]
             if self.use_gradient:
-                recon = self._recon_error(inputs_flat, mp, mo, n, f, seq_lengths, marker_masks)
-                g_pose, g_shape = torch.autograd.grad(recon, (pose_hat, shape_hat),
-                                                      retain_graph=True)
-                recon_for_grad.append(recon)
-                inputs_step += [g_pose * scale, g_shape * scale]
-            iter_in = torch.cat(inputs_step, dim=-1)
-            pose_delta = self.pose_net_iter(iter_in, bn_mask, generator)
-            shape_delta = self.shape_net_iter(iter_in, bn_mask, generator)
-            if self.shape_avg:
-                shape_delta = to_single_shape(shape_delta)
-            pose_hat = hist["pose"][-1] + pose_delta * self.step_size
-            shape_hat = hist["shape"][-1] + shape_delta * self.step_size
+                with span("lgd.grad"):
+                    recon = self._recon_error(inputs_flat, mp, mo, n, f, seq_lengths,
+                                              marker_masks)
+                    g_pose, g_shape = torch.autograd.grad(recon, (pose_hat, shape_hat),
+                                                          retain_graph=True)
+                    recon_for_grad.append(recon)
+                    inputs_step += [g_pose * scale, g_shape * scale]
+            with span("lgd.mlp"):
+                iter_in = torch.cat(inputs_step, dim=-1)
+                pose_delta = self.pose_net_iter(iter_in, bn_mask, generator)
+                shape_delta = self.shape_net_iter(iter_in, bn_mask, generator)
+                if self.shape_avg:
+                    shape_delta = to_single_shape(shape_delta)
+                pose_hat = hist["pose"][-1] + pose_delta * self.step_size
+                shape_hat = hist["shape"][-1] + shape_delta * self.step_size
             mp, mo = fk_and_record(pose_hat, shape_hat)
 
         history = {k: torch.stack([h.reshape(n, f, -1) for h in v]) for k, v in hist.items()}

@@ -39,6 +39,7 @@ import torch
 from empose_tpu_torch.device import set_precision
 from empose_tpu_torch.parallel.mesh import make_mesh
 from empose_tpu_torch.utils.precision import PRECISIONS
+from empose_tpu_torch.utils.profiling import span
 
 
 def _forward(model, pos_d: int, pos_ori: np.ndarray, lengths: np.ndarray, offset_t, offset_r,
@@ -46,15 +47,17 @@ def _forward(model, pos_d: int, pos_ori: np.ndarray, lengths: np.ndarray, offset
     """One batched forward, issued: ONE upload (pos|ori); returns the packed
     outputs (root|pose[|shape]) on the device, their widths and the carry."""
     dev = offset_t.device
-    x = torch.from_numpy(pos_ori).to(dev)
+    with span("serve.upload"):
+        x = torch.from_numpy(pos_ori).to(dev)
+        seq_lengths = torch.from_numpy(lengths).to(dev)
     window = {
         "marker_pos": x[..., :pos_d],
         "marker_ori": x[..., pos_d:],
-        "seq_lengths": torch.from_numpy(lengths).to(dev),
+        "seq_lengths": seq_lengths,
         "offset_t": offset_t,
         "offset_r": offset_r,
     }
-    with torch.no_grad():
+    with span("serve.forward"), torch.no_grad():
         out, new_carry = model(window, carry)
         parts = [out["root_ori_hat"], out["pose_hat"]]
         if out.get("shape_hat") is not None:
@@ -263,48 +266,61 @@ class MultiStreamPredictor:
 
         :return: {stream_id: {"root_ori", "pose_body"[, "shape"]}} for every
           stream that contributed frames.
+
+        Spans (``utils/profiling.span``): ``serve.step``, counting
+        ``rows_run`` (rows the forwards ran) and ``rows_ready`` (streams that
+        contributed frames), around ``serve.pack``, each shard's
+        ``serve.upload`` and ``serve.forward``, ``serve.download`` (which
+        waits for the device) and ``serve.unpack``.
         """
-        flush_ids = set(flush_ids)
-        lengths = np.zeros(self.S, np.int64)
-        packed_in = np.zeros((self.S, self.chunk, self.m * 12), np.float32)
-        for i in range(self.S):
-            bp, bo = self._bufs[i]
-            k = self.chunk if len(bp) >= self.chunk else (len(bp) if i in flush_ids else 0)
-            if k == 0:
-                continue
-            lengths[i] = k
-            pos = np.stack(bp[:k] + [bp[k - 1]] * (self.chunk - k))
-            ori = np.stack(bo[:k] + [bo[k - 1]] * (self.chunk - k))
-            del bp[:k]
-            del bo[:k]
-            packed_in[i] = np.concatenate([pos, ori], axis=-1)
-        if not lengths.any():
-            return {}
-        if self._offsets_dirty:
-            self._offsets_dev = [
-                (torch.from_numpy(self._offset_t[rows].copy()).to(d),
-                 torch.from_numpy(self._offset_r[rows].copy()).to(d))
-                for rows, d in self._shard_rows()]
-            self._offsets_dirty = False
-        issued = []
-        for s, (rows, _) in enumerate(self._shard_rows()):
-            if not lengths[rows].any():
-                continue  # every stream of the shard idle: its state stays as it is
-            packed, widths, self._carries[s] = _forward(
-                self.replicas[s], self.m * 3, packed_in[rows], lengths[rows],
-                *self._offsets_dev[s], self._carries[s])
-            issued.append((rows, packed))
-        packed = np.zeros((self.S, self.chunk, issued[0][1].shape[-1]), np.float32)
-        for rows, dev_packed in issued:
-            packed[rows] = dev_packed.cpu().numpy()
-        outs: Dict[int, Dict[str, np.ndarray]] = {}
-        for i in np.nonzero(lengths)[0]:
-            out = _unpack_rows(widths, packed[i, : lengths[i]])
-            if "shape" in out:
-                if self._first_shape[i] is None:
-                    self._first_shape[i] = out["shape"][0]
-                out["shape"] = np.broadcast_to(self._first_shape[i], out["shape"].shape)
-            outs[int(i)] = out
+        with span("serve.step") as sp:
+            with span("serve.pack"):
+                flush_ids = set(flush_ids)
+                lengths = np.zeros(self.S, np.int64)
+                packed_in = np.zeros((self.S, self.chunk, self.m * 12), np.float32)
+                for i in range(self.S):
+                    bp, bo = self._bufs[i]
+                    k = self.chunk if len(bp) >= self.chunk else (len(bp) if i in flush_ids else 0)
+                    if k == 0:
+                        continue
+                    lengths[i] = k
+                    pos = np.stack(bp[:k] + [bp[k - 1]] * (self.chunk - k))
+                    ori = np.stack(bo[:k] + [bo[k - 1]] * (self.chunk - k))
+                    del bp[:k]
+                    del bo[:k]
+                    packed_in[i] = np.concatenate([pos, ori], axis=-1)
+            if not lengths.any():
+                return {}
+            if self._offsets_dirty:
+                with span("serve.upload"):
+                    self._offsets_dev = [
+                        (torch.from_numpy(self._offset_t[rows].copy()).to(d),
+                         torch.from_numpy(self._offset_r[rows].copy()).to(d))
+                        for rows, d in self._shard_rows()]
+                self._offsets_dirty = False
+            issued = []
+            for s, (rows, _) in enumerate(self._shard_rows()):
+                if not lengths[rows].any():
+                    continue  # every stream of the shard idle: its state stays as it is
+                packed, widths, self._carries[s] = _forward(
+                    self.replicas[s], self.m * 3, packed_in[rows], lengths[rows],
+                    *self._offsets_dev[s], self._carries[s])
+                issued.append((rows, packed))
+            with span("serve.download"):
+                packed = np.zeros((self.S, self.chunk, issued[0][1].shape[-1]), np.float32)
+                for rows, dev_packed in issued:
+                    packed[rows] = dev_packed.cpu().numpy()
+            with span("serve.unpack"):
+                outs: Dict[int, Dict[str, np.ndarray]] = {}
+                for i in np.nonzero(lengths)[0]:
+                    out = _unpack_rows(widths, packed[i, : lengths[i]])
+                    if "shape" in out:
+                        if self._first_shape[i] is None:
+                            self._first_shape[i] = out["shape"][0]
+                        out["shape"] = np.broadcast_to(self._first_shape[i], out["shape"].shape)
+                    outs[int(i)] = out
+            if sp.recording:
+                sp.count(rows_run=self.per_shard * len(issued), rows_ready=len(outs))
         return outs
 
     def _shard_rows(self):

@@ -57,6 +57,7 @@ from empose_tpu_torch.nn.layers import init_parameters
 from empose_tpu_torch.nn.models import IterativeErrorFeedback, SensorSMPL, create_model
 from empose_tpu_torch.parallel import mesh as M
 from empose_tpu_torch.utils.logging import ScalarWriter, StepTimer
+from empose_tpu_torch.utils.profiling import span
 
 EVAL_SEED = 8004  # the validation pass's draws: batch b from EVAL_SEED + b, every pass alike
 
@@ -81,12 +82,14 @@ def train_loss(model, batch: Dict[str, torch.Tensor], generator: Optional[torch.
     if pad_scale is None:
         lengths = batch["seq_lengths"]
         pad_scale = lengths.shape[0] / (lengths > 0).sum().clamp(min=1).to(torch.float32)
-    out, _ = model(batch, None, generator)
-    total, vals = model.compute_loss(batch, out)
-    vals = {k: v * pad_scale for k, v in vals.items()}
-    loss = total * pad_scale
-    if isinstance(model, IterativeErrorFeedback) and match_reference_grads:
-        loss = loss + model.reference_grad_extra_loss(out) * pad_scale
+    with span("train.forward"):
+        out, _ = model(batch, None, generator)
+    with span("train.loss"):
+        total, vals = model.compute_loss(batch, out)
+        vals = {k: v * pad_scale for k, v in vals.items()}
+        loss = total * pad_scale
+        if isinstance(model, IterativeErrorFeedback) and match_reference_grads:
+            loss = loss + model.reference_grad_extra_loss(out) * pad_scale
     return loss, vals
 
 
@@ -104,10 +107,13 @@ def backward_step(model, pre, opt, batch: Dict[str, torch.Tensor],
     first). Returns the loss values as device scalars; ``opt.step()``
     completes the step."""
     model.train()
-    loss, vals = train_loss(model, pre(batch, generator, mode="all"), generator, pad_scale,
-                            match_reference_grads)
-    opt.zero_grad(set_to_none=True)
-    loss.backward()
+    with span("train.synthesis"):
+        synthesized = pre(batch, generator, mode="all")
+    loss, vals = train_loss(model, synthesized, generator, pad_scale, match_reference_grads)
+    del synthesized   # not held through the backward, which would raise the memory peak
+    with span("train.backward"):
+        opt.zero_grad(set_to_none=True)
+        loss.backward()
     return {k: v.detach() for k, v in vals.items()}
 
 
@@ -181,20 +187,30 @@ class Trainer:
     def train_step(self, host_batch: Dict) -> Dict[str, torch.Tensor]:
         """One optimizer step on ``host_batch`` (in a process group: the
         global batch, of which this rank keeps its rows); returns the loss
-        values as device scalars (in a group, their means over the ranks)."""
-        self.model.train()
-        shard = pad_scale = None
-        if self.data_parallel:
-            host_batch, shard, pad_scale = data_parallel_batch(host_batch, self.rank,
-                                                               self.world, self.device)
-        with M.shard_scope(shard):
-            vals = backward_step(self.model, self.pre_train, self.opt, self.upload(host_batch),
-                                 self.generator, pad_scale, self.match_reference_grads)
-        if shard is not None:
-            M.average_gradients(self.model.parameters(), self.world)
-            vals = M.mean_over_ranks(vals, self.world)
-        self.opt.step()
-        self.global_step += 1
+        values as device scalars (in a group, their means over the ranks).
+
+        Spans (``utils/profiling.span``): ``train.step`` around the step,
+        ``train.upload``, ``train.synthesis``, ``train.forward``,
+        ``train.loss``, ``train.backward`` and ``train.optimizer`` inside it;
+        a group's gradient average lies in ``train.step`` alone."""
+        with span("train.step"):
+            self.model.train()
+            shard = pad_scale = None
+            if self.data_parallel:
+                host_batch, shard, pad_scale = data_parallel_batch(host_batch, self.rank,
+                                                                   self.world, self.device)
+            with M.shard_scope(shard):
+                with span("train.upload"):
+                    batch = self.upload(host_batch)
+                vals = backward_step(self.model, self.pre_train, self.opt, batch, self.generator,
+                                     pad_scale, self.match_reference_grads)
+                del batch   # not held through Adam's step, which would raise the memory peak
+            if shard is not None:
+                M.average_gradients(self.model.parameters(), self.world)
+                vals = M.mean_over_ranks(vals, self.world)
+            with span("train.optimizer"):
+                self.opt.step()
+            self.global_step += 1
         return vals
 
     def train_step_chunk(self, host_batches) -> Dict[str, torch.Tensor]:

@@ -1,22 +1,40 @@
-"""Profiling helpers: ``torch.profiler`` traces and step timing (port of
-``empose_tpu/utils/profiling.py``).
+"""Profiling helpers: ``torch.profiler`` traces, the program's spans and
+step timing (port of ``empose_tpu/utils/profiling.py``).
 
 ``trace(log_dir)`` records the host's operators, and the card's kernels
 where CUDA is present, and writes one Chrome trace (JSON) into ``log_dir``
 when the block ends (``--profile_dir`` of the trainer). The timers
 synchronize the devices of the tensors they are given, so a time covers the
 device work that was queued for them.
+
+``span(name)`` marks a phase of the program (``train.*``, ``lgd.*``,
+``serve.*``). While a ``torch.profiler`` runs it opens a
+``record_function`` range of that name, so the phase shows in the trace,
+and appends ``(name, start_ns, end_ns, parent, counts)`` to a bounded
+buffer (:func:`spans`), both times from ``time.time_ns``, the clock of the
+profiler's events; ``parent`` is the name of the span open around it in the
+same thread (None at the top), ``counts`` what :meth:`span.count` gave it.
+With no profiler running a span costs one flag check.
 """
 
 from __future__ import annotations
 
+import collections
 import contextlib
 import os
+import threading
 import time
-from typing import Dict, Optional
+from typing import Dict, List, Optional, Tuple
 
 import torch
+import torch.autograd.profiler as _autograd_profiler
 from torch.profiler import ProfilerActivity, profile, record_function
+
+SPAN_BUFFER = 1 << 18   # spans kept; the oldest go first
+
+SpanRecord = Tuple[str, int, int, Optional[str], Dict[str, float]]
+_spans: collections.deque = collections.deque(maxlen=SPAN_BUFFER)
+_open = threading.local()   # per thread: names of the spans open, innermost last
 
 
 def _tensors(tree):
@@ -90,31 +108,58 @@ def trace(log_dir: Optional[str]):
             log_dir, f"trace.{os.getpid()}.{int(time.time() * 1e3)}.json"))
 
 
-@contextlib.contextmanager
-def annotate(name: str):
-    """A named range in the profiler's timeline."""
-    with record_function(name):
-        yield
+class span:
+    """A phase of the program, recorded while a profiler runs.
+
+    ``with span("serve.step") as s: ... if s.recording: s.count(rows_run=n)``:
+    counts are the span's attributes (numbers of what it did), kept with it;
+    compute them only while :attr:`recording`, so that a span costs one flag
+    check when no profiler runs. A plain class, not a generator: it sits on
+    per-step paths.
+    """
+
+    __slots__ = ("name", "counts", "_range", "_start", "_parent")
+
+    def __init__(self, name: str):
+        self.name = name
+        self._range = None
+
+    @property
+    def recording(self) -> bool:
+        """Whether the span is being recorded (a profiler ran at its enter)."""
+        return self._range is not None
+
+    def count(self, **counts) -> None:
+        """Add ``counts`` to a span being recorded; call it only while
+        :attr:`recording`."""
+        self.counts.update(counts)
+
+    def __enter__(self) -> "span":
+        if _autograd_profiler._is_profiler_enabled:
+            stack = getattr(_open, "names", None)
+            if stack is None:
+                stack = _open.names = []
+            self._parent = stack[-1] if stack else None
+            stack.append(self.name)
+            self.counts = {}
+            self._start = time.time_ns()
+            self._range = record_function(self.name)
+            self._range.__enter__()
+        return self
+
+    def __exit__(self, *exc) -> None:
+        if self._range is not None:
+            self._range.__exit__(*exc)
+            _spans.append((self.name, self._start, time.time_ns(), self._parent, self.counts))
+            _open.names.pop()
+            self._range = None
 
 
-class Timings:
-    """Exponential moving averages of phase times, by name."""
+def spans() -> List[SpanRecord]:
+    """The recorded spans in the order they ended: ``(name, start_ns,
+    end_ns, parent, counts)``."""
+    return list(_spans)
 
-    def __init__(self, decay: float = 0.9):
-        self.decay = decay
-        self.ema: Dict[str, float] = {}
 
-    @contextlib.contextmanager
-    def measure(self, name: str, block_on=None):
-        """Time the block; with ``block_on`` (tensors) after their devices
-        are done."""
-        start = time.perf_counter()
-        yield
-        if block_on is not None:
-            block_until_ready(block_on)
-        dt = time.perf_counter() - start
-        self.ema[name] = dt if name not in self.ema else (
-            self.decay * self.ema[name] + (1 - self.decay) * dt)
-
-    def summary(self) -> str:
-        return " ".join(f"{k}: {v * 1000:.2f}ms" for k, v in self.ema.items())
+def clear_spans() -> None:
+    _spans.clear()
